@@ -7,21 +7,40 @@ Phases, each reported on its own line:
 
 1. device: the card's name and power limit (nvidia-smi) and capability;
 2. build: the hand-written CUDA kernels, from ``csrc/`` in this checkout;
-3. kernels: each kernel against its plain PyTorch version at the main
-   path's shapes (batch 16, 709 tokens padded to 768, 12 heads x 64, bf16):
+3. kernels: each kernel against its plain PyTorch version at the shape
+   both paths give it (batch 16, 709 tokens padded with mask 0 to 768, so
+   S = P = 768; 12 heads x 64, bf16), then again, untimed, at S = 709
+   inside P = 768, as ``ee_forward`` (which does not pad) gives it:
    ``materialize_bias`` bit-equal, ``flash_attention_packed`` within 1e-2;
-   times by CUDA events after warm-up, beside the least time the card could
-   take and one PyTorch library call where one computes the same function;
-4. main path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
+   the training kernels at dropout rate 0.1: ``flash_attention_packed_train``
+   (out within 2e-2, lse within 1e-3), its backward, plain and chained
+   (dq/dk/dv/dbias within 2e-2 of each output's largest value) and
+   ``table_grads`` (within 1e-4 of the largest table gradient); times at the
+   paths' shape by CUDA events after warm-up, beside the least time the card
+   could take and one PyTorch library call where one computes the same
+   function;
+4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
    images normalised on the card. Checks: well-formed results and finite
    logits; launch counts of one bias build and 12 attention calls per batch;
    at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
    away from the thresholds; the bf16 kernel path agrees with the f32 plain
-   path (on the CPU) on a small input.
+   path (on the CPU) on a small input;
+5. training path: the same model with f32 master weights, trained by
+   ``EETrainer.train_step`` (one_stage_subgraphs_weighted, bf16 forward,
+   dropout 0.1, AdamW at lr 2e-5) on batches of 16 documents: one warm-up
+   step, then 3 timed steps. Checks: finite losses, parameters that moved,
+   launch counts per step of 1 bias build, 1 ``table_grads``, 12 training
+   attention forwards and 12 chained backwards (24 kernels: dq/dbias and
+   dk/dv); the gradients of one loss on 2 documents at dropout 0, bf16
+   kernel path against the f32 plain path on the CPU: relative L2 over all
+   gradients within 5e-2, and the worst error of one tensor over its own
+   scale within ``GRAD_LIMITS``, among the tensors above 1e-2 of the largest
+   gradient, the rel-pos tables and the q/k/v weights.
 
-The next-to-last line is a JSON object with one entry per kernel, the last
+The next-to-last line is a JSON object with one entry per kernel (its
+launches counted on the path that runs it), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -46,6 +65,17 @@ PEAKS = {
 }
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
 N_BATCHES = 4
+TRAIN_STEPS, TRAIN_RATE = 3, 0.1
+REL_POS_TABLES = ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")
+QKV_WEIGHTS = (".query.weight", ".key.weight", ".value.weight")
+# limits on the phase-5 gradient check's worst error of a tensor over its
+# own scale, by group. On an H100 this input reads 2.50e-2 (visual.pos_embed),
+# 3.98e-2 (rel_pos_x_bias) and 3.09e-2 (layer 2's query weight); seven other
+# draws of documents and labels read at most 2.13e-2, 8.66e-2 and 5.39e-2
+# (the table gradients sum terms that largely cancel, so bf16 noise in the
+# bias cotangent shows most there); scripts/grad_gate_faults.py reads them
+# and the faults these limits catch
+GRAD_LIMITS = {"tensors": 0.05, "rel-pos tables": 0.15, "q/k/v weights": 0.1}
 
 
 def check(ok: bool, what: str) -> None:
@@ -102,7 +132,7 @@ def phase_device():
     print(f"device: {name}, capability {cap[0]}.{cap[1]}, "
           f"torch {torch.__version__}, cuda {torch.version.cuda}")
     check(cap == (9, 0), f"the kernels are built for sm_90a, the card is sm_{cap[0]}{cap[1]}")
-    return name
+    return name, smi
 
 
 def phase_build():
@@ -114,12 +144,18 @@ def phase_build():
 
 
 def main_path_bias_inputs(dev, gen):
-    """The main path's bias inputs: text positions then visual ones,
-    x0/y1 of word boxes and of the visual patch grid, ragged text masks."""
+    """The main paths' bias inputs, built as both paths build them: text
+    positions then visual ones, x0/y1 of word boxes and of the visual patch
+    grid and ragged text masks for 512 + 197 = 709 positions, zero-padded
+    (mask 0) to 768 as the cascade and the training loss pad the sequence
+    before the encoder; then the three rel-pos tables. Returns (the seven
+    inputs, the unpadded length 709)."""
     from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import LayoutLMv3Config
     from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
+        pad_sequence,
         sequence_layout,
     )
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import LANE
 
     cfg = LayoutLMv3Config.base()
     lengths = torch.randint(50, S_TEXT + 1, (B,), generator=gen)
@@ -128,29 +164,42 @@ def main_path_bias_inputs(dev, gen):
     full_bbox, pos, full_mask = sequence_layout(
         cfg, bbox.to(dev), mask.to(dev), cfg.num_visual_tokens
     )
+    vecs = pad_sequence(LANE, pos, full_bbox[:, :, 0].contiguous(),
+                        full_bbox[:, :, 3].contiguous(), full_mask)
     scale = 1.0 / math.sqrt(HEAD_DIM)
     tables = [(torch.randn((n, HEADS), generator=gen) * 0.02 * scale).to(dev)
               for n in (cfg.rel_pos_bins, cfg.rel_2d_pos_bins, cfg.rel_2d_pos_bins)]
-    vecs = [pos, full_bbox[:, :, 0].contiguous(), full_bbox[:, :, 3].contiguous(), full_mask]
-    return vecs + tables
+    return list(vecs) + tables, pos.shape[1]
 
 
-def phase_kernels(name):
+def scaled_err(got, want) -> float:
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+def compare_kernels(args, gen):
+    """Each of the five kernels against its plain version on the bias
+    inputs ``args`` (batch 16; S their length, P = S rounded up to 128),
+    the training kernels at dropout rate ``TRAIN_RATE``. Raises on a
+    disagreement. Returns (max abs error by kernel, what each comparison
+    read, the inputs and outputs that the timing reuses)."""
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
         flash_attention_packed,
         flash_attention_packed_plain,
+        flash_attention_packed_train_bwd,
+        flash_attention_packed_train_bwd_plain,
+        flash_attention_packed_train_fwd,
+        flash_attention_packed_train_fwd_plain,
     )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
         materialize_bias,
         materialize_bias_plain,
+        table_grads,
+        table_grads_plain,
     )
 
-    bw, bf16_peak, f32_peak = peaks_for(name)
-    dev = torch.device("cuda")
-    gen = torch.Generator().manual_seed(0)
-    args = main_path_bias_inputs(dev, gen)
-    s = args[0].shape[1]  # 709
-    results = []
+    dev, s = args[0].device, args[0].shape[1]
+    errs, notes = {}, {}
 
     # ---- materialize_bias: bit-equal to its plain version ---------------
     bias = materialize_bias(*args)
@@ -158,28 +207,12 @@ def phase_kernels(name):
     torch.cuda.synchronize()
     p = bias.shape[-1]
     check(bias.shape == (B, HEADS, p, p) and p == 768, f"bias shape {tuple(bias.shape)}")
-    check(torch.equal(bias, plain), "materialize_bias differs from its plain version")
-    err = (bias.float() - plain.float()).abs().max().item()
-    out_bytes = B * HEADS * p * p * 2
-    in_bytes = sum(a.numel() * a.element_size() for a in args)
-    adds = 3 * B * HEADS * p * p  # two table sums and the mask, f32
-    bound_bytes, bound_ops = (out_bytes + in_bytes) / bw, adds / f32_peak
-    entry = dict(
-        name="materialize_bias", route="cuda",
-        source="multi_modal_early_exit_tpu_torch/csrc/materialize_bias.cu",
-        replaces="multi_modal_early_exit_tpu/ops/fused_bias_attention.py:244",
-        ms=time_ms(lambda: materialize_bias(*args)),
-        plain_ms=time_ms(lambda: materialize_bias_plain(*args), iters=5),
-        bound_ms=max(bound_bytes, bound_ops) * 1e3,
-        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-        library_ms=None, max_abs_err=err, ok=True,
-    )
-    results.append(entry)
-    print(f"kernel materialize_bias: bit-equal, kernel_ms {entry['ms']:.4f}, "
-          f"plain_ms {entry['plain_ms']:.4f}, library_ms null, "
-          f"bound {entry['bound_ms'] * 1e3:.1f} us ({entry['bound_by']}), max_err {err}")
+    check(torch.equal(bias, plain), f"materialize_bias differs from its plain version (S {s})")
+    errs["materialize_bias"] = (bias.float() - plain.float()).abs().max().item()
+    notes["materialize_bias"] = "bit-equal"
+    del plain
 
-    # ---- flash_attention_packed: within 1e-2 of its plain version -------
+    # ---- flash_attention_packed: within 1e-2 ----------------------------
     q, k, v = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen)
                .to(dev, torch.bfloat16) for _ in range(3))
     out = flash_attention_packed(q, k, v, bias, HEADS)
@@ -187,36 +220,223 @@ def phase_kernels(name):
     torch.cuda.synchronize()
     check(torch.isfinite(out.float()).all().item(), "flash_attention_packed gave non-finite values")
     err = (out.float() - ref.float()).abs().max().item()
-    check(err <= 1e-2, f"flash_attention_packed max error {err} > 1e-2")
+    check(err <= 1e-2, f"flash_attention_packed max error {err} > 1e-2 (S {s})")
+    errs["flash_attention_packed"] = err
+    notes["flash_attention_packed"] = f"max_err {err:.3e} (tol 1e-2)"
+    del out
+
+    # ---- training forward: out and lse, +inf past S ---------------------
+    seed, rate = 1234, TRAIN_RATE
+    t_out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, rate)
+    ref_out, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, HEADS, rate)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(t_out.float()).all()), "train forward gave non-finite values")
+    check(bool(torch.isinf(lse[:, :, s:]).all()), "train forward: the pad rows' lse is not +inf")
+    out_err = (t_out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
+    check(out_err <= 2e-2, f"train forward out max error {out_err} > 2e-2 (S {s})")
+    check(lse_err <= 1e-3, f"train forward lse max error {lse_err} > 1e-3 (S {s})")
+    errs["flash_attention_packed_train"] = max(out_err, lse_err)
+    notes["flash_attention_packed_train"] = (f"out max_err {out_err:.3e} (tol 2e-2), "
+                                             f"lse max_err {lse_err:.3e} (tol 1e-3)")
+    del ref_out, ref_lse
+
+    # ---- backward: dq, dk, dv, dbias; plain and chained ----------------
+    do = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen) * 0.1).to(dev, torch.bfloat16)
+    gbias = (torch.randn(bias.shape, generator=gen) * 1e-3).to(dev, bias.dtype)
+    bwd_args = (q, k, v, bias, seed, t_out, lse, do, HEADS, rate)
+    scaled, abs_errs = {}, []
+    for chained in (False, True):
+        extra = gbias if chained else None
+        got = flash_attention_packed_train_bwd(*bwd_args, extra)
+        want = flash_attention_packed_train_bwd_plain(*bwd_args, extra)
+        torch.cuda.synchronize()
+        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            check(a.shape == w.shape and a.dtype == w.dtype, f"train backward {what} layout")
+            check(bool(torch.isfinite(a.float()).all()), f"train backward {what} not finite")
+            err = scaled_err(a, w)
+            scaled[f"{what}{'_chained' if chained else ''}"] = round(err, 6)
+            abs_errs.append((a.float() - w.float()).abs().max().item())
+            check(err <= 2e-2, f"train backward {what} (chained={chained}, S {s}): error "
+                  f"{err} > 2e-2 of its scale")
+        pad = got[3][:, :, s:, :].float()
+        want_pad = gbias[:, :, s:, :].float() if chained else torch.zeros_like(pad)
+        check(torch.equal(pad, want_pad), f"train backward: dbias pad rows (chained={chained})")
+        if chained:
+            dbias = got[3]
+        del got, want
+    errs["flash_attention_packed_train_bwd"] = max(abs_errs)
+    notes["flash_attention_packed_train_bwd"] = (
+        f"errors over scale {json.dumps(scaled)} (tol 2e-2)")
+
+    # ---- table_grads on the chained backward's dbias -------------------
+    vecs = args[:3]
+    got = table_grads(*vecs, dbias)
+    want = table_grads_plain(*vecs, dbias)
+    torch.cuda.synchronize()
+    tg_err, tg_abs = 0.0, 0.0
+    for a, w in zip(got, want):
+        check(bool(torch.isfinite(a).all()), "table_grads gave non-finite values")
+        tg_err = max(tg_err, scaled_err(a, w))
+        tg_abs = max(tg_abs, (a - w).abs().max().item())
+    check(tg_err <= 1e-4, f"table_grads error {tg_err} > 1e-4 of its scale (S {s})")
+    errs["table_grads"] = tg_abs
+    notes["table_grads"] = f"error {tg_err:.3e} of scale (tol 1e-4)"
+    saved = dict(bias=bias, q=q, k=k, v=v, ref=ref, bwd_args=bwd_args, gbias=gbias,
+                 dbias=dbias, tables_out=got)
+    return errs, notes, saved
+
+
+def bound(n_bytes, n_ops, bw, peak):
+    """(bound ms, what binds): the larger of bytes over the memory rate and
+    operations over the peak rate of their type."""
+    by_bytes, by_ops = n_bytes / bw, n_ops / peak
+    return max(by_bytes, by_ops) * 1e3, "bytes" if by_bytes >= by_ops else "operations"
+
+
+def phase_kernels(name):
+    """Each kernel against its plain version at S = 709 inside P = 768
+    (what ``ee_forward`` and ``EETrainer.evaluate``, which do not pad, give
+    it), untimed, then at the shape both paths give it (S = P = 768); then
+    each kernel's time at the paths' shape beside its plain version's, its
+    bound and a library call where one computes the same function."""
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        flash_attention_packed_train_bwd,
+        flash_attention_packed_train_bwd_plain,
+        flash_attention_packed_train_fwd,
+        flash_attention_packed_train_fwd_plain,
+    )
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        materialize_bias,
+        materialize_bias_plain,
+        table_grads,
+        table_grads_plain,
+    )
+
+    bw, bf16_peak, f32_peak = peaks_for(name)
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(0)
+    args, s_true = main_path_bias_inputs(dev, gen)
+    s = args[0].shape[1]
+    check(s == 768, f"the paths pad {s_true} positions to 768, the inputs have {s}")
+    unpadded = [a[:, :s_true].contiguous() for a in args[:4]] + args[4:]
+    notes = compare_kernels(unpadded, gen)[1]
+    print(f"kernels at S {s_true} inside P 768 (untimed): "
+          + "; ".join(f"{k} {v}" for k, v in notes.items()))
+    errs, notes, t = compare_kernels(args, gen)
+    bias, q, k, v = t["bias"], t["q"], t["k"], t["v"]
+    p = bias.shape[-1]
+    seed, rate = 1234, TRAIN_RATE
+    qkv_bytes = B * s * HEADS * HEAD_DIM * 2  # one (B, S, H*D) bf16 tensor
+    block_bytes = B * HEADS * s * s * bias.element_size()  # the S x S bias block read
+    plane_bytes = B * HEADS * p * p * bias.element_size()  # a whole (B, H, P, P) tensor
+    lse_bytes = B * HEADS * p * 4
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    results = []
 
     def heads(x):
         return x.view(B, s, HEADS, HEAD_DIM).transpose(1, 2)
 
+    def entry(kname, source, replaces, ms, plain_ms, bound_pair, library_ms):
+        e = dict(name=kname, route="cuda",
+                 source=f"multi_modal_early_exit_tpu_torch/csrc/{source}",
+                 replaces=f"multi_modal_early_exit_tpu/{replaces}", ms=ms, plain_ms=plain_ms,
+                 bound_ms=bound_pair[0], bound_by=bound_pair[1], library_ms=library_ms,
+                 max_abs_err=errs[kname], ok=True)
+        results.append(e)
+        return e
+
+    # ---- materialize_bias ------------------------------------------------
+    e = entry("materialize_bias", "materialize_bias.cu", "ops/fused_bias_attention.py:244",
+              time_ms(lambda: materialize_bias(*args)),
+              time_ms(lambda: materialize_bias_plain(*args), iters=5),
+              # two table sums and the mask per element, f32
+              bound(plane_bytes + in_bytes, 3 * B * HEADS * p * p, bw, f32_peak), None)
+    print(f"kernel materialize_bias: {notes['materialize_bias']}, kernel_ms {e['ms']:.4f}, "
+          f"plain_ms {e['plain_ms']:.4f}, library_ms null, "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- flash_attention_packed -----------------------------------------
     mask4 = bias[:, :, :s, :s]
-    library = torch.nn.functional.scaled_dot_product_attention
-    lib_out = library(heads(q), heads(k), heads(v), attn_mask=mask4)
-    lib_err = (lib_out.transpose(1, 2).reshape(B, s, -1).float() - ref.float()).abs().max().item()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_out = sdpa(heads(q), heads(k), heads(v), attn_mask=mask4)
+    lib_err = (lib_out.transpose(1, 2).reshape(B, s, -1).float()
+               - t["ref"].float()).abs().max().item()
     check(lib_err <= 5e-2, f"the library attention disagrees with the plain one by {lib_err}")
-    # the function needs the S x S bias block, q/k/v and writes o
-    att_bytes = B * HEADS * s * s * 2 + 4 * B * s * HEADS * HEAD_DIM * 2
-    flops = 4 * B * s * s * HEADS * HEAD_DIM
-    bound_bytes, bound_ops = att_bytes / bw, flops / bf16_peak
-    entry = dict(
-        name="flash_attention_packed", route="cuda",
-        source="multi_modal_early_exit_tpu_torch/csrc/flash_attention_packed.cu",
-        replaces="multi_modal_early_exit_tpu/ops/flash_attention.py:446",
-        ms=time_ms(lambda: flash_attention_packed(q, k, v, bias, HEADS)),
-        plain_ms=time_ms(lambda: flash_attention_packed_plain(q, k, v, bias, HEADS), iters=5),
-        bound_ms=max(bound_bytes, bound_ops) * 1e3,
-        bound_by="bytes" if bound_bytes >= bound_ops else "operations",
-        library_ms=time_ms(lambda: library(heads(q), heads(k), heads(v), attn_mask=mask4)),
-        max_abs_err=err, ok=True,
-    )
-    results.append(entry)
-    print(f"kernel flash_attention_packed: max_err {err:.3e} (tol 1e-2), "
-          f"kernel_ms {entry['ms']:.4f}, plain_ms {entry['plain_ms']:.4f}, "
-          f"library_ms {entry['library_ms']:.4f} (SDPA, max diff {lib_err:.3e}), "
-          f"bound {entry['bound_ms'] * 1e3:.1f} us ({entry['bound_by']})")
+    del lib_out
+    e = entry("flash_attention_packed", "flash_attention_packed.cu",
+              "ops/flash_attention.py:446",
+              time_ms(lambda: flash_attention_packed(q, k, v, bias, HEADS)),
+              time_ms(lambda: flash_attention_packed_plain(q, k, v, bias, HEADS), iters=5),
+              # the S x S bias block, q/k/v read and o written
+              bound(block_bytes + 4 * qkv_bytes, 4 * B * s * s * HEADS * HEAD_DIM, bw, bf16_peak),
+              time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4)))
+    print(f"kernel flash_attention_packed: {notes['flash_attention_packed']}, "
+          f"kernel_ms {e['ms']:.4f}, plain_ms {e['plain_ms']:.4f}, library_ms "
+          f"{e['library_ms']:.4f} (SDPA, max diff {lib_err:.3e}), "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- training forward -------------------------------------------------
+    e = entry("flash_attention_packed_train", "flash_attention_packed_train.cu",
+              "ops/flash_attention.py:607",
+              time_ms(lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, rate)),
+              time_ms(lambda: flash_attention_packed_train_fwd_plain(
+                  q, k, v, bias, seed, HEADS, rate), iters=5),
+              bound(block_bytes + 4 * qkv_bytes + lse_bytes,
+                    4 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak),
+              time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4)))
+    print(f"kernel flash_attention_packed_train (rate {rate}): "
+          f"{notes['flash_attention_packed_train']}, kernel_ms {e['ms']:.4f}, "
+          f"plain_ms {e['plain_ms']:.4f}, library_ms {e['library_ms']:.4f} (SDPA at rate 0, "
+          f"no lse), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- training backward, chained as on the path ----------------------
+    bwd_args, gbias = t["bwd_args"], t["gbias"]
+    ms_unchained = time_ms(lambda: flash_attention_packed_train_bwd(*bwd_args, None), iters=10)
+    lib_bwd, lib_note = None, ""
+    try:
+        qh, kh, vh = (heads(x).detach().requires_grad_() for x in (q, k, v))
+        mask_g = mask4.detach().clone().requires_grad_()
+        o_lib = sdpa(qh, kh, vh, attn_mask=mask_g)
+        do_h = heads(bwd_args[7])
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qh, kh, vh, mask_g), do_h, retain_graph=True), iters=10)
+        lib_note = "autograd.grad through SDPA, mask requiring grad, rate 0"
+        del o_lib
+    except RuntimeError as exc:  # the installed torch cannot differentiate the mask
+        lib_note = f"none: {str(exc).splitlines()[0][:120]}"
+    flops = 10 * B * HEADS * s * s * HEAD_DIM
+    # reads bias, q/k/v/o/do and lse (and gbias), writes dq/dk/dv and dbias
+    unchained_bound = bound(block_bytes + plane_bytes + 8 * qkv_bytes + lse_bytes,
+                            flops, bw, bf16_peak)
+    e = entry("flash_attention_packed_train_bwd", "flash_attention_packed_train.cu",
+              "ops/flash_attention.py:652",
+              time_ms(lambda: flash_attention_packed_train_bwd(*bwd_args, gbias), iters=10),
+              time_ms(lambda: flash_attention_packed_train_bwd_plain(*bwd_args, gbias),
+                      iters=3, warmup=1),
+              bound(block_bytes + 2 * plane_bytes + 8 * qkv_bytes + lse_bytes,
+                    flops, bw, bf16_peak), lib_bwd)
+    print(f"kernel flash_attention_packed_train_bwd (rate {rate}, chained as on the path; "
+          f"2 kernels per call): {notes['flash_attention_packed_train_bwd']}, kernel_ms "
+          f"{e['ms']:.4f} (not chained {ms_unchained:.4f}, bound "
+          f"{unchained_bound[0] * 1e3:.1f} us), plain_ms {e['plain_ms']:.4f}, library_ms "
+          f"{'null' if lib_bwd is None else f'{lib_bwd:.4f}'} ({lib_note}), "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- table_grads on the chained backward's dbias --------------------
+    vecs, dbias = args[:3], t["dbias"]
+    e = entry("table_grads", "table_grads.cu", "ops/fused_bias_attention.py:362",
+              time_ms(lambda: table_grads(*vecs, dbias)),
+              time_ms(lambda: table_grads_plain(*vecs, dbias), iters=3, warmup=1),
+              bound(block_bytes + sum(a.numel() * a.element_size() for a in vecs)
+                    + sum(a.numel() * 4 for a in t["tables_out"]),
+                    3 * B * HEADS * s * s, bw, f32_peak), None)
+    print(f"kernel table_grads: {notes['table_grads']}, kernel_ms {e['ms']:.4f}, plain_ms "
+          f"{e['plain_ms']:.4f}, library_ms null (no one PyTorch call buckets g into the "
+          f"three tables; the plain version is three index_add_ calls after the bucket "
+          f"maps), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -243,6 +463,7 @@ def synthetic_pages(n, rng, tokenizer, seq_len):
     return stack, np.stack(pages)
 
 
+@torch.no_grad()
 def phase_main_path():
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
@@ -377,6 +598,153 @@ def phase_main_path():
     return launches
 
 
+def train_setup(n_batches: int):
+    """The training path's configuration (the JAX package's train benchmark:
+    one_stage_subgraphs_weighted, bf16 forward over f32 master weights,
+    lr 2e-5), its f32 model on the CPU (random weights from seed 0) and
+    ``n_batches`` batches of 16 synthetic documents on the card, each array
+    shaped (1, 16, ...)."""
+    from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
+    from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
+    from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
+        EEModelConfig,
+        LayoutLMv3Config,
+    )
+    from multi_modal_early_exit_tpu_torch.training.trainer import TrainingArguments
+
+    cfg = EEModelConfig(
+        backbone=LayoutLMv3Config.base(num_labels=16),
+        exit=ExitConfig(exits="text_avg,vision_avg,7",
+                        training_strategy="one_stage_subgraphs_weighted"),
+    )
+    model32 = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(1)
+    tok = HashWordTokenizer(vocab_size=cfg.backbone.vocab_size)
+    feats, pages = synthetic_pages(n_batches * B, rng, tok, S_TEXT)
+    data = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
+    data["pixel_values"] = preprocess_images(torch.from_numpy(pages).cuda(), size=224)
+    data["labels"] = torch.from_numpy(rng.integers(0, 16, n_batches * B)).cuda()
+    batches = [{k: v[i * B:(i + 1) * B][None] for k, v in data.items()}
+               for i in range(n_batches)]
+    args = TrainingArguments(bf16=True, learning_rate=2e-5)
+    return cfg, model32, batches, args
+
+
+def train_gradient_check(cfg, model32, batch, weights):
+    """The gradients of one loss on 2 documents at dropout 0: the bf16
+    kernel path on the card against the f32 plain path on the CPU."""
+    from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
+
+    rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 classifier_dropout=0.0)
+    cfg0 = cfg.replace(backbone=cfg.backbone.replace(**rates))
+    small = {k: v[0, :2] for k, v in batch.items()}
+
+    def grads(model, device, dtype):
+        loss, _ = ee_loss_fn(model, cfg0, {k: v.to(device) for k, v in small.items()},
+                             exit_weights=weights.to(device), compute_dtype=dtype,
+                             device=device)
+        params = [p for _, p in model.named_parameters()]
+        gs = torch.autograd.grad(loss, params, allow_unused=True)
+        return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = grads(model32, "cpu", None)
+    t_cpu = time.perf_counter() - t0
+    gpu_model = copy.deepcopy(model32).cuda()
+    gpu_loss, gpu_grads = grads(gpu_model, "cuda", torch.bfloat16)
+    del gpu_model
+    names = [n for n, _ in model32.named_parameters()]
+    diff = sum(((a.cpu() - b).square().sum() for a, b in zip(gpu_grads, cpu_grads)))
+    ref = sum((b.square().sum() for b in cpu_grads))
+    rel_l2 = math.sqrt(diff.item() / ref.item())
+    big = max(b.abs().max().item() for b in cpu_grads)
+    # each tensor's max error over its own largest gradient: every tensor
+    # above 1e-2 of the largest gradient, and by name the tensors that the
+    # training kernels' backward feeds alone (the rel-pos tables, through
+    # table_grads) or first (the q/k/v projections, through dq/dk/dv)
+    groups = {"tensors": lambda n: True,
+              "rel-pos tables": lambda n: n.endswith(REL_POS_TABLES),
+              "q/k/v weights": lambda n: n.endswith(QKV_WEIGHTS)}
+    worst = {g: (0.0, "") for g in groups}
+    for n, a, b in zip(names, gpu_grads, cpu_grads):
+        e = scaled_err(a.cpu(), b)
+        for g, member in groups.items():
+            if member(n) and (g != "tensors" or b.abs().max().item() >= 1e-2 * big):
+                worst[g] = max(worst[g], (e, n))
+    check(all(worst[g][1] for g in groups), f"a gradient group is empty: {worst}")
+    check(all(bool(torch.isfinite(g).all()) for g in gpu_grads), "non-finite kernel-path grads")
+    check(all(g.dtype == torch.float32 for g in gpu_grads), "mixed precision: grads not f32")
+    check(abs(gpu_loss - cpu_loss) <= 2e-2 * abs(cpu_loss), f"loss {gpu_loss} vs {cpu_loss}")
+    check(rel_l2 <= 5e-2, f"kernel-path gradients vs the f32 plain path: relative L2 {rel_l2}")
+    for g, limit in GRAD_LIMITS.items():
+        check(worst[g][0] <= limit, f"kernel-path gradients vs the f32 plain path: "
+              f"{worst[g][1]} at {worst[g][0]} of its scale > {limit}")
+    print(f"train reference: bf16 kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), "
+          f"2 documents, dropout 0: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, gradient "
+          f"relative L2 {rel_l2:.3e} (tol 5e-2); worst error over its tensor's scale: "
+          + ", ".join(f"{g} {worst[g][1]} {worst[g][0]:.3e} (tol {GRAD_LIMITS[g]})"
+                      for g in groups)
+          + " (tensors: those above 1e-2 of the largest gradient)")
+
+
+def phase_train(card: str):
+    """The training path: ``EETrainer.train_step`` on the card (``card``:
+    its name and power limit, for the report)."""
+    from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
+    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+    from multi_modal_early_exit_tpu_torch.training.subgraphs import (
+        exit_loss_weights,
+        subgraph_param_counts,
+    )
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
+
+    counters = {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
+                "flash_attention_packed": fa.flash_attention_packed,
+                "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
+                "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd}
+    cfg, model32, batches, args = train_setup(TRAIN_STEPS + 1)
+    n_params = sum(p.numel() for p in model32.parameters())
+    weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
+    train_gradient_check(cfg, model32, batches[0], weights)
+
+    trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    t0 = time.perf_counter()
+    warm = trainer.train_step(batches[0], gen)[0]
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    probe = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
+             if n.endswith(("layers.0.attention.query.weight", "rel_pos_bias",
+                            "classifier.out_proj.weight", "visual.patch_embed.weight"))}
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(b, gen)[0] for b in batches[1:]]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {name: f.launches for name, f in counters.items()}
+    check(all(math.isfinite(x) for x in [warm] + losses), f"non-finite losses {losses}")
+    moved = [n for n, before in probe.items()
+             if not torch.equal(before, dict(trainer.model.named_parameters())[n].detach())]
+    check(len(moved) == len(probe), f"parameters that did not move: {set(probe) - set(moved)}")
+    # the backward launches two kernels per layer: dq/dbias and dk/dv
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 0,
+            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 24}
+    for name, per_step in want.items():
+        check(launches[name] == per_step * TRAIN_STEPS,
+              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
+    print(f"trained EE LayoutLMv3-base ({n_params / 1e6:.1f}M f32 master params, bf16 "
+          f"forward, dropout {cfg.backbone.hidden_dropout_prob}, {args.learning_rate} lr): "
+          f"warm-up step {t_warm:.2f} s, then {TRAIN_STEPS} steps of {B} documents in "
+          f"{dt:.3f} s, {TRAIN_STEPS * B / dt:.1f} train docs/sec (host clock), losses "
+          f"{[round(x, 4) for x in [warm] + losses]}, launches {launches}, on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -386,13 +754,18 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = phase_device()
+    name, card = phase_device()
     phase_build()
     kernels = phase_kernels(name)
-    launches = phase_main_path()
+    serve_launches = phase_main_path()
+    train_launches = phase_train(card)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
+        served = k["name"] in serve_launches
+        k["launches"] = (serve_launches if served else train_launches)[k["name"]]
+        k["launches_in"] = (f"{N_BATCHES} served batches" if served
+                            else f"{TRAIN_STEPS} training steps")
+        check(k["launches"] > 0, f"{k['name']} was never launched on its path")
+    keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

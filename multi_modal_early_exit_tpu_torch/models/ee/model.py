@@ -11,6 +11,10 @@ The counterpart of the JAX package's ``models/ee/model.py``:
 - criteria are computed on head outputs for every exit, and
   ``decide_exits`` takes the first exit whose criterion clears the
   threshold.
+
+``ee_forward`` is differentiable; inference callers run it under
+``torch.no_grad()``. With ``deterministic=False`` the dropout seeds come from
+a ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -36,6 +40,7 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelCon
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     LayoutLMv3Model,
     Linear,
+    RngStream,
     backbone_apply,
     classifier_apply,
     reset_parameters,
@@ -75,6 +80,12 @@ class EEModel(nn.Module):
         )
         self.lte = Linear(backbone.hidden_size, 1) if exit_cfg.use_lte else None
         self.to(device)
+
+    def forward(self, cfg: EEModelConfig, *args, **kwargs) -> "EEOutputs":
+        """``ee_forward(self, cfg, ...)``, so that ``torch.func.functional_call``
+        can run the model on other parameters (the training loss's bf16
+        copies)."""
+        return ee_forward(self, cfg, *args, **kwargs)
 
 
 def init_ee_params(
@@ -140,7 +151,6 @@ class EEOutputs:
         return torch.cat([per_exit, self.logits[None]], dim=0)
 
 
-@torch.no_grad()
 def ee_forward(
     model: EEModel,
     cfg: EEModelConfig,
@@ -148,13 +158,19 @@ def ee_forward(
     bbox: torch.Tensor,
     pixel_values: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
     seq_pad_multiple: Optional[int] = None,
 ) -> EEOutputs:
-    """Every exit's logits and criterion from one batched forward."""
+    """Every exit's logits and criterion from one batched forward, on the
+    device of the model and inputs. With ``deterministic=False`` every
+    dropout draws its seed from ``rng`` (a CPU generator)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
+    rngs = RngStream(None if deterministic else rng)
     bb = backbone_apply(
         model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
-        attention_mask, collect_cls=bool(exit_cfg.encoder_exits),
+        attention_mask, deterministic=deterministic, rng=rng,
+        collect_cls=bool(exit_cfg.encoder_exits),
         seq_pad_multiple=seq_pad_multiple,
     )
     b = input_ids.shape[0]
@@ -168,16 +184,19 @@ def ee_forward(
     exit_inputs = [sources[name].mean(dim=1) for name in order if isinstance(name, str)]
     n_emb = len(exit_inputs)
     exit_logit_list = [
-        exit_head_apply(model.embedding_exits[name], backbone_cfg, x)
+        exit_head_apply(model.embedding_exits[name], backbone_cfg, x, deterministic, rngs)
         for name, x in zip(order[:n_emb], exit_inputs)
     ]
     for head, layer in zip(model.encoder_exits or (), exit_cfg.encoder_exits):
         cls_state = bb.cls_per_layer[layer - 1]
         exit_inputs.append(cls_state)
-        exit_logit_list.append(exit_head_apply(head, backbone_cfg, cls_state))
+        exit_logit_list.append(
+            exit_head_apply(head, backbone_cfg, cls_state, deterministic, rngs)
+        )
 
     final_logits = classifier_apply(
-        model.backbone.classifier, backbone_cfg, bb.last_hidden_state[:, 0, :]
+        model.backbone.classifier, backbone_cfg, bb.last_hidden_state[:, 0, :],
+        deterministic, rngs,
     )
     exit_logits = (
         torch.stack(exit_logit_list)

@@ -1,4 +1,4 @@
-"""LayoutLMv3 inference in PyTorch: parameter modules and the forward path.
+"""LayoutLMv3 in PyTorch: parameter modules and the forward path.
 
 The counterpart of the JAX package's ``models/layoutlmv3/modeling.py``.
 Parameters live in ``nn.Module`` containers whose attribute names follow the
@@ -7,20 +7,31 @@ other); the forward path is a set of plain functions over those modules
 with the JAX names (``embed_text``, ``encoder_apply``, ``backbone_apply``,
 ...). Encoder layers are a ``ModuleList`` run in a Python loop.
 
-Attention is one path: ``make_attention_bias`` builds the (B, H, P, P)
-relative-position + mask bias once per forward (``ops.materialize_bias``),
-and every layer runs ``ops.flash_attention_packed`` on the packed (B, S,
-H*D) projections. On CUDA tensors both are the hand-written kernels, on CPU
-tensors their plain PyTorch versions. Masked keys carry -1e30 in both. The
-QKV, output and MLP projections are ``F.linear``; the patch embedding is an
-unfold + matmul, as in the JAX package, not a convolution.
+``make_attention_bias`` builds the (B, H, P, P) relative-position + mask
+bias once per forward (``ops.materialize_bias``, differentiable in the
+three tables). Inference (``deterministic`` with autograd off) runs
+``ops.flash_attention_packed`` in every layer. Training, or any forward
+under autograd, runs the chained ``ops.flash_attention_packed_train_chained``
+instead: the bias rides from layer to layer (``ChainedBiasContext``), so each
+layer's backward adds its bias cotangent to the running one in the kernel,
+and the bias builder's backward (``ops.table_grads``) reduces the total into
+the tables once per step. The port has no layer scan, so the encoder is
+always fully unrolled, the case in which the JAX package chains by default.
+On CUDA tensors the attention and bias ops are the hand-written kernels, on
+CPU tensors their plain PyTorch versions. Masked keys carry -1e30.
+
+Dropout is the position-hash dropout of ``ops.hashing`` with int32 seeds
+from an ``RngStream`` over one ``torch.Generator``; LayerNorm and GELU have
+the JAX package's hand-written backwards. The QKV, output and MLP
+projections are ``F.linear``; the patch embedding is an unfold + matmul, as
+in the JAX package, not a convolution.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -28,8 +39,12 @@ from torch import nn
 
 from multi_modal_early_exit_tpu_torch.device import resolve_device
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import LayoutLMv3Config
-from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
+from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+    flash_attention_packed,
+    flash_attention_packed_train_chained,
+)
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+from multi_modal_early_exit_tpu_torch.ops.hashing import hash_dropout
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -57,10 +72,50 @@ class Linear(nn.Module):
         return F.linear(x, self.weight, self.bias)
 
 
+def _needs_grad(*tensors: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _LayerNormCore(torch.autograd.Function):
+    """LayerNorm with f32 one-pass moments and a hand-written backward that
+    keeps only the input and the (..., S) moments, and recomputes the
+    normalised tensor."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, eps: float):
+        xf = x.to(torch.float32)
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = xf.square().mean(dim=-1, keepdim=True) - mean.square()
+        rsig = torch.rsqrt(torch.clamp(var, min=0.0) + eps)
+        y = (xf - mean) * rsig
+        ctx.save_for_backward(x, mean[..., 0], rsig[..., 0], scale)
+        return (y * scale.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, mean, rsig, scale = ctx.saved_tensors
+        mean, rsig = mean[..., None], rsig[..., None]
+        gf = g.to(torch.float32)
+        xhat = (x.to(torch.float32) - mean) * rsig
+        dims = tuple(range(x.ndim - 1))
+        dscale = (gf * xhat).sum(dim=dims).to(scale.dtype)
+        dbias = gf.sum(dim=dims).to(scale.dtype)
+        gs = gf * scale.to(torch.float32)
+        dx = rsig * (
+            gs - gs.mean(dim=-1, keepdim=True)
+            - xhat * (gs * xhat).mean(dim=-1, keepdim=True)
+        )
+        return dx.to(x.dtype), dscale, dbias, None
+
+
 def layer_norm(
     x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
 ) -> torch.Tensor:
-    """LayerNorm with f32 two-pass moments; output in x's dtype."""
+    """LayerNorm with f32 moments; output in x's dtype. Under autograd it is
+    ``_LayerNormCore`` (one-pass moments, hand VJP); otherwise two-pass
+    moments, as the JAX package's primal."""
+    if _needs_grad(x, weight, bias):
+        return _LayerNormCore.apply(x, weight, bias, float(eps))
     xf = x.to(torch.float32)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
@@ -84,9 +139,52 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps)
 
 
+class _GeluExact(torch.autograd.Function):
+    """Exact (erf) GELU whose backward keeps only the pre-activation and
+    recomputes the two transcendentals."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return F.gelu(x, approximate="none")
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        xf = x.to(torch.float32)
+        cdf = 0.5 * torch.erfc(-xf * (1.0 / math.sqrt(2.0)))
+        pdf = torch.exp(-0.5 * xf.square()) * (1.0 / math.sqrt(2.0 * math.pi))
+        return (g.to(torch.float32) * (cdf + xf * pdf)).to(x.dtype)
+
+
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
-    """Exact (erf) GELU."""
+    """Exact (erf) GELU with a recompute backward."""
+    if _needs_grad(x):
+        return _GeluExact.apply(x)
     return F.gelu(x, approximate="none")
+
+
+def dropout(
+    x: torch.Tensor, rate: float, deterministic: bool, seed: Optional[int]
+) -> torch.Tensor:
+    """Position-hash dropout (``ops.hashing.hash_dropout``); the identity
+    when deterministic, at rate 0 or without a seed."""
+    if deterministic or rate == 0.0 or seed is None:
+        return x
+    return hash_dropout(x, rate, seed)
+
+
+class RngStream:
+    """A stream of int32 dropout seeds drawn from one (CPU)
+    ``torch.Generator``; with no generator every seed is ``None``."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator = generator
+
+    def next(self) -> Optional[int]:
+        if self.generator is None:
+            return None
+        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator))
 
 
 # ---------------------------------------------------------------------------
@@ -250,6 +348,8 @@ def embed_text(
     bbox: torch.Tensor,
     token_type_ids: Optional[torch.Tensor] = None,
     position_ids: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    rngs: Optional[RngStream] = None,
 ) -> torch.Tensor:
     input_ids = input_ids.long()
     if position_ids is None:
@@ -260,7 +360,9 @@ def embed_text(
     x = x + p.token_type_embeddings[token_type_ids.long()]
     x = x + p.position_embeddings[position_ids.long()]
     x = x + spatial_position_embeddings(p, bbox)
-    return p.LayerNorm(x)
+    x = p.LayerNorm(x)
+    return dropout(x, cfg.hidden_dropout_prob, deterministic,
+                   rngs.next() if rngs else None)
 
 
 def extract_patches(pixel_values: torch.Tensor, patch: int) -> torch.Tensor:
@@ -357,18 +459,53 @@ def make_attention_bias(
 # ---------------------------------------------------------------------------
 
 
+class ChainedBiasContext(NamedTuple):
+    """Training-path marker: the (B, H, P, P) bias rides from layer to
+    layer through ``flash_attention_packed_train_chained``, so each layer's
+    backward adds its bias cotangent to the running one in the kernel."""
+
+    bias: torch.Tensor
+
+
+def _packed_qkv_and_seed(
+    p: Attention, cfg: LayoutLMv3Config, hidden: torch.Tensor,
+    deterministic: bool, seed_attn: Optional[int],
+):
+    """Packed (B, S, hidden) q/k/v and the attention dropout (rate, seed);
+    the rate is 0 when deterministic or without a seed."""
+    rate = 0.0 if deterministic or seed_attn is None else cfg.attention_probs_dropout_prob
+    seed = seed_attn if rate > 0.0 else 0
+    return p.query(hidden), p.key(hidden), p.value(hidden), rate, seed
+
+
 def _attn_epilogue(
-    p: Attention, cfg: LayoutLMv3Config, ctx: torch.Tensor, hidden: torch.Tensor
+    p: Attention, cfg: LayoutLMv3Config, ctx: torch.Tensor, hidden: torch.Tensor,
+    deterministic: bool = True, seed_out: Optional[int] = None,
 ) -> torch.Tensor:
-    """Output projection and residual LayerNorm."""
-    return p.output_LayerNorm(p.output(ctx) + hidden)
+    """Output projection, dropout and residual LayerNorm."""
+    out = dropout(p.output(ctx), cfg.hidden_dropout_prob, deterministic, seed_out)
+    return p.output_LayerNorm(out + hidden)
 
 
 def attention_apply(
-    p: Attention, cfg: LayoutLMv3Config, hidden: torch.Tensor, attn_bias: torch.Tensor
-) -> torch.Tensor:
+    p: Attention,
+    cfg: LayoutLMv3Config,
+    hidden: torch.Tensor,
+    attn_bias,
+    deterministic: bool = True,
+    seed_attn: Optional[int] = None,
+    seed_out: Optional[int] = None,
+):
     """softmax(q k^T / sqrt(d) + bias) v on the packed projections, then the
-    epilogue."""
+    epilogue. With a ``ChainedBiasContext`` (training) it returns
+    ``(out, ChainedBiasContext(bias passed through))``."""
+    if isinstance(attn_bias, ChainedBiasContext):
+        qp, kp, vp, rate, seed = _packed_qkv_and_seed(p, cfg, hidden, deterministic, seed_attn)
+        ctx, bias_out = flash_attention_packed_train_chained(
+            qp, kp, vp, attn_bias.bias, seed, cfg.num_attention_heads, rate=rate,
+        )
+        out = _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
+        return out, ChainedBiasContext(bias_out)
     ctx = flash_attention_packed(
         p.query(hidden), p.key(hidden), p.value(hidden), attn_bias,
         cfg.num_attention_heads,
@@ -377,35 +514,64 @@ def attention_apply(
 
 
 def encoder_layer_apply(
-    p: EncoderLayer, cfg: LayoutLMv3Config, hidden: torch.Tensor, attn_bias: torch.Tensor
-) -> torch.Tensor:
-    attn_out = attention_apply(p.attention, cfg, hidden, attn_bias)
+    p: EncoderLayer,
+    cfg: LayoutLMv3Config,
+    hidden: torch.Tensor,
+    attn_bias,
+    deterministic: bool = True,
+    seeds: Optional[Tuple[Optional[int], ...]] = None,
+):
+    """One layer; ``seeds`` are the (attention, attention-output, MLP-output)
+    dropout seeds. Returns ``(out, ChainedBiasContext)`` when chained."""
+    r = seeds or (None, None, None)
+    attn_out = attention_apply(p.attention, cfg, hidden, attn_bias, deterministic, r[0], r[1])
+    chained = None
+    if isinstance(attn_bias, ChainedBiasContext):
+        attn_out, chained = attn_out
     inter = gelu_exact(p.intermediate(attn_out))
-    return p.output_LayerNorm(p.output(inter) + attn_out)
+    out = dropout(p.output(inter), cfg.hidden_dropout_prob, deterministic, r[2])
+    out = p.output_LayerNorm(out + attn_out)
+    return out if chained is None else (out, chained)
 
 
 def encoder_apply(
     p: Encoder,
     cfg: LayoutLMv3Config,
     hidden: torch.Tensor,
-    attn_bias: torch.Tensor,
+    attn_bias,
     collect_cls: bool = True,
+    deterministic: bool = True,
+    rng: Optional[RngStream] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Run every layer; returns ``(final_hidden, cls_per_layer)`` where
     ``cls_per_layer`` is (L, B, H): the [CLS] state after each layer, the
-    encoder exits' input."""
+    encoder exits' input. A ``ChainedBiasContext`` is carried from each
+    layer to the next; each layer draws three dropout seeds from ``rng``."""
     taps = []
     for layer in p.layers:
-        hidden = encoder_layer_apply(layer, cfg, hidden, attn_bias)
+        seeds = (rng.next(), rng.next(), rng.next()) if rng else None
+        out = encoder_layer_apply(layer, cfg, hidden, attn_bias, deterministic, seeds)
+        if isinstance(attn_bias, ChainedBiasContext):
+            hidden, attn_bias = out
+        else:
+            hidden = out
         if collect_cls:
             taps.append(hidden[:, 0, :])
     return hidden, (torch.stack(taps) if collect_cls else None)
 
 
 def classifier_apply(
-    p: ClassificationHead, cfg: LayoutLMv3Config, x: torch.Tensor
+    p: ClassificationHead,
+    cfg: LayoutLMv3Config,
+    x: torch.Tensor,
+    deterministic: bool = True,
+    rngs: Optional[RngStream] = None,
 ) -> torch.Tensor:
-    return p.out_proj(torch.tanh(p.dense(x)))
+    rate = cfg.classifier_dropout_prob
+    x = dropout(x, rate, deterministic, rngs.next() if rngs else None)
+    x = torch.tanh(p.dense(x))
+    x = dropout(x, rate, deterministic, rngs.next() if rngs else None)
+    return p.out_proj(x)
 
 
 # ---------------------------------------------------------------------------
@@ -458,7 +624,6 @@ def pad_sequence(multiple: int, *tensors: torch.Tensor) -> Tuple[torch.Tensor, .
     )
 
 
-@torch.no_grad()
 def backbone_apply(
     p: LayoutLMv3Model,
     cfg: LayoutLMv3Config,
@@ -466,18 +631,26 @@ def backbone_apply(
     bbox: torch.Tensor,
     pixel_values: torch.Tensor,
     attention_mask: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
     collect_cls: bool = True,
     seq_pad_multiple: Optional[int] = None,
 ) -> BackboneOutput:
-    """The multimodal backbone (inference). ``seq_pad_multiple`` pads the
-    concatenated sequence once before the encoder; the bias is always built
-    at a width that is a multiple of 128."""
+    """The multimodal backbone. ``seq_pad_multiple`` pads the concatenated
+    sequence once before the encoder; the bias is always built at a width
+    that is a multiple of 128. With ``deterministic=False`` the dropout
+    seeds come from ``rng``. Inference callers run it under
+    ``torch.no_grad()``: under autograd (or when not deterministic) the
+    encoder takes the chained training attention, which has a backward."""
+    rngs = RngStream(None if deterministic else rng)
     b, s_t = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s_t), dtype=torch.int32, device=input_ids.device)
-    text_emb = embed_text(p.embeddings, cfg, input_ids, bbox)
+    text_emb = embed_text(p.embeddings, cfg, input_ids, bbox,
+                          deterministic=deterministic, rngs=rngs)
     vis_emb = embed_vision(p.visual, cfg, pixel_values)
     combined = p.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
+    combined = dropout(combined, cfg.hidden_dropout_prob, deterministic, rngs.next())
     full_bbox, pos, full_mask = sequence_layout(
         cfg, bbox, attention_mask, vis_emb.shape[1]
     )
@@ -489,8 +662,11 @@ def backbone_apply(
     attn_bias = make_attention_bias(
         p, cfg, pos, full_bbox, full_mask, dtype=hidden.dtype
     )
+    if not deterministic or torch.is_grad_enabled():
+        attn_bias = ChainedBiasContext(attn_bias)
     final, cls_per_layer = encoder_apply(
-        p.encoder, cfg, hidden, attn_bias, collect_cls=collect_cls
+        p.encoder, cfg, hidden, attn_bias, collect_cls=collect_cls,
+        deterministic=deterministic, rng=rngs,
     )
     return BackboneOutput(
         last_hidden_state=final,

@@ -26,7 +26,10 @@ from typing import Dict, List, Sequence
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("materialize_bias", "flash_attention_packed")
+SOURCES = (
+    "materialize_bias", "flash_attention_packed", "flash_attention_packed_train",
+    "table_grads",
+)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",

@@ -11,6 +11,19 @@ On a CUDA tensor ``flash_attention_packed`` launches the hand-written kernel
 ``csrc/flash_attention_packed.cu`` (bf16 q/k/v, head dim 64, bias bf16 or
 f32); on a CPU tensor it runs ``flash_attention_packed_plain``: dense f32
 scores from the same inputs, softmax, p cast to v's dtype, then p v.
+
+Training: ``flash_attention_packed_train`` and its chained twin
+``flash_attention_packed_train_chained`` are ``autograd.Function``s with
+position-hash dropout on the probabilities (keep (i, j) of plane b*H + h iff
+``dropout_uniform(seed, b*H + h, i, j) < 1 - rate``, scale by 1/(1 - rate)).
+Their forward (``flash_attention_packed_train_fwd``: out and the (B, H, P)
+f32 lse) and backward (``flash_attention_packed_train_bwd``: dq, dk, dv and
+dbias = ds, or gbias + ds when chained) launch ``csrc/
+flash_attention_packed_train.cu`` on CUDA tensors and run their plain
+versions on CPU tensors. The chained op returns ``(out, bias)`` with the bias
+passed through, so an encoder that hands each layer the previous layer's
+bias output receives the running bias cotangent in every layer's backward
+and adds its own ds to it there, in the kernel.
 """
 
 from __future__ import annotations
@@ -22,8 +35,53 @@ import math
 import torch
 
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
+from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
 KERNEL_HEAD_DIM = 64
+KERNEL_TILE = 64  # rows and columns per CTA tile of the training kernels
+
+
+def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, H*D) -> (B, H, S, D) f32."""
+    b, s, hd = x.shape
+    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2).to(torch.float32)
+
+
+def _packed(x: torch.Tensor) -> torch.Tensor:
+    """(B, H, S, D) -> (B, S, H*D)."""
+    b, h, s, d = x.shape
+    return x.transpose(1, 2).reshape(b, s, h * d)
+
+
+def _check_packed(what: str, q, k, v, bias, num_heads: int) -> None:
+    b, s, hd = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k and v must share one (B, S, H*D) shape")
+    if hd % num_heads:
+        raise ValueError(f"{what}: width {hd} does not split into {num_heads} heads")
+    if (bias.ndim != 4 or bias.shape[:2] != (b, num_heads)
+            or bias.shape[2] != bias.shape[3] or bias.shape[3] < s):
+        raise ValueError(
+            f"{what}: bias must be (B, H, P, P) with P >= {s}; got {tuple(bias.shape)}"
+        )
+
+
+def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> None:
+    """What the CUDA attention kernels take: contiguous tensors on one card,
+    bf16 q/k/v (and gradients), a bf16 or f32 bias, head dim 64."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    for t in (*tensors, bias):
+        if t.device != device or not t.is_contiguous():
+            raise ValueError(f"{what} takes contiguous tensors on one device")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    if bias.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
+    d = tensors[0].shape[-1] // num_heads
+    if d != KERNEL_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {d}")
 
 
 def flash_attention_packed_plain(
@@ -31,17 +89,12 @@ def flash_attention_packed_plain(
     num_heads: int,
 ) -> torch.Tensor:
     """Plain PyTorch ``flash_attention_packed`` (dense (B, H, S, S) scores)."""
-    b, s, hd = q.shape
-    d = hd // num_heads
-
-    def heads(x):
-        return x.reshape(b, s, num_heads, d).transpose(1, 2).to(torch.float32)
-
-    scores = torch.matmul(heads(q), heads(k).transpose(-1, -2))
+    s, d = q.shape[1], q.shape[2] // num_heads
+    scores = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(p.to(torch.float32), heads(v))
-    return out.transpose(1, 2).reshape(b, s, hd).to(q.dtype)
+    out = torch.matmul(p.to(torch.float32), _heads(v, num_heads))
+    return _packed(out).to(q.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -66,31 +119,12 @@ def flash_attention_packed(
     """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
     CUDA tensors launch the kernel (counted in
     ``flash_attention_packed.launches``)."""
+    _check_packed("flash_attention_packed", q, k, v, bias, num_heads)
     b, s, hd = q.shape
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("q, k and v must share one (B, S, H*D) shape")
-    if hd % num_heads:
-        raise ValueError(f"width {hd} does not split into {num_heads} heads")
-    if (bias.ndim != 4 or bias.shape[:2] != (b, num_heads)
-            or bias.shape[2] != bias.shape[3] or bias.shape[3] < s):
-        raise ValueError(
-            f"bias must be (B, H, P, P) with P >= {s}; got {tuple(bias.shape)}"
-        )
     device = q.device
     if device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, bias, num_heads)
-    if device.type != "cuda":
-        raise ValueError(f"flash_attention_packed runs on cuda or cpu, not {device}")
-    for t in (q, k, v, bias):
-        if t.device != device or not t.is_contiguous():
-            raise ValueError("flash_attention_packed takes contiguous tensors on one device")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError("the flash_attention_packed kernel takes bfloat16 q, k, v")
-    if bias.dtype not in (torch.bfloat16, torch.float32):
-        raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
-    d = hd // num_heads
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {d}")
+    _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
     out = torch.empty_like(q)
     lib, fn = _flash_attention_packed_fn()
     with torch.cuda.device(device):
@@ -98,7 +132,7 @@ def flash_attention_packed(
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             int(bias.dtype == torch.bfloat16), out.data_ptr(),
-            b, s, num_heads, bias.shape[-1], 1.0 / math.sqrt(d), stream,
+            b, s, num_heads, bias.shape[-1], 1.0 / math.sqrt(hd // num_heads), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
     flash_attention_packed.launches += 1
@@ -106,3 +140,247 @@ def flash_attention_packed(
 
 
 flash_attention_packed.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# training: forward with dropout + lse, backward, autograd
+# ---------------------------------------------------------------------------
+
+
+def attention_dropout_scale(
+    seed: int, b: int, num_heads: int, s: int, rate: float, device
+) -> torch.Tensor:
+    """(B, H, S, S) f32 dropout factors of the attention probabilities:
+    1/(1 - rate) where (seed, b*H + h, i, j) is kept, else 0."""
+    bh = (torch.arange(b, device=device)[:, None] * num_heads
+          + torch.arange(num_heads, device=device)[None, :])[:, :, None, None]
+    idx = torch.arange(s, device=device)
+    u = dropout_uniform(seed, bh, idx[None, None, :, None], idx[None, None, None, :])
+    keep = 1.0 - rate
+    return torch.where(u < keep, 1.0 / keep, 0.0).to(torch.float32)
+
+
+def flash_attention_packed_train_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, num_heads: int, rate: float = 0.0,
+):
+    """Plain PyTorch training forward: (out (B, S, H*D) in q's dtype,
+    lse (B, H, P) f32, +inf past S). Dropout scales the normalised p."""
+    b, s, hd = q.shape
+    d = hd // num_heads
+    scores = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
+    scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    denom = e.sum(dim=-1, keepdim=True)
+    p = e / denom
+    if rate > 0.0:
+        p = p * attention_dropout_scale(seed, b, num_heads, s, rate, q.device)
+    out = torch.matmul(p.to(v.dtype).to(torch.float32), _heads(v, num_heads))
+    lse = torch.full((b, num_heads, bias.shape[-1]), math.inf, dtype=torch.float32,
+                     device=q.device)
+    lse[:, :, :s] = (m + torch.log(denom))[..., 0]
+    return _packed(out).to(q.dtype), lse
+
+
+def flash_attention_packed_train_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    num_heads: int, rate: float = 0.0, gbias=None,
+):
+    """Plain PyTorch training backward by the explicit formulas: p from the
+    lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c. Returns
+    (dq, dk, dv, dbias); dbias is (B, H, P, P) in the bias dtype, gbias + ds
+    when ``gbias`` is given, with ds zero past S."""
+    b, s, hd = q.shape
+    scale = 1.0 / math.sqrt(hd // num_heads)
+    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
+    doh, oh = _heads(do, num_heads), _heads(o, num_heads)
+    scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    scores = scores + bias[:, :, :s, :s].to(torch.float32)
+    p = torch.exp(scores - lse[:, :, :s, None])
+    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    pd = p
+    if rate > 0.0:
+        c = attention_dropout_scale(seed, b, num_heads, s, rate, q.device)
+        pd, dp = p * c, dp * c
+    delta = (doh * oh).sum(dim=-1, keepdim=True)
+    ds = p * (dp - delta)
+    ds_c = ds.to(q.dtype).to(torch.float32)
+    dq = torch.matmul(ds_c, kh) * scale
+    dk = torch.matmul(ds_c.transpose(-1, -2), qh) * scale
+    dv = torch.matmul(pd.to(do.dtype).to(torch.float32).transpose(-1, -2), doh)
+    dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
+    dbias[:, :, :s, :s] = ds
+    if gbias is not None:
+        dbias = dbias + gbias.to(torch.float32)
+    return (_packed(dq).to(q.dtype), _packed(dk).to(k.dtype),
+            _packed(dv).to(v.dtype), dbias.to(bias.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _train_fns():
+    lib = cuda_build.load("flash_attention_packed_train")
+    fwd = lib.mmee_flash_attention_packed_train_fwd
+    fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    bwd = lib.mmee_flash_attention_packed_train_bwd
+    bwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                                ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+    return lib, fwd, bwd
+
+
+def _dropout_args(seed: int, rate: float):
+    """(int32 seed, keep, 1/keep, on) as the kernels take them."""
+    seed32 = (int(seed) + 2 ** 31) % 2 ** 32 - 2 ** 31
+    keep = 1.0 - rate
+    return seed32, keep, 1.0 / keep, int(rate > 0.0)
+
+
+def _check_train_width(what: str, bias: torch.Tensor) -> None:
+    if bias.shape[-1] % KERNEL_TILE:
+        raise ValueError(
+            f"the {what} kernel needs a bias width P that is a multiple of "
+            f"{KERNEL_TILE}, got {bias.shape[-1]}"
+        )
+
+
+def flash_attention_packed_train_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, num_heads: int, rate: float = 0.0,
+):
+    """Training forward: (out (B, S, H*D) in q's dtype, lse (B, H, P) f32,
+    +inf past S). CPU tensors run the plain version; CUDA tensors launch the
+    kernel (counted in ``flash_attention_packed_train_fwd.launches``)."""
+    _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
+    if q.device.type == "cpu":
+        return flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, num_heads, rate)
+    _check_cuda_kernel_args("flash_attention_packed_train", (q, k, v), bias, num_heads)
+    _check_train_width("flash_attention_packed_train", bias)
+    b, s, hd = q.shape
+    p = bias.shape[-1]
+    out = torch.empty_like(q)
+    lse = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    lib, fwd, _ = _train_fns()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            int(bias.dtype == torch.bfloat16), out.data_ptr(), lse.data_ptr(),
+            b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
+            *_dropout_args(seed, rate), stream,
+        )
+    cuda_build.check(lib, code, "flash_attention_packed_train")
+    flash_attention_packed_train_fwd.launches += 1
+    return out, lse
+
+
+flash_attention_packed_train_fwd.launches = 0
+
+
+def flash_attention_packed_train_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    num_heads: int, rate: float = 0.0, gbias=None,
+):
+    """Training backward: (dq, dk, dv in q's dtype, dbias (B, H, P, P) in the
+    bias dtype, gbias + ds when ``gbias`` is given). CPU tensors run the
+    plain version; CUDA tensors launch the kernel pair, one kernel for dq and
+    dbias and one for dk and dv (``flash_attention_packed_train_bwd.launches``
+    counts both: 2 per call)."""
+    _check_packed("flash_attention_packed_train_bwd", q, k, v, bias, num_heads)
+    if gbias is not None and gbias.shape != bias.shape:
+        raise ValueError(f"gbias must have the bias shape {tuple(bias.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_packed_train_bwd_plain(
+            q, k, v, bias, seed, o, lse, do, num_heads, rate, gbias
+        )
+    what = "flash_attention_packed_train_bwd"
+    _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
+    _check_train_width(what, bias)
+    b, s, hd = q.shape
+    p = bias.shape[-1]
+    if lse.shape != (b, num_heads, p) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{what}: lse must be a contiguous f32 (B, H, P) tensor")
+    if gbias is not None and (gbias.dtype != bias.dtype or not gbias.is_contiguous()
+                              or gbias.device != q.device):
+        raise ValueError(f"{what}: gbias must be contiguous, on q's device, in the bias dtype")
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    delta = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    lib, _, bwd = _train_fns()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            int(bias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), 0 if gbias is None else gbias.data_ptr(),
+            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
+            delta.data_ptr(), b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
+            *_dropout_args(seed, rate), stream,
+        )
+    cuda_build.check(lib, code, what)
+    flash_attention_packed_train_bwd.launches += 2
+    return dq, dk, dv, dbias
+
+
+flash_attention_packed_train_bwd.launches = 0
+
+
+def _grad_like(g, like: torch.Tensor) -> torch.Tensor:
+    if g is None:
+        return torch.zeros_like(like)
+    return g.to(like.dtype).contiguous()
+
+
+class _PackedTrainChained(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, num_heads, rate):
+        ctx.set_materialize_grads(False)
+        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (seed, num_heads, rate)
+        return out, bias.view_as(bias)
+
+    @staticmethod
+    def backward(ctx, g_out, g_bias):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        seed, num_heads, rate = ctx.args
+        gbias = None if g_bias is None else _grad_like(g_bias, bias)
+        dq, dk, dv, dbias = flash_attention_packed_train_bwd(
+            q, k, v, bias, seed, out, lse, _grad_like(g_out, out), num_heads,
+            rate, gbias=gbias,
+        )
+        return dq, dk, dv, dbias, None, None, None
+
+
+def flash_attention_packed_train(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, num_heads: int, rate: float = 0.0,
+) -> torch.Tensor:
+    """Differentiable packed attention with position-hash dropout on the
+    probabilities; (B, S, H*D) in q's dtype. Its backward gives dq, dk, dv
+    and dbias (the chained op with its bias output unused: no incoming bias
+    gradient, so dbias = ds)."""
+    return flash_attention_packed_train_chained(q, k, v, bias, seed, num_heads, rate)[0]
+
+
+def flash_attention_packed_train_chained(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, num_heads: int, rate: float = 0.0,
+):
+    """``flash_attention_packed_train`` that also returns the bias, passed
+    through: (out, bias). The bias output's incoming gradient (the running
+    cotangent of the layers after this one; none at the last layer) is added
+    to this layer's ds by the backward kernel."""
+    if bias.shape[-2] != bias.shape[-1]:
+        raise ValueError(f"the chained op needs a square bias, got {tuple(bias.shape)}")
+    return _PackedTrainChained.apply(q, k, v, bias, int(seed), num_heads, float(rate))

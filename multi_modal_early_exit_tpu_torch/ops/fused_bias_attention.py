@@ -18,6 +18,14 @@ once per (num_buckets, max_distance) for n = 0..max_distance and both
 versions index that table: no ``log`` is evaluated per element, and the
 kernel and the plain version cannot disagree at the power-of-two distances
 where the formula lands exactly on an integer.
+
+``materialize_bias`` is differentiable in the three tables. Its backward is
+``table_grads``: dT[r, h] = the sum of the bias cotangent over the (b, i, j)
+of the true S x S block whose bucket is r, for each table. On a CUDA tensor
+it launches ``csrc/table_grads.cu``; on a CPU tensor it runs
+``table_grads_plain`` (``index_add_`` over the bucket maps). Pad rows and
+columns (>= S) carry no gradient: the bias's pad rows are finite, and must
+not leak into the tables.
 """
 
 from __future__ import annotations
@@ -120,47 +128,37 @@ def _materialize_bias_fn():
     return lib, fn
 
 
-def materialize_bias(
-    position_ids: torch.Tensor,
-    cx: torch.Tensor,
-    cy: torch.Tensor,
-    attention_mask: torch.Tensor,
-    t1: torch.Tensor,
-    tx: torch.Tensor,
-    ty: torch.Tensor,
-    rel_bins: int = 32,
-    max_rel: int = 128,
-    rel2d_bins: int = 64,
-    max_rel2d: int = 256,
-    out_dtype: torch.dtype = torch.bfloat16,
-) -> torch.Tensor:
-    """(B, H, P, P) bias, P = ceil(S / 128) * 128.
+def _check_vectors(what: str, vectors) -> None:
+    b, s = vectors[0].shape
+    if any(a.shape != (b, s) for a in vectors):
+        raise ValueError(f"{what}: the (B, S) vectors must share one shape")
 
-    The vectors are (B, S) int32, the tables f32 with the attention scale
-    folded in. CPU tensors run ``materialize_bias_plain``; CUDA tensors
-    launch the kernel (counted in ``materialize_bias.launches``).
-    """
+
+def _check_cuda(what: str, tensors) -> torch.device:
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    for a in tensors:
+        if a.device != device or not a.is_contiguous():
+            raise ValueError(f"{what} takes contiguous tensors on one device")
+    return device
+
+
+def _materialize_bias_forward(
+    position_ids, cx, cy, attention_mask, t1, tx, ty,
+    rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype,
+) -> torch.Tensor:
+    """The bias on the device of its inputs: the plain version on the CPU,
+    the kernel on CUDA (counted in ``materialize_bias.launches``)."""
     args = (position_ids, cx, cy, attention_mask, t1, tx, ty)
     b, s = position_ids.shape
     h = t1.shape[1]
-    if any(a.shape != (b, s) for a in args[:4]):
-        raise ValueError("position_ids, cx, cy and attention_mask must share (B, S)")
-    if t1.shape != (rel_bins, h) or tx.shape != (rel2d_bins, h) or ty.shape != (rel2d_bins, h):
-        raise ValueError(
-            f"tables must be ({rel_bins}, H) and ({rel2d_bins}, H); got "
-            f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
-        )
-    device = position_ids.device
-    if device.type == "cpu":
+    if position_ids.device.type == "cpu":
         return materialize_bias_plain(
             *args, rel_bins=rel_bins, max_rel=max_rel, rel2d_bins=rel2d_bins,
             max_rel2d=max_rel2d, out_dtype=out_dtype,
         )
-    if device.type != "cuda":
-        raise ValueError(f"materialize_bias runs on cuda or cpu, not {device}")
-    for a in args:
-        if a.device != device or not a.is_contiguous():
-            raise ValueError("materialize_bias takes contiguous tensors on one device")
+    device = _check_cuda("materialize_bias", args)
     if any(a.dtype != torch.int32 for a in args[:4]):
         raise TypeError("position_ids, cx, cy and attention_mask must be int32")
     if any(a.dtype != torch.float32 for a in args[4:]):
@@ -184,4 +182,151 @@ def materialize_bias(
     return out
 
 
+class _MaterializeBias(torch.autograd.Function):
+    """The bias as a differentiable function of the tables; the backward
+    keeps only the (B, S) vectors."""
+
+    @staticmethod
+    def forward(ctx, position_ids, cx, cy, attention_mask, t1, tx, ty,
+                rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype):
+        ctx.save_for_backward(position_ids, cx, cy)
+        ctx.buckets = (rel_bins, max_rel, rel2d_bins, max_rel2d)
+        return _materialize_bias_forward(
+            position_ids, cx, cy, attention_mask, t1, tx, ty,
+            rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        position_ids, cx, cy = ctx.saved_tensors
+        dt1, dtx, dty = table_grads(position_ids, cx, cy, g.contiguous(), *ctx.buckets)
+        return (None,) * 4 + (dt1, dtx, dty) + (None,) * 5
+
+
+def materialize_bias(
+    position_ids: torch.Tensor,
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    attention_mask: torch.Tensor,
+    t1: torch.Tensor,
+    tx: torch.Tensor,
+    ty: torch.Tensor,
+    rel_bins: int = 32,
+    max_rel: int = 128,
+    rel2d_bins: int = 64,
+    max_rel2d: int = 256,
+    out_dtype: torch.dtype = torch.bfloat16,
+) -> torch.Tensor:
+    """(B, H, P, P) bias, P = ceil(S / 128) * 128, differentiable in the
+    tables (backward: ``table_grads``).
+
+    The vectors are (B, S) int32, the tables f32 with the attention scale
+    folded in. CPU tensors run ``materialize_bias_plain``; CUDA tensors
+    launch the kernel (counted in ``materialize_bias.launches``).
+    """
+    h = t1.shape[1]
+    _check_vectors("materialize_bias", (position_ids, cx, cy, attention_mask))
+    if t1.shape != (rel_bins, h) or tx.shape != (rel2d_bins, h) or ty.shape != (rel2d_bins, h):
+        raise ValueError(
+            f"tables must be ({rel_bins}, H) and ({rel2d_bins}, H); got "
+            f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
+        )
+    return _MaterializeBias.apply(
+        position_ids, cx, cy, attention_mask, t1, tx, ty,
+        rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype,
+    )
+
+
 materialize_bias.launches = 0
+
+
+def table_grads_plain(
+    position_ids: torch.Tensor,  # (B, S) int
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    g: torch.Tensor,             # (B, H, P, P) bias cotangent, P >= S
+    rel_bins: int = 32,
+    max_rel: int = 128,
+    rel2d_bins: int = 64,
+    max_rel2d: int = 256,
+):
+    """Plain PyTorch ``table_grads``: ``index_add_`` of the true S x S block
+    of ``g`` over the bucket maps. Returns (dT1, dTx, dTy), f32."""
+    s = position_ids.shape[1]
+    h = g.shape[1]
+    gt = g[:, :, :s, :s].to(torch.float32).permute(0, 2, 3, 1).reshape(-1, h)
+
+    def one(vec, num_buckets, max_distance):
+        vec = vec.to(torch.int32)
+        bkt = relative_position_bucket(
+            vec[:, None, :] - vec[:, :, None], num_buckets, max_distance
+        ).reshape(-1)  # [b, i, j], as gt's rows
+        out = torch.zeros((num_buckets, h), dtype=torch.float32, device=g.device)
+        return out.index_add_(0, bkt, gt)
+
+    return (one(position_ids, rel_bins, max_rel), one(cx, rel2d_bins, max_rel2d),
+            one(cy, rel2d_bins, max_rel2d))
+
+
+@functools.lru_cache(maxsize=None)
+def _table_grads_fn():
+    lib = cuda_build.load("table_grads")
+    fn = lib.mmee_table_grads
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+TABLE_GRADS_MAX_HEADS = 16  # one head per lane of a half-warp
+
+
+def table_grads(
+    position_ids: torch.Tensor,
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    g: torch.Tensor,
+    rel_bins: int = 32,
+    max_rel: int = 128,
+    rel2d_bins: int = 64,
+    max_rel2d: int = 256,
+):
+    """(dT1 (rel_bins, H), dTx, dTy (rel2d_bins, H)) f32 from the bias
+    cotangent ``g`` (B, H, P, P), P >= S; rows and columns >= S are left
+    out. CPU tensors run ``table_grads_plain``; CUDA tensors launch the
+    kernel (counted in ``table_grads.launches``)."""
+    vecs = (position_ids, cx, cy)
+    _check_vectors("table_grads", vecs)
+    b, s = position_ids.shape
+    if g.ndim != 4 or g.shape[0] != b or g.shape[2] != g.shape[3] or g.shape[3] < s:
+        raise ValueError(f"g must be (B, H, P, P) with P >= {s}; got {tuple(g.shape)}")
+    if g.device.type == "cpu":
+        return table_grads_plain(*vecs, g, rel_bins, max_rel, rel2d_bins, max_rel2d)
+    device = _check_cuda("table_grads", (*vecs, g))
+    if any(a.dtype != torch.int32 for a in vecs):
+        raise TypeError("position_ids, cx and cy must be int32")
+    if g.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"table_grads takes a bfloat16 or float32 g, not {g.dtype}")
+    h, p = g.shape[1], g.shape[3]
+    if h > TABLE_GRADS_MAX_HEADS:
+        raise ValueError(f"the table_grads kernel takes at most {TABLE_GRADS_MAX_HEADS} heads")
+    if p % 16:
+        raise ValueError(f"the table_grads kernel needs P % 16 == 0, got P = {p}")
+    lut1 = bucket_lut(rel_bins, max_rel, device)
+    lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
+    out = torch.zeros((rel_bins + 2 * rel2d_bins) * h, dtype=torch.float32, device=device)
+    lib, fn = _table_grads_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(
+            *(a.data_ptr() for a in vecs), lut1.data_ptr(), lut2.data_ptr(),
+            g.data_ptr(), int(g.dtype == torch.bfloat16), out.data_ptr(),
+            b, s, p, h, rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
+        )
+    cuda_build.check(lib, code, "table_grads")
+    table_grads.launches += 1
+    n1, n2 = rel_bins * h, rel2d_bins * h
+    return (out[:n1].view(rel_bins, h), out[n1:n1 + n2].view(rel2d_bins, h),
+            out[n1 + n2:].view(rel2d_bins, h))
+
+
+table_grads.launches = 0

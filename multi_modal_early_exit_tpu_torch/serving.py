@@ -118,6 +118,7 @@ class Pipeline:
     ) -> List[Dict]:
         return self.predict_features(self.preprocess(images, words, boxes))
 
+    @torch.no_grad()
     def predict_features(self, batch: Dict[str, object]) -> List[Dict]:
         """Run preprocessed features (numpy arrays or tensors) through the
         cascade; pads to the static batch size and chunks larger inputs."""

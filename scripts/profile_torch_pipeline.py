@@ -1,21 +1,28 @@
 #!/usr/bin/env python3
-"""Where the served path of the PyTorch port spends its time, on one GPU.
+"""Where the PyTorch port spends its time on one GPU: serving or training.
 
-    python3 scripts/profile_torch_pipeline.py
+    python3 scripts/profile_torch_pipeline.py [--mode serve|train]
 
-Builds EE LayoutLMv3-base (bf16, random weights from seed 0, exits text_avg,
-vision_avg, 7) and a ``Pipeline`` at batch 16 with capacities (16, 8), the
-configuration ``chip_smoke.py`` serves. With static capacities a batch costs
-the same whatever its exits, so the threshold only needs to be valid. After
-a warm-up it traces ``predict_features`` over 4 batches with
-``torch.profiler`` and prints the device time by kernel group (the port's two
-kernels, cuBLAS GEMMs, everything else), the wall time, and the device's busy
-share (kernel time over wall time; one stream, so kernels do not overlap).
-The next-to-last line is the per-kernel table as JSON, the last the summary.
+``serve`` (the default) builds EE LayoutLMv3-base (bf16, random weights from
+seed 0, exits text_avg, vision_avg, 7) and a ``Pipeline`` at batch 16 with
+capacities (16, 8), the configuration ``chip_smoke.py`` serves. With static
+capacities a batch costs the same whatever its exits, so the threshold only
+needs to be valid. After a warm-up it traces ``predict_features`` over 4
+batches. ``train`` builds the training path of ``chip_smoke.py`` (f32 master
+weights, bf16 forward, dropout 0.1, batch 16) and, after 2 warm-up steps,
+traces 2 ``EETrainer.train_step``s.
+
+Each mode traces with ``torch.profiler`` and prints the device time by kernel
+group (the port's kernels, cuBLAS GEMMs, everything else), the wall time,
+and the device's busy share (kernel time over wall time; one stream, so
+kernels do not overlap). The next-to-last line is the per-kernel table as
+JSON, the last the summary.
 """
 
 from __future__ import annotations
 
+import argparse
+import copy
 import json
 import os
 import subprocess
@@ -28,7 +35,7 @@ import torch
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-from chip_smoke import B, N_BATCHES, S_TEXT, synthetic_pages  # noqa: E402
+from chip_smoke import B, N_BATCHES, S_TEXT, synthetic_pages, train_setup  # noqa: E402
 from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig  # noqa: E402
 from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer  # noqa: E402
 from multi_modal_early_exit_tpu_torch.data.images import preprocess_images  # noqa: E402
@@ -38,11 +45,17 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (  # noqa:
     LayoutLMv3Config,
 )
 from multi_modal_early_exit_tpu_torch.serving import Pipeline  # noqa: E402
+from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer  # noqa: E402
 
+TRAIN_TRACED_STEPS = 2
 GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
     ("flash_attention_packed", ("flash_attention_packed_kernel",)),
+    ("flash_attention_packed_train", ("train_fwd_kernel",)),
+    ("flash_attention_packed_train_bwd", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
+    ("table_grads", ("table_grads_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
+    ("optimizer", ("multi_tensor_apply", "adam")),
 )
 
 
@@ -54,10 +67,8 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("profile_torch_pipeline: no CUDA device", file=sys.stderr)
-        return 1
+def serve_workload():
+    """(documents, a call that serves them once)."""
     cfg = EEModelConfig(
         backbone=LayoutLMv3Config.base(num_labels=16),
         exit=ExitConfig(exits="text_avg,vision_avg,7"),
@@ -71,14 +82,38 @@ def main() -> int:
                     exit_distribution={0: 0.05, 1: 0.05, 2: 0.8, 3: 0.1})
     if pipe.capacities != (16, 8):
         raise RuntimeError(f"capacities {pipe.capacities}, expected (16, 8)")
+    return N_BATCHES * B, lambda: pipe.predict_features(batch)
+
+
+def train_workload():
+    """(documents, a call that takes TRAIN_TRACED_STEPS training steps)."""
+    cfg, model32, batches, args = train_setup(TRAIN_TRACED_STEPS)
+    trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+
+    def steps():
+        for b in batches:
+            trainer.train_step(b, gen)
+
+    return TRAIN_TRACED_STEPS * B, steps
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--mode", choices=("serve", "train"), default="serve")
+    mode = parser.parse_args().mode
+    if not torch.cuda.is_available():
+        print("profile_torch_pipeline: no CUDA device", file=sys.stderr)
+        return 1
+    documents, run = serve_workload() if mode == "serve" else train_workload()
     for _ in range(2):
-        pipe.predict_features(batch)  # warm-up
+        run()  # warm-up
     torch.cuda.synchronize()
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        pipe.predict_features(batch)
+        run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
 
@@ -98,9 +133,9 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     result = {
-        "device": smi,
-        "documents": N_BATCHES * B, "wall_ms": wall_ms,
-        "docs_per_sec": N_BATCHES * B / (wall_ms / 1e3),
+        "mode": mode, "device": smi,
+        "documents": documents, "wall_ms": wall_ms,
+        "docs_per_sec": documents / (wall_ms / 1e3),
         "device_ms": device_ms,
         "busy_share": device_ms / wall_ms if device_ms else None,
         "groups": groups,

@@ -87,3 +87,39 @@ def separating_threshold(values, q, window=0.15):
     hi = int(np.clip(round((q + window) * n), lo + 1, n))
     k = lo + int(np.argmax(np.diff(v[lo:hi + 1])))
     return float((v[k] + v[k + 1]) / 2)
+
+
+def no_dropout(jcfg, tcfg):
+    """The two configs with every dropout rate 0, so that a training forward
+    (``deterministic=False``) is comparable across the two packages, whose
+    random streams differ."""
+    rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 classifier_dropout=0.0)
+    return (jcfg.replace(backbone=jcfg.backbone.replace(**rates)),
+            tcfg.replace(backbone=tcfg.backbone.replace(**rates)))
+
+
+def train_batch(seed, B, S, cfg, masked_tail=0):
+    """A numpy training batch: make_batch's arrays plus labels."""
+    ids, bbox, px, mask = make_batch(seed, B, S, cfg, masked_tail)
+    labels = np.random.default_rng(seed + 1).integers(0, cfg.backbone.num_labels, B)
+    return dict(input_ids=ids, bbox=bbox, pixel_values=px, attention_mask=mask,
+                labels=labels.astype(np.int32))
+
+
+def assert_state_close(got, want_tree, tol, what=""):
+    """``got`` (port name -> tensor) against a JAX tree of the same
+    parameters: each tensor within ``tol`` of its own largest value, plus
+    1e-9 for tensors whose true value is zero (the key bias gradient)."""
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.convert import (
+        jax_tree_to_state_dict,
+    )
+
+    want = jax_tree_to_state_dict(jax.tree.map(np.asarray, want_tree))
+    assert set(got) == set(want), what
+    for name, a in got.items():
+        w = want[name]
+        np.testing.assert_allclose(
+            a.detach().to(torch.float32).numpy(), w,
+            atol=tol * np.abs(w).max() + 1e-9, rtol=tol, err_msg=f"{what} {name}",
+        )

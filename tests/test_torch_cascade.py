@@ -35,6 +35,13 @@ from multi_modal_early_exit_tpu_torch.models.ee.model import decide_exits, ee_fo
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests drive the inference path, which runs under no_grad."""
+    with torch.no_grad():
+        yield
+
 B, S = 12, 20
 
 RAMP = dict(exits=("text_avg", "vision_avg", 1))

@@ -3,6 +3,7 @@ kernel and packed flash attention run in interpret mode (the setup of
 tests/test_cascade.py::test_cascade_with_flash_kernels_matches_xla_path)."""
 
 import numpy as np
+import pytest
 import torch
 
 import jax
@@ -22,6 +23,13 @@ from multi_modal_early_exit_tpu_torch.models.ee.cascade import make_cascade_forw
 from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
 
 torch.set_num_threads(2)
+
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests drive the inference path, which runs under no_grad."""
+    with torch.no_grad():
+        yield
 
 
 def _widest_gap_threshold(values):

@@ -12,10 +12,17 @@ import torch
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_plain,
+    flash_attention_packed_train,
+    flash_attention_packed_train_bwd,
+    flash_attention_packed_train_bwd_plain,
+    flash_attention_packed_train_fwd,
+    flash_attention_packed_train_fwd_plain,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
     materialize_bias,
     materialize_bias_plain,
+    table_grads,
+    table_grads_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -99,3 +106,154 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         materialize_bias(*[a.long() if i < 4 else a for i, a in enumerate(args)])
     with pytest.raises(TypeError):
         materialize_bias(*args, out_dtype=torch.float16)
+
+
+def _train_bias(device, b, s, p, h, dtype, seed=1):
+    """A (B, H, P, P) bias with masked pad keys, one sample with a masked
+    tail of keys, and finite pad rows."""
+    g = torch.Generator().manual_seed(seed)
+    bias = torch.randn((b, h, p, p), generator=g)
+    bias[:, :, :, s:] = -1e30
+    bias[0, :, :, (2 * s) // 3:s] = -1e30
+    return bias.to(device, dtype)
+
+
+def _scaled_err(got, want):
+    """max |got - want| over the largest |want|."""
+    return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
+
+
+TRAIN_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12)]
+
+
+@pytest.mark.parametrize("b,s,p,h", TRAIN_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_train_forward_kernel_matches_plain(cuda, b, s, p, h, rate, bias_dtype):
+    q, k, v = _qkv(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, bias_dtype)
+    before = flash_attention_packed_train_fwd.launches
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, h, rate)
+    assert flash_attention_packed_train_fwd.launches == before + 1
+    want_out, want_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, h, rate)
+    torch.cuda.synchronize()
+    assert lse.shape == (b, h, p) and torch.isinf(lse[:, :, s:]).all()
+    # the kernel rounds the unnormalised p to bf16: one bf16 step, relative
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    # f32 online softmax against the dense one
+    torch.testing.assert_close(lse[:, :, :s], want_lse[:, :, :s], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,p,h", TRAIN_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_train_backward_kernel_matches_plain(cuda, b, s, p, h, rate, chained):
+    q, k, v = _qkv(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+    do = torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16)
+    gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda, torch.bfloat16) if chained else None
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    before = flash_attention_packed_train_bwd.launches
+    got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    assert flash_attention_packed_train_bwd.launches == before + 2  # dq/dbias, dk/dv
+    want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        # bf16 outputs from f32 sums taken in another order, and ds rounded
+        # to bf16 before the dq/dk products in both: 2% of the largest value
+        assert _scaled_err(a, w) <= 2e-2, (name, _scaled_err(a, w))
+    pad = got[3][:, :, s:, :].float()
+    want_pad = 0.0 if gbias is None else gbias[:, :, s:, :].float()
+    assert torch.equal(pad, torch.zeros_like(pad) + want_pad)
+
+
+def test_train_autograd_runs_the_kernels(cuda):
+    b, s, p, h = 2, 100, 128, 2
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
+    fwd0, bwd0 = flash_attention_packed_train_fwd.launches, flash_attention_packed_train_bwd.launches
+    out = flash_attention_packed_train(q, k, v, bias, 3, h, 0.1)
+    out.float().square().sum().backward()
+    assert flash_attention_packed_train_fwd.launches == fwd0 + 1
+    assert flash_attention_packed_train_bwd.launches == bwd0 + 2
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
+
+
+@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (3, 300, 384, 12), (16, 709, 768, 12)])
+@pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
+def test_table_grads_kernel_matches_plain(cuda, b, s, p, h, g_dtype):
+    pos, cx, cy = _bias_args(cuda, b, s, h)[:3]
+    gen = torch.Generator().manual_seed(2)
+    g = torch.randn((b, h, p, p), generator=gen).to(cuda, g_dtype)  # finite pad rows
+    before = table_grads.launches
+    got = table_grads(pos, cx, cy, g)
+    assert table_grads.launches == before + 1
+    want = table_grads_plain(pos, cx, cy, g)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        # f32 sums of up to B*S*S terms, added in another (and run-to-run
+        # varying) order through float atomics
+        torch.testing.assert_close(a, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
+
+
+def test_bias_backward_runs_table_grads(cuda):
+    pos, cx, cy, mask, t1, tx, ty = _bias_args(cuda, 2, 100, 4)
+    tables = [t.requires_grad_() for t in (t1, tx, ty)]
+    bias = materialize_bias(pos, cx, cy, mask, *tables)
+    gen = torch.Generator().manual_seed(4)
+    g = torch.randn(bias.shape, generator=gen).to(cuda, bias.dtype)
+    before = table_grads.launches
+    bias.backward(g)
+    assert table_grads.launches == before + 1
+    for t, w in zip(tables, table_grads_plain(pos, cx, cy, g)):
+        torch.testing.assert_close(t.grad, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
+
+
+def test_train_wrappers_never_fall_back_on_cuda(cuda):
+    q, k, v = _qkv(cuda, 1, 64, 2)
+    bias = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_packed_train_fwd(q.float(), k.float(), v.float(), bias, 0, 2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_attention_packed_train_fwd(q, k, v, torch.zeros((1, 2, 96, 96), device=cuda), 0, 2)
+    pos, cx, cy = _bias_args(cuda, 1, 64, 2)[:3]
+    with pytest.raises(TypeError):
+        table_grads(pos, cx, cy, bias.half())
+    with pytest.raises(ValueError, match="heads"):
+        table_grads(pos, cx, cy, torch.zeros((1, 17, 64, 64), device=cuda))
+
+
+def test_trainer_on_cuda_needs_bf16(cuda):
+    """On the card the attention kernels take bf16 only: an f32 trainer
+    raises instead of running the plain path."""
+    from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
+        EEModelConfig,
+        LayoutLMv3Config,
+    )
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    # one head of 64: the head dim the kernels take
+    cfg = EEModelConfig(backbone=LayoutLMv3Config.tiny(num_labels=4).replace(num_attention_heads=1),
+                        exit=ExitConfig(exits=("text_avg", 1)))
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="bfloat16"):
+        EETrainer(cfg, model, TrainingArguments(bf16=False), 1, device=cuda)
+    trainer = EETrainer(cfg, model, TrainingArguments(bf16=True), 1, device=cuda)
+    g = torch.Generator().manual_seed(0)
+    batch = {
+        "input_ids": torch.randint(3, 100, (1, 2, 12), generator=g),
+        "bbox": torch.sort(torch.randint(0, 1000, (1, 2, 12, 4), generator=g), -1).values,
+        "pixel_values": torch.randn((1, 2, 3, cfg.backbone.input_size,
+                                     cfg.backbone.input_size), generator=g),
+        "attention_mask": torch.ones((1, 2, 12), dtype=torch.int32),
+        "labels": torch.tensor([[0, 3]]),
+    }
+    before = flash_attention_packed_train_bwd.launches
+    loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
+    assert math.isfinite(loss)
+    assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers

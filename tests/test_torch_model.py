@@ -41,6 +41,13 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
 
 torch.set_num_threads(2)
 
+
+@pytest.fixture(autouse=True)
+def _inference():
+    """These tests drive the inference path, which runs under no_grad."""
+    with torch.no_grad():
+        yield
+
 HEADS = {
     "ramp": dict(exits=("text_avg", "vision_avg", 1)),
     "gate": dict(exits=("text_avg", 1), encoder_layer_strategy="gate"),
