@@ -15,10 +15,17 @@ Phases, each reported on its own line:
    the training kernels at dropout rate 0.1: ``flash_attention_packed_train``
    (out within 2e-2, lse within 1e-3), its backward, plain and chained
    (dq/dk/dv/dbias within 2e-2 of each output's largest value) and
-   ``table_grads`` (within 1e-4 of the largest table gradient); times at the
-   paths' shape by CUDA events after warm-up, beside the least time the card
-   could take and one PyTorch library call where one computes the same
-   function;
+   ``table_grads`` (within 1e-4 of the largest table gradient); the two
+   kernels of the bias modes: ``fused_bias_attention`` on the packed
+   projections' transposed view (within 1e-2 of its plain version and
+   bit-equal to ``materialize_bias`` + ``flash_attention_packed``, then the
+   same at unit-scale tables, where dropping any one table moves the
+   outputs past the tolerance) and the table-gradient
+   backward (dq/dk/dv within 2e-2 of their scale, the three table gradients
+   within ``TABLE_GRAD_LIMIT`` of theirs, the same on a second run); times at
+   the paths' shape by CUDA events after warm-up, beside the least time the
+   card could take and one PyTorch library call where one computes the same
+   function, or the pair of kernels it replaces;
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -38,6 +45,23 @@ Phases, each reported on its own line:
    gradients within 5e-2, and the worst error of one tensor over its own
    scale within ``GRAD_LIMITS``, among the tensors above 1e-2 of the largest
    gradient, the rel-pos tables and the q/k/v weights.
+4b. serving with ``MMEE_FUSED_BIAS=1`` (the bias built in the attention
+   kernel): the same model, thresholds and batches as phase 4. Checks: 12
+   ``fused_bias_attention`` launches and no bias build or attention launch
+   per batch; exits equal phase 4's for the documents away from the
+   thresholds, logits within the bf16 tolerance. docs/sec and peak memory
+   beside phase 4's;
+5b. training with ``MMEE_TABLE_GRADS=1`` (the table gradients in the
+   attention backward): 1 + 3 steps as in phase 5. Checks: finite losses,
+   parameters that moved (the rel-pos tables too), per step 1 bias build, no
+   ``table_grads``, 12 training forwards, no chained backward and 12 tables
+   backwards (36 kernels); the gradient check against phase 5's f32 CPU
+   reference with ``GRAD_LIMITS``, and against phase 5's chained gradients
+   on the card with ``CHAINED_LIMITS``. docs/sec and peak memory beside
+   phase 5's.
+
+Phases 4 and 5 run with both switches unset, whatever the environment says;
+4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it), the last
@@ -47,9 +71,11 @@ exits non-zero; it needs a CUDA device and the repository's package.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -76,11 +102,45 @@ QKV_WEIGHTS = (".query.weight", ".key.weight", ".value.weight")
 # bias cotangent shows most there); scripts/grad_gate_faults.py reads them
 # and the faults these limits catch
 GRAD_LIMITS = {"tensors": 0.05, "rel-pos tables": 0.15, "q/k/v weights": 0.1}
+# the table-gradient backward's dT against its plain version, over the
+# largest table gradient: both sum the same f32 ds in another order. On an
+# H100 three calls read 1.7e-5 to 4.1e-5 over S = P = 768 and S = 709 inside
+# P = 768 (the kernel is deterministic; the plain version's index_add_ on the
+# card adds with float atomics, so the reading moves between calls)
+TABLE_GRAD_LIMIT = 3e-4
+# phase 5b's gradients against phase 5's chained ones on the card, same
+# input, by group. Both paths share every kernel but the attention backward,
+# and both backwards compute dq/dk/dv alike: on an H100 every tensor but
+# the tables read 0 (bit-equal), the tables 6.5e-3 of their scale (the
+# chained path rounds its running bias cotangent to bf16 in every layer,
+# the tables path sums f32 ds)
+CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
 
 
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"chip_smoke check failed: {what}")
+
+
+@contextlib.contextmanager
+def bias_modes(fused=None, tables=None):
+    """MMEE_FUSED_BIAS and MMEE_TABLE_GRADS set to the given values (None:
+    unset) for a phase, and restored after it."""
+    saved = {n: os.environ.get(n) for n in ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS")}
+
+    def put(name, value):
+        if value is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = value
+
+    put("MMEE_FUSED_BIAS", fused)
+    put("MMEE_TABLE_GRADS", tables)
+    try:
+        yield
+    finally:
+        for name, value in saved.items():
+            put(name, value)
 
 
 def bf16_close(err: float, reference: torch.Tensor) -> bool:
@@ -178,7 +238,7 @@ def scaled_err(got, want) -> float:
 
 
 def compare_kernels(args, gen):
-    """Each of the five kernels against its plain version on the bias
+    """Each of the seven kernels against its plain version on the bias
     inputs ``args`` (batch 16; S their length, P = S rounded up to 128),
     the training kernels at dropout rate ``TRAIN_RATE``. Raises on a
     disagreement. Returns (max abs error by kernel, what each comparison
@@ -190,8 +250,12 @@ def compare_kernels(args, gen):
         flash_attention_packed_train_bwd_plain,
         flash_attention_packed_train_fwd,
         flash_attention_packed_train_fwd_plain,
+        flash_attention_packed_train_tables_bwd,
+        flash_attention_packed_train_tables_bwd_plain,
     )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        fused_bias_attention,
+        fused_bias_attention_plain,
         materialize_bias,
         materialize_bias_plain,
         table_grads,
@@ -223,7 +287,48 @@ def compare_kernels(args, gen):
     check(err <= 1e-2, f"flash_attention_packed max error {err} > 1e-2 (S {s})")
     errs["flash_attention_packed"] = err
     notes["flash_attention_packed"] = f"max_err {err:.3e} (tol 1e-2)"
-    del out
+
+    # ---- fused_bias_attention on the projections' view: within 1e-2 ----
+    qh, kh, vh = (x.view(B, s, HEADS, HEAD_DIM).transpose(1, 2) for x in (q, k, v))
+    fused = fused_bias_attention(qh, kh, vh, *args)
+    fused_ref = fused_bias_attention_plain(qh, kh, vh, *args)
+    torch.cuda.synchronize()
+    check(fused.stride() == qh.stride(), "fused_bias_attention: not in q's layout")
+    check(bool(torch.isfinite(fused.float()).all()), "fused_bias_attention gave non-finite values")
+    err = (fused.float() - fused_ref.float()).abs().max().item()
+    check(err <= 1e-2, f"fused_bias_attention max error {err} > 1e-2 (S {s})")
+    # it rounds the same bias to bf16 and shares the pair's tiling and score
+    # arithmetic, so it is held bit-equal to the pair it replaces
+    check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), out),
+          f"fused_bias_attention differs from materialize_bias + flash_attention_packed (S {s})")
+    del out, fused, fused_ref
+    # at these tables the bias spreads the scores by ~4e-3, so dropping a
+    # table moves the outputs less than the tolerance: again with unit-scale
+    # tables, where each table moves them by most of their scale
+    unit = list(args[:4]) + [torch.randn(a.shape, generator=gen).to(dev) for a in args[4:]]
+    fused = fused_bias_attention(qh, kh, vh, *unit)
+    fused_ref = fused_bias_attention_plain(qh, kh, vh, *unit)
+    pair = flash_attention_packed(q, k, v, materialize_bias(*unit), HEADS)
+    dropped = []
+    for i in range(3):
+        without = list(unit)
+        without[4 + i] = torch.zeros_like(unit[4 + i])
+        dropped.append(scaled_err(fused_bias_attention_plain(qh, kh, vh, *without), fused_ref))
+    torch.cuda.synchronize()
+    unit_err = scaled_err(fused, fused_ref)
+    check(unit_err <= 1e-2, f"fused_bias_attention at unit-scale tables: error {unit_err} > "
+          f"1e-2 of its scale (S {s})")
+    check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), pair),
+          f"fused_bias_attention at unit-scale tables differs from the pair it replaces (S {s})")
+    check(min(dropped) > 1e-2, f"a dropped table moves the unit-scale outputs by only "
+          f"{min(dropped)} of their scale, within the tolerance (S {s})")
+    errs["fused_bias_attention"] = err
+    notes["fused_bias_attention"] = (
+        f"max_err {err:.3e} (tol 1e-2), bit-equal to the pair it replaces; at unit-scale "
+        f"tables error {unit_err:.3e} of scale (tol 1e-2), bit-equal to the pair, and "
+        f"dropping T1/Tx/Ty moves the plain output by "
+        + "/".join(f"{x:.3f}" for x in dropped) + " of scale")
+    del fused, fused_ref, pair
 
     # ---- training forward: out and lse, +inf past S ---------------------
     seed, rate = 1234, TRAIN_RATE
@@ -282,8 +387,30 @@ def compare_kernels(args, gen):
     check(tg_err <= 1e-4, f"table_grads error {tg_err} > 1e-4 of its scale (S {s})")
     errs["table_grads"] = tg_abs
     notes["table_grads"] = f"error {tg_err:.3e} of scale (tol 1e-4)"
+
+    # ---- the table-gradient backward: dq/dk/dv and dT, deterministic ----
+    tables_args = (q, k, v, bias, *vecs, seed, t_out, lse, do, HEADS, rate)
+    got = flash_attention_packed_train_tables_bwd(*tables_args)
+    again = flash_attention_packed_train_tables_bwd(*tables_args)
+    want = flash_attention_packed_train_tables_bwd_plain(*tables_args)
+    torch.cuda.synchronize()
+    scaled, abs_errs = {}, []
+    for what, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+        check(a.shape == w.shape and a.dtype == w.dtype, f"tables backward {what} layout")
+        check(bool(torch.isfinite(a.float()).all()), f"tables backward {what} not finite")
+        check(torch.equal(a, a2), f"tables backward {what} differs between two runs")
+        err = scaled_err(a, w)
+        scaled[what] = round(err, 7)
+        abs_errs.append((a.float() - w.float()).abs().max().item())
+        limit = 2e-2 if what in ("dq", "dk", "dv") else TABLE_GRAD_LIMIT
+        check(err <= limit, f"tables backward {what} (S {s}): error {err} > {limit} of its scale")
+    errs["flash_attention_packed_train_tables_bwd"] = max(abs_errs)
+    notes["flash_attention_packed_train_tables_bwd"] = (
+        f"errors over scale {json.dumps(scaled)} (tol 2e-2 dq/dk/dv, {TABLE_GRAD_LIMIT} dT), "
+        f"equal on a second run")
+    del again, want
     saved = dict(bias=bias, q=q, k=k, v=v, ref=ref, bwd_args=bwd_args, gbias=gbias,
-                 dbias=dbias, tables_out=got)
+                 dbias=dbias, tables_out=got[3:], tables_args=tables_args)
     return errs, notes, saved
 
 
@@ -307,8 +434,12 @@ def phase_kernels(name):
         flash_attention_packed_train_bwd_plain,
         flash_attention_packed_train_fwd,
         flash_attention_packed_train_fwd_plain,
+        flash_attention_packed_train_tables_bwd,
+        flash_attention_packed_train_tables_bwd_plain,
     )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        fused_bias_attention,
+        fused_bias_attention_plain,
         materialize_bias,
         materialize_bias_plain,
         table_grads,
@@ -378,6 +509,22 @@ def phase_kernels(name):
           f"{e['library_ms']:.4f} (SDPA, max diff {lib_err:.3e}), "
           f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
 
+    # ---- fused_bias_attention on the projections' view --------------------
+    qh, kh, vh = heads(q), heads(k), heads(v)
+    pair_ms = time_ms(lambda: flash_attention_packed(q, k, v, materialize_bias(*args), HEADS))
+    e = entry("fused_bias_attention", "fused_bias_attention.cu",
+              "ops/fused_bias_attention.py:70",
+              time_ms(lambda: fused_bias_attention(qh, kh, vh, *args)),
+              time_ms(lambda: fused_bias_attention_plain(qh, kh, vh, *args), iters=5),
+              # q/k/v read and o written, the vectors and tables read
+              bound(4 * qkv_bytes + in_bytes, 4 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak),
+              None)
+    print(f"kernel fused_bias_attention: {notes['fused_bias_attention']}, kernel_ms "
+          f"{e['ms']:.4f}, plain_ms {e['plain_ms']:.4f}, library_ms null (no one PyTorch "
+          f"call builds this bias; the pair it replaces, materialize_bias + "
+          f"flash_attention_packed: {pair_ms:.4f} ms), "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
     # ---- training forward -------------------------------------------------
     e = entry("flash_attention_packed_train", "flash_attention_packed_train.cu",
               "ops/flash_attention.py:607",
@@ -437,6 +584,28 @@ def phase_kernels(name):
           f"{e['plain_ms']:.4f}, library_ms null (no one PyTorch call buckets g into the "
           f"three tables; the plain version is three index_add_ calls after the bucket "
           f"maps), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+    tg_ms = e["ms"]
+
+    # ---- the table-gradient backward ----------------------------------------
+    tables_args = t["tables_args"]
+    chained_ms = next(r["ms"] for r in results if r["name"] == "flash_attention_packed_train_bwd")
+    tables_bound = bound(block_bytes + 8 * qkv_bytes + lse_bytes
+                         + sum(a.numel() * a.element_size() for a in vecs)
+                         + sum(a.numel() * 4 for a in t["tables_out"]),
+                         10 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak)
+    e = entry("flash_attention_packed_train_tables_bwd", "flash_attention_packed_train.cu",
+              "ops/flash_attention.py:1038",
+              time_ms(lambda: flash_attention_packed_train_tables_bwd(*tables_args), iters=10),
+              time_ms(lambda: flash_attention_packed_train_tables_bwd_plain(*tables_args),
+                      iters=3, warmup=1),
+              tables_bound, None)
+    print(f"kernel flash_attention_packed_train_tables_bwd (rate {rate}; 3 kernels per call): "
+          f"{notes['flash_attention_packed_train_tables_bwd']}, kernel_ms {e['ms']:.4f}, "
+          f"plain_ms {e['plain_ms']:.4f}, library_ms null (no one call gives table "
+          f"gradients; the pair it replaces, the chained backward + table_grads: "
+          f"{chained_ms:.4f} + {tg_ms:.4f} ms; per step of 12 layers {12 * e['ms']:.3f} ms "
+          f"against {12 * chained_ms + tg_ms:.3f} ms), "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -465,6 +634,7 @@ def synthetic_pages(n, rng, tokenizer, seq_len):
 
 @torch.no_grad()
 def phase_main_path():
+    """Phase 4: returns (launches, the state that phase 4b reuses)."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
     from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
@@ -574,10 +744,12 @@ def phase_main_path():
     materialize_bias.launches = 0
     flash_attention_packed.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     results = pipe.predict_features(batch)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = {"materialize_bias": materialize_bias.launches,
                 "flash_attention_packed": flash_attention_packed.launches}
     check(len(results) == n_docs, f"{len(results)} results for {n_docs} documents")
@@ -594,7 +766,69 @@ def phase_main_path():
           f"expected early, forced and final exits: {hist}, forced {forced}")
     print(f"served {n_docs} documents in {N_BATCHES} batches of {B}: "
           f"{n_docs / dt:.1f} docs/sec (predict_features, host clock), "
-          f"exits {hist}, capacity-exited {forced}, launches {launches}")
+          f"exits {hist}, capacity-exited {forced}, launches {launches}, "
+          f"peak memory {peak_mb:.1f} MiB")
+    served = dict(model=model, cfg=cfg, pipe=pipe, batch=batch, chunks=chunks, thr=thr,
+                  far=far, got_ids=got_ids, got_logits=got_logits, results=results,
+                  docs_per_sec=n_docs / dt, peak_mb=peak_mb)
+    return launches, served
+
+
+@torch.no_grad()
+def phase_serve_fused(served):
+    """Phase 4 again with MMEE_FUSED_BIAS=1 (the caller sets it): the same
+    model, thresholds and batches, through the full-capacity cascade and the
+    Pipeline."""
+    from multi_modal_early_exit_tpu_torch.models.ee.cascade import make_cascade_forward
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        fused_bias_attention,
+        materialize_bias,
+    )
+
+    s = served
+    model, cfg, far = s["model"], s["cfg"], s["far"]
+    counters = {"fused_bias_attention": fused_bias_attention,
+                "materialize_bias": materialize_bias,
+                "flash_attention_packed": flash_attention_packed}
+    full_cascade = make_cascade_forward(cfg, (B, B), s["thr"])
+    res = [full_cascade(model, *c) for c in s["chunks"]]
+    ids = torch.cat([r.exit_ids.cpu() for r in res])
+    logits = torch.cat([r.logits.cpu() for r in res])
+    check(bool(torch.isfinite(logits).all()), "non-finite fused-bias cascade logits")
+    agree = ids == s["got_ids"]
+    check(bool(agree[far].all()), f"fused-bias exits differ from phase 4's: {ids.tolist()} "
+          f"vs {s['got_ids'].tolist()}")
+    logit_err = (logits - s["got_logits"])[agree].abs().max().item()
+    check(bf16_close(logit_err, s["got_logits"]),
+          f"fused-bias cascade logits differ from phase 4's by {logit_err}")
+
+    pipe = s["pipe"]
+    pipe.predict_features({k: v[:B] for k, v in s["batch"].items()})  # warm-up
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    results = pipe.predict_features(s["batch"])
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    launches = {name: f.launches for name, f in counters.items()}
+    want = {"fused_bias_attention": 12, "materialize_bias": 0, "flash_attention_packed": 0}
+    for name, per_batch in want.items():
+        check(launches[name] == per_batch * N_BATCHES,
+              f"{name}: {launches[name]} launches in {N_BATCHES} batches")
+    n_docs = N_BATCHES * B
+    same = [a["exit_name"] == b["exit_name"] for a, b in zip(results, s["results"])]
+    check(len(results) == n_docs and all(x for x, f in zip(same, far.tolist()) if f),
+          "the fused-bias Pipeline's exits differ from phase 4's away from the thresholds")
+    print(f"served with MMEE_FUSED_BIAS=1: full-capacity exits equal phase 4's for "
+          f"{int(far.sum())}/{n_docs} documents farther than 1e-2 from every threshold "
+          f"({int(agree.sum())}/{n_docs} in all), logit max diff {logit_err:.3e}; Pipeline: "
+          f"{n_docs / dt:.1f} docs/sec (phase 4: {s['docs_per_sec']:.1f}), exits equal "
+          f"phase 4's for {sum(same)}/{n_docs} documents, launches {launches}, peak memory "
+          f"{peak_mb:.1f} MiB (phase 4: {s['peak_mb']:.1f} MiB)")
     return launches
 
 
@@ -632,9 +866,11 @@ def train_setup(n_batches: int):
     return cfg, model32, batches, args
 
 
-def train_gradient_check(cfg, model32, batch, weights):
+def train_gradient_check(cfg, model32, batch, weights, reference=None):
     """The gradients of one loss on 2 documents at dropout 0: the bf16
-    kernel path on the card against the f32 plain path on the CPU."""
+    kernel path on the card against the f32 plain path on the CPU. The CPU
+    reference is computed once: pass the returned one back to reuse it.
+    Returns (the reference, the card's (loss, gradients))."""
     from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
 
     rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
@@ -650,66 +886,75 @@ def train_gradient_check(cfg, model32, batch, weights):
         gs = torch.autograd.grad(loss, params, allow_unused=True)
         return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
 
-    t0 = time.perf_counter()
-    cpu_loss, cpu_grads = grads(model32, "cpu", None)
-    t_cpu = time.perf_counter() - t0
+    if reference is None:
+        t0 = time.perf_counter()
+        reference = (*grads(model32, "cpu", None), time.perf_counter() - t0)
+    cpu_loss, cpu_grads, t_cpu = reference
     gpu_model = copy.deepcopy(model32).cuda()
     gpu_loss, gpu_grads = grads(gpu_model, "cuda", torch.bfloat16)
     del gpu_model
     names = [n for n, _ in model32.named_parameters()]
-    diff = sum(((a.cpu() - b).square().sum() for a, b in zip(gpu_grads, cpu_grads)))
-    ref = sum((b.square().sum() for b in cpu_grads))
+    summary = gradient_gate(names, gpu_loss, gpu_grads, cpu_loss, cpu_grads,
+                            "kernel-path gradients vs the f32 plain path")
+    print(f"train reference: bf16 kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), "
+          f"2 documents, dropout 0: {summary}")
+    # kept on the host, so that they are not part of the steps' peak memory
+    return reference, (gpu_loss, [g.cpu() for g in gpu_grads])
+
+
+def gradient_gate(names, loss, grads, ref_loss, ref_grads, what, limits=GRAD_LIMITS):
+    """Raises unless ``grads`` agree with ``ref_grads``: the loss within
+    2e-2, the relative L2 of all gradients within 5e-2, and the worst error
+    of one tensor over its own scale within ``limits`` by group. Returns a
+    summary of the readings."""
+    diff = sum(((a.cpu() - b.cpu()).square().sum() for a, b in zip(grads, ref_grads)))
+    ref = sum((b.cpu().square().sum() for b in ref_grads))
     rel_l2 = math.sqrt(diff.item() / ref.item())
-    big = max(b.abs().max().item() for b in cpu_grads)
+    big = max(b.abs().max().item() for b in ref_grads)
     # each tensor's max error over its own largest gradient: every tensor
-    # above 1e-2 of the largest gradient, and by name the tensors that the
-    # training kernels' backward feeds alone (the rel-pos tables, through
-    # table_grads) or first (the q/k/v projections, through dq/dk/dv)
-    groups = {"tensors": lambda n: True,
-              "rel-pos tables": lambda n: n.endswith(REL_POS_TABLES),
-              "q/k/v weights": lambda n: n.endswith(QKV_WEIGHTS)}
+    # above 1e-2 of the largest gradient (with or without the tables), and
+    # by name the tensors that the training kernels' backward feeds alone
+    # (the rel-pos tables, through table_grads) or first (the q/k/v
+    # projections, through dq/dk/dv)
+    table = lambda n: n.endswith(REL_POS_TABLES)  # noqa: E731
+    every = {"tensors": lambda n: True, "tensors but the tables": lambda n: not table(n),
+             "rel-pos tables": table, "q/k/v weights": lambda n: n.endswith(QKV_WEIGHTS)}
+    groups = {g: every[g] for g in limits}
     worst = {g: (0.0, "") for g in groups}
-    for n, a, b in zip(names, gpu_grads, cpu_grads):
-        e = scaled_err(a.cpu(), b)
+    for n, a, b in zip(names, grads, ref_grads):
+        e = scaled_err(a.cpu(), b.cpu())
         for g, member in groups.items():
-            if member(n) and (g != "tensors" or b.abs().max().item() >= 1e-2 * big):
+            if member(n) and (not g.startswith("tensors") or b.abs().max().item() >= 1e-2 * big):
                 worst[g] = max(worst[g], (e, n))
     check(all(worst[g][1] for g in groups), f"a gradient group is empty: {worst}")
-    check(all(bool(torch.isfinite(g).all()) for g in gpu_grads), "non-finite kernel-path grads")
-    check(all(g.dtype == torch.float32 for g in gpu_grads), "mixed precision: grads not f32")
-    check(abs(gpu_loss - cpu_loss) <= 2e-2 * abs(cpu_loss), f"loss {gpu_loss} vs {cpu_loss}")
-    check(rel_l2 <= 5e-2, f"kernel-path gradients vs the f32 plain path: relative L2 {rel_l2}")
-    for g, limit in GRAD_LIMITS.items():
-        check(worst[g][0] <= limit, f"kernel-path gradients vs the f32 plain path: "
-              f"{worst[g][1]} at {worst[g][0]} of its scale > {limit}")
-    print(f"train reference: bf16 kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), "
-          f"2 documents, dropout 0: loss {gpu_loss:.6f} vs {cpu_loss:.6f}, gradient "
-          f"relative L2 {rel_l2:.3e} (tol 5e-2); worst error over its tensor's scale: "
-          + ", ".join(f"{g} {worst[g][1]} {worst[g][0]:.3e} (tol {GRAD_LIMITS[g]})"
-                      for g in groups)
-          + " (tensors: those above 1e-2 of the largest gradient)")
+    check(all(bool(torch.isfinite(g).all()) for g in grads), f"{what}: non-finite grads")
+    check(all(g.dtype == torch.float32 for g in grads), "mixed precision: grads not f32")
+    check(abs(loss - ref_loss) <= 2e-2 * abs(ref_loss), f"loss {loss} vs {ref_loss}")
+    check(rel_l2 <= 5e-2, f"{what}: relative L2 {rel_l2}")
+    for g, limit in limits.items():
+        check(worst[g][0] <= limit, f"{what}: {worst[g][1]} at {worst[g][0]} of its scale "
+              f"> {limit}")
+    return (f"loss {loss:.6f} vs {ref_loss:.6f}, gradient relative L2 {rel_l2:.3e} "
+            f"(tol 5e-2); worst error over its tensor's scale: "
+            + ", ".join(f"{g} {worst[g][1]} {worst[g][0]:.3e} (tol {limits[g]})"
+                        for g in groups)
+            + " (tensors: those above 1e-2 of the largest gradient)")
 
 
-def phase_train(card: str):
-    """The training path: ``EETrainer.train_step`` on the card (``card``:
-    its name and power limit, for the report)."""
+def train_steps(cfg, model32, batches, args, want):
+    """One warm-up ``EETrainer.train_step``, then one on each further batch,
+    timed, with the launch counts per step checked against ``want``.
+    Returns the readings."""
     from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
     from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
-    from multi_modal_early_exit_tpu_torch.training.subgraphs import (
-        exit_loss_weights,
-        subgraph_param_counts,
-    )
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
     counters = {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
                 "flash_attention_packed": fa.flash_attention_packed,
                 "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
-                "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd}
-    cfg, model32, batches, args = train_setup(TRAIN_STEPS + 1)
-    n_params = sum(p.numel() for p in model32.parameters())
-    weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
-    train_gradient_check(cfg, model32, batches[0], weights)
-
+                "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
+                "flash_attention_packed_train_tables_bwd":
+                    fa.flash_attention_packed_train_tables_bwd}
     trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
     gen = torch.Generator().manual_seed(1)
     t0 = time.perf_counter()
@@ -722,27 +967,81 @@ def phase_train(card: str):
     for f in counters.values():
         f.launches = 0
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     losses = [trainer.train_step(b, gen)[0] for b in batches[1:]]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = {name: f.launches for name, f in counters.items()}
     check(all(math.isfinite(x) for x in [warm] + losses), f"non-finite losses {losses}")
     moved = [n for n, before in probe.items()
              if not torch.equal(before, dict(trainer.model.named_parameters())[n].detach())]
     check(len(moved) == len(probe), f"parameters that did not move: {set(probe) - set(moved)}")
-    # the backward launches two kernels per layer: dq/dbias and dk/dv
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 0,
-            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 24}
     for name, per_step in want.items():
         check(launches[name] == per_step * TRAIN_STEPS,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
+    return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
+                launches=launches, docs_per_sec=TRAIN_STEPS * B / dt)
+
+
+def phase_train(card: str):
+    """The training path: ``EETrainer.train_step`` on the card (``card``:
+    its name and power limit, for the report). Returns (launches, the state
+    that phase 5b reuses)."""
+    from multi_modal_early_exit_tpu_torch.training.subgraphs import (
+        exit_loss_weights,
+        subgraph_param_counts,
+    )
+
+    cfg, model32, batches, args = train_setup(TRAIN_STEPS + 1)
+    n_params = sum(p.numel() for p in model32.parameters())
+    weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
+    reference, chained = train_gradient_check(cfg, model32, batches[0], weights)
+    # the backward launches two kernels per layer: dq/dbias and dk/dv
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 0,
+            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 24,
+            "flash_attention_packed_train_tables_bwd": 0}
+    run = train_steps(cfg, model32, batches, args, want)
     print(f"trained EE LayoutLMv3-base ({n_params / 1e6:.1f}M f32 master params, bf16 "
           f"forward, dropout {cfg.backbone.hidden_dropout_prob}, {args.learning_rate} lr): "
-          f"warm-up step {t_warm:.2f} s, then {TRAIN_STEPS} steps of {B} documents in "
-          f"{dt:.3f} s, {TRAIN_STEPS * B / dt:.1f} train docs/sec (host clock), losses "
-          f"{[round(x, 4) for x in [warm] + losses]}, launches {launches}, on {card}")
-    return launches
+          f"warm-up step {run['t_warm']:.2f} s, then {TRAIN_STEPS} steps of {B} documents in "
+          f"{run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec (host clock), losses "
+          f"{[round(x, 4) for x in [run['warm']] + run['losses']]}, launches "
+          f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB, on {card}")
+    trained = dict(cfg=cfg, model32=model32, batches=batches, args=args, weights=weights,
+                   reference=reference, chained=chained, run=run)
+    return run["launches"], trained
+
+
+def phase_train_tables(card: str, trained):
+    """Phase 5 again with MMEE_TABLE_GRADS=1 (the caller sets it): the
+    gradient check against phase 5's CPU reference and against its chained
+    gradients on the card, then 1 + 3 steps."""
+    t = trained
+    cfg, model32 = t["cfg"], t["model32"]
+    _, (loss, grads) = train_gradient_check(cfg, model32, t["batches"][0], t["weights"],
+                                            t["reference"])
+    names = [n for n, _ in model32.named_parameters()]
+    summary = gradient_gate(names, loss, grads, *t["chained"],
+                            "table-gradient path vs the chained path on the card",
+                            CHAINED_LIMITS)
+    print(f"train with MMEE_TABLE_GRADS=1, against phase 5's chained gradients on the card, "
+          f"same input: {summary}")
+    # the tables backward launches three kernels per layer
+    want = {"materialize_bias": 1, "table_grads": 0, "flash_attention_packed": 0,
+            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 0,
+            "flash_attention_packed_train_tables_bwd": 36}
+    run = train_steps(cfg, model32, t["batches"], t["args"], want)
+    base = t["run"]
+    print(f"trained with MMEE_TABLE_GRADS=1: warm-up step {run['t_warm']:.2f} s, then "
+          f"{TRAIN_STEPS} steps in {run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec "
+          f"(phase 5: {base['docs_per_sec']:.1f}), losses "
+          f"{[round(x, 4) for x in [run['warm']] + run['losses']]} (phase 5: "
+          f"{[round(x, 4) for x in [base['warm']] + base['losses']]}), launches "
+          f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB (phase 5: "
+          f"{base['peak_mb']:.1f} MiB), on {card}")
+    return run["launches"]
 
 
 def main() -> int:
@@ -757,13 +1056,31 @@ def main() -> int:
     name, card = phase_device()
     phase_build()
     kernels = phase_kernels(name)
-    serve_launches = phase_main_path()
-    train_launches = phase_train(card)
+    with bias_modes():
+        serve_launches, served = phase_main_path()
+    with bias_modes(fused="1"):
+        fused_launches = phase_serve_fused(served)
+    del served
+    with bias_modes():
+        train_launches, trained = phase_train(card)
+    with bias_modes(tables="1"):
+        tables_launches = phase_train_tables(card, trained)
+    # each kernel's launches on the path that runs it
+    paths = {
+        "materialize_bias": (serve_launches, f"{N_BATCHES} served batches"),
+        "flash_attention_packed": (serve_launches, f"{N_BATCHES} served batches"),
+        "fused_bias_attention": (fused_launches,
+                                 f"{N_BATCHES} served batches, MMEE_FUSED_BIAS=1"),
+        "flash_attention_packed_train": (train_launches, f"{TRAIN_STEPS} training steps"),
+        "flash_attention_packed_train_bwd": (train_launches, f"{TRAIN_STEPS} training steps"),
+        "table_grads": (train_launches, f"{TRAIN_STEPS} training steps"),
+        "flash_attention_packed_train_tables_bwd": (
+            tables_launches, f"{TRAIN_STEPS} training steps, MMEE_TABLE_GRADS=1"),
+    }
+    check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     for k in kernels:
-        served = k["name"] in serve_launches
-        k["launches"] = (serve_launches if served else train_launches)[k["name"]]
-        k["launches_in"] = (f"{N_BATCHES} served batches" if served
-                            else f"{TRAIN_STEPS} training steps")
+        launches, where = paths[k["name"]]
+        k["launches"], k["launches_in"] = launches[k["name"]], where
         check(k["launches"] > 0, f"{k['name']} was never launched on its path")
     keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")

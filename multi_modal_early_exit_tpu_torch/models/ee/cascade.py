@@ -14,6 +14,8 @@ The counterpart of the JAX package's ``models/ee/cascade.py``, run eagerly:
 - the sequence is padded once to a multiple of 128, and stage 0 builds the
   (c_0, H, P, P) bias; later stages gather their rows out of the previous
   stage's bias (their rows are a subset of it) instead of rebuilding it.
+  With ``MMEE_FUSED_BIAS=1`` (read per call) no bias tensor exists: each
+  stage hands its layers a ``FusedBiasContext`` of its gathered rows.
 
 FLOP cost is fixed per batch: stage i always costs c_i rows.
 """
@@ -35,9 +37,12 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     embed_text,
     embed_vision,
     encoder_layer_apply,
+    fused_bias_context,
+    has_both_biases,
     make_attention_bias,
     pad_sequence,
     sequence_layout,
+    use_fused_bias_attention,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import LANE
 
@@ -210,6 +215,7 @@ def make_cascade_forward(
 
         capacity_exited = torch.zeros((B,), dtype=torch.bool, device=dev)
         prev_bias = prev_sel = None
+        fused = has_both_biases(bb_cfg) and use_fused_bias_attention()
         # pad once to the bias width: every stage runs at P = S_pad
         state = pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask)
 
@@ -232,17 +238,22 @@ def make_cascade_forward(
             running = running & selected
 
             hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
-            if prev_bias is None:
+            if fused:
+                # the attention kernel builds each stage's bias from its
+                # rows' vectors; no bias tensor exists to gather from
+                bias_c = fused_bias_context(bb, bb_cfg, pos_c, bbox_c, mask_c)
+            elif prev_bias is None:
                 bias_c = make_attention_bias(
                     bb, bb_cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype
                 )
+                prev_bias, prev_sel = bias_c, sel
             else:
                 # this stage's rows are a subset of the previous stage's:
                 # gather their bias rows instead of rebuilding them
                 pos_in_prev = torch.zeros((B,), dtype=torch.int64, device=dev)
                 pos_in_prev[prev_sel] = torch.arange(prev_sel.shape[0], device=dev)
                 bias_c = prev_bias[pos_in_prev[sel]]
-            prev_bias, prev_sel = bias_c, sel
+                prev_bias, prev_sel = bias_c, sel
 
             for layer in bb.encoder.layers[a:b_layer]:
                 hidden_c = encoder_layer_apply(layer, bb_cfg, hidden_c, bias_c)

@@ -20,6 +20,20 @@ always fully unrolled, the case in which the JAX package chains by default.
 On CUDA tensors the attention and bias ops are the hand-written kernels, on
 CPU tensors their plain PyTorch versions. Masked keys carry -1e30.
 
+Two opt-in bias modes, off by default as in the JAX package and switched by
+the same environment variables, read at call time:
+
+- ``MMEE_FUSED_BIAS`` (inference only): the layers get a ``FusedBiasContext``
+  of the (B, S) vectors and the scaled tables, and
+  ``ops.fused_bias_attention`` builds the bias inside the attention kernel,
+  so no bias tensor exists;
+- ``MMEE_TABLE_GRADS`` (training): the layers get a ``TrainBiasContext``
+  with the bias detached, and ``ops.flash_attention_packed_train_tables``
+  reduces each layer's bias cotangent straight into the tables' gradients.
+
+Unlike the JAX package, the modes are not gated on the device: on the CPU
+the contexts run the plain versions of the two kernels.
+
 Dropout is the position-hash dropout of ``ops.hashing`` with int32 seeds
 from an ``RngStream`` over one ``torch.Generator``; LayerNorm and GELU have
 the JAX package's hand-written backwards. The QKV, output and MLP
@@ -31,6 +45,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import os
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -42,8 +57,12 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import LayoutLMv3
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_train_chained,
+    flash_attention_packed_train_tables,
 )
-from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+    fused_bias_attention,
+    materialize_bias,
+)
 from multi_modal_early_exit_tpu_torch.ops.hashing import hash_dropout
 
 # ---------------------------------------------------------------------------
@@ -429,29 +448,119 @@ def make_attention_bias(
     lookup); masked keys and pad columns carry -1e30. P = ceil(S / 128) *
     128. A config without the relative or spatial bias uses zero tables.
     """
+    return materialize_bias(
+        *bias_vectors(position_ids, bbox, attention_mask),
+        *bias_tables(p, cfg, position_ids.device), **bucket_kwargs(cfg),
+        out_dtype=dtype,
+    )
+
+
+def bias_vectors(position_ids, bbox, attention_mask):
+    """(pos, x0, y1, mask): the bias's (B, S) int32 inputs."""
+    return tuple(x.to(torch.int32).contiguous()
+                 for x in (position_ids, bbox[:, :, 0], bbox[:, :, 3], attention_mask))
+
+
+def bias_tables(p: LayoutLMv3Model, cfg: LayoutLMv3Config, device):
+    """(T1, Tx, Ty) f32 with 1/sqrt(d) folded in (when ``cfg.scale_bias``),
+    differentiable in the encoder's tables; zeros for a bias the config
+    does not have."""
     enc = p.encoder
     heads = cfg.num_attention_heads
     scale = 1.0 / math.sqrt(cfg.head_dim) if cfg.scale_bias else 1.0
-    dev = position_ids.device
 
     def table(name: str, bins: int, present: bool) -> torch.Tensor:
         if not present:
-            return torch.zeros((bins, heads), dtype=torch.float32, device=dev)
+            return torch.zeros((bins, heads), dtype=torch.float32, device=device)
         return (getattr(enc, name).to(torch.float32) * scale).contiguous()
 
-    def vec(x: torch.Tensor) -> torch.Tensor:
-        return x.to(torch.int32).contiguous()
-
-    return materialize_bias(
-        vec(position_ids), vec(bbox[:, :, 0]), vec(bbox[:, :, 3]),
-        vec(attention_mask),
+    return (
         table("rel_pos_bias", cfg.rel_pos_bins, cfg.has_relative_attention_bias),
         table("rel_pos_x_bias", cfg.rel_2d_pos_bins, cfg.has_spatial_attention_bias),
         table("rel_pos_y_bias", cfg.rel_2d_pos_bins, cfg.has_spatial_attention_bias),
-        rel_bins=cfg.rel_pos_bins, max_rel=cfg.max_rel_pos,
-        rel2d_bins=cfg.rel_2d_pos_bins, max_rel2d=cfg.max_rel_2d_pos,
-        out_dtype=dtype,
     )
+
+
+def bucket_kwargs(cfg: LayoutLMv3Config) -> dict:
+    return dict(rel_bins=cfg.rel_pos_bins, max_rel=cfg.max_rel_pos,
+                rel2d_bins=cfg.rel_2d_pos_bins, max_rel2d=cfg.max_rel_2d_pos)
+
+
+def _switch(name: str, default: bool) -> bool:
+    flag = os.environ.get(name)
+    if flag == "0":
+        return False
+    if flag:
+        return True
+    return default
+
+
+def use_table_grad_attention(default: bool = False) -> bool:
+    """Training attention with the table gradients in its backward
+    (``ops.flash_attention_packed_train_tables``). MMEE_TABLE_GRADS=1 forces
+    it on, =0 off; unset (or empty) gives ``default``."""
+    return _switch("MMEE_TABLE_GRADS", default)
+
+
+def use_fused_bias_attention(default: bool = False) -> bool:
+    """Inference attention with the bias built in the kernel
+    (``ops.fused_bias_attention``). MMEE_FUSED_BIAS=1 forces it on, =0 off;
+    unset (or empty) gives ``default``. Not gated on the device."""
+    return _switch("MMEE_FUSED_BIAS", default)
+
+
+def has_both_biases(cfg: LayoutLMv3Config) -> bool:
+    """The bias modes need the relative and the spatial tables."""
+    return cfg.has_relative_attention_bias and cfg.has_spatial_attention_bias
+
+
+class FusedBiasContext(NamedTuple):
+    """The bias's raw inputs, handed to the encoder in place of the (B, H,
+    P, P) tensor: ``ops.fused_bias_attention`` builds it in the kernel."""
+
+    position_ids: torch.Tensor  # (B, S) int32
+    cx: torch.Tensor            # (B, S) int32, bbox x0
+    cy: torch.Tensor            # (B, S) int32, bbox y1
+    mask: torch.Tensor          # (B, S) int32
+    t1: torch.Tensor            # (rel_bins, H) f32, 1/sqrt(d) folded
+    tx: torch.Tensor            # (rel2d_bins, H)
+    ty: torch.Tensor            # (rel2d_bins, H)
+
+
+class TrainBiasContext(NamedTuple):
+    """The training bias for ``ops.flash_attention_packed_train_tables``:
+    built once per step and detached; the scaled tables receive its
+    gradient from every layer's backward."""
+
+    bias: torch.Tensor          # (B, H, P, P), detached
+    position_ids: torch.Tensor  # (B, S) int32
+    cx: torch.Tensor            # (B, S) int32
+    cy: torch.Tensor            # (B, S) int32
+    t1: torch.Tensor            # (rel_bins, H) f32, 1/sqrt(d) folded
+    tx: torch.Tensor            # (rel2d_bins, H)
+    ty: torch.Tensor            # (rel2d_bins, H)
+
+
+def fused_bias_context(
+    p: LayoutLMv3Model, cfg: LayoutLMv3Config, position_ids: torch.Tensor,
+    bbox: torch.Tensor, attention_mask: torch.Tensor,
+) -> FusedBiasContext:
+    return FusedBiasContext(*bias_vectors(position_ids, bbox, attention_mask),
+                            *bias_tables(p, cfg, position_ids.device))
+
+
+def train_bias_context(
+    p: LayoutLMv3Model, cfg: LayoutLMv3Config, position_ids: torch.Tensor,
+    bbox: torch.Tensor, attention_mask: torch.Tensor, dtype: torch.dtype,
+) -> TrainBiasContext:
+    """The bias, detached (``table_grads`` never runs), and the tables that
+    receive its gradient."""
+    pos, cx, cy, mask = bias_vectors(position_ids, bbox, attention_mask)
+    tables = bias_tables(p, cfg, position_ids.device)
+    with torch.no_grad():
+        bias = materialize_bias(pos, cx, cy, mask, *tables, **bucket_kwargs(cfg),
+                                out_dtype=dtype)
+    return TrainBiasContext(bias, pos, cx, cy, *tables)
 
 
 # ---------------------------------------------------------------------------
@@ -497,19 +606,44 @@ def attention_apply(
     seed_out: Optional[int] = None,
 ):
     """softmax(q k^T / sqrt(d) + bias) v on the packed projections, then the
-    epilogue. With a ``ChainedBiasContext`` (training) it returns
-    ``(out, ChainedBiasContext(bias passed through))``."""
+    epilogue. The bias is a (B, H, P, P) tensor (inference) or a context:
+    with a ``ChainedBiasContext`` (training) it returns ``(out,
+    ChainedBiasContext(bias passed through))``; a ``TrainBiasContext``
+    (training) runs the table-gradient attention, a ``FusedBiasContext``
+    (inference) the attention that builds the bias in the kernel."""
+    heads = cfg.num_attention_heads
     if isinstance(attn_bias, ChainedBiasContext):
         qp, kp, vp, rate, seed = _packed_qkv_and_seed(p, cfg, hidden, deterministic, seed_attn)
         ctx, bias_out = flash_attention_packed_train_chained(
-            qp, kp, vp, attn_bias.bias, seed, cfg.num_attention_heads, rate=rate,
+            qp, kp, vp, attn_bias.bias, seed, heads, rate=rate,
         )
         out = _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
         return out, ChainedBiasContext(bias_out)
-    ctx = flash_attention_packed(
-        p.query(hidden), p.key(hidden), p.value(hidden), attn_bias,
-        cfg.num_attention_heads,
-    ).to(hidden.dtype)
+    if isinstance(attn_bias, TrainBiasContext):
+        qp, kp, vp, rate, seed = _packed_qkv_and_seed(p, cfg, hidden, deterministic, seed_attn)
+        c = attn_bias
+        ctx = flash_attention_packed_train_tables(
+            qp, kp, vp, c.bias, c.t1, c.tx, c.ty, c.position_ids, c.cx, c.cy, seed,
+            heads, rate=rate, **bucket_kwargs(cfg),
+        )
+        return _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
+    if not isinstance(attn_bias, FusedBiasContext):
+        ctx = flash_attention_packed(
+            p.query(hidden), p.key(hidden), p.value(hidden), attn_bias, heads,
+        ).to(hidden.dtype)
+        return _attn_epilogue(p, cfg, ctx, hidden)
+    b, s, width = hidden.shape
+
+    def split(x):  # (B, S, H*D) -> a (B, H, S, D) view, no copy
+        return x.view(b, s, heads, cfg.head_dim).transpose(1, 2)
+
+    c = attn_bias
+    ctx = fused_bias_attention(
+        split(p.query(hidden)), split(p.key(hidden)), split(p.value(hidden)),
+        c.position_ids, c.cx, c.cy, c.mask, c.t1, c.tx, c.ty, **bucket_kwargs(cfg),
+    )
+    # the kernel writes q's layout, so this is a view of (B, S, H, D)
+    ctx = ctx.transpose(1, 2).reshape(b, s, width).to(hidden.dtype)
     return _attn_epilogue(p, cfg, ctx, hidden)
 
 
@@ -641,7 +775,10 @@ def backbone_apply(
     that is a multiple of 128. With ``deterministic=False`` the dropout
     seeds come from ``rng``. Inference callers run it under
     ``torch.no_grad()``: under autograd (or when not deterministic) the
-    encoder takes the chained training attention, which has a backward."""
+    encoder takes the chained training attention, which has a backward, or
+    with ``MMEE_TABLE_GRADS=1`` the table-gradient attention. Inference with
+    ``MMEE_FUSED_BIAS=1`` builds no bias tensor; the fused attention has no
+    backward, so it is never taken under autograd."""
     rngs = RngStream(None if deterministic else rng)
     b, s_t = input_ids.shape
     if attention_mask is None:
@@ -659,11 +796,18 @@ def backbone_apply(
         hidden, full_bbox, pos, full_mask = pad_sequence(
             seq_pad_multiple, hidden, full_bbox, pos, full_mask
         )
-    attn_bias = make_attention_bias(
-        p, cfg, pos, full_bbox, full_mask, dtype=hidden.dtype
-    )
-    if not deterministic or torch.is_grad_enabled():
-        attn_bias = ChainedBiasContext(attn_bias)
+    training = not deterministic or torch.is_grad_enabled()
+    both = has_both_biases(cfg)
+    if not training and both and use_fused_bias_attention():
+        attn_bias = fused_bias_context(p, cfg, pos, full_bbox, full_mask)
+    elif training and both and use_table_grad_attention():
+        attn_bias = train_bias_context(p, cfg, pos, full_bbox, full_mask, hidden.dtype)
+    else:
+        attn_bias = make_attention_bias(
+            p, cfg, pos, full_bbox, full_mask, dtype=hidden.dtype
+        )
+        if training:
+            attn_bias = ChainedBiasContext(attn_bias)
     final, cls_per_layer = encoder_apply(
         p.encoder, cfg, hidden, attn_bias, collect_cls=collect_cls,
         deterministic=deterministic, rng=rngs,

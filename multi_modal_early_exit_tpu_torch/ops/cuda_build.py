@@ -28,7 +28,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 SOURCES = (
     "materialize_bias", "flash_attention_packed", "flash_attention_packed_train",
-    "table_grads",
+    "table_grads", "fused_bias_attention",
 )
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -24,6 +24,13 @@ versions on CPU tensors. The chained op returns ``(out, bias)`` with the bias
 passed through, so an encoder that hands each layer the previous layer's
 bias output receives the running bias cotangent in every layer's backward
 and adds its own ds to it there, in the kernel.
+
+``flash_attention_packed_train_tables`` has the same forward, a detached
+bias, and a backward (``flash_attention_packed_train_tables_bwd``) that
+reduces ds straight into the gradients of the three relative-position
+tables the bias was built from, so no (B, H, P, P) cotangent exists; on CUDA
+tensors it launches the third backward of the same source, on CPU tensors
+it runs ``table_grads_plain`` over the plain backward's f32 ds.
 """
 
 from __future__ import annotations
@@ -35,6 +42,10 @@ import math
 import torch
 
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
+from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+    bucket_lut,
+    table_grads_plain,
+)
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
 KERNEL_HEAD_DIM = 64
@@ -183,15 +194,10 @@ def flash_attention_packed_train_fwd_plain(
     return _packed(out).to(q.dtype), lse
 
 
-def flash_attention_packed_train_bwd_plain(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    num_heads: int, rate: float = 0.0, gbias=None,
-):
-    """Plain PyTorch training backward by the explicit formulas: p from the
-    lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c. Returns
-    (dq, dk, dv, dbias); dbias is (B, H, P, P) in the bias dtype, gbias + ds
-    when ``gbias`` is given, with ds zero past S."""
+def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate):
+    """The explicit backward formulas: p from the lse, delta = rowsum(do o),
+    ds = p (dp c - delta), dv from p c. Returns (dq, dk, dv in the inputs'
+    dtypes, ds (B, H, S, S) f32)."""
     b, s, hd = q.shape
     scale = 1.0 / math.sqrt(hd // num_heads)
     qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
@@ -210,12 +216,26 @@ def flash_attention_packed_train_bwd_plain(
     dq = torch.matmul(ds_c, kh) * scale
     dk = torch.matmul(ds_c.transpose(-1, -2), qh) * scale
     dv = torch.matmul(pd.to(do.dtype).to(torch.float32).transpose(-1, -2), doh)
+    return (_packed(dq).to(q.dtype), _packed(dk).to(k.dtype),
+            _packed(dv).to(v.dtype), ds)
+
+
+def flash_attention_packed_train_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    num_heads: int, rate: float = 0.0, gbias=None,
+):
+    """Plain PyTorch training backward by the explicit formulas: p from the
+    lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c. Returns
+    (dq, dk, dv, dbias); dbias is (B, H, P, P) in the bias dtype, gbias + ds
+    when ``gbias`` is given, with ds zero past S."""
+    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate)
+    s = q.shape[1]
     dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
     dbias[:, :, :s, :s] = ds
     if gbias is not None:
         dbias = dbias + gbias.to(torch.float32)
-    return (_packed(dq).to(q.dtype), _packed(dk).to(k.dtype),
-            _packed(dv).to(v.dtype), dbias.to(bias.dtype))
+    return dq, dk, dv, dbias.to(bias.dtype)
 
 
 @functools.lru_cache(maxsize=None)
@@ -384,3 +404,148 @@ def flash_attention_packed_train_chained(
     if bias.shape[-2] != bias.shape[-1]:
         raise ValueError(f"the chained op needs a square bias, got {tuple(bias.shape)}")
     return _PackedTrainChained.apply(q, k, v, bias, int(seed), num_heads, float(rate))
+
+
+# ---------------------------------------------------------------------------
+# training with the table gradients in the backward
+# ---------------------------------------------------------------------------
+
+
+def flash_attention_packed_train_tables_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    pos: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, seed: int,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, num_heads: int,
+    rate: float = 0.0, rel_bins: int = 32, max_rel: int = 128,
+    rel2d_bins: int = 64, max_rel2d: int = 256,
+):
+    """Plain PyTorch tables backward: ds by the formulas of
+    ``flash_attention_packed_train_bwd_plain``, in f32, then
+    ``table_grads_plain`` of ds. Returns (dq, dk, dv, dT1, dTx, dTy)."""
+    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate)
+    return (dq, dk, dv,
+            *table_grads_plain(pos, cx, cy, ds, rel_bins, max_rel, rel2d_bins, max_rel2d))
+
+
+@functools.lru_cache(maxsize=None)
+def _tables_bwd_fn():
+    lib = cuda_build.load("flash_attention_packed_train")
+    fn = lib.mmee_flash_attention_packed_train_bwd_tables
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 14
+        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+                                ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def flash_attention_packed_train_tables_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    pos: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, seed: int,
+    o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, num_heads: int,
+    rate: float = 0.0, rel_bins: int = 32, max_rel: int = 128,
+    rel2d_bins: int = 64, max_rel2d: int = 256,
+):
+    """Training backward with the bias cotangent reduced into the three
+    tables: (dq, dk, dv in q's dtype, dT1 (rel_bins, H), dTx, dTy
+    (rel2d_bins, H) f32). No dbias exists. CPU tensors run the plain
+    version; CUDA tensors launch three kernels: dq and the per-block table
+    sums, dk and dv, and the fixed-order sum of the blocks
+    (``flash_attention_packed_train_tables_bwd.launches`` counts all three: 3
+    per call)."""
+    what = "flash_attention_packed_train_tables_bwd"
+    _check_packed(what, q, k, v, bias, num_heads)
+    b, s, hd = q.shape
+    vecs = (pos, cx, cy)
+    if any(a.shape != (b, s) for a in vecs):
+        raise ValueError(f"{what}: pos, cx and cy must be ({b}, {s})")
+    bins = (rel_bins, max_rel, rel2d_bins, max_rel2d)
+    if q.device.type == "cpu":
+        return flash_attention_packed_train_tables_bwd_plain(
+            q, k, v, bias, pos, cx, cy, seed, o, lse, do, num_heads, rate, *bins
+        )
+    _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
+    _check_train_width(what, bias)
+    p = bias.shape[-1]
+    if lse.shape != (b, num_heads, p) or lse.dtype != torch.float32 or not lse.is_contiguous():
+        raise ValueError(f"{what}: lse must be a contiguous f32 (B, H, P) tensor")
+    if any(a.dtype != torch.int32 or not a.is_contiguous() or a.device != q.device for a in vecs):
+        raise TypeError(f"{what}: pos, cx and cy must be contiguous int32 on q's device")
+    n_bins = rel_bins + 2 * rel2d_bins
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    delta = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    n_qb = -(-s // KERNEL_TILE)
+    partial = torch.empty(b * num_heads * n_qb * n_bins, dtype=torch.float32, device=q.device)
+    tables = torch.empty((n_bins, num_heads), dtype=torch.float32, device=q.device)
+    lut1 = bucket_lut(rel_bins, max_rel, q.device)
+    lut2 = bucket_lut(rel2d_bins, max_rel2d, q.device)
+    lib, fn = _tables_bwd_fn()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            int(bias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), *(a.data_ptr() for a in vecs), lut1.data_ptr(),
+            lut2.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            delta.data_ptr(), partial.data_ptr(), tables.data_ptr(),
+            b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
+            *_dropout_args(seed, rate), rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
+        )
+    cuda_build.check(lib, code, what)
+    flash_attention_packed_train_tables_bwd.launches += 3
+    return (dq, dk, dv, tables[:rel_bins], tables[rel_bins:rel_bins + rel2d_bins],
+            tables[rel_bins + rel2d_bins:])
+
+
+flash_attention_packed_train_tables_bwd.launches = 0
+
+
+class _PackedTrainTables(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, t1, tx, ty, pos, cx, cy, seed, num_heads, rate, bins):
+        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate)
+        ctx.save_for_backward(q, k, v, bias, pos, cx, cy, out, lse)
+        ctx.args = (seed, num_heads, rate, bins)
+        return out
+
+    @staticmethod
+    def backward(ctx, g_out):
+        q, k, v, bias, pos, cx, cy, out, lse = ctx.saved_tensors
+        seed, num_heads, rate, bins = ctx.args
+        dq, dk, dv, dt1, dtx, dty = flash_attention_packed_train_tables_bwd(
+            q, k, v, bias, pos, cx, cy, seed, out, lse, _grad_like(g_out, out),
+            num_heads, rate, *bins,
+        )
+        return (dq, dk, dv, None, dt1, dtx, dty) + (None,) * 7
+
+
+def flash_attention_packed_train_tables(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    t1: torch.Tensor, tx: torch.Tensor, ty: torch.Tensor,
+    pos: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, seed: int,
+    num_heads: int, rate: float = 0.0, rel_bins: int = 32, max_rel: int = 128,
+    rel2d_bins: int = 64, max_rel2d: int = 256,
+) -> torch.Tensor:
+    """Training attention whose backward gives the TABLE gradients: (B, S,
+    H*D) in q's dtype; gradients flow to q, k, v and the f32 tables t1 (rel_bins,
+    H), tx, ty (rel2d_bins, H), never to ``bias``.
+
+    The forward is ``flash_attention_packed_train``'s. Caller contract, as in
+    the JAX package: ``bias`` is detached and equals what ``materialize_bias``
+    builds from (pos, cx, cy, the mask, t1, tx, ty); the backward
+    differentiates through that relation, so no (B, H, P, P) cotangent
+    exists.
+    """
+    if bias.requires_grad:
+        raise ValueError("flash_attention_packed_train_tables takes a detached bias: "
+                         "the tables receive its gradient")
+    h = num_heads
+    if t1.shape != (rel_bins, h) or tx.shape != (rel2d_bins, h) or ty.shape != (rel2d_bins, h):
+        raise ValueError(
+            f"tables must be ({rel_bins}, {h}) and ({rel2d_bins}, {h}); got "
+            f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
+        )
+    return _PackedTrainTables.apply(
+        q, k, v, bias, t1, tx, ty, pos, cx, cy, int(seed), num_heads, float(rate),
+        (rel_bins, max_rel, rel2d_bins, max_rel2d),
+    )

@@ -26,6 +26,13 @@ it launches ``csrc/table_grads.cu``; on a CPU tensor it runs
 ``table_grads_plain`` (``index_add_`` over the bucket maps). Pad rows and
 columns (>= S) carry no gradient: the bias's pad rows are finite, and must
 not leak into the tables.
+
+``fused_bias_attention`` is attention with this bias built inside the
+kernel (``csrc/fused_bias_attention.cu``), so no (B, H, P, P) tensor exists:
+q/k/v are (B, H, S, D) tensors of any layout with unit last stride, and the
+bias of each score is the value ``materialize_bias`` would have written in
+the model dtype. Its plain version is ``materialize_bias_plain`` followed by
+``flash_attention_packed_plain``. It has no backward, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -330,3 +337,150 @@ def table_grads(
 
 
 table_grads.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# attention with the bias built in the kernel
+# ---------------------------------------------------------------------------
+
+
+def fused_bias_attention_plain(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    position_ids: torch.Tensor,  # (B, S) int
+    cx: torch.Tensor,
+    cy: torch.Tensor,
+    attention_mask: torch.Tensor,
+    t1: torch.Tensor,  # (rel_bins, H) f32, scale pre-folded
+    tx: torch.Tensor,  # (rel2d_bins, H)
+    ty: torch.Tensor,
+    rel_bins: int = 32,
+    max_rel: int = 128,
+    rel2d_bins: int = 64,
+    max_rel2d: int = 256,
+) -> torch.Tensor:
+    """Plain PyTorch ``fused_bias_attention``: ``materialize_bias_plain`` in
+    q's dtype, then ``flash_attention_packed_plain`` on the packed layout. Returns (B, H, S, D) in q's dtype, a view of a
+    (B, S, H, D) tensor."""
+    # imported here: ops.flash_attention imports this module
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        _packed,
+        flash_attention_packed_plain,
+    )
+
+    b, h, s, d = q.shape
+    bias = materialize_bias_plain(
+        position_ids, cx, cy, attention_mask, t1, tx, ty, rel_bins=rel_bins,
+        max_rel=max_rel, rel2d_bins=rel2d_bins, max_rel2d=max_rel2d,
+        out_dtype=q.dtype,
+    )
+    out = flash_attention_packed_plain(_packed(q), _packed(k), _packed(v), bias, h)
+    return out.view(b, s, h, d).transpose(1, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def _fused_bias_attention_fn():
+    lib = cuda_build.load("fused_bias_attention")
+    fn = lib.mmee_fused_bias_attention
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 9
+        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+FUSED_HEAD_DIM = 64
+
+
+def _check_fused_cuda(q, k, v, vectors, tables) -> None:
+    """What the CUDA kernel takes: bf16 q/k/v with head dim 64, unit last
+    stride and 16-byte aligned rows; int32 vectors and f32 tables,
+    contiguous, on q's card. (The kernel itself refuses tables of more than
+    64 buckets and distances past 1024.)"""
+    what = "fused_bias_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
+    if any(t.device != q.device for t in (k, v, *vectors, *tables)):
+        raise ValueError(f"{what} takes tensors on one device")
+    if not all(a.is_contiguous() for a in (*vectors, *tables)):
+        raise ValueError(f"{what} takes contiguous vectors and tables")
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
+        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    if q.shape[-1] != FUSED_HEAD_DIM:
+        raise ValueError(f"the {what} kernel takes head dim {FUSED_HEAD_DIM}, not {q.shape[-1]}")
+    for t in (q, k, v):
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"the {what} kernel takes q/k/v with unit last stride, the other "
+                f"strides multiples of 8 and 16-byte aligned; got strides {t.stride()}"
+            )
+    if any(a.dtype != torch.int32 for a in vectors):
+        raise TypeError("position_ids, cx, cy and attention_mask must be int32")
+    if any(a.dtype != torch.float32 for a in tables):
+        raise TypeError("the bias tables must be float32")
+
+
+def fused_bias_attention(
+    q: torch.Tensor,  # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    position_ids: torch.Tensor,  # (B, S) int32
+    cx: torch.Tensor,            # (B, S) int32, bbox x0
+    cy: torch.Tensor,            # (B, S) int32, bbox y1
+    attention_mask: torch.Tensor,  # (B, S), 1 = real, 0 = pad
+    t1: torch.Tensor,            # (rel_bins, H) f32, scale pre-folded
+    tx: torch.Tensor,            # (rel2d_bins, H)
+    ty: torch.Tensor,
+    rel_bins: int = 32,
+    max_rel: int = 128,
+    rel2d_bins: int = 64,
+    max_rel2d: int = 256,
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d) + rel_bias + mask) v with the bias built in
+    the kernel; (B, H, S, D) in q's dtype, in q's layout (a transposed view
+    of the packed projections gives a transposed view back).
+
+    The bias of each score is rounded once to q's dtype, as
+    ``materialize_bias`` rounds it. CPU tensors run
+    ``fused_bias_attention_plain``; CUDA tensors launch the kernel (counted
+    in ``fused_bias_attention.launches``). No backward.
+    """
+    b, h, s, d = q.shape
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("fused_bias_attention: q, k and v must share one (B, H, S, D) shape")
+    vectors = (position_ids, cx, cy, attention_mask)
+    _check_vectors("fused_bias_attention", vectors)
+    if position_ids.shape != (b, s):
+        raise ValueError(f"the vectors must be ({b}, {s}); got {tuple(position_ids.shape)}")
+    tables = (t1, tx, ty)
+    if t1.shape != (rel_bins, h) or tx.shape != (rel2d_bins, h) or ty.shape != (rel2d_bins, h):
+        raise ValueError(
+            f"tables must be ({rel_bins}, {h}) and ({rel2d_bins}, {h}); got "
+            f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
+        )
+    bins = (rel_bins, max_rel, rel2d_bins, max_rel2d)
+    if q.device.type == "cpu":
+        return fused_bias_attention_plain(q, k, v, *vectors, *tables, *bins)
+    _check_fused_cuda(q, k, v, vectors, tables)
+    device = q.device
+    out = torch.empty_like(q)  # keeps q's layout when q is dense
+    lut1 = bucket_lut(rel_bins, max_rel, device)
+    lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
+    lib, fn = _fused_bias_attention_fn()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        code = fn(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            *(st for t in (q, k, v, out) for st in t.stride()[:3]),
+            *(a.data_ptr() for a in (*vectors, *tables)), lut1.data_ptr(), lut2.data_ptr(),
+            b, s, h, rel_bins, rel2d_bins, max_rel, max_rel2d,
+            1.0 / math.sqrt(d), stream,
+        )
+    cuda_build.check(lib, code, "fused_bias_attention")
+    fused_bias_attention.launches += 1
+    return out
+
+
+fused_bias_attention.launches = 0

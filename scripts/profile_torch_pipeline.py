@@ -10,7 +10,8 @@ capacities a batch costs the same whatever its exits, so the threshold only
 needs to be valid. After a warm-up it traces ``predict_features`` over 4
 batches. ``train`` builds the training path of ``chip_smoke.py`` (f32 master
 weights, bf16 forward, dropout 0.1, batch 16) and, after 2 warm-up steps,
-traces 2 ``EETrainer.train_step``s.
+traces 2 ``EETrainer.train_step``s. ``MMEE_FUSED_BIAS=1`` (serve) and
+``MMEE_TABLE_GRADS=1`` (train) in the environment profile the bias modes.
 
 Each mode traces with ``torch.profiler`` and prints the device time by kernel
 group (the port's kernels, cuBLAS GEMMs, everything else), the wall time,
@@ -44,6 +45,9 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (  # noqa:
     EEModelConfig,
     LayoutLMv3Config,
 )
+from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (  # noqa: E402
+    use_table_grad_attention,
+)
 from multi_modal_early_exit_tpu_torch.serving import Pipeline  # noqa: E402
 from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer  # noqa: E402
 
@@ -51,8 +55,12 @@ TRAIN_TRACED_STEPS = 2
 GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
     ("flash_attention_packed", ("flash_attention_packed_kernel",)),
+    ("fused_bias_attention", ("fused_bias_attention_kernel",)),
     ("flash_attention_packed_train", ("train_fwd_kernel",)),
-    ("flash_attention_packed_train_bwd", ("train_bwd_dq_kernel", "train_bwd_dkv_kernel")),
+    ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
+                                                 "table_partials_sum_kernel")),
+    ("flash_attention_packed_train_bwd", ("train_bwd_dq_kernel",)),
+    # both backwards launch the dk/dv kernel: see group_of
     ("table_grads", ("table_grads_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply", "adam")),
@@ -61,6 +69,9 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
+    if "train_bwd_dkv_kernel" in low:  # in the backward of the mode in effect
+        return ("flash_attention_packed_train_tables_bwd" if use_table_grad_attention()
+                else "flash_attention_packed_train_bwd")
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group

@@ -17,8 +17,13 @@ from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed_train_bwd_plain,
     flash_attention_packed_train_fwd,
     flash_attention_packed_train_fwd_plain,
+    flash_attention_packed_train_tables,
+    flash_attention_packed_train_tables_bwd,
+    flash_attention_packed_train_tables_bwd_plain,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+    fused_bias_attention,
+    fused_bias_attention_plain,
     materialize_bias,
     materialize_bias_plain,
     table_grads,
@@ -257,3 +262,125 @@ def test_trainer_on_cuda_needs_bf16(cuda):
     loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
     assert math.isfinite(loss)
     assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers
+
+
+def _heads_view(x, h, layout):
+    """(B, S, H*64) -> (B, H, S, 64): the transposed view of the packed
+    projections, or that view made contiguous."""
+    b, s, _ = x.shape
+    view = x.view(b, s, h, 64).transpose(1, 2)
+    return view if layout == "packed" else view.contiguous()
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 20, 4), (1, 130, 3), (3, 709, 12), (2, 768, 12)])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
+    args = _bias_args(cuda, b, s, h)  # one sample with its second half of keys masked
+    qkv = _qkv(cuda, b, s, h)
+    q4, k4, v4 = (_heads_view(x, h, layout) for x in qkv)
+    before = fused_bias_attention.launches
+    got = fused_bias_attention(q4, k4, v4, *args)
+    assert fused_bias_attention.launches == before + 1
+    want = fused_bias_attention_plain(q4, k4, v4, *args)
+    pair = flash_attention_packed(*qkv, materialize_bias(*args), h)
+    torch.cuda.synchronize()
+    assert got.shape == (b, h, s, 64) and got.stride() == q4.stride()
+    assert torch.isfinite(got.float()).all()
+    # p is rounded to bf16 at other points than in the dense version: one
+    # bf16 step of the output, relative, as for flash_attention_packed
+    torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    # the pair it replaces reads the same bf16 bias values and shares the
+    # kernel's tiling and arithmetic: bit-equal
+    assert torch.equal(got.transpose(1, 2).reshape(b, s, -1), pair)
+
+
+def _tables_bias(args, p, dtype):
+    """materialize_bias of the bias inputs, cut to the width P (>= S)."""
+    return materialize_bias(*args, out_dtype=dtype)[:, :, :p, :p].contiguous()
+
+
+# P = S rounded up to 64 and to 128
+TABLE_SHAPES = [(2, 20, 64, 4), (2, 20, 128, 4), (1, 130, 192, 3), (1, 130, 256, 3),
+                (2, 709, 768, 12)]
+
+
+@pytest.mark.parametrize("b,s,p,h", TABLE_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_train_tables_backward_kernel_matches_plain(cuda, b, s, p, h, rate, bias_dtype):
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    bias = _tables_bias(args, p, bias_dtype)
+    q, k, v = _qkv(cuda, b, s, h)
+    g = torch.Generator().manual_seed(5)
+    do = torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16)
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    before = flash_attention_packed_train_tables_bwd.launches
+    got = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
+                                                  h, rate)
+    assert flash_attention_packed_train_tables_bwd.launches == before + 3
+    again = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
+                                                    h, rate)
+    want = flash_attention_packed_train_tables_bwd_plain(q, k, v, bias, pos, cx, cy, 99, o,
+                                                         lse, do, h, rate)
+    torch.cuda.synchronize()
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), name  # deterministic: no atomics
+        # dq/dk/dv as the chained backward's (ds rounded to bf16 before the
+        # products); the tables sum the f32 ds that the plain version sums,
+        # in another order: 1e-3 of their scale
+        limit = 2e-2 if name in ("dq", "dk", "dv") else 1e-3
+        assert _scaled_err(a, w) <= limit, (name, _scaled_err(a, w))
+
+
+def test_train_tables_autograd_runs_the_tables_kernel(cuda):
+    b, s, h = 2, 100, 2
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    tables = [t.requires_grad_() for t in args[4:]]
+    with torch.no_grad():
+        bias = materialize_bias(*args[:4], *tables)
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
+    counters = (flash_attention_packed_train_fwd, flash_attention_packed_train_tables_bwd,
+                flash_attention_packed_train_bwd, table_grads)
+    before = [f.launches for f in counters]
+    out = flash_attention_packed_train_tables(q, k, v, bias, *tables, pos, cx, cy, 3, h, 0.1)
+    out.float().square().sum().backward()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 3, 0, 0]
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, *tables))
+    assert all(t.grad.dtype == torch.float32 for t in tables)
+
+
+def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
+    """A CUDA tensor launches the kernel or raises; it never runs the plain
+    version."""
+    args = _bias_args(cuda, 1, 64, 2)
+    q4, k4, v4 = (_heads_view(x, 2, "packed") for x in _qkv(cuda, 1, 64, 2))
+    with pytest.raises(TypeError):
+        fused_bias_attention(q4.float(), k4.float(), v4.float(), *args)
+    with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
+        fused_bias_attention(*(x.reshape(1, 4, 64, 32) for x in (q4, k4, v4)),
+                             *args[:4], *(torch.zeros((n, 4), device=cuda) for n in (32, 64, 64)))
+    unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
+    with pytest.raises(ValueError, match="strides"):
+        fused_bias_attention(unaligned, k4, v4, *args)
+    with pytest.raises(TypeError):
+        fused_bias_attention(q4, k4, v4, *[a.long() if i < 4 else a for i, a in enumerate(args)])
+    with pytest.raises(ValueError, match="one device"):
+        fused_bias_attention(q4, k4, v4, *[a.cpu() for a in args])
+
+    pos, cx, cy = args[:3]
+    q, k, v = _qkv(cuda, 1, 64, 2)
+    bias = torch.zeros((1, 2, 64, 64), device=cuda)
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_packed_train_tables_bwd(q.float(), k.float(), v.float(), bias, pos, cx,
+                                                cy, 0, q.float(), lse, q.float(), 2)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        flash_attention_packed_train_tables_bwd(q, k, v, torch.zeros((1, 2, 96, 96), device=cuda),
+                                                pos, cx, cy, 0, q, lse, q, 2)
+    with pytest.raises(TypeError, match="int32"):
+        flash_attention_packed_train_tables_bwd(q, k, v, bias, pos.long(), cx, cy, 0, q, lse,
+                                                q, 2)
