@@ -22,10 +22,16 @@ Phases, each reported on its own line:
    same at unit-scale tables, where dropping any one table moves the
    outputs past the tolerance) and the table-gradient
    backward (dq/dk/dv within 2e-2 of their scale, the three table gradients
-   within ``TABLE_GRAD_LIMIT`` of theirs, the same on a second run); times at
-   the paths' shape by CUDA events after warm-up, beside the least time the
-   card could take and one PyTorch library call where one computes the same
-   function, or the pair of kernels it replaces;
+   within ``TABLE_GRAD_LIMIT`` of theirs, the same on a second run); the
+   head-form forward and backward (``flash_attention_fwd``/``_bwd``, the
+   training kernels' bodies with explicit strides) at the contiguous
+   (B, H, S, D) layout and at the packed projections' strides, at dropout
+   rates 0 and 0.1, to the training kernels' tolerances, dbias exactly 0 in
+   the pad; times at the paths' shape by CUDA events after warm-up (the
+   head form at the packed strides and rate 0, as the backward of
+   ``flash_attention_packed`` runs it), beside the least time the card could
+   take and one PyTorch library call where one computes the same function,
+   or the pair of kernels it replaces;
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -36,7 +42,9 @@ Phases, each reported on its own line:
    path (on the CPU) on a small input;
 5. training path: the same model with f32 master weights, trained by
    ``EETrainer.train_step`` (one_stage_subgraphs_weighted, bf16 forward,
-   dropout 0.1, AdamW at lr 2e-5) on batches of 16 documents: one warm-up
+   dropout 0.1, AdamW at lr 2e-5, ``scan_fold=12``: every layer in one step,
+   bench.py's train schedule, where the bias cotangent is chained) on
+   batches of 16 documents: one warm-up
    step, then 3 timed steps. Checks: finite losses, parameters that moved,
    launch counts per step of 1 bias build, 1 ``table_grads``, 12 training
    attention forwards and 12 chained backwards (24 kernels: dq/dbias and
@@ -59,9 +67,28 @@ Phases, each reported on its own line:
    reference with ``GRAD_LIMITS``, and against phase 5's chained gradients
    on the card with ``CHAINED_LIMITS``. docs/sec and peak memory beside
    phase 5's.
+5c. the JAX package's default training schedule, ``scan_fold=1``, at
+   attention dropout 0 (hidden dropout 0.1): every layer takes the bias
+   tensor through ``flash_attention_packed``, whose backward runs the
+   head-form forward and backward. 1 + 3 steps as in phase 5. Checks:
+   finite losses, parameters that moved, per step 1 bias build, 1
+   ``table_grads``, 12 ``flash_attention_packed``, 12 head-form forwards and
+   12 head-form backwards (24 kernels), no training forward or chained
+   backward; the gradient check (which runs the same three kernels) against
+   phase 5's f32 CPU reference with ``GRAD_LIMITS`` and against phase 5's
+   chained gradients on the card with ``UNCHAINED_LIMITS``. docs/sec and
+   peak memory beside phase 5's.
+5d. bench.py's remat schedule (``BENCH_REMAT=1``): ``scan_fold=1`` with
+   ``gradient_checkpointing``, dropout 0.1. Checks: per step 24 training
+   forwards (12 and 12 recomputed) and 12 plain (not chained) backwards (24
+   kernels); the same two gradient checks; the gradients at dropout 0 equal
+   phase 5c's bit for bit, and at dropout 0.1 (the same seeds) those of the
+   same schedule without checkpointing. docs/sec and peak memory beside
+   phase 5's.
 
-Phases 4 and 5 run with both switches unset, whatever the environment says;
-4b and 5b set theirs and restore it.
+Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
+phases 4, 5, 5c and 5d with the two bias switches unset, whatever the
+environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it), the last
@@ -115,6 +142,15 @@ TABLE_GRAD_LIMIT = 3e-4
 # chained path rounds its running bias cotangent to bf16 in every layer,
 # the tables path sums f32 ds)
 CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
+# phases 5c's and 5d's gradients against phase 5's chained ones on the card,
+# same input, by group. The forward runs flash_attention_packed where phase
+# 5 runs the training forward at rate 0, the backward the same body at the
+# same strides: on an H100 every tensor but the tables read 0 (bit-equal),
+# the tables 7.97e-3 of their scale in both phases (autograd sums the
+# layers' bf16 bias cotangents where phase 5 adds each layer's ds to the
+# running one in the kernel)
+UNCHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
+SWITCHES = ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS", "MMEE_CHAINED_DBIAS", "MMEE_LAYERS_PER_STEP")
 
 
 def check(ok: bool, what: str) -> None:
@@ -125,8 +161,9 @@ def check(ok: bool, what: str) -> None:
 @contextlib.contextmanager
 def bias_modes(fused=None, tables=None):
     """MMEE_FUSED_BIAS and MMEE_TABLE_GRADS set to the given values (None:
-    unset) for a phase, and restored after it."""
-    saved = {n: os.environ.get(n) for n in ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS")}
+    unset), MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset, for a phase;
+    all four restored after it."""
+    saved = {n: os.environ.get(n) for n in SWITCHES}
 
     def put(name, value):
         if value is None:
@@ -134,8 +171,8 @@ def bias_modes(fused=None, tables=None):
         else:
             os.environ[name] = value
 
-    put("MMEE_FUSED_BIAS", fused)
-    put("MMEE_TABLE_GRADS", tables)
+    for name, value in zip(SWITCHES, (fused, tables, None, None)):
+        put(name, value)
     try:
         yield
     finally:
@@ -237,13 +274,23 @@ def scaled_err(got, want) -> float:
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
+def heads_of(x):
+    """(B, S, H*D) -> its (B, H, S, D) view, no copy."""
+    return x.view(x.shape[0], x.shape[1], HEADS, HEAD_DIM).transpose(1, 2)
+
+
 def compare_kernels(args, gen):
-    """Each of the seven kernels against its plain version on the bias
+    """Each of the nine kernels against its plain version on the bias
     inputs ``args`` (batch 16; S their length, P = S rounded up to 128),
-    the training kernels at dropout rate ``TRAIN_RATE``. Raises on a
-    disagreement. Returns (max abs error by kernel, what each comparison
-    read, the inputs and outputs that the timing reuses)."""
+    the training kernels at dropout rate ``TRAIN_RATE``, the head form at
+    rates 0 and ``TRAIN_RATE``. Raises on a disagreement. Returns (max abs
+    error by kernel, what each comparison read, the inputs and outputs that
+    the timing reuses)."""
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
         flash_attention_packed,
         flash_attention_packed_plain,
         flash_attention_packed_train_bwd,
@@ -374,6 +421,52 @@ def compare_kernels(args, gen):
     notes["flash_attention_packed_train_bwd"] = (
         f"errors over scale {json.dumps(scaled)} (tol 2e-2)")
 
+    # ---- head form: contiguous (B, H, S, D) and the packed strides ------
+    fwd_abs, bwd_abs, fwd_read, bwd_read = [], [], {}, {}
+    for layout in ("contiguous", "packed"):
+        views = [heads_of(x) if layout == "packed" else heads_of(x).contiguous()
+                 for x in (q, k, v, do)]
+        for rate_h in (0.0, TRAIN_RATE):
+            tag = f"{layout}@{rate_h}"
+            o_h, lse_h = flash_attention_fwd(*views[:3], bias, seed, rate_h, with_lse=True)
+            ref_o, ref_lse = flash_attention_fwd_plain(*views[:3], bias, seed, rate_h)
+            torch.cuda.synchronize()
+            check(o_h.stride() == views[0].stride(),
+                  f"head-form forward: not in q's layout ({tag})")
+            check(bool(torch.isfinite(o_h.float()).all()), f"head-form forward not finite ({tag})")
+            check(bool(torch.isinf(lse_h[:, :, s:]).all()), "head-form forward: pad rows' lse")
+            out_err = (o_h.float() - ref_o.float()).abs().max().item()
+            lse_err = (lse_h[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
+            check(out_err <= 2e-2, f"head-form forward out error {out_err} > 2e-2 ({tag}, S {s})")
+            check(lse_err <= 1e-3, f"head-form forward lse error {lse_err} > 1e-3 ({tag}, S {s})")
+            fwd_abs.append(max(out_err, lse_err))
+            fwd_read[tag] = [round(out_err, 6), round(lse_err, 7)]
+            del ref_o, ref_lse
+            bwd_h = (*views[:3], bias, seed, o_h, lse_h, views[3], rate_h)
+            got = flash_attention_bwd(*bwd_h)
+            want = flash_attention_bwd_plain(*bwd_h)
+            torch.cuda.synchronize()
+            read = []
+            for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                check(a.shape == w.shape and a.dtype == w.dtype,
+                      f"head-form backward {what} layout")
+                check(bool(torch.isfinite(a.float()).all()),
+                      f"head-form backward {what} not finite")
+                err = scaled_err(a, w)
+                read.append(round(err, 6))
+                bwd_abs.append((a.float() - w.float()).abs().max().item())
+                check(err <= 2e-2, f"head-form backward {what} ({tag}, S {s}): error {err} > 2e-2 "
+                      f"of its scale")
+            pad = torch.cat([got[3][:, :, s:, :].flatten(), got[3][:, :, :, s:].flatten()])
+            check(not bool(pad.any()), f"head-form backward: dbias not 0 in the pad ({tag})")
+            bwd_read[tag] = read
+            del got, want, o_h, lse_h
+    errs["flash_attention_fwd"], errs["flash_attention_bwd"] = max(fwd_abs), max(bwd_abs)
+    notes["flash_attention_fwd"] = (f"out/lse max_err by layout@rate {json.dumps(fwd_read)} "
+                                    f"(tol 2e-2/1e-3)")
+    notes["flash_attention_bwd"] = (f"dq/dk/dv/dbias errors over scale by layout@rate "
+                                    f"{json.dumps(bwd_read)} (tol 2e-2), dbias 0 in the pad")
+
     # ---- table_grads on the chained backward's dbias -------------------
     vecs = args[:3]
     got = table_grads(*vecs, dbias)
@@ -428,6 +521,10 @@ def phase_kernels(name):
     each kernel's time at the paths' shape beside its plain version's, its
     bound and a library call where one computes the same function."""
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
         flash_attention_packed,
         flash_attention_packed_plain,
         flash_attention_packed_train_bwd,
@@ -466,9 +563,7 @@ def phase_kernels(name):
     lse_bytes = B * HEADS * p * 4
     in_bytes = sum(a.numel() * a.element_size() for a in args)
     results = []
-
-    def heads(x):
-        return x.view(B, s, HEADS, HEAD_DIM).transpose(1, 2)
+    heads = heads_of
 
     def entry(kname, source, replaces, ms, plain_ms, bound_pair, library_ms):
         e = dict(name=kname, route="cuda",
@@ -571,6 +666,40 @@ def phase_kernels(name):
           f"{unchained_bound[0] * 1e3:.1f} us), plain_ms {e['plain_ms']:.4f}, library_ms "
           f"{'null' if lib_bwd is None else f'{lib_bwd:.4f}'} ({lib_note}), "
           f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- the head form at the packed strides and rate 0, as the backward
+    # of flash_attention_packed runs it; the contiguous layout beside it ----
+    views = [heads(x) for x in (q, k, v, bwd_args[7])]
+    dense = [x.contiguous() for x in views]
+    e = entry("flash_attention_fwd", "flash_attention_packed_train.cu",
+              "ops/flash_attention.py:73",
+              time_ms(lambda: flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)),
+              time_ms(lambda: flash_attention_fwd_plain(*views[:3], bias, 0, 0.0), iters=5),
+              bound(block_bytes + 4 * qkv_bytes + lse_bytes,
+                    4 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak),
+              time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4)))
+    dense_ms = time_ms(lambda: flash_attention_fwd(*dense[:3], bias, 0, 0.0, with_lse=True))
+    print(f"kernel flash_attention_fwd (head form, rate 0, packed strides): "
+          f"{notes['flash_attention_fwd']}, kernel_ms {e['ms']:.4f} (contiguous layout "
+          f"{dense_ms:.4f}), plain_ms {e['plain_ms']:.4f}, library_ms {e['library_ms']:.4f} "
+          f"(SDPA, float mask, no lse), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+    o_h, lse_h = flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
+    hbwd = (*views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
+    o_d, lse_d = flash_attention_fwd(*dense[:3], bias, 0, 0.0, with_lse=True)
+    e = entry("flash_attention_bwd", "flash_attention_packed_train.cu",
+              "ops/flash_attention.py:231",
+              time_ms(lambda: flash_attention_bwd(*hbwd), iters=10),
+              time_ms(lambda: flash_attention_bwd_plain(*hbwd), iters=3, warmup=1),
+              unchained_bound, lib_bwd)
+    dense_ms = time_ms(lambda: flash_attention_bwd(*dense[:3], bias, 0, o_d, lse_d, dense[3],
+                                                   0.0), iters=10)
+    print(f"kernel flash_attention_bwd (head form, rate 0, packed strides; 2 kernels per "
+          f"call): {notes['flash_attention_bwd']}, kernel_ms {e['ms']:.4f} (contiguous layout "
+          f"{dense_ms:.4f}; the packed plain backward {ms_unchained:.4f}), plain_ms "
+          f"{e['plain_ms']:.4f}, library_ms "
+          f"{'null' if lib_bwd is None else f'{lib_bwd:.4f}'} ({lib_note}), "
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+    del views, dense, o_h, lse_h, o_d, lse_d, hbwd
 
     # ---- table_grads on the chained backward's dbias --------------------
     vecs, dbias = args[:3], t["dbias"]
@@ -832,12 +961,15 @@ def phase_serve_fused(served):
     return launches
 
 
-def train_setup(n_batches: int):
+def train_setup(n_batches: int, scan_fold: int = 12, remat: bool = False,
+                attn_dropout=None):
     """The training path's configuration (the JAX package's train benchmark:
     one_stage_subgraphs_weighted, bf16 forward over f32 master weights,
-    lr 2e-5), its f32 model on the CPU (random weights from seed 0) and
-    ``n_batches`` batches of 16 synthetic documents on the card, each array
-    shaped (1, 16, ...)."""
+    lr 2e-5, every layer in one step unless ``scan_fold`` says otherwise,
+    ``gradient_checkpointing`` = ``remat``, the attention dropout rate 0.1
+    unless ``attn_dropout`` is given), its f32 model on the CPU (random
+    weights from seed 0) and ``n_batches`` batches of 16 synthetic documents
+    on the card, each array shaped (1, 16, ...)."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
     from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
@@ -848,8 +980,12 @@ def train_setup(n_batches: int):
     )
     from multi_modal_early_exit_tpu_torch.training.trainer import TrainingArguments
 
+    backbone = LayoutLMv3Config.base(num_labels=16).replace(
+        scan_fold=scan_fold, gradient_checkpointing=remat)
+    if attn_dropout is not None:
+        backbone = backbone.replace(attention_probs_dropout_prob=attn_dropout)
     cfg = EEModelConfig(
-        backbone=LayoutLMv3Config.base(num_labels=16),
+        backbone=backbone,
         exit=ExitConfig(exits="text_avg,vision_avg,7",
                         training_strategy="one_stage_subgraphs_weighted"),
     )
@@ -866,25 +1002,31 @@ def train_setup(n_batches: int):
     return cfg, model32, batches, args
 
 
+def loss_grads(model, cfg, batch, weights, device, dtype, rng=None):
+    """(loss, gradients) of ``ee_loss_fn`` on the first 2 documents of a
+    training batch, on ``device`` in the compute dtype ``dtype``, the
+    dropout seeds from ``rng`` (none: no dropout)."""
+    from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
+
+    small = {k: v[0, :2].to(device) for k, v in batch.items()}
+    loss, _ = ee_loss_fn(model, cfg, small, rng=rng, exit_weights=weights.to(device),
+                         compute_dtype=dtype, device=device)
+    params = [p for _, p in model.named_parameters()]
+    gs = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+
+
 def train_gradient_check(cfg, model32, batch, weights, reference=None):
     """The gradients of one loss on 2 documents at dropout 0: the bf16
     kernel path on the card against the f32 plain path on the CPU. The CPU
     reference is computed once: pass the returned one back to reuse it.
     Returns (the reference, the card's (loss, gradients))."""
-    from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
-
     rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                  classifier_dropout=0.0)
     cfg0 = cfg.replace(backbone=cfg.backbone.replace(**rates))
-    small = {k: v[0, :2] for k, v in batch.items()}
 
     def grads(model, device, dtype):
-        loss, _ = ee_loss_fn(model, cfg0, {k: v.to(device) for k, v in small.items()},
-                             exit_weights=weights.to(device), compute_dtype=dtype,
-                             device=device)
-        params = [p for _, p in model.named_parameters()]
-        gs = torch.autograd.grad(loss, params, allow_unused=True)
-        return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+        return loss_grads(model, cfg0, batch, weights, device, dtype)
 
     if reference is None:
         t0 = time.perf_counter()
@@ -941,20 +1083,29 @@ def gradient_gate(names, loss, grads, ref_loss, ref_grads, what, limits=GRAD_LIM
             + " (tensors: those above 1e-2 of the largest gradient)")
 
 
-def train_steps(cfg, model32, batches, args, want):
-    """One warm-up ``EETrainer.train_step``, then one on each further batch,
-    timed, with the launch counts per step checked against ``want``.
-    Returns the readings."""
+def train_counters():
+    """The launch counters of the kernels a training step can run, by the
+    name of the kernel (the head-form pair under their wrappers' names)."""
     from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
     from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+
+    return {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
+            "flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
+            "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
+            "flash_attention_packed_train_tables_bwd":
+                fa.flash_attention_packed_train_tables_bwd}
+
+
+def train_steps(cfg, model32, batches, args, want):
+    """One warm-up ``EETrainer.train_step``, then one on each further batch,
+    timed, with the launch counts per step checked against ``want`` (every
+    kernel it does not name: 0). Returns the readings."""
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
-    counters = {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
-                "flash_attention_packed": fa.flash_attention_packed,
-                "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
-                "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
-                "flash_attention_packed_train_tables_bwd":
-                    fa.flash_attention_packed_train_tables_bwd}
+    counters = train_counters()
     trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
     gen = torch.Generator().manual_seed(1)
     t0 = time.perf_counter()
@@ -978,8 +1129,8 @@ def train_steps(cfg, model32, batches, args, want):
     moved = [n for n, before in probe.items()
              if not torch.equal(before, dict(trainer.model.named_parameters())[n].detach())]
     check(len(moved) == len(probe), f"parameters that did not move: {set(probe) - set(moved)}")
-    for name, per_step in want.items():
-        check(launches[name] == per_step * TRAIN_STEPS,
+    for name in counters:
+        check(launches[name] == want.get(name, 0) * TRAIN_STEPS,
               f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
     return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
                 launches=launches, docs_per_sec=TRAIN_STEPS * B / dt)
@@ -999,9 +1150,8 @@ def phase_train(card: str):
     weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
     reference, chained = train_gradient_check(cfg, model32, batches[0], weights)
     # the backward launches two kernels per layer: dq/dbias and dk/dv
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 0,
-            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 24,
-            "flash_attention_packed_train_tables_bwd": 0}
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+            "flash_attention_packed_train_bwd": 24}
     run = train_steps(cfg, model32, batches, args, want)
     print(f"trained EE LayoutLMv3-base ({n_params / 1e6:.1f}M f32 master params, bf16 "
           f"forward, dropout {cfg.backbone.hidden_dropout_prob}, {args.learning_rate} lr): "
@@ -1029,19 +1179,94 @@ def phase_train_tables(card: str, trained):
     print(f"train with MMEE_TABLE_GRADS=1, against phase 5's chained gradients on the card, "
           f"same input: {summary}")
     # the tables backward launches three kernels per layer
-    want = {"materialize_bias": 1, "table_grads": 0, "flash_attention_packed": 0,
-            "flash_attention_packed_train": 12, "flash_attention_packed_train_bwd": 0,
+    want = {"materialize_bias": 1, "flash_attention_packed_train": 12,
             "flash_attention_packed_train_tables_bwd": 36}
     run = train_steps(cfg, model32, t["batches"], t["args"], want)
-    base = t["run"]
-    print(f"trained with MMEE_TABLE_GRADS=1: warm-up step {run['t_warm']:.2f} s, then "
-          f"{TRAIN_STEPS} steps in {run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec "
-          f"(phase 5: {base['docs_per_sec']:.1f}), losses "
-          f"{[round(x, 4) for x in [run['warm']] + run['losses']]} (phase 5: "
-          f"{[round(x, 4) for x in [base['warm']] + base['losses']]}), launches "
-          f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB (phase 5: "
-          f"{base['peak_mb']:.1f} MiB), on {card}")
+    print(f"trained with MMEE_TABLE_GRADS=1: {beside_phase_5(run, t['run'])}, on {card}")
     return run["launches"]
+
+
+def beside_phase_5(run, base) -> str:
+    return (f"warm-up step {run['t_warm']:.2f} s, then {TRAIN_STEPS} steps in "
+            f"{run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec (phase 5: "
+            f"{base['docs_per_sec']:.1f}), losses "
+            f"{[round(x, 4) for x in [run['warm']] + run['losses']]} (phase 5: "
+            f"{[round(x, 4) for x in [base['warm']] + base['losses']]}), launches "
+            f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB (phase 5: "
+            f"{base['peak_mb']:.1f} MiB)")
+
+
+def launch_counts():
+    return {name: f.launches for name, f in train_counters().items()}
+
+
+def phase_train_default(card: str, trained):
+    """Phase 5c: the JAX package's default schedule, ``scan_fold=1``, at
+    attention dropout 0: the gradient check, whose launches show that it
+    ran ``flash_attention_packed`` and the head-form pair in every layer,
+    against phase 5's CPU reference and its chained gradients on the card,
+    then 1 + 3 steps. Returns (launches, the check's (loss, gradients))."""
+    t = trained
+    cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(
+        scan_fold=1, attention_probs_dropout_prob=0.0))
+    model32 = t["model32"]
+    before = launch_counts()
+    _, (loss, grads) = train_gradient_check(cfg, model32, t["batches"][0], t["weights"],
+                                            t["reference"])
+    ran = {name: n - before[name] for name, n in launch_counts().items() if n > before[name]}
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
+            "flash_attention_fwd": 12, "flash_attention_bwd": 24}
+    check(ran == want, f"the scan_fold=1 gradient check launched {ran}, not {want}")
+    names = [n for n, _ in model32.named_parameters()]
+    summary = gradient_gate(names, loss, grads, *t["chained"],
+                            "scan_fold=1 vs the chained path on the card", UNCHAINED_LIMITS)
+    print(f"train with scan_fold=1, attention dropout 0, against phase 5's chained gradients "
+          f"on the card, same input: {summary}")
+    run = train_steps(cfg, model32, t["batches"], t["args"], want)
+    print(f"trained with scan_fold=1 and attention dropout 0: {beside_phase_5(run, t['run'])}, "
+          f"on {card}")
+    return run["launches"], (loss, grads)
+
+
+def phase_train_remat(card: str, trained, default):
+    """Phase 5d: bench.py's remat schedule, ``scan_fold=1`` with
+    ``gradient_checkpointing``, dropout 0.1: the two gradient checks, the
+    check's gradients against phase 5c's (``default``: the same schedule
+    without checkpointing) bit for bit, the same at dropout 0.1 with the
+    same seeds, then 1 + 3 steps."""
+    t = trained
+    cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(
+        scan_fold=1, gradient_checkpointing=True))
+    model32, batch, weights = t["model32"], t["batches"][0], t["weights"]
+    names = [n for n, _ in model32.named_parameters()]
+    _, (loss, grads) = train_gradient_check(cfg, model32, batch, weights, t["reference"])
+    summary = gradient_gate(names, loss, grads, *t["chained"],
+                            "remat vs the chained path on the card", UNCHAINED_LIMITS)
+    print(f"train with gradient_checkpointing, against phase 5's chained gradients on the "
+          f"card, same input: {summary}")
+    differ = [n for n, a, b in zip(names, grads, default[1]) if not torch.equal(a, b)]
+    check(loss == default[0] and not differ,
+          f"remat gradients differ from phase 5c's: loss {loss} vs {default[0]}, {differ[:4]}")
+    del grads
+    # dropout 0.1, seeds from generators seeded alike: with and without
+    # checkpointing, on the training kernels
+    model = copy.deepcopy(model32).cuda()
+    plain = cfg.replace(backbone=cfg.backbone.replace(gradient_checkpointing=False))
+    runs = [loss_grads(model, c, batch, weights, "cuda", torch.bfloat16,
+                       torch.Generator().manual_seed(3)) for c in (plain, cfg)]
+    differ = [n for n, a, b in zip(names, runs[0][1], runs[1][1]) if not torch.equal(a, b)]
+    check(runs[0][0] == runs[1][0] and not differ,
+          f"at dropout 0.1 the remat gradients differ: {differ[:4]}")
+    del model, runs
+    print("train with gradient_checkpointing: gradients bit-equal to phase 5c's at dropout 0 "
+          "and to the same schedule's without checkpointing at dropout 0.1 (same seeds)")
+    # 12 training forwards and 12 recomputed; 12 plain backwards of 2 kernels
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 24,
+            "flash_attention_packed_train_bwd": 24}
+    run = train_steps(cfg, model32, t["batches"], t["args"], want)
+    print(f"trained with scan_fold=1 and gradient_checkpointing (dropout "
+          f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, t['run'])}, "
+          f"on {card}")
 
 
 def main() -> int:
@@ -1055,7 +1280,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     name, card = phase_device()
     phase_build()
-    kernels = phase_kernels(name)
+    with bias_modes():
+        kernels = phase_kernels(name)
     with bias_modes():
         serve_launches, served = phase_main_path()
     with bias_modes(fused="1"):
@@ -1065,8 +1291,15 @@ def main() -> int:
         train_launches, trained = phase_train(card)
     with bias_modes(tables="1"):
         tables_launches = phase_train_tables(card, trained)
+    with bias_modes():
+        default_launches, default_grads = phase_train_default(card, trained)
+    with bias_modes():
+        phase_train_remat(card, trained, default_grads)
+    default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # each kernel's launches on the path that runs it
     paths = {
+        "flash_attention_fwd": (default_launches, default_path),
+        "flash_attention_bwd": (default_launches, default_path),
         "materialize_bias": (serve_launches, f"{N_BATCHES} served batches"),
         "flash_attention_packed": (serve_launches, f"{N_BATCHES} served batches"),
         "fused_bias_attention": (fused_launches,

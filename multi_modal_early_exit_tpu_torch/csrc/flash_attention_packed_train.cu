@@ -1,14 +1,26 @@
 // flash_attention_packed_train: the training forward and backward of
 // softmax(q k^T * d^-1/2 + bias) v on the packed (B, S, H*D) layout, with
-// position-hash dropout on the probabilities.
+// position-hash dropout on the probabilities, and the same forward and
+// backward on the head form, (B, H, S, D) tensors given by their strides.
 //
-// Replaces three TPU kernels of multi_modal_early_exit_tpu/ops/flash_attention.py:
+// Replaces five TPU kernels of multi_modal_early_exit_tpu/ops/flash_attention.py:
 // `_attn_fwd_packed_train_kernel` (:607, behind `_flash_packed_train_fwd_impl`
 // :753), `_attn_bwd_packed_kernel` (:652, behind `_flash_packed_bwd_impl`
 // :812), the latter in its plain and its chained form (dbias = gbias + ds),
-// and `_attn_bwd_packed_tables_kernel` (:1038, behind
+// `_attn_bwd_packed_tables_kernel` (:1038, behind
 // `_flash_packed_bwd_tables_impl` :1186), the backward that reduces ds
-// straight into the three relative-position tables.
+// straight into the three relative-position tables, and the head-form pair
+// `_attn_fwd_kernel` (:73, behind `_flash_attention_fwd_impl` :162) and
+// `_attn_bwd_fused_kernel` (:231, behind `_flash_attention_bwd_impl` :296).
+//
+// One body serves both layouts. The forward, dq and dk/dv bodies take each
+// operand's (batch, head, row) element strides; the packed kernels pass the
+// strides of (B, S, H*D), (S*H*D, D, H*D), and the head-form kernels the
+// caller's. The packed projections' transposed view is a head-form tensor,
+// so the backward of the inference op (the JAX package's `_packed_bwd`)
+// runs the head-form kernels on them with no copy. The head-form backward
+// computes delta = rowsum(do * o) in its dq kernel, as the packed one does;
+// the TPU kernel takes it from XLA. The same function.
 //
 // Bound on an H100, at B=16, S=P=768, H=12, D=64, bf16: both are bound by
 // the (B, H, P, P) bias traffic. The forward must read the bias (226.5 MB)
@@ -95,15 +107,33 @@ struct Dropout {
   }
 };
 
-// rows [r0, r0 + 64) of a (rows, H*D) bf16 matrix at column offset `col`
-// into a [row][d] shared tile; rows >= limit read as zero
+// element strides of one (B, H, rows, D) operand; d has stride 1
+struct Strides {
+  long long b, h, s;
+};
+
+// the packed (B, S, H*D) layout seen as (B, H, S, D); computed by the
+// launchers and passed as a kernel argument, as the head form's strides are
+// (computed in the kernel, the forward measured 19 % slower on an H100)
+Strides packed_strides(int S, int H) {
+  return Strides{static_cast<long long>(S) * H * kD, kD, static_cast<long long>(H) * kD};
+}
+
+// the (b, h) plane of an operand
+template <typename T>
+__device__ __forceinline__ T* plane_of(T* x, const Strides& st, int b, int h) {
+  return x + b * st.b + h * st.h;
+}
+
+// rows [r0, r0 + 64) of a plane with row stride `rs` into a [row][d]
+// shared tile; rows >= limit read as zero
 __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
-                                          int limit, int hd, int tid) {
+                                          int limit, long long rs, int tid) {
   for (int idx = tid; idx < 64 * (kD / 8); idx += kThreads) {
     const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * hd + c);
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
     }
     *reinterpret_cast<uint4*>(&dst[r * kLD + c]) = val;
   }
@@ -112,12 +142,12 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
 // the same rows into a [row][d] tile and its transpose [d][row]
 __device__ __forceinline__ void load_rows_both(bf16* dst, bf16* dst_t,
                                                const bf16* src, int r0,
-                                               int limit, int hd, int tid) {
+                                               int limit, long long rs, int tid) {
   for (int idx = tid; idx < 64 * (kD / 8); idx += kThreads) {
     const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
     uint4 val = make_uint4(0, 0, 0, 0);
     if (r0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + static_cast<size_t>(r0 + r) * hd + c);
+      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
     }
     if (dst != nullptr) *reinterpret_cast<uint4*>(&dst[r * kLD + c]) = val;
     const bf16* ve = reinterpret_cast<const bf16*>(&val);
@@ -176,13 +206,14 @@ __device__ __forceinline__ void mma_acc_by_tile_t(float (&out)[8][4],
 }
 
 // 16 x 64 f32 accumulators, times `mul`, rounded to bf16 at rows `row`
+// of a plane with row stride `rs`
 __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[8][4],
-                                           const int (&row)[2], int limit, int hd,
+                                           const int (&row)[2], int limit, long long rs,
                                            float mul, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (row[r] >= limit) continue;
-    bf16* orow = dst + static_cast<size_t>(row[r]) * hd;
+    bf16* orow = dst + row[r] * rs;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
@@ -196,12 +227,13 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[8][4],
 // ---------------------------------------------------------------------------
 
 template <typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_fwd_kernel(
+__device__ __forceinline__ void fwd_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v,       // (B, S, H*D)
+    const bf16* __restrict__ v,       // (B, H, S, D) by strides
     const BiasT* __restrict__ bias,   // (B, H, P, P)
-    bf16* __restrict__ o,             // (B, S, H*D)
+    bf16* __restrict__ o,             // (B, H, S, D) by strides
     float* __restrict__ lse,          // (B, H, P)
+    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
     int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     int dropout) {
   __shared__ __align__(16) bf16 s_q[kBQ * kLD];
@@ -214,16 +246,17 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int hd = H * kD;
   const size_t plane = static_cast<size_t>(b) * H + h;
   float* lse_bh = lse + plane * P;
   if (q0 >= S) {  // a block of pad rows only: their lse is +inf
     for (int r = tid; r < kBQ; r += kThreads) lse_bh[q0 + r] = INFINITY;
     return;
   }
-  const size_t batch_off = static_cast<size_t>(b) * S * hd + h * kD;
+  const bf16* qp = plane_of(q, sq, b, h);
+  const bf16* kp = plane_of(k, sk, b, h);
+  const bf16* vp = plane_of(v, sv, b, h);
 
-  load_rows(s_q, q + batch_off, q0, S, hd, tid);
+  load_rows(s_q, qp, q0, S, sq.s, tid);
   __syncthreads();
   const int wr = warp * 16;
   uint32_t qa[4][4];
@@ -249,8 +282,8 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(
   for (int kbi = 0; kbi < n_kb; ++kbi) {
     const int k0 = kbi * kBK;
     __syncthreads();  // the previous block's k/v are consumed
-    load_rows(s_k, k + batch_off, k0, S, hd, tid);
-    load_rows_both(nullptr, s_vt, v + batch_off, k0, S, hd, tid);
+    load_rows(s_k, kp, k0, S, sk.s, tid);
+    load_rows_both(nullptr, s_vt, vp, k0, S, sv.s, tid);
     __syncthreads();
 
     float s[8][4];
@@ -314,7 +347,7 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(
     if (t == 0) lse_bh[row[r]] = row[r] < S ? m_run[r] + logf(l_run[r]) : INFINITY;
     if (row[r] >= S) continue;
     const float inv = 1.0f / l_run[r];
-    bf16* orow = o + batch_off + static_cast<size_t>(row[r]) * hd;
+    bf16* orow = plane_of(o, so, b, h) + row[r] * so.s;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
@@ -323,20 +356,62 @@ __global__ void __launch_bounds__(kThreads) train_fwd_kernel(
   }
 }
 
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) train_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v,       // (B, S, H*D)
+    const BiasT* __restrict__ bias,   // (B, H, P, P)
+    bf16* __restrict__ o,             // (B, S, H*D)
+    float* __restrict__ lse,          // (B, H, P)
+    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    int dropout) {
+  fwd_body<BiasT>(q, k, v, bias, o, lse, st, st, st, st, S, H, P, scale, seed, keep,
+                  inv_keep, dropout);
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) headform_fwd_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
+    bf16* __restrict__ o, float* __restrict__ lse,
+    Strides sq, Strides sk, Strides sv, Strides so,
+    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    int dropout) {
+  fwd_body<BiasT>(q, k, v, bias, o, lse, sq, sk, sv, so, S, H, P, scale, seed, keep,
+                  inv_keep, dropout);
+}
+
 // ---------------------------------------------------------------------------
 // backward (A): delta, dbias (= ds, + gbias when chained) and dq
 // ---------------------------------------------------------------------------
 
+// delta[i] = sum_d do[i, d] * o[i, d] in f32 for row i of a (b, h) plane
+__device__ __forceinline__ float row_delta(const bf16* dr, const bf16* orow) {
+  float acc = 0.0f;
+#pragma unroll
+  for (int c = 0; c < kD; c += 8) {
+    const uint4 dv = *reinterpret_cast<const uint4*>(dr + c);
+    const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
+    const bf16* de = reinterpret_cast<const bf16*>(&dv);
+    const bf16* oe = reinterpret_cast<const bf16*>(&ov);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) acc += __bfloat162float(de[e]) * __bfloat162float(oe[e]);
+  }
+  return acc;
+}
+
 template <typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
+__device__ __forceinline__ void bwd_dq_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const BiasT* __restrict__ bias,
     const bf16* __restrict__ dout, const bf16* __restrict__ o,
     const float* __restrict__ lse,     // (B, H, P)
     const BiasT* __restrict__ gbias,   // (B, H, P, P) or null
-    bf16* __restrict__ dq,             // (B, S, H*D)
+    bf16* __restrict__ dq,             // (B, H, S, D) by strides
     BiasT* __restrict__ dbias,         // (B, H, P, P)
     float* __restrict__ delta,         // (B, H, P), written here
+    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& sdo,
+    const Strides& so, const Strides& sdq,
     int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     int dropout) {
   __shared__ __align__(16) bf16 s_a[kBQ * kLD];   // q, then do
@@ -351,37 +426,27 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int hd = H * kD;
   const size_t plane = static_cast<size_t>(b) * H + h;
-  const size_t batch_off = static_cast<size_t>(b) * S * hd + h * kD;
+  const bf16* qp = plane_of(q, sq, b, h);
+  const bf16* kp = plane_of(k, sk, b, h);
+  const bf16* vp = plane_of(v, sv, b, h);
+  const bf16* dop = plane_of(dout, sdo, b, h);
   const int wr = warp * 16;
 
-  // delta[i] = sum_d do[i, d] * o[i, d] in f32, one thread per row
+  // delta of this block's rows, one thread per row
   if (tid < kBQ) {
     const int i = q0 + tid;
     float acc = 0.0f;
-    if (i < S) {
-      const bf16* dr = dout + batch_off + static_cast<size_t>(i) * hd;
-      const bf16* orow = o + batch_off + static_cast<size_t>(i) * hd;
-#pragma unroll
-      for (int c = 0; c < kD; c += 8) {
-        const uint4 dv = *reinterpret_cast<const uint4*>(dr + c);
-        const uint4 ov = *reinterpret_cast<const uint4*>(orow + c);
-        const bf16* de = reinterpret_cast<const bf16*>(&dv);
-        const bf16* oe = reinterpret_cast<const bf16*>(&ov);
-#pragma unroll
-        for (int e = 0; e < 8; ++e) acc += __bfloat162float(de[e]) * __bfloat162float(oe[e]);
-      }
-    }
+    if (i < S) acc = row_delta(dop + i * sdo.s, plane_of(o, so, b, h) + i * so.s);
     s_delta[tid] = acc;
     delta[plane * P + i] = acc;
   }
   uint32_t qa[4][4], da[4][4];
-  load_rows(s_a, q + batch_off, q0, S, hd, tid);
+  load_rows(s_a, qp, q0, S, sq.s, tid);
   __syncthreads();
   load_a_frags(qa, s_a, wr, g, t);
   __syncthreads();
-  load_rows(s_a, dout + batch_off, q0, S, hd, tid);
+  load_rows(s_a, dop, q0, S, sdo.s, tid);
   __syncthreads();
   load_a_frags(da, s_a, wr, g, t);
 
@@ -404,8 +469,8 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
   for (int kbi = 0; kbi < n_kb; ++kbi) {
     const int k0 = kbi * kBK;
     __syncthreads();
-    load_rows_both(s_k, s_kt, k + batch_off, k0, S, hd, tid);
-    load_rows(s_v, v + batch_off, k0, S, hd, tid);
+    load_rows_both(s_k, s_kt, kp, k0, S, sk.s, tid);
+    load_rows(s_v, vp, k0, S, sv.s, tid);
     __syncthreads();
 
     float s[8][4], dp[8][4];
@@ -437,7 +502,36 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
     }
     mma_acc_by_tile_t(dq_acc, s, s_kt, g, t);  // dq += ds k
   }
-  store_rows(dq + batch_off, dq_acc, row, S, hd, scale, t);
+  store_rows(plane_of(dq, sdq, b, h), dq_acc, row, S, sdq.s, scale, t);
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
+    const bf16* __restrict__ dout, const bf16* __restrict__ o,
+    const float* __restrict__ lse,     // (B, H, P)
+    const BiasT* __restrict__ gbias,   // (B, H, P, P) or null
+    bf16* __restrict__ dq,             // (B, S, H*D)
+    BiasT* __restrict__ dbias,         // (B, H, P, P)
+    float* __restrict__ delta,         // (B, H, P), written here
+    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    int dropout) {
+  bwd_dq_body<BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dbias, delta, st, st, st, st,
+                     st, st, S, H, P, scale, seed, keep, inv_keep, dropout);
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) headform_bwd_dq_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
+    const bf16* __restrict__ dout, const bf16* __restrict__ o,
+    const float* __restrict__ lse, bf16* __restrict__ dq, BiasT* __restrict__ dbias,
+    float* __restrict__ delta, Strides sq, Strides sk, Strides sv, Strides sdo,
+    Strides so, Strides sdq, int S, int H, int P, float scale, int seed, float keep,
+    float inv_keep, int dropout) {
+  bwd_dq_body<BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dbias, delta, sq, sk, sv,
+                     sdo, so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
 }
 
 // ---------------------------------------------------------------------------
@@ -445,12 +539,14 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
 // ---------------------------------------------------------------------------
 
 template <typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
+__device__ __forceinline__ void bwd_dkv_body(
     const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* __restrict__ v, const BiasT* __restrict__ bias,
     const bf16* __restrict__ dout, const float* __restrict__ lse,
     const float* __restrict__ delta,
-    bf16* __restrict__ dk, bf16* __restrict__ dv,  // (B, S, H*D)
+    bf16* __restrict__ dk, bf16* __restrict__ dv,  // (B, H, S, D) by strides
+    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& sdo,
+    const Strides& sdk, const Strides& sdv,
     int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     int dropout) {
   __shared__ __align__(16) bf16 s_q[kBQ * kLD];    // [query][d]
@@ -466,14 +562,14 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
   const int g = lane >> 2, t = lane & 3;
-  const int hd = H * kD;
   const size_t plane = static_cast<size_t>(b) * H + h;
-  const size_t batch_off = static_cast<size_t>(b) * S * hd + h * kD;
+  const bf16* qp = plane_of(q, sq, b, h);
+  const bf16* dop = plane_of(dout, sdo, b, h);
   const int wr = warp * 16;
 
   uint32_t ka[4][4], va[4][4];
-  load_rows(s_q, k + batch_off, j0, S, hd, tid);
-  load_rows(s_do, v + batch_off, j0, S, hd, tid);
+  load_rows(s_q, plane_of(k, sk, b, h), j0, S, sk.s, tid);
+  load_rows(s_do, plane_of(v, sv, b, h), j0, S, sv.s, tid);
   __syncthreads();
   load_a_frags(ka, s_q, wr, g, t);
   load_a_frags(va, s_do, wr, g, t);
@@ -496,8 +592,8 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
   for (int qbi = 0; qbi < n_qb; ++qbi) {
     const int i0 = qbi * kBQ;
     __syncthreads();
-    load_rows_both(s_q, s_qt, q + batch_off, i0, S, hd, tid);
-    load_rows_both(s_do, s_dot, dout + batch_off, i0, S, hd, tid);
+    load_rows_both(s_q, s_qt, qp, i0, S, sq.s, tid);
+    load_rows_both(s_do, s_dot, dop, i0, S, sdo.s, tid);
     for (int r = tid; r < kBQ; r += kThreads) {
       const bool ok = i0 + r < S;
       s_lse[r] = ok ? lse[plane * P + i0 + r] : 0.0f;
@@ -530,8 +626,34 @@ __global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
     mma_acc_by_tile_t(dv_acc, st, s_dot, g, t);   // dv += (p c)^T do
     mma_acc_by_tile_t(dk_acc, dpt, s_qt, g, t);   // dk += ds^T q
   }
-  store_rows(dk + batch_off, dk_acc, key, S, hd, scale, t);
-  store_rows(dv + batch_off, dv_acc, key, S, hd, 1.0f, t);
+  store_rows(plane_of(dk, sdk, b, h), dk_acc, key, S, sdk.s, scale, t);
+  store_rows(plane_of(dv, sdv, b, h), dv_acc, key, S, sdv.s, 1.0f, t);
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta,
+    bf16* __restrict__ dk, bf16* __restrict__ dv,  // (B, S, H*D)
+    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    int dropout) {
+  bwd_dkv_body<BiasT>(q, k, v, bias, dout, lse, delta, dk, dv, st, st, st, st, st, st, S,
+                      H, P, scale, seed, keep, inv_keep, dropout);
+}
+
+template <typename BiasT>
+__global__ void __launch_bounds__(kThreads) headform_bwd_dkv_kernel(
+    const bf16* __restrict__ q, const bf16* __restrict__ k,
+    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
+    const bf16* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, bf16* __restrict__ dk, bf16* __restrict__ dv,
+    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
+    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    int dropout) {
+  bwd_dkv_body<BiasT>(q, k, v, bias, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv,
+                      S, H, P, scale, seed, keep, inv_keep, dropout);
 }
 
 // ---------------------------------------------------------------------------
@@ -762,14 +884,15 @@ int launch_bwd(const bf16* q, const bf16* k, const bf16* v, const void* bias,
                float* delta, int B, int S, int H, int P, float scale, int seed,
                float keep, float inv_keep, int dropout, cudaStream_t st) {
   const BiasT* bp = static_cast<const BiasT*>(bias);
+  const Strides ps = packed_strides(S, H);
   train_bwd_dq_kernel<BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
       q, k, v, bp, dout, o, lse, static_cast<const BiasT*>(gbias), dq,
-      static_cast<BiasT*>(dbias), delta, S, H, P, scale, seed, keep, inv_keep,
+      static_cast<BiasT*>(dbias), delta, ps, S, H, P, scale, seed, keep, inv_keep,
       dropout);
   const int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   train_bwd_dkv_kernel<BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, lse, delta, dk, dv, S, H, P, scale, seed, keep,
+      q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep,
       inv_keep, dropout);
   return static_cast<int>(cudaGetLastError());
 }
@@ -790,12 +913,12 @@ extern "C" int mmee_flash_attention_packed_train_fwd(
   float* lp = static_cast<float*>(lse);
   if (bias_is_bf16) {
     train_fwd_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, static_cast<const bf16*>(bias), op, lp, S, H, P, scale,
-        seed, keep, inv_keep, dropout);
+        qp, kp, vp, static_cast<const bf16*>(bias), op, lp, packed_strides(S, H), S, H,
+        P, scale, seed, keep, inv_keep, dropout);
   } else {
     train_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, static_cast<const float*>(bias), op, lp, S, H, P, scale,
-        seed, keep, inv_keep, dropout);
+        qp, kp, vp, static_cast<const float*>(bias), op, lp, packed_strides(S, H), S, H,
+        P, scale, seed, keep, inv_keep, dropout);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -853,8 +976,8 @@ int launch_bwd_tables(const bf16* q, const bf16* k, const bf16* v, const void* b
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   train_bwd_dkv_kernel<BiasT><<<dim3(n_qb, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, lse, delta, dk, dv, S, H, P, scale, seed, keep,
-      inv_keep, dropout);
+      q, k, v, bp, dout, lse, delta, dk, dv, packed_strides(S, H), S, H, P, scale, seed,
+      keep, inv_keep, dropout);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
@@ -903,4 +1026,103 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
                                   dqp, dkp, dvp, dlt, part, tab, B, S, H, P, scale,
                                   seed, keep, inv_keep, dropout, nb1, nb2, max1,
                                   max2, st);
+}
+
+// ---------------------------------------------------------------------------
+// head form: the forward and the plain backward on (B, H, S, D) operands
+// given by their strides
+// ---------------------------------------------------------------------------
+
+namespace {
+
+// strides[3 * i + {0, 1, 2}]: the (batch, head, row) strides of operand i
+Strides strides_at(const long long* strides, int i) {
+  return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
+}
+
+template <typename BiasT>
+int launch_headform_fwd(const bf16* q, const bf16* k, const bf16* v, const void* bias,
+                        bf16* o, float* lse, const long long* strides, int B, int S,
+                        int H, int P, float scale, int seed, float keep, float inv_keep,
+                        int dropout, cudaStream_t st) {
+  headform_fwd_kernel<BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
+      q, k, v, static_cast<const BiasT*>(bias), o, lse, strides_at(strides, 0),
+      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3), S, H, P,
+      scale, seed, keep, inv_keep, dropout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename BiasT>
+int launch_headform_bwd(const bf16* q, const bf16* k, const bf16* v, const void* bias,
+                        const bf16* dout, const bf16* o, const float* lse, bf16* dq,
+                        bf16* dk, bf16* dv, void* dbias, float* delta,
+                        const long long* strides, int B, int S, int H, int P,
+                        float scale, int seed, float keep, float inv_keep, int dropout,
+                        cudaStream_t st) {
+  const BiasT* bp = static_cast<const BiasT*>(bias);
+  const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
+                sv = strides_at(strides, 2), so = strides_at(strides, 3),
+                sdo = strides_at(strides, 4), sdq = strides_at(strides, 5),
+                sdk = strides_at(strides, 6), sdv = strides_at(strides, 7);
+  headform_bwd_dq_kernel<BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
+      q, k, v, bp, dout, o, lse, dq, static_cast<BiasT*>(dbias), delta, sq, sk, sv, sdo,
+      so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  headform_bwd_dkv_kernel<BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
+      q, k, v, bp, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, S, H, P, scale,
+      seed, keep, inv_keep, dropout);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// o (in the layout `strides` gives it) and lse (B, H, P) f32, +inf past S.
+// `strides` is a host array of 12: (batch, head, row) of q, k, v, o.
+extern "C" int mmee_flash_attention_fwd(
+    const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
+    void* o, void* lse, const long long* strides, int B, int S, int H, int P,
+    float scale, int seed, float keep, float inv_keep, int dropout, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  bf16* op = static_cast<bf16*>(o);
+  float* lp = static_cast<float*>(lse);
+  if (bias_is_bf16) {
+    return launch_headform_fwd<bf16>(qp, kp, vp, bias, op, lp, strides, B, S, H, P, scale,
+                                     seed, keep, inv_keep, dropout, st);
+  }
+  return launch_headform_fwd<float>(qp, kp, vp, bias, op, lp, strides, B, S, H, P, scale,
+                                    seed, keep, inv_keep, dropout, st);
+}
+
+// dq, dk, dv (in the layouts `strides` gives them) and dbias = ds (B, H, P,
+// P), zero past S, in two kernels: (A) delta, dbias and dq, (B) dk and dv.
+// `strides` is a host array of 24: (batch, head, row) of q, k, v, o, do, dq,
+// dk, dv; `delta` is scratch of B * H * P floats.
+extern "C" int mmee_flash_attention_bwd(
+    const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
+    const void* dout, const void* o, const void* lse, void* dq, void* dk, void* dv,
+    void* dbias, void* delta, const long long* strides, int B, int S, int H, int P,
+    float scale, int seed, float keep, float inv_keep, int dropout, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bf16* qp = static_cast<const bf16*>(q);
+  const bf16* kp = static_cast<const bf16*>(k);
+  const bf16* vp = static_cast<const bf16*>(v);
+  const bf16* dp = static_cast<const bf16*>(dout);
+  const bf16* op = static_cast<const bf16*>(o);
+  const float* lp = static_cast<const float*>(lse);
+  bf16* dqp = static_cast<bf16*>(dq);
+  bf16* dkp = static_cast<bf16*>(dk);
+  bf16* dvp = static_cast<bf16*>(dv);
+  float* dlt = static_cast<float*>(delta);
+  if (bias_is_bf16) {
+    return launch_headform_bwd<bf16>(qp, kp, vp, bias, dp, op, lp, dqp, dkp, dvp, dbias,
+                                     dlt, strides, B, S, H, P, scale, seed, keep,
+                                     inv_keep, dropout, st);
+  }
+  return launch_headform_bwd<float>(qp, kp, vp, bias, dp, op, lp, dqp, dkp, dvp, dbias,
+                                    dlt, strides, B, S, H, P, scale, seed, keep, inv_keep,
+                                    dropout, st);
 }

@@ -4,8 +4,8 @@ The PyTorch port's own copy of the JAX package's
 ``models/layoutlmv3/config.py``. Field names/defaults track the HuggingFace
 ``LayoutLMv3Config``; ``base()`` reproduces ``microsoft/layoutlmv3-base``
 (12 layers, hidden 768, max_position_embeddings 514 in the released config).
-The JAX package's scheduling fields (``gradient_checkpointing``,
-``scan_fold``) belong to its training path and are not carried over.
+The two scheduling fields, ``gradient_checkpointing`` and ``scan_fold``,
+keep the JAX defaults and meanings.
 """
 
 from __future__ import annotations
@@ -52,6 +52,15 @@ class LayoutLMv3Config:
     patch_size: int = 16
     classifier_dropout: Optional[float] = None
     num_labels: int = 16
+    # recompute each group of ``scan_fold`` encoder layers in the backward
+    # (torch.utils.checkpoint), trading FLOPs for activation memory
+    gradient_checkpointing: bool = False
+    # layers per encoder step (must divide num_hidden_layers;
+    # MMEE_LAYERS_PER_STEP overrides). The port's encoder is a Python loop,
+    # so the fold sets only the checkpointed group and, at num_hidden_layers,
+    # the chained bias cotangent's default (modeling.use_chained_dbias); it
+    # never changes the numbers
+    scan_fold: int = 1
 
     @property
     def head_dim(self) -> int:

@@ -9,16 +9,22 @@ with the JAX names (``embed_text``, ``encoder_apply``, ``backbone_apply``,
 
 ``make_attention_bias`` builds the (B, H, P, P) relative-position + mask
 bias once per forward (``ops.materialize_bias``, differentiable in the
-three tables). Inference (``deterministic`` with autograd off) runs
-``ops.flash_attention_packed`` in every layer. Training, or any forward
-under autograd, runs the chained ``ops.flash_attention_packed_train_chained``
-instead: the bias rides from layer to layer (``ChainedBiasContext``), so each
-layer's backward adds its bias cotangent to the running one in the kernel,
-and the bias builder's backward (``ops.table_grads``) reduces the total into
-the tables once per step. The port has no layer scan, so the encoder is
-always fully unrolled, the case in which the JAX package chains by default.
-On CUDA tensors the attention and bias ops are the hand-written kernels, on
-CPU tensors their plain PyTorch versions. Masked keys carry -1e30.
+three tables). Every layer then takes the bias as it is: at attention
+dropout 0 (deterministic, or a rate of 0) ``ops.flash_attention_packed``,
+whose backward runs the head-form kernels, else
+``ops.flash_attention_packed_train``; autograd sums the layers' bias
+cotangents and the bias builder's backward (``ops.table_grads``) reduces
+the sum into the tables once per step. When training (not
+``deterministic``) with the chained bias cotangent on
+(``use_chained_dbias``, by default exactly when ``effective_scan_fold``
+folds every layer into one step, as in the JAX package), the bias rides
+from layer to layer instead (``ChainedBiasContext``) through
+``ops.flash_attention_packed_train_chained``, so each layer's backward adds
+its bias cotangent to the running one in the kernel. With
+``cfg.gradient_checkpointing`` each group of ``effective_scan_fold`` layers
+is recomputed in the backward (``torch.utils.checkpoint``). On CUDA tensors
+the attention and bias ops are the hand-written kernels, on CPU tensors
+their plain PyTorch versions. Masked keys carry -1e30.
 
 Two opt-in bias modes, off by default as in the JAX package and switched by
 the same environment variables, read at call time:
@@ -31,8 +37,10 @@ the same environment variables, read at call time:
   with the bias detached, and ``ops.flash_attention_packed_train_tables``
   reduces each layer's bias cotangent straight into the tables' gradients.
 
-Unlike the JAX package, the modes are not gated on the device: on the CPU
-the contexts run the plain versions of the two kernels.
+``MMEE_CHAINED_DBIAS`` (1 on, 0 off) and ``MMEE_LAYERS_PER_STEP`` (the fold)
+override the chained default and ``cfg.scan_fold`` as in the JAX package.
+Unlike the JAX package, none of the modes is gated on the device or on
+bf16: on the CPU the contexts run the plain versions of the kernels.
 
 Dropout is the position-hash dropout of ``ops.hashing`` with int32 seeds
 from an ``RngStream`` over one ``torch.Generator``; LayerNorm and GELU have
@@ -51,11 +59,14 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
 from multi_modal_early_exit_tpu_torch.device import resolve_device
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import LayoutLMv3Config
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
+    flash_attention_packed_train,
     flash_attention_packed_train_chained,
     flash_attention_packed_train_tables,
 )
@@ -266,6 +277,10 @@ class EncoderLayer(nn.Module):
         self.intermediate = Linear(cfg.hidden_size, cfg.intermediate_size)
         self.output = Linear(cfg.intermediate_size, cfg.hidden_size)
         self.output_LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+
+    def forward(self, cfg, hidden, attn_bias, deterministic=True, seeds=None):
+        """``encoder_layer_apply`` of this layer, for ``functional_call``."""
+        return encoder_layer_apply(self, cfg, hidden, attn_bias, deterministic, seeds)
 
 
 class Encoder(nn.Module):
@@ -509,6 +524,29 @@ def use_fused_bias_attention(default: bool = False) -> bool:
     return _switch("MMEE_FUSED_BIAS", default)
 
 
+def use_chained_dbias(default: bool = False) -> bool:
+    """Training attention with the chained bias cotangent
+    (``ops.flash_attention_packed_train_chained``). MMEE_CHAINED_DBIAS=1
+    forces it on, =0 off; unset (or empty) gives ``default``, which
+    ``backbone_apply`` sets to ``effective_scan_fold(cfg) ==
+    num_hidden_layers``, as the JAX package does."""
+    return _switch("MMEE_CHAINED_DBIAS", default)
+
+
+def effective_scan_fold(cfg: LayoutLMv3Config) -> int:
+    """Layers per encoder step: MMEE_LAYERS_PER_STEP if set to a positive
+    integer, else ``cfg.scan_fold``; 1 when that is not a divisor of the
+    layer count (the JAX package's rule, read at call time)."""
+    try:
+        fold = int(os.environ.get("MMEE_LAYERS_PER_STEP", "0"))
+    except ValueError:  # empty or not a number: as if unset
+        fold = 0
+    fold = fold or cfg.scan_fold
+    if fold < 1 or cfg.num_hidden_layers % fold:
+        return 1
+    return fold
+
+
 def has_both_biases(cfg: LayoutLMv3Config) -> bool:
     """The bias modes need the relative and the spatial tables."""
     return cfg.has_relative_attention_bias and cfg.has_spatial_attention_bias
@@ -606,8 +644,10 @@ def attention_apply(
     seed_out: Optional[int] = None,
 ):
     """softmax(q k^T / sqrt(d) + bias) v on the packed projections, then the
-    epilogue. The bias is a (B, H, P, P) tensor (inference) or a context:
-    with a ``ChainedBiasContext`` (training) it returns ``(out,
+    epilogue. The bias is a (B, H, P, P) tensor or a context. A tensor runs
+    ``flash_attention_packed`` at attention dropout 0 (differentiable, as
+    in the JAX package) and ``flash_attention_packed_train`` above it. With
+    a ``ChainedBiasContext`` (training) it returns ``(out,
     ChainedBiasContext(bias passed through))``; a ``TrainBiasContext``
     (training) runs the table-gradient attention, a ``FusedBiasContext``
     (inference) the attention that builds the bias in the kernel."""
@@ -628,10 +668,12 @@ def attention_apply(
         )
         return _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
     if not isinstance(attn_bias, FusedBiasContext):
-        ctx = flash_attention_packed(
-            p.query(hidden), p.key(hidden), p.value(hidden), attn_bias, heads,
-        ).to(hidden.dtype)
-        return _attn_epilogue(p, cfg, ctx, hidden)
+        qp, kp, vp, rate, seed = _packed_qkv_and_seed(p, cfg, hidden, deterministic, seed_attn)
+        if rate > 0.0:
+            ctx = flash_attention_packed_train(qp, kp, vp, attn_bias, seed, heads, rate=rate)
+        else:
+            ctx = flash_attention_packed(qp, kp, vp, attn_bias, heads)
+        return _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
     b, s, width = hidden.shape
 
     def split(x):  # (B, S, H*D) -> a (B, H, S, D) view, no copy
@@ -680,17 +722,46 @@ def encoder_apply(
     """Run every layer; returns ``(final_hidden, cls_per_layer)`` where
     ``cls_per_layer`` is (L, B, H): the [CLS] state after each layer, the
     encoder exits' input. A ``ChainedBiasContext`` is carried from each
-    layer to the next; each layer draws three dropout seeds from ``rng``."""
+    layer to the next; each layer draws three dropout seeds from ``rng``.
+
+    With ``cfg.gradient_checkpointing`` under autograd, each group of
+    ``effective_scan_fold(cfg)`` layers runs in ``torch.utils.checkpoint``,
+    the counterpart of the JAX package's ``jax.checkpoint`` of one scan
+    step. The group's seeds are drawn before the call, and its parameters
+    are the tensors the layers hold then (the bf16 copies under
+    ``functional_call``), so the recompute in the backward repeats the
+    forward bit for bit. The fold changes the grouping only, never the
+    numbers."""
+    layers = list(p.layers)
+    fold = effective_scan_fold(cfg)
+    remat = cfg.gradient_checkpointing and torch.is_grad_enabled()
+    chained = isinstance(attn_bias, ChainedBiasContext)
+
+    def run(h, bias, group, seeds, params):
+        taps = []
+        for layer, layer_seeds, prm in zip(group, seeds, params):
+            args = (cfg, h, bias, deterministic, layer_seeds)
+            out = (encoder_layer_apply(layer, *args) if prm is None
+                   else functional_call(layer, prm, args))
+            h, bias = out if chained else (out, bias)
+            if collect_cls:
+                taps.append(h[:, 0, :])
+        return h, bias, taps
+
     taps = []
-    for layer in p.layers:
-        seeds = (rng.next(), rng.next(), rng.next()) if rng else None
-        out = encoder_layer_apply(layer, cfg, hidden, attn_bias, deterministic, seeds)
-        if isinstance(attn_bias, ChainedBiasContext):
-            hidden, attn_bias = out
+    for start in range(0, len(layers), fold):
+        group = layers[start:start + fold]
+        seeds = [(rng.next(), rng.next(), rng.next()) if rng else None for _ in group]
+        if remat:
+            params = [dict(layer.named_parameters()) for layer in group]
+            hidden, attn_bias, group_taps = checkpoint(
+                run, hidden, attn_bias, group, seeds, params,
+                use_reentrant=False, preserve_rng_state=False,  # no torch RNG inside
+            )
         else:
-            hidden = out
-        if collect_cls:
-            taps.append(hidden[:, 0, :])
+            hidden, attn_bias, group_taps = run(hidden, attn_bias, group, seeds,
+                                                [None] * len(group))
+        taps += group_taps
     return hidden, (torch.stack(taps) if collect_cls else None)
 
 
@@ -773,12 +844,14 @@ def backbone_apply(
     """The multimodal backbone. ``seq_pad_multiple`` pads the concatenated
     sequence once before the encoder; the bias is always built at a width
     that is a multiple of 128. With ``deterministic=False`` the dropout
-    seeds come from ``rng``. Inference callers run it under
-    ``torch.no_grad()``: under autograd (or when not deterministic) the
-    encoder takes the chained training attention, which has a backward, or
-    with ``MMEE_TABLE_GRADS=1`` the table-gradient attention. Inference with
+    seeds come from ``rng``. The attention follows the JAX package's
+    selection: when not deterministic, the table-gradient attention with
+    ``MMEE_TABLE_GRADS=1``, else the chained training attention when
+    ``use_chained_dbias(default=effective_scan_fold(cfg) ==
+    num_hidden_layers)``; otherwise every layer takes the bias tensor
+    (``attention_apply``), which is differentiable. Inference with
     ``MMEE_FUSED_BIAS=1`` builds no bias tensor; the fused attention has no
-    backward, so it is never taken under autograd."""
+    backward, so it is taken only when deterministic with autograd off."""
     rngs = RngStream(None if deterministic else rng)
     b, s_t = input_ids.shape
     if attention_mask is None:
@@ -796,17 +869,18 @@ def backbone_apply(
         hidden, full_bbox, pos, full_mask = pad_sequence(
             seq_pad_multiple, hidden, full_bbox, pos, full_mask
         )
-    training = not deterministic or torch.is_grad_enabled()
     both = has_both_biases(cfg)
-    if not training and both and use_fused_bias_attention():
+    if deterministic and not torch.is_grad_enabled() and both and use_fused_bias_attention():
         attn_bias = fused_bias_context(p, cfg, pos, full_bbox, full_mask)
-    elif training and both and use_table_grad_attention():
+    elif not deterministic and both and use_table_grad_attention():
         attn_bias = train_bias_context(p, cfg, pos, full_bbox, full_mask, hidden.dtype)
     else:
         attn_bias = make_attention_bias(
             p, cfg, pos, full_bbox, full_mask, dtype=hidden.dtype
         )
-        if training:
+        if not deterministic and use_chained_dbias(
+            default=effective_scan_fold(cfg) == cfg.num_hidden_layers
+        ):
             attn_bias = ChainedBiasContext(attn_bias)
     final, cls_per_layer = encoder_apply(
         p.encoder, cfg, hidden, attn_bias, collect_cls=collect_cls,

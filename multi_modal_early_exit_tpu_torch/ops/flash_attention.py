@@ -10,7 +10,19 @@ bias kernel; keys j >= S do not exist). Deterministic: no dropout.
 On a CUDA tensor ``flash_attention_packed`` launches the hand-written kernel
 ``csrc/flash_attention_packed.cu`` (bf16 q/k/v, head dim 64, bias bf16 or
 f32); on a CPU tensor it runs ``flash_attention_packed_plain``: dense f32
-scores from the same inputs, softmax, p cast to v's dtype, then p v.
+scores from the same inputs, softmax, p cast to v's dtype, then p v. Under
+autograd it is an ``autograd.Function`` whose backward is the JAX package's
+``_packed_bwd``: the head-form forward (``flash_attention_fwd``) recomputes
+the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
+dv and dbias; the packed tensors go to both as (B, H, S, D) views, no copy.
+
+Head form: ``flash_attention`` takes (B, H, S, D) q/k/v of any strides with
+a unit last one, and has dropout on the probabilities. Its forward
+(``flash_attention_fwd``: out and the (B, H, P) f32 lse) and backward
+(``flash_attention_bwd``: dq, dk, dv and dbias = ds at the bias's shape,
+zero past S) run the training kernels' bodies of ``csrc/
+flash_attention_packed_train.cu`` with explicit strides on CUDA tensors, and
+their plain versions on CPU tensors.
 
 Training: ``flash_attention_packed_train`` and its chained twin
 ``flash_attention_packed_train_chained`` are ``autograd.Function``s with
@@ -40,6 +52,7 @@ import functools
 import math
 
 import torch
+import torch.nn.functional as F
 
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
@@ -52,10 +65,15 @@ KERNEL_HEAD_DIM = 64
 KERNEL_TILE = 64  # rows and columns per CTA tile of the training kernels
 
 
+def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
+    """(B, S, H*D) -> a (B, H, S, D) view, no copy."""
+    b, s, hd = x.shape
+    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2)
+
+
 def _heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, S, H*D) -> (B, H, S, D) f32."""
-    b, s, hd = x.shape
-    return x.reshape(b, s, num_heads, hd // num_heads).transpose(1, 2).to(torch.float32)
+    return _split(x, num_heads).to(torch.float32)
 
 
 def _packed(x: torch.Tensor) -> torch.Tensor:
@@ -120,17 +138,9 @@ def _flash_attention_packed_fn():
     return lib, fn
 
 
-def flash_attention_packed(
-    q: torch.Tensor,     # (B, S, H*D)
-    k: torch.Tensor,
-    v: torch.Tensor,
-    bias: torch.Tensor,  # (B, H, P, P), P >= S, mask included
-    num_heads: int,
-) -> torch.Tensor:
-    """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (counted in
-    ``flash_attention_packed.launches``)."""
-    _check_packed("flash_attention_packed", q, k, v, bias, num_heads)
+def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
+    """The forward: the plain version on CPU tensors, the kernel on CUDA
+    tensors."""
     b, s, hd = q.shape
     device = q.device
     if device.type == "cpu":
@@ -148,6 +158,45 @@ def flash_attention_packed(
     cuda_build.check(lib, code, "flash_attention_packed")
     flash_attention_packed.launches += 1
     return out
+
+
+class _PackedAttention(torch.autograd.Function):
+    """``flash_attention_packed`` with the JAX package's ``_packed_bwd``:
+    the head-form forward recomputes the lse, the head-form backward gives
+    the gradients, both on (B, H, S, D) views of the packed tensors."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, num_heads):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.num_heads = num_heads
+        return _flash_attention_packed_fwd(q, k, v, bias, num_heads)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        h = ctx.num_heads
+        qh, kh, vh = (_split(x, h) for x in (q, k, v))
+        gh = _split(g.to(q.dtype).contiguous(), h)
+        o, lse = flash_attention_fwd(qh, kh, vh, bias, 0, 0.0, with_lse=True)
+        dq, dk, dv, dbias = flash_attention_bwd(qh, kh, vh, bias, 0, o, lse, gh, 0.0)
+        return _packed(dq), _packed(dk), _packed(dv), dbias, None
+
+
+def flash_attention_packed(
+    q: torch.Tensor,     # (B, S, H*D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # (B, H, P, P), P >= S, mask included
+    num_heads: int,
+) -> torch.Tensor:
+    """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
+    CUDA tensors launch the kernel (counted in
+    ``flash_attention_packed.launches``). Differentiable in q, k, v and the
+    bias (``_PackedAttention``); without autograd nothing is saved."""
+    _check_packed("flash_attention_packed", q, k, v, bias, num_heads)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _PackedAttention.apply(q, k, v, bias, num_heads)
+    return _flash_attention_packed_fwd(q, k, v, bias, num_heads)
 
 
 flash_attention_packed.launches = 0
@@ -171,44 +220,56 @@ def attention_dropout_scale(
     return torch.where(u < keep, 1.0 / keep, 0.0).to(torch.float32)
 
 
-def flash_attention_packed_train_fwd_plain(
+def flash_attention_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int, num_heads: int, rate: float = 0.0,
+    seed: int = 0, rate: float = 0.0,
 ):
-    """Plain PyTorch training forward: (out (B, S, H*D) in q's dtype,
-    lse (B, H, P) f32, +inf past S). Dropout scales the normalised p."""
-    b, s, hd = q.shape
-    d = hd // num_heads
-    scores = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
+    """Plain PyTorch head-form forward on (B, H, S, D) q/k/v: (out (B, H,
+    S, D) in q's dtype, lse (B, H, P) f32, +inf past S). Dense f32 scores,
+    keys j >= S left out; dropout scales the normalised p, which is rounded
+    to v's dtype before p v. The training forward's plain version on the
+    heads of the packed projections."""
+    b, h, s, d = q.shape
+    scores = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     denom = e.sum(dim=-1, keepdim=True)
     p = e / denom
     if rate > 0.0:
-        p = p * attention_dropout_scale(seed, b, num_heads, s, rate, q.device)
-    out = torch.matmul(p.to(v.dtype).to(torch.float32), _heads(v, num_heads))
-    lse = torch.full((b, num_heads, bias.shape[-1]), math.inf, dtype=torch.float32,
-                     device=q.device)
+        p = p * attention_dropout_scale(seed, b, h, s, rate, q.device)
+    out = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    lse = torch.full((b, h, bias.shape[-1]), math.inf, dtype=torch.float32, device=q.device)
     lse[:, :, :s] = (m + torch.log(denom))[..., 0]
-    return _packed(out).to(q.dtype), lse
+    return out.to(q.dtype), lse
 
 
-def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate):
-    """The explicit backward formulas: p from the lse, delta = rowsum(do o),
-    ds = p (dp c - delta), dv from p c. Returns (dq, dk, dv in the inputs'
-    dtypes, ds (B, H, S, S) f32)."""
-    b, s, hd = q.shape
-    scale = 1.0 / math.sqrt(hd // num_heads)
-    qh, kh, vh = (_heads(x, num_heads) for x in (q, k, v))
-    doh, oh = _heads(do, num_heads), _heads(o, num_heads)
+def flash_attention_packed_train_fwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, num_heads: int, rate: float = 0.0,
+):
+    """Plain PyTorch training forward: (out (B, S, H*D) in q's dtype,
+    lse (B, H, P) f32, +inf past S). Dropout scales the normalised p."""
+    out, lse = flash_attention_fwd_plain(
+        *(_split(x, num_heads) for x in (q, k, v)), bias, seed, rate)
+    return _packed(out), lse
+
+
+def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate):
+    """The explicit backward formulas on (B, H, S, D) tensors: p from the
+    lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c; ds is
+    rounded to q's dtype before the dq/dk products, p c to do's before dv.
+    Returns (dq, dk, dv in the inputs' dtypes, ds (B, H, S, S) f32)."""
+    b, h, s, d = q.shape
+    scale = 1.0 / math.sqrt(d)
+    qh, kh, vh, oh, doh = (x.to(torch.float32) for x in (q, k, v, o, do))
     scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale
     scores = scores + bias[:, :, :s, :s].to(torch.float32)
     p = torch.exp(scores - lse[:, :, :s, None])
     dp = torch.matmul(doh, vh.transpose(-1, -2))
     pd = p
     if rate > 0.0:
-        c = attention_dropout_scale(seed, b, num_heads, s, rate, q.device)
+        c = attention_dropout_scale(seed, b, h, s, rate, q.device)
         pd, dp = p * c, dp * c
     delta = (doh * oh).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
@@ -216,8 +277,31 @@ def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate):
     dq = torch.matmul(ds_c, kh) * scale
     dk = torch.matmul(ds_c.transpose(-1, -2), qh) * scale
     dv = torch.matmul(pd.to(do.dtype).to(torch.float32).transpose(-1, -2), doh)
-    return (_packed(dq).to(q.dtype), _packed(dk).to(k.dtype),
-            _packed(dv).to(v.dtype), ds)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
+
+
+def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate):
+    """``_attention_bwd_plain_ds`` on the packed layout: (dq, dk, dv packed
+    in the inputs' dtypes, ds (B, H, S, S) f32)."""
+    dq, dk, dv, ds = _attention_bwd_plain_ds(
+        *(_split(x, num_heads) for x in (q, k, v)), bias, seed,
+        _split(o, num_heads), lse, _split(do, num_heads), rate)
+    return _packed(dq), _packed(dk), _packed(dv), ds
+
+
+def flash_attention_bwd_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    rate: float = 0.0,
+):
+    """Plain PyTorch head-form backward by the explicit formulas of
+    ``_attention_bwd_plain_ds``: (dq, dk, dv (B, H, S, D) in the inputs'
+    dtypes, dbias = ds at the bias's shape and dtype, zero past S)."""
+    dq, dk, dv, ds = _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate)
+    s = q.shape[2]
+    dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
+    dbias[:, :, :s, :s] = ds
+    return dq, dk, dv, dbias.to(bias.dtype)
 
 
 def flash_attention_packed_train_bwd_plain(
@@ -404,6 +488,228 @@ def flash_attention_packed_train_chained(
     if bias.shape[-2] != bias.shape[-1]:
         raise ValueError(f"the chained op needs a square bias, got {tuple(bias.shape)}")
     return _PackedTrainChained.apply(q, k, v, bias, int(seed), num_heads, float(rate))
+
+
+# ---------------------------------------------------------------------------
+# head form: (B, H, S, D) q/k/v of any strides
+# ---------------------------------------------------------------------------
+
+
+def _check_headform(what: str, q, k, v, bias) -> None:
+    if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(f"{what}: q, k and v must share one (B, H, S, D) shape")
+    b, h, s, _ = q.shape
+    if (bias.ndim != 4 or bias.shape[:2] != (b, h)
+            or bias.shape[2] != bias.shape[3] or bias.shape[3] < s):
+        raise ValueError(
+            f"{what}: bias must be (B, H, P, P) with P >= {s}; got {tuple(bias.shape)}"
+        )
+
+
+def _check_headform_cuda(what: str, tensors, bias) -> None:
+    """What the kernels take in the head form: bf16 (B, H, rows, 64)
+    tensors on one card, each with a unit last stride, its other strides
+    multiples of 8 and 16-byte aligned (the packed projections' transposed
+    view is such a tensor), and a contiguous bf16 or f32 bias."""
+    device = tensors[0].device
+    if device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {device}")
+    if any(t.device != device for t in (*tensors, bias)):
+        raise ValueError(f"{what} takes tensors on one device")
+    if any(t.dtype != torch.bfloat16 for t in tensors):
+        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    if tensors[0].shape[-1] != KERNEL_HEAD_DIM:
+        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {tensors[0].shape[-1]}")
+    for t in tensors:
+        if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
+            raise ValueError(
+                f"the {what} kernel takes tensors with unit last stride, the other "
+                f"strides multiples of 8 and 16-byte aligned; got strides {t.stride()}"
+            )
+    if not bias.is_contiguous():
+        raise ValueError(f"{what} takes a contiguous bias")
+    if bias.dtype not in (torch.bfloat16, torch.float32):
+        raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
+
+
+def _strides(*tensors) -> ctypes.Array:
+    """The (batch, head, row) element strides of each tensor, in order, as
+    the kernels' int64 array."""
+    vals = [st for t in tensors for st in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _kernel_width(bias: torch.Tensor) -> torch.Tensor:
+    """The bias at a width the kernels tile (a multiple of 64): itself, or
+    a copy padded with zeros, which no key reads (keys j >= S do not
+    exist)."""
+    pad = (-bias.shape[-1]) % KERNEL_TILE
+    return F.pad(bias, (0, pad, 0, pad)) if pad else bias
+
+
+@functools.lru_cache(maxsize=None)
+def _headform_fns():
+    lib = cuda_build.load("flash_attention_packed_train")
+    fwd = lib.mmee_flash_attention_fwd
+    fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    )
+    fwd.restype = ctypes.c_int
+    bwd = lib.mmee_flash_attention_bwd
+    bwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 8
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+           ctypes.c_void_p]
+    )
+    bwd.restype = ctypes.c_int
+    return lib, fwd, bwd
+
+
+def flash_attention_fwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int = 0, rate: float = 0.0, with_lse: bool = False,
+):
+    """Head-form forward: out (B, H, S, D) in q's dtype and q's layout, and
+    with ``with_lse`` also the lse (B, H, P) f32, +inf past S. CPU tensors
+    run the plain version; CUDA tensors launch the kernel (counted in
+    ``flash_attention_fwd.launches``)."""
+    _check_headform("flash_attention_fwd", q, k, v, bias)
+    if q.device.type == "cpu":
+        out, lse = flash_attention_fwd_plain(q, k, v, bias, seed, rate)
+        return (out, lse) if with_lse else out
+    _check_headform_cuda("flash_attention_fwd", (q, k, v), bias)
+    b, h, s, d = q.shape
+    p = bias.shape[-1]
+    kbias = _kernel_width(bias)
+    out = torch.empty_like(q)  # keeps q's layout when q is dense
+    lse = torch.empty((b, h, kbias.shape[-1]), dtype=torch.float32, device=q.device)
+    lib, fwd, _ = _headform_fns()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), out.data_ptr(), lse.data_ptr(),
+            _strides(q, k, v, out), b, s, h, kbias.shape[-1], 1.0 / math.sqrt(d),
+            *_dropout_args(seed, rate), stream,
+        )
+    cuda_build.check(lib, code, "flash_attention_fwd")
+    flash_attention_fwd.launches += 1
+    return (out, lse[:, :, :p]) if with_lse else out
+
+
+flash_attention_fwd.launches = 0
+
+
+def flash_attention_bwd(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
+    seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
+    rate: float = 0.0,
+):
+    """Head-form backward from the forward's lse: (dq, dk, dv (B, H, S, D)
+    in the inputs' dtypes and layouts, dbias = ds at the bias's shape and
+    dtype, exactly zero past S). delta = rowsum(do o) is computed in the
+    kernel. CPU tensors run the plain version; CUDA tensors launch the
+    kernel pair, one kernel for dq and dbias and one for dk and dv
+    (``flash_attention_bwd.launches`` counts both: 2 per call)."""
+    what = "flash_attention_bwd"
+    _check_headform(what, q, k, v, bias)
+    b, h, s, d = q.shape
+    p = bias.shape[-1]
+    if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, p):
+        raise ValueError(f"{what}: o and do must be {tuple(q.shape)}, lse ({b}, {h}, {p})")
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, bias, seed, o, lse, do, rate)
+    _check_headform_cuda(what, (q, k, v, o, do), bias)
+    if lse.dtype != torch.float32 or lse.device != q.device:
+        raise ValueError(f"{what}: lse must be f32 on q's device")
+    kbias = _kernel_width(bias)
+    pk = kbias.shape[-1]
+    klse = lse if pk == p and lse.is_contiguous() else F.pad(lse, (0, pk - p)).contiguous()
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    dbias = torch.empty_like(kbias)
+    delta = torch.empty((b, h, pk), dtype=torch.float32, device=q.device)
+    lib, _, bwd = _headform_fns()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        code = bwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            klse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
+            b, s, h, pk, 1.0 / math.sqrt(d), *_dropout_args(seed, rate), stream,
+        )
+    cuda_build.check(lib, code, what)
+    flash_attention_bwd.launches += 2
+    return dq, dk, dv, dbias[:, :, :p, :p]
+
+
+flash_attention_bwd.launches = 0
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, bias, seed, rate):
+        out, lse = flash_attention_fwd(q, k, v, bias, seed, rate, with_lse=True)
+        ctx.save_for_backward(q, k, v, bias, out, lse)
+        ctx.args = (seed, rate)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias, out, lse = ctx.saved_tensors
+        seed, rate = ctx.args
+        do = g.to(out.dtype)
+        if q.device.type == "cuda":  # the kernels take a unit last stride
+            do = do.contiguous()
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, seed, out, lse, do, rate)
+        return dq, dk, dv, dbias, None, None
+
+
+def flash_attention(
+    q: torch.Tensor,     # (B, H, S, D)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,  # (B, H, P, P), P >= S, mask included
+    block_q: int = 128,
+    dropout_rate: float = 0.0,
+    dropout_seed=None,   # an int, or a one-element array or tensor
+) -> torch.Tensor:
+    """Head-form attention with position-hash dropout on the probabilities:
+    (B, H, S, D) in q's dtype. Differentiable in q, k, v and the bias (dbias
+    at the bias's shape, zero past S). The bias may be pre-padded wider than
+    S; keys j >= S carry no weight. ``block_q`` is taken for the JAX
+    signature: the kernels tile by 64."""
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("dropout_rate > 0 requires a dropout_seed")
+    seed = 0 if dropout_seed is None else int(torch.as_tensor(dropout_seed).reshape(-1)[0])
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _FlashAttention.apply(q, k, v, bias, seed, float(dropout_rate))
+    return flash_attention_fwd(q, k, v, bias, seed, float(dropout_rate))
+
+
+def reference_attention(q, k, v, bias) -> torch.Tensor:
+    """Plain (B, H, S, D) attention with a (B, H, S, S) bias: f32 scores,
+    softmax, p rounded to v's dtype; the JAX package's oracle."""
+    d = q.shape[-1]
+    scores = torch.matmul((q / math.sqrt(d)).to(torch.float32),
+                          k.to(torch.float32).transpose(-1, -2))
+    p = torch.softmax(scores + bias.to(torch.float32), dim=-1).to(v.dtype)
+    return torch.matmul(p.to(torch.float32), v.to(torch.float32)).to(q.dtype)
+
+
+def reference_attention_hash_dropout(q, k, v, bias, seed: int, rate: float) -> torch.Tensor:
+    """``reference_attention`` with the position-hash dropout of seed
+    ``seed`` on the probabilities; the bias may be wider than S."""
+    b, h, s, d = q.shape
+    scores = torch.matmul((q / math.sqrt(d)).to(torch.float32),
+                          k.to(torch.float32).transpose(-1, -2))
+    p = torch.softmax(scores + bias[:, :, :s, :s].to(torch.float32), dim=-1)
+    p = p * attention_dropout_scale(int(seed), b, h, s, rate, q.device)
+    return torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32)).to(q.dtype)
 
 
 # ---------------------------------------------------------------------------

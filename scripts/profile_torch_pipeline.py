@@ -2,6 +2,7 @@
 """Where the PyTorch port spends its time on one GPU: serving or training.
 
     python3 scripts/profile_torch_pipeline.py [--mode serve|train]
+        [--scan-fold N] [--remat] [--attn-dropout RATE]
 
 ``serve`` (the default) builds EE LayoutLMv3-base (bf16, random weights from
 seed 0, exits text_avg, vision_avg, 7) and a ``Pipeline`` at batch 16 with
@@ -10,8 +11,12 @@ capacities a batch costs the same whatever its exits, so the threshold only
 needs to be valid. After a warm-up it traces ``predict_features`` over 4
 batches. ``train`` builds the training path of ``chip_smoke.py`` (f32 master
 weights, bf16 forward, dropout 0.1, batch 16) and, after 2 warm-up steps,
-traces 2 ``EETrainer.train_step``s. ``MMEE_FUSED_BIAS=1`` (serve) and
-``MMEE_TABLE_GRADS=1`` (train) in the environment profile the bias modes.
+traces 2 ``EETrainer.train_step``s; ``--scan-fold`` (default 12: the
+chained bias cotangent), ``--remat`` (``gradient_checkpointing``) and
+``--attn-dropout`` (default 0.1) set its schedule, so that ``--scan-fold 1
+--attn-dropout 0`` profiles ``chip_smoke.py`` phase 5c and ``--scan-fold 1
+--remat`` phase 5d. ``MMEE_FUSED_BIAS=1`` (serve) and ``MMEE_TABLE_GRADS=1``
+(train) in the environment profile the bias modes.
 
 Each mode traces with ``torch.profiler`` and prints the device time by kernel
 group (the port's kernels, cuBLAS GEMMs, everything else), the wall time,
@@ -56,6 +61,8 @@ GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
     ("flash_attention_packed", ("flash_attention_packed_kernel",)),
     ("fused_bias_attention", ("fused_bias_attention_kernel",)),
+    ("flash_attention_fwd", ("headform_fwd_kernel",)),
+    ("flash_attention_bwd", ("headform_bwd_dq_kernel", "headform_bwd_dkv_kernel")),
     ("flash_attention_packed_train", ("train_fwd_kernel",)),
     ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
                                                  "table_partials_sum_kernel")),
@@ -96,9 +103,9 @@ def serve_workload():
     return N_BATCHES * B, lambda: pipe.predict_features(batch)
 
 
-def train_workload():
+def train_workload(scan_fold: int, remat: bool, attn_dropout: float):
     """(documents, a call that takes TRAIN_TRACED_STEPS training steps)."""
-    cfg, model32, batches, args = train_setup(TRAIN_TRACED_STEPS)
+    cfg, model32, batches, args = train_setup(TRAIN_TRACED_STEPS, scan_fold, remat, attn_dropout)
     trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -112,11 +119,19 @@ def train_workload():
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--mode", choices=("serve", "train"), default="serve")
-    mode = parser.parse_args().mode
+    parser.add_argument("--scan-fold", type=int, default=12,
+                        help="train: layers per encoder step (12 chains the bias cotangent)")
+    parser.add_argument("--remat", action="store_true",
+                        help="train: gradient_checkpointing of each group of layers")
+    parser.add_argument("--attn-dropout", type=float, default=0.1,
+                        help="train: the attention-probability dropout rate")
+    opts = parser.parse_args()
+    mode = opts.mode
     if not torch.cuda.is_available():
         print("profile_torch_pipeline: no CUDA device", file=sys.stderr)
         return 1
-    documents, run = serve_workload() if mode == "serve" else train_workload()
+    documents, run = (serve_workload() if mode == "serve"
+                      else train_workload(opts.scan_fold, opts.remat, opts.attn_dropout))
     for _ in range(2):
         run()  # warm-up
     torch.cuda.synchronize()
@@ -145,6 +160,8 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     result = {
         "mode": mode, "device": smi,
+        "schedule": None if mode == "serve" else {
+            "scan_fold": opts.scan_fold, "remat": opts.remat, "attn_dropout": opts.attn_dropout},
         "documents": documents, "wall_ms": wall_ms,
         "docs_per_sec": documents / (wall_ms / 1e3),
         "device_ms": device_ms,

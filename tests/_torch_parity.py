@@ -89,14 +89,25 @@ def separating_threshold(values, q, window=0.15):
     return float((v[k] + v[k + 1]) / 2)
 
 
+def with_backbone(jcfg, tcfg, **fields):
+    """The two configs with the same backbone fields replaced."""
+    return (jcfg.replace(backbone=jcfg.backbone.replace(**fields)),
+            tcfg.replace(backbone=tcfg.backbone.replace(**fields)))
+
+
 def no_dropout(jcfg, tcfg):
     """The two configs with every dropout rate 0, so that a training forward
     (``deterministic=False``) is comparable across the two packages, whose
     random streams differ."""
-    rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
-                 classifier_dropout=0.0)
-    return (jcfg.replace(backbone=jcfg.backbone.replace(**rates)),
-            tcfg.replace(backbone=tcfg.backbone.replace(**rates)))
+    return with_backbone(jcfg, tcfg, hidden_dropout_prob=0.0,
+                         attention_probs_dropout_prob=0.0, classifier_dropout=0.0)
+
+
+def chained(jcfg, tcfg):
+    """The two configs with every layer folded into one encoder step
+    (``scan_fold`` = the layer count), where the training forward chains the
+    bias cotangent by default."""
+    return with_backbone(jcfg, tcfg, scan_fold=tcfg.backbone.num_hidden_layers)
 
 
 def train_batch(seed, B, S, cfg, masked_tail=0):

@@ -25,6 +25,7 @@ import jax.numpy as jnp
 
 from _torch_parity import (
     assert_state_close,
+    chained,
     jax_params,
     make_batch,
     no_dropout,
@@ -304,8 +305,10 @@ B, S = 3, 12
 
 
 def _loss_setup():
-    jcfg, tcfg = no_dropout(*tiny_configs(exits=("text_avg", "vision_avg", 1),
-                                          training_strategy="one_stage_subgraphs_weighted"))
+    """Dropout 0, and every layer in one step, so that the default training
+    attention is the chained one."""
+    jcfg, tcfg = chained(*no_dropout(*tiny_configs(
+        exits=("text_avg", "vision_avg", 1), training_strategy="one_stage_subgraphs_weighted")))
     params, tree = jax_params(jcfg)
     model = port_model(tcfg, tree)
     weights = TSG.exit_loss_weights(TSG.subgraph_param_counts(model, tcfg))
@@ -377,8 +380,8 @@ def test_ee_forward_with_fused_bias_matches_jax(monkeypatch, seq_pad_multiple):
 
 def test_no_fused_context_under_autograd(monkeypatch):
     """The fused attention has no backward: with the switch on, a forward
-    under autograd takes the chained training path, and its gradients equal
-    those with the switch off."""
+    under autograd takes the differentiable ``flash_attention_packed``, and
+    its gradients equal those with the switch off."""
     jcfg, tcfg = tiny_configs(exits=("text_avg", "vision_avg", 1))
     _, tree = jax_params(jcfg, seed=3)
     model = port_model(tcfg, tree)

@@ -10,6 +10,11 @@ import pytest
 import torch
 
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
     flash_attention_packed,
     flash_attention_packed_plain,
     flash_attention_packed_train,
@@ -384,3 +389,141 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
     with pytest.raises(TypeError, match="int32"):
         flash_attention_packed_train_tables_bwd(q, k, v, bias, pos.long(), cx, cy, 0, q, lse,
                                                 q, 2)
+
+
+# ---------------------------------------------------------------------------
+# the head form: the training kernels' bodies with explicit strides
+# ---------------------------------------------------------------------------
+
+# P = S, P rounded up to 64 and to 128, and a width the kernels do not tile
+# (27: the wrapper pads the bias to 64)
+HEADFORM_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12),
+                   (1, 27, 27, 2)]
+
+
+@pytest.mark.parametrize("b,s,p,h", HEADFORM_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_headform_forward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
+    q, k, v = (_heads_view(x, h, layout) for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    before = flash_attention_fwd.launches
+    out, lse = flash_attention_fwd(q, k, v, bias, 1234, rate, with_lse=True)
+    assert flash_attention_fwd.launches == before + 1
+    want_out, want_lse = flash_attention_fwd_plain(q, k, v, bias, 1234, rate)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride() and lse.shape == (b, h, p)
+    assert torch.isinf(lse[:, :, s:]).all()
+    # as the packed training forward: one bf16 step of the output, relative;
+    # the f32 online softmax's lse against the dense one
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[:, :, :s], want_lse[:, :, :s], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("b,s,p,h", HEADFORM_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_headform_backward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
+    q, k, v = (_heads_view(x, h, layout) for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+    do = _heads_view(torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16), h, layout)
+    o, lse = flash_attention_fwd_plain(q, k, v, bias, 99, rate)
+    before = flash_attention_bwd.launches
+    got = flash_attention_bwd(q, k, v, bias, 99, o, lse, do, rate)
+    assert flash_attention_bwd.launches == before + 2  # dq/dbias, dk/dv
+    again = flash_attention_bwd(q, k, v, bias, 99, o, lse, do, rate)
+    want = flash_attention_bwd_plain(q, k, v, bias, 99, o, lse, do, rate)
+    torch.cuda.synchronize()
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert torch.equal(a, a2), name  # deterministic: no atomics
+        # the packed training backward's bar: 2% of the largest value
+        assert _scaled_err(a, w) <= 2e-2, (name, _scaled_err(a, w))
+    for a, x in zip(got[:3], (q, k, v)):
+        assert a.stride() == x.stride()
+    dbias = got[3].float()
+    assert torch.equal(dbias[:, :, s:, :], torch.zeros_like(dbias[:, :, s:, :]))
+    assert torch.equal(dbias[:, :, :, s:], torch.zeros_like(dbias[:, :, :, s:]))
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_headform_kernels_on_packed_views_equal_the_packed_kernels(cuda, rate):
+    """One body, two layouts: on the packed projections' transposed views
+    the head-form kernels give the packed training kernels' bits."""
+    b, s, p, h = 2, 709, 768, 12
+    q, k, v = _qkv(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    do = torch.randn((b, s, h * 64), generator=torch.Generator().manual_seed(6)).to(
+        cuda, torch.bfloat16)
+    views = [_heads_view(x, h, "packed") for x in (q, k, v, do)]
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 7, h, rate)
+    out_h, lse_h = flash_attention_fwd(*views[:3], bias, 7, rate, with_lse=True)
+    got = flash_attention_bwd(*views[:3], bias, 7, out_h, lse_h, views[3], rate)
+    want = flash_attention_packed_train_bwd(q, k, v, bias, 7, out, lse, do, h, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(_heads_view(out, h, "packed"), out_h) and torch.equal(lse, lse_h)
+    for name, a, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
+        assert torch.equal(a, _heads_view(w, h, "packed")), name
+    assert torch.equal(got[3], want[3])
+
+
+def test_packed_attention_autograd_runs_the_headform_kernels(cuda):
+    """``flash_attention_packed`` under autograd: its kernel forward, then
+    the head-form forward and backward in the backward, with no copy of the
+    packed tensors; under no_grad nothing but the forward."""
+    b, s, p, h = 2, 100, 128, 2
+    q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
+    counters = (flash_attention_packed, flash_attention_fwd, flash_attention_bwd,
+                flash_attention_packed_train_fwd, flash_attention_packed_train_bwd)
+    before = [f.launches for f in counters]
+    out = flash_attention_packed(q, k, v, bias, h)
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda, out.dtype)
+    (out.float() * g.float()).sum().backward()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 2, 0, 0]
+    views = [_heads_view(x.detach(), h, "packed") for x in (q, k, v)]
+    o, lse = flash_attention_fwd(*views, bias.detach(), 0, 0.0, with_lse=True)
+    want = flash_attention_bwd(*views, bias.detach(), 0, o, lse, _heads_view(g, h, "packed"))
+    for t, w in zip((q, k, v), want[:3]):
+        assert torch.equal(_heads_view(t.grad, h, "packed"), w)
+    assert torch.equal(bias.grad, want[3])
+    with torch.no_grad():
+        before = flash_attention_fwd.launches
+        flash_attention_packed(q, k, v, bias, h)
+    assert flash_attention_fwd.launches == before
+
+
+def test_headform_autograd_and_dropout_seed(cuda):
+    b, s, p, h = 1, 64, 64, 2
+    q, k, v = (_heads_view(x, h, "contiguous").requires_grad_() for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
+    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    out = flash_attention(q, k, v, bias, dropout_rate=0.1, dropout_seed=torch.tensor([3]))
+    out.float().square().sum().backward()
+    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (
+        before[0] + 1, before[1] + 2)
+    assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
+    with pytest.raises(ValueError, match="dropout_seed"):
+        flash_attention(q, k, v, bias, dropout_rate=0.1)
+
+
+def test_headform_wrappers_never_fall_back_on_cuda(cuda):
+    q, k, v = (_heads_view(x, 2, "packed") for x in _qkv(cuda, 1, 64, 2))
+    bias = torch.zeros((1, 2, 64, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_fwd(q.float(), k.float(), v.float(), bias)
+    with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
+        flash_attention_fwd(*(x.reshape(1, 4, 64, 32) for x in (q, k, v)),
+                            torch.zeros((1, 4, 64, 64), device=cuda))
+    unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
+    with pytest.raises(ValueError, match="strides"):
+        flash_attention_fwd(unaligned, k, v, bias)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention_fwd(q, k, v, bias.transpose(2, 3))
+    with pytest.raises(ValueError, match="one device"):
+        flash_attention_fwd(q, k, v, bias.cpu())
+    lse = torch.zeros((1, 2, 64), device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention_bwd(q, k, v, bias, 0, q.float(), lse, q, 0.0)

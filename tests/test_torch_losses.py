@@ -13,6 +13,7 @@ import jax.numpy as jnp
 
 from _torch_parity import (
     assert_state_close,
+    chained,
     jax_params,
     no_dropout,
     port_model,
@@ -107,11 +108,13 @@ STRATEGIES = [
 @pytest.mark.parametrize("heads,strategy", STRATEGIES)
 def test_ee_loss_value_and_grad_match_jax(heads, strategy):
     """``jax.value_and_grad(ee_loss_fn)`` against the port's training
-    forward (chained attention, ``deterministic=False``) and one backward,
-    f32, entropyreg's branch scaling applied on both sides: the loss to
-    1e-5, each gradient to 2e-4 of its own largest value (f32 sums through
-    two layers and the softmax backward in another order)."""
+    forward (chained attention: ``deterministic=False``, every layer in one
+    step) and one backward, f32, entropyreg's branch scaling applied on both
+    sides: the loss to 1e-5, each gradient to 2e-4 of its own largest value
+    (f32 sums through two layers and the softmax backward in another
+    order)."""
     jcfg, tcfg, params, model, batch = _setup(heads, training_strategy=strategy, gamma=0.4)
+    jcfg, tcfg = chained(jcfg, tcfg)
     weights = None
     if tcfg.exit.training_strategy.is_weighted:
         counts = TS.subgraph_param_counts(model, tcfg)
