@@ -13,7 +13,9 @@ Phases, each reported on its own line:
    inside P = 768, as ``ee_forward`` (which does not pad) gives it:
    ``materialize_bias`` bit-equal, ``flash_attention_packed`` within 1e-2;
    the training kernels at dropout rate 0.1: ``flash_attention_packed_train``
-   (out within 2e-2, lse within 1e-3), its backward, plain and chained
+   (out within 2e-2, lse within 1e-3; at rate 0 bit-equal to
+   ``flash_attention_packed``, which phases 5c and 5d rely on, and timed
+   there too beside SDPA), its backward, plain and chained
    (dq/dk/dv/dbias within 2e-2 of each output's largest value) and
    ``table_grads`` (within 1e-4 of the largest table gradient); the two
    kernels of the bias modes: ``fused_bias_attention`` on the packed
@@ -348,7 +350,7 @@ def compare_kernels(args, gen):
     # arithmetic, so it is held bit-equal to the pair it replaces
     check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), out),
           f"fused_bias_attention differs from materialize_bias + flash_attention_packed (S {s})")
-    del out, fused, fused_ref
+    del fused, fused_ref
     # at these tables the bias spreads the scores by ~4e-3, so dropping a
     # table moves the outputs less than the tolerance: again with unit-scale
     # tables, where each table moves them by most of their scale
@@ -388,10 +390,17 @@ def compare_kernels(args, gen):
     lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
     check(out_err <= 2e-2, f"train forward out max error {out_err} > 2e-2 (S {s})")
     check(lse_err <= 1e-3, f"train forward lse max error {lse_err} > 1e-3 (S {s})")
+    # at rate 0 it repeats flash_attention_packed's arithmetic: phases 5c and
+    # 5d hold their gradients bit-equal to phase 5's, which needs the same bits
+    out0, _ = flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, 0.0)
+    torch.cuda.synchronize()
+    check(torch.equal(out0, out), f"train forward at rate 0 differs from "
+          f"flash_attention_packed (S {s})")
     errs["flash_attention_packed_train"] = max(out_err, lse_err)
     notes["flash_attention_packed_train"] = (f"out max_err {out_err:.3e} (tol 2e-2), "
-                                             f"lse max_err {lse_err:.3e} (tol 1e-3)")
-    del ref_out, ref_lse
+                                             f"lse max_err {lse_err:.3e} (tol 1e-3); at rate 0 "
+                                             f"bit-equal to flash_attention_packed")
+    del ref_out, ref_lse, out0, out
 
     # ---- backward: dq, dk, dv, dbias; plain and chained ----------------
     do = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen) * 0.1).to(dev, torch.bfloat16)
@@ -620,7 +629,7 @@ def phase_kernels(name):
           f"flash_attention_packed: {pair_ms:.4f} ms), "
           f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
 
-    # ---- training forward -------------------------------------------------
+    # ---- training forward: at the path's rate, and at rate 0 beside SDPA ----
     e = entry("flash_attention_packed_train", "flash_attention_packed_train.cu",
               "ops/flash_attention.py:607",
               time_ms(lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, rate)),
@@ -629,8 +638,10 @@ def phase_kernels(name):
               bound(block_bytes + 4 * qkv_bytes + lse_bytes,
                     4 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak),
               time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4)))
+    rate0_ms = time_ms(lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, 0.0))
     print(f"kernel flash_attention_packed_train (rate {rate}): "
-          f"{notes['flash_attention_packed_train']}, kernel_ms {e['ms']:.4f}, "
+          f"{notes['flash_attention_packed_train']}, kernel_ms {e['ms']:.4f} (rate 0: "
+          f"{rate0_ms:.4f}, {rate0_ms / e['library_ms']:.2f}x SDPA), "
           f"plain_ms {e['plain_ms']:.4f}, library_ms {e['library_ms']:.4f} (SDPA at rate 0, "
           f"no lse), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
 

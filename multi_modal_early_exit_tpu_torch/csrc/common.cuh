@@ -8,7 +8,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+// codes from this value up are a failed TMA tensor-map encode (sm90.cuh):
+// the value plus the driver's CUresult
+#define MMEE_TENSOR_MAP_ERROR 10000
+
 extern "C" const char* mmee_error_string(int code) {
+  if (code >= MMEE_TENSOR_MAP_ERROR) {
+    return "cuTensorMapEncodeTiled failed (the code less 10000 is the driver's CUresult)";
+  }
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

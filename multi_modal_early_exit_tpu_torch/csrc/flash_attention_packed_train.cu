@@ -30,16 +30,49 @@
 // (679.5 MB), read q/k/v/o/do and write dq/dk/dv (151 MB): 248 us, against
 // 73 us for its 7.25e10 FLOPs.
 //
-// Design. Each CTA holds 64 rows as 4 warps of 16 and runs its products on
-// the tensor cores with mma.sync m16n8k16 (bf16 operands, f32 accumulation),
-// as the inference kernel does. Scores and probabilities never leave the
-// chip; the bias is read straight into registers.
+// Forward design (sm_90a). Its time is how well the bias and k/v streams are
+// kept in flight, so one CTA per (128-row q tile, head, batch) runs three
+// roles: a producer warp that issues TMA copies and two consumer
+// warpgroups of 64 rows each.
+// - A ring of kFwdStages shared-memory stages, each holding one 64-key
+//   block's k tile, v tile and the two warpgroups' bias tiles, filled by TMA
+//   (cp.async.bulk.tensor) and completed on mbarriers; the consumers release
+//   a stage with one arrival per warp. So the next block's bias is always in
+//   flight while this block computes, and no thread spends registers or
+//   instructions on a copy. q/k/v use one 4-D map each, (D, rows, H, B) at
+//   the operand's strides, which serves the packed and the head-form layout
+//   alike; the bias a 2-D map over (B*H*P rows, P columns). Rows at or past
+//   S come back as zeros; keys j >= S are still set to -inf.
+// - Every tile is 128-byte swizzled. The bias is read in the accumulator's
+//   (row g / g+8, columns 2t, 2t+1) pattern through the swizzle, so the 8
+//   rows of a fragment fall on different banks (unswizzled, all 8 share one).
+//   An f32 bias takes two 32-column boxes per block.
+// - The products run on wgmma: S = q k^T (m64n64k16, q and k from shared
+//   memory), then O += P v with P from registers (the S accumulator, rounded
+//   to bf16, is already wgmma's A layout) and v read in its stored [key][d]
+//   layout as a transposed (MN-major) B: no transposed copy. ptxas fits
+//   every role in 96 registers without spills at two CTAs per SM, so no
+//   setmaxnreg rebalancing: an increase the CTA's register pool cannot meet
+//   blocks its warpgroup for good.
+// - When P / 64 is odd the last tile has 64 real rows: the producer loads
+//   only the live warpgroups' q and bias, so nothing past P is read; a
+//   warpgroup whose rows all lie at or past S only writes their lse.
+// - Dropout is a template parameter: the rate-0 instantiation has no hash.
+//   The mask bits of a block are made before its stage is waited for, so the
+//   hash overlaps the loads in flight.
+// - At rate 0 the arithmetic repeats flash_attention_packed.cu's (expf,
+//   x = s * scale + bias, p rounded to bf16 unnormalised, the row sums in
+//   the same order): the two give the same bits, which the training
+//   schedules that run one or the other rely on.
 //
-// - Forward: one CTA per (64-row q block, head, batch) streams 64-key
-//   blocks of k/v through shared memory with an online softmax. The dropout
-//   factor c(i, j) multiplies the unnormalised exp before the p.v product,
-//   and the final division by the (undropped) row sum makes that equal to
-//   dropout applied to the normalised p. lse = m + log(sum) excludes it.
+// Backward design. Each CTA holds 64 rows as 4 warps of 16 and runs its
+// products on the tensor cores with mma.sync m16n8k16 (bf16 operands, f32
+// accumulation), as the inference kernel does. Scores and probabilities
+// never leave the chip; the bias is read straight into registers. The
+// forward's online softmax gives lse = m + log(sum), which excludes the
+// dropout factor c(i, j) (it multiplies the unnormalised exp before the p.v
+// product, and the division by the undropped row sum makes that equal to
+// dropout applied to the normalised p).
 // - Backward, deterministic (no float atomics), in two kernels that each
 //   recompute p = exp(s - lse):
 //   (A) one CTA per (64-row q block over all P rows, head, batch) computes
@@ -70,7 +103,7 @@
 // query rows >= S are computed from zeros and not stored; the forward writes
 // +inf as the lse of rows in [S, P).
 
-#include "common.cuh"
+#include "sm90.cuh"
 
 namespace {
 
@@ -99,11 +132,13 @@ struct Dropout {
       : state(lowbias32(static_cast<uint32_t>(seed) ^
                         (static_cast<uint32_t>(bh) * 0x9E3779B1u))),
         keep(keep_), inv_keep(inv_keep_) {}
-  __device__ __forceinline__ float scale(int i, int j) const {
+  __device__ __forceinline__ bool keeps(int i, int j) const {
     const uint32_t bits = lowbias32(state + static_cast<uint32_t>(i) * 0x85EBCA77u +
                                     static_cast<uint32_t>(j) * 0x27D4EB2Fu);
-    const float u = static_cast<float>(bits >> 8) * (1.0f / 16777216.0f);
-    return u < keep ? inv_keep : 0.0f;
+    return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) < keep;
+  }
+  __device__ __forceinline__ float scale(int i, int j) const {
+    return keeps(i, j) ? inv_keep : 0.0f;
   }
 };
 
@@ -149,7 +184,7 @@ __device__ __forceinline__ void load_rows_both(bf16* dst, bf16* dst_t,
     if (r0 + r < limit) {
       val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
     }
-    if (dst != nullptr) *reinterpret_cast<uint4*>(&dst[r * kLD + c]) = val;
+    *reinterpret_cast<uint4*>(&dst[r * kLD + c]) = val;
     const bf16* ve = reinterpret_cast<const bf16*>(&val);
 #pragma unroll
     for (int e = 0; e < 8; ++e) dst_t[(c + e) * kLD + r] = ve[e];
@@ -223,96 +258,220 @@ __device__ __forceinline__ void store_rows(bf16* dst, const float (&acc)[8][4],
 }
 
 // ---------------------------------------------------------------------------
-// forward
+// forward (sm_90a): a TMA-fed ring of k/v/bias stages, wgmma consumers
 // ---------------------------------------------------------------------------
 
-template <typename BiasT>
-__device__ __forceinline__ void fwd_body(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v,       // (B, H, S, D) by strides
-    const BiasT* __restrict__ bias,   // (B, H, P, P)
-    bf16* __restrict__ o,             // (B, H, S, D) by strides
-    float* __restrict__ lse,          // (B, H, P)
-    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  __shared__ __align__(16) bf16 s_q[kBQ * kLD];
-  __shared__ __align__(16) bf16 s_k[kBK * kLD];
-  __shared__ __align__(16) bf16 s_vt[kD * kLD];  // v^T: [d][key]
+constexpr int kFwdStages = 2;        // depth of the shared-memory ring
+constexpr int kFwdRows = 128;        // query rows per CTA: 2 consumer warpgroups of 64
+constexpr int kFwdConsumers = 256;   // threads of the two consumer warpgroups
+constexpr int kFwdThreads = kFwdConsumers + 32;  // and one producer warp
+constexpr int kTileBytes = 64 * kD * 2;          // a 64 x 64 bf16 tile: 8 KB
+constexpr int kFwdQBytes = 2 * kTileBytes;       // the CTA's q rows
 
-  const int q0 = blockIdx.x * kBQ;
+// a 64-row x 64-key bias tile of one warpgroup: one TMA box of 128-byte rows
+// in bf16, two (32 columns each) in f32
+template <typename BiasT>
+struct BiasTile {
+  static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(BiasT));
+  static constexpr int kBoxes = 64 / kBoxCols;
+  static constexpr int kBytes = 64 * 64 * static_cast<int>(sizeof(BiasT));
+};
+
+// one stage: k, v and the two warpgroups' bias tiles; the whole: 1 KB for
+// alignment, q, the ring
+template <typename BiasT>
+struct FwdSmem {
+  static constexpr int kStage = 2 * kTileBytes + 2 * BiasTile<BiasT>::kBytes;
+  static constexpr int kBytes = 1024 + kFwdQBytes + kFwdStages * kStage;
+};
+
+// q, k, v as (D, rows, H, B) maps by the operand's strides, boxes of
+// 64 x 64; the bias as a (P, B*H*P) map, boxes of 64 rows
+struct FwdMaps {
+  CUtensorMap q, k, v, bias;
+};
+
+// bias (row lr, keys 8nt + 2t, +1) of a warpgroup's 128-byte-swizzled
+// tile: the 16-byte chunk c of row lr sits at chunk c ^ (lr % 8), so the 8
+// rows of an accumulator fragment fall on 8 different bank groups
+__device__ __forceinline__ float2 bias_pair(const bf16* tile, int lr, int nt, int t) {
+  const char* row = reinterpret_cast<const char*>(tile) + lr * 128;
+  const __nv_bfloat162 v =
+      *reinterpret_cast<const __nv_bfloat162*>(row + ((nt ^ (lr & 7)) << 4) + 4 * t);
+  return make_float2(__low2float(v), __high2float(v));
+}
+__device__ __forceinline__ float2 bias_pair(const float* tile, int lr, int nt, int t) {
+  // columns 0-31 in the first 8 KB box, 32-63 in the second
+  const char* row = reinterpret_cast<const char*>(tile) + (nt >> 2) * 8192 + lr * 128;
+  const int chunk = (nt & 3) * 2 + (t >> 1);
+  return *reinterpret_cast<const float2*>(row + ((chunk ^ (lr & 7)) << 4) + 8 * (t & 1));
+}
+
+// One CTA per (128-row q tile, head, batch): warps 0-7 are two consumer
+// warpgroups of 64 rows, warp 8 the producer. The producer loads q once and
+// then streams each 64-key block's k, v and bias tiles into a ring of
+// kFwdStages stages by TMA; the consumers wait for a stage, run S = q k^T on
+// wgmma from shared memory, the online softmax in registers, O += P v with P
+// from registers and v in its stored [key][d] layout, and release the stage.
+// A warpgroup whose rows all lie at or past S only writes their lse (+inf).
+template <typename BiasT, bool kDropout>
+__global__ void __launch_bounds__(kFwdThreads, 2) fwd_kernel(
+    const __grid_constant__ FwdMaps maps,
+    bf16* __restrict__ o,    // (B, H, S, D) by strides
+    float* __restrict__ lse,  // (B, H, P)
+    Strides so, int S, int H, int P, float scale, int seed, float keep, float inv_keep) {
+  extern __shared__ uint8_t fwd_smem_raw[];
+  __shared__ uint64_t full_bar[kFwdStages], empty_bar[kFwdStages], q_bar;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(fwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int q0 = blockIdx.x * kFwdRows;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t plane = static_cast<size_t>(b) * H + h;
-  float* lse_bh = lse + plane * P;
-  if (q0 >= S) {  // a block of pad rows only: their lse is +inf
-    for (int r = tid; r < kBQ; r += kThreads) lse_bh[q0 + r] = INFINITY;
+  const int plane = b * H + h;
+  float* lse_bh = lse + static_cast<size_t>(plane) * P;
+  const int n_live = q0 + 64 < S ? 2 : (q0 < S ? 1 : 0);  // warpgroups with a row < S
+  if (n_live == 0) {  // pad rows only
+    for (int r = threadIdx.x; r < kFwdRows && q0 + r < P; r += kFwdThreads) {
+      lse_bh[q0 + r] = INFINITY;
+    }
     return;
   }
-  const bf16* qp = plane_of(q, sq, b, h);
-  const bf16* kp = plane_of(k, sk, b, h);
-  const bf16* vp = plane_of(v, sv, b, h);
-
-  load_rows(s_q, qp, q0, S, sq.s, tid);
+  constexpr int kBias = BiasTile<BiasT>::kBytes;
+  constexpr int kStage = FwdSmem<BiasT>::kStage;
+  const int n_kb = (S + kBK - 1) / kBK;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4 * n_live);  // one arrival per consumer warp
+    }
+    mbar_init(&q_bar, 1);
+    mbar_init_fence();
+  }
   __syncthreads();
-  const int wr = warp * 16;
-  uint32_t qa[4][4];
-  load_a_frags(qa, s_q, wr, g, t);
 
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  const BiasT* bias_row[2];
+  if (threadIdx.x >= kFwdConsumers) {
+    // ---- producer warp: one thread issues every copy ----
+    if (threadIdx.x == kFwdConsumers) {
+      tma_prefetch_map(&maps.q);
+      tma_prefetch_map(&maps.k);
+      tma_prefetch_map(&maps.v);
+      tma_prefetch_map(&maps.bias);
+      mbar_expect_tx(&q_bar, n_live * kTileBytes);
+      for (int w = 0; w < n_live; ++w) {
+        tma_load_4d(smem + w * kTileBytes, &maps.q, &q_bar, 0, q0 + 64 * w, h, b);
+      }
+      const uint32_t stage_tx = 2 * kTileBytes + n_live * kBias;
+      for (int kb = 0; kb < n_kb; ++kb) {
+        const int stage = kb % kFwdStages;
+        if (kb >= kFwdStages) mbar_wait(&empty_bar[stage], ((kb / kFwdStages) - 1) & 1);
+        uint8_t* st = smem + kFwdQBytes + stage * kStage;
+        uint64_t* bar = &full_bar[stage];
+        mbar_expect_tx(bar, stage_tx);
+        tma_load_4d(st, &maps.k, bar, 0, kb * kBK, h, b);
+        tma_load_4d(st + kTileBytes, &maps.v, bar, 0, kb * kBK, h, b);
+        for (int w = 0; w < n_live; ++w) {
 #pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bias_row[r] = bias + (plane * P + (row[r] < S ? row[r] : 0)) * static_cast<size_t>(P);
+          for (int c = 0; c < BiasTile<BiasT>::kBoxes; ++c) {
+            tma_load_2d(st + 2 * kTileBytes + w * kBias + c * 8192, &maps.bias, bar,
+                        kb * kBK + c * BiasTile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
+          }
+        }
+      }
+    }
+    return;
   }
-  const Dropout drop(seed, static_cast<int>(plane), keep, inv_keep);
-  float acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
+
+  // ---- consumer warpgroups ----
+  const int wg = threadIdx.x / 128;
+  const int ct = threadIdx.x % 128;
+  if (wg >= n_live) {  // rows q0 + 64 .. q0 + 127, all at or past S
+    if (ct < 64 && q0 + 64 + ct < P) lse_bh[q0 + 64 + ct] = INFINITY;
+    return;
   }
+  const int warp = ct / 32, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the warpgroup
+  const int row[2] = {q0 + 64 * wg + lr[0], q0 + 64 * wg + lr[1]};
+  const Dropout drop(seed, plane, keep, inv_keep);
+
+  // accumulator fragment (nt, e) at 4 nt + e: row g + 8 (e >> 1), column
+  // 8 nt + 2t + (e & 1), as mma.sync's n-tiles lay it out
+  float acc[32], s[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
+  // K-major q and k tiles: 8-row atoms 1 KB apart, a 16-wide k step 32 bytes
+  // on; MN-major v: the same atoms, a 16-key k step 2 KB on
+  const uint64_t q_desc = wgmma_desc(smem + wg * kTileBytes, 16, 1024);
+  mbar_wait(&q_bar, 0);
 
-  const int n_kb = (S + kBK - 1) / kBK;
-  for (int kbi = 0; kbi < n_kb; ++kbi) {
-    const int k0 = kbi * kBK;
-    __syncthreads();  // the previous block's k/v are consumed
-    load_rows(s_k, kp, k0, S, sk.s, tid);
-    load_rows_both(nullptr, s_vt, vp, k0, S, sv.s, tid);
-    __syncthreads();
+  // Each block's O += P v runs while the next block's stage is waited for and
+  // its S = q k^T is issued: the P v group is waited for (and its stage
+  // released) only before the accumulators are rescaled.
+  uint32_t pa[4][4];  // P of the block in flight, wgmma's A registers
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBK;
+    const int stage = kb % kFwdStages;
+    uint32_t kept = 0;  // the dropout mask of this block, made while its loads fly
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
+      }
+    }
+    mbar_wait(&full_bar[stage], (kb / kFwdStages) & 1);
+    const uint8_t* st = smem + kFwdQBytes + stage * kStage;
+    const uint64_t k_desc = wgmma_desc(st, 16, 1024);
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTileBytes + wg * kBias);
 
-    float s[8][4];
-    mma_rows_by_tile(s, qa, s_k, g, t);
+    // S = q k^T over d in 4 steps of 16
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(s, q_desc + 2 * ks, k_desc + 2 * ks, ks);
+    wgmma_commit();
+    if (kb > 0) {  // the previous block's P v is done: release its stage
+      wgmma_wait<1>();
+      reg_fence(acc);
+      reg_fence(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[(kb - 1) % kFwdStages]);
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
 
-    float mx[2] = {-INFINITY, -INFINITY};
+    // scale + bias in f32; keys >= S (in the last block only) masked out.
+    // Rows >= S take whatever bias lies there: they are neither stored nor
+    // mixed with other rows.
 #pragma unroll
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int col = k0 + nt * 8 + 2 * t + (e & 1);
-        float x = -INFINITY;
-        if (col < S) {
-          const float bv = row[r] < S ? mmee_to_float(bias_row[r][col]) : 0.0f;
-          x = s[nt][e] * scale + bv;
-        }
-        s[nt][e] = x;
-        mx[r] = fmaxf(mx[r], x);
+      for (int r = 0; r < 2; ++r) {
+        const float2 bv2 = bias_pair(bias_tile, lr[r], nt, t);
+        s[4 * nt + 2 * r] = s[4 * nt + 2 * r] * scale + bv2.x;
+        s[4 * nt + 2 * r + 1] = s[4 * nt + 2 * r + 1] * scale + bv2.y;
       }
     }
+    if (k0 + kBK > S) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        if (k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
+      }
+    }
+    // running row max
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     float m_use[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
       const float m_new = fmaxf(m_run[r], mx[r]);
-      m_use[r] = m_new == -INFINITY ? 0.0f : m_new;
-      alpha[r] = expf(m_run[r] - m_use[r]);
+      m_use[r] = m_new == -INFINITY ? 0.0f : m_new;  // no (-inf) - (-inf)
+      alpha[r] = expf(m_run[r] - m_use[r]);           // 0 on the first block
       m_run[r] = m_new;
     }
     float rs[2] = {0.0f, 0.0f};
@@ -320,10 +479,10 @@ __device__ __forceinline__ void fwd_body(
     for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        float p = expf(s[nt][e] - m_use[e >> 1]);
+        float p = expf(s[4 * nt + e] - m_use[e >> 1]);
         rs[e >> 1] += p;  // the row sum (and so the lse) excludes dropout
-        if (dropout) p *= drop.scale(row[e >> 1], k0 + nt * 8 + 2 * t + (e & 1));
-        s[nt][e] = p;
+        if constexpr (kDropout) p *= (kept >> (4 * nt + e)) & 1u ? inv_keep : 0.0f;
+        s[4 * nt + e] = p;
       }
     }
 #pragma unroll
@@ -334,51 +493,94 @@ __device__ __forceinline__ void fwd_body(
     }
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
-      acc[dt][0] *= alpha[0];
-      acc[dt][1] *= alpha[0];
-      acc[dt][2] *= alpha[1];
-      acc[dt][3] *= alpha[1];
+      acc[4 * dt + 0] *= alpha[0];
+      acc[4 * dt + 1] *= alpha[0];
+      acc[4 * dt + 2] *= alpha[1];
+      acc[4 * dt + 3] *= alpha[1];
     }
-    mma_acc_by_tile_t(acc, s, s_vt, g, t);
-  }
 
+    // O += P v: the score accumulators, rounded to bf16, are wgmma's A
+    // registers; v is read [key][d] as a transposed (MN-major) B
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      pa[ks][0] = pack_bf16x2(s[8 * ks + 0], s[8 * ks + 1]);  // row g,   keys 16ks + 2t
+      pa[ks][1] = pack_bf16x2(s[8 * ks + 2], s[8 * ks + 3]);  // row g+8
+      pa[ks][2] = pack_bf16x2(s[8 * ks + 4], s[8 * ks + 5]);  // row g,   keys 16ks + 8 + 2t
+      pa[ks][3] = pack_bf16x2(s[8 * ks + 6], s[8 * ks + 7]);  // row g+8
+    }
+    const uint64_t v_desc = wgmma_desc(st + kTileBytes, 16, 1024);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_rs_tb(acc, pa[ks], v_desc + ks * (2048 >> 4));
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pa);
+
+  // o / l at the caller's strides; lse = m + log(l), +inf past S
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if (t == 0) lse_bh[row[r]] = row[r] < S ? m_run[r] + logf(l_run[r]) : INFINITY;
     if (row[r] >= S) continue;
     const float inv = 1.0f / l_run[r];
-    bf16* orow = plane_of(o, so, b, h) + row[r] * so.s;
+    bf16* orow = o + b * so.b + h * so.h + row[r] * so.s;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
       *reinterpret_cast<uint32_t*>(orow + dt * 8 + 2 * t) =
-          pack_bf16x2(acc[dt][2 * r] * inv, acc[dt][2 * r + 1] * inv);
+          pack_bf16x2(acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
     }
   }
 }
 
-template <typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v,       // (B, S, H*D)
-    const BiasT* __restrict__ bias,   // (B, H, P, P)
-    bf16* __restrict__ o,             // (B, S, H*D)
-    float* __restrict__ lse,          // (B, H, P)
-    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  fwd_body<BiasT>(q, k, v, bias, o, lse, st, st, st, st, S, H, P, scale, seed, keep,
-                  inv_keep, dropout);
+// the tensor map of a (B, H, rows, D) bf16 operand at its element strides
+int encode_operand(CUtensorMap* map, const bf16* x, const Strides& st, int rows, int H, int B) {
+  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(H),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * 2,
+                                 static_cast<cuuint64_t>(st.h) * 2,
+                                 static_cast<cuuint64_t>(st.b) * 2};
+  const cuuint32_t box[4] = {kD, 64, 1, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, x, dims, strides, box);
+}
+
+template <typename BiasT, bool kDropout>
+int launch_fwd_kernel(const FwdMaps& maps, bf16* o, float* lse, const Strides& so, int B, int S,
+                      int H, int P, float scale, int seed, float keep, float inv_keep,
+                      cudaStream_t st) {
+  constexpr int smem = FwdSmem<BiasT>::kBytes;
+  static std::atomic<uint64_t> ready{0};
+  const int err = set_smem_limit_once(fwd_kernel<BiasT, kDropout>, smem, ready);
+  if (err != 0) return err;
+  fwd_kernel<BiasT, kDropout><<<dim3((P + kFwdRows - 1) / kFwdRows, H, B), kFwdThreads, smem, st>>>(
+      maps, o, lse, so, S, H, P, scale, seed, keep, inv_keep);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <typename BiasT>
-__global__ void __launch_bounds__(kThreads) headform_fwd_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k,
-    const bf16* __restrict__ v, const BiasT* __restrict__ bias,
-    bf16* __restrict__ o, float* __restrict__ lse,
-    Strides sq, Strides sk, Strides sv, Strides so,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  fwd_body<BiasT>(q, k, v, bias, o, lse, sq, sk, sv, so, S, H, P, scale, seed, keep,
-                  inv_keep, dropout);
+int launch_fwd(const bf16* q, const bf16* k, const bf16* v, const void* bias, bf16* o,
+               float* lse, const Strides& sq, const Strides& sk, const Strides& sv,
+               const Strides& so, int B, int S, int H, int P, float scale, int seed,
+               float keep, float inv_keep, int dropout, cudaStream_t st) {
+  FwdMaps maps;
+  int err = encode_operand(&maps.q, q, sq, S, H, B);
+  if (err == 0) err = encode_operand(&maps.k, k, sk, S, H, B);
+  if (err == 0) err = encode_operand(&maps.v, v, sv, S, H, B);
+  if (err == 0) {
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(P),
+                                static_cast<cuuint64_t>(B) * H * static_cast<cuuint64_t>(P)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(P) * sizeof(BiasT)};
+    const cuuint32_t box[2] = {BiasTile<BiasT>::kBoxCols, 64};
+    err = encode_map(&maps.bias,
+                     sizeof(BiasT) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT32,
+                     2, bias, dims, strides, box);
+  }
+  if (err != 0) return err;
+  return dropout ? launch_fwd_kernel<BiasT, true>(maps, o, lse, so, B, S, H, P, scale, seed,
+                                                  keep, inv_keep, st)
+                 : launch_fwd_kernel<BiasT, false>(maps, o, lse, so, B, S, H, P, scale, seed,
+                                                   keep, inv_keep, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -904,23 +1106,19 @@ extern "C" int mmee_flash_attention_packed_train_fwd(
     int bias_is_bf16, void* o, void* lse, int B, int S, int H, int P,
     float scale, int seed, float keep, float inv_keep, int dropout,
     void* stream) {
-  const dim3 grid(P / kBQ, H, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bf16* qp = static_cast<const bf16*>(q);
   const bf16* kp = static_cast<const bf16*>(k);
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
+  const Strides ps = packed_strides(S, H);
   if (bias_is_bf16) {
-    train_fwd_kernel<bf16><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, static_cast<const bf16*>(bias), op, lp, packed_strides(S, H), S, H,
-        P, scale, seed, keep, inv_keep, dropout);
-  } else {
-    train_fwd_kernel<float><<<grid, kThreads, 0, st>>>(
-        qp, kp, vp, static_cast<const float*>(bias), op, lp, packed_strides(S, H), S, H,
-        P, scale, seed, keep, inv_keep, dropout);
+    return launch_fwd<bf16>(qp, kp, vp, bias, op, lp, ps, ps, ps, ps, B, S, H, P, scale, seed,
+                            keep, inv_keep, dropout, st);
   }
-  return static_cast<int>(cudaGetLastError());
+  return launch_fwd<float>(qp, kp, vp, bias, op, lp, ps, ps, ps, ps, B, S, H, P, scale, seed,
+                           keep, inv_keep, dropout, st);
 }
 
 extern "C" int mmee_flash_attention_packed_train_bwd(
@@ -1041,18 +1239,6 @@ Strides strides_at(const long long* strides, int i) {
 }
 
 template <typename BiasT>
-int launch_headform_fwd(const bf16* q, const bf16* k, const bf16* v, const void* bias,
-                        bf16* o, float* lse, const long long* strides, int B, int S,
-                        int H, int P, float scale, int seed, float keep, float inv_keep,
-                        int dropout, cudaStream_t st) {
-  headform_fwd_kernel<BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
-      q, k, v, static_cast<const BiasT*>(bias), o, lse, strides_at(strides, 0),
-      strides_at(strides, 1), strides_at(strides, 2), strides_at(strides, 3), S, H, P,
-      scale, seed, keep, inv_keep, dropout);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <typename BiasT>
 int launch_headform_bwd(const bf16* q, const bf16* k, const bf16* v, const void* bias,
                         const bf16* dout, const bf16* o, const float* lse, bf16* dq,
                         bf16* dk, bf16* dv, void* dbias, float* delta,
@@ -1089,12 +1275,14 @@ extern "C" int mmee_flash_attention_fwd(
   const bf16* vp = static_cast<const bf16*>(v);
   bf16* op = static_cast<bf16*>(o);
   float* lp = static_cast<float*>(lse);
+  const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
+                sv = strides_at(strides, 2), so = strides_at(strides, 3);
   if (bias_is_bf16) {
-    return launch_headform_fwd<bf16>(qp, kp, vp, bias, op, lp, strides, B, S, H, P, scale,
-                                     seed, keep, inv_keep, dropout, st);
+    return launch_fwd<bf16>(qp, kp, vp, bias, op, lp, sq, sk, sv, so, B, S, H, P, scale, seed,
+                            keep, inv_keep, dropout, st);
   }
-  return launch_headform_fwd<float>(qp, kp, vp, bias, op, lp, strides, B, S, H, P, scale,
-                                    seed, keep, inv_keep, dropout, st);
+  return launch_fwd<float>(qp, kp, vp, bias, op, lp, sq, sk, sv, so, B, S, H, P, scale, seed,
+                           keep, inv_keep, dropout, st);
 }
 
 // dq, dk, dv (in the layouts `strides` gives them) and dbias = ds (B, H, P,

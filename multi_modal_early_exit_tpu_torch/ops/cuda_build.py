@@ -5,9 +5,9 @@ its own shared library with a plain C interface and loaded with ``ctypes``.
 Nothing is built when a module is imported: the first launch of a kernel
 builds its library (``build_all`` builds every library at once, one ``nvcc``
 process per source, all started together). A library's file name carries a
-hash of its sources and flags, so an edited source is rebuilt and a finished
-build is reused. The build directory, ``_build/`` inside this package, is
-listed in ``.gitignore``.
+hash of its source, every header under ``csrc/`` and the flags, so an edited
+source or header is rebuilt and a finished build is reused. The build
+directory, ``_build/`` inside this package, is listed in ``.gitignore``.
 
 ``nvcc`` is looked up in ``$CUDA_HOME/bin``, then ``/usr/local/cuda/bin``,
 then on ``PATH``. A failed build raises with nvcc's output.
@@ -56,9 +56,11 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Path of ``name``'s library, keyed on its sources and flags."""
+    """Path of ``name``'s library, keyed on its source, every header under
+    ``csrc/`` (any of them may be included) and the flags."""
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
+        h.update(part.name.encode())
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"

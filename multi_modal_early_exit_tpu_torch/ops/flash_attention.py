@@ -62,7 +62,7 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
 KERNEL_HEAD_DIM = 64
-KERNEL_TILE = 64  # rows and columns per CTA tile of the training kernels
+KERNEL_TILE = 64  # the training kernels tile the bias width P by 64
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -97,13 +97,16 @@ def _check_packed(what: str, q, k, v, bias, num_heads: int) -> None:
 
 def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> None:
     """What the CUDA attention kernels take: contiguous tensors on one card,
-    bf16 q/k/v (and gradients), a bf16 or f32 bias, head dim 64."""
+    16-byte aligned (the training forward loads them by TMA), bf16 q/k/v
+    (and gradients), a bf16 or f32 bias, head dim 64."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
     for t in (*tensors, bias):
         if t.device != device or not t.is_contiguous():
             raise ValueError(f"{what} takes contiguous tensors on one device")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{what} takes tensors whose data is 16-byte aligned")
     if any(t.dtype != torch.bfloat16 for t in tensors):
         raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
     if bias.dtype not in (torch.bfloat16, torch.float32):
@@ -510,7 +513,8 @@ def _check_headform_cuda(what: str, tensors, bias) -> None:
     """What the kernels take in the head form: bf16 (B, H, rows, 64)
     tensors on one card, each with a unit last stride, its other strides
     multiples of 8 and 16-byte aligned (the packed projections' transposed
-    view is such a tensor), and a contiguous bf16 or f32 bias."""
+    view is such a tensor; the forward's TMA tensor maps need all three),
+    and a contiguous, 16-byte aligned bf16 or f32 bias."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
@@ -526,8 +530,8 @@ def _check_headform_cuda(what: str, tensors, bias) -> None:
                 f"the {what} kernel takes tensors with unit last stride, the other "
                 f"strides multiples of 8 and 16-byte aligned; got strides {t.stride()}"
             )
-    if not bias.is_contiguous():
-        raise ValueError(f"{what} takes a contiguous bias")
+    if not bias.is_contiguous() or bias.data_ptr() % 16:
+        raise ValueError(f"{what} takes a contiguous, 16-byte aligned bias")
     if bias.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
 

@@ -61,9 +61,9 @@ GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
     ("flash_attention_packed", ("flash_attention_packed_kernel",)),
     ("fused_bias_attention", ("fused_bias_attention_kernel",)),
-    ("flash_attention_fwd", ("headform_fwd_kernel",)),
+    # the training forward and the head-form forward launch one kernel
+    ("flash_attention_packed_train / flash_attention_fwd", ("fwd_kernel",)),
     ("flash_attention_bwd", ("headform_bwd_dq_kernel", "headform_bwd_dkv_kernel")),
-    ("flash_attention_packed_train", ("train_fwd_kernel",)),
     ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
                                                  "table_partials_sum_kernel")),
     ("flash_attention_packed_train_bwd", ("train_bwd_dq_kernel",)),

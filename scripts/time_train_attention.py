@@ -12,11 +12,18 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
 - the packed training forward at dropout rates 0 and 0.1;
 - its backward, plain at both rates and chained at 0.1;
 - where the checkout has them, the head-form forward and backward on the
-  packed tensors' (B, H, S, D) views at rate 0.
+  packed tensors' (B, H, S, D) views at rate 0;
+- the yardstick, one PyTorch call: ``scaled_dot_product_attention`` on the
+  same views with the bias as a float mask, at rate 0 (no lse).
+
+Beside each forward it prints the host's microseconds per call: the wall
+time of 200 calls issued back to back at a tiny shape (batch 1, S = P = 64,
+one head), where the card finishes each kernel before the host issues the
+next, so the wrapper's own cost, tensor-map encoding included.
 
 To compare two versions, run it on each in one call, in turns (parent,
 change, change, parent). The last line is one JSON object with the card's
-name and power limit and the times in ms.
+name and power limit, the times in ms and the host us per forward call.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 import torch
 
@@ -42,6 +50,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
+    """Host microseconds per ``fn()`` call, issued back to back."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
 
 
 def main() -> int:
@@ -86,16 +107,33 @@ def main() -> int:
         o_h, lse_h = fa.flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
         cases["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
             *views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
+    heads = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+    mask = bias[:, :, :s, :s]
+    cases["sdpa@0.0"] = lambda: torch.nn.functional.scaled_dot_product_attention(
+        *heads, attn_mask=mask)
+    tq, tk, tv = (x[:1, :64, :d].contiguous() for x in (q, k, v))
+    tbias = bias[:1, :1, :64, :64].contiguous()
+    tviews = [x.view(1, 64, 1, d).transpose(1, 2) for x in (tq, tk, tv)]
+    tiny = {f"packed_fwd@{rate}": lambda r=rate: fa.flash_attention_packed_train_fwd(
+        tq, tk, tv, tbias, 7, 1, r) for rate in (0.0, 0.1)}
+    if hasattr(fa, "flash_attention_fwd"):
+        tiny["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
+            *tviews, tbias, 0, 0.0, with_lse=True)
     readings = {name: [] for name in cases}
+    hosts = {name: [] for name in tiny}
     for _ in range(opts.rounds):
         for name, fn in cases.items():
             readings[name].append(time_ms(fn))
+        for name, fn in tiny.items():
+            hosts[name].append(host_us(fn))
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     for name, ms in readings.items():
-        print(f"{name}: median {statistics.median(ms):.4f} ms of {[round(x, 4) for x in ms]}")
+        host = f", host {statistics.median(hosts[name]):.1f} us per call" if name in hosts else ""
+        print(f"{name}: median {statistics.median(ms):.4f} ms of {[round(x, 4) for x in ms]}{host}")
     print(json.dumps({"root": root, "device": card.splitlines()[0],
-                      "ms": {n: statistics.median(ms) for n, ms in readings.items()}}))
+                      "ms": {n: statistics.median(ms) for n, ms in readings.items()},
+                      "host_us": {n: statistics.median(us) for n, us in hosts.items()}}))
     return 0
 
 

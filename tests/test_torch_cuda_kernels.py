@@ -133,7 +133,10 @@ def _scaled_err(got, want):
     return ((got.float() - want.float()).abs().max() / want.float().abs().max()).item()
 
 
-TRAIN_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12)]
+# P = S; P rounded up to 64 and to 128; P / 128 not whole (the forward's
+# last 128-row tile holds 64 rows); S a multiple of 128; the paths' shape
+TRAIN_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (1, 200, 320, 2),
+                (2, 256, 256, 4), (2, 709, 768, 12)]
 
 
 @pytest.mark.parametrize("b,s,p,h", TRAIN_SHAPES)
@@ -395,18 +398,20 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
 # the head form: the training kernels' bodies with explicit strides
 # ---------------------------------------------------------------------------
 
-# P = S, P rounded up to 64 and to 128, and a width the kernels do not tile
-# (27: the wrapper pads the bias to 64)
-HEADFORM_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12),
-                   (1, 27, 27, 2)]
+# P = S, P rounded up to 64 and to 128, P / 128 not whole, S a multiple of
+# 128, the paths' shape, and a width the kernels do not tile (27: the
+# wrapper pads the bias to 64)
+HEADFORM_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (1, 200, 320, 2),
+                   (2, 256, 256, 4), (2, 709, 768, 12), (1, 27, 27, 2)]
 
 
 @pytest.mark.parametrize("b,s,p,h", HEADFORM_SHAPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("layout", ["contiguous", "packed"])
-def test_headform_forward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_headform_forward_kernel_matches_plain(cuda, b, s, p, h, rate, layout, bias_dtype):
     q, k, v = (_heads_view(x, h, layout) for x in _qkv(cuda, b, s, h))
-    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    bias = _train_bias(cuda, b, s, p, h, bias_dtype)
     before = flash_attention_fwd.launches
     out, lse = flash_attention_fwd(q, k, v, bias, 1234, rate, with_lse=True)
     assert flash_attention_fwd.launches == before + 1
@@ -418,6 +423,55 @@ def test_headform_forward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
     # the f32 online softmax's lse against the dense one
     torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
     torch.testing.assert_close(lse[:, :, :s], want_lse[:, :, :s], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_forward_row_with_every_key_masked_averages_v(cuda, layout, bias_dtype):
+    """A row whose every key carries -1e30 weighs the keys alike, as the
+    plain softmax does: its output is the mean of v over the keys < S."""
+    b, s, p, h = 2, 200, 256, 2
+    q, k, v = (_heads_view(x, h, layout) for x in _qkv(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    bias[-1, 0, 1, :] = -1e30
+    bias = bias.to(bias_dtype)
+    out, lse = flash_attention_fwd(q, k, v, bias, 0, 0.0, with_lse=True)
+    want_out, want_lse = flash_attention_fwd_plain(q, k, v, bias, 0, 0.0)
+    torch.cuda.synchronize()
+    mean_v = v[-1, 0].float().mean(dim=0)
+    torch.testing.assert_close(out[-1, 0, 1].float(), mean_v, atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(out.float(), want_out.float(), atol=2e-2, rtol=2e-2)
+    torch.testing.assert_close(lse[:, :, :s], want_lse[:, :, :s], atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_forward_kernels_are_deterministic(cuda, rate, layout):
+    """Two runs of the forward give the same bits, in both entries."""
+    b, s, p, h = 2, 709, 768, 12
+    qkv = _qkv(cuda, b, s, h)
+    views = [_heads_view(x, h, layout) for x in qkv]
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    first = flash_attention_fwd(*views, bias, 5, rate, with_lse=True)
+    again = flash_attention_fwd(*views, bias, 5, rate, with_lse=True)
+    packed = flash_attention_packed_train_fwd(*qkv, bias, 5, h, rate)
+    packed_again = flash_attention_packed_train_fwd(*qkv, bias, 5, h, rate)
+    torch.cuda.synchronize()
+    for a, w in zip(first + packed, again + packed_again):
+        assert torch.equal(a, w)
+
+
+@pytest.mark.parametrize("b,s,p,h", [(2, 64, 64, 2), (1, 130, 192, 3), (2, 709, 768, 12)])
+def test_train_forward_at_rate_0_equals_the_serving_kernel(cuda, b, s, p, h):
+    """At dropout 0 the training forward repeats ``flash_attention_packed``'s
+    arithmetic (expf, the same rounding points and sums in the same order),
+    so the schedules that run one or the other give the same bits."""
+    q, k, v = _qkv(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    out, _ = flash_attention_packed_train_fwd(q, k, v, bias, 0, h, 0.0)
+    want = flash_attention_packed(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
 
 
 @pytest.mark.parametrize("b,s,p,h", HEADFORM_SHAPES)

@@ -81,10 +81,12 @@ def _jax_grads(fn, arrays, g):
     return np.asarray(out), [np.asarray(x) for x in vjp(jnp.asarray(g))]
 
 
-@pytest.mark.parametrize("s", [16, 27])
+@pytest.mark.parametrize("s", [16, 27, 130, 200])
 def test_forward_and_lse_match_pallas(s):
-    """Ragged S (27 pads to 32 inside the Pallas kernel): the output and the
-    f32 lse of the real rows."""
+    """Ragged S (27 pads to 32 inside the Pallas kernel; 130 and 200 are the
+    lengths whose bias widths, 192 and 320, end the CUDA forward in a
+    half-filled 128-row tile): the output and the f32 lse of the real
+    rows."""
     q, k, v, bias, _ = _case(0, 2, 3, s, 8)
     seed = jnp.zeros((1,), jnp.int32)
     want_o, want_lse = jfa._flash_attention_fwd_impl(
