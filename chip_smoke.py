@@ -33,7 +33,14 @@ Phases, each reported on its own line:
    head form at the packed strides and rate 0, as the backward of
    ``flash_attention_packed`` runs it), beside the least time the card could
    take and one PyTorch library call where one computes the same function,
-   or the pair of kernels it replaces;
+   or the pair of kernels it replaces. Then every kernel again at f32
+   inputs (f32 q/k/v and bias; the attention kernels' f32 instantiations,
+   3xTF32 on the tensor cores) against its plain version in f32, at both
+   shapes: outputs, lse and gradients within ``F32_BAR`` (1e-4) of each
+   output's largest value, the table gradients (``table_grads`` and the
+   tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within 1e-4 of
+   ``materialize_bias`` + ``flash_attention_packed`` in f32; each timed
+   beside f32 SDPA and an f32 bound (FLOPs over a third of the TF32 peak);
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -69,6 +76,11 @@ Phases, each reported on its own line:
    reference with ``GRAD_LIMITS``, and against phase 5's chained gradients
    on the card with ``CHAINED_LIMITS``. docs/sec and peak memory beside
    phase 5's.
+4f. serving in f32: phase 4's model, thresholds procedure and batches with
+   f32 weights, through ``Pipeline.predict_features``. Checks: as phase 4,
+   with the small-input logits within the north star's f32 bars (atol 2e-4,
+   rtol 1e-3) of the f32 plain path on the CPU. docs/sec and peak memory
+   beside phase 4's.
 5c. the JAX package's default training schedule, ``scan_fold=1``, at
    attention dropout 0 (hidden dropout 0.1): every layer takes the bias
    tensor through ``flash_attention_packed``, whose backward runs the
@@ -87,13 +99,22 @@ Phases, each reported on its own line:
    phase 5c's bit for bit, and at dropout 0.1 (the same seeds) those of the
    same schedule without checkpointing. docs/sec and peak memory beside
    phase 5's.
+5f. training in f32, ``EETrainer(TrainingArguments(bf16=False))``: the
+   gradient check against phase 5's f32 CPU reference with
+   ``F32_GRAD_LIMITS`` at ``scan_fold=1`` (``flash_attention_packed`` and
+   the head-form pair) and at ``scan_fold=12`` (the training forward, the
+   chained backward, ``table_grads``), each with its launch counts; then
+   1 + 2 steps at the JAX default schedule (``scan_fold=1``, dropout 0.1).
+   Checks: finite losses, parameters that moved, launch counts per step.
+   docs/sec and peak memory beside phase 5c's.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 5, 5c and 5d with the two bias switches unset, whatever the
+phases 4, 4f, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
-launches counted on the path that runs it), the last
+launches counted on the path that runs it; the f32 fields from phase 3's
+f32 run and the f32 launches from phases 4f/5f), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -112,15 +133,21 @@ import time
 import numpy as np
 import torch
 
-# published peaks (dense) by card: bytes/s, bf16 tensor FLOP/s, f32 FLOP/s
+# published peaks (dense) by card: bytes/s, bf16 tensor FLOP/s, f32 FLOP/s,
+# TF32 tensor FLOP/s
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12),
-    "H100": (3.35e12, 989e12, 67e12),  # SXM
+    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12, 417e12),
+    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
 }
+# the f32 attention kernels multiply by 3xTF32: three TF32 passes per
+# product, so their operations bound is FLOPs over a third of the TF32 peak
+# (165 TFLOP/s on an H100 SXM)
+TF32_PASSES = 3
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
 N_BATCHES = 4
 TRAIN_STEPS, TRAIN_RATE = 3, 0.1
+F32_TRAIN_STEPS = 2  # phase 5f's timed steps
 REL_POS_TABLES = ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")
 QKV_WEIGHTS = (".query.weight", ".key.weight", ".value.weight")
 # limits on the phase-5 gradient check's worst error of a tensor over its
@@ -152,6 +179,17 @@ CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
 # layers' bf16 bias cotangents where phase 5 adds each layer's ds to the
 # running one in the kernel)
 UNCHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
+# the f32 attention kernels (3xTF32) against their f32 plain versions on the
+# card, over each output's largest value; plain TF32 (~3 digits) misses it
+F32_BAR = 1e-4
+# phase 5f's gradient checks, the f32 kernel path on the card against phase
+# 5's f32 plain path on the CPU, by phase 5's groups. On an H100 phase 5's
+# input reads 5.70e-6 (visual.pos_embed), 7.90e-5 (rel_pos_x_bias) and
+# 2.21e-5 (layer 11's query weight); eight draws (scripts/grad_gate_faults.py
+# --f32) read at most 1.15e-5, 1.08e-4 and 3.63e-5, and every fault it puts
+# in (any kernel output or table gradient scaled by 1.001) reads 1.0e-3 or
+# more. None may be looser than 1e-3
+F32_GRAD_LIMITS = {"tensors": 5e-5, "rel-pos tables": 3e-4, "q/k/v weights": 1e-4}
 SWITCHES = ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS", "MMEE_CHAINED_DBIAS", "MMEE_LAYERS_PER_STEP")
 
 
@@ -516,6 +554,124 @@ def compare_kernels(args, gen):
     return errs, notes, saved
 
 
+def compare_kernels_f32(args, gen):
+    """Each attention kernel's f32 instantiation (f32 q/k/v, f32 bias) and
+    the two bias kernels in f32 against their plain versions in f32 on the
+    bias inputs ``args``: outputs, lse and gradients within ``F32_BAR`` of
+    each output's largest value, the table gradients (of ``table_grads``
+    and of the tables backward) within ``TABLE_GRAD_LIMIT``;
+    ``materialize_bias`` bit-equal; the fused
+    kernel also within ``F32_BAR`` of ``materialize_bias`` +
+    ``flash_attention_packed`` in f32; the training forward at rate 0
+    bit-equal to ``flash_attention_packed`` (one kernel). The training
+    kernels at rate ``TRAIN_RATE``, the head form at rates 0 and
+    ``TRAIN_RATE`` and both layouts. Raises on a disagreement. Returns (max
+    abs error by kernel, what each comparison read, the tensors that the
+    timing reuses)."""
+    from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
+    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+
+    dev, s = args[0].device, args[0].shape[1]
+    f32 = torch.float32
+    errs, notes = {}, {}
+
+    def gate(kname, what, got, want, limit=F32_BAR):
+        check(got.shape == want.shape and got.dtype == want.dtype, f"f32 {kname} {what} layout")
+        check(bool(torch.isfinite(got).all()), f"f32 {kname} {what} not finite")
+        err = scaled_err(got, want)
+        check(err <= limit, f"f32 {kname} {what} (S {s}): error {err} > {limit} of its scale")
+        errs[kname] = max(errs.get(kname, 0.0), (got - want).abs().max().item())
+        notes.setdefault(kname, {})[what] = float(f"{err:.3e}")
+
+    bias = fba.materialize_bias(*args, out_dtype=f32)
+    check(torch.equal(bias, fba.materialize_bias_plain(*args, out_dtype=f32)),
+          f"f32 materialize_bias differs from its plain version (S {s})")
+    errs["materialize_bias"], notes["materialize_bias"] = 0.0, "bit-equal"
+    q, k, v = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen).to(dev) for _ in range(3))
+    out = fa.flash_attention_packed(q, k, v, bias, HEADS)
+    gate("flash_attention_packed", "out", out, fa.flash_attention_packed_plain(q, k, v, bias, HEADS))
+
+    qh, kh, vh = heads_of(q), heads_of(k), heads_of(v)
+    for tag, bias_args in (("", args), (" at unit-scale tables", list(args[:4]) + [
+            torch.randn(a.shape, generator=gen).to(dev) for a in args[4:]])):
+        fused = fba.fused_bias_attention(qh, kh, vh, *bias_args)
+        gate("fused_bias_attention", "out" + tag, fused,
+             fba.fused_bias_attention_plain(qh, kh, vh, *bias_args))
+        pair = fa.flash_attention_packed(
+            q, k, v, fba.materialize_bias(*bias_args, out_dtype=f32), HEADS)
+        gate("fused_bias_attention", "vs the pair" + tag,
+             fused.transpose(1, 2).reshape(B, s, -1), pair)
+        del fused, pair
+
+    seed, rate = 1234, TRAIN_RATE
+    t_out, lse = fa.flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, rate)
+    ref_out, ref_lse = fa.flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, HEADS, rate)
+    check(bool(torch.isinf(lse[:, :, s:]).all()), "f32 train forward: the pad rows' lse")
+    gate("flash_attention_packed_train", "out", t_out, ref_out)
+    gate("flash_attention_packed_train", "lse", lse[:, :, :s], ref_lse[:, :, :s])
+    out0, _ = fa.flash_attention_packed_train_fwd(q, k, v, bias, seed, HEADS, 0.0)
+    check(torch.equal(out0, out), f"f32 train forward at rate 0 differs from "
+          f"flash_attention_packed (S {s})")
+    notes["flash_attention_packed_train"]["rate 0"] = "bit-equal to flash_attention_packed"
+    del ref_out, ref_lse, out0
+
+    do = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen) * 0.1).to(dev)
+    gbias = (torch.randn(bias.shape, generator=gen) * 1e-3).to(dev)
+    bwd_args = (q, k, v, bias, seed, t_out, lse, do, HEADS, rate)
+    for chained in (False, True):
+        extra = gbias if chained else None
+        got = fa.flash_attention_packed_train_bwd(*bwd_args, extra)
+        want = fa.flash_attention_packed_train_bwd_plain(*bwd_args, extra)
+        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            gate("flash_attention_packed_train_bwd", what + ("_chained" if chained else ""), a, w)
+        pad = got[3][:, :, s:, :]
+        check(torch.equal(pad, gbias[:, :, s:, :] if chained else torch.zeros_like(pad)),
+              f"f32 train backward: dbias pad rows (chained={chained})")
+        if chained:
+            dbias = got[3]
+        del got, want
+
+    for layout in ("contiguous", "packed"):
+        views = [heads_of(x) if layout == "packed" else heads_of(x).contiguous()
+                 for x in (q, k, v, do)]
+        for rate_h in (0.0, rate):
+            tag = f"{layout}@{rate_h}"
+            o_h, lse_h = fa.flash_attention_fwd(*views[:3], bias, seed, rate_h, with_lse=True)
+            ref_o, ref_lse = fa.flash_attention_fwd_plain(*views[:3], bias, seed, rate_h)
+            check(o_h.stride() == views[0].stride(), f"f32 head-form forward layout ({tag})")
+            gate("flash_attention_fwd", f"out {tag}", o_h, ref_o)
+            gate("flash_attention_fwd", f"lse {tag}", lse_h[:, :, :s], ref_lse[:, :, :s])
+            del ref_o, ref_lse
+            bwd_h = (*views[:3], bias, seed, o_h, lse_h, views[3], rate_h)
+            got = fa.flash_attention_bwd(*bwd_h)
+            want = fa.flash_attention_bwd_plain(*bwd_h)
+            for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+                gate("flash_attention_bwd", f"{what} {tag}", a, w)
+            check(not bool(got[3][:, :, s:, :].any()) and not bool(got[3][:, :, :, s:].any()),
+                  f"f32 head-form backward: dbias not 0 in the pad ({tag})")
+            del got, want, o_h, lse_h
+
+    # table_grads and its plain version sum the same f32 values in other
+    # orders (the plain one by float atomics on the card): TABLE_GRAD_LIMIT
+    vecs = args[:3]
+    for what, a, w in zip(("dt1", "dtx", "dty"), fba.table_grads(*vecs, dbias),
+                          fba.table_grads_plain(*vecs, dbias)):
+        gate("table_grads", what, a, w, TABLE_GRAD_LIMIT)
+
+    tables_args = (q, k, v, bias, *vecs, seed, t_out, lse, do, HEADS, rate)
+    got = fa.flash_attention_packed_train_tables_bwd(*tables_args)
+    again = fa.flash_attention_packed_train_tables_bwd(*tables_args)
+    want = fa.flash_attention_packed_train_tables_bwd_plain(*tables_args)
+    for what, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+        check(torch.equal(a, a2), f"f32 tables backward {what} differs between two runs")
+        gate("flash_attention_packed_train_tables_bwd", what, a, w,
+             F32_BAR if what in ("dq", "dk", "dv") else TABLE_GRAD_LIMIT)
+    torch.cuda.synchronize()
+    saved = dict(bias=bias, q=q, k=k, v=v, bwd_args=bwd_args, gbias=gbias, dbias=dbias,
+                 tables_out=got[3:], tables_args=tables_args)
+    return errs, {name: n if isinstance(n, str) else json.dumps(n) for name, n in notes.items()}, saved
+
+
 def bound(n_bytes, n_ops, bw, peak):
     """(bound ms, what binds): the larger of bytes over the memory rate and
     operations over the peak rate of their type."""
@@ -552,7 +708,7 @@ def phase_kernels(name):
         table_grads_plain,
     )
 
-    bw, bf16_peak, f32_peak = peaks_for(name)
+    bw, bf16_peak, f32_peak = peaks_for(name)[:3]
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     args, s_true = main_path_bias_inputs(dev, gen)
@@ -601,7 +757,7 @@ def phase_kernels(name):
                - t["ref"].float()).abs().max().item()
     check(lib_err <= 5e-2, f"the library attention disagrees with the plain one by {lib_err}")
     del lib_out
-    e = entry("flash_attention_packed", "flash_attention_packed.cu",
+    e = entry("flash_attention_packed", "flash_attention_packed_train.cu",
               "ops/flash_attention.py:446",
               time_ms(lambda: flash_attention_packed(q, k, v, bias, HEADS)),
               time_ms(lambda: flash_attention_packed_plain(q, k, v, bias, HEADS), iters=5),
@@ -746,6 +902,86 @@ def phase_kernels(name):
           f"{chained_ms:.4f} + {tg_ms:.4f} ms; per step of 12 layers {12 * e['ms']:.3f} ms "
           f"against {12 * chained_ms + tg_ms:.3f} ms), "
           f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+
+    # ---- f32: every kernel again at f32 inputs (the attention kernels'
+    # f32 instantiations), against f32 plain versions, then timed beside
+    # f32 SDPA and an f32 bound --------------------------------------------
+    tf32_peak = peaks_for(name)[3] / TF32_PASSES
+    notes32 = compare_kernels_f32(unpadded, gen)[1]
+    print(f"f32 kernels at S {s_true} inside P 768 (untimed; errors over scale, tol "
+          f"{F32_BAR}): " + "; ".join(f"{k} {v}" for k, v in notes32.items()))
+    errs32, notes32, t32 = compare_kernels_f32(args, gen)
+    bias32, q32, k32, v32 = t32["bias"], t32["q"], t32["k"], t32["v"]
+    qkv32 = 2 * qkv_bytes
+    block32 = B * HEADS * s * s * 4
+    plane32 = B * HEADS * p * p * 4
+    by_name = {e["name"]: e for e in results}
+
+    def f32_entry(kname, ms, bound_pair, library_ms, note=""):
+        e = by_name[kname]
+        e.update(f32_ms=ms, f32_bound_ms=bound_pair[0], f32_bound_by=bound_pair[1],
+                 f32_library_ms=library_ms, f32_max_abs_err=errs32[kname])
+        lib = "null" if library_ms is None else f"{library_ms:.4f}"
+        print(f"kernel {kname} f32: {notes32[kname]}, kernel_ms {ms:.4f}{note}, library_ms "
+              f"{lib}, bound {e['f32_bound_ms'] * 1e3:.1f} us ({e['f32_bound_by']})")
+
+    mask32 = bias32[:, :, :s, :s]
+    fwd_flops = 4 * B * HEADS * s * s * HEAD_DIM
+    bwd_flops = 10 * B * HEADS * s * s * HEAD_DIM
+    sdpa32 = time_ms(lambda: sdpa(heads(q32), heads(k32), heads(v32), attn_mask=mask32))
+    f32_entry("materialize_bias", time_ms(lambda: materialize_bias(*args, out_dtype=torch.float32)),
+              bound(plane32 + in_bytes, 3 * B * HEADS * p * p, bw, f32_peak), None)
+    f32_entry("flash_attention_packed",
+              time_ms(lambda: flash_attention_packed(q32, k32, v32, bias32, HEADS)),
+              bound(block32 + 4 * qkv32, fwd_flops, bw, tf32_peak), sdpa32, " (SDPA, f32)")
+    qh32, kh32, vh32 = heads(q32), heads(k32), heads(v32)
+    f32_entry("fused_bias_attention",
+              time_ms(lambda: fused_bias_attention(qh32, kh32, vh32, *args)),
+              bound(4 * qkv32 + in_bytes, fwd_flops, bw, tf32_peak), None)
+    f32_entry("flash_attention_packed_train",
+              time_ms(lambda: flash_attention_packed_train_fwd(q32, k32, v32, bias32, seed, HEADS,
+                                                               rate)),
+              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, tf32_peak), sdpa32,
+              f" (rate {rate}; SDPA at rate 0, no lse)")
+    bwd32, gbias32 = t32["bwd_args"], t32["gbias"]
+    lib_bwd32 = None
+    if lib_bwd is not None:  # the installed torch differentiates the mask
+        qg, kg, vg = (heads(x).detach().requires_grad_() for x in (q32, k32, v32))
+        mask_g32 = mask32.detach().clone().requires_grad_()
+        o_lib = sdpa(qg, kg, vg, attn_mask=mask_g32)
+        do_h32 = heads(bwd32[7])
+        lib_bwd32 = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qg, kg, vg, mask_g32), do_h32, retain_graph=True), iters=10)
+        del o_lib
+    f32_entry("flash_attention_packed_train_bwd",
+              time_ms(lambda: flash_attention_packed_train_bwd(*bwd32, gbias32), iters=10),
+              bound(block32 + 2 * plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, tf32_peak),
+              lib_bwd32, f" (rate {rate}, chained; not chained "
+              f"{time_ms(lambda: flash_attention_packed_train_bwd(*bwd32, None), iters=10):.4f})")
+    views32 = [heads(x) for x in (q32, k32, v32, bwd32[7])]
+    f32_entry("flash_attention_fwd",
+              time_ms(lambda: flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)),
+              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, tf32_peak), sdpa32,
+              " (rate 0, packed strides)")
+    o_h32, lse_h32 = flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
+    hbwd32 = (*views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
+    f32_entry("flash_attention_bwd", time_ms(lambda: flash_attention_bwd(*hbwd32), iters=10),
+              bound(block32 + plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, tf32_peak),
+              lib_bwd32, " (rate 0, packed strides)")
+    del views32, o_h32, lse_h32, hbwd32
+    dbias32 = t32["dbias"]
+    f32_entry("table_grads", time_ms(lambda: table_grads(*vecs, dbias32)),
+              bound(block32 + sum(a.numel() * a.element_size() for a in vecs)
+                    + sum(a.numel() * 4 for a in t32["tables_out"]),
+                    3 * B * HEADS * s * s, bw, f32_peak), None, " (f32 g)")
+    tables32 = t32["tables_args"]
+    f32_entry("flash_attention_packed_train_tables_bwd",
+              time_ms(lambda: flash_attention_packed_train_tables_bwd(*tables32), iters=10),
+              bound(block32 + 8 * qkv32 + lse_bytes
+                    + sum(a.numel() * a.element_size() for a in vecs)
+                    + sum(a.numel() * 4 for a in t32["tables_out"]),
+                    bwd_flops, bw, tf32_peak), None, f" (rate {rate})")
+
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -772,9 +1008,20 @@ def synthetic_pages(n, rng, tokenizer, seq_len):
     return stack, np.stack(pages)
 
 
+DTYPE_NAMES = {torch.bfloat16: "bf16", torch.float32: "f32"}
+
+
+def f32_close(got, want) -> bool:
+    """The north star's f32 bars: atol 2e-4, rtol 1e-3
+    (tests/test_golden_base.py:65,78)."""
+    return bool(((got - want).abs() <= 2e-4 + 1e-3 * want.abs()).all())
+
+
 @torch.no_grad()
-def phase_main_path():
-    """Phase 4: returns (launches, the state that phase 4b reuses)."""
+def phase_main_path(dtype=torch.bfloat16, base=None):
+    """Phase 4 (bf16), or 4f (f32, with phase 4's readings ``base`` to
+    print beside its own): returns (launches, the state that phase 4b
+    reuses)."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
     from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
@@ -799,8 +1046,9 @@ def phase_main_path():
     t0 = time.perf_counter()
     model32 = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     n_params = sum(p.numel() for p in model32.parameters())
-    model = copy.deepcopy(model32).to("cuda", torch.bfloat16)
-    print(f"main path: EE LayoutLMv3-base, {n_params / 1e6:.1f}M params, bf16, "
+    model = copy.deepcopy(model32).to("cuda", dtype)
+    tag = DTYPE_NAMES[dtype]
+    print(f"main path: EE LayoutLMv3-base, {n_params / 1e6:.1f}M params, {tag}, "
           f"exits text_avg,vision_avg,7, init {time.perf_counter() - t0:.1f} s")
 
     rng = np.random.default_rng(0)
@@ -814,17 +1062,25 @@ def phase_main_path():
     keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
     chunks = [[batch[k][i * B:(i + 1) * B] for k in keys] for i in range(N_BATCHES)]
 
-    # the bf16 kernel path against the f32 plain path on the CPU, 2 documents,
-    # with the heads as initialised
+    # the kernel path against the f32 plain path on the CPU, 2 documents,
+    # with the heads as initialised: bf16 to the bf16 tolerance, f32 to the
+    # north star's f32 bars
     small = [a[:2] for a in chunks[0]]
     cpu_out = ee_forward(model32, cfg, *[a.cpu() for a in small])
     gpu_out = ee_forward(model, cfg, *small)
     a, b = gpu_out.policy_logits().float().cpu(), cpu_out.policy_logits()
     ref_err = (a - b).abs().max().item()
     check(bool(torch.isfinite(a).all()), "non-finite logits on the kernel path")
-    check(bf16_close(ref_err, b), f"kernel path vs f32 plain path: {ref_err}")
-    print(f"reference: bf16 kernel path vs f32 plain path (CPU), 2 documents: "
-          f"policy-logit max diff {ref_err:.3e} at logit scale {b.abs().max().item():.2f}")
+    if dtype == torch.float32:
+        check(f32_close(a, b), f"f32 kernel path vs f32 plain path: {ref_err} "
+              f"(atol 2e-4, rtol 1e-3)")
+        bar = "atol 2e-4 / rtol 1e-3"
+    else:
+        check(bf16_close(ref_err, b), f"kernel path vs f32 plain path: {ref_err}")
+        bar = "5% of scale + 0.05"
+    print(f"reference: {tag} kernel path vs f32 plain path (CPU), 2 documents: "
+          f"policy-logit max diff {ref_err:.3e} at logit scale {b.abs().max().item():.2f} "
+          f"(tol {bar})")
 
     # random heads give every document nearly the same logits (a common
     # offset per class, a tiny spread across documents), so every criterion
@@ -904,10 +1160,12 @@ def phase_main_path():
     forced = sum(r["capacity_exited"] for r in results)
     check(forced > 0 and hist["final"] > 0 and hist[order[0]] + hist[order[1]] > 0,
           f"expected early, forced and final exits: {hist}, forced {forced}")
-    print(f"served {n_docs} documents in {N_BATCHES} batches of {B}: "
+    beside = "" if base is None else (
+        f" (phase 4: {base['docs_per_sec']:.1f} docs/sec, {base['peak_mb']:.1f} MiB)")
+    print(f"served {n_docs} documents in {N_BATCHES} batches of {B} ({tag}): "
           f"{n_docs / dt:.1f} docs/sec (predict_features, host clock), "
           f"exits {hist}, capacity-exited {forced}, launches {launches}, "
-          f"peak memory {peak_mb:.1f} MiB")
+          f"peak memory {peak_mb:.1f} MiB{beside}")
     served = dict(model=model, cfg=cfg, pipe=pipe, batch=batch, chunks=chunks, thr=thr,
                   far=far, got_ids=got_ids, got_logits=got_logits, results=results,
                   docs_per_sec=n_docs / dt, peak_mb=peak_mb)
@@ -1027,10 +1285,12 @@ def loss_grads(model, cfg, batch, weights, device, dtype, rng=None):
     return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
 
 
-def train_gradient_check(cfg, model32, batch, weights, reference=None):
-    """The gradients of one loss on 2 documents at dropout 0: the bf16
-    kernel path on the card against the f32 plain path on the CPU. The CPU
-    reference is computed once: pass the returned one back to reuse it.
+def train_gradient_check(cfg, model32, batch, weights, reference=None, dtype=torch.bfloat16,
+                         limits=GRAD_LIMITS):
+    """The gradients of one loss on 2 documents at dropout 0: the kernel
+    path on the card in the compute dtype ``dtype`` (None: the parameters'
+    f32) against the f32 plain path on the CPU, gated by ``limits``. The
+    CPU reference is computed once: pass the returned one back to reuse it.
     Returns (the reference, the card's (loss, gradients))."""
     rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                  classifier_dropout=0.0)
@@ -1044,13 +1304,14 @@ def train_gradient_check(cfg, model32, batch, weights, reference=None):
         reference = (*grads(model32, "cpu", None), time.perf_counter() - t0)
     cpu_loss, cpu_grads, t_cpu = reference
     gpu_model = copy.deepcopy(model32).cuda()
-    gpu_loss, gpu_grads = grads(gpu_model, "cuda", torch.bfloat16)
+    gpu_loss, gpu_grads = grads(gpu_model, "cuda", dtype)
     del gpu_model
     names = [n for n, _ in model32.named_parameters()]
+    tag = "f32" if dtype is None else DTYPE_NAMES[dtype]
     summary = gradient_gate(names, gpu_loss, gpu_grads, cpu_loss, cpu_grads,
-                            "kernel-path gradients vs the f32 plain path")
-    print(f"train reference: bf16 kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), "
-          f"2 documents, dropout 0: {summary}")
+                            f"{tag} kernel-path gradients vs the f32 plain path", limits)
+    print(f"train reference: {tag} kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), "
+          f"2 documents, dropout 0, scan_fold={cfg.backbone.scan_fold}: {summary}")
     # kept on the host, so that they are not part of the steps' peak memory
     return reference, (gpu_loss, [g.cpu() for g in gpu_grads])
 
@@ -1114,6 +1375,7 @@ def train_steps(cfg, model32, batches, args, want):
     """One warm-up ``EETrainer.train_step``, then one on each further batch,
     timed, with the launch counts per step checked against ``want`` (every
     kernel it does not name: 0). Returns the readings."""
+    n_steps = len(batches) - 1
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
     counters = train_counters()
@@ -1141,10 +1403,10 @@ def train_steps(cfg, model32, batches, args, want):
              if not torch.equal(before, dict(trainer.model.named_parameters())[n].detach())]
     check(len(moved) == len(probe), f"parameters that did not move: {set(probe) - set(moved)}")
     for name in counters:
-        check(launches[name] == want.get(name, 0) * TRAIN_STEPS,
-              f"{name}: {launches[name]} launches in {TRAIN_STEPS} steps")
+        check(launches[name] == want.get(name, 0) * n_steps,
+              f"{name}: {launches[name]} launches in {n_steps} steps")
     return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
-                launches=launches, docs_per_sec=TRAIN_STEPS * B / dt)
+                launches=launches, docs_per_sec=n_steps * B / dt)
 
 
 def phase_train(card: str):
@@ -1197,13 +1459,13 @@ def phase_train_tables(card: str, trained):
     return run["launches"]
 
 
-def beside_phase_5(run, base) -> str:
-    return (f"warm-up step {run['t_warm']:.2f} s, then {TRAIN_STEPS} steps in "
-            f"{run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec (phase 5: "
+def beside_phase_5(run, base, phase="5") -> str:
+    return (f"warm-up step {run['t_warm']:.2f} s, then {len(run['losses'])} steps in "
+            f"{run['dt']:.3f} s, {run['docs_per_sec']:.1f} train docs/sec (phase {phase}: "
             f"{base['docs_per_sec']:.1f}), losses "
-            f"{[round(x, 4) for x in [run['warm']] + run['losses']]} (phase 5: "
+            f"{[round(x, 4) for x in [run['warm']] + run['losses']]} (phase {phase}: "
             f"{[round(x, 4) for x in [base['warm']] + base['losses']]}), launches "
-            f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB (phase 5: "
+            f"{run['launches']}, peak memory {run['peak_mb']:.1f} MiB (phase {phase}: "
             f"{base['peak_mb']:.1f} MiB)")
 
 
@@ -1216,7 +1478,8 @@ def phase_train_default(card: str, trained):
     attention dropout 0: the gradient check, whose launches show that it
     ran ``flash_attention_packed`` and the head-form pair in every layer,
     against phase 5's CPU reference and its chained gradients on the card,
-    then 1 + 3 steps. Returns (launches, the check's (loss, gradients))."""
+    then 1 + 3 steps. Returns (launches, the check's (loss, gradients), the steps'
+    readings)."""
     t = trained
     cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(
         scan_fold=1, attention_probs_dropout_prob=0.0))
@@ -1236,7 +1499,7 @@ def phase_train_default(card: str, trained):
     run = train_steps(cfg, model32, t["batches"], t["args"], want)
     print(f"trained with scan_fold=1 and attention dropout 0: {beside_phase_5(run, t['run'])}, "
           f"on {card}")
-    return run["launches"], (loss, grads)
+    return run["launches"], (loss, grads), run
 
 
 def phase_train_remat(card: str, trained, default):
@@ -1280,6 +1543,50 @@ def phase_train_remat(card: str, trained, default):
           f"on {card}")
 
 
+def phase_train_f32(card: str, trained, base):
+    """Phase 5f: an f32 model trained by ``EETrainer(TrainingArguments(
+    bf16=False))`` through the f32 kernels. The gradient check (dropout 0)
+    against phase 5's f32 CPU reference with ``F32_GRAD_LIMITS`` at
+    ``scan_fold=1`` (``flash_attention_packed`` and the head-form pair) and
+    at ``scan_fold=12`` (the training forward, the chained backward and
+    ``table_grads``), then 1 + ``F32_TRAIN_STEPS`` steps at the JAX
+    package's default schedule (``scan_fold=1``, attention dropout 0.1: the
+    training forward and the plain backward), printed beside phase 5c's
+    readings ``base``. Returns the launches of the whole phase by kernel."""
+    from multi_modal_early_exit_tpu_torch.training.trainer import TrainingArguments
+
+    t = trained
+    model32, batch, weights = t["model32"], t["batches"][0], t["weights"]
+    total = dict.fromkeys(train_counters(), 0)
+    checks = (
+        (1, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
+             "flash_attention_fwd": 12, "flash_attention_bwd": 24}),
+        (12, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+              "flash_attention_packed_train_bwd": 24}),
+    )
+    for fold, want in checks:
+        cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=fold))
+        before = launch_counts()
+        train_gradient_check(cfg, model32, batch, weights, t["reference"], dtype=None,
+                             limits=F32_GRAD_LIMITS)
+        ran = {name: n - before[name] for name, n in launch_counts().items() if n > before[name]}
+        check(ran == want, f"the f32 scan_fold={fold} gradient check launched {ran}, not {want}")
+        for name, n in ran.items():
+            total[name] += n
+    cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=1))
+    args = TrainingArguments(bf16=False, learning_rate=t["args"].learning_rate)
+    # 12 training forwards and 12 plain backwards of 2 kernels per step
+    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+            "flash_attention_packed_train_bwd": 24}
+    run = train_steps(cfg, model32, t["batches"][:F32_TRAIN_STEPS + 1], args, want)
+    for name, n in run["launches"].items():
+        total[name] += n
+    print(f"trained in f32 (TrainingArguments(bf16=False), scan_fold=1, dropout "
+          f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, base, '5c')}, "
+          f"on {card}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1297,15 +1604,20 @@ def main() -> int:
         serve_launches, served = phase_main_path()
     with bias_modes(fused="1"):
         fused_launches = phase_serve_fused(served)
+    base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
     del served
+    with bias_modes():
+        serve32_launches = phase_main_path(torch.float32, base4)[0]
     with bias_modes():
         train_launches, trained = phase_train(card)
     with bias_modes(tables="1"):
         tables_launches = phase_train_tables(card, trained)
     with bias_modes():
-        default_launches, default_grads = phase_train_default(card, trained)
+        default_launches, default_grads, default_run = phase_train_default(card, trained)
     with bias_modes():
         phase_train_remat(card, trained, default_grads)
+    with bias_modes():
+        train32_launches = phase_train_f32(card, trained, default_run)
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # each kernel's launches on the path that runs it
     paths = {
@@ -1322,12 +1634,26 @@ def main() -> int:
             tables_launches, f"{TRAIN_STEPS} training steps, MMEE_TABLE_GRADS=1"),
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
+    # each kernel's f32 launches: on phase 4f's served batches or in phase
+    # 5f (its two gradient checks and its steps); #3 and #9 run in f32 only
+    # in phase 3
+    f32_paths = {"materialize_bias": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
+                 "flash_attention_packed": (serve32_launches, f"phase 4f, {N_BATCHES} batches")}
+    f32_train = (train32_launches, f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps")
     for k in kernels:
         launches, where = paths[k["name"]]
         k["launches"], k["launches_in"] = launches[k["name"]], where
         check(k["launches"] > 0, f"{k['name']} was never launched on its path")
+        launches32, where32 = f32_paths.get(k["name"], f32_train)
+        k["f32_launches"], k["f32_launches_in"] = launches32.get(k["name"], 0), where32
+        only_phase_3 = k["name"] in ("fused_bias_attention",
+                                     "flash_attention_packed_train_tables_bwd")
+        check((k["f32_launches"] == 0) == only_phase_3,
+              f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
     keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
-            "plain_ms", "bound_ms", "bound_by", "library_ms", "ok")
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms", "f32_bound_ms",
+            "f32_bound_by", "f32_library_ms", "f32_max_abs_err", "f32_launches",
+            "f32_launches_in", "ok")
     print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

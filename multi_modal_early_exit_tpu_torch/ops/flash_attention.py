@@ -7,10 +7,16 @@ q/k/v and the output are (B, S, H*D) — the projections' own layout, no head
 transpose — and the bias is (B, H, P, P) with P >= S (pre-padded by the
 bias kernel; keys j >= S do not exist). Deterministic: no dropout.
 
-On a CUDA tensor ``flash_attention_packed`` launches the hand-written kernel
-``csrc/flash_attention_packed.cu`` (bf16 q/k/v, head dim 64, bias bf16 or
-f32); on a CPU tensor it runs ``flash_attention_packed_plain``: dense f32
-scores from the same inputs, softmax, p cast to v's dtype, then p v. Under
+On a CUDA tensor ``flash_attention_packed`` launches the forward kernel of
+``csrc/flash_attention_packed_train.cu`` without lse or dropout (q/k/v all
+bf16 or all f32, head dim 64, bias bf16 or f32); on a CPU tensor it runs
+``flash_attention_packed_plain``: dense f32 scores from the same inputs,
+softmax, p cast to v's dtype, then p v.
+
+Every CUDA kernel here takes its operands (q, k, v, o, do) all in bf16 or
+all in f32, and multiplies in that type with f32 accumulation, as the TPU
+kernels do: bf16 on the bf16 tensor cores, f32 by 3xTF32, good to about
+f32's precision. Other dtypes, or mixed ones, raise ``TypeError``. Under
 autograd it is an ``autograd.Function`` whose backward is the JAX package's
 ``_packed_bwd``: the head-form forward (``flash_attention_fwd``) recomputes
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
@@ -95,10 +101,23 @@ def _check_packed(what: str, q, k, v, bias, num_heads: int) -> None:
         )
 
 
-def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> None:
+def _check_operand_dtype(what: str, tensors) -> int:
+    """q/k/v (and o, do) all bf16 or all f32; returns the kernels' flag,
+    1 for bf16."""
+    dtype = tensors[0].dtype
+    if dtype not in (torch.bfloat16, torch.float32) or any(t.dtype != dtype for t in tensors):
+        raise TypeError(
+            f"the {what} kernel takes q, k, v all bfloat16 or all float32, not "
+            f"{sorted({str(t.dtype) for t in tensors})}"
+        )
+    return int(dtype == torch.bfloat16)
+
+
+def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     """What the CUDA attention kernels take: contiguous tensors on one card,
-    16-byte aligned (the training forward loads them by TMA), bf16 q/k/v
-    (and gradients), a bf16 or f32 bias, head dim 64."""
+    16-byte aligned (the forward loads them by TMA), q/k/v (and o, do) all
+    bf16 or all f32, a bf16 or f32 bias, head dim 64. Returns the operand
+    flag (1 for bf16)."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
@@ -107,13 +126,13 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> None:
             raise ValueError(f"{what} takes contiguous tensors on one device")
         if t.data_ptr() % 16:
             raise ValueError(f"{what} takes tensors whose data is 16-byte aligned")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    is_bf16 = _check_operand_dtype(what, tensors)
     if bias.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
     d = tensors[0].shape[-1] // num_heads
     if d != KERNEL_HEAD_DIM:
         raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {d}")
+    return is_bf16
 
 
 def flash_attention_packed_plain(
@@ -131,10 +150,10 @@ def flash_attention_packed_plain(
 
 @functools.lru_cache(maxsize=None)
 def _flash_attention_packed_fn():
-    lib = cuda_build.load("flash_attention_packed")
+    lib = cuda_build.load("flash_attention_packed_train")
     fn = lib.mmee_flash_attention_packed
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -148,15 +167,16 @@ def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
     device = q.device
     if device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, bias, num_heads)
-    _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
+    is_bf16 = _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
+    kbias = _kernel_width(bias)
     out = torch.empty_like(q)
     lib, fn = _flash_attention_packed_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), out.data_ptr(),
-            b, s, num_heads, bias.shape[-1], 1.0 / math.sqrt(hd // num_heads), stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), is_bf16, out.data_ptr(),
+            b, s, num_heads, kbias.shape[-1], 1.0 / math.sqrt(hd // num_heads), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
     flash_attention_packed.launches += 1
@@ -330,14 +350,14 @@ def _train_fns():
     lib = cuda_build.load("flash_attention_packed_train")
     fwd = lib.mmee_flash_attention_packed_train_fwd
     fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     bwd = lib.mmee_flash_attention_packed_train_bwd
     bwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 9
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -370,7 +390,7 @@ def flash_attention_packed_train_fwd(
     _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
     if q.device.type == "cpu":
         return flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, num_heads, rate)
-    _check_cuda_kernel_args("flash_attention_packed_train", (q, k, v), bias, num_heads)
+    is_bf16 = _check_cuda_kernel_args("flash_attention_packed_train", (q, k, v), bias, num_heads)
     _check_train_width("flash_attention_packed_train", bias)
     b, s, hd = q.shape
     p = bias.shape[-1]
@@ -381,7 +401,7 @@ def flash_attention_packed_train_fwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), out.data_ptr(), lse.data_ptr(),
+            int(bias.dtype == torch.bfloat16), is_bf16, out.data_ptr(), lse.data_ptr(),
             b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
             *_dropout_args(seed, rate), stream,
         )
@@ -411,7 +431,7 @@ def flash_attention_packed_train_bwd(
             q, k, v, bias, seed, o, lse, do, num_heads, rate, gbias
         )
     what = "flash_attention_packed_train_bwd"
-    _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
+    is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
     b, s, hd = q.shape
     p = bias.shape[-1]
@@ -428,7 +448,7 @@ def flash_attention_packed_train_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            int(bias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), 0 if gbias is None else gbias.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
             delta.data_ptr(), b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
@@ -509,19 +529,19 @@ def _check_headform(what: str, q, k, v, bias) -> None:
         )
 
 
-def _check_headform_cuda(what: str, tensors, bias) -> None:
-    """What the kernels take in the head form: bf16 (B, H, rows, 64)
-    tensors on one card, each with a unit last stride, its other strides
-    multiples of 8 and 16-byte aligned (the packed projections' transposed
-    view is such a tensor; the forward's TMA tensor maps need all three),
-    and a contiguous, 16-byte aligned bf16 or f32 bias."""
+def _check_headform_cuda(what: str, tensors, bias) -> int:
+    """What the kernels take in the head form: (B, H, rows, 64) tensors
+    on one card, all bf16 or all f32, each with a unit last stride, its
+    other strides multiples of 8 and 16-byte aligned (the packed
+    projections' transposed view is such a tensor; the forward's TMA tensor
+    maps need all three), and a contiguous, 16-byte aligned bf16 or f32
+    bias. Returns the operand flag (1 for bf16)."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
     if any(t.device != device for t in (*tensors, bias)):
         raise ValueError(f"{what} takes tensors on one device")
-    if any(t.dtype != torch.bfloat16 for t in tensors):
-        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    is_bf16 = _check_operand_dtype(what, tensors)
     if tensors[0].shape[-1] != KERNEL_HEAD_DIM:
         raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {tensors[0].shape[-1]}")
     for t in tensors:
@@ -534,6 +554,7 @@ def _check_headform_cuda(what: str, tensors, bias) -> None:
         raise ValueError(f"{what} takes a contiguous, 16-byte aligned bias")
     if bias.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
+    return is_bf16
 
 
 def _strides(*tensors) -> ctypes.Array:
@@ -556,7 +577,7 @@ def _headform_fns():
     lib = cuda_build.load("flash_attention_packed_train")
     fwd = lib.mmee_flash_attention_fwd
     fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]
@@ -564,7 +585,7 @@ def _headform_fns():
     fwd.restype = ctypes.c_int
     bwd = lib.mmee_flash_attention_bwd
     bwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 8
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]
@@ -585,7 +606,7 @@ def flash_attention_fwd(
     if q.device.type == "cpu":
         out, lse = flash_attention_fwd_plain(q, k, v, bias, seed, rate)
         return (out, lse) if with_lse else out
-    _check_headform_cuda("flash_attention_fwd", (q, k, v), bias)
+    is_bf16 = _check_headform_cuda("flash_attention_fwd", (q, k, v), bias)
     b, h, s, d = q.shape
     p = bias.shape[-1]
     kbias = _kernel_width(bias)
@@ -596,7 +617,7 @@ def flash_attention_fwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
-            int(kbias.dtype == torch.bfloat16), out.data_ptr(), lse.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), is_bf16, out.data_ptr(), lse.data_ptr(),
             _strides(q, k, v, out), b, s, h, kbias.shape[-1], 1.0 / math.sqrt(d),
             *_dropout_args(seed, rate), stream,
         )
@@ -627,7 +648,7 @@ def flash_attention_bwd(
         raise ValueError(f"{what}: o and do must be {tuple(q.shape)}, lse ({b}, {h}, {p})")
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, bias, seed, o, lse, do, rate)
-    _check_headform_cuda(what, (q, k, v, o, do), bias)
+    is_bf16 = _check_headform_cuda(what, (q, k, v, o, do), bias)
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"{what}: lse must be f32 on q's device")
     kbias = _kernel_width(bias)
@@ -641,7 +662,7 @@ def flash_attention_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = bwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
-            int(kbias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             klse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dbias.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
             b, s, h, pk, 1.0 / math.sqrt(d), *_dropout_args(seed, rate), stream,
@@ -741,7 +762,7 @@ def _tables_bwd_fn():
     lib = cuda_build.load("flash_attention_packed_train")
     fn = lib.mmee_flash_attention_packed_train_bwd_tables
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_void_p] * 14
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
@@ -774,7 +795,7 @@ def flash_attention_packed_train_tables_bwd(
         return flash_attention_packed_train_tables_bwd_plain(
             q, k, v, bias, pos, cx, cy, seed, o, lse, do, num_heads, rate, *bins
         )
-    _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
+    is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
     p = bias.shape[-1]
     if lse.shape != (b, num_heads, p) or lse.dtype != torch.float32 or not lse.is_contiguous():
@@ -794,7 +815,7 @@ def flash_attention_packed_train_tables_bwd(
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), do.data_ptr(), o.data_ptr(),
+            int(bias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), *(a.data_ptr() for a in vecs), lut1.data_ptr(),
             lut2.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), partial.data_ptr(), tables.data_ptr(),

@@ -384,7 +384,7 @@ def _fused_bias_attention_fn():
     lib = cuda_build.load("fused_bias_attention")
     fn = lib.mmee_fused_bias_attention
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 9
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -394,11 +394,12 @@ def _fused_bias_attention_fn():
 FUSED_HEAD_DIM = 64
 
 
-def _check_fused_cuda(q, k, v, vectors, tables) -> None:
-    """What the CUDA kernel takes: bf16 q/k/v with head dim 64, unit last
-    stride and 16-byte aligned rows; int32 vectors and f32 tables,
-    contiguous, on q's card. (The kernel itself refuses tables of more than
-    64 buckets and distances past 1024.)"""
+def _check_fused_cuda(q, k, v, vectors, tables) -> int:
+    """What the CUDA kernel takes: q/k/v all bf16 or all f32 with head dim
+    64, unit last stride and 16-byte aligned rows; int32 vectors and f32
+    tables, contiguous, on q's card. (The kernel itself refuses tables of
+    more than 64 buckets and distances past 1024.) Returns the operand flag
+    (1 for bf16)."""
     what = "fused_bias_attention"
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
@@ -406,8 +407,9 @@ def _check_fused_cuda(q, k, v, vectors, tables) -> None:
         raise ValueError(f"{what} takes tensors on one device")
     if not all(a.is_contiguous() for a in (*vectors, *tables)):
         raise ValueError(f"{what} takes contiguous vectors and tables")
-    if any(t.dtype != torch.bfloat16 for t in (q, k, v)):
-        raise TypeError(f"the {what} kernel takes bfloat16 q, k, v")
+    if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"the {what} kernel takes q, k, v all bfloat16 or all float32, not "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.shape[-1] != FUSED_HEAD_DIM:
         raise ValueError(f"the {what} kernel takes head dim {FUSED_HEAD_DIM}, not {q.shape[-1]}")
     for t in (q, k, v):
@@ -420,6 +422,7 @@ def _check_fused_cuda(q, k, v, vectors, tables) -> None:
         raise TypeError("position_ids, cx, cy and attention_mask must be int32")
     if any(a.dtype != torch.float32 for a in tables):
         raise TypeError("the bias tables must be float32")
+    return int(q.dtype == torch.bfloat16)
 
 
 def fused_bias_attention(
@@ -463,7 +466,7 @@ def fused_bias_attention(
     bins = (rel_bins, max_rel, rel2d_bins, max_rel2d)
     if q.device.type == "cpu":
         return fused_bias_attention_plain(q, k, v, *vectors, *tables, *bins)
-    _check_fused_cuda(q, k, v, vectors, tables)
+    is_bf16 = _check_fused_cuda(q, k, v, vectors, tables)
     device = q.device
     out = torch.empty_like(q)  # keeps q's layout when q is dense
     lut1 = bucket_lut(rel_bins, max_rel, device)
@@ -472,7 +475,7 @@ def fused_bias_attention(
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), is_bf16,
             *(st for t in (q, k, v, out) for st in t.stride()[:3]),
             *(a.data_ptr() for a in (*vectors, *tables)), lut1.data_ptr(), lut2.data_ptr(),
             b, s, h, rel_bins, rel2d_bins, max_rel, max_rel2d,

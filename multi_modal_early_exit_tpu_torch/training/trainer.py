@@ -11,9 +11,6 @@ package's ``training/trainer.py`` (optax + jit there, eager PyTorch here).
 - gradient clipping is optax's ``clip_by_global_norm``: scale by
   max_norm / norm when the norm exceeds max_norm (``clip_grad_norm_`` adds
   1e-6 to the norm, optax does not).
-
-On CUDA the attention kernels take bf16 only, so ``EETrainer`` there needs
-``bf16=True`` (bf16 forward, f32 master parameters and Adam state).
 """
 
 from __future__ import annotations
@@ -192,12 +189,6 @@ class EETrainer:
         device=None,
     ):
         self.device = resolve_device(device)
-        if self.device.type == "cuda" and not args.bf16:
-            raise ValueError(
-                "on CUDA the attention kernels take bfloat16 only: train with "
-                "TrainingArguments(bf16=True) (bf16 forward, f32 master "
-                "parameters), or pass device='cpu'"
-            )
         self.cfg, self.args = cfg, args
         self.model = model.to(self.device)
         strategy = cfg.exit.training_strategy

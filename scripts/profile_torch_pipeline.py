@@ -2,7 +2,7 @@
 """Where the PyTorch port spends its time on one GPU: serving or training.
 
     python3 scripts/profile_torch_pipeline.py [--mode serve|train]
-        [--scan-fold N] [--remat] [--attn-dropout RATE]
+        [--scan-fold N] [--remat] [--attn-dropout RATE] [--f32]
 
 ``serve`` (the default) builds EE LayoutLMv3-base (bf16, random weights from
 seed 0, exits text_avg, vision_avg, 7) and a ``Pipeline`` at batch 16 with
@@ -16,7 +16,9 @@ chained bias cotangent), ``--remat`` (``gradient_checkpointing``) and
 ``--attn-dropout`` (default 0.1) set its schedule, so that ``--scan-fold 1
 --attn-dropout 0`` profiles ``chip_smoke.py`` phase 5c and ``--scan-fold 1
 --remat`` phase 5d. ``MMEE_FUSED_BIAS=1`` (serve) and ``MMEE_TABLE_GRADS=1``
-(train) in the environment profile the bias modes.
+(train) in the environment profile the bias modes. ``--f32`` serves an f32
+model (``chip_smoke.py`` phase 4f) or trains without mixed precision
+(``TrainingArguments(bf16=False)``, phase 5f with ``--scan-fold 1``).
 
 Each mode traces with ``torch.profiler`` and prints the device time by kernel
 group (the port's kernels, cuBLAS GEMMs, everything else), the wall time,
@@ -29,6 +31,7 @@ from __future__ import annotations
 
 import argparse
 import copy
+import dataclasses
 import json
 import os
 import subprocess
@@ -59,10 +62,10 @@ from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer  # noqa:
 TRAIN_TRACED_STEPS = 2
 GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
-    ("flash_attention_packed", ("flash_attention_packed_kernel",)),
     ("fused_bias_attention", ("fused_bias_attention_kernel",)),
-    # the training forward and the head-form forward launch one kernel
-    ("flash_attention_packed_train / flash_attention_fwd", ("fwd_kernel",)),
+    # flash_attention_packed, the training forward and the head-form
+    # forward launch one kernel
+    ("flash_attention_packed / _train / flash_attention_fwd", ("fwd_kernel",)),
     ("flash_attention_bwd", ("headform_bwd_dq_kernel", "headform_bwd_dkv_kernel")),
     ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
                                                  "table_partials_sum_kernel")),
@@ -85,13 +88,13 @@ def group_of(name: str) -> str:
     return "other"
 
 
-def serve_workload():
+def serve_workload(dtype=torch.bfloat16):
     """(documents, a call that serves them once)."""
     cfg = EEModelConfig(
         backbone=LayoutLMv3Config.base(num_labels=16),
         exit=ExitConfig(exits="text_avg,vision_avg,7"),
     )
-    model = init_ee_params(cfg, torch.Generator().manual_seed(0), dtype=torch.bfloat16)
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), dtype=dtype)
     tok = HashWordTokenizer(vocab_size=cfg.backbone.vocab_size)
     feats, pages = synthetic_pages(N_BATCHES * B, np.random.default_rng(0), tok, S_TEXT)
     batch = {k: torch.from_numpy(v).cuda() for k, v in feats.items()}
@@ -103,9 +106,11 @@ def serve_workload():
     return N_BATCHES * B, lambda: pipe.predict_features(batch)
 
 
-def train_workload(scan_fold: int, remat: bool, attn_dropout: float):
+def train_workload(scan_fold: int, remat: bool, attn_dropout: float, f32: bool = False):
     """(documents, a call that takes TRAIN_TRACED_STEPS training steps)."""
     cfg, model32, batches, args = train_setup(TRAIN_TRACED_STEPS, scan_fold, remat, attn_dropout)
+    if f32:
+        args = dataclasses.replace(args, bf16=False)
     trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
     gen = torch.Generator().manual_seed(1)
 
@@ -125,13 +130,16 @@ def main() -> int:
                         help="train: gradient_checkpointing of each group of layers")
     parser.add_argument("--attn-dropout", type=float, default=0.1,
                         help="train: the attention-probability dropout rate")
+    parser.add_argument("--f32", action="store_true",
+                        help="an f32 model served, or trained without mixed precision")
     opts = parser.parse_args()
     mode = opts.mode
     if not torch.cuda.is_available():
         print("profile_torch_pipeline: no CUDA device", file=sys.stderr)
         return 1
-    documents, run = (serve_workload() if mode == "serve"
-                      else train_workload(opts.scan_fold, opts.remat, opts.attn_dropout))
+    documents, run = (serve_workload(torch.float32 if opts.f32 else torch.bfloat16)
+                      if mode == "serve" else
+                      train_workload(opts.scan_fold, opts.remat, opts.attn_dropout, opts.f32))
     for _ in range(2):
         run()  # warm-up
     torch.cuda.synchronize()
@@ -159,7 +167,7 @@ def main() -> int:
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
     result = {
-        "mode": mode, "device": smi,
+        "mode": mode, "device": smi, "dtype": "f32" if opts.f32 else "bf16",
         "schedule": None if mode == "serve" else {
             "scan_fold": opts.scan_fold, "remat": opts.remat, "attn_dropout": opts.attn_dropout},
         "documents": documents, "wall_ms": wall_ms,

@@ -4,11 +4,12 @@
     python3 scripts/time_train_attention.py [--root DIR] [--rounds N]
 
 Imports ``multi_modal_early_exit_tpu_torch`` from ``--root`` (default: this
-checkout), builds its ``flash_attention_packed_train`` library and times, at
+checkout), builds its kernel libraries and times, at
 the training path's shape (batch 16, S = P = 768, 12 heads of 64, bf16 q/k/v
 and bias, the bias of one sample masked past 2/3 of S), by CUDA events (20
 calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
 
+- ``flash_attention_packed``, the serving forward (no lse, no dropout);
 - the packed training forward at dropout rates 0 and 0.1;
 - its backward, plain at both rates and chained at 0.1;
 - where the checkout has them, the head-form forward and backward on the
@@ -80,7 +81,7 @@ def main() -> int:
 
     if not cuda_build.__file__.startswith(root):
         raise RuntimeError(f"imported {cuda_build.__file__}, not the package under {root}")
-    cuda_build.build_all(["flash_attention_packed_train"])
+    cuda_build.build_all()
     b, s, h, d = 16, 768, 12, 64
     g = torch.Generator().manual_seed(0)
     q, k, v, do = (torch.randn((b, s, h * d), generator=g).to("cuda", torch.bfloat16)
@@ -90,7 +91,7 @@ def main() -> int:
     bias = bias.to("cuda", torch.bfloat16)
     gbias = (torch.randn((b, h, s, s), generator=g) * 1e-3).to("cuda", torch.bfloat16)
 
-    cases = {}
+    cases = {"packed_serving_fwd": lambda: fa.flash_attention_packed(q, k, v, bias, h)}
     for rate in (0.0, 0.1):
         cases[f"packed_fwd@{rate}"] = lambda r=rate: fa.flash_attention_packed_train_fwd(
             q, k, v, bias, 7, h, r)
@@ -116,6 +117,7 @@ def main() -> int:
     tviews = [x.view(1, 64, 1, d).transpose(1, 2) for x in (tq, tk, tv)]
     tiny = {f"packed_fwd@{rate}": lambda r=rate: fa.flash_attention_packed_train_fwd(
         tq, tk, tv, tbias, 7, 1, r) for rate in (0.0, 0.1)}
+    tiny["packed_serving_fwd"] = lambda: fa.flash_attention_packed(tq, tk, tv, tbias, 1)
     if hasattr(fa, "flash_attention_fwd"):
         tiny["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
             *tviews, tbias, 0, 0.0, with_lse=True)

@@ -72,9 +72,9 @@ def test_materialize_bias_kernel_is_bit_equal_to_plain(cuda, b, s, h, dtype):
     assert torch.equal(got, want)
 
 
-def _qkv(device, b, s, h, seed=0):
+def _qkv(device, b, s, h, seed=0, dtype=torch.bfloat16):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn((b, s, h * 64), generator=g).to(device, torch.bfloat16)
+    return [torch.randn((b, s, h * 64), generator=g).to(device, dtype)
             for _ in range(3)]
 
 
@@ -102,11 +102,13 @@ def test_flash_kernel_matches_plain(cuda, b, s, p, h, bias_dtype):
 
 def test_wrappers_never_fall_back_on_cuda(cuda):
     """A CUDA tensor launches the kernel or raises; it never runs the plain
-    version."""
+    version. The kernels take bf16 or f32 q/k/v, not float16 or a mix."""
     q, k, v = _qkv(cuda, 1, 64, 2)
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_packed(q.float(), k.float(), v.float(), bias, 2)
+        flash_attention_packed(q.half(), k.half(), v.half(), bias, 2)
+    with pytest.raises(TypeError):
+        flash_attention_packed(q.float(), k, v, bias, 2)
     with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
         flash_attention_packed(q, k, v, torch.zeros((1, 4, 64, 64), device=cuda), 4)
     with pytest.raises(ValueError, match="contiguous"):
@@ -229,7 +231,7 @@ def test_train_wrappers_never_fall_back_on_cuda(cuda):
     q, k, v = _qkv(cuda, 1, 64, 2)
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_packed_train_fwd(q.float(), k.float(), v.float(), bias, 0, 2)
+        flash_attention_packed_train_fwd(q.half(), k.half(), v.half(), bias, 0, 2)
     with pytest.raises(ValueError, match="multiple of 64"):
         flash_attention_packed_train_fwd(q, k, v, torch.zeros((1, 2, 96, 96), device=cuda), 0, 2)
     pos, cx, cy = _bias_args(cuda, 1, 64, 2)[:3]
@@ -239,24 +241,18 @@ def test_train_wrappers_never_fall_back_on_cuda(cuda):
         table_grads(pos, cx, cy, torch.zeros((1, 17, 64, 64), device=cuda))
 
 
-def test_trainer_on_cuda_needs_bf16(cuda):
-    """On the card the attention kernels take bf16 only: an f32 trainer
-    raises instead of running the plain path."""
+def _tiny_trainer_setup():
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
     from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
         EEModelConfig,
         LayoutLMv3Config,
     )
-    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
 
     # one head of 64: the head dim the kernels take
     cfg = EEModelConfig(backbone=LayoutLMv3Config.tiny(num_labels=4).replace(num_attention_heads=1),
                         exit=ExitConfig(exits=("text_avg", 1)))
     model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(ValueError, match="bfloat16"):
-        EETrainer(cfg, model, TrainingArguments(bf16=False), 1, device=cuda)
-    trainer = EETrainer(cfg, model, TrainingArguments(bf16=True), 1, device=cuda)
     g = torch.Generator().manual_seed(0)
     batch = {
         "input_ids": torch.randint(3, 100, (1, 2, 12), generator=g),
@@ -266,10 +262,62 @@ def test_trainer_on_cuda_needs_bf16(cuda):
         "attention_mask": torch.ones((1, 2, 12), dtype=torch.int32),
         "labels": torch.tensor([[0, 3]]),
     }
+    return cfg, model, batch
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_trainer_steps_on_cuda(cuda, bf16):
+    """``EETrainer`` trains on the card in f32 (the default) and in mixed
+    precision, through the training kernels in every layer."""
+    import copy
+
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    cfg, model, batch = _tiny_trainer_setup()
+    trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=bf16), 1, device=cuda)
     before = flash_attention_packed_train_bwd.launches
     loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
     assert math.isfinite(loss)
     assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers
+    assert not torch.equal(trainer.model.backbone.encoder.layers[0].attention.query.weight.cpu(),
+                           model.backbone.encoder.layers[0].attention.query.weight)
+
+
+def test_f32_trainer_gradients_match_the_cpu_path(cuda):
+    """An f32 model's loss gradients through the f32 kernels on the card
+    against the plain path on the CPU, dropout 0: within 1e-4 of each
+    tensor's largest gradient. The key biases' true gradient is 0 (softmax
+    ignores a per-row shift), so both paths return rounding noise there,
+    held below 1e-10 of the largest gradient instead."""
+    import copy
+
+    from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
+
+    cfg, model, batch = _tiny_trainer_setup()
+    rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 classifier_dropout=0.0)
+    cfg = cfg.replace(backbone=cfg.backbone.replace(**rates))
+    small = {k: v[0] for k, v in batch.items()}
+
+    def grads(m, device):
+        loss, _ = ee_loss_fn(m, cfg, small, device=device)
+        return loss.item(), torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+
+    before = flash_attention_packed.launches
+    gpu_loss, gpu = grads(copy.deepcopy(model).to(cuda), cuda)
+    assert flash_attention_packed.launches > before  # the kernel path ran
+    cpu_loss, cpu = grads(model, "cpu")
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    big = max(w.abs().max().item() for w in cpu if w is not None)
+    for (name, _), a, w in zip(model.named_parameters(), gpu, cpu):
+        if w is None:
+            assert a is None or not a.any(), name
+            continue
+        assert torch.isfinite(a).all(), name
+        if name.endswith(".key.bias"):
+            assert max(a.abs().max().item(), w.abs().max().item()) <= 1e-10 * big, name
+        else:
+            assert _scaled_err(a.cpu(), w) <= 1e-4, (name, _scaled_err(a.cpu(), w))
 
 
 def _heads_view(x, h, layout):
@@ -367,7 +415,9 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
     args = _bias_args(cuda, 1, 64, 2)
     q4, k4, v4 = (_heads_view(x, 2, "packed") for x in _qkv(cuda, 1, 64, 2))
     with pytest.raises(TypeError):
-        fused_bias_attention(q4.float(), k4.float(), v4.float(), *args)
+        fused_bias_attention(q4.half(), k4.half(), v4.half(), *args)
+    with pytest.raises(TypeError):
+        fused_bias_attention(q4.float(), k4, v4, *args)
     with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
         fused_bias_attention(*(x.reshape(1, 4, 64, 32) for x in (q4, k4, v4)),
                              *args[:4], *(torch.zeros((n, 4), device=cuda) for n in (32, 64, 64)))
@@ -384,8 +434,8 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_packed_train_tables_bwd(q.float(), k.float(), v.float(), bias, pos, cx,
-                                                cy, 0, q.float(), lse, q.float(), 2)
+        flash_attention_packed_train_tables_bwd(q.half(), k.half(), v.half(), bias, pos, cx,
+                                                cy, 0, q.half(), lse, q.half(), 2)
     with pytest.raises(ValueError, match="multiple of 64"):
         flash_attention_packed_train_tables_bwd(q, k, v, torch.zeros((1, 2, 96, 96), device=cuda),
                                                 pos, cx, cy, 0, q, lse, q, 2)
@@ -567,7 +617,7 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
     q, k, v = (_heads_view(x, 2, "packed") for x in _qkv(cuda, 1, 64, 2))
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(TypeError):
-        flash_attention_fwd(q.float(), k.float(), v.float(), bias)
+        flash_attention_fwd(q.half(), k.half(), v.half(), bias)
     with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
         flash_attention_fwd(*(x.reshape(1, 4, 64, 32) for x in (q, k, v)),
                             torch.zeros((1, 4, 64, 64), device=cuda))
@@ -581,3 +631,150 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
     lse = torch.zeros((1, 2, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention_bwd(q, k, v, bias, 0, q.float(), lse, q, 0.0)
+
+
+# ---------------------------------------------------------------------------
+# f32 operands: every attention kernel's f32 instantiation (3xTF32 on the
+# tensor cores) against its plain version in f32, within 1e-4 of each
+# output's largest value (plain TF32 would miss this by an order of
+# magnitude)
+# ---------------------------------------------------------------------------
+
+F32_BAR = 1e-4
+# P = S; P rounded up to 64 and 128; P / 128 not whole; S a multiple of
+# 128; the paths' ragged shape
+F32_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (1, 200, 320, 2),
+              (2, 256, 256, 4), (2, 709, 768, 12)]
+
+
+def _f32(device, b, s, h, seed=0):
+    return _qkv(device, b, s, h, seed, torch.float32)
+
+
+def _assert_f32_close(name, got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype, name
+    assert torch.isfinite(got).all(), name
+    assert _scaled_err(got, want) <= F32_BAR, (name, _scaled_err(got, want))
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_SHAPES + [(1, 130, 130, 3)])  # P not a multiple of 64
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_f32_packed_kernel_matches_plain(cuda, b, s, p, h, bias_dtype):
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, bias_dtype)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, bias, h)
+    assert flash_attention_packed.launches == before + 1
+    want = flash_attention_packed_plain(q, k, v, bias, h)
+    torch.cuda.synchronize()
+    _assert_f32_close("out", got, want)
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_train_forward_kernel_matches_plain(cuda, b, s, p, h, rate):
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, h, rate)
+    want_out, want_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, h, rate)
+    torch.cuda.synchronize()
+    assert torch.isinf(lse[:, :, s:]).all()
+    _assert_f32_close("out", out, want_out)
+    _assert_f32_close("lse", lse[:, :, :s], want_lse[:, :, :s])
+    if rate == 0.0:  # one kernel: the serving forward's bits
+        assert torch.equal(out, flash_attention_packed(q, k, v, bias, h))
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_f32_train_backward_kernel_matches_plain(cuda, b, s, p, h, rate, chained):
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    g = torch.Generator().manual_seed(5)
+    do = torch.randn((b, s, h * 64), generator=g).to(cuda)
+    gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda) if chained else None
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    before = flash_attention_packed_train_bwd.launches
+    got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    assert flash_attention_packed_train_bwd.launches == before + 2
+    want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_f32_close(name, a, w)
+    pad = got[3][:, :, s:, :]
+    assert torch.equal(pad, torch.zeros_like(pad) if gbias is None else gbias[:, :, s:, :])
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_SHAPES + [(1, 27, 27, 2)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_f32_headform_kernels_match_plain(cuda, b, s, p, h, rate, layout):
+    q, k, v = (_heads_view(x, h, layout) for x in _f32(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    out, lse = flash_attention_fwd(q, k, v, bias, 1234, rate, with_lse=True)
+    want_out, want_lse = flash_attention_fwd_plain(q, k, v, bias, 1234, rate)
+    g = torch.Generator().manual_seed(5)
+    do = _heads_view(torch.randn((b, s, h * 64), generator=g).to(cuda), h, layout)
+    got = flash_attention_bwd(q, k, v, bias, 1234, want_out, want_lse, do, rate)
+    want = flash_attention_bwd_plain(q, k, v, bias, 1234, want_out, want_lse, do, rate)
+    torch.cuda.synchronize()
+    assert out.stride() == q.stride()
+    _assert_f32_close("out", out, want_out)
+    _assert_f32_close("lse", lse[:, :, :s], want_lse[:, :, :s])
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        _assert_f32_close(name, a, w)
+    assert not got[3][:, :, s:, :].any() and not got[3][:, :, :, s:].any()
+
+
+@pytest.mark.parametrize("b,s,p,h", TABLE_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_train_tables_backward_kernel_matches_plain(cuda, b, s, p, h, rate):
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    bias = _tables_bias(args, p, torch.float32)
+    q, k, v = _f32(cuda, b, s, h)
+    do = torch.randn((b, s, h * 64), generator=torch.Generator().manual_seed(5)).to(cuda)
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    tables_args = (q, k, v, bias, pos, cx, cy, 99, o, lse, do, h, rate)
+    got = flash_attention_packed_train_tables_bwd(*tables_args)
+    again = flash_attention_packed_train_tables_bwd(*tables_args)
+    want = flash_attention_packed_train_tables_bwd_plain(*tables_args)
+    torch.cuda.synchronize()
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+        assert torch.equal(a, a2), name
+        if name in ("dq", "dk", "dv"):
+            _assert_f32_close(name, a, w)
+        else:  # the same f32 ds summed in another order, as in bf16
+            assert _scaled_err(a, w) <= 1e-3, (name, _scaled_err(a, w))
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 20, 4), (1, 130, 3), (1, 200, 2), (2, 256, 4),
+                                   (3, 709, 12)])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_f32_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
+    args = _bias_args(cuda, b, s, h)
+    qkv = _f32(cuda, b, s, h)
+    q4, k4, v4 = (_heads_view(x, h, layout) for x in qkv)
+    before = fused_bias_attention.launches
+    got = fused_bias_attention(q4, k4, v4, *args)
+    assert fused_bias_attention.launches == before + 1
+    want = fused_bias_attention_plain(q4, k4, v4, *args)
+    pair = flash_attention_packed(*qkv, materialize_bias(*args, out_dtype=torch.float32), h)
+    torch.cuda.synchronize()
+    assert got.stride() == q4.stride()
+    _assert_f32_close("out", got, want)
+    _assert_f32_close("out vs the pair", got.transpose(1, 2).reshape(b, s, -1), pair)
+
+
+def test_f32_packed_autograd_runs_the_headform_kernels(cuda):
+    b, s, p, h = 2, 100, 128, 2
+    q, k, v = (x.requires_grad_() for x in _f32(cuda, b, s, h))
+    bias = _train_bias(cuda, b, s, p, h, torch.float32).requires_grad_()
+    counters = (flash_attention_packed, flash_attention_fwd, flash_attention_bwd)
+    before = [f.launches for f in counters]
+    out = flash_attention_packed(q, k, v, bias, h)
+    out.square().sum().backward()
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 2]
+    assert all(t.grad.dtype == torch.float32 and torch.isfinite(t.grad).all()
+               for t in (q, k, v, bias))

@@ -134,22 +134,31 @@ def test_plain_attention_matches_reference_attention_f32():
     np.testing.assert_allclose(got.numpy(), want, atol=2e-5, rtol=1e-4)
 
 
+# bf16: a bf16 output step; f32: the CUDA kernel's f32 bar (1e-4 of scale)
+# is held against this plain version, which must agree with the Pallas
+# kernel's f32 products to f32 rounding
+PACKED_DTYPES = {"bf16": (jnp.bfloat16, torch.bfloat16, 2e-2),
+                 "f32": (jnp.float32, torch.float32, 1e-5)}
+
+
+@pytest.mark.parametrize("dtype", sorted(PACKED_DTYPES))
 @pytest.mark.parametrize("s,p", [(24, 24), (20, 128)])  # p > s: pre-padded bias
-def test_plain_attention_matches_pallas_packed_kernel(s, p):
-    """bf16 inputs, both through the Pallas packed kernel (interpret mode)
-    and the plain version; bf16 output tolerance."""
+def test_plain_attention_matches_pallas_packed_kernel(s, p, dtype):
+    """The same inputs in ``dtype`` through the Pallas packed kernel
+    (interpret mode) and the plain version."""
     from jax.experimental.pallas import tpu as pltpu
 
+    jdt, tdt, tol = PACKED_DTYPES[dtype]
     b, h, d = 2, 4, 32
     q, k, v, bias = _qkvb(1, b, s, h, d, p)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jfa.flash_attention_packed(
-            jnp.asarray(q, jnp.bfloat16), jnp.asarray(k, jnp.bfloat16),
-            jnp.asarray(v, jnp.bfloat16), jnp.asarray(bias, jnp.bfloat16), h,
+            jnp.asarray(q, jdt), jnp.asarray(k, jdt),
+            jnp.asarray(v, jdt), jnp.asarray(bias, jdt), h,
         ), np.float32)
-    tb = lambda x: torch.from_numpy(x).to(torch.bfloat16)  # noqa: E731
+    tb = lambda x: torch.from_numpy(x).to(tdt)  # noqa: E731
     got = flash_attention_packed(tb(q), tb(k), tb(v), tb(bias), h).float().numpy()
-    np.testing.assert_allclose(got, want, atol=2e-2, rtol=2e-2)
+    np.testing.assert_allclose(got, want, atol=tol, rtol=tol)
 
 
 def test_wrapper_cpu_path_is_the_plain_version():
