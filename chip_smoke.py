@@ -16,7 +16,8 @@ Phases, each reported on its own line:
    (out within 2e-2, lse within 1e-3; at rate 0 bit-equal to
    ``flash_attention_packed``, which phases 5c and 5d rely on, and timed
    there too beside SDPA), its backward, plain and chained
-   (dq/dk/dv/dbias within 2e-2 of each output's largest value) and
+   (dq/dk/dv/dbias within 2e-2 of each output's largest value, the same
+   bits on a second run) and
    ``table_grads`` (within 1e-4 of the largest table gradient); the two
    kernels of the bias modes: ``fused_bias_attention`` on the packed
    projections' transposed view (within 1e-2 of its plain version and
@@ -29,7 +30,8 @@ Phases, each reported on its own line:
    training kernels' bodies with explicit strides) at the contiguous
    (B, H, S, D) layout and at the packed projections' strides, at dropout
    rates 0 and 0.1, to the training kernels' tolerances, dbias exactly 0 in
-   the pad; times at the paths' shape by CUDA events after warm-up (the
+   the pad, the backward's bits the same on a second run; times at the
+   paths' shape by CUDA events after warm-up (the
    head form at the packed strides and rate 0, as the backward of
    ``flash_attention_packed`` runs it), beside the least time the card could
    take and one PyTorch library call where one computes the same function,
@@ -448,11 +450,14 @@ def compare_kernels(args, gen):
     for chained in (False, True):
         extra = gbias if chained else None
         got = flash_attention_packed_train_bwd(*bwd_args, extra)
+        again = flash_attention_packed_train_bwd(*bwd_args, extra)
         want = flash_attention_packed_train_bwd_plain(*bwd_args, extra)
         torch.cuda.synchronize()
-        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
             check(a.shape == w.shape and a.dtype == w.dtype, f"train backward {what} layout")
             check(bool(torch.isfinite(a.float()).all()), f"train backward {what} not finite")
+            check(torch.equal(a, a2), f"train backward {what} (chained={chained}) differs "
+                  f"between two runs")
             err = scaled_err(a, w)
             scaled[f"{what}{'_chained' if chained else ''}"] = round(err, 6)
             abs_errs.append((a.float() - w.float()).abs().max().item())
@@ -463,10 +468,10 @@ def compare_kernels(args, gen):
         check(torch.equal(pad, want_pad), f"train backward: dbias pad rows (chained={chained})")
         if chained:
             dbias = got[3]
-        del got, want
+        del got, want, again
     errs["flash_attention_packed_train_bwd"] = max(abs_errs)
     notes["flash_attention_packed_train_bwd"] = (
-        f"errors over scale {json.dumps(scaled)} (tol 2e-2)")
+        f"errors over scale {json.dumps(scaled)} (tol 2e-2), equal on a second run")
 
     # ---- head form: contiguous (B, H, S, D) and the packed strides ------
     fwd_abs, bwd_abs, fwd_read, bwd_read = [], [], {}, {}
@@ -491,14 +496,17 @@ def compare_kernels(args, gen):
             del ref_o, ref_lse
             bwd_h = (*views[:3], bias, seed, o_h, lse_h, views[3], rate_h)
             got = flash_attention_bwd(*bwd_h)
+            again = flash_attention_bwd(*bwd_h)
             want = flash_attention_bwd_plain(*bwd_h)
             torch.cuda.synchronize()
             read = []
-            for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
                 check(a.shape == w.shape and a.dtype == w.dtype,
                       f"head-form backward {what} layout")
                 check(bool(torch.isfinite(a.float()).all()),
                       f"head-form backward {what} not finite")
+                check(torch.equal(a, a2), f"head-form backward {what} differs between two "
+                      f"runs ({tag})")
                 err = scaled_err(a, w)
                 read.append(round(err, 6))
                 bwd_abs.append((a.float() - w.float()).abs().max().item())
@@ -507,12 +515,13 @@ def compare_kernels(args, gen):
             pad = torch.cat([got[3][:, :, s:, :].flatten(), got[3][:, :, :, s:].flatten()])
             check(not bool(pad.any()), f"head-form backward: dbias not 0 in the pad ({tag})")
             bwd_read[tag] = read
-            del got, want, o_h, lse_h
+            del got, want, again, o_h, lse_h
     errs["flash_attention_fwd"], errs["flash_attention_bwd"] = max(fwd_abs), max(bwd_abs)
     notes["flash_attention_fwd"] = (f"out/lse max_err by layout@rate {json.dumps(fwd_read)} "
                                     f"(tol 2e-2/1e-3)")
     notes["flash_attention_bwd"] = (f"dq/dk/dv/dbias errors over scale by layout@rate "
-                                    f"{json.dumps(bwd_read)} (tol 2e-2), dbias 0 in the pad")
+                                    f"{json.dumps(bwd_read)} (tol 2e-2), dbias 0 in the pad, "
+                                    f"equal on a second run")
 
     # ---- table_grads on the chained backward's dbias -------------------
     vecs = args[:3]

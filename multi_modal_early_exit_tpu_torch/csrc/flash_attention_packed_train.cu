@@ -39,7 +39,9 @@
 // 3.35 TB/s, against 29 us for its 2.9e10 FLOPs at the 989 TFLOP/s bf16
 // peak. The chained backward must read bias and gbias and write dbias
 // (679.5 MB), read q/k/v/o/do and write dq/dk/dv (151 MB): 248 us, against
-// 73 us for its 7.25e10 FLOPs. In f32 the bytes double, and the FLOPs run
+// 73 us for its 7.25e10 FLOPs; the two-kernel design below reads the bias
+// twice and q/k/v/do twice: about 1.13 GB, 340 us (0.91 GB and 270 us
+// without gbias). In f32 the bytes double, and the FLOPs run
 // at 165 TFLOP/s (the 495 TF32 TFLOP/s over 3 passes): the forward 181 us
 // by bytes against 176 us by operations.
 //
@@ -86,34 +88,60 @@
 //   also the arithmetic of fused_bias_attention.cu (expf, x = s * scale +
 //   bias, p rounded to bf16 unnormalised, the row sums in the same order).
 //
-// Backward design. Each CTA holds 64 rows as 4 warps of 16 and runs its
-// products on the tensor cores with mma.sync (bf16 m16n8k16, or f32 by
-// 3xTF32 m16n8k8), f32 accumulation. Scores and probabilities never leave
-// the chip; the bias is read straight into registers. The forward's online
-// softmax gives lse = m + log(sum), which excludes the dropout factor
-// c(i, j) (it multiplies the unnormalised exp before the p.v product, and
-// the division by the undropped row sum makes that equal to dropout applied
-// to the normalised p).
-// - Backward, deterministic (no float atomics), in two kernels that each
-//   recompute p = exp(s - lse):
+// Backward design. The forward's online softmax gives lse = m + log(sum),
+// which excludes the dropout factor c(i, j) (it multiplies the unnormalised
+// exp before the p.v product, and the division by the undropped row sum
+// makes that equal to dropout applied to the normalised p). Deterministic
+// (no float atomics), in two kernels that each recompute p = exp(s - lse):
 //   (A) one CTA per (64-row q block over all P rows, head, batch) computes
 //       delta = rowsum(do * o) for its rows, walks every key block and
 //       writes dbias = ds (+ gbias) for the whole P x P plane (zero past S),
 //       and dq = ds k * scale; it also writes delta (B, H, P) f32 for (B);
 //   (B) one CTA per (64-key block, head, batch) walks every q block and
 //       accumulates dv = (p c)^T do and dk = ds^T q * scale in registers.
-//   In bf16, ds is rounded to bf16 before the dq/dk products and p c before
-//   dv, as the TPU kernel does; dk/dv accumulate in f32 and are rounded
-//   once. bf16 B operands read MN-major come from transposed shared copies
-//   (ldmatrix-free 32-bit loads of bf16 pairs); f32 B fragments are single
-//   elements, so the f32 instantiation reads every tile as stored.
+// In bf16, ds is rounded to bf16 before the dq/dk products and p c before
+// dv, as the TPU kernel does; dq/dk/dv accumulate in f32 and are rounded
+// once.
+// - bf16 (sm_90a, bwd_dq_kernel and bwd_dkv_kernel): the forward's TMA
+//   ring, with one warpgroup per CTA whose thread 0 also issues the copies
+//   ((A): each key block's k, v, bias and gbias tiles; (B): each q block's
+//   q, do and bias tiles, with its lse and delta by bulk copies), refilling
+//   a stage once all four warps have released it. No producer warp: 3 CTAs
+//   of 4 warps put 3 warps on each SM sub-partition and leave ptxas 168
+//   registers, where 2 CTAs of 5 warps did the same. All five products run
+//   on wgmma: the two score products with every operand K-major as stored,
+//   the three gradient products with ds or p c rounded into wgmma's A
+//   registers (the accumulator layout is the A layout) and k, q, do read
+//   [row][d] as MN-major B operands, so no transposed copy exists. The
+//   chained backward spends 680 of its 830 MB on the three bias planes, so
+//   (A) reads bias and gbias as swizzled tiles by TMA and writes dbias over
+//   the tile it read (gbias when chained, else bias), each warp its own 16
+//   rows out by a TMA store, never element by element; (B) reads its bias
+//   tile [query][key] transposed. bf16 bias tiles are read and written in
+//   the accumulator pattern by ldmatrix(.trans) / stmatrix, 4 instructions
+//   per tile and thread, with no bank conflict through the swizzle; f32
+//   ones by conflict-free 8-byte (A) or 4-byte (B) accesses. Each block's
+//   score products queue behind the previous block's gradient products,
+//   and its dropout mask bits (a template parameter: rate 0 has no hash)
+//   are made while both run. (A) reads its bias pairs 4 at a time, which
+//   keeps its dropout instantiations free of spills. Rows and keys at or past S are masked by
+//   index (the head-form lse is padded with 0 there), and a block with
+//   every row and key < S skips the tests; a block of (A) with no row or
+//   key < S loads only gbias and runs no product. With a bf16 bias (A)
+//   takes 65 KB of shared memory (81 KB chained: two CTAs per SM) and (B)
+//   67 KB.
+// - f32 (bwd_dq_body, bwd_dkv_body): 4 warps of 16 rows on mma.sync 3xTF32
+//   (wgmma takes tf32 only K-major, and three of the five products read B
+//   MN-major), the tiles staged by plain loads and read as stored (f32 B
+//   fragments are single elements), the bias read straight into registers.
 // - Backward with table gradients, three kernels, deterministic as well:
 //   (A') is (A) over the rows and keys < S only, writing no dbias: each key
 //   block's f32 ds tile goes to shared memory, and one thread per (row,
 //   table) walks it with a running sum while the bucket stays the same,
 //   flushing into that row's own column of a [bin][row] histogram; the CTA
 //   then sums each bin over its 64 rows in order into a per-CTA partial;
-//   (B) as above; (C) sums the partials of each (bin, head) over (b, q
+//   (B) as above (in bf16 bwd_dkv_kernel; (A') stays on mma.sync in both
+//   types); (C) sums the partials of each (bin, head) over (b, q
 //   block) in a fixed order. It sums f32 ds: the Pallas kernel's bf16 ds
 //   stash only saves VMEM. Bound at B=16, S=P=768, H=12, D=64, bf16: it
 //   must read the bias (226.5 MB), q/k/v/o/do (94.4 MB) and the lse, and
@@ -167,18 +195,26 @@ __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   return x;
 }
 
-// c(i, j) of one (b, h) plane: 1/keep where the element is kept, else 0
+// c(i, j) of one (b, h) plane: 1/keep where the element is kept, else 0.
+// The element is kept where u = (bits >> 8) / 2^24 < keep (0 < keep <= 1):
+// u and keep * 2^24 are exact in f32, so that is bits >> 8 <
+// ceil(keep * 2^24), which is bits <= ceil(keep * 2^24) * 256 - 1, one
+// integer compare with the same outcome
 struct Dropout {
   uint32_t state;
-  float keep, inv_keep;
-  __device__ Dropout(int seed, int bh, float keep_, float inv_keep_)
+  uint32_t keep_max;  // the largest kept hash
+  float inv_keep;
+  __device__ Dropout(int seed, int bh, float keep, float inv_keep_)
       : state(lowbias32(static_cast<uint32_t>(seed) ^
                         (static_cast<uint32_t>(bh) * 0x9E3779B1u))),
-        keep(keep_), inv_keep(inv_keep_) {}
+        inv_keep(inv_keep_) {
+    const float k24 = ceilf(keep * 16777216.0f);
+    keep_max = k24 >= 16777216.0f ? 0xFFFFFFFFu : static_cast<uint32_t>(k24) * 256u - 1u;
+  }
   __device__ __forceinline__ bool keeps(int i, int j) const {
     const uint32_t bits = lowbias32(state + static_cast<uint32_t>(i) * 0x85EBCA77u +
                                     static_cast<uint32_t>(j) * 0x27D4EB2Fu);
-    return static_cast<float>(bits >> 8) * (1.0f / 16777216.0f) < keep;
+    return bits <= keep_max;
   }
   __device__ __forceinline__ float scale(int i, int j) const {
     return keeps(i, j) ? inv_keep : 0.0f;
@@ -681,6 +717,17 @@ int encode_operand(CUtensorMap* map, const T* x, const Strides& st, int rows, in
   return encode_map(map, kMapType<T>, 4, x, dims, strides, box);
 }
 
+// the (P, B*H*P) map of a (B, H, P, P) plane tensor (bias, gbias, dbias),
+// boxes of `rows` rows
+template <typename BiasT>
+int encode_plane(CUtensorMap* map, const void* x, int B, int H, int P, int rows = 64) {
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(P),
+                              static_cast<cuuint64_t>(B) * H * static_cast<cuuint64_t>(P)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(P) * sizeof(BiasT)};
+  const cuuint32_t box[2] = {Tile<BiasT>::kBoxCols, static_cast<cuuint32_t>(rows)};
+  return encode_map(map, kMapType<BiasT>, 2, x, dims, strides, box);
+}
+
 template <typename T, typename BiasT, bool kDropout, bool kLse>
 int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, int B, int S,
                       int H, int P, float scale, int seed, float keep, float inv_keep,
@@ -706,13 +753,7 @@ int launch_fwd(const T* q, const T* k, const T* v, const void* bias, T* o, float
   int err = encode_operand(&maps.q, q, sq, S, H, B);
   if (err == 0) err = encode_operand(&maps.k, k, sk, S, H, B);
   if (err == 0) err = encode_operand(&maps.v, v, sv, S, H, B);
-  if (err == 0) {
-    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(P),
-                                static_cast<cuuint64_t>(B) * H * static_cast<cuuint64_t>(P)};
-    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(P) * sizeof(BiasT)};
-    const cuuint32_t box[2] = {Tile<BiasT>::kBoxCols, 64};
-    err = encode_map(&maps.bias, kMapType<BiasT>, 2, bias, dims, strides, box);
-  }
+  if (err == 0) err = encode_plane<BiasT>(&maps.bias, bias, B, H, P);
   if (err != 0) return err;
   if (!with_lse) {
     return launch_fwd_kernel<T, BiasT, false, false>(maps, o, nullptr, so, B, S, H, P, scale,
@@ -731,9 +772,125 @@ int by_types(int qkv_is_bf16, int bias_is_bf16, Fn&& fn) {
   return bias_is_bf16 ? fn(0.0f, bf16{}) : fn(0.0f, 0.0f);
 }
 
+// calls fn(std::integral_constant<bool, on>{}) for a runtime flag
+template <typename Fn>
+int by_flag(int on, Fn&& fn) {
+  return on ? fn(std::true_type{}) : fn(std::false_type{});
+}
+
 // ---------------------------------------------------------------------------
-// backward (A): delta, dbias (= ds, + gbias when chained) and dq
+// backward in bf16 (sm_90a): (A) delta, dbias and dq, (B) dk and dv, each a
+// TMA-fed ring with one wgmma consumer warpgroup of 64 rows
 // ---------------------------------------------------------------------------
+
+constexpr int kDqStages = 2;    // depth of (A)'s ring
+constexpr int kDkvStages = 2;   // depth of (B)'s ring
+constexpr int kBwdThreads = 128;  // one warpgroup, which also issues the copies
+// CTAs per SM: 3 x 4 warps put 3 warps on each SM sub-partition, which
+// leaves ptxas 168 registers a thread (5-warp CTAs with a producer warp got
+// the same 168 at 2 CTAs per SM)
+constexpr int kBwdCtas = 3;
+
+// q, k, v, do as (D, rows, H, B) maps by their strides, boxes of 64 rows;
+// bias, gbias and dbias as (P, B*H*P) maps, boxes of 64 rows (dbias: 16,
+// one warp's rows)
+struct BwdMaps {
+  CUtensorMap q, k, v, dout, bias, gbias, dbias;
+};
+
+// the (batch, head, row) strides of every operand of a backward
+struct BwdStrides {
+  Strides q, k, v, o, dout, dq, dk, dv;
+};
+
+// (A): q and do, then the ring: each stage k, v and this CTA's rows of the
+// bias (and gbias when chained), the latter also the staging tile of dbias;
+// 1 KB for alignment. bf16: 65 KB plain, three CTAs per SM; 81 KB chained,
+// two
+template <typename BiasT, bool kChained>
+struct DqSmem {
+  static constexpr int kTile = Tile<bf16>::kBytes;
+  static constexpr int kBias = Tile<BiasT>::kBytes;
+  static constexpr int kStage = 2 * kTile + (kChained ? 2 : 1) * kBias;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kBytes = 1024 + kRing + kDqStages * kStage;
+};
+
+// (B): k and v, then the ring: each stage q, do, the bias tile [query][key]
+// of this CTA's keys, then the 64 lse and 64 delta values, padded to 1 KB.
+// bf16: 67 KB, three CTAs per SM
+template <typename BiasT>
+struct DkvSmem {
+  static constexpr int kTile = Tile<bf16>::kBytes;
+  static constexpr int kBias = Tile<BiasT>::kBytes;
+  static constexpr int kRows = 2 * kTile + kBias;  // lse, then delta
+  static constexpr int kStage = kRows + 1024;
+  static constexpr int kRing = 2 * kTile;
+  static constexpr int kBytes = 1024 + kRing + kDkvStages * kStage;
+};
+
+// f32 tiles (bf16 ones go through ldmatrix / stmatrix below): (A) writes
+// dbias's pair (row lr, columns 8nt + 2t, +1) at the address bias_pair
+// read it from; (B) reads its bias transposed with sw32 (query 8nt + 2t
+// (+1), key lr), the 8 g's keys in 8 chunks and 4 words: no bank conflict
+__device__ __forceinline__ void put_pair(float* tile, int lr, int nt, int t, float lo, float hi) {
+  char* row = reinterpret_cast<char*>(tile) + (nt >> 2) * 8192 + lr * 128;
+  const int chunk = (nt & 3) * 2 + (t >> 1);
+  *reinterpret_cast<float2*>(row + ((chunk ^ (lr & 7)) << 4) + 8 * (t & 1)) =
+      make_float2(lo, hi);
+}
+
+// bf16 tiles by ldmatrix / stmatrix, 4 pairs a thread per instruction j
+// (0..3): pair m (0..3) is (nt = 2j + m / 2, r = m % 2). In (A)'s pattern
+// pair (nt, r) holds row lr[r] = 16 warp + 8r + g, columns 8nt + 2t, +1:
+// matrix m's rows are 16 warp + 8r + (0..7), each the 16-byte chunk
+// nt ^ (row % 8) of its 128-byte row, so a matrix's 8 rows hit 8 chunks
+__device__ __forceinline__ uint32_t pairs_addr(const bf16* tile, int warp, int lane, int j) {
+  const int m = lane >> 3, q8 = lane & 7;
+  const int row = warp * 16 + 8 * (m & 1) + q8;
+  return smem_addr(tile) + row * 128 + (((2 * j + (m >> 1)) ^ q8) << 4);
+}
+// (B)'s transposed pattern, by ldmatrix.trans: pair (nt, r) holds rows
+// (queries) 8nt + 2t, +1 of column (key) 16 warp + 8r + g of a [query][key]
+// tile: matrix m's rows are queries 8nt + (0..7), in key chunk 2 warp + r
+__device__ __forceinline__ uint32_t pairs_t_addr(const bf16* tile, int warp, int lane, int j) {
+  const int m = lane >> 3, q8 = lane & 7;
+  const int query = 8 * (2 * j + (m >> 1)) + q8;
+  return smem_addr(tile) + query * 128 + (((2 * warp + (m & 1)) ^ q8) << 4);
+}
+// the low (c = 0) or high (c = 1) bf16 of a pair, as f32
+__device__ __forceinline__ float pair_half(uint32_t w, int c) {
+  return __uint_as_float(c ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// the score accumulators (index 4nt + e: row g + 8 (e >> 1), column
+// 8nt + 2t + (e & 1)) rounded to bf16 as wgmma's A registers, 4 k steps of
+// 16 columns
+__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+#pragma unroll
+  for (int ks = 0; ks < 4; ++ks) {
+    a[ks][0] = pack_bf16x2(x[8 * ks + 0], x[8 * ks + 1]);  // row g,   columns 16ks + 2t
+    a[ks][1] = pack_bf16x2(x[8 * ks + 2], x[8 * ks + 3]);  // row g+8
+    a[ks][2] = pack_bf16x2(x[8 * ks + 4], x[8 * ks + 5]);  // row g,   columns 16ks + 8 + 2t
+    a[ks][3] = pack_bf16x2(x[8 * ks + 6], x[8 * ks + 7]);  // row g+8
+  }
+}
+
+// 64 x 64 wgmma accumulators, times `mul`, stored as bf16 at the rows < S
+// of a plane with row stride `rs`; row0 is the warpgroup's first row
+__device__ __forceinline__ void store_acc(bf16* plane, const float (&acc)[32], int row0,
+                                          int lr0, int S, long long rs, float mul, int t) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = row0 + lr0 + 8 * r;
+    if (row >= S) continue;
+    bf16* orow = plane + row * rs;
+#pragma unroll
+    for (int dt = 0; dt < 8; ++dt) {
+      store_pair(orow + dt * 8 + 2 * t, acc[4 * dt + 2 * r] * mul, acc[4 * dt + 2 * r + 1] * mul);
+    }
+  }
+}
 
 // delta[i] = sum_d do[i, d] * o[i, d] in f32 for row i of a (b, h) plane
 template <typename T>
@@ -751,6 +908,509 @@ __device__ __forceinline__ float row_delta(const T* dr, const T* orow) {
   }
   return acc;
 }
+
+// (A) One CTA per (64-row q tile over all P rows, head, batch), one
+// warpgroup; thread 0 also issues the copies. It loads q and do once and
+// keeps a ring of kDqStages stages filled with each 64-key block's k, v,
+// bias (and gbias) tiles, refilling a stage as soon as all four warps have
+// released it. The warps compute delta = rowsum(do o) for their rows, then
+// per block S = q k^T and dP = do v^T (wgmma, all operands K-major as
+// stored), p = exp(s scale + bias - lse), ds = p (dp c - delta), zero at
+// rows or keys >= S; dbias = ds (+ gbias) overwrites the bias (gbias) tile
+// in place, and each warp sends its 16 rows out by a TMA store; dQ += dS k
+// with dS rounded to bf16 in wgmma's A registers and k read [key][d] as an
+// MN-major B. The next block's score products queue behind that product,
+// and its mask bits are made while both run.
+template <typename BiasT, bool kDropout, bool kChained>
+__global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
+    const __grid_constant__ BwdMaps maps,
+    const bf16* __restrict__ dout, const bf16* __restrict__ o,  // delta's inputs
+    const float* __restrict__ lse,  // (B, H, P)
+    bf16* __restrict__ dq,          // (B, H, S, D) by strides
+    float* __restrict__ delta,      // (B, H, P), written here
+    Strides sdo, Strides so, Strides sdq, int S, int H, int P, float scale, int seed,
+    float keep, float inv_keep) {
+  using Smem = DqSmem<BiasT, kChained>;
+  constexpr int kTile = Smem::kTile;
+  constexpr int kBias = Smem::kBias;
+  constexpr bool kBf16Bias = !kIsF32<BiasT>;
+  extern __shared__ uint8_t bwd_smem_raw[];
+  __shared__ uint64_t full_bar[kDqStages], empty_bar[kDqStages], q_bar;
+  __shared__ float s_delta[64];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int q0 = blockIdx.x * 64;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int plane = b * H + h;
+  const int n_kb = P / kBK;  // every column of the plane: dbias is P x P
+  const int ct = threadIdx.x;
+  const int warp = ct / 32, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};
+  const int row[2] = {q0 + lr[0], q0 + lr[1]};
+
+  // block kb's tiles into its stage (thread 0). A block with no row or key
+  // < S has ds = 0: only its gbias is loaded, and it runs no product
+  auto load_block = [&](int kb) {
+    uint8_t* st = smem + Smem::kRing + (kb % kDqStages) * Smem::kStage;
+    uint64_t* bar = &full_bar[kb % kDqStages];
+    const bool live = q0 < S && kb * kBK < S;
+    mbar_expect_tx(bar, (live ? 2 * kTile + kBias : 0) + (kChained ? kBias : 0));
+    if (live) {
+      tma_load_4d(st, &maps.k, bar, 0, kb * kBK, h, b);
+      tma_load_4d(st + kTile, &maps.v, bar, 0, kb * kBK, h, b);
+    }
+#pragma unroll
+    for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
+      const int col = kb * kBK + c * Tile<BiasT>::kBoxCols;
+      if (live) tma_load_2d(st + 2 * kTile + c * 8192, &maps.bias, bar, col, plane * P + q0);
+      if constexpr (kChained) {
+        tma_load_2d(st + 2 * kTile + kBias + c * 8192, &maps.gbias, bar, col, plane * P + q0);
+      }
+    }
+  };
+  if (ct == 0) {
+    for (int s = 0; s < kDqStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4);  // one arrival per warp
+    }
+    mbar_init(&q_bar, 1);
+    mbar_init_fence();
+    tma_prefetch_map(&maps.q);
+    tma_prefetch_map(&maps.k);
+    tma_prefetch_map(&maps.v);
+    tma_prefetch_map(&maps.dout);
+    tma_prefetch_map(&maps.bias);
+    if constexpr (kChained) tma_prefetch_map(&maps.gbias);
+    mbar_expect_tx(&q_bar, q0 < S ? 2 * kTile : 0);
+    if (q0 < S) {
+      tma_load_4d(smem, &maps.q, &q_bar, 0, q0, h, b);
+      tma_load_4d(smem + kTile, &maps.dout, &q_bar, 0, q0, h, b);
+    }
+    for (int kb = 0; kb < kDqStages && kb < n_kb; ++kb) load_block(kb);
+  }
+
+  // delta of the tile's rows, one thread per row (zero past S), summed as
+  // the tables backward's (A') sums it: the two paths give the same dq/dk/dv
+  if (ct < 64) {
+    const int i = q0 + ct;
+    float acc = 0.0f;
+    if (i < S) {
+      acc = row_delta(plane_of(dout, sdo, b, h) + i * sdo.s, plane_of(o, so, b, h) + i * so.s);
+    }
+    s_delta[ct] = acc;
+    delta[static_cast<size_t>(plane) * P + i] = acc;
+  }
+  __syncthreads();  // s_delta, and the barriers' initialisation
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row[r] < S ? lse[static_cast<size_t>(plane) * P + row[r]] : 0.0f;
+    delta_r[r] = s_delta[lr[r]];
+  }
+  const Dropout drop(seed, plane, keep, inv_keep);
+
+  float dq_acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+  uint32_t pa[4][4];  // dS of the block in flight, wgmma's A registers
+  const uint64_t q_desc = wgmma_desc(smem, 16, 1024);
+  const uint64_t do_desc = wgmma_desc(smem + kTile, 16, 1024);
+  mbar_wait(&q_bar, 0);
+
+  for (int kb = 0; kb < n_kb; ++kb) {
+    const int k0 = kb * kBK;
+    const int stage = kb % kDqStages;
+    mbar_wait(&full_bar[stage], (kb / kDqStages) & 1);
+    uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
+    const uint64_t k_desc = wgmma_desc(st, 16, 1024);
+    const uint64_t v_desc = wgmma_desc(st + kTile, 16, 1024);
+    const bool live = q0 < S && k0 < S;
+
+    // S = q k^T and dP = do v^T over d, queued behind the previous block's
+    // dQ += dS k (whose A registers stay live until the wait)
+    if (live) {
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(s, q_desc + 2 * ks, k_desc + 2 * ks, ks);
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(dp, do_desc + 2 * ks, v_desc + 2 * ks, ks);
+      wgmma_commit();
+    }
+    uint32_t kept = 0;  // this block's dropout mask, made while the products run
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(dq_acc);
+    reg_fence(pa);
+    if (kb > 0) {
+      // the previous block's dQ += dS k and this warp's dbias store out of
+      // its stage are done: release the stage, and refill it
+      const int prev = (kb - 1) % kDqStages;
+      if (lane == 0) tma_store_wait_read<0>();
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[prev]);
+      if (ct == 0 && kb - 1 + kDqStages < n_kb) {
+        mbar_wait(&empty_bar[prev], ((kb - 1) / kDqStages) & 1);
+        load_block(kb - 1 + kDqStages);
+      }
+    }
+
+    // ds (zero at rows or keys >= S), and dbias = ds (+ gbias) written over
+    // the tile it came from
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTile);
+    BiasT* out = reinterpret_cast<BiasT*>(st + 2 * kTile + (kChained ? kBias : 0));
+    // the elementwise pass in 4 steps of 4 pairs (bf16: one ldmatrix of the
+    // bias, one of gbias and one stmatrix of dbias each), without the bounds
+    // tests where the block has every row and key < S
+    auto ds_tile = [&](auto all_in) {
+      constexpr bool kAllIn = decltype(all_in)::value;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bias_w[4], gbias_w[4], out_w[4];
+        if constexpr (kBf16Bias) {
+          ldsm_x4(bias_w, pairs_addr(bias_tile, warp, lane, j));
+          if constexpr (kChained) ldsm_x4(gbias_w, pairs_addr(out, warp, lane, j));
+        }
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int nt = 2 * j + (m >> 1), r = m & 1;
+          float2 bv;
+          if constexpr (kBf16Bias) {
+            bv = make_float2(pair_half(bias_w[m], 0), pair_half(bias_w[m], 1));
+          } else {
+            bv = bias_pair(bias_tile, lr[r], nt, t);
+          }
+          float ds[2];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int i = 4 * nt + 2 * r + c;
+            ds[c] = 0.0f;
+            if (kAllIn || (row[r] < S && k0 + nt * 8 + 2 * t + c < S)) {
+              const float p = expf(s[i] * scale + (c ? bv.y : bv.x) - lse_r[r]);
+              float dpv = dp[i];
+              if constexpr (kDropout) dpv *= (kept >> i) & 1u ? inv_keep : 0.0f;
+              ds[c] = p * (dpv - delta_r[r]);
+            }
+            s[i] = ds[c];
+          }
+          if constexpr (kChained) {
+            if constexpr (kBf16Bias) {
+              ds[0] += pair_half(gbias_w[m], 0);
+              ds[1] += pair_half(gbias_w[m], 1);
+            } else {
+              const float2 gv = bias_pair(out, lr[r], nt, t);
+              ds[0] += gv.x;
+              ds[1] += gv.y;
+            }
+          }
+          if constexpr (kBf16Bias) {
+            out_w[m] = pack_bf16x2(ds[0], ds[1]);
+          } else {
+            put_pair(out, lr[r], nt, t, ds[0], ds[1]);  // the pair this thread read
+          }
+        }
+        // the warp's own rows, read above by the same warp
+        if constexpr (kBf16Bias) stsm_x4(pairs_addr(out, warp, lane, j), out_w);
+      }
+    };
+    if (q0 + 64 <= S && k0 + 64 <= S) {
+      ds_tile(std::true_type{});
+    } else {
+      ds_tile(std::false_type{});
+    }
+    // dbias out by TMA, each warp its own 16 rows: no barrier across warps
+    fence_async_smem();
+    __syncwarp();
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
+        tma_store_2d(&maps.dbias, reinterpret_cast<const uint8_t*>(out) + c * 8192 + warp * 2048,
+                     k0 + c * Tile<BiasT>::kBoxCols, plane * P + q0 + warp * 16);
+      }
+      tma_store_commit();
+    }
+
+    // dQ += dS k: dS rounded to bf16; k read [key][d] as a transposed B
+    if (live) {
+      pack_a(pa, s);
+      wgmma_fence();
+#pragma unroll
+      for (int ks = 0; ks < 4; ++ks) {
+        wgmma_m64n64k16_rs_tb(dq_acc, pa[ks], k_desc + ks * (2048 >> 4));
+      }
+      wgmma_commit();
+    }
+  }
+  wgmma_wait<0>();
+  reg_fence(dq_acc);
+  reg_fence(pa);
+  if (lane == 0) tma_store_wait_all();
+  store_acc(plane_of(dq, sdq, b, h), dq_acc, q0, warp * 16 + g, S, sdq.s, scale, t);
+}
+
+// (B) One CTA per (64-key tile, head, batch), one warpgroup (rows: keys);
+// thread 0 also issues the copies. It loads k and v once and keeps a ring
+// of kDkvStages stages filled with each 64-query block's q, do and bias
+// tile (rows: queries, columns: this CTA's keys), and its lse and delta by
+// bulk copies. The warps run S^T = k q^T and dP^T = v do^T (wgmma, K-major
+// as stored), p = exp(s scale + bias - lse) with the bias read transposed
+// out of the swizzled tile, pd = p c and ds = p (dp c - delta), zero at
+// queries or keys >= S (by index: the lse of pad rows may be 0 or +inf),
+// then dV += (p c)^T do and dK += dS^T q with both rounded to bf16 in
+// wgmma's A registers and do, q read [query][d] as MN-major B operands.
+template <typename BiasT, bool kDropout>
+__global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
+    const __grid_constant__ BwdMaps maps,
+    const float* __restrict__ lse,    // (B, H, P)
+    const float* __restrict__ delta,  // (B, H, P)
+    bf16* __restrict__ dk, bf16* __restrict__ dv,  // (B, H, S, D) by strides
+    Strides sdk, Strides sdv, int S, int H, int P, float scale, int seed, float keep,
+    float inv_keep) {
+  using Smem = DkvSmem<BiasT>;
+  constexpr int kTile = Smem::kTile;
+  constexpr bool kBf16Bias = !kIsF32<BiasT>;
+  extern __shared__ uint8_t bwd_smem_raw[];
+  __shared__ uint64_t full_bar[kDkvStages], empty_bar[kDkvStages], kv_bar;
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+
+  const int j0 = blockIdx.x * 64;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int plane = b * H + h;
+  const int n_qb = (S + kBQ - 1) / kBQ;
+  const int ct = threadIdx.x;
+  const int warp = ct / 32, lane = ct % 32;
+  const int g = lane >> 2, t = lane & 3;
+  const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};
+  const int key[2] = {j0 + lr[0], j0 + lr[1]};
+
+  // block qb's tiles into its stage (thread 0)
+  auto load_block = [&](int qb) {
+    const int i0 = qb * kBQ;
+    uint8_t* st = smem + Smem::kRing + (qb % kDkvStages) * Smem::kStage;
+    uint64_t* bar = &full_bar[qb % kDkvStages];
+    mbar_expect_tx(bar, Smem::kRows + 2 * kBQ * 4);
+    tma_load_4d(st, &maps.q, bar, 0, i0, h, b);
+    tma_load_4d(st + kTile, &maps.dout, bar, 0, i0, h, b);
+#pragma unroll
+    for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
+      tma_load_2d(st + 2 * kTile + c * 8192, &maps.bias, bar, j0 + c * Tile<BiasT>::kBoxCols,
+                  plane * P + i0);
+    }
+    bulk_load(st + Smem::kRows, lse + static_cast<size_t>(plane) * P + i0, kBQ * 4, bar);
+    bulk_load(st + Smem::kRows + kBQ * 4, delta + static_cast<size_t>(plane) * P + i0, kBQ * 4,
+              bar);
+  };
+  if (ct == 0) {
+    for (int s = 0; s < kDkvStages; ++s) {
+      mbar_init(&full_bar[s], 1);
+      mbar_init(&empty_bar[s], 4);  // one arrival per warp
+    }
+    mbar_init(&kv_bar, 1);
+    mbar_init_fence();
+    tma_prefetch_map(&maps.q);
+    tma_prefetch_map(&maps.k);
+    tma_prefetch_map(&maps.v);
+    tma_prefetch_map(&maps.dout);
+    tma_prefetch_map(&maps.bias);
+    mbar_expect_tx(&kv_bar, 2 * kTile);
+    tma_load_4d(smem, &maps.k, &kv_bar, 0, j0, h, b);
+    tma_load_4d(smem + kTile, &maps.v, &kv_bar, 0, j0, h, b);
+    for (int qb = 0; qb < kDkvStages && qb < n_qb; ++qb) load_block(qb);
+  }
+  __syncthreads();  // the barriers' initialisation
+  const Dropout drop(seed, plane, keep, inv_keep);
+
+  float dk_acc[32], dv_acc[32], s[32], dp[32];
+#pragma unroll
+  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  uint32_t pd_a[4][4], ds_a[4][4];  // the block in flight's (p c)^T and dS^T
+  const uint64_t k_desc = wgmma_desc(smem, 16, 1024);
+  const uint64_t v_desc = wgmma_desc(smem + kTile, 16, 1024);
+  mbar_wait(&kv_bar, 0);
+
+  for (int qb = 0; qb < n_qb; ++qb) {
+    const int i0 = qb * kBQ;
+    const int stage = qb % kDkvStages;
+    mbar_wait(&full_bar[stage], (qb / kDkvStages) & 1);
+    const uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
+    const uint64_t q_desc = wgmma_desc(st, 16, 1024);
+    const uint64_t do_desc = wgmma_desc(st + kTile, 16, 1024);
+
+    // S^T = k q^T and dP^T = v do^T over d, queued behind the previous
+    // block's dV/dK products (whose A registers stay live until the wait)
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(s, k_desc + 2 * ks, q_desc + 2 * ks, ks);
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(dp, v_desc + 2 * ks, do_desc + 2 * ks, ks);
+    wgmma_commit();
+    uint32_t kept = 0;  // this block's dropout mask, made while the products run
+    if constexpr (kDropout) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int query = i0 + (i >> 2) * 8 + 2 * t + (i & 1);
+        kept |= static_cast<uint32_t>(drop.keeps(query, key[(i >> 1) & 1])) << i;
+      }
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
+    reg_fence(dp);
+    reg_fence(dk_acc);
+    reg_fence(dv_acc);
+    reg_fence(pd_a);
+    reg_fence(ds_a);
+    if (qb > 0) {  // the previous block's dV/dK products are done: release and refill
+      const int prev = (qb - 1) % kDkvStages;
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[prev]);
+      if (ct == 0 && qb - 1 + kDkvStages < n_qb) {
+        mbar_wait(&empty_bar[prev], ((qb - 1) / kDkvStages) & 1);
+        load_block(qb - 1 + kDkvStages);
+      }
+    }
+
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTile);
+    const float* s_lse = reinterpret_cast<const float*>(st + Smem::kRows);
+    const float* s_delta = s_lse + kBQ;
+    uint32_t bias_w[8][2];  // bf16 pairs (queries 8nt + 2t, +1; key lr[r]) by ldmatrix.trans
+    if constexpr (kBf16Bias) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t d[4];
+        ldsm_x4_trans(d, pairs_t_addr(bias_tile, warp, lane, j));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) bias_w[2 * j + (m >> 1)][m & 1] = d[m];
+      }
+    }
+    auto p_ds_tile = [&](auto all_in) {  // without bounds tests where all is < S
+      constexpr bool kAllIn = decltype(all_in)::value;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        const int ci = (i >> 2) * 8 + 2 * t + (i & 1);  // the query within the block
+        float pd = 0.0f, ds = 0.0f;
+        if (kAllIn || (i0 + ci < S && key[r] < S)) {
+          float bv;
+          if constexpr (kBf16Bias) {
+            bv = pair_half(bias_w[i >> 2][r], i & 1);
+          } else {
+            bv = sw32(bias_tile, ci, lr[r]);
+          }
+          const float p = expf(s[i] * scale + bv - s_lse[ci]);
+          const float c = kDropout ? ((kept >> i) & 1u ? inv_keep : 0.0f) : 1.0f;
+          pd = p * c;
+          ds = p * (dp[i] * c - s_delta[ci]);
+        }
+        s[i] = pd;
+        dp[i] = ds;
+      }
+    };
+    if (i0 + 64 <= S && j0 + 64 <= S) {
+      p_ds_tile(std::true_type{});
+    } else {
+      p_ds_tile(std::false_type{});
+    }
+    // dV += (p c)^T do and dK += dS^T q, both rounded to bf16; do and q
+    // read [query][d] as transposed B operands
+    pack_a(pd_a, s);
+    pack_a(ds_a, dp);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_m64n64k16_rs_tb(dv_acc, pd_a[ks], do_desc + ks * (2048 >> 4));
+    }
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_m64n64k16_rs_tb(dk_acc, ds_a[ks], q_desc + ks * (2048 >> 4));
+    }
+    wgmma_commit();
+  }
+  wgmma_wait<0>();
+  reg_fence(dk_acc);
+  reg_fence(dv_acc);
+  reg_fence(pd_a);
+  reg_fence(ds_a);
+  store_acc(plane_of(dk, sdk, b, h), dk_acc, j0, warp * 16 + g, S, sdk.s, scale, t);
+  store_acc(plane_of(dv, sdv, b, h), dv_acc, j0, warp * 16 + g, S, sdv.s, 1.0f, t);
+}
+
+// q, k, v, do and the bias, and gbias and dbias where given
+template <typename BiasT>
+int encode_bwd_maps(BwdMaps* m, const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
+                    const void* bias, const void* gbias, const void* dbias,
+                    const BwdStrides& ss, int B, int S, int H, int P) {
+  int err = encode_operand(&m->q, q, ss.q, S, H, B);
+  if (err == 0) err = encode_operand(&m->k, k, ss.k, S, H, B);
+  if (err == 0) err = encode_operand(&m->v, v, ss.v, S, H, B);
+  if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, S, H, B);
+  if (err == 0) err = encode_plane<BiasT>(&m->bias, bias, B, H, P);
+  if (err == 0 && gbias != nullptr) err = encode_plane<BiasT>(&m->gbias, gbias, B, H, P);
+  if (err == 0 && dbias != nullptr) err = encode_plane<BiasT>(&m->dbias, dbias, B, H, P, 16);
+  return err;
+}
+
+// (B) alone: the dk/dv kernel that the tables backward shares
+template <typename BiasT>
+int launch_bwd_dkv_bf16(const BwdMaps& maps, const float* lse, const float* delta, bf16* dk,
+                        bf16* dv, const BwdStrides& ss, int B, int S, int H, int P, float scale,
+                        int seed, float keep, float inv_keep, int dropout, cudaStream_t st) {
+  return by_flag(dropout, [&](auto drop) {
+    auto kernel = bwd_dkv_kernel<BiasT, decltype(drop)::value>;
+    constexpr int smem = DkvSmem<BiasT>::kBytes;
+    static std::atomic<uint64_t> ready{0};
+    const int err = set_smem_limit_once(kernel, smem, ready);
+    if (err != 0) return err;
+    kernel<<<dim3((S + kBK - 1) / kBK, H, B), kBwdThreads, smem, st>>>(
+        maps, lse, delta, dk, dv, ss.dk, ss.dv, S, H, P, scale, seed, keep, inv_keep);
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// the bf16 backward pair, (A) then (B); gbias null unless chained
+template <typename BiasT>
+int launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const void* bias,
+                    const bf16* dout, const bf16* o, const float* lse, const void* gbias,
+                    bf16* dq, bf16* dk, bf16* dv, void* dbias, float* delta,
+                    const BwdStrides& ss, int B, int S, int H, int P, float scale, int seed,
+                    float keep, float inv_keep, int dropout, cudaStream_t st) {
+  BwdMaps maps;
+  int err = encode_bwd_maps<BiasT>(&maps, q, k, v, dout, bias, gbias, dbias, ss, B, S, H, P);
+  if (err != 0) return err;
+  err = by_flag(dropout, [&](auto drop) {
+    return by_flag(gbias != nullptr, [&](auto chained) {
+      constexpr bool kChained = decltype(chained)::value;
+      auto kernel = bwd_dq_kernel<BiasT, decltype(drop)::value, kChained>;
+      constexpr int smem = DqSmem<BiasT, kChained>::kBytes;
+      static std::atomic<uint64_t> ready{0};
+      const int e = set_smem_limit_once(kernel, smem, ready);
+      if (e != 0) return e;
+      kernel<<<dim3(P / kBQ, H, B), kBwdThreads, smem, st>>>(
+          maps, dout, o, lse, dq, delta, ss.dout, ss.o, ss.dq, S, H, P, scale, seed, keep,
+          inv_keep);
+      return static_cast<int>(cudaGetLastError());
+    });
+  });
+  if (err != 0) return err;
+  return launch_bwd_dkv_bf16<BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
+                                    keep, inv_keep, dropout, st);
+}
+
+// ---------------------------------------------------------------------------
+// backward in f32 (A): delta, dbias (= ds, + gbias when chained) and dq; its
+// helpers also serve the tables backward's (A') in bf16 and f32
+// ---------------------------------------------------------------------------
 
 // dq += ds k over one key block: bf16 rounds ds and reads the transposed
 // k tile, f32 reads k as stored
@@ -824,6 +1484,7 @@ __device__ __forceinline__ void bwd_dq_body(
     const Strides& so, const Strides& sdq,
     int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     int dropout) {
+  static_assert(kIsF32<T>, "the bf16 backward runs bwd_dq_kernel");
   __shared__ __align__(16) T s_a[DqTiles<T>::kA];      // bf16: q, then do
   __shared__ __align__(16) T s_k[DqTiles<T>::kRows];   // [key][d]
   __shared__ __align__(16) T s_kt[DqTiles<T>::kKt];    // bf16: [d][key]
@@ -938,25 +1599,8 @@ __global__ void __launch_bounds__(kThreads) headform_bwd_dq_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// backward (B): dk and dv
+// backward in f32 (B): dk and dv
 // ---------------------------------------------------------------------------
-
-// dv += (p c)^T do and dk += ds^T q over one query block: bf16 rounds both
-// and reads the transposed tiles, f32 reads the tiles as stored
-__device__ __forceinline__ void dkv_step(float (&dv)[8][4], float (&dk)[8][4],
-                                         const float (&pd)[8][4], const float (&ds)[8][4],
-                                         const bf16*, const bf16* s_qt, const bf16*,
-                                         const bf16* s_dot, int g, int t) {
-  mma_acc_by_tile_t(dv, pd, s_dot, g, t);
-  mma_acc_by_tile_t(dk, ds, s_qt, g, t);
-}
-__device__ __forceinline__ void dkv_step(float (&dv)[8][4], float (&dk)[8][4],
-                                         const float (&pd)[8][4], const float (&ds)[8][4],
-                                         const float* s_q, const float*, const float* s_do,
-                                         const float*, int g, int t) {
-  mma_acc_by_rows(dv, pd, s_do, g, t);
-  mma_acc_by_rows(dk, ds, s_q, g, t);
-}
 
 template <typename T, typename BiasT>
 __device__ __forceinline__ void bwd_dkv_body(
@@ -969,11 +1613,9 @@ __device__ __forceinline__ void bwd_dkv_body(
     const Strides& sdk, const Strides& sdv,
     int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     int dropout) {
-  constexpr int kT = kIsF32<T> ? 1 : kD * kLD;  // the transposed tiles: bf16 only
+  static_assert(kIsF32<T>, "the bf16 backward runs bwd_dkv_kernel");
   __shared__ __align__(16) T s_q[kBQ * kPitch<T>];  // [query][d]
-  __shared__ __align__(16) T s_qt[kT];              // [d][query]
   __shared__ __align__(16) T s_do[kBQ * kPitch<T>]; // [query][d]
-  __shared__ __align__(16) T s_dot[kT];             // [d][query]
   __shared__ float s_lse[kBQ];
   __shared__ float s_delta[kBQ];
 
@@ -1013,13 +1655,8 @@ __device__ __forceinline__ void bwd_dkv_body(
   for (int qbi = 0; qbi < n_qb; ++qbi) {
     const int i0 = qbi * kBQ;
     __syncthreads();
-    if constexpr (kIsF32<T>) {
-      load_rows(s_q, qp, i0, S, sq.s, tid);
-      load_rows(s_do, dop, i0, S, sdo.s, tid);
-    } else {
-      load_rows_both(s_q, s_qt, qp, i0, S, sq.s, tid);
-      load_rows_both(s_do, s_dot, dop, i0, S, sdo.s, tid);
-    }
+    load_rows(s_q, qp, i0, S, sq.s, tid);
+    load_rows(s_do, dop, i0, S, sdo.s, tid);
     for (int r = tid; r < kBQ; r += kThreads) {
       const bool ok = i0 + r < S;
       s_lse[r] = ok ? lse[plane * P + i0 + r] : 0.0f;
@@ -1049,8 +1686,9 @@ __device__ __forceinline__ void bwd_dkv_body(
         dpt[nt][e] = ds;
       }
     }
-    // dv += (p c)^T do, dk += ds^T q
-    dkv_step(dv_acc, dk_acc, st, dpt, s_q, s_qt, s_do, s_dot, g, t);
+    // dv += (p c)^T do, dk += ds^T q, the tiles read as stored
+    mma_acc_by_rows(dv_acc, st, s_do, g, t);
+    mma_acc_by_rows(dk_acc, dpt, s_q, g, t);
   }
   store_rows(plane_of(dk, sdk, b, h), dk_acc, key, S, sdk.s, scale, t);
   store_rows(plane_of(dv, sdv, b, h), dv_acc, key, S, sdv.s, 1.0f, t);
@@ -1293,18 +1931,24 @@ int launch_bwd(const T* q, const T* k, const T* v, const void* bias, const T* do
                const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
                void* dbias, float* delta, int B, int S, int H, int P, float scale, int seed,
                float keep, float inv_keep, int dropout, cudaStream_t st) {
-  const BiasT* bp = static_cast<const BiasT*>(bias);
   const Strides ps = packed_strides(S, H);
-  train_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, o, lse, static_cast<const BiasT*>(gbias), dq,
-      static_cast<BiasT*>(dbias), delta, ps, S, H, P, scale, seed, keep, inv_keep,
-      dropout);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  train_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep,
-      inv_keep, dropout);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!kIsF32<T>) {
+    const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
+    return launch_bwd_bf16<BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias, delta,
+                                  ss, B, S, H, P, scale, seed, keep, inv_keep, dropout, st);
+  } else {  // f32: the mma.sync 3xTF32 pair
+    const BiasT* bp = static_cast<const BiasT*>(bias);
+    train_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
+        q, k, v, bp, dout, o, lse, static_cast<const BiasT*>(gbias), dq,
+        static_cast<BiasT*>(dbias), delta, ps, S, H, P, scale, seed, keep, inv_keep,
+        dropout);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    train_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
+        q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep,
+        inv_keep, dropout);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 template <typename T, typename BiasT>
@@ -1328,10 +1972,21 @@ int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, cons
       S, H, P, scale, seed, keep, inv_keep, dropout, nb1, nb2, max1, max2);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  train_bwd_dkv_kernel<T, BiasT><<<dim3(n_qb, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, lse, delta, dk, dv, packed_strides(S, H), S, H, P, scale, seed,
-      keep, inv_keep, dropout);
-  err = static_cast<int>(cudaGetLastError());
+  const Strides ps = packed_strides(S, H);
+  if constexpr (kIsF32<T>) {
+    train_bwd_dkv_kernel<T, BiasT><<<dim3(n_qb, H, B), kThreads, 0, st>>>(
+        q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep, inv_keep,
+        dropout);
+    err = static_cast<int>(cudaGetLastError());
+  } else {  // the bf16 backward's (B)
+    const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
+    BwdMaps maps;
+    err = encode_bwd_maps<BiasT>(&maps, q, k, v, dout, bias, nullptr, nullptr, ss, B, S, H, P);
+    if (err == 0) {
+      err = launch_bwd_dkv_bf16<BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
+                                       keep, inv_keep, dropout, st);
+    }
+  }
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
   return static_cast<int>(cudaGetLastError());
@@ -1348,20 +2003,27 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
                         float* delta, const long long* strides, int B, int S, int H, int P,
                         float scale, int seed, float keep, float inv_keep, int dropout,
                         cudaStream_t st) {
-  const BiasT* bp = static_cast<const BiasT*>(bias);
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3),
                 sdo = strides_at(strides, 4), sdq = strides_at(strides, 5),
                 sdk = strides_at(strides, 6), sdv = strides_at(strides, 7);
-  headform_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, o, lse, dq, static_cast<BiasT*>(dbias), delta, sq, sk, sv, sdo,
-      so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
-  const int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  headform_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-      q, k, v, bp, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, S, H, P, scale,
-      seed, keep, inv_keep, dropout);
-  return static_cast<int>(cudaGetLastError());
+  if constexpr (!kIsF32<T>) {
+    const BwdStrides ss{sq, sk, sv, so, sdo, sdq, sdk, sdv};
+    return launch_bwd_bf16<BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
+                                  delta, ss, B, S, H, P, scale, seed, keep, inv_keep, dropout,
+                                  st);
+  } else {  // f32: the mma.sync 3xTF32 pair
+    const BiasT* bp = static_cast<const BiasT*>(bias);
+    headform_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
+        q, k, v, bp, dout, o, lse, dq, static_cast<BiasT*>(dbias), delta, sq, sk, sv, sdo,
+        so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+    headform_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
+        q, k, v, bp, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, S, H, P, scale,
+        seed, keep, inv_keep, dropout);
+    return static_cast<int>(cudaGetLastError());
+  }
 }
 
 }  // namespace

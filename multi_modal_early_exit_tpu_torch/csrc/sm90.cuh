@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks shared by the port's kernels: mbarriers,
-// TMA tile loads, wgmma with its shared-memory descriptors, and
+// TMA tile loads and stores, bulk copies, ldmatrix / stmatrix, wgmma with its
+// shared-memory descriptors, and
 // the host-side encoding of TMA tensor maps (cuTensorMapEncodeTiled, reached
 // through the runtime's driver entry point, so no library links -lcuda).
 #pragma once
@@ -94,6 +95,49 @@ __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
 }
 
+// a contiguous run of `bytes` (a multiple of 16, both addresses 16-byte
+// aligned) from device memory into shared memory, completing on `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
+// TMA stores: a box of shared memory out to a tensor. The threads that
+// wrote the box fence it for the async proxy (fence_async_smem) and sync
+// before one thread issues the store; that thread commits it and, before
+// the box is written again, waits until the store has read it
+// (tma_store_wait_read), and before it exits until every store is done.
+__device__ __forceinline__ void fence_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void tma_store_2d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void tma_store_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// at most kPending committed stores may still be reading shared memory
+template <int kPending>
+__device__ __forceinline__ void tma_store_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void tma_store_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
 // ---------------------------------------------------------------------------
 // wgmma on 128-byte-swizzled tiles (rows of 64 bf16, 8-row atoms of 1 KB,
 // tile bases 1 KB aligned, as TMA writes them with CU_TENSOR_MAP_SWIZZLE_128B)
@@ -167,6 +211,33 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
       : MMEE_WGMMA_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b));
+}
+
+// ---------------------------------------------------------------------------
+// ldmatrix / stmatrix: four 8 x 8 b16 matrices per instruction, lane l
+// giving the address of row l % 8 of matrix l / 8; thread (g = lane / 4,
+// t = lane % 4) holds, per matrix, row g's columns 2t, 2t + 1 (the mma
+// accumulator pattern), or with .trans rows 2t, 2t + 1 of column g
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&d)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(d[0]), "=r"(d[1]), "=r"(d[2]), "=r"(d[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void stsm_x4(uint32_t addr, const uint32_t (&d)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(d[0]), "r"(d[1]), "r"(d[2]), "r"(d[3])
+               : "memory");
 }
 
 // ---------------------------------------------------------------------------

@@ -115,7 +115,8 @@ def _check_operand_dtype(what: str, tensors) -> int:
 
 def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     """What the CUDA attention kernels take: contiguous tensors on one card,
-    16-byte aligned (the forward loads them by TMA), q/k/v (and o, do) all
+    16-byte aligned (the kernels load them by TMA; a misaligned one raises,
+    there is no other body to fall back to), q/k/v (and o, do) all
     bf16 or all f32, a bf16 or f32 bias, head dim 64. Returns the operand
     flag (1 for bf16)."""
     device = tensors[0].device
@@ -372,6 +373,14 @@ def _dropout_args(seed: int, rate: float):
     return seed32, keep, 1.0 / keep, int(rate > 0.0)
 
 
+def _check_lse(what: str, lse: torch.Tensor, shape) -> None:
+    """The backward kernels copy 64-row runs of the lse in bulk: a
+    contiguous, 16-byte aligned f32 tensor of ``shape``."""
+    if (lse.shape != shape or lse.dtype != torch.float32 or not lse.is_contiguous()
+            or lse.data_ptr() % 16):
+        raise ValueError(f"{what}: lse must be a contiguous, 16-byte aligned f32 (B, H, P) tensor")
+
+
 def _check_train_width(what: str, bias: torch.Tensor) -> None:
     if bias.shape[-1] % KERNEL_TILE:
         raise ValueError(
@@ -435,11 +444,11 @@ def flash_attention_packed_train_bwd(
     _check_train_width(what, bias)
     b, s, hd = q.shape
     p = bias.shape[-1]
-    if lse.shape != (b, num_heads, p) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"{what}: lse must be a contiguous f32 (B, H, P) tensor")
+    _check_lse(what, lse, (b, num_heads, p))
     if gbias is not None and (gbias.dtype != bias.dtype or not gbias.is_contiguous()
-                              or gbias.device != q.device):
-        raise ValueError(f"{what}: gbias must be contiguous, on q's device, in the bias dtype")
+                              or gbias.device != q.device or gbias.data_ptr() % 16):
+        raise ValueError(f"{what}: gbias must be contiguous, 16-byte aligned, on q's device, "
+                         f"in the bias dtype")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     delta = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
@@ -639,7 +648,8 @@ def flash_attention_bwd(
     dtype, exactly zero past S). delta = rowsum(do o) is computed in the
     kernel. CPU tensors run the plain version; CUDA tensors launch the
     kernel pair, one kernel for dq and dbias and one for dk and dv
-    (``flash_attention_bwd.launches`` counts both: 2 per call)."""
+    (``flash_attention_bwd.launches`` counts both: 2 per call); o and do
+    must meet q's layout rules too (the bf16 kernels load do by TMA)."""
     what = "flash_attention_bwd"
     _check_headform(what, q, k, v, bias)
     b, h, s, d = q.shape
@@ -653,7 +663,8 @@ def flash_attention_bwd(
         raise ValueError(f"{what}: lse must be f32 on q's device")
     kbias = _kernel_width(bias)
     pk = kbias.shape[-1]
-    klse = lse if pk == p and lse.is_contiguous() else F.pad(lse, (0, pk - p)).contiguous()
+    dense = pk == p and lse.is_contiguous() and lse.data_ptr() % 16 == 0
+    klse = lse if dense else F.pad(lse, (0, pk - p)).contiguous()  # a fresh, aligned copy
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(kbias)
     delta = torch.empty((b, h, pk), dtype=torch.float32, device=q.device)
@@ -798,8 +809,7 @@ def flash_attention_packed_train_tables_bwd(
     is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
     p = bias.shape[-1]
-    if lse.shape != (b, num_heads, p) or lse.dtype != torch.float32 or not lse.is_contiguous():
-        raise ValueError(f"{what}: lse must be a contiguous f32 (B, H, P) tensor")
+    _check_lse(what, lse, (b, num_heads, p))
     if any(a.dtype != torch.int32 or not a.is_contiguous() or a.device != q.device for a in vecs):
         raise TypeError(f"{what}: pos, cx and cy must be contiguous int32 on q's device")
     n_bins = rel_bins + 2 * rel2d_bins

@@ -60,17 +60,19 @@ from multi_modal_early_exit_tpu_torch.serving import Pipeline  # noqa: E402
 from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer  # noqa: E402
 
 TRAIN_TRACED_STEPS = 2
+ATTN_BWD = "flash_attention_bwd / flash_attention_packed_train_bwd"
 GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
     ("fused_bias_attention", ("fused_bias_attention_kernel",)),
     # flash_attention_packed, the training forward and the head-form
     # forward launch one kernel
     ("flash_attention_packed / _train / flash_attention_fwd", ("fwd_kernel",)),
-    ("flash_attention_bwd", ("headform_bwd_dq_kernel", "headform_bwd_dkv_kernel")),
     ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
                                                  "table_partials_sum_kernel")),
-    ("flash_attention_packed_train_bwd", ("train_bwd_dq_kernel",)),
-    # both backwards launch the dk/dv kernel: see group_of
+    # the head-form and the packed training backward launch the same dq
+    # kernel in bf16 (and the same bodies in f32): one group
+    (ATTN_BWD, ("bwd_dq_kernel",)),
+    # every backward launches a dk/dv kernel: see group_of
     ("table_grads", ("table_grads_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply", "adam")),
@@ -79,9 +81,8 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
-    if "train_bwd_dkv_kernel" in low:  # in the backward of the mode in effect
-        return ("flash_attention_packed_train_tables_bwd" if use_table_grad_attention()
-                else "flash_attention_packed_train_bwd")
+    if "bwd_dkv_kernel" in low:  # in the backward of the mode in effect
+        return "flash_attention_packed_train_tables_bwd" if use_table_grad_attention() else ATTN_BWD
     for group, keys in GROUPS:
         if any(k in low for k in keys):
             return group

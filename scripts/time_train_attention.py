@@ -11,20 +11,31 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
 
 - ``flash_attention_packed``, the serving forward (no lse, no dropout);
 - the packed training forward at dropout rates 0 and 0.1;
-- its backward, plain at both rates and chained at 0.1;
-- where the checkout has them, the head-form forward and backward on the
-  packed tensors' (B, H, S, D) views at rate 0;
-- the yardstick, one PyTorch call: ``scaled_dot_product_attention`` on the
-  same views with the bias as a float mask, at rate 0 (no lse).
+- its backward (#8), plain at both rates and chained at 0.1, and in f32
+  (f32 q/k/v and bias) chained at 0.1;
+- the head-form forward and backward (#5/#6) on the packed tensors' (B, H,
+  S, D) views at rate 0, the backward also in f32;
+- the table-gradient backward (#9) at rate 0.1;
+- the yardsticks, one PyTorch call each: ``scaled_dot_product_attention``
+  on the same views with the bias as a float mask, at rate 0 (no lse), and
+  its backward (``autograd.grad`` to q, k, v and the mask), in bf16 and f32.
 
-Beside each forward it prints the host's microseconds per call: the wall
-time of 200 calls issued back to back at a tiny shape (batch 1, S = P = 64,
-one head), where the card finishes each kernel before the host issues the
-next, so the wrapper's own cost, tensor-map encoding included.
+Beside each forward and backward it prints the host's microseconds per
+call: the wall time of 200 calls issued back to back at a tiny shape (batch
+1, S = P = 64, one head), where the card finishes each kernel before the
+host issues the next, so the wrapper's own cost, tensor-map encoding
+included.
+
+``--profile`` prints, for each backward, the device time of every kernel
+it launches (a torch.profiler trace of 10 calls). ``--ptxas`` first compiles
+the checkout's training source once more with ``-Xptxas -v`` (into a
+temporary directory) and prints the registers, stack, spills and static
+SASS instruction count (``cuobjdump -sass``) of every kernel whose name
+holds ``bwd``.
 
 To compare two versions, run it on each in one call, in turns (parent,
 change, change, parent). The last line is one JSON object with the card's
-name and power limit, the times in ms and the host us per forward call.
+name and power limit, the times in ms and the host us per call.
 """
 
 from __future__ import annotations
@@ -32,9 +43,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -53,6 +67,15 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def sdpa_backward(views, mask, do):
+    """One autograd.grad through SDPA to q, k, v and the float mask: the
+    library backward that computes what the attention backwards compute."""
+    qg, kg, vg = (x.detach().requires_grad_() for x in views)
+    mask_g = mask.detach().clone().requires_grad_()
+    out = torch.nn.functional.scaled_dot_product_attention(qg, kg, vg, attn_mask=mask_g)
+    return lambda: torch.autograd.grad(out, (qg, kg, vg, mask_g), do, retain_graph=True)
+
+
 def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
     """Host microseconds per ``fn()`` call, issued back to back."""
     for _ in range(warmup):
@@ -66,10 +89,77 @@ def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
     return dt / iters * 1e6
 
 
+def ptxas_report(cuda_build) -> None:
+    """ptxas' registers, stack and spills of the training source's backward
+    kernels, as ``-Xptxas -v`` reports them."""
+    src = cuda_build.CSRC / "flash_attention_packed_train.cu"
+    sass = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        lib = os.path.join(tmp, "lib.so")
+        res = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+                              "-o", lib, str(src)], capture_output=True, text=True, check=True)
+        dump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+        if os.path.exists(dump):  # static SASS instructions per kernel
+            fn = None
+            for line in subprocess.run([dump, "-sass", lib], capture_output=True, text=True,
+                                       check=True).stdout.splitlines():
+                found = re.search(r"Function : (\w+)", line)
+                if found:
+                    fn = found.group(1)
+                elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                    sass[fn] = sass.get(fn, 0) + 1
+    name, rows = None, []
+    for line in (res.stdout + res.stderr).splitlines():
+        found = re.search(r"Compiling entry function '(\w+)'", line)
+        if found:
+            name, stack = found.group(1), ("?", "?", "?")
+        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                          r"(\d+) bytes spill loads", line)
+        if found and name:
+            stack = found.groups()
+        found = re.search(r"Used (\d+) registers", line)
+        if found and name:
+            rows.append((name, int(found.group(1)), stack))
+            name = None
+    names = [r[0] for r in rows]
+    if shutil.which("c++filt"):
+        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                               text=True, check=True).stdout.splitlines()
+    for full, (name, regs, (stack, st, ld)) in zip(names, rows):
+        if "bwd" in full:
+            print(f"ptxas {full}: {regs} registers, {stack} B stack, {st} B spill stores, "
+                  f"{ld} B spill loads, {sass.get(name, '?')} SASS instructions")
+
+
+def kernel_split(name, fn, calls: int = 10) -> None:
+    """Device microseconds per call of each kernel that ``fn`` launches, from
+    a torch.profiler trace of ``calls`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    parts = []
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        if us > 0:
+            short = re.search(r"\w+_kernel(<[^()]*>)?", e.key)
+            parts.append(f"{short.group(0) if short else e.key[:60]} {us / calls:.1f} us "
+                         f"(x{e.count // calls})")
+    print(f"split {name}: " + "; ".join(parts))
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
     parser.add_argument("--rounds", type=int, default=3)
+    parser.add_argument("--profile", action="store_true",
+                        help="print each backward's device time by kernel (torch.profiler)")
+    parser.add_argument("--ptxas", action="store_true",
+                        help="print ptxas' registers and spills of the backward kernels")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_train_attention: no CUDA device", file=sys.stderr)
@@ -81,6 +171,8 @@ def main() -> int:
 
     if not cuda_build.__file__.startswith(root):
         raise RuntimeError(f"imported {cuda_build.__file__}, not the package under {root}")
+    if opts.ptxas:
+        ptxas_report(cuda_build)
     cuda_build.build_all()
     b, s, h, d = 16, 768, 12, 64
     g = torch.Generator().manual_seed(0)
@@ -101,26 +193,55 @@ def main() -> int:
         if rate > 0.0:
             cases[f"packed_bwd_chained@{rate}"] = lambda r=rate, o=o, lse=lse: (
                 fa.flash_attention_packed_train_bwd(q, k, v, bias, 7, o, lse, do, h, r, gbias))
-    if hasattr(fa, "flash_attention_fwd"):
-        views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v, do)]
-        cases["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
-            *views[:3], bias, 0, 0.0, with_lse=True)
-        o_h, lse_h = fa.flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
-        cases["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
-            *views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
-    heads = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+    views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v, do)]
+    cases["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
+        *views[:3], bias, 0, 0.0, with_lse=True)
+    o_h, lse_h = fa.flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
+    cases["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
+        *views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
+    pos = torch.arange(s, dtype=torch.int32, device="cuda").repeat(b, 1)
+    cx, cy = (torch.randint(0, 1000, (b, s), generator=g, dtype=torch.int32).to("cuda")
+              for _ in range(2))
+    o1, lse1 = fa.flash_attention_packed_train_fwd(q, k, v, bias, 7, h, 0.1)
+    cases["packed_tables_bwd@0.1"] = lambda: fa.flash_attention_packed_train_tables_bwd(
+        q, k, v, bias, pos, cx, cy, 7, o1, lse1, do, h, 0.1)
     mask = bias[:, :, :s, :s]
-    cases["sdpa@0.0"] = lambda: torch.nn.functional.scaled_dot_product_attention(
-        *heads, attn_mask=mask)
-    tq, tk, tv = (x[:1, :64, :d].contiguous() for x in (q, k, v))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    cases["sdpa@0.0"] = lambda: sdpa(*views[:3], attn_mask=mask)
+    cases["sdpa_bwd@0.0"] = sdpa_backward(views[:3], mask, views[3])
+
+    # f32: the mma.sync 3xTF32 backwards beside f32 SDPA's backward
+    q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
+    bias32, gbias32 = bias.float(), gbias.float()
+    o32, lse32 = fa.flash_attention_packed_train_fwd(q32, k32, v32, bias32, 7, h, 0.1)
+    cases["f32_packed_bwd_chained@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
+        q32, k32, v32, bias32, 7, o32, lse32, do32, h, 0.1, gbias32)
+    views32 = [x.view(b, s, h, d).transpose(1, 2) for x in (q32, k32, v32, do32)]
+    o_h32, lse_h32 = fa.flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
+    cases["f32_headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
+        *views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
+    cases["f32_sdpa_bwd@0.0"] = sdpa_backward(views32[:3], bias32[:, :, :s, :s], views32[3])
+
+    tq, tk, tv, tdo = (x[:1, :64, :d].contiguous() for x in (q, k, v, do))
     tbias = bias[:1, :1, :64, :64].contiguous()
-    tviews = [x.view(1, 64, 1, d).transpose(1, 2) for x in (tq, tk, tv)]
+    tviews = [x.view(1, 64, 1, d).transpose(1, 2) for x in (tq, tk, tv, tdo)]
     tiny = {f"packed_fwd@{rate}": lambda r=rate: fa.flash_attention_packed_train_fwd(
         tq, tk, tv, tbias, 7, 1, r) for rate in (0.0, 0.1)}
     tiny["packed_serving_fwd"] = lambda: fa.flash_attention_packed(tq, tk, tv, tbias, 1)
-    if hasattr(fa, "flash_attention_fwd"):
-        tiny["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
-            *tviews, tbias, 0, 0.0, with_lse=True)
+    tiny["headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
+        *tviews[:3], tbias, 0, 0.0, with_lse=True)
+    to, tlse = fa.flash_attention_packed_train_fwd(tq, tk, tv, tbias, 7, 1, 0.0)
+    tiny["packed_bwd@0.0"] = lambda: fa.flash_attention_packed_train_bwd(
+        tq, tk, tv, tbias, 7, to, tlse, tdo, 1, 0.0)
+    tiny["packed_bwd_chained@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
+        tq, tk, tv, tbias, 7, to, tlse, tdo, 1, 0.1, tbias)
+    th_o, th_lse = fa.flash_attention_fwd(*tviews[:3], tbias, 0, 0.0, with_lse=True)
+    tiny["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
+        *tviews[:3], tbias, 0, th_o, th_lse, tviews[3], 0.0)
+    if opts.profile:
+        for name in cases:
+            if "bwd" in name:
+                kernel_split(name, cases[name])
     readings = {name: [] for name in cases}
     hosts = {name: [] for name in tiny}
     for _ in range(opts.rounds):

@@ -552,11 +552,13 @@ def test_headform_backward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
     assert torch.equal(dbias[:, :, :, s:], torch.zeros_like(dbias[:, :, :, s:]))
 
 
+@pytest.mark.parametrize("b,s,p,h", [(2, 709, 768, 12), (2, 64, 64, 2), (1, 130, 192, 3),
+                                     (1, 200, 320, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
-def test_headform_kernels_on_packed_views_equal_the_packed_kernels(cuda, rate):
+def test_headform_kernels_on_packed_views_equal_the_packed_kernels(cuda, b, s, p, h, rate):
     """One body, two layouts: on the packed projections' transposed views
-    the head-form kernels give the packed training kernels' bits."""
-    b, s, p, h = 2, 709, 768, 12
+    the head-form kernels give the packed training kernels' bits (phases 5c
+    and 5d rely on it at rate 0), also at odd P / 64."""
     q, k, v = _qkv(cuda, b, s, h)
     bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
     do = torch.randn((b, s, h * 64), generator=torch.Generator().manual_seed(6)).to(
@@ -571,6 +573,117 @@ def test_headform_kernels_on_packed_views_equal_the_packed_kernels(cuda, rate):
     for name, a, w in zip(("dq", "dk", "dv"), got[:3], want[:3]):
         assert torch.equal(a, _heads_view(w, h, "packed")), name
     assert torch.equal(got[3], want[3])
+
+
+# ---------------------------------------------------------------------------
+# the bf16 backward's TMA-ring + wgmma pair: deterministic, one body for both
+# layouts and both bias dtypes, its dk/dv kernel shared with the tables
+# backward, and no other body to fall back to
+# ---------------------------------------------------------------------------
+
+
+def _bwd_case(device, b, s, p, h, bias_dtype=torch.bfloat16, seed=5):
+    """q, k, v, a bias with masked keys, do and a gbias, all on ``device``."""
+    q, k, v = _qkv(device, b, s, h)
+    bias = _train_bias(device, b, s, p, h, bias_dtype)
+    g = torch.Generator().manual_seed(seed)
+    do = torch.randn((b, s, h * 64), generator=g).to(device, torch.bfloat16)
+    gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(device, bias_dtype)
+    return q, k, v, bias, do, gbias
+
+
+@pytest.mark.parametrize("b,s,p,h", [(1, 130, 192, 3), (2, 709, 768, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_bf16_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
+    """#8 plain and chained and #6 (both layouts): a second run gives the
+    same bits (no float atomics, sums in a fixed order)."""
+    q, k, v, bias, do, gbias = _bwd_case(cuda, b, s, p, h)
+    o, lse = flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate)
+    runs = []
+    for extra in (None, gbias):
+        args = (q, k, v, bias, 99, o, lse, do, h, rate, extra)
+        runs.append((flash_attention_packed_train_bwd(*args),
+                     flash_attention_packed_train_bwd(*args)))
+    for layout in ("contiguous", "packed"):
+        views = [_heads_view(x, h, layout) for x in (q, k, v, do)]
+        o_h, lse_h = flash_attention_fwd(*views[:3], bias, 99, rate, with_lse=True)
+        args = (*views[:3], bias, 99, o_h, lse_h, views[3], rate)
+        runs.append((flash_attention_bwd(*args), flash_attention_bwd(*args)))
+    torch.cuda.synchronize()
+    for first, again in runs:
+        for name, a, w in zip(("dq", "dk", "dv", "dbias"), first, again):
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_bf16_backward_with_an_f32_bias_matches_plain(cuda, b, s, p, h, rate, chained):
+    """bf16 q/k/v with an f32 bias (gbias and dbias f32 too): #8, and #6 on
+    the contiguous layout, against their plain versions at the bf16 bar;
+    dbias past S exactly 0, or gbias when chained."""
+    q, k, v, bias, do, gbias = _bwd_case(cuda, b, s, p, h, torch.float32)
+    gbias = gbias if chained else None
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    args = (q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    got = flash_attention_packed_train_bwd(*args)
+    want = flash_attention_packed_train_bwd_plain(*args)
+    views = [_heads_view(x, h, "contiguous") for x in (q, k, v, do, o)]
+    hargs = (*views[:3], bias, 99, views[4], lse, views[3], rate)
+    got_h = flash_attention_bwd(*hargs)
+    want_h = flash_attention_bwd_plain(*hargs)
+    torch.cuda.synchronize()
+    for name, a, w in [*zip(("dq", "dk", "dv", "dbias"), got, want),
+                       *zip(("head dq", "head dk", "head dv", "head dbias"), got_h, want_h)]:
+        assert a.shape == w.shape and a.dtype == w.dtype, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _scaled_err(a, w) <= 2e-2, (name, _scaled_err(a, w))
+    assert got[3].dtype == torch.float32
+    pad = got[3][:, :, s:, :]
+    assert torch.equal(pad, torch.zeros_like(pad) if gbias is None else gbias[:, :, s:, :])
+    assert not got_h[3][:, :, s:, :].any() and not got_h[3][:, :, :, s:].any()
+
+
+@pytest.mark.parametrize("b,s,p,h", [(1, 130, 192, 3), (1, 200, 320, 2), (2, 709, 768, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_tables_backward_runs_the_shared_dkv_kernel(cuda, b, s, p, h, rate):
+    """The dk/dv kernel through the tables backward (#9) at odd P / 64 and
+    at S = 709 inside 768: dq/dk/dv within the bar of the plain version and
+    bit-equal to the chained backward's (phase 5b holds the two paths'
+    gradients to 1e-6), the table gradients within 1e-3 of theirs."""
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    q, k, v, bias, do, gbias = _bwd_case(cuda, b, s, p, h)
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    tables_args = (q, k, v, bias, pos, cx, cy, 99, o, lse, do, h, rate)
+    got = flash_attention_packed_train_tables_bwd(*tables_args)
+    want = flash_attention_packed_train_tables_bwd_plain(*tables_args)
+    chained = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    torch.cuda.synchronize()
+    for name, a, w, c in zip(("dq", "dk", "dv"), got, want, chained):
+        assert _scaled_err(a, w) <= 2e-2, (name, _scaled_err(a, w))
+        assert torch.equal(a, c), name
+    for name, a, w in zip(("dt1", "dtx", "dty"), got[3:], want[3:]):
+        assert _scaled_err(a, w) <= 1e-3, (name, _scaled_err(a, w))
+
+
+def test_bf16_backward_raises_on_a_misaligned_do(cuda):
+    """The backward kernels load do by TMA: a do whose data is not 16-byte
+    aligned raises, and no kernel is launched (there is no other body)."""
+    b, s, p, h = 1, 64, 64, 2
+    q, k, v, bias, do, _ = _bwd_case(cuda, b, s, p, h)
+    o, lse = flash_attention_packed_train_fwd(q, k, v, bias, 0, h, 0.0)
+    flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)
+    shifted = flat[1:].view(do.shape)  # contiguous, 2 bytes past a 16-byte boundary
+    shifted.copy_(do)
+    counters = (flash_attention_packed_train_bwd, flash_attention_bwd)
+    before = [f.launches for f in counters]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_packed_train_bwd(q, k, v, bias, 0, o, lse, shifted, h, 0.0)
+    views = [_heads_view(x, h, "packed") for x in (q, k, v, o, shifted)]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        flash_attention_bwd(*views[:3], bias, 0, views[3], lse, views[4], 0.0)
+    assert [f.launches for f in counters] == before
 
 
 def test_packed_attention_autograd_runs_the_headform_kernels(cuda):

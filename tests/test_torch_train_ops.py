@@ -89,13 +89,13 @@ def test_materialize_bias_backward_is_table_grads():
 B, H, S, D, P = 2, 3, 20, 16, 128
 
 
-def _attn_case(seed=0, dtype=np.float32):
+def _attn_case(seed=0, dtype=np.float32, s=S, p=P):
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((B, S, H * D)).astype(dtype) for _ in range(4))
-    bias = rng.standard_normal((B, H, P, P)).astype(np.float32)
-    bias[:, :, :, S:] = -1e30  # pad keys
-    bias[0, :, :, 15:S] = -1e30  # masked keys
-    gbias = rng.standard_normal((B, H, P, P)).astype(np.float32)
+    q, k, v, do = (rng.standard_normal((B, s, H * D)).astype(dtype) for _ in range(4))
+    bias = rng.standard_normal((B, H, p, p)).astype(np.float32)
+    bias[:, :, :, s:] = -1e30  # pad keys
+    bias[0, :, :, 15:s] = -1e30  # masked keys
+    gbias = rng.standard_normal((B, H, p, p)).astype(np.float32)
     return q, k, v, do, bias, gbias
 
 
@@ -154,14 +154,13 @@ def test_train_forward_lse_and_dropout_semantics():
     assert abs((c == 0).float().mean().item() - 0.25) < 0.01
 
 
-@pytest.mark.slow
-@pytest.mark.parametrize("rate", [0.0, 0.25])
-def test_train_attention_matches_pallas_kernel(rate):
-    """The chained op against the Pallas kernel pair in interpret mode,
-    f32, gradients included: to 1e-4 of each tensor's scale."""
+def _check_chained_against_pallas(case, rate):
+    """The chained op's output and gradients (a non-trivial bias cotangent
+    in) against the Pallas kernel pair in interpret mode: to 1e-4 of each
+    tensor's scale."""
     from jax.experimental.pallas import tpu as pltpu
 
-    q, k, v, do, bias, gbias = _attn_case(2)
+    q, k, v, do, bias, gbias = case
     seed = jnp.asarray([17], jnp.int32)
 
     def fn(q, k, v, b):
@@ -176,3 +175,20 @@ def test_train_attention_matches_pallas_kernel(rate):
     for a, w in [(out.detach(), want_o)] + list(zip((t.grad for t in ts), wants)):
         w = np.asarray(w)
         np.testing.assert_allclose(a.numpy(), w, atol=1e-4 * np.abs(w).max(), rtol=1e-4)
+
+
+@pytest.mark.slow
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_train_attention_matches_pallas_kernel(rate):
+    """The chained op against the Pallas kernel pair in interpret mode,
+    f32, gradients included: to 1e-4 of each tensor's scale."""
+    _check_chained_against_pallas(_attn_case(2), rate)
+
+
+@pytest.mark.parametrize("s,p", [(70, 128), (130, 192)])
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_train_attention_matches_pallas_kernel_at_ragged_s(s, p, rate):
+    """The same at an S that is not a multiple of 64, so the CUDA kernels'
+    64-row tiles end ragged, and (130 in 192) at an odd P / 64: the plain
+    version the card holds the kernels to, against the Pallas pair."""
+    _check_chained_against_pallas(_attn_case(3, s=s, p=p), rate)
