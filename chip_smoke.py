@@ -37,12 +37,16 @@ Phases, each reported on its own line:
    take and one PyTorch library call where one computes the same function,
    or the pair of kernels it replaces. Then every kernel again at f32
    inputs (f32 q/k/v and bias; the attention kernels' f32 instantiations,
-   3xTF32 on the tensor cores) against its plain version in f32, at both
-   shapes: outputs, lse and gradients within ``F32_BAR`` (1e-4) of each
-   output's largest value, the table gradients (``table_grads`` and the
-   tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within 1e-4 of
-   ``materialize_bias`` + ``flash_attention_packed`` in f32; each timed
-   beside f32 SDPA and an f32 bound (FLOPs over a third of the TF32 peak);
+   the forwards by 3xTF32 on the tensor cores, the backwards by six bf16
+   products of operands split into three bf16 parts) against its plain
+   version in f32, at both shapes: outputs, lse and gradients within
+   ``F32_BAR`` (1e-4) of each output's largest value, the f32 backwards'
+   bits the same on a second run, the table gradients (``table_grads`` and
+   the tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within
+   1e-4 of ``materialize_bias`` + ``flash_attention_packed`` in f32, and the
+   backwards' split pre-pass (``split_bf16x3``) bit-equal to its plain
+   version; each timed beside f32 SDPA and an f32 bound (FLOPs over a third
+   of the TF32 peak, or a sixth of the bf16 one for the backwards);
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -107,8 +111,10 @@ Phases, each reported on its own line:
    the head-form pair) and at ``scan_fold=12`` (the training forward, the
    chained backward, ``table_grads``), each with its launch counts; then
    1 + 2 steps at the JAX default schedule (``scan_fold=1``, dropout 0.1).
-   Checks: finite losses, parameters that moved, launch counts per step.
-   docs/sec and peak memory beside phase 5c's.
+   Checks: finite losses, parameters that moved, launch counts per step
+   (one ``split_bf16x3`` per backward). docs/sec and peak memory beside
+   phase 5c's, and the f32 attention backward's device ms in one more,
+   traced, step.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
 phases 4, 4f, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
@@ -116,7 +122,8 @@ environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it; the f32 fields from phase 3's
-f32 run and the f32 launches from phases 4f/5f), the last
+f32 run and the f32 launches from phases 4f/5f; ``split_bf16x3`` runs in
+f32 only, on phase 5f's path), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -142,10 +149,12 @@ PEAKS = {
     "H100 NVL": (3.9e12, 835e12, 60e12, 417e12),
     "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
 }
-# the f32 attention kernels multiply by 3xTF32: three TF32 passes per
+# the f32 attention forwards multiply by 3xTF32: three TF32 passes per
 # product, so their operations bound is FLOPs over a third of the TF32 peak
-# (165 TFLOP/s on an H100 SXM)
+# (165 TFLOP/s on an H100 SXM); the f32 backwards by six bf16 passes of
+# split operands, FLOPs over a sixth of the bf16 peak (165 TFLOP/s too)
 TF32_PASSES = 3
+SPLIT_PASSES = 6
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
 N_BATCHES = 4
 TRAIN_STEPS, TRAIN_RATE = 3, 0.1
@@ -181,16 +190,20 @@ CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
 # layers' bf16 bias cotangents where phase 5 adds each layer's ds to the
 # running one in the kernel)
 UNCHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
-# the f32 attention kernels (3xTF32) against their f32 plain versions on the
-# card, over each output's largest value; plain TF32 (~3 digits) misses it
+# the f32 attention kernels (3xTF32, or six bf16 products of split
+# operands) against their f32 plain versions on the card, over each
+# output's largest value; plain TF32 (~3 digits) misses it
 F32_BAR = 1e-4
 # phase 5f's gradient checks, the f32 kernel path on the card against phase
-# 5's f32 plain path on the CPU, by phase 5's groups. On an H100 phase 5's
-# input reads 5.70e-6 (visual.pos_embed), 7.90e-5 (rel_pos_x_bias) and
-# 2.21e-5 (layer 11's query weight); eight draws (scripts/grad_gate_faults.py
-# --f32) read at most 1.15e-5, 1.08e-4 and 3.63e-5, and every fault it puts
-# in (any kernel output or table gradient scaled by 1.001) reads 1.0e-3 or
-# more. None may be looser than 1e-3
+# 5's f32 plain path on the CPU, by phase 5's groups. On an H100, with the
+# split-operand f32 backward, phase 5's input reads 2.96e-6
+# (visual.pos_embed), 8.40e-5 (rel_pos_x_bias) and 2.39e-5 (layer 11's query
+# weight); eight draws (scripts/grad_gate_faults.py --f32) read at most
+# 4.75e-6, 1.22e-4 and 4.12e-5, and every fault it puts in (any kernel
+# output or table gradient scaled by 1.001) fails the check, the nearest
+# (dq) at 6.6e-5 on visual.pos_embed. (The 3xTF32 backward read 5.70e-6,
+# 7.90e-5 and 2.21e-5, eight draws at most 1.15e-5, 1.08e-4 and 3.63e-5.)
+# None may be looser than 1e-3
 F32_GRAD_LIMITS = {"tensors": 5e-5, "rel-pos tables": 3e-4, "q/k/v weights": 1e-4}
 SWITCHES = ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS", "MMEE_CHAINED_DBIAS", "MMEE_LAYERS_PER_STEP")
 
@@ -626,19 +639,34 @@ def compare_kernels_f32(args, gen):
 
     do = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen) * 0.1).to(dev)
     gbias = (torch.randn(bias.shape, generator=gen) * 1e-3).to(dev)
+    # the backwards' split pre-pass: q, k, v and do, as every f32 backward
+    # splits them
+    views = [heads_of(x) for x in (q, k, v, do)]
+    parts = fa.split_bf16x3(*views)
+    for x, got in zip(views, parts):
+        check(torch.equal(got, fa.split_bf16x3_plain(x)),
+              f"split_bf16x3 differs from its plain version (S {s})")
+        hi, mid, lo = got.float()
+        check(torch.equal(hi + (mid + lo), x), f"split_bf16x3: hi + mid + lo is not x (S {s})")
+    errs["split_bf16x3"], notes["split_bf16x3"] = 0.0, "bit-equal, hi + (mid + lo) = x"
+    del views, parts
     bwd_args = (q, k, v, bias, seed, t_out, lse, do, HEADS, rate)
     for chained in (False, True):
         extra = gbias if chained else None
         got = fa.flash_attention_packed_train_bwd(*bwd_args, extra)
+        again = fa.flash_attention_packed_train_bwd(*bwd_args, extra)
         want = fa.flash_attention_packed_train_bwd_plain(*bwd_args, extra)
-        for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
             gate("flash_attention_packed_train_bwd", what + ("_chained" if chained else ""), a, w)
+            check(torch.equal(a, a2), f"f32 train backward {what} (chained={chained}) differs "
+                  f"between two runs")
         pad = got[3][:, :, s:, :]
         check(torch.equal(pad, gbias[:, :, s:, :] if chained else torch.zeros_like(pad)),
               f"f32 train backward: dbias pad rows (chained={chained})")
         if chained:
             dbias = got[3]
-        del got, want
+        del got, want, again
+    notes["flash_attention_packed_train_bwd"]["two runs"] = "equal"
 
     for layout in ("contiguous", "packed"):
         views = [heads_of(x) if layout == "packed" else heads_of(x).contiguous()
@@ -653,12 +681,16 @@ def compare_kernels_f32(args, gen):
             del ref_o, ref_lse
             bwd_h = (*views[:3], bias, seed, o_h, lse_h, views[3], rate_h)
             got = fa.flash_attention_bwd(*bwd_h)
+            again = fa.flash_attention_bwd(*bwd_h)
             want = fa.flash_attention_bwd_plain(*bwd_h)
-            for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+            for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
                 gate("flash_attention_bwd", f"{what} {tag}", a, w)
+                check(torch.equal(a, a2), f"f32 head-form backward {what} differs between two "
+                      f"runs ({tag})")
             check(not bool(got[3][:, :, s:, :].any()) and not bool(got[3][:, :, :, s:].any()),
                   f"f32 head-form backward: dbias not 0 in the pad ({tag})")
-            del got, want, o_h, lse_h
+            del got, want, again, o_h, lse_h
+    notes["flash_attention_bwd"]["two runs"] = "equal"
 
     # table_grads and its plain version sum the same f32 values in other
     # orders (the plain one by float atomics on the card): TABLE_GRAD_LIMIT
@@ -707,6 +739,8 @@ def phase_kernels(name):
         flash_attention_packed_train_fwd_plain,
         flash_attention_packed_train_tables_bwd,
         flash_attention_packed_train_tables_bwd_plain,
+        split_bf16x3,
+        split_bf16x3_plain,
     )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
         fused_bias_attention,
@@ -916,6 +950,7 @@ def phase_kernels(name):
     # f32 instantiations), against f32 plain versions, then timed beside
     # f32 SDPA and an f32 bound --------------------------------------------
     tf32_peak = peaks_for(name)[3] / TF32_PASSES
+    split_peak = bf16_peak / SPLIT_PASSES
     notes32 = compare_kernels_f32(unpadded, gen)[1]
     print(f"f32 kernels at S {s_true} inside P 768 (untimed; errors over scale, tol "
           f"{F32_BAR}): " + "; ".join(f"{k} {v}" for k, v in notes32.items()))
@@ -964,7 +999,7 @@ def phase_kernels(name):
         del o_lib
     f32_entry("flash_attention_packed_train_bwd",
               time_ms(lambda: flash_attention_packed_train_bwd(*bwd32, gbias32), iters=10),
-              bound(block32 + 2 * plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, tf32_peak),
+              bound(block32 + 2 * plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, split_peak),
               lib_bwd32, f" (rate {rate}, chained; not chained "
               f"{time_ms(lambda: flash_attention_packed_train_bwd(*bwd32, None), iters=10):.4f})")
     views32 = [heads(x) for x in (q32, k32, v32, bwd32[7])]
@@ -975,8 +1010,26 @@ def phase_kernels(name):
     o_h32, lse_h32 = flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
     hbwd32 = (*views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
     f32_entry("flash_attention_bwd", time_ms(lambda: flash_attention_bwd(*hbwd32), iters=10),
-              bound(block32 + plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, tf32_peak),
+              bound(block32 + plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, split_peak),
               lib_bwd32, " (rate 0, packed strides)")
+    # the f32 backwards' split pre-pass of q, k, v and do: f32 only, so its
+    # row's fields are its f32 readings
+    split_ms = time_ms(lambda: split_bf16x3(*views32))
+    split_bound = bound(4 * qkv32 + 12 * qkv_bytes, 0, bw, bf16_peak)  # 3 bf16 parts each
+    e = dict(name="split_bf16x3", route="cuda",
+             source="multi_modal_early_exit_tpu_torch/csrc/flash_attention_packed_train.cu",
+             replaces="multi_modal_early_exit_tpu/ops/flash_attention.py:652", ms=split_ms,
+             plain_ms=time_ms(lambda: [split_bf16x3_plain(x) for x in views32], iters=3,
+                              warmup=1),
+             bound_ms=split_bound[0], bound_by=split_bound[1], library_ms=None,
+             max_abs_err=errs32["split_bf16x3"], ok=True, f32_ms=split_ms,
+             f32_bound_ms=split_bound[0], f32_bound_by=split_bound[1], f32_library_ms=None,
+             f32_max_abs_err=errs32["split_bf16x3"])
+    results.append(e)
+    print(f"kernel split_bf16x3 (f32 only; q, k, v and do, as each f32 backward splits "
+          f"them): {notes32['split_bf16x3']}, kernel_ms {split_ms:.4f}, plain_ms "
+          f"{e['plain_ms']:.4f}, library_ms null (no one PyTorch call splits f32 into three "
+          f"bf16 parts), bound {split_bound[0] * 1e3:.1f} us ({split_bound[1]})")
     del views32, o_h32, lse_h32, hbwd32
     dbias32 = t32["dbias"]
     f32_entry("table_grads", time_ms(lambda: table_grads(*vecs, dbias32)),
@@ -989,7 +1042,8 @@ def phase_kernels(name):
               bound(block32 + 8 * qkv32 + lse_bytes
                     + sum(a.numel() * a.element_size() for a in vecs)
                     + sum(a.numel() * 4 for a in t32["tables_out"]),
-                    bwd_flops, bw, tf32_peak), None, f" (rate {rate})")
+                    bwd_flops, bw, tf32_peak), None,
+              f" (rate {rate}; (A') 3xTF32, its dk/dv on split operands)")
 
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
@@ -1377,13 +1431,16 @@ def train_counters():
             "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
             "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
             "flash_attention_packed_train_tables_bwd":
-                fa.flash_attention_packed_train_tables_bwd}
+                fa.flash_attention_packed_train_tables_bwd,
+            "split_bf16x3": fa.split_bf16x3}
 
 
-def train_steps(cfg, model32, batches, args, want):
+def train_steps(cfg, model32, batches, args, want, trace=()):
     """One warm-up ``EETrainer.train_step``, then one on each further batch,
     timed, with the launch counts per step checked against ``want`` (every
-    kernel it does not name: 0). Returns the readings."""
+    kernel it does not name: 0). With ``trace`` (kernel-name fragments), one
+    more step on the last batch under torch.profiler: the device ms of the
+    kernels whose names hold one, and of all kernels. Returns the readings."""
     n_steps = len(batches) - 1
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
@@ -1414,8 +1471,21 @@ def train_steps(cfg, model32, batches, args, want):
     for name in counters:
         check(launches[name] == want.get(name, 0) * n_steps,
               f"{name}: {launches[name]} launches in {n_steps} steps")
+    traced = {}
+    if trace:
+        from torch.profiler import ProfilerActivity, profile
+
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            trainer.train_step(batches[-1], gen)
+            torch.cuda.synchronize()
+        for e in prof.key_averages():
+            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+            traced["all"] = traced.get("all", 0.0) + us / 1e3
+            if any(frag in e.key for frag in trace):
+                traced["traced"] = traced.get("traced", 0.0) + us / 1e3
+        check(traced.get("traced", 0.0) > 0, f"the traced step ran none of {trace} on the card")
     return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
-                launches=launches, docs_per_sec=n_steps * B / dt)
+                launches=launches, docs_per_sec=n_steps * B / dt, traced=traced)
 
 
 def phase_train(card: str):
@@ -1567,11 +1637,12 @@ def phase_train_f32(card: str, trained, base):
     t = trained
     model32, batch, weights = t["model32"], t["batches"][0], t["weights"]
     total = dict.fromkeys(train_counters(), 0)
+    # every f32 backward splits q, k, v and do first: one split_bf16x3 each
     checks = (
         (1, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
-             "flash_attention_fwd": 12, "flash_attention_bwd": 24}),
+             "flash_attention_fwd": 12, "flash_attention_bwd": 24, "split_bf16x3": 12}),
         (12, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
-              "flash_attention_packed_train_bwd": 24}),
+              "flash_attention_packed_train_bwd": 24, "split_bf16x3": 12}),
     )
     for fold, want in checks:
         cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=fold))
@@ -1584,14 +1655,18 @@ def phase_train_f32(card: str, trained, base):
             total[name] += n
     cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=1))
     args = TrainingArguments(bf16=False, learning_rate=t["args"].learning_rate)
-    # 12 training forwards and 12 plain backwards of 2 kernels per step
+    # 12 training forwards and 12 plain backwards of 2 kernels (and a split)
+    # per step
     want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
-            "flash_attention_packed_train_bwd": 24}
-    run = train_steps(cfg, model32, t["batches"][:F32_TRAIN_STEPS + 1], args, want)
+            "flash_attention_packed_train_bwd": 24, "split_bf16x3": 12}
+    run = train_steps(cfg, model32, t["batches"][:F32_TRAIN_STEPS + 1], args, want,
+                      trace=("bwd_dq_kernel", "bwd_dkv_kernel", "split_bf16x3_kernel"))
     for name, n in run["launches"].items():
         total[name] += n
     print(f"trained in f32 (TrainingArguments(bf16=False), scan_fold=1, dropout "
-          f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, base, '5c')}, "
+          f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, base, '5c')}; "
+          f"one more step traced: the f32 attention backward (split pre-pass, dq/dbias and "
+          f"dk/dv kernels) {run['traced']['traced']:.3f} device ms of {run['traced']['all']:.3f}, "
           f"on {card}")
     return total
 
@@ -1641,6 +1716,9 @@ def main() -> int:
         "table_grads": (train_launches, f"{TRAIN_STEPS} training steps"),
         "flash_attention_packed_train_tables_bwd": (
             tables_launches, f"{TRAIN_STEPS} training steps, MMEE_TABLE_GRADS=1"),
+        # f32 only: the path that runs it is phase 5f's
+        "split_bf16x3": (train32_launches,
+                         f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps"),
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     # each kernel's f32 launches: on phase 4f's served batches or in phase

@@ -19,8 +19,10 @@
 // Every kernel takes its operands (q, k, v, o, do and the gradients) in
 // bf16 or in f32, a template parameter T; the bias is bf16 or f32 on its
 // own. As in the TPU kernels, the products multiply in the operands' type
-// with f32 accumulation: bf16 on the bf16 tensor cores, f32 by 3xTF32
-// (common.cuh) on the TF32 ones, good to about f32's precision. The f32
+// with f32 accumulation: bf16 on the bf16 tensor cores; f32 good to about
+// f32's precision, in the forwards and (A') by 3xTF32 (common.cuh) on the
+// TF32 ones, in the backward's (A) and (B) by six bf16 products of operands
+// split into three bf16 parts (split_bf16x3 below). The f32
 // instantiations round nothing that the bf16 ones round to the operand
 // type: p before p.v, p.c before dv, ds before dq and dk.
 //
@@ -42,8 +44,11 @@
 // 73 us for its 7.25e10 FLOPs; the two-kernel design below reads the bias
 // twice and q/k/v/do twice: about 1.13 GB, 340 us (0.91 GB and 270 us
 // without gbias). In f32 the bytes double, and the FLOPs run
-// at 165 TFLOP/s (the 495 TF32 TFLOP/s over 3 passes): the forward 181 us
-// by bytes against 176 us by operations.
+// at 165 TFLOP/s (the 495 TF32 TFLOP/s over 3 passes, or the 989 bf16
+// TFLOP/s over 6): the forward 181 us by bytes against 176 us by
+// operations; the two-kernel backward reads the bias twice and the split
+// parts of q/k/v/do twice, 2.27 GB chained (680 us) and 1.81 GB plain
+// (540 us), against 440 us by operations.
 //
 // Forward design (sm_90a). Its time is how well the bias and k/v streams are
 // kept in flight, so one CTA per (128-row q tile, head, batch) runs three
@@ -102,8 +107,9 @@
 // In bf16, ds is rounded to bf16 before the dq/dk products and p c before
 // dv, as the TPU kernel does; dq/dk/dv accumulate in f32 and are rounded
 // once.
-// - bf16 (sm_90a, bwd_dq_kernel and bwd_dkv_kernel): the forward's TMA
-//   ring, with one warpgroup per CTA whose thread 0 also issues the copies
+// - sm_90a, bwd_dq_kernel and bwd_dkv_kernel, both operand types: the
+//   forward's TMA ring, with one warpgroup per CTA whose thread 0 also
+//   issues the copies
 //   ((A): each key block's k, v, bias and gbias tiles; (B): each q block's
 //   q, do and bias tiles, with its lse and delta by bulk copies), refilling
 //   a stage once all four warps have released it. No producer warp: 3 CTAs
@@ -124,23 +130,37 @@
 //   score products queue behind the previous block's gradient products,
 //   and its dropout mask bits (a template parameter: rate 0 has no hash)
 //   are made while both run. (A) reads its bias pairs 4 at a time, which
-//   keeps its dropout instantiations free of spills. Rows and keys at or past S are masked by
-//   index (the head-form lse is padded with 0 there), and a block with
-//   every row and key < S skips the tests; a block of (A) with no row or
-//   key < S loads only gbias and runs no product. With a bf16 bias (A)
-//   takes 65 KB of shared memory (81 KB chained: two CTAs per SM) and (B)
-//   67 KB.
-// - f32 (bwd_dq_body, bwd_dkv_body): 4 warps of 16 rows on mma.sync 3xTF32
-//   (wgmma takes tf32 only K-major, and three of the five products read B
-//   MN-major), the tiles staged by plain loads and read as stored (f32 B
-//   fragments are single elements), the bias read straight into registers.
+//   keeps its dropout instantiations free of spills. Rows and keys at or
+//   past S are masked by index (the head-form lse is padded with 0 there),
+//   and a block with every row and key < S skips the tests; a block of (A)
+//   with no row or key < S loads only gbias and runs no product. In bf16
+//   (A) takes 64 KB of shared memory (80 KB chained: two CTAs per SM) and
+//   (B) 65 KB.
+// - f32 operands run the same two kernels on the bf16 tensor cores.
+//   wgmma takes tf32 only K-major, and three of the five products read B
+//   MN-major, so each f32 operand x is split into three bf16 parts, hi =
+//   bf16(x), mid = bf16(x - hi), lo = bf16(x - hi - mid), which carry x's 24
+//   bits exactly (both differences are exact in f32, and bf16 has f32's
+//   exponent range), and a b becomes six bf16 products summed in f32, the
+//   small ones first: a_lo b_hi, a_hi b_lo, a_mid b_mid, a_mid b_hi,
+//   a_hi b_mid, a_hi b_hi (the three terms of order 2^-24 and below are
+//   left out). That is 3xTF32's work, 6 bf16 passes against 3 TF32 ones.
+//   A pre-pass kernel (split_bf16x3_kernel) writes the parts of q, k, v
+//   and do once per call as contiguous bf16 tensors, so the kernels' TMA
+//   maps load every part into a swizzled bf16 tile as in bf16 (one map per
+//   operand, part p of batch b at batch coordinate p B + b); ds and p c are
+//   split in registers into three sets of wgmma A fragments. A stage then
+//   holds three tiles per operand, so with an f32 bias the streamed blocks
+//   are 32 wide (BwdTiling): (A) takes 112 KB and (B) 113 KB, two CTAs per
+//   SM (the chained (A) 64 wide, 208 KB, one). delta is still rowsum(do o)
+//   of the f32 do and o.
 // - Backward with table gradients, three kernels, deterministic as well:
 //   (A') is (A) over the rows and keys < S only, writing no dbias: each key
 //   block's f32 ds tile goes to shared memory, and one thread per (row,
 //   table) walks it with a running sum while the bucket stays the same,
 //   flushing into that row's own column of a [bin][row] histogram; the CTA
 //   then sums each bin over its 64 rows in order into a per-CTA partial;
-//   (B) as above (in bf16 bwd_dkv_kernel; (A') stays on mma.sync in both
+//   (B) as above (bwd_dkv_kernel; (A') stays on mma.sync in both
 //   types); (C) sums the partials of each (bin, head) over (b, q
 //   block) in a fixed order. It sums f32 ds: the Pallas kernel's bf16 ds
 //   stash only saves VMEM. Bound at B=16, S=P=768, H=12, D=64, bf16: it
@@ -391,11 +411,11 @@ __device__ __forceinline__ float2 bias_pair(const float* tile, int lr, int nt, i
 }
 
 // element (r, c) of a 64 x 64 f32 tile in two 32-column, 128-byte-swizzled
-// boxes. The fragment reads below hit 32 distinct banks: q/k rows g with
-// columns 8ks + t (chunk 2ks ^ g), v rows 8ks + 2t (+1) with columns
-// 8dt + g (chunk (2dt + g / 4) ^ 2t (+1))
-__device__ __forceinline__ float sw32(const float* tile, int r, int c) {
-  const char* row = reinterpret_cast<const char*>(tile) + (c >> 5) * 8192 + r * 128;
+// boxes (of `box` bytes: 8192 for 64 rows). The fragment reads below hit 32
+// distinct banks: q/k rows g with columns 8ks + t (chunk 2ks ^ g), v rows
+// 8ks + 2t (+1) with columns 8dt + g (chunk (2dt + g / 4) ^ 2t (+1))
+__device__ __forceinline__ float sw32(const float* tile, int r, int c, int box = 8192) {
+  const char* row = reinterpret_cast<const char*>(tile) + (c >> 5) * box + r * 128;
   return *reinterpret_cast<const float*>(row + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
                                          4 * (c & 3));
 }
@@ -705,15 +725,17 @@ template <typename T>
 constexpr CUtensorMapDataType kMapType =
     kIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
-// the tensor map of a (B, H, rows, D) operand at its element strides
+// the tensor map of a (B, H, rows, D) operand at its element strides,
+// boxes of `box_rows` rows
 template <typename T>
-int encode_operand(CUtensorMap* map, const T* x, const Strides& st, int rows, int H, int B) {
+int encode_operand(CUtensorMap* map, const T* x, const Strides& st, int rows, int H, int B,
+                   int box_rows = 64) {
   const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(H),
                               static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * sizeof(T),
                                  static_cast<cuuint64_t>(st.h) * sizeof(T),
                                  static_cast<cuuint64_t>(st.b) * sizeof(T)};
-  const cuuint32_t box[4] = {Tile<T>::kBoxCols, 64, 1, 1};
+  const cuuint32_t box[4] = {Tile<T>::kBoxCols, static_cast<cuuint32_t>(box_rows), 1, 1};
   return encode_map(map, kMapType<T>, 4, x, dims, strides, box);
 }
 
@@ -779,21 +801,61 @@ int by_flag(int on, Fn&& fn) {
 }
 
 // ---------------------------------------------------------------------------
-// backward in bf16 (sm_90a): (A) delta, dbias and dq, (B) dk and dv, each a
-// TMA-fed ring with one wgmma consumer warpgroup of 64 rows
+// backward (sm_90a): (A) delta, dbias and dq, (B) dk and dv, each a TMA-fed
+// ring with one wgmma consumer warpgroup of 64 rows; bf16 operands as
+// stored, f32 operands as their three bf16 parts
 // ---------------------------------------------------------------------------
 
 constexpr int kDqStages = 2;    // depth of (A)'s ring
 constexpr int kDkvStages = 2;   // depth of (B)'s ring
 constexpr int kBwdThreads = 128;  // one warpgroup, which also issues the copies
-// CTAs per SM: 3 x 4 warps put 3 warps on each SM sub-partition, which
-// leaves ptxas 168 registers a thread (5-warp CTAs with a producer warp got
-// the same 168 at 2 CTAs per SM)
-constexpr int kBwdCtas = 3;
 
-// q, k, v, do as (D, rows, H, B) maps by their strides, boxes of 64 rows;
-// bias, gbias and dbias as (P, B*H*P) maps, boxes of 64 rows (dbias: 16,
-// one warp's rows)
+// The tiling of the backward pair by operand and bias type. A block is 64
+// rows (q rows in (A), keys in (B)) by kW columns (keys in (A), queries in
+// (B)). bf16: 64 x 64 blocks, and 3 x 4 warps put 3 warps on each SM
+// sub-partition, which leaves ptxas 168 registers a thread (5-warp CTAs with
+// a producer warp got the same 168 at 2 CTAs per SM). f32 operands with an
+// f32 bias: every operand tile holds three parts, so a 64-wide stage would
+// fill the SM with one CTA, whose one warpgroup leaves the tensor cores idle
+// through its elementwise pass; 32-wide streamed blocks fit two CTAs per SM
+// (both under 114 KB, at up to 255 registers), and one CTA's products run
+// while the other's elementwise pass does (on an H100: (A) 0.86 -> 0.70 ms,
+// (B) 1.37 -> 0.95 ms). The chained (A) keeps 64-wide blocks: with its
+// gbias tiles it holds one CTA per SM at either width (128 KB at 32), and
+// 64-wide blocks halve its blocks (0.91 ms against 1.04 at 32). f32
+// operands with a bf16 bias keep 64-wide blocks, one CTA per SM.
+template <typename T, typename BiasT, bool kChained>
+struct BwdTiling {
+  static constexpr bool kNarrow = kIsF32<T> && kIsF32<BiasT>;
+  static constexpr int kW = kNarrow && !kChained ? 32 : 64;  // streamed rows per block
+  static constexpr int kCtas = kIsF32<T> ? (kNarrow && !kChained ? 2 : 1) : 3;
+  // rows of the operand maps' and the bias maps' boxes: 32 in f32, so a
+  // 32-row tile is one box and a 64-row tile two
+  static constexpr int kOpBoxRows = kIsF32<T> ? 32 : 64;
+  static constexpr int kBiasBoxRows = kNarrow ? 32 : 64;
+};
+
+// the bf16 parts of an operand tile: the tile itself in bf16; hi, mid and
+// lo in f32, each a bf16 tile of 128-byte rows
+template <typename T>
+constexpr int kParts = kIsF32<T> ? 3 : 1;
+
+// the bf16 products that make up one product of split operands, smallest
+// first, as (part of A, part of B) with 0 hi, 1 mid, 2 lo: lo hi, hi lo,
+// mid mid, mid hi, hi mid, hi hi; the three of order 2^-24 and below (mid
+// lo, lo mid, lo lo) are left out. bf16 operands: hi hi alone
+template <typename T>
+constexpr int kTerms = kIsF32<T> ? 6 : 1;
+__host__ __device__ constexpr int term_a(int terms, int i) {
+  return terms == 1 ? 0 : i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int term_b(int terms, int i) {
+  return terms == 1 ? 0 : i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+// q, k, v, do as (D, rows, H, B) maps by their strides (f32: of their split
+// parts), boxes of kOpBoxRows rows; bias, gbias and dbias as (P, B*H*P)
+// maps, boxes of kBiasBoxRows rows (dbias: 16, one warp's rows)
 struct BwdMaps {
   CUtensorMap q, k, v, dout, bias, gbias, dbias;
 };
@@ -803,31 +865,59 @@ struct BwdStrides {
   Strides q, k, v, o, dout, dq, dk, dv;
 };
 
-// (A): q and do, then the ring: each stage k, v and this CTA's rows of the
-// bias (and gbias when chained), the latter also the staging tile of dbias;
-// 1 KB for alignment. bf16: 65 KB plain, three CTAs per SM; 81 KB chained,
-// two
-template <typename BiasT, bool kChained>
+// Both kernels keep everything in dynamic shared memory, the mbarriers
+// last, and declare it 1 KB aligned (the 128-byte swizzle's atom): with no
+// static shared memory in front of it, two CTAs of the f32 tiling fit an
+// SM (each takes 1 KB of system shared memory besides). The kernels check
+// the alignment and trap where it does not hold.
+//
+// (A): q and do (64 rows), then the ring: each stage k and v (kW rows) and
+// this CTA's 64 x kW tiles of the bias (and gbias when chained), the latter
+// also the staging tile of dbias; then delta of the 64 rows and the
+// barriers. bf16: 64 KB plain, three CTAs per SM; 80 KB chained, two. f32
+// (f32 bias): 112 KB plain, two; 208 KB chained (64 wide), one
+template <typename T, typename BiasT, bool kChained>
 struct DqSmem {
-  static constexpr int kTile = Tile<bf16>::kBytes;
-  static constexpr int kBias = Tile<BiasT>::kBytes;
-  static constexpr int kStage = 2 * kTile + (kChained ? 2 : 1) * kBias;
+  using Tiling = BwdTiling<T, BiasT, kChained>;
+  static constexpr int kW = Tiling::kW;
+  static constexpr int kPart = 64 * 128;        // a 64-row part tile
+  static constexpr int kStreamPart = kW * 128;  // a kW-row part tile
+  static constexpr int kTile = kParts<T> * kPart;
+  static constexpr int kStreamTile = kParts<T> * kStreamPart;
+  static constexpr int kBias = 64 * kW * static_cast<int>(sizeof(BiasT));
+  static constexpr int kStage = 2 * kStreamTile + (kChained ? 2 : 1) * kBias;
   static constexpr int kRing = 2 * kTile;
-  static constexpr int kBytes = 1024 + kRing + kDqStages * kStage;
+  static constexpr int kDeltaOff = kRing + kDqStages * kStage;  // 64 floats
+  static constexpr int kBarOff = kDeltaOff + 64 * 4;  // full, empty, then q's barrier
+  static constexpr int kBytes = kBarOff + (2 * kDqStages + 1) * 8;
 };
 
-// (B): k and v, then the ring: each stage q, do, the bias tile [query][key]
-// of this CTA's keys, then the 64 lse and 64 delta values, padded to 1 KB.
-// bf16: 67 KB, three CTAs per SM
-template <typename BiasT>
+// (B): k and v (64 rows), then the ring: each stage q, do (kW rows) and the
+// bias tile [query][key] of this CTA's keys; then each stage's kW lse and
+// kW delta values, and the barriers. bf16: 65 KB, three CTAs per SM; f32
+// (f32 bias): 113 KB, two
+template <typename T, typename BiasT>
 struct DkvSmem {
-  static constexpr int kTile = Tile<bf16>::kBytes;
-  static constexpr int kBias = Tile<BiasT>::kBytes;
-  static constexpr int kRows = 2 * kTile + kBias;  // lse, then delta
-  static constexpr int kStage = kRows + 1024;
+  using Tiling = BwdTiling<T, BiasT, false>;
+  static constexpr int kW = Tiling::kW;
+  static constexpr int kPart = 64 * 128;
+  static constexpr int kStreamPart = kW * 128;
+  static constexpr int kTile = kParts<T> * kPart;
+  static constexpr int kStreamTile = kParts<T> * kStreamPart;
+  static constexpr int kBias = kW * 64 * static_cast<int>(sizeof(BiasT));
+  static constexpr int kStage = 2 * kStreamTile + kBias;
   static constexpr int kRing = 2 * kTile;
-  static constexpr int kBytes = 1024 + kRing + kDkvStages * kStage;
+  static constexpr int kRowsOff = kRing + kDkvStages * kStage;  // lse, then delta, per stage
+  static constexpr int kBarOff = kRowsOff + kDkvStages * 2 * kW * 4;  // full, empty, k/v's
+  static constexpr int kBytes = kBarOff + (2 * kDkvStages + 1) * 8;
 };
+
+// the dynamic shared memory of a backward kernel, checked to be 1 KB
+// aligned: a misaligned base would break the 128-byte swizzle, so it traps
+__device__ __forceinline__ uint8_t* bwd_smem(uint8_t* raw) {
+  if (smem_addr(raw) & 1023) __trap();
+  return raw;
+}
 
 // f32 tiles (bf16 ones go through ldmatrix / stmatrix below): (A) writes
 // dbias's pair (row lr, columns 8nt + 2t, +1) at the address bias_pair
@@ -863,28 +953,79 @@ __device__ __forceinline__ float pair_half(uint32_t w, int c) {
   return __uint_as_float(c ? (w & 0xFFFF0000u) : (w << 16));
 }
 
+// x = hi + mid + lo for two values, each part a bf16 pair as wgmma's A
+// registers take it: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid). Both differences are exact in f32, and the parts hold x's 24 bits
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  hi = pack_bf16x2(x0, x1);
+  const float r0 = x0 - pair_half(hi, 0), r1 = x1 - pair_half(hi, 1);
+  mid = pack_bf16x2(r0, r1);
+  lo = pack_bf16x2(r0 - pair_half(mid, 0), r1 - pair_half(mid, 1));
+}
+
 // the score accumulators (index 4nt + e: row g + 8 (e >> 1), column
-// 8nt + 2t + (e & 1)) rounded to bf16 as wgmma's A registers, 4 k steps of
-// 16 columns
-__device__ __forceinline__ void pack_a(uint32_t (&a)[4][4], const float (&x)[32]) {
+// 8nt + 2t + (e & 1)) as wgmma's A registers, kK k steps of 16 columns, one
+// set per part: rounded to bf16 (one part), or split into hi, mid and lo
+// (three)
+template <int kN, int kK>
+__device__ __forceinline__ void to_a(uint32_t (&a)[kN][kK][4], const float (&x)[8 * kK]) {
 #pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    a[ks][0] = pack_bf16x2(x[8 * ks + 0], x[8 * ks + 1]);  // row g,   columns 16ks + 2t
-    a[ks][1] = pack_bf16x2(x[8 * ks + 2], x[8 * ks + 3]);  // row g+8
-    a[ks][2] = pack_bf16x2(x[8 * ks + 4], x[8 * ks + 5]);  // row g,   columns 16ks + 8 + 2t
-    a[ks][3] = pack_bf16x2(x[8 * ks + 6], x[8 * ks + 7]);  // row g+8
+  for (int ks = 0; ks < kK; ++ks) {
+    // j: row g, columns 16ks + 2t; row g+8; row g, columns 16ks + 8 + 2t; row g+8
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = x[8 * ks + 2 * j], x1 = x[8 * ks + 2 * j + 1];
+      if constexpr (kN == 1) {
+        a[0][ks][j] = pack_bf16x2(x0, x1);
+      } else {
+        split_pair(x0, x1, a[0][ks][j], a[1][ks][j], a[2][ks][j]);
+      }
+    }
   }
 }
 
-// 64 x 64 wgmma accumulators, times `mul`, stored as bf16 at the rows < S
-// of a plane with row stride `rs`; row0 is the warpgroup's first row
-__device__ __forceinline__ void store_acc(bf16* plane, const float (&acc)[32], int row0,
-                                          int lr0, int S, long long rs, float mul, int t) {
+// d = A B^T over d (64 wide), A and B [row][d] operand tiles read K-major
+// as stored (part tiles kPartA and kPartB bytes apart): every product of
+// parts, each over 4 k steps of 16; B has as many rows as d has columns
+template <typename T, int kPartA, int kPartB, int kN>
+__device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int i = 0; i < kTerms<T>; ++i) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + 2 * ks,
+               b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
+    }
+  }
+}
+
+// d (64 x 64) += A B, A (64 x 16 kK) in registers as one set of fragments
+// per part, B a [k][n] operand tile read as a transposed (MN-major) B (part
+// tiles kPartB bytes apart), a 16-row k step 2 KB on
+template <typename T, int kPartB, int kK>
+__device__ __forceinline__ void wgmma_by_cols(float (&d)[32],
+                                              const uint32_t (&a)[kParts<T>][kK][4], uint64_t b) {
+#pragma unroll
+  for (int i = 0; i < kTerms<T>; ++i) {
+#pragma unroll
+    for (int ks = 0; ks < kK; ++ks) {
+      wgmma_m64n64k16_rs_tb(d, a[term_a(kTerms<T>, i)][ks],
+                            b + term_b(kTerms<T>, i) * (kPartB >> 4) + ks * (2048 >> 4));
+    }
+  }
+}
+
+// 64 x 64 wgmma accumulators, times `mul`, stored as T at the rows < S of
+// a plane with row stride `rs`; row0 is the warpgroup's first row
+template <typename T>
+__device__ __forceinline__ void store_acc(T* plane, const float (&acc)[32], int row0, int lr0,
+                                          int S, long long rs, float mul, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + lr0 + 8 * r;
     if (row >= S) continue;
-    bf16* orow = plane + row * rs;
+    T* orow = plane + row * rs;
 #pragma unroll
     for (int dt = 0; dt < 8; ++dt) {
       store_pair(orow + dt * 8 + 2 * t, acc[4 * dt + 2 * r] * mul, acc[4 * dt + 2 * r + 1] * mul);
@@ -909,42 +1050,78 @@ __device__ __forceinline__ float row_delta(const T* dr, const T* orow) {
   return acc;
 }
 
+// rows [r0, r0 + rows) of an operand into dst, part by part (part p of
+// batch b is batch p B + b of the operand's map; part tiles `part` bytes
+// apart), in boxes of kBoxRows rows (thread 0)
+template <int kParts_, int kBoxRows>
+__device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int r0, int rows, int part, int h,
+                                             int b) {
+#pragma unroll
+  for (int p = 0; p < kParts_; ++p) {
+    for (int rb = 0; rb < rows; rb += kBoxRows) {
+      tma_load_4d(dst + p * part + rb * 128, map, bar, 0, r0 + rb, h,
+                  p * static_cast<int>(gridDim.z) + b);
+    }
+  }
+}
+
+// a rows x cols tile of a (B, H, P, P) plane tensor (boxes of kBoxRows rows
+// and 128 bytes of columns; a box column rows x 128 bytes on) (thread 0)
+template <typename BiasT, int kBoxRows>
+__device__ __forceinline__ void load_plane_tile(uint8_t* dst, const CUtensorMap* map,
+                                                uint64_t* bar, int col0, int row0, int rows,
+                                                int cols) {
+  for (int c = 0; c < cols; c += Tile<BiasT>::kBoxCols) {
+    for (int rb = 0; rb < rows; rb += kBoxRows) {
+      tma_load_2d(dst + (c / Tile<BiasT>::kBoxCols) * rows * 128 + rb * 128, map, bar, col0 + c,
+                  row0 + rb);
+    }
+  }
+}
+
 // (A) One CTA per (64-row q tile over all P rows, head, batch), one
 // warpgroup; thread 0 also issues the copies. It loads q and do once and
-// keeps a ring of kDqStages stages filled with each 64-key block's k, v,
+// keeps a ring of kDqStages stages filled with each kW-key block's k, v,
 // bias (and gbias) tiles, refilling a stage as soon as all four warps have
 // released it. The warps compute delta = rowsum(do o) for their rows, then
 // per block S = q k^T and dP = do v^T (wgmma, all operands K-major as
 // stored), p = exp(s scale + bias - lse), ds = p (dp c - delta), zero at
 // rows or keys >= S; dbias = ds (+ gbias) overwrites the bias (gbias) tile
 // in place, and each warp sends its 16 rows out by a TMA store; dQ += dS k
-// with dS rounded to bf16 in wgmma's A registers and k read [key][d] as an
-// MN-major B. The next block's score products queue behind that product,
-// and its mask bits are made while both run.
-template <typename BiasT, bool kDropout, bool kChained>
-__global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
-    const __grid_constant__ BwdMaps maps,
-    const bf16* __restrict__ dout, const bf16* __restrict__ o,  // delta's inputs
-    const float* __restrict__ lse,  // (B, H, P)
-    bf16* __restrict__ dq,          // (B, H, S, D) by strides
-    float* __restrict__ delta,      // (B, H, P), written here
-    Strides sdo, Strides so, Strides sdq, int S, int H, int P, float scale, int seed,
-    float keep, float inv_keep) {
-  using Smem = DqSmem<BiasT, kChained>;
+// with dS in wgmma's A registers (rounded to bf16, or split into three
+// parts) and k read [key][d] as an MN-major B. The next block's score
+// products queue behind that product, and its mask bits are made while
+// both run.
+template <typename T, typename BiasT, bool kDropout, bool kChained>
+__global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::kCtas))
+    bwd_dq_kernel(const __grid_constant__ BwdMaps maps,
+                  const T* __restrict__ dout, const T* __restrict__ o,  // delta's inputs
+                  const float* __restrict__ lse,  // (B, H, P)
+                  T* __restrict__ dq,             // (B, H, S, D) by strides
+                  float* __restrict__ delta,      // (B, H, P), written here
+                  Strides sdo, Strides so, Strides sdq, int S, int H, int P, float scale,
+                  int seed, float keep, float inv_keep) {
+  using Smem = DqSmem<T, BiasT, kChained>;
+  using Tiling = BwdTiling<T, BiasT, kChained>;
+  constexpr int kW = Smem::kW;
+  constexpr int kN = kW / 2;  // accumulators of a 64 x kW block per thread
   constexpr int kTile = Smem::kTile;
+  constexpr int kStreamTile = Smem::kStreamTile;
   constexpr int kBias = Smem::kBias;
   constexpr bool kBf16Bias = !kIsF32<BiasT>;
-  extern __shared__ uint8_t bwd_smem_raw[];
-  __shared__ uint64_t full_bar[kDqStages], empty_bar[kDqStages], q_bar;
-  __shared__ float s_delta[64];
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  extern __shared__ __align__(1024) uint8_t bwd_smem_raw[];
+  uint8_t* smem = bwd_smem(bwd_smem_raw);
+  float* s_delta = reinterpret_cast<float*>(smem + Smem::kDeltaOff);
+  uint64_t* full_bar = reinterpret_cast<uint64_t*>(smem + Smem::kBarOff);
+  uint64_t* empty_bar = full_bar + kDqStages;
+  uint64_t* q_bar = empty_bar + kDqStages;
 
   const int q0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int plane = b * H + h;
-  const int n_kb = P / kBK;  // every column of the plane: dbias is P x P
+  const int n_kb = P / kW;  // every column of the plane: dbias is P x P
   const int ct = threadIdx.x;
   const int warp = ct / 32, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -956,19 +1133,19 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
   auto load_block = [&](int kb) {
     uint8_t* st = smem + Smem::kRing + (kb % kDqStages) * Smem::kStage;
     uint64_t* bar = &full_bar[kb % kDqStages];
-    const bool live = q0 < S && kb * kBK < S;
-    mbar_expect_tx(bar, (live ? 2 * kTile + kBias : 0) + (kChained ? kBias : 0));
+    const bool live = q0 < S && kb * kW < S;
+    mbar_expect_tx(bar, (live ? 2 * kStreamTile + kBias : 0) + (kChained ? kBias : 0));
     if (live) {
-      tma_load_4d(st, &maps.k, bar, 0, kb * kBK, h, b);
-      tma_load_4d(st + kTile, &maps.v, bar, 0, kb * kBK, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows>(st, &maps.k, bar, kb * kW, kW,
+                                                   Smem::kStreamPart, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows>(st + kStreamTile, &maps.v, bar, kb * kW, kW,
+                                                   Smem::kStreamPart, h, b);
+      load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar,
+                                                   kb * kW, plane * P + q0, 64, kW);
     }
-#pragma unroll
-    for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
-      const int col = kb * kBK + c * Tile<BiasT>::kBoxCols;
-      if (live) tma_load_2d(st + 2 * kTile + c * 8192, &maps.bias, bar, col, plane * P + q0);
-      if constexpr (kChained) {
-        tma_load_2d(st + 2 * kTile + kBias + c * 8192, &maps.gbias, bar, col, plane * P + q0);
-      }
+    if constexpr (kChained) {
+      load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile + kBias, &maps.gbias,
+                                                   bar, kb * kW, plane * P + q0, 64, kW);
     }
   };
   if (ct == 0) {
@@ -976,7 +1153,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
       mbar_init(&full_bar[s], 1);
       mbar_init(&empty_bar[s], 4);  // one arrival per warp
     }
-    mbar_init(&q_bar, 1);
+    mbar_init(q_bar, 1);
     mbar_init_fence();
     tma_prefetch_map(&maps.q);
     tma_prefetch_map(&maps.k);
@@ -984,10 +1161,12 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
     tma_prefetch_map(&maps.dout);
     tma_prefetch_map(&maps.bias);
     if constexpr (kChained) tma_prefetch_map(&maps.gbias);
-    mbar_expect_tx(&q_bar, q0 < S ? 2 * kTile : 0);
+    mbar_expect_tx(q_bar, q0 < S ? 2 * kTile : 0);
     if (q0 < S) {
-      tma_load_4d(smem, &maps.q, &q_bar, 0, q0, h, b);
-      tma_load_4d(smem + kTile, &maps.dout, &q_bar, 0, q0, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows>(smem, &maps.q, q_bar, q0, 64, Smem::kPart, h,
+                                                   b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows>(smem + kTile, &maps.dout, q_bar, q0, 64,
+                                                   Smem::kPart, h, b);
     }
     for (int kb = 0; kb < kDqStages && kb < n_kb; ++kb) load_block(kb);
   }
@@ -1012,37 +1191,35 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
   }
   const Dropout drop(seed, plane, keep, inv_keep);
 
-  float dq_acc[32], s[32], dp[32];
+  float dq_acc[32], s[kN], dp[kN];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
-  uint32_t pa[4][4];  // dS of the block in flight, wgmma's A registers
+  uint32_t pa[kParts<T>][kW / 16][4];  // dS of the block in flight, wgmma's A registers
   const uint64_t q_desc = wgmma_desc(smem, 16, 1024);
   const uint64_t do_desc = wgmma_desc(smem + kTile, 16, 1024);
-  mbar_wait(&q_bar, 0);
+  mbar_wait(q_bar, 0);
 
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
+    const int k0 = kb * kW;
     const int stage = kb % kDqStages;
     mbar_wait(&full_bar[stage], (kb / kDqStages) & 1);
     uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
     const uint64_t k_desc = wgmma_desc(st, 16, 1024);
-    const uint64_t v_desc = wgmma_desc(st + kTile, 16, 1024);
+    const uint64_t v_desc = wgmma_desc(st + kStreamTile, 16, 1024);
     const bool live = q0 < S && k0 < S;
 
     // S = q k^T and dP = do v^T over d, queued behind the previous block's
     // dQ += dS k (whose A registers stay live until the wait)
     if (live) {
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(s, q_desc + 2 * ks, k_desc + 2 * ks, ks);
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(dp, do_desc + 2 * ks, v_desc + 2 * ks, ks);
+      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(s, q_desc, k_desc);
+      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(dp, do_desc, v_desc);
       wgmma_commit();
     }
     uint32_t kept = 0;  // this block's dropout mask, made while the products run
     if constexpr (kDropout) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN; ++i) {
         const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
         kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
       }
@@ -1067,15 +1244,15 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
 
     // ds (zero at rows or keys >= S), and dbias = ds (+ gbias) written over
     // the tile it came from
-    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTile);
-    BiasT* out = reinterpret_cast<BiasT*>(st + 2 * kTile + (kChained ? kBias : 0));
-    // the elementwise pass in 4 steps of 4 pairs (bf16: one ldmatrix of the
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kStreamTile);
+    BiasT* out = reinterpret_cast<BiasT*>(st + 2 * kStreamTile + (kChained ? kBias : 0));
+    // the elementwise pass in steps of 4 pairs (bf16: one ldmatrix of the
     // bias, one of gbias and one stmatrix of dbias each), without the bounds
     // tests where the block has every row and key < S
     auto ds_tile = [&](auto all_in) {
       constexpr bool kAllIn = decltype(all_in)::value;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kW / 16; ++j) {
         uint32_t bias_w[4], gbias_w[4], out_w[4];
         if constexpr (kBf16Bias) {
           ldsm_x4(bias_w, pairs_addr(bias_tile, warp, lane, j));
@@ -1123,7 +1300,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
         if constexpr (kBf16Bias) stsm_x4(pairs_addr(out, warp, lane, j), out_w);
       }
     };
-    if (q0 + 64 <= S && k0 + 64 <= S) {
+    if (q0 + 64 <= S && k0 + kW <= S) {
       ds_tile(std::true_type{});
     } else {
       ds_tile(std::false_type{});
@@ -1133,21 +1310,21 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
     __syncwarp();
     if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
-        tma_store_2d(&maps.dbias, reinterpret_cast<const uint8_t*>(out) + c * 8192 + warp * 2048,
-                     k0 + c * Tile<BiasT>::kBoxCols, plane * P + q0 + warp * 16);
+      for (int c = 0; c < kW; c += Tile<BiasT>::kBoxCols) {
+        tma_store_2d(&maps.dbias,
+                     reinterpret_cast<const uint8_t*>(out) + (c / Tile<BiasT>::kBoxCols) * 8192 +
+                         warp * 2048,
+                     k0 + c, plane * P + q0 + warp * 16);
       }
       tma_store_commit();
     }
 
-    // dQ += dS k: dS rounded to bf16; k read [key][d] as a transposed B
+    // dQ += dS k: dS rounded to bf16 or split; k read [key][d] as a
+    // transposed B
     if (live) {
-      pack_a(pa, s);
+      to_a(pa, s);
       wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        wgmma_m64n64k16_rs_tb(dq_acc, pa[ks], k_desc + ks * (2048 >> 4));
-      }
+      wgmma_by_cols<T, Smem::kStreamPart>(dq_acc, pa, k_desc);
       wgmma_commit();
     }
   }
@@ -1160,106 +1337,113 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dq_kernel(
 
 // (B) One CTA per (64-key tile, head, batch), one warpgroup (rows: keys);
 // thread 0 also issues the copies. It loads k and v once and keeps a ring
-// of kDkvStages stages filled with each 64-query block's q, do and bias
+// of kDkvStages stages filled with each kW-query block's q, do and bias
 // tile (rows: queries, columns: this CTA's keys), and its lse and delta by
 // bulk copies. The warps run S^T = k q^T and dP^T = v do^T (wgmma, K-major
 // as stored), p = exp(s scale + bias - lse) with the bias read transposed
 // out of the swizzled tile, pd = p c and ds = p (dp c - delta), zero at
 // queries or keys >= S (by index: the lse of pad rows may be 0 or +inf),
-// then dV += (p c)^T do and dK += dS^T q with both rounded to bf16 in
-// wgmma's A registers and do, q read [query][d] as MN-major B operands.
-template <typename BiasT, bool kDropout>
-__global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
-    const __grid_constant__ BwdMaps maps,
-    const float* __restrict__ lse,    // (B, H, P)
-    const float* __restrict__ delta,  // (B, H, P)
-    bf16* __restrict__ dk, bf16* __restrict__ dv,  // (B, H, S, D) by strides
-    Strides sdk, Strides sdv, int S, int H, int P, float scale, int seed, float keep,
-    float inv_keep) {
-  using Smem = DkvSmem<BiasT>;
+// then dV += (p c)^T do and dK += dS^T q with both in wgmma's A registers
+// (rounded to bf16, or split into three parts) and do, q read [query][d]
+// as MN-major B operands.
+template <typename T, typename BiasT, bool kDropout>
+__global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCtas))
+    bwd_dkv_kernel(const __grid_constant__ BwdMaps maps,
+                   const float* __restrict__ lse,    // (B, H, P)
+                   const float* __restrict__ delta,  // (B, H, P)
+                   T* __restrict__ dk, T* __restrict__ dv,  // (B, H, S, D) by strides
+                   Strides sdk, Strides sdv, int S, int H, int P, float scale, int seed,
+                   float keep, float inv_keep) {
+  using Smem = DkvSmem<T, BiasT>;
+  using Tiling = BwdTiling<T, BiasT, false>;
+  constexpr int kW = Smem::kW;
+  constexpr int kN = kW / 2;
   constexpr int kTile = Smem::kTile;
+  constexpr int kStreamTile = Smem::kStreamTile;
   constexpr bool kBf16Bias = !kIsF32<BiasT>;
-  extern __shared__ uint8_t bwd_smem_raw[];
-  __shared__ uint64_t full_bar[kDkvStages], empty_bar[kDkvStages], kv_bar;
-  uint8_t* smem = reinterpret_cast<uint8_t*>(
-      (reinterpret_cast<uintptr_t>(bwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
+  extern __shared__ __align__(1024) uint8_t bwd_smem_raw[];
+  uint8_t* smem = bwd_smem(bwd_smem_raw);
+  uint64_t* full_bar = reinterpret_cast<uint64_t*>(smem + Smem::kBarOff);
+  uint64_t* empty_bar = full_bar + kDkvStages;
+  uint64_t* kv_bar = empty_bar + kDkvStages;
 
   const int j0 = blockIdx.x * 64;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int plane = b * H + h;
-  const int n_qb = (S + kBQ - 1) / kBQ;
+  const int n_qb = (S + kW - 1) / kW;
   const int ct = threadIdx.x;
   const int warp = ct / 32, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
   const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};
   const int key[2] = {j0 + lr[0], j0 + lr[1]};
 
-  // block qb's tiles into its stage (thread 0)
+  // block qb's tiles into its stage, its lse and delta beside (thread 0)
   auto load_block = [&](int qb) {
-    const int i0 = qb * kBQ;
-    uint8_t* st = smem + Smem::kRing + (qb % kDkvStages) * Smem::kStage;
-    uint64_t* bar = &full_bar[qb % kDkvStages];
-    mbar_expect_tx(bar, Smem::kRows + 2 * kBQ * 4);
-    tma_load_4d(st, &maps.q, bar, 0, i0, h, b);
-    tma_load_4d(st + kTile, &maps.dout, bar, 0, i0, h, b);
-#pragma unroll
-    for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
-      tma_load_2d(st + 2 * kTile + c * 8192, &maps.bias, bar, j0 + c * Tile<BiasT>::kBoxCols,
-                  plane * P + i0);
-    }
-    bulk_load(st + Smem::kRows, lse + static_cast<size_t>(plane) * P + i0, kBQ * 4, bar);
-    bulk_load(st + Smem::kRows + kBQ * 4, delta + static_cast<size_t>(plane) * P + i0, kBQ * 4,
-              bar);
+    const int i0 = qb * kW;
+    const int stage = qb % kDkvStages;
+    uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
+    uint8_t* rows = smem + Smem::kRowsOff + stage * 2 * kW * 4;
+    uint64_t* bar = &full_bar[stage];
+    mbar_expect_tx(bar, Smem::kStage + 2 * kW * 4);
+    load_operand<kParts<T>, Tiling::kOpBoxRows>(st, &maps.q, bar, i0, kW, Smem::kStreamPart, h,
+                                                 b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows>(st + kStreamTile, &maps.dout, bar, i0, kW,
+                                                 Smem::kStreamPart, h, b);
+    load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar, j0,
+                                                 plane * P + i0, kW, 64);
+    bulk_load(rows, lse + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
+    bulk_load(rows + kW * 4, delta + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
   };
   if (ct == 0) {
     for (int s = 0; s < kDkvStages; ++s) {
       mbar_init(&full_bar[s], 1);
       mbar_init(&empty_bar[s], 4);  // one arrival per warp
     }
-    mbar_init(&kv_bar, 1);
+    mbar_init(kv_bar, 1);
     mbar_init_fence();
     tma_prefetch_map(&maps.q);
     tma_prefetch_map(&maps.k);
     tma_prefetch_map(&maps.v);
     tma_prefetch_map(&maps.dout);
     tma_prefetch_map(&maps.bias);
-    mbar_expect_tx(&kv_bar, 2 * kTile);
-    tma_load_4d(smem, &maps.k, &kv_bar, 0, j0, h, b);
-    tma_load_4d(smem + kTile, &maps.v, &kv_bar, 0, j0, h, b);
+    mbar_expect_tx(kv_bar, 2 * kTile);
+    load_operand<kParts<T>, Tiling::kOpBoxRows>(smem, &maps.k, kv_bar, j0, 64, Smem::kPart, h,
+                                                 b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows>(smem + kTile, &maps.v, kv_bar, j0, 64,
+                                                 Smem::kPart, h, b);
     for (int qb = 0; qb < kDkvStages && qb < n_qb; ++qb) load_block(qb);
   }
   __syncthreads();  // the barriers' initialisation
   const Dropout drop(seed, plane, keep, inv_keep);
 
-  float dk_acc[32], dv_acc[32], s[32], dp[32];
+  float dk_acc[32], dv_acc[32], s[kN], dp[kN];
 #pragma unroll
   for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
-  uint32_t pd_a[4][4], ds_a[4][4];  // the block in flight's (p c)^T and dS^T
+  // the block in flight's (p c)^T and dS^T as wgmma's A registers
+  uint32_t pd_a[kParts<T>][kW / 16][4], ds_a[kParts<T>][kW / 16][4];
   const uint64_t k_desc = wgmma_desc(smem, 16, 1024);
   const uint64_t v_desc = wgmma_desc(smem + kTile, 16, 1024);
-  mbar_wait(&kv_bar, 0);
+  mbar_wait(kv_bar, 0);
 
   for (int qb = 0; qb < n_qb; ++qb) {
-    const int i0 = qb * kBQ;
+    const int i0 = qb * kW;
     const int stage = qb % kDkvStages;
     mbar_wait(&full_bar[stage], (qb / kDkvStages) & 1);
     const uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
     const uint64_t q_desc = wgmma_desc(st, 16, 1024);
-    const uint64_t do_desc = wgmma_desc(st + kTile, 16, 1024);
+    const uint64_t do_desc = wgmma_desc(st + kStreamTile, 16, 1024);
 
     // S^T = k q^T and dP^T = v do^T over d, queued behind the previous
     // block's dV/dK products (whose A registers stay live until the wait)
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(s, k_desc + 2 * ks, q_desc + 2 * ks, ks);
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) wgmma_m64n64k16_ss(dp, v_desc + 2 * ks, do_desc + 2 * ks, ks);
+    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(s, k_desc, q_desc);
+    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(dp, v_desc, do_desc);
     wgmma_commit();
     uint32_t kept = 0;  // this block's dropout mask, made while the products run
     if constexpr (kDropout) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN; ++i) {
         const int query = i0 + (i >> 2) * 8 + 2 * t + (i & 1);
         kept |= static_cast<uint32_t>(drop.keeps(query, key[(i >> 1) & 1])) << i;
       }
@@ -1281,9 +1465,10 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
       }
     }
 
-    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTile);
-    const float* s_lse = reinterpret_cast<const float*>(st + Smem::kRows);
-    const float* s_delta = s_lse + kBQ;
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kStreamTile);
+    const float* s_lse =
+        reinterpret_cast<const float*>(smem + Smem::kRowsOff + stage * 2 * kW * 4);
+    const float* s_delta = s_lse + kW;
     uint32_t bias_w[8][2];  // bf16 pairs (queries 8nt + 2t, +1; key lr[r]) by ldmatrix.trans
     if constexpr (kBf16Bias) {
 #pragma unroll
@@ -1297,7 +1482,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
     auto p_ds_tile = [&](auto all_in) {  // without bounds tests where all is < S
       constexpr bool kAllIn = decltype(all_in)::value;
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN; ++i) {
         const int r = (i >> 1) & 1;
         const int ci = (i >> 2) * 8 + 2 * t + (i & 1);  // the query within the block
         float pd = 0.0f, ds = 0.0f;
@@ -1306,7 +1491,7 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
           if constexpr (kBf16Bias) {
             bv = pair_half(bias_w[i >> 2][r], i & 1);
           } else {
-            bv = sw32(bias_tile, ci, lr[r]);
+            bv = sw32(bias_tile, ci, lr[r], kW * 128);
           }
           const float p = expf(s[i] * scale + bv - s_lse[ci]);
           const float c = kDropout ? ((kept >> i) & 1u ? inv_keep : 0.0f) : 1.0f;
@@ -1317,24 +1502,18 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
         dp[i] = ds;
       }
     };
-    if (i0 + 64 <= S && j0 + 64 <= S) {
+    if (i0 + kW <= S && j0 + 64 <= S) {
       p_ds_tile(std::true_type{});
     } else {
       p_ds_tile(std::false_type{});
     }
-    // dV += (p c)^T do and dK += dS^T q, both rounded to bf16; do and q
-    // read [query][d] as transposed B operands
-    pack_a(pd_a, s);
-    pack_a(ds_a, dp);
+    // dV += (p c)^T do and dK += dS^T q, both rounded to bf16 or split; do
+    // and q read [query][d] as transposed B operands
+    to_a(pd_a, s);
+    to_a(ds_a, dp);
     wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_m64n64k16_rs_tb(dv_acc, pd_a[ks], do_desc + ks * (2048 >> 4));
-    }
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_m64n64k16_rs_tb(dk_acc, ds_a[ks], q_desc + ks * (2048 >> 4));
-    }
+    wgmma_by_cols<T, Smem::kStreamPart>(dv_acc, pd_a, do_desc);
+    wgmma_by_cols<T, Smem::kStreamPart>(dk_acc, ds_a, q_desc);
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -1346,29 +1525,55 @@ __global__ void __launch_bounds__(kBwdThreads, kBwdCtas) bwd_dkv_kernel(
   store_acc(plane_of(dv, sdv, b, h), dv_acc, j0, warp * 16 + g, S, sdv.s, 1.0f, t);
 }
 
-// q, k, v, do and the bias, and gbias and dbias where given
-template <typename BiasT>
-int encode_bwd_maps(BwdMaps* m, const bf16* q, const bf16* k, const bf16* v, const bf16* dout,
-                    const void* bias, const void* gbias, const void* dbias,
+// the split parts of q, k, v and do that the caller's split pre-pass
+// (mmee_split_bf16x3) wrote after delta's B * H * P floats in the f32
+// backwards' scratch: (4, 3, B, H, S, 64) bf16
+inline const bf16* split_parts(const float* delta, int B, int H, int P) {
+  return reinterpret_cast<const bf16*>(delta + static_cast<size_t>(B) * H * P);
+}
+
+// q, k, v, do (f32: their split parts, from `delta`'s scratch) and the
+// bias, and gbias and dbias where given, with the boxes of BwdTiling
+template <typename T, typename BiasT>
+int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dout,
+                    const float* delta, const void* bias, const void* gbias, const void* dbias,
                     const BwdStrides& ss, int B, int S, int H, int P) {
-  int err = encode_operand(&m->q, q, ss.q, S, H, B);
-  if (err == 0) err = encode_operand(&m->k, k, ss.k, S, H, B);
-  if (err == 0) err = encode_operand(&m->v, v, ss.v, S, H, B);
-  if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, S, H, B);
-  if (err == 0) err = encode_plane<BiasT>(&m->bias, bias, B, H, P);
-  if (err == 0 && gbias != nullptr) err = encode_plane<BiasT>(&m->gbias, gbias, B, H, P);
+  using Tiling = BwdTiling<T, BiasT, false>;
+  int err = 0;
+  if constexpr (kIsF32<T>) {
+    // an operand's parts are a (3 B, H, S, 64) tensor: part p of batch b is
+    // batch p B + b
+    const bf16* parts = split_parts(delta, B, H, P);
+    const size_t n = static_cast<size_t>(3) * B * H * S * kD;
+    const Strides cs{static_cast<long long>(H) * S * kD, static_cast<long long>(S) * kD, kD};
+    constexpr int kRows = Tiling::kOpBoxRows;
+    err = encode_operand(&m->q, parts, cs, S, H, 3 * B, kRows);
+    if (err == 0) err = encode_operand(&m->k, parts + n, cs, S, H, 3 * B, kRows);
+    if (err == 0) err = encode_operand(&m->v, parts + 2 * n, cs, S, H, 3 * B, kRows);
+    if (err == 0) err = encode_operand(&m->dout, parts + 3 * n, cs, S, H, 3 * B, kRows);
+  } else {
+    err = encode_operand(&m->q, q, ss.q, S, H, B);
+    if (err == 0) err = encode_operand(&m->k, k, ss.k, S, H, B);
+    if (err == 0) err = encode_operand(&m->v, v, ss.v, S, H, B);
+    if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, S, H, B);
+  }
+  constexpr int kBiasRows = Tiling::kBiasBoxRows;
+  if (err == 0) err = encode_plane<BiasT>(&m->bias, bias, B, H, P, kBiasRows);
+  if (err == 0 && gbias != nullptr) {
+    err = encode_plane<BiasT>(&m->gbias, gbias, B, H, P, kBiasRows);
+  }
   if (err == 0 && dbias != nullptr) err = encode_plane<BiasT>(&m->dbias, dbias, B, H, P, 16);
   return err;
 }
 
 // (B) alone: the dk/dv kernel that the tables backward shares
-template <typename BiasT>
-int launch_bwd_dkv_bf16(const BwdMaps& maps, const float* lse, const float* delta, bf16* dk,
-                        bf16* dv, const BwdStrides& ss, int B, int S, int H, int P, float scale,
-                        int seed, float keep, float inv_keep, int dropout, cudaStream_t st) {
+template <typename T, typename BiasT>
+int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T* dk, T* dv,
+                   const BwdStrides& ss, int B, int S, int H, int P, float scale, int seed,
+                   float keep, float inv_keep, int dropout, cudaStream_t st) {
   return by_flag(dropout, [&](auto drop) {
-    auto kernel = bwd_dkv_kernel<BiasT, decltype(drop)::value>;
-    constexpr int smem = DkvSmem<BiasT>::kBytes;
+    auto kernel = bwd_dkv_kernel<T, BiasT, decltype(drop)::value>;
+    constexpr int smem = DkvSmem<T, BiasT>::kBytes;
     static std::atomic<uint64_t> ready{0};
     const int err = set_smem_limit_once(kernel, smem, ready);
     if (err != 0) return err;
@@ -1378,21 +1583,23 @@ int launch_bwd_dkv_bf16(const BwdMaps& maps, const float* lse, const float* delt
   });
 }
 
-// the bf16 backward pair, (A) then (B); gbias null unless chained
-template <typename BiasT>
-int launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const void* bias,
-                    const bf16* dout, const bf16* o, const float* lse, const void* gbias,
-                    bf16* dq, bf16* dk, bf16* dv, void* dbias, float* delta,
-                    const BwdStrides& ss, int B, int S, int H, int P, float scale, int seed,
-                    float keep, float inv_keep, int dropout, cudaStream_t st) {
+// the backward pair, (A) then (B); gbias null unless chained; with f32
+// operands `delta` is followed by the split parts of q, k, v and do
+template <typename T, typename BiasT>
+int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const T* dout,
+                    const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
+                    void* dbias, float* delta, const BwdStrides& ss, int B, int S, int H, int P,
+                    float scale, int seed, float keep, float inv_keep, int dropout,
+                    cudaStream_t st) {
   BwdMaps maps;
-  int err = encode_bwd_maps<BiasT>(&maps, q, k, v, dout, bias, gbias, dbias, ss, B, S, H, P);
+  int err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, gbias, dbias, ss, B,
+                                      S, H, P);
   if (err != 0) return err;
   err = by_flag(dropout, [&](auto drop) {
     return by_flag(gbias != nullptr, [&](auto chained) {
       constexpr bool kChained = decltype(chained)::value;
-      auto kernel = bwd_dq_kernel<BiasT, decltype(drop)::value, kChained>;
-      constexpr int smem = DqSmem<BiasT, kChained>::kBytes;
+      auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, kChained>;
+      constexpr int smem = DqSmem<T, BiasT, kChained>::kBytes;
       static std::atomic<uint64_t> ready{0};
       const int e = set_smem_limit_once(kernel, smem, ready);
       if (e != 0) return e;
@@ -1403,13 +1610,61 @@ int launch_bwd_bf16(const bf16* q, const bf16* k, const bf16* v, const void* bia
     });
   });
   if (err != 0) return err;
-  return launch_bwd_dkv_bf16<BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
-                                    keep, inv_keep, dropout, st);
+  return launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
+                                  inv_keep, dropout, st);
 }
 
 // ---------------------------------------------------------------------------
-// backward in f32 (A): delta, dbias (= ds, + gbias when chained) and dq; its
-// helpers also serve the tables backward's (A') in bf16 and f32
+// the split pre-pass of the f32 backwards
+// ---------------------------------------------------------------------------
+
+// up to four f32 (B, H, S, 64) operands and their element strides
+struct SplitSrc {
+  const float* x[4];
+  Strides st[4];
+};
+
+// One thread per 8 values of a row of operand blockIdx.y: x into three bf16
+// tensors hi, mid, lo (split_pair) of `parts`, (operand, part, B, H, S, 64)
+// contiguous, 16-byte loads and stores. Bound by bytes: 4 read and 6
+// written per value, 0.11 ms for q, k, v and do at B = 16, H = 12, S = 768
+// on an H100 (3.35 TB/s)
+__global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant__ SplitSrc src,
+                                                           bf16* __restrict__ parts, int B,
+                                                           int H, int S) {
+  const long long rows = static_cast<long long>(B) * H * S;
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= rows * (kD / 8)) return;
+  const float* x = nullptr;
+  Strides st{0, 0, 0};
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {  // constant indices: no local copy of src
+    if (j == static_cast<int>(blockIdx.y)) {
+      x = src.x[j];
+      st = src.st[j];
+    }
+  }
+  const long long row = i / (kD / 8);
+  const int c = static_cast<int>(i % (kD / 8)) * 8;
+  const int s = static_cast<int>(row % S);
+  const int bh = static_cast<int>(row / S);
+  const float* p = x + (bh / H) * st.b + (bh % H) * st.h + s * st.s + c;
+  const float4 v0 = *reinterpret_cast<const float4*>(p);
+  const float4 v1 = *reinterpret_cast<const float4*>(p + 4);
+  uint4 hi, mid, lo;
+  split_pair(v0.x, v0.y, hi.x, mid.x, lo.x);
+  split_pair(v0.z, v0.w, hi.y, mid.y, lo.y);
+  split_pair(v1.x, v1.y, hi.z, mid.z, lo.z);
+  split_pair(v1.z, v1.w, hi.w, mid.w, lo.w);
+  const size_t n = static_cast<size_t>(rows) * kD;  // one part
+  bf16* out = parts + blockIdx.y * 3 * n + row * kD + c;
+  *reinterpret_cast<uint4*>(out) = hi;
+  *reinterpret_cast<uint4*>(out + n) = mid;
+  *reinterpret_cast<uint4*>(out + 2 * n) = lo;
+}
+
+// ---------------------------------------------------------------------------
+// the tables backward's (A') on mma.sync: its helpers, bf16 and f32
 // ---------------------------------------------------------------------------
 
 // dq += ds k over one key block: bf16 rounds ds and reads the transposed
@@ -1470,255 +1725,6 @@ __device__ __forceinline__ void load_k_v(T* s_k, T* s_kt, T* s_v, const T* kp, c
   load_rows(s_v, vp, k0, S, v_rs, tid);
 }
 
-template <typename T, typename BiasT>
-__device__ __forceinline__ void bwd_dq_body(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const T* __restrict__ o,
-    const float* __restrict__ lse,     // (B, H, P)
-    const BiasT* __restrict__ gbias,   // (B, H, P, P) or null
-    T* __restrict__ dq,                // (B, H, S, D) by strides
-    BiasT* __restrict__ dbias,         // (B, H, P, P)
-    float* __restrict__ delta,         // (B, H, P), written here
-    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& sdo,
-    const Strides& so, const Strides& sdq,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  static_assert(kIsF32<T>, "the bf16 backward runs bwd_dq_kernel");
-  __shared__ __align__(16) T s_a[DqTiles<T>::kA];      // bf16: q, then do
-  __shared__ __align__(16) T s_k[DqTiles<T>::kRows];   // [key][d]
-  __shared__ __align__(16) T s_kt[DqTiles<T>::kKt];    // bf16: [d][key]
-  __shared__ __align__(16) T s_v[DqTiles<T>::kRows];   // [key][d]
-  __shared__ float s_delta[kBQ];
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t plane = static_cast<size_t>(b) * H + h;
-  const T* qp = plane_of(q, sq, b, h);
-  const T* kp = plane_of(k, sk, b, h);
-  const T* vp = plane_of(v, sv, b, h);
-  const T* dop = plane_of(dout, sdo, b, h);
-  const int wr = warp * 16;
-
-  // delta of this block's rows, one thread per row
-  if (tid < kBQ) {
-    const int i = q0 + tid;
-    float acc = 0.0f;
-    if (i < S) acc = row_delta(dop + i * sdo.s, plane_of(o, so, b, h) + i * so.s);
-    s_delta[tid] = acc;
-    delta[plane * P + i] = acc;
-  }
-  typename AFrags<T>::type qa, da;
-  load_q_do_frags<T>(qa, da, s_a, s_k, s_v, qp, dop, q0, S, sq.s, sdo.s, tid, wr, g, t);
-
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < S ? lse[plane * P + row[r]] : 0.0f;
-    delta_r[r] = s_delta[wr + g + 8 * r];
-  }
-  const Dropout drop(seed, static_cast<int>(plane), keep, inv_keep);
-  float dq_acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.0f;
-  }
-
-  const int n_kb = P / kBK;  // every column of the plane: dbias is P x P
-  for (int kbi = 0; kbi < n_kb; ++kbi) {
-    const int k0 = kbi * kBK;
-    __syncthreads();
-    load_k_v(s_k, s_kt, s_v, kp, vp, k0, S, sk.s, sv.s, tid);
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_rows_by_tile(s, qa, s_k, g, t);   // q k^T
-    mma_rows_by_tile(dp, da, s_v, g, t);  // do v^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int col = k0 + nt * 8 + 2 * t;
-        const size_t off = (plane * P + row[r]) * static_cast<size_t>(P) + col;
-        float ds[2];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * r + c;
-          ds[c] = 0.0f;
-          if (row[r] < S && col + c < S) {
-            const float p = expf(s[nt][e] * scale + mmee_to_float(bias[off + c]) - lse_r[r]);
-            float dpv = dp[nt][e];
-            if (dropout) dpv *= drop.scale(row[r], col + c);
-            ds[c] = p * (dpv - delta_r[r]);
-          }
-          s[nt][e] = ds[c];
-          float out = ds[c];
-          if (gbias != nullptr) out += mmee_to_float(gbias[off + c]);
-          dbias[off + c] = mmee_from_float<BiasT>(out);
-        }
-      }
-    }
-    dq_step(dq_acc, s, s_k, s_kt, g, t);  // dq += ds k
-  }
-  store_rows(plane_of(dq, sdq, b, h), dq_acc, row, S, sdq.s, scale, t);
-}
-
-template <typename T, typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const T* __restrict__ o,
-    const float* __restrict__ lse,     // (B, H, P)
-    const BiasT* __restrict__ gbias,   // (B, H, P, P) or null
-    T* __restrict__ dq,                // (B, S, H*D)
-    BiasT* __restrict__ dbias,         // (B, H, P, P)
-    float* __restrict__ delta,         // (B, H, P), written here
-    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  bwd_dq_body<T, BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dbias, delta, st, st, st, st,
-                        st, st, S, H, P, scale, seed, keep, inv_keep, dropout);
-}
-
-template <typename T, typename BiasT>
-__global__ void __launch_bounds__(kThreads) headform_bwd_dq_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const T* __restrict__ o,
-    const float* __restrict__ lse, T* __restrict__ dq, BiasT* __restrict__ dbias,
-    float* __restrict__ delta, Strides sq, Strides sk, Strides sv, Strides sdo,
-    Strides so, Strides sdq, int S, int H, int P, float scale, int seed, float keep,
-    float inv_keep, int dropout) {
-  bwd_dq_body<T, BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dbias, delta, sq, sk, sv,
-                        sdo, so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
-}
-
-// ---------------------------------------------------------------------------
-// backward in f32 (B): dk and dv
-// ---------------------------------------------------------------------------
-
-template <typename T, typename BiasT>
-__device__ __forceinline__ void bwd_dkv_body(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv,  // (B, H, S, D) by strides
-    const Strides& sq, const Strides& sk, const Strides& sv, const Strides& sdo,
-    const Strides& sdk, const Strides& sdv,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  static_assert(kIsF32<T>, "the bf16 backward runs bwd_dkv_kernel");
-  __shared__ __align__(16) T s_q[kBQ * kPitch<T>];  // [query][d]
-  __shared__ __align__(16) T s_do[kBQ * kPitch<T>]; // [query][d]
-  __shared__ float s_lse[kBQ];
-  __shared__ float s_delta[kBQ];
-
-  const int j0 = blockIdx.x * kBK;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const size_t plane = static_cast<size_t>(b) * H + h;
-  const T* qp = plane_of(q, sq, b, h);
-  const T* dop = plane_of(dout, sdo, b, h);
-  const int wr = warp * 16;
-
-  typename AFrags<T>::type ka, va;
-  load_rows(s_q, plane_of(k, sk, b, h), j0, S, sk.s, tid);
-  load_rows(s_do, plane_of(v, sv, b, h), j0, S, sv.s, tid);
-  __syncthreads();
-  load_a_frags(ka, s_q, wr, g, t);
-  load_a_frags(va, s_do, wr, g, t);
-
-  const int key[2] = {j0 + wr + g, j0 + wr + g + 8};
-  const BiasT* bias_col[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    bias_col[r] = bias + plane * P * static_cast<size_t>(P) + (key[r] < S ? key[r] : 0);
-  }
-  const Dropout drop(seed, static_cast<int>(plane), keep, inv_keep);
-  float dk_acc[8][4], dv_acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[dt][e] = dv_acc[dt][e] = 0.0f;
-  }
-
-  const int n_qb = (S + kBQ - 1) / kBQ;
-  for (int qbi = 0; qbi < n_qb; ++qbi) {
-    const int i0 = qbi * kBQ;
-    __syncthreads();
-    load_rows(s_q, qp, i0, S, sq.s, tid);
-    load_rows(s_do, dop, i0, S, sdo.s, tid);
-    for (int r = tid; r < kBQ; r += kThreads) {
-      const bool ok = i0 + r < S;
-      s_lse[r] = ok ? lse[plane * P + i0 + r] : 0.0f;
-      s_delta[r] = ok ? delta[plane * P + i0 + r] : 0.0f;
-    }
-    __syncthreads();
-
-    float st[8][4], dpt[8][4];  // rows: this warp's keys, columns: queries
-    mma_rows_by_tile(st, ka, s_q, g, t);    // k q^T
-    mma_rows_by_tile(dpt, va, s_do, g, t);  // v do^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = e >> 1;
-        const int ci = nt * 8 + 2 * t + (e & 1);
-        const int i = i0 + ci;
-        float pd = 0.0f, ds = 0.0f;
-        if (i < S && key[r] < S) {
-          const float bv = mmee_to_float(bias_col[r][static_cast<size_t>(i) * P]);
-          const float p = expf(st[nt][e] * scale + bv - s_lse[ci]);
-          const float c = dropout ? drop.scale(i, key[r]) : 1.0f;
-          pd = p * c;
-          ds = p * (dpt[nt][e] * c - s_delta[ci]);
-        }
-        st[nt][e] = pd;
-        dpt[nt][e] = ds;
-      }
-    }
-    // dv += (p c)^T do, dk += ds^T q, the tiles read as stored
-    mma_acc_by_rows(dv_acc, st, s_do, g, t);
-    mma_acc_by_rows(dk_acc, dpt, s_q, g, t);
-  }
-  store_rows(plane_of(dk, sdk, b, h), dk_acc, key, S, sdk.s, scale, t);
-  store_rows(plane_of(dv, sdv, b, h), dv_acc, key, S, sdv.s, 1.0f, t);
-}
-
-template <typename T, typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv,  // (B, S, H*D)
-    Strides st, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  bwd_dkv_body<T, BiasT>(q, k, v, bias, dout, lse, delta, dk, dv, st, st, st, st, st, st, S,
-                         H, P, scale, seed, keep, inv_keep, dropout);
-}
-
-template <typename T, typename BiasT>
-__global__ void __launch_bounds__(kThreads) headform_bwd_dkv_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const float* __restrict__ lse,
-    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-    Strides sq, Strides sk, Strides sv, Strides sdo, Strides sdk, Strides sdv,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout) {
-  bwd_dkv_body<T, BiasT>(q, k, v, bias, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv,
-                         S, H, P, scale, seed, keep, inv_keep, dropout);
-}
 
 // ---------------------------------------------------------------------------
 // backward with table gradients (A'): delta, dq and per-CTA partial sums of
@@ -1932,23 +1938,9 @@ int launch_bwd(const T* q, const T* k, const T* v, const void* bias, const T* do
                void* dbias, float* delta, int B, int S, int H, int P, float scale, int seed,
                float keep, float inv_keep, int dropout, cudaStream_t st) {
   const Strides ps = packed_strides(S, H);
-  if constexpr (!kIsF32<T>) {
-    const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
-    return launch_bwd_bf16<BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias, delta,
-                                  ss, B, S, H, P, scale, seed, keep, inv_keep, dropout, st);
-  } else {  // f32: the mma.sync 3xTF32 pair
-    const BiasT* bp = static_cast<const BiasT*>(bias);
-    train_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
-        q, k, v, bp, dout, o, lse, static_cast<const BiasT*>(gbias), dq,
-        static_cast<BiasT*>(dbias), delta, ps, S, H, P, scale, seed, keep, inv_keep,
-        dropout);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    train_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-        q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep,
-        inv_keep, dropout);
-    return static_cast<int>(cudaGetLastError());
-  }
+  const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
+  return launch_bwd_pair<T, BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias, delta,
+                                   ss, B, S, H, P, scale, seed, keep, inv_keep, dropout, st);
 }
 
 template <typename T, typename BiasT>
@@ -1972,20 +1964,15 @@ int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, cons
       S, H, P, scale, seed, keep, inv_keep, dropout, nb1, nb2, max1, max2);
   err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
+  // (B): the backward pair's dk/dv kernel
   const Strides ps = packed_strides(S, H);
-  if constexpr (kIsF32<T>) {
-    train_bwd_dkv_kernel<T, BiasT><<<dim3(n_qb, H, B), kThreads, 0, st>>>(
-        q, k, v, bp, dout, lse, delta, dk, dv, ps, S, H, P, scale, seed, keep, inv_keep,
-        dropout);
-    err = static_cast<int>(cudaGetLastError());
-  } else {  // the bf16 backward's (B)
-    const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
-    BwdMaps maps;
-    err = encode_bwd_maps<BiasT>(&maps, q, k, v, dout, bias, nullptr, nullptr, ss, B, S, H, P);
-    if (err == 0) {
-      err = launch_bwd_dkv_bf16<BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
-                                       keep, inv_keep, dropout, st);
-    }
+  const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
+  BwdMaps maps;
+  err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss, B, S,
+                                  H, P);
+  if (err == 0) {
+    err = launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
+                                   inv_keep, dropout, st);
   }
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
@@ -2007,30 +1994,41 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
                 sv = strides_at(strides, 2), so = strides_at(strides, 3),
                 sdo = strides_at(strides, 4), sdq = strides_at(strides, 5),
                 sdk = strides_at(strides, 6), sdv = strides_at(strides, 7);
-  if constexpr (!kIsF32<T>) {
-    const BwdStrides ss{sq, sk, sv, so, sdo, sdq, sdk, sdv};
-    return launch_bwd_bf16<BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
-                                  delta, ss, B, S, H, P, scale, seed, keep, inv_keep, dropout,
-                                  st);
-  } else {  // f32: the mma.sync 3xTF32 pair
-    const BiasT* bp = static_cast<const BiasT*>(bias);
-    headform_bwd_dq_kernel<T, BiasT><<<dim3(P / kBQ, H, B), kThreads, 0, st>>>(
-        q, k, v, bp, dout, o, lse, dq, static_cast<BiasT*>(dbias), delta, sq, sk, sv, sdo,
-        so, sdq, S, H, P, scale, seed, keep, inv_keep, dropout);
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-    headform_bwd_dkv_kernel<T, BiasT><<<dim3((S + kBK - 1) / kBK, H, B), kThreads, 0, st>>>(
-        q, k, v, bp, dout, lse, delta, dk, dv, sq, sk, sv, sdo, sdk, sdv, S, H, P, scale,
-        seed, keep, inv_keep, dropout);
-    return static_cast<int>(cudaGetLastError());
-  }
+  const BwdStrides ss{sq, sk, sv, so, sdo, sdq, sdk, sdv};
+  return launch_bwd_pair<T, BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
+                                   delta, ss, B, S, H, P, scale, seed, keep, inv_keep, dropout,
+                                   st);
 }
 
 }  // namespace
 
 // Every entry takes its operands (q, k, v, o, do and the gradients) as
 // bf16 (qkv_is_bf16 = 1) or f32 (0), and the bias (and gbias, dbias) as
-// bf16 (bias_is_bf16 = 1) or f32 (0).
+// bf16 (bias_is_bf16 = 1) or f32 (0). Every backward takes `delta`, scratch
+// of B * H * P floats; with f32 operands it is followed by the split parts
+// of q, k, v and do, (4, 3, B, H, S, 64) bf16, which the caller writes with
+// mmee_split_bf16x3 before the call.
+
+// split_bf16x3: n (1 to 4) f32 (B, H, S, 64) operands x0.., at the element
+// strides `strides` gives (a host array of 3n: batch, head, row; 16-byte
+// aligned rows), each into its three bf16 parts hi, mid, lo with x = hi +
+// mid + lo exactly; `parts` is (n, 3, B, H, S, 64), contiguous
+extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
+                                 const void* x3, int n, const long long* strides, void* parts,
+                                 int B, int H, int S, void* stream) {
+  if (n < 1 || n > 4) return static_cast<int>(cudaErrorInvalidValue);
+  const void* xs[4] = {x0, x1, x2, x3};
+  SplitSrc src;
+  for (int i = 0; i < 4; ++i) {
+    src.x[i] = static_cast<const float*>(xs[i]);
+    src.st[i] = i < n ? strides_at(strides, i) : Strides{0, 0, 0};
+  }
+  const long long threads = static_cast<long long>(B) * H * S * (kD / 8);
+  split_bf16x3_kernel<<<dim3(static_cast<unsigned>((threads + 255) / 256), n), 256, 0,
+                        static_cast<cudaStream_t>(stream)>>>(src, static_cast<bf16*>(parts), B,
+                                                             H, S);
+  return static_cast<int>(cudaGetLastError());
+}
 
 // flash_attention_packed: o (B, S, H*D), no lse, no dropout; P a multiple
 // of 64

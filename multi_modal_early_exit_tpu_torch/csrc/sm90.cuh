@@ -166,15 +166,27 @@ __device__ __forceinline__ void wgmma_wait() {
 
 // keeps the compiler from moving reads or writes of these registers across
 // the asynchronous products (and from reusing them before the wait)
-__device__ __forceinline__ void reg_fence(float (&d)[32]) {
+template <int N>
+__device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 __device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+  }
+}
+template <int N, int K>  // N sets of A fragments of K k steps (the parts of split operands)
+__device__ __forceinline__ void reg_fence(uint32_t (&a)[N][K][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[n][k][j])::"memory");
+    }
   }
 }
 
@@ -199,6 +211,31 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : MMEE_WGMMA_D32(d)
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+#define MMEE_WGMMA_D16(d)                                                                     \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),        \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), \
+      "+f"(d[14]), "+f"(d[15])
+
+// d (64 x 32 f32) (+)= A (64 x 16, K-major in shared memory) times
+// B (16 x 32, K-major in shared memory: stored [n][k])
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : MMEE_WGMMA_D16(d)
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+// the same at n = 64 and n = 32, by the accumulators' size
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int acc) {
+  wgmma_m64n64k16_ss(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int acc) {
+  wgmma_m64n32k16_ss(d, a, b, acc);
 }
 
 // d (64 x 64 f32) += A (64 x 16 bf16 in registers, the mma.sync A fragment

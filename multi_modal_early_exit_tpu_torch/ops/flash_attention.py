@@ -15,8 +15,11 @@ softmax, p cast to v's dtype, then p v.
 
 Every CUDA kernel here takes its operands (q, k, v, o, do) all in bf16 or
 all in f32, and multiplies in that type with f32 accumulation, as the TPU
-kernels do: bf16 on the bf16 tensor cores, f32 by 3xTF32, good to about
-f32's precision. Other dtypes, or mixed ones, raise ``TypeError``. Under
+kernels do: bf16 on the bf16 tensor cores; f32 good to about f32's
+precision, the forwards by 3xTF32, the backwards by six bf16 products of
+operands split into three bf16 parts each (``split_bf16x3``; its plain
+version and ``split_matmul_plain`` show the arithmetic on the CPU). Other
+dtypes, or mixed ones, raise ``TypeError``. Under
 autograd it is an ``autograd.Function`` whose backward is the JAX package's
 ``_packed_bwd``: the head-form forward (``flash_attention_fwd``) recomputes
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
@@ -279,18 +282,53 @@ def flash_attention_packed_train_fwd_plain(
     return _packed(out), lse
 
 
-def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate):
+# the bf16 products of one product of split operands, smallest first, as
+# (part of a, part of b) with 0 hi, 1 mid, 2 lo; the three of order 2^-24
+# and below (mid lo, lo mid, lo lo) are left out
+SPLIT_TERMS = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_bf16x3_plain(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` as three bf16 parts, (3, *x.shape): hi = bf16(x), mid =
+    bf16(x - hi), lo = bf16(x - hi - mid), each rounded to nearest even.
+    Both differences are exact in f32 and bf16 has f32's exponent range,
+    so hi + (mid + lo) is x bit for bit wherever lo stays normal (|x| >=
+    2^-100 or so)."""
+    hi = x.to(torch.bfloat16)
+    rest = x - hi.to(torch.float32)
+    mid = rest.to(torch.bfloat16)
+    lo = (rest - mid.to(torch.float32)).to(torch.bfloat16)
+    return torch.stack((hi, mid, lo))
+
+
+def split_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b of f32 operands as the f32 backward kernels take it on the bf16
+    tensor cores: both split (``split_bf16x3_plain``), the six products of
+    ``SPLIT_TERMS`` summed in that order in f32. Each part is cast to f32
+    before it is multiplied: a bf16 x bf16 product is exact in f32, as in
+    the tensor cores, where a product in bf16 would round it."""
+    pa, pb = split_bf16x3_plain(a).to(torch.float32), split_bf16x3_plain(b).to(torch.float32)
+    out = None
+    for i, j in SPLIT_TERMS:
+        term = torch.matmul(pa[i], pb[j])
+        out = term if out is None else out + term
+    return out
+
+
+def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul=torch.matmul):
     """The explicit backward formulas on (B, H, S, D) tensors: p from the
     lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c; ds is
     rounded to q's dtype before the dq/dk products, p c to do's before dv.
-    Returns (dq, dk, dv in the inputs' dtypes, ds (B, H, S, S) f32)."""
+    Its five products go through ``matmul`` (``split_matmul_plain``: the
+    f32 kernels' arithmetic). Returns (dq, dk, dv in the inputs' dtypes, ds
+    (B, H, S, S) f32)."""
     b, h, s, d = q.shape
     scale = 1.0 / math.sqrt(d)
     qh, kh, vh, oh, doh = (x.to(torch.float32) for x in (q, k, v, o, do))
-    scores = torch.matmul(qh, kh.transpose(-1, -2)) * scale
+    scores = matmul(qh, kh.transpose(-1, -2)) * scale
     scores = scores + bias[:, :, :s, :s].to(torch.float32)
     p = torch.exp(scores - lse[:, :, :s, None])
-    dp = torch.matmul(doh, vh.transpose(-1, -2))
+    dp = matmul(doh, vh.transpose(-1, -2))
     pd = p
     if rate > 0.0:
         c = attention_dropout_scale(seed, b, h, s, rate, q.device)
@@ -298,30 +336,30 @@ def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate):
     delta = (doh * oh).sum(dim=-1, keepdim=True)
     ds = p * (dp - delta)
     ds_c = ds.to(q.dtype).to(torch.float32)
-    dq = torch.matmul(ds_c, kh) * scale
-    dk = torch.matmul(ds_c.transpose(-1, -2), qh) * scale
-    dv = torch.matmul(pd.to(do.dtype).to(torch.float32).transpose(-1, -2), doh)
+    dq = matmul(ds_c, kh) * scale
+    dk = matmul(ds_c.transpose(-1, -2), qh) * scale
+    dv = matmul(pd.to(do.dtype).to(torch.float32).transpose(-1, -2), doh)
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
-def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate):
+def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate, matmul=torch.matmul):
     """``_attention_bwd_plain_ds`` on the packed layout: (dq, dk, dv packed
     in the inputs' dtypes, ds (B, H, S, S) f32)."""
     dq, dk, dv, ds = _attention_bwd_plain_ds(
         *(_split(x, num_heads) for x in (q, k, v)), bias, seed,
-        _split(o, num_heads), lse, _split(do, num_heads), rate)
+        _split(o, num_heads), lse, _split(do, num_heads), rate, matmul)
     return _packed(dq), _packed(dk), _packed(dv), ds
 
 
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    rate: float = 0.0,
+    rate: float = 0.0, matmul=torch.matmul,
 ):
     """Plain PyTorch head-form backward by the explicit formulas of
     ``_attention_bwd_plain_ds``: (dq, dk, dv (B, H, S, D) in the inputs'
     dtypes, dbias = ds at the bias's shape and dtype, zero past S)."""
-    dq, dk, dv, ds = _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate)
+    dq, dk, dv, ds = _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul)
     s = q.shape[2]
     dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
     dbias[:, :, :s, :s] = ds
@@ -331,13 +369,14 @@ def flash_attention_bwd_plain(
 def flash_attention_packed_train_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    num_heads: int, rate: float = 0.0, gbias=None,
+    num_heads: int, rate: float = 0.0, gbias=None, matmul=torch.matmul,
 ):
     """Plain PyTorch training backward by the explicit formulas: p from the
     lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c. Returns
     (dq, dk, dv, dbias); dbias is (B, H, P, P) in the bias dtype, gbias + ds
     when ``gbias`` is given, with ds zero past S."""
-    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate)
+    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate,
+                                         matmul)
     s = q.shape[1]
     dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
     dbias[:, :, :s, :s] = ds
@@ -364,6 +403,73 @@ def _train_fns():
     )
     bwd.restype = ctypes.c_int
     return lib, fwd, bwd
+
+
+@functools.lru_cache(maxsize=None)
+def _split_fn():
+    lib = cuda_build.load("flash_attention_packed_train")
+    fn = lib.mmee_split_bf16x3
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
+                                 ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    )
+    fn.restype = ctypes.c_int
+    return lib, fn
+
+
+def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
+    """One to four f32 (B, H, S, 64) tensors of one shape, each split into
+    its three bf16 parts (``split_bf16x3_plain``): (n, 3, B, H, S, 64) bf16,
+    into ``out`` where given. CPU tensors run the plain version; CUDA
+    tensors (rows 16-byte aligned: a unit last stride, the other strides
+    multiples of 4, the data 16-byte aligned) launch the split pre-pass of
+    the f32 backwards, one launch for all (counted in
+    ``split_bf16x3.launches``)."""
+    x0 = xs[0]
+    if not 1 <= len(xs) <= 4 or any(x.shape != x0.shape or x.device != x0.device for x in xs):
+        raise ValueError("split_bf16x3 takes one to four tensors of one shape on one device")
+    if x0.ndim != 4 or x0.shape[-1] != KERNEL_HEAD_DIM or any(x.dtype != torch.float32 for x in xs):
+        raise ValueError(f"split_bf16x3 takes f32 (B, H, S, {KERNEL_HEAD_DIM}) tensors")
+    b, h, s, d = x0.shape
+    if out is None:
+        out = torch.empty((len(xs), 3, b, h, s, d), dtype=torch.bfloat16, device=x0.device)
+    if x0.device.type == "cpu":
+        for i, x in enumerate(xs):
+            out[i] = split_bf16x3_plain(x)
+        return out
+    if any(x.stride(3) != 1 or any(st % 4 for st in x.stride()[:3]) or x.data_ptr() % 16
+           for x in xs):
+        raise ValueError("split_bf16x3 takes tensors with unit last stride, the other strides "
+                         "multiples of 4 and 16-byte aligned data")
+    ptrs = [x.data_ptr() for x in xs] + [0] * (4 - len(xs))
+    lib, fn = _split_fn()
+    with torch.cuda.device(x0.device):
+        stream = torch.cuda.current_stream(x0.device).cuda_stream
+        code = fn(*ptrs, len(xs), _strides(*xs), out.data_ptr(), b, h, s, stream)
+    cuda_build.check(lib, code, "split_bf16x3")
+    split_bf16x3.launches += 1
+    return out
+
+
+split_bf16x3.launches = 0
+
+
+def _bwd_scratch(b: int, num_heads: int, p: int, q, k, v, do) -> torch.Tensor:
+    """The backward kernels' ``delta`` scratch: B*H*P f32, and with f32
+    operands after it the split parts of q, k, v and do, in that order,
+    written here by ``split_bf16x3``. q, k, v, do are (B, H, S, 64), or
+    packed (B, S, H*64) and split into heads here (f32 only: the views cost
+    the bf16 backward's host time)."""
+    n = b * num_heads * p
+    if q.dtype == torch.bfloat16:
+        return torch.empty(n, dtype=torch.float32, device=q.device)
+    operands = [x if x.ndim == 4 else _split(x, num_heads) for x in (q, k, v, do)]
+    s = operands[0].shape[2]
+    scratch = torch.empty(n + 6 * b * num_heads * s * KERNEL_HEAD_DIM, dtype=torch.float32,
+                          device=q.device)
+    parts = scratch[n:].view(torch.bfloat16).view(4, 3, b, num_heads, s, KERNEL_HEAD_DIM)
+    split_bf16x3(*operands, out=parts)
+    return scratch
 
 
 def _dropout_args(seed: int, rate: float):
@@ -431,7 +537,8 @@ def flash_attention_packed_train_bwd(
     bias dtype, gbias + ds when ``gbias`` is given). CPU tensors run the
     plain version; CUDA tensors launch the kernel pair, one kernel for dq and
     dbias and one for dk and dv (``flash_attention_packed_train_bwd.launches``
-    counts both: 2 per call)."""
+    counts both: 2 per call), f32 ones after splitting q, k, v and do by
+    ``split_bf16x3`` (one launch, counted there)."""
     _check_packed("flash_attention_packed_train_bwd", q, k, v, bias, num_heads)
     if gbias is not None and gbias.shape != bias.shape:
         raise ValueError(f"gbias must have the bias shape {tuple(bias.shape)}")
@@ -451,7 +558,7 @@ def flash_attention_packed_train_bwd(
                          f"in the bias dtype")
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    delta = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    delta = _bwd_scratch(b, num_heads, p, q, k, v, do)
     lib, _, bwd = _train_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -648,8 +755,9 @@ def flash_attention_bwd(
     dtype, exactly zero past S). delta = rowsum(do o) is computed in the
     kernel. CPU tensors run the plain version; CUDA tensors launch the
     kernel pair, one kernel for dq and dbias and one for dk and dv
-    (``flash_attention_bwd.launches`` counts both: 2 per call); o and do
-    must meet q's layout rules too (the bf16 kernels load do by TMA)."""
+    (``flash_attention_bwd.launches`` counts both: 2 per call), f32 ones
+    after ``split_bf16x3`` of q, k, v and do (one launch, counted there); o
+    and do must meet q's layout rules too (the kernels load do by TMA)."""
     what = "flash_attention_bwd"
     _check_headform(what, q, k, v, bias)
     b, h, s, d = q.shape
@@ -667,7 +775,7 @@ def flash_attention_bwd(
     klse = lse if dense else F.pad(lse, (0, pk - p)).contiguous()  # a fresh, aligned copy
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     dbias = torch.empty_like(kbias)
-    delta = torch.empty((b, h, pk), dtype=torch.float32, device=q.device)
+    delta = _bwd_scratch(b, h, pk, q, k, v, do)
     lib, _, bwd = _headform_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -794,7 +902,8 @@ def flash_attention_packed_train_tables_bwd(
     version; CUDA tensors launch three kernels: dq and the per-block table
     sums, dk and dv, and the fixed-order sum of the blocks
     (``flash_attention_packed_train_tables_bwd.launches`` counts all three: 3
-    per call)."""
+    per call), f32 ones after ``split_bf16x3`` of q, k, v and do for the dk/dv
+    kernel (one launch, counted there)."""
     what = "flash_attention_packed_train_tables_bwd"
     _check_packed(what, q, k, v, bias, num_heads)
     b, s, hd = q.shape
@@ -814,7 +923,7 @@ def flash_attention_packed_train_tables_bwd(
         raise TypeError(f"{what}: pos, cx and cy must be contiguous int32 on q's device")
     n_bins = rel_bins + 2 * rel2d_bins
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    delta = _bwd_scratch(b, num_heads, p, q, k, v, do)
     n_qb = -(-s // KERNEL_TILE)
     partial = torch.empty(b * num_heads * n_qb * n_bins, dtype=torch.float32, device=q.device)
     tables = torch.empty((n_bins, num_heads), dtype=torch.float32, device=q.device)

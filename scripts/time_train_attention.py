@@ -12,10 +12,13 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
 - ``flash_attention_packed``, the serving forward (no lse, no dropout);
 - the packed training forward at dropout rates 0 and 0.1;
 - its backward (#8), plain at both rates and chained at 0.1, and in f32
-  (f32 q/k/v and bias) chained at 0.1;
+  (f32 q/k/v and bias) plain and chained at 0.1, beside the f32 forward at
+  0.1;
 - the head-form forward and backward (#5/#6) on the packed tensors' (B, H,
   S, D) views at rate 0, the backward also in f32;
-- the table-gradient backward (#9) at rate 0.1;
+- the table-gradient backward (#9) at rate 0.1, also in f32;
+- where the checkout has it, the f32 backwards' split pre-pass
+  (``split_bf16x3`` of q, k, v and do; part of each f32 backward's time);
 - the yardsticks, one PyTorch call each: ``scaled_dot_product_attention``
   on the same views with the bias as a float mask, at rate 0 (no lse), and
   its backward (``autograd.grad`` to q, k, v and the mask), in bf16 and f32.
@@ -31,7 +34,7 @@ it launches (a torch.profiler trace of 10 calls). ``--ptxas`` first compiles
 the checkout's training source once more with ``-Xptxas -v`` (into a
 temporary directory) and prints the registers, stack, spills and static
 SASS instruction count (``cuobjdump -sass``) of every kernel whose name
-holds ``bwd``.
+holds ``bwd`` or ``fwd_kernel``.
 
 To compare two versions, run it on each in one call, in turns (parent,
 change, change, parent). The last line is one JSON object with the card's
@@ -90,7 +93,7 @@ def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
 
 
 def ptxas_report(cuda_build) -> None:
-    """ptxas' registers, stack and spills of the training source's backward
+    """ptxas' registers, stack and spills of the training source's attention
     kernels, as ``-Xptxas -v`` reports them."""
     src = cuda_build.CSRC / "flash_attention_packed_train.cu"
     sass = {}
@@ -126,7 +129,7 @@ def ptxas_report(cuda_build) -> None:
         names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
                                text=True, check=True).stdout.splitlines()
     for full, (name, regs, (stack, st, ld)) in zip(names, rows):
-        if "bwd" in full:
+        if "bwd" in full or "fwd_kernel" in full:
             print(f"ptxas {full}: {regs} registers, {stack} B stack, {st} B spill stores, "
                   f"{ld} B spill loads, {sass.get(name, '?')} SASS instructions")
 
@@ -159,7 +162,7 @@ def main() -> int:
     parser.add_argument("--profile", action="store_true",
                         help="print each backward's device time by kernel (torch.profiler)")
     parser.add_argument("--ptxas", action="store_true",
-                        help="print ptxas' registers and spills of the backward kernels")
+                        help="print ptxas' registers and spills of the attention kernels")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_train_attention: no CUDA device", file=sys.stderr)
@@ -210,16 +213,24 @@ def main() -> int:
     cases["sdpa@0.0"] = lambda: sdpa(*views[:3], attn_mask=mask)
     cases["sdpa_bwd@0.0"] = sdpa_backward(views[:3], mask, views[3])
 
-    # f32: the mma.sync 3xTF32 backwards beside f32 SDPA's backward
+    # f32: the f32 backwards beside f32 SDPA's backward
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     bias32, gbias32 = bias.float(), gbias.float()
     o32, lse32 = fa.flash_attention_packed_train_fwd(q32, k32, v32, bias32, 7, h, 0.1)
+    cases["f32_packed_fwd@0.1"] = lambda: fa.flash_attention_packed_train_fwd(
+        q32, k32, v32, bias32, 7, h, 0.1)
+    cases["f32_packed_bwd@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
+        q32, k32, v32, bias32, 7, o32, lse32, do32, h, 0.1)
     cases["f32_packed_bwd_chained@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
         q32, k32, v32, bias32, 7, o32, lse32, do32, h, 0.1, gbias32)
     views32 = [x.view(b, s, h, d).transpose(1, 2) for x in (q32, k32, v32, do32)]
     o_h32, lse_h32 = fa.flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
     cases["f32_headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
         *views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
+    cases["f32_packed_tables_bwd@0.1"] = lambda: fa.flash_attention_packed_train_tables_bwd(
+        q32, k32, v32, bias32, pos, cx, cy, 7, o32, lse32, do32, h, 0.1)
+    if hasattr(fa, "split_bf16x3"):
+        cases["f32_split"] = lambda: fa.split_bf16x3(*views32)
     cases["f32_sdpa_bwd@0.0"] = sdpa_backward(views32[:3], bias32[:, :, :s, :s], views32[3])
 
     tq, tk, tv, tdo = (x[:1, :64, :d].contiguous() for x in (q, k, v, do))

@@ -25,6 +25,8 @@ from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed_train_tables,
     flash_attention_packed_train_tables_bwd,
     flash_attention_packed_train_tables_bwd_plain,
+    split_bf16x3,
+    split_bf16x3_plain,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
     fused_bias_attention,
@@ -747,10 +749,10 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
 
 
 # ---------------------------------------------------------------------------
-# f32 operands: every attention kernel's f32 instantiation (3xTF32 on the
-# tensor cores) against its plain version in f32, within 1e-4 of each
-# output's largest value (plain TF32 would miss this by an order of
-# magnitude)
+# f32 operands: every attention kernel's f32 instantiation (3xTF32, or in
+# the backwards six bf16 products of split operands, on the tensor cores)
+# against its plain version in f32, within 1e-4 of each output's largest
+# value (plain TF32 would miss this by an order of magnitude)
 # ---------------------------------------------------------------------------
 
 F32_BAR = 1e-4
@@ -891,3 +893,117 @@ def test_f32_packed_autograd_runs_the_headform_kernels(cuda):
     assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 2]
     assert all(t.grad.dtype == torch.float32 and torch.isfinite(t.grad).all()
                for t in (q, k, v, bias))
+
+
+# the f32 backwards' split pre-pass and their sm_90a pair: odd P / 64, the
+# paths' 709 inside 768, P = 64
+
+
+F32_BWD_SHAPES = [(1, 130, 192, 3), (2, 709, 768, 12), (2, 64, 64, 2)]
+
+
+@pytest.mark.parametrize("b,s,h", [(2, 70, 3), (2, 709, 12)])
+@pytest.mark.parametrize("layout", ["contiguous", "packed"])
+def test_split_pre_pass_is_bit_equal_to_plain(cuda, b, s, h, layout):
+    """The split pre-pass of the f32 backwards, one to four tensors in one
+    launch, gives the plain split's bits (both round to nearest even), and
+    hi + (mid + lo) restores every value of these inputs."""
+    xs = [_heads_view(x, h, layout) for x in _f32(cuda, b, s, h)]
+    before = split_bf16x3.launches
+    one = split_bf16x3(xs[0])
+    three = split_bf16x3(*xs)
+    assert split_bf16x3.launches == before + 2
+    torch.cuda.synchronize()
+    assert one.shape == (1, 3, b, h, s, 64) and three.shape == (3, 3, b, h, s, 64)
+    for got, x in zip(three, xs):
+        assert torch.equal(got, split_bf16x3_plain(x))
+        hi, mid, lo = got.float()
+        assert torch.equal(hi + (mid + lo), x)
+    assert torch.equal(one[0], three[0])
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_BWD_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
+    """#8 plain and chained and #6 (both layouts) in f32: a second run
+    gives the same bits (no float atomics, sums in a fixed order), each
+    split once per call."""
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    g = torch.Generator().manual_seed(5)
+    do = torch.randn((b, s, h * 64), generator=g).to(cuda)
+    gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda)
+    o, lse = flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate)
+    before = split_bf16x3.launches
+    runs = []
+    for extra in (None, gbias):
+        args = (q, k, v, bias, 99, o, lse, do, h, rate, extra)
+        runs.append((flash_attention_packed_train_bwd(*args),
+                     flash_attention_packed_train_bwd(*args)))
+    for layout in ("contiguous", "packed"):
+        views = [_heads_view(x, h, layout) for x in (q, k, v, do)]
+        o_h, lse_h = flash_attention_fwd(*views[:3], bias, 99, rate, with_lse=True)
+        args = (*views[:3], bias, 99, o_h, lse_h, views[3], rate)
+        runs.append((flash_attention_bwd(*args), flash_attention_bwd(*args)))
+    assert split_bf16x3.launches == before + 8
+    torch.cuda.synchronize()
+    for first, again in runs:
+        for name, a, w in zip(("dq", "dk", "dv", "dbias"), first, again):
+            assert torch.isfinite(a).all(), name
+            assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_BWD_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_tables_dkv_equals_the_packed_backward(cuda, b, s, p, h, rate):
+    """#9 in f32 runs #8's dk/dv kernel on the same split parts, after a
+    delta summed as (A) sums it: its dk and dv are #8 plain's bits; its dq
+    ((A') on mma.sync, 3xTF32) within the f32 bar of #8's."""
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    bias = _tables_bias(args, p, torch.float32)
+    q, k, v = _f32(cuda, b, s, h)
+    do = torch.randn((b, s, h * 64), generator=torch.Generator().manual_seed(5)).to(cuda)
+    o, lse = flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate)
+    got = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do, h,
+                                                  rate)
+    want = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+    _assert_f32_close("dq", got[0], want[0])
+
+
+
+@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_f32_backward_with_a_bf16_bias_matches_plain(cuda, b, s, p, h, rate, chained):
+    """f32 q/k/v with a bf16 bias (gbias and dbias bf16 too), the backward
+    tiling that keeps 64-wide blocks: #8, and #6 on the contiguous layout,
+    against their plain versions, dq/dk/dv within the f32 bar and dbias,
+    rounded to bf16 by both, within the bf16 one; dbias past S exactly 0, or
+    gbias when chained."""
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    g = torch.Generator().manual_seed(5)
+    do = torch.randn((b, s, h * 64), generator=g).to(cuda)
+    gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda, torch.bfloat16)
+    gbias = gbias if chained else None
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    args = (q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+    got = flash_attention_packed_train_bwd(*args)
+    want = flash_attention_packed_train_bwd_plain(*args)
+    views = [_heads_view(x, h, "contiguous") for x in (q, k, v, do, o)]
+    hargs = (*views[:3], bias, 99, views[4], lse, views[3], rate)
+    got_h = flash_attention_bwd(*hargs)
+    want_h = flash_attention_bwd_plain(*hargs)
+    torch.cuda.synchronize()
+    for name, a, w in [*zip(("dq", "dk", "dv"), got, want),
+                       *zip(("head dq", "head dk", "head dv"), got_h, want_h)]:
+        _assert_f32_close(name, a, w)
+    for name, a, w in (("dbias", got[3], want[3]), ("head dbias", got_h[3], want_h[3])):
+        assert a.dtype == torch.bfloat16 and torch.isfinite(a.float()).all(), name
+        assert _scaled_err(a, w) <= 2e-2, (name, _scaled_err(a, w))
+    pad = got[3][:, :, s:, :]
+    assert torch.equal(pad, torch.zeros_like(pad) if gbias is None else gbias[:, :, s:, :])
+    assert not got_h[3][:, :, s:, :].any() and not got_h[3][:, :, :, s:].any()

@@ -21,6 +21,7 @@ BINDINGS = [
     (fa, "_headform_fns", "mmee_flash_attention_fwd"),
     (fa, "_headform_fns", "mmee_flash_attention_bwd"),
     (fa, "_tables_bwd_fn", "mmee_flash_attention_packed_train_bwd_tables"),
+    (fa, "_split_fn", "mmee_split_bf16x3"),
     (fba, "_materialize_bias_fn", "mmee_materialize_bias"),
     (fba, "_table_grads_fn", "mmee_table_grads"),
     (fba, "_fused_bias_attention_fn", "mmee_fused_bias_attention"),
