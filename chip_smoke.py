@@ -37,16 +37,19 @@ Phases, each reported on its own line:
    take and one PyTorch library call where one computes the same function,
    or the pair of kernels it replaces. Then every kernel again at f32
    inputs (f32 q/k/v and bias; the attention kernels' f32 instantiations,
-   the forwards by 3xTF32 on the tensor cores, the backwards by six bf16
-   products of operands split into three bf16 parts) against its plain
-   version in f32, at both shapes: outputs, lse and gradients within
-   ``F32_BAR`` (1e-4) of each output's largest value, the f32 backwards'
-   bits the same on a second run, the table gradients (``table_grads`` and
-   the tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within
+   the forwards and backwards by six bf16 products of operands split into
+   three bf16 parts on the tensor cores, the fused kernel and the tables
+   backward's dq kernel by 3xTF32) against its plain version in f32, at
+   both shapes: outputs, lse and gradients within ``F32_BAR`` (1e-4) of
+   each output's largest value, the f32 forwards' and backwards' bits the
+   same on a second run, the table gradients (``table_grads`` and the
+   tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within
    1e-4 of ``materialize_bias`` + ``flash_attention_packed`` in f32, and the
-   backwards' split pre-pass (``split_bf16x3``) bit-equal to its plain
-   version; each timed beside f32 SDPA and an f32 bound (FLOPs over a third
-   of the TF32 peak, or a sixth of the bf16 one for the backwards);
+   split pre-pass (``split_bf16x3``) bit-equal to its plain version; each
+   timed beside f32 SDPA and an f32 bound (FLOPs over a sixth of the bf16
+   peak for split operands, a third of the TF32 one for 3xTF32), the f32
+   forwards also beside their design's floor (the bytes of the pre-pass
+   and of a kernel that reads the parts);
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -86,7 +89,9 @@ Phases, each reported on its own line:
    f32 weights, through ``Pipeline.predict_features``. Checks: as phase 4,
    with the small-input logits within the north star's f32 bars (atol 2e-4,
    rtol 1e-3) of the f32 plain path on the CPU. docs/sec and peak memory
-   beside phase 4's.
+   beside phase 4's, the launch counts with one ``split_bf16x3`` per
+   attention call (none in phase 4), and the attention's device ms (the
+   split pre-pass and the forward kernel) in one more, traced, call.
 5c. the JAX package's default training schedule, ``scan_fold=1``, at
    attention dropout 0 (hidden dropout 0.1): every layer takes the bias
    tensor through ``flash_attention_packed``, whose backward runs the
@@ -112,9 +117,9 @@ Phases, each reported on its own line:
    chained backward, ``table_grads``), each with its launch counts; then
    1 + 2 steps at the JAX default schedule (``scan_fold=1``, dropout 0.1).
    Checks: finite losses, parameters that moved, launch counts per step
-   (one ``split_bf16x3`` per backward). docs/sec and peak memory beside
-   phase 5c's, and the f32 attention backward's device ms in one more,
-   traced, step.
+   (one ``split_bf16x3`` per forward and per backward). docs/sec and peak
+   memory beside phase 5c's, and the f32 attention's device ms (forward
+   kernel, backward kernels, split pre-passes) in one more, traced, step.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
 phases 4, 4f, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
@@ -123,7 +128,7 @@ environment says; 4b and 5b set theirs and restore it.
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it; the f32 fields from phase 3's
 f32 run and the f32 launches from phases 4f/5f; ``split_bf16x3`` runs in
-f32 only, on phase 5f's path), the last
+f32 only, on phases 4f's and 5f's paths), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -149,10 +154,11 @@ PEAKS = {
     "H100 NVL": (3.9e12, 835e12, 60e12, 417e12),
     "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
 }
-# the f32 attention forwards multiply by 3xTF32: three TF32 passes per
-# product, so their operations bound is FLOPs over a third of the TF32 peak
-# (165 TFLOP/s on an H100 SXM); the f32 backwards by six bf16 passes of
-# split operands, FLOPs over a sixth of the bf16 peak (165 TFLOP/s too)
+# the f32 attention forwards and backwards multiply by six bf16 passes of
+# split operands, so their operations bound is FLOPs over a sixth of the
+# bf16 peak (165 TFLOP/s on an H100 SXM); the fused kernel and the tables
+# backward's dq kernel by 3xTF32, three TF32 passes per product, FLOPs over
+# a third of the TF32 peak (165 TFLOP/s too)
 TF32_PASSES = 3
 SPLIT_PASSES = 6
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
@@ -190,9 +196,9 @@ CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
 # layers' bf16 bias cotangents where phase 5 adds each layer's ds to the
 # running one in the kernel)
 UNCHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
-# the f32 attention kernels (3xTF32, or six bf16 products of split
-# operands) against their f32 plain versions on the card, over each
-# output's largest value; plain TF32 (~3 digits) misses it
+# the f32 attention kernels (six bf16 products of split operands, or
+# 3xTF32) against their f32 plain versions on the card, over each output's
+# largest value; plain TF32 (~3 digits) misses it
 F32_BAR = 1e-4
 # phase 5f's gradient checks, the f32 kernel path on the card against phase
 # 5's f32 plain path on the CPU, by phase 5's groups. On an H100, with the
@@ -255,6 +261,29 @@ def peaks_for(name: str):
         if key in name:
             return peaks
     return PEAKS["H100"]
+
+
+def device_ms(fn, groups):
+    """Device ms of one ``fn()`` call under torch.profiler: by group (the
+    kernels whose names hold one of the group's fragments), and of all
+    kernels (``"all"``). Fails if a group ran no kernel on the card."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ms = dict.fromkeys(groups, 0.0)
+    ms["all"] = 0.0
+    for e in prof.key_averages():
+        us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
+        ms["all"] += us / 1e3
+        for group, frags in groups.items():
+            if any(frag in e.key for frag in frags):
+                ms[group] += us / 1e3
+    for group, frags in groups.items():
+        check(ms[group] > 0, f"the traced call ran none of {frags} on the card")
+    return ms
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -612,6 +641,9 @@ def compare_kernels_f32(args, gen):
     q, k, v = (torch.randn((B, s, HEADS * HEAD_DIM), generator=gen).to(dev) for _ in range(3))
     out = fa.flash_attention_packed(q, k, v, bias, HEADS)
     gate("flash_attention_packed", "out", out, fa.flash_attention_packed_plain(q, k, v, bias, HEADS))
+    check(torch.equal(out, fa.flash_attention_packed(q, k, v, bias, HEADS)),
+          f"f32 flash_attention_packed differs between two runs (S {s})")
+    notes["flash_attention_packed"]["two runs"] = "equal"
 
     qh, kh, vh = heads_of(q), heads_of(k), heads_of(v)
     for tag, bias_args in (("", args), (" at unit-scale tables", list(args[:4]) + [
@@ -973,11 +1005,25 @@ def phase_kernels(name):
     fwd_flops = 4 * B * HEADS * s * s * HEAD_DIM
     bwd_flops = 10 * B * HEADS * s * s * HEAD_DIM
     sdpa32 = time_ms(lambda: sdpa(heads(q32), heads(k32), heads(v32), attn_mask=mask32))
+    # the f32 forwards' own floor: the split pre-pass reads k/v and writes
+    # their three bf16 parts, then the kernel reads the bias block, q and the
+    # parts and writes o (and the lse); timed beside it, the pre-pass alone
+    views32 = [heads(x) for x in (k32, v32)]
+    split_kv_ms = time_ms(lambda: split_bf16x3(*views32))
+    del views32
+
+    def fwd_floor(extra_bytes=0):
+        kernel = (block32 + 2 * qkv32 + 6 * qkv_bytes + extra_bytes) / bw * 1e3
+        pre = (2 * qkv32 + 6 * qkv_bytes) / bw * 1e3
+        return (f"; design floor {kernel + pre:.4f} ms: the kernel {kernel:.4f} (bias, q, k/v "
+                f"parts, o), the pre-pass {pre:.4f} (measured alone: {split_kv_ms:.4f} ms)")
+
     f32_entry("materialize_bias", time_ms(lambda: materialize_bias(*args, out_dtype=torch.float32)),
               bound(plane32 + in_bytes, 3 * B * HEADS * p * p, bw, f32_peak), None)
     f32_entry("flash_attention_packed",
               time_ms(lambda: flash_attention_packed(q32, k32, v32, bias32, HEADS)),
-              bound(block32 + 4 * qkv32, fwd_flops, bw, tf32_peak), sdpa32, " (SDPA, f32)")
+              bound(block32 + 4 * qkv32, fwd_flops, bw, split_peak), sdpa32,
+              " (SDPA, f32" + fwd_floor() + ")")
     qh32, kh32, vh32 = heads(q32), heads(k32), heads(v32)
     f32_entry("fused_bias_attention",
               time_ms(lambda: fused_bias_attention(qh32, kh32, vh32, *args)),
@@ -985,8 +1031,8 @@ def phase_kernels(name):
     f32_entry("flash_attention_packed_train",
               time_ms(lambda: flash_attention_packed_train_fwd(q32, k32, v32, bias32, seed, HEADS,
                                                                rate)),
-              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, tf32_peak), sdpa32,
-              f" (rate {rate}; SDPA at rate 0, no lse)")
+              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, split_peak), sdpa32,
+              f" (rate {rate}; SDPA at rate 0, no lse" + fwd_floor(lse_bytes) + ")")
     bwd32, gbias32 = t32["bwd_args"], t32["gbias"]
     lib_bwd32 = None
     if lib_bwd is not None:  # the installed torch differentiates the mask
@@ -1005,14 +1051,15 @@ def phase_kernels(name):
     views32 = [heads(x) for x in (q32, k32, v32, bwd32[7])]
     f32_entry("flash_attention_fwd",
               time_ms(lambda: flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)),
-              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, tf32_peak), sdpa32,
-              " (rate 0, packed strides)")
+              bound(block32 + 4 * qkv32 + lse_bytes, fwd_flops, bw, split_peak), sdpa32,
+              " (rate 0, packed strides" + fwd_floor(lse_bytes) + ")")
     o_h32, lse_h32 = flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
     hbwd32 = (*views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
     f32_entry("flash_attention_bwd", time_ms(lambda: flash_attention_bwd(*hbwd32), iters=10),
               bound(block32 + plane32 + 8 * qkv32 + lse_bytes, bwd_flops, bw, split_peak),
               lib_bwd32, " (rate 0, packed strides)")
-    # the f32 backwards' split pre-pass of q, k, v and do: f32 only, so its
+    # the split pre-pass of q, k, v and do, as each f32 backward runs it
+    # (each f32 forward splits k and v: timed above): f32 only, so its
     # row's fields are its f32 readings
     split_ms = time_ms(lambda: split_bf16x3(*views32))
     split_bound = bound(4 * qkv32 + 12 * qkv_bytes, 0, bw, bf16_peak)  # 3 bf16 parts each
@@ -1027,7 +1074,8 @@ def phase_kernels(name):
              f32_max_abs_err=errs32["split_bf16x3"])
     results.append(e)
     print(f"kernel split_bf16x3 (f32 only; q, k, v and do, as each f32 backward splits "
-          f"them): {notes32['split_bf16x3']}, kernel_ms {split_ms:.4f}, plain_ms "
+          f"them; k and v before each f32 forward: {split_kv_ms:.4f} ms): "
+          f"{notes32['split_bf16x3']}, kernel_ms {split_ms:.4f}, plain_ms "
           f"{e['plain_ms']:.4f}, library_ms null (no one PyTorch call splits f32 into three "
           f"bf16 parts), bound {split_bound[0] * 1e3:.1f} us ({split_bound[1]})")
     del views32, o_h32, lse_h32, hbwd32
@@ -1098,7 +1146,10 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
         EEModelConfig,
         LayoutLMv3Config,
     )
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        split_bf16x3,
+    )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
 
@@ -1200,8 +1251,10 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
                     exit_distribution={0: 0.05, 1: 0.05, 2: 0.8, 3: 0.1})
     check(pipe.capacities == (16, 8), f"capacities {pipe.capacities}")
     pipe.predict_features({k: v[:B] for k, v in batch.items()})  # warm-up
-    materialize_bias.launches = 0
-    flash_attention_packed.launches = 0
+    counters = {"materialize_bias": materialize_bias,
+                "flash_attention_packed": flash_attention_packed, "split_bf16x3": split_bf16x3}
+    for f in counters.values():
+        f.launches = 0
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1209,8 +1262,7 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = {"materialize_bias": materialize_bias.launches,
-                "flash_attention_packed": flash_attention_packed.launches}
+    launches = {name: f.launches for name, f in counters.items()}
     check(len(results) == n_docs, f"{len(results)} results for {n_docs} documents")
     order = [str(e) for e in pipe.order] + ["final"]
     for r in results:
@@ -1219,16 +1271,27 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
               f"malformed result {r}")
     check(launches["materialize_bias"] == N_BATCHES, f"bias launches {launches}")
     check(launches["flash_attention_packed"] == 12 * N_BATCHES, f"attention launches {launches}")
+    # an f32 attention call splits k and v first; a bf16 one does not
+    check(launches["split_bf16x3"] == (12 * N_BATCHES if dtype == torch.float32 else 0),
+          f"split launches {launches}")
     hist = {name: sum(r["exit_name"] == name for r in results) for name in order}
     forced = sum(r["capacity_exited"] for r in results)
     check(forced > 0 and hist["final"] > 0 and hist[order[0]] + hist[order[1]] > 0,
           f"expected early, forced and final exits: {hist}, forced {forced}")
     beside = "" if base is None else (
         f" (phase 4: {base['docs_per_sec']:.1f} docs/sec, {base['peak_mb']:.1f} MiB)")
+    traced = ""
+    if dtype == torch.float32:  # the f32 attention's device time in one more call
+        ms = device_ms(lambda: pipe.predict_features(batch),
+                       {"attention": ("fwd_kernel<", "split_bf16x3_kernel"),
+                        "split": ("split_bf16x3_kernel",)})
+        traced = (f"; one more call traced: the f32 attention (split pre-pass and forward "
+                  f"kernel) {ms['attention']:.3f} device ms (the pre-pass {ms['split']:.3f}) "
+                  f"of {ms['all']:.3f}")
     print(f"served {n_docs} documents in {N_BATCHES} batches of {B} ({tag}): "
           f"{n_docs / dt:.1f} docs/sec (predict_features, host clock), "
           f"exits {hist}, capacity-exited {forced}, launches {launches}, "
-          f"peak memory {peak_mb:.1f} MiB{beside}")
+          f"peak memory {peak_mb:.1f} MiB{beside}{traced}")
     served = dict(model=model, cfg=cfg, pipe=pipe, batch=batch, chunks=chunks, thr=thr,
                   far=far, got_ids=got_ids, got_logits=got_logits, results=results,
                   docs_per_sec=n_docs / dt, peak_mb=peak_mb)
@@ -1435,12 +1498,13 @@ def train_counters():
             "split_bf16x3": fa.split_bf16x3}
 
 
-def train_steps(cfg, model32, batches, args, want, trace=()):
+def train_steps(cfg, model32, batches, args, want, trace=None):
     """One warm-up ``EETrainer.train_step``, then one on each further batch,
     timed, with the launch counts per step checked against ``want`` (every
-    kernel it does not name: 0). With ``trace`` (kernel-name fragments), one
-    more step on the last batch under torch.profiler: the device ms of the
-    kernels whose names hold one, and of all kernels. Returns the readings."""
+    kernel it does not name: 0). With ``trace`` (groups of kernel-name
+    fragments, as ``device_ms`` takes them), one more step on the last batch
+    under torch.profiler: the device ms by group and of all kernels. Returns
+    the readings."""
     n_steps = len(batches) - 1
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
@@ -1471,19 +1535,7 @@ def train_steps(cfg, model32, batches, args, want, trace=()):
     for name in counters:
         check(launches[name] == want.get(name, 0) * n_steps,
               f"{name}: {launches[name]} launches in {n_steps} steps")
-    traced = {}
-    if trace:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            trainer.train_step(batches[-1], gen)
-            torch.cuda.synchronize()
-        for e in prof.key_averages():
-            us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
-            traced["all"] = traced.get("all", 0.0) + us / 1e3
-            if any(frag in e.key for frag in trace):
-                traced["traced"] = traced.get("traced", 0.0) + us / 1e3
-        check(traced.get("traced", 0.0) > 0, f"the traced step ran none of {trace} on the card")
+    traced = device_ms(lambda: trainer.train_step(batches[-1], gen), trace) if trace else {}
     return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
                 launches=launches, docs_per_sec=n_steps * B / dt, traced=traced)
 
@@ -1637,12 +1689,13 @@ def phase_train_f32(card: str, trained, base):
     t = trained
     model32, batch, weights = t["model32"], t["batches"][0], t["weights"]
     total = dict.fromkeys(train_counters(), 0)
-    # every f32 backward splits q, k, v and do first: one split_bf16x3 each
+    # every f32 forward splits k and v first, every f32 backward q, k, v and
+    # do: one split_bf16x3 each
     checks = (
         (1, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
-             "flash_attention_fwd": 12, "flash_attention_bwd": 24, "split_bf16x3": 12}),
+             "flash_attention_fwd": 12, "flash_attention_bwd": 24, "split_bf16x3": 36}),
         (12, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
-              "flash_attention_packed_train_bwd": 24, "split_bf16x3": 12}),
+              "flash_attention_packed_train_bwd": 24, "split_bf16x3": 24}),
     )
     for fold, want in checks:
         cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=fold))
@@ -1655,18 +1708,22 @@ def phase_train_f32(card: str, trained, base):
             total[name] += n
     cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=1))
     args = TrainingArguments(bf16=False, learning_rate=t["args"].learning_rate)
-    # 12 training forwards and 12 plain backwards of 2 kernels (and a split)
-    # per step
+    # 12 training forwards and 12 plain backwards of 2 kernels (each with a
+    # split) per step
     want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
-            "flash_attention_packed_train_bwd": 24, "split_bf16x3": 12}
+            "flash_attention_packed_train_bwd": 24, "split_bf16x3": 24}
     run = train_steps(cfg, model32, t["batches"][:F32_TRAIN_STEPS + 1], args, want,
-                      trace=("bwd_dq_kernel", "bwd_dkv_kernel", "split_bf16x3_kernel"))
+                      trace={"forward": ("fwd_kernel<",),
+                             "backward": ("bwd_dq_kernel<", "bwd_dkv_kernel<"),
+                             "split": ("split_bf16x3_kernel",)})
     for name, n in run["launches"].items():
         total[name] += n
+    ms = run["traced"]
     print(f"trained in f32 (TrainingArguments(bf16=False), scan_fold=1, dropout "
           f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, base, '5c')}; "
-          f"one more step traced: the f32 attention backward (split pre-pass, dq/dbias and "
-          f"dk/dv kernels) {run['traced']['traced']:.3f} device ms of {run['traced']['all']:.3f}, "
+          f"one more step traced: the f32 attention {ms['forward'] + ms['backward'] + ms['split']:.3f} "
+          f"device ms of {ms['all']:.3f} (the forward kernel {ms['forward']:.3f}, the dq/dbias and "
+          f"dk/dv kernels {ms['backward']:.3f}, the split pre-passes of both {ms['split']:.3f}), "
           f"on {card}")
     return total
 
@@ -1703,6 +1760,12 @@ def main() -> int:
     with bias_modes():
         train32_launches = phase_train_f32(card, trained, default_run)
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
+    # the split pre-pass runs before every f32 forward and backward
+    f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]
+                 + train32_launches["split_bf16x3"]}
+    f32_split_in = (f"phase 4f, {N_BATCHES} batches ({serve32_launches['split_bf16x3']}), and "
+                    f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps "
+                    f"({train32_launches['split_bf16x3']})")
     # each kernel's launches on the path that runs it
     paths = {
         "flash_attention_fwd": (default_launches, default_path),
@@ -1716,16 +1779,16 @@ def main() -> int:
         "table_grads": (train_launches, f"{TRAIN_STEPS} training steps"),
         "flash_attention_packed_train_tables_bwd": (
             tables_launches, f"{TRAIN_STEPS} training steps, MMEE_TABLE_GRADS=1"),
-        # f32 only: the path that runs it is phase 5f's
-        "split_bf16x3": (train32_launches,
-                         f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps"),
+        # f32 only: the paths that run it are phases 4f's and 5f's
+        "split_bf16x3": (f32_split, f32_split_in),
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     # each kernel's f32 launches: on phase 4f's served batches or in phase
     # 5f (its two gradient checks and its steps); #3 and #9 run in f32 only
     # in phase 3
     f32_paths = {"materialize_bias": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
-                 "flash_attention_packed": (serve32_launches, f"phase 4f, {N_BATCHES} batches")}
+                 "flash_attention_packed": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
+                 "split_bf16x3": (f32_split, f32_split_in)}
     f32_train = (train32_launches, f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps")
     for k in kernels:
         launches, where = paths[k["name"]]

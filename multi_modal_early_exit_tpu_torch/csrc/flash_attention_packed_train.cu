@@ -20,9 +20,9 @@
 // bf16 or in f32, a template parameter T; the bias is bf16 or f32 on its
 // own. As in the TPU kernels, the products multiply in the operands' type
 // with f32 accumulation: bf16 on the bf16 tensor cores; f32 good to about
-// f32's precision, in the forwards and (A') by 3xTF32 (common.cuh) on the
-// TF32 ones, in the backward's (A) and (B) by six bf16 products of operands
-// split into three bf16 parts (split_bf16x3 below). The f32
+// f32's precision, in the forward and the backward's (A) and (B) by six bf16
+// products of operands split into three bf16 parts (split_bf16x3 below) on
+// the bf16 ones, in (A') by 3xTF32 (common.cuh) on the TF32 ones. The f32
 // instantiations round nothing that the bf16 ones round to the operand
 // type: p before p.v, p.c before dv, ds before dq and dk.
 //
@@ -44,9 +44,11 @@
 // 73 us for its 7.25e10 FLOPs; the two-kernel design below reads the bias
 // twice and q/k/v/do twice: about 1.13 GB, 340 us (0.91 GB and 270 us
 // without gbias). In f32 the bytes double, and the FLOPs run
-// at 165 TFLOP/s (the 495 TF32 TFLOP/s over 3 passes, or the 989 bf16
-// TFLOP/s over 6): the forward 181 us by bytes against 176 us by
-// operations; the two-kernel backward reads the bias twice and the split
+// at 165 TFLOP/s (the 989 bf16 TFLOP/s over the 6 products of split
+// operands): the forward 181 us by bytes against 176 us by operations; the
+// split-operand design reads the parts of k/v in their place (642 MB, 192
+// us) after a pre-pass that reads k/v and writes the parts (189 MB, 56
+// us). The two-kernel backward reads the bias twice and the split
 // parts of q/k/v/do twice, 2.27 GB chained (680 us) and 1.81 GB plain
 // (540 us), against 440 us by operations.
 //
@@ -66,20 +68,29 @@
 // - Every tile is 128-byte swizzled. The bias is read in the accumulator's
 //   (row g / g+8, columns 2t, 2t+1) pattern through the swizzle, so the 8
 //   rows of a fragment fall on different banks (unswizzled, all 8 share one).
-//   An f32 tile (bias or operand) takes two 32-column boxes per block.
-// - bf16: the products run on wgmma: S = q k^T (m64n64k16, q and k from
-//   shared memory), then O += P v with P from registers (the S accumulator,
-//   rounded to bf16, is already wgmma's A layout) and v read in its stored
-//   [key][d] layout as a transposed (MN-major) B: no transposed copy. ptxas
-//   fits every role in 96 registers without spills at two CTAs per SM, so
-//   no setmaxnreg rebalancing: an increase the CTA's register pool cannot
-//   meet blocks its warpgroup for good.
-// - f32: wgmma takes tf32 only K-major, and P v reads v MN-major, so the
-//   consumers run mma.sync m16n8k8 by 3xTF32 on the same ring, each warp on
-//   the same 16 rows as under wgmma, so the softmax code is shared. The P v
-//   step sums its 8 keys in a permuted order (common.cuh, mma_acc_by_rows)
-//   so that the S accumulators serve as A fragments with no shuffle. The
-//   ring is 161 KB with an f32 bias: one CTA per SM.
+//   An f32 bias tile takes two 32-column boxes per block.
+// - The products run on wgmma: S = q k^T (m64n64k16, k from shared
+//   memory), then O += P v with P from registers (the S accumulator is
+//   already wgmma's A layout) and v read in its stored [key][d] layout as a
+//   transposed (MN-major) B: no transposed copy. In bf16 P is rounded to
+//   bf16 and q read from shared memory. ptxas fits every bf16 role in 96
+//   registers at two CTAs per SM, so no setmaxnreg rebalancing: an increase
+//   the CTA's register pool cannot meet blocks its warpgroup for good.
+// - f32 operands run the same body on the bf16 tensor cores, as the
+//   backward does: the caller's pre-pass (split_bf16x3_kernel) writes the
+//   three bf16 parts of k and v once per call, and the maps load every part
+//   of a tile (part p of batch b at batch coordinate p B + b). q is read
+//   once per CTA: it is loaded as f32 and each consumer thread splits its
+//   fragment into three sets of wgmma A registers, so S is six RS products
+//   that read only k's parts from shared memory (at n = 64 an SS product
+//   reads its two operands at the shared memory's rate), and P v six RS
+//   products with P, unrounded (times c under dropout), split the same way.
+//   The ring is 193 KB with an f32 bias (161 KB with a bf16 one): one CTA
+//   per SM, whose two warpgroups' products and softmax overlap each other;
+//   ptxas gives a thread 168 registers (28 bytes of spills with dropout).
+//   Variants timed on an H100 (PERF.md): q's parts from shared memory (SS)
+//   or loaded into registers from a pre-pass, and the warpgroups issuing
+//   their products in turns (named barriers), were all slower.
 // - When P / 64 is odd the last tile has 64 real rows: the producer loads
 //   only the live warpgroups' q and bias, so nothing past P is read; a
 //   warpgroup whose rows all lie at or past S only writes their lse.
@@ -194,17 +205,6 @@ using ::mma_rows_by_tile;
 // the pitch of a [row][d] shared tile of T
 template <typename T>
 constexpr int kPitch = kIsF32<T> ? kLD32 : kLD;
-
-// this warp's A fragments of 16 rows over d: 4 k steps of bf16 pairs, or 8
-// k steps of raw f32 values (split into tf32 at each product)
-template <typename T>
-struct AFrags {
-  typedef uint32_t type[4][4];
-};
-template <>
-struct AFrags<float> {
-  typedef float type[8][4];
-};
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
@@ -360,14 +360,139 @@ __device__ __forceinline__ void store_rows(T* dst, const float (&acc)[8][4],
 }
 
 // ---------------------------------------------------------------------------
-// forward (sm_90a): a TMA-fed ring of k/v/bias stages; wgmma consumers in
-// bf16, mma.sync (3xTF32) consumers in f32
+// operands split into bf16 parts: how f32 operands reach the bf16 tensor
+// cores in the forward and in the backward (wgmma takes tf32 only K-major,
+// and the p v, dq, dk and dv products read B MN-major)
+// ---------------------------------------------------------------------------
+
+// the bf16 parts of an operand tile: the tile itself in bf16; hi, mid and
+// lo in f32, each a bf16 tile of 128-byte rows
+template <typename T>
+constexpr int kParts = kIsF32<T> ? 3 : 1;
+
+// the bf16 products that make up one product of split operands, smallest
+// first, as (part of A, part of B) with 0 hi, 1 mid, 2 lo: lo hi, hi lo,
+// mid mid, mid hi, hi mid, hi hi; the three of order 2^-24 and below (mid
+// lo, lo mid, lo lo) are left out. bf16 operands: hi hi alone
+template <typename T>
+constexpr int kTerms = kIsF32<T> ? 6 : 1;
+__host__ __device__ constexpr int term_a(int terms, int i) {
+  return terms == 1 ? 0 : i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
+}
+__host__ __device__ constexpr int term_b(int terms, int i) {
+  return terms == 1 ? 0 : i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
+}
+
+// the low (c = 0) or high (c = 1) bf16 of a pair, as f32
+__device__ __forceinline__ float pair_half(uint32_t w, int c) {
+  return __uint_as_float(c ? (w & 0xFFFF0000u) : (w << 16));
+}
+
+// x = hi + mid + lo for two values, each part a bf16 pair as wgmma's A
+// registers take it: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
+// mid). Both differences are exact in f32, and the parts hold x's 24 bits
+__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
+                                           uint32_t& lo) {
+  hi = pack_bf16x2(x0, x1);
+  const float r0 = x0 - pair_half(hi, 0), r1 = x1 - pair_half(hi, 1);
+  mid = pack_bf16x2(r0, r1);
+  lo = pack_bf16x2(r0 - pair_half(mid, 0), r1 - pair_half(mid, 1));
+}
+
+// the score accumulators (index 4nt + e: row g + 8 (e >> 1), column
+// 8nt + 2t + (e & 1)) as wgmma's A registers, kK k steps of 16 columns, one
+// set per part: rounded to bf16 (one part), or split into hi, mid and lo
+// (three)
+template <int kN, int kK>
+__device__ __forceinline__ void to_a(uint32_t (&a)[kN][kK][4], const float (&x)[8 * kK]) {
+#pragma unroll
+  for (int ks = 0; ks < kK; ++ks) {
+    // j: row g, columns 16ks + 2t; row g+8; row g, columns 16ks + 8 + 2t; row g+8
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const float x0 = x[8 * ks + 2 * j], x1 = x[8 * ks + 2 * j + 1];
+      if constexpr (kN == 1) {
+        a[0][ks][j] = pack_bf16x2(x0, x1);
+      } else {
+        split_pair(x0, x1, a[0][ks][j], a[1][ks][j], a[2][ks][j]);
+      }
+    }
+  }
+}
+
+// d = A B^T over d (64 wide), A and B [row][d] operand tiles read K-major
+// as stored (part tiles kPartA and kPartB bytes apart): every product of
+// parts, each over 4 k steps of 16; B has as many rows as d has columns
+template <typename T, int kPartA, int kPartB, int kN>
+__device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b) {
+#pragma unroll
+  for (int i = 0; i < kTerms<T>; ++i) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + 2 * ks,
+               b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
+    }
+  }
+}
+
+// the same with A (64 x 64 over d) in registers, one set of fragments per
+// part (4 k steps of 16), and d 64 x 64
+template <typename T, int kPartB>
+__device__ __forceinline__ void wgmma_by_rows_rs(float (&d)[32],
+                                                 const uint32_t (&a)[kParts<T>][4][4], uint64_t b) {
+#pragma unroll
+  for (int i = 0; i < kTerms<T>; ++i) {
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      wgmma_m64n64k16_rs(d, a[term_a(kTerms<T>, i)][ks],
+                         b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
+    }
+  }
+}
+
+// d (64 x 64) += A B, A (64 x 16 kK) in registers as one set of fragments
+// per part, B a [k][n] operand tile read as a transposed (MN-major) B (part
+// tiles kPartB bytes apart), a 16-row k step 2 KB on
+template <typename T, int kPartB, int kK>
+__device__ __forceinline__ void wgmma_by_cols(float (&d)[32],
+                                              const uint32_t (&a)[kParts<T>][kK][4], uint64_t b) {
+#pragma unroll
+  for (int i = 0; i < kTerms<T>; ++i) {
+#pragma unroll
+    for (int ks = 0; ks < kK; ++ks) {
+      wgmma_m64n64k16_rs_tb(d, a[term_a(kTerms<T>, i)][ks],
+                            b + term_b(kTerms<T>, i) * (kPartB >> 4) + ks * (2048 >> 4));
+    }
+  }
+}
+
+// rows [r0, r0 + rows) of an operand into dst, part by part (part p of
+// batch b is batch p B + b of the operand's map; part tiles `part` bytes
+// apart), in boxes of kBoxRows rows (one thread)
+template <int kParts_, int kBoxRows>
+__device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map,
+                                             uint64_t* bar, int r0, int rows, int part, int h,
+                                             int b) {
+#pragma unroll
+  for (int p = 0; p < kParts_; ++p) {
+    for (int rb = 0; rb < rows; rb += kBoxRows) {
+      tma_load_4d(dst + p * part + rb * 128, map, bar, 0, r0 + rb, h,
+                  p * static_cast<int>(gridDim.z) + b);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// forward (sm_90a): a TMA-fed ring of k/v/bias stages and two wgmma
+// consumer warpgroups; bf16 operands as stored, f32 operands as their three
+// bf16 parts
 // ---------------------------------------------------------------------------
 
 constexpr int kFwdStages = 2;        // depth of the shared-memory ring
 constexpr int kFwdRows = 128;        // query rows per CTA: 2 consumer warpgroups of 64
 constexpr int kFwdConsumers = 256;   // threads of the two consumer warpgroups
 constexpr int kFwdThreads = kFwdConsumers + 32;  // and one producer warp
+constexpr int kPartTile = 64 * 128;  // 64 rows of one bf16 part: 128-byte rows
 
 // a 64-row x 64-column tile of T as TMA writes it: one box of 128-byte rows
 // in bf16, two (32 columns each, 8 KB apart) in f32
@@ -378,25 +503,30 @@ struct Tile {
   static constexpr int kBytes = 64 * 64 * static_cast<int>(sizeof(T));
 };
 
-// q (both warpgroups' rows), then the ring; each stage k, v and the two
-// warpgroups' bias tiles; 1 KB for alignment. bf16 throughout: 81 KB, two
-// CTAs per SM; f32 throughout: 161 KB, one
+// q (both warpgroups' rows, as loaded: T), then the ring; each stage k, v
+// (every part: kOpTile) and the two warpgroups' bias tiles; 1 KB for
+// alignment. bf16 throughout: 81 KB, two CTAs per SM; f32 operands: 193 KB
+// with an f32 bias, 161 KB with a bf16 one, one
 template <typename T, typename BiasT>
 struct FwdSmem {
-  static constexpr int kQ = 2 * Tile<T>::kBytes;
-  static constexpr int kStage = 2 * Tile<T>::kBytes + 2 * Tile<BiasT>::kBytes;
+  static constexpr int kQTile = Tile<T>::kBytes;
+  static constexpr int kOpTile = kParts<T> * kPartTile;
+  static constexpr int kQ = 2 * kQTile;
+  static constexpr int kStage = 2 * kOpTile + 2 * Tile<BiasT>::kBytes;
   static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage;
 };
 
-// q, k, v as (D, rows, H, B) maps by the operand's strides, boxes of
-// 64 rows; the bias as a (P, B*H*P) map, boxes of 64 rows
+// q, k, v as (D, rows, H, B) maps, boxes of 64 rows: q at its strides (f32:
+// two 32-column boxes), k and v too in bf16, and in f32 as their parts (3 B
+// batches); the bias as a (P, B*H*P) map, boxes of 64 rows
 struct FwdMaps {
   CUtensorMap q, k, v, bias;
 };
 
 // bias (row lr, keys 8nt + 2t, +1) of a warpgroup's 128-byte-swizzled
 // tile: the 16-byte chunk c of row lr sits at chunk c ^ (lr % 8), so the 8
-// rows of an accumulator fragment fall on 8 different bank groups
+// rows of an accumulator fragment fall on 8 different bank groups. The f32
+// forward reads its f32 q tile's pairs the same way
 __device__ __forceinline__ float2 bias_pair(const bf16* tile, int lr, int nt, int t) {
   const char* row = reinterpret_cast<const char*>(tile) + lr * 128;
   const __nv_bfloat162 v =
@@ -411,9 +541,8 @@ __device__ __forceinline__ float2 bias_pair(const float* tile, int lr, int nt, i
 }
 
 // element (r, c) of a 64 x 64 f32 tile in two 32-column, 128-byte-swizzled
-// boxes (of `box` bytes: 8192 for 64 rows). The fragment reads below hit 32
-// distinct banks: q/k rows g with columns 8ks + t (chunk 2ks ^ g), v rows
-// 8ks + 2t (+1) with columns 8dt + g (chunk (2dt + g / 4) ^ 2t (+1))
+// boxes (of `box` bytes: 8192 for 64 rows); the backward's (B) reads its
+// f32 bias tile transposed through it
 __device__ __forceinline__ float sw32(const float* tile, int r, int c, int box = 8192) {
   const char* row = reinterpret_cast<const char*>(tile) + (c >> 5) * box + r * 128;
   return *reinterpret_cast<const float*>(row + ((((c & 31) >> 2) ^ (r & 7)) << 4) +
@@ -428,18 +557,22 @@ struct FwdOccupancy {
 // One CTA per (128-row q tile, head, batch): warps 0-7 are two consumer
 // warpgroups of 64 rows, warp 8 the producer. The producer loads q once and
 // then streams each 64-key block's k, v and bias tiles into a ring of
-// kFwdStages stages by TMA; the consumers wait for a stage, run S = q k^T,
-// the online softmax in registers, O += P v with v in its stored [key][d]
-// layout, and release the stage. A warpgroup whose rows all lie at or past
-// S only writes their lse (+inf), and nothing without kLse.
+// kFwdStages stages by TMA (in f32 every part of the k and v tiles); the
+// consumers wait for a stage, run S = q k^T (wgmma, K-major as stored: bf16
+// q from shared memory; f32 q, split once into three parts, from
+// registers), the online softmax in registers, O += P v with P in wgmma's A
+// registers (rounded to bf16, or split into three parts) and v read
+// [key][d] as an MN-major B, and release the stage. A warpgroup whose rows
+// all lie at or past S only writes their lse (+inf), and nothing without
+// kLse.
 template <typename T, typename BiasT, bool kDropout, bool kLse>
 __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kernel(
     const __grid_constant__ FwdMaps maps,
     T* __restrict__ o,        // (B, H, S, D) by strides
     float* __restrict__ lse,  // (B, H, P), or null without kLse
     Strides so, int S, int H, int P, float scale, int seed, float keep, float inv_keep) {
-  constexpr bool kF32 = kIsF32<T>;
-  constexpr int kTile = Tile<T>::kBytes;
+  constexpr int kQTile = FwdSmem<T, BiasT>::kQTile;
+  constexpr int kOpTile = FwdSmem<T, BiasT>::kOpTile;
   constexpr int kBias = Tile<BiasT>::kBytes;
   constexpr int kQBytes = FwdSmem<T, BiasT>::kQ;
   constexpr int kStage = FwdSmem<T, BiasT>::kStage;
@@ -480,31 +613,27 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       tma_prefetch_map(&maps.k);
       tma_prefetch_map(&maps.v);
       tma_prefetch_map(&maps.bias);
-      mbar_expect_tx(&q_bar, n_live * kTile);
+      mbar_expect_tx(&q_bar, n_live * kQTile);
       for (int w = 0; w < n_live; ++w) {
 #pragma unroll
         for (int c = 0; c < Tile<T>::kBoxes; ++c) {
-          tma_load_4d(smem + w * kTile + c * 8192, &maps.q, &q_bar, c * Tile<T>::kBoxCols,
+          tma_load_4d(smem + w * kQTile + c * 8192, &maps.q, &q_bar, c * Tile<T>::kBoxCols,
                       q0 + 64 * w, h, b);
         }
       }
-      const uint32_t stage_tx = 2 * kTile + n_live * kBias;
+      const uint32_t stage_tx = 2 * kOpTile + n_live * kBias;
       for (int kb = 0; kb < n_kb; ++kb) {
         const int stage = kb % kFwdStages;
         if (kb >= kFwdStages) mbar_wait(&empty_bar[stage], ((kb / kFwdStages) - 1) & 1);
         uint8_t* st = smem + kQBytes + stage * kStage;
         uint64_t* bar = &full_bar[stage];
         mbar_expect_tx(bar, stage_tx);
-#pragma unroll
-        for (int c = 0; c < Tile<T>::kBoxes; ++c) {
-          tma_load_4d(st + c * 8192, &maps.k, bar, c * Tile<T>::kBoxCols, kb * kBK, h, b);
-          tma_load_4d(st + kTile + c * 8192, &maps.v, bar, c * Tile<T>::kBoxCols, kb * kBK, h,
-                      b);
-        }
+        load_operand<kParts<T>, 64>(st, &maps.k, bar, kb * kBK, 64, kPartTile, h, b);
+        load_operand<kParts<T>, 64>(st + kOpTile, &maps.v, bar, kb * kBK, 64, kPartTile, h, b);
         for (int w = 0; w < n_live; ++w) {
 #pragma unroll
           for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
-            tma_load_2d(st + 2 * kTile + w * kBias + c * 8192, &maps.bias, bar,
+            tma_load_2d(st + 2 * kOpTile + w * kBias + c * 8192, &maps.bias, bar,
                         kb * kBK + c * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
           }
         }
@@ -535,27 +664,31 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
-  // bf16: K-major q and k tiles, 8-row atoms 1 KB apart, a 16-wide k step
+  // K-major q and k (part) tiles, 8-row atoms 1 KB apart, a 16-wide k step
   // 32 bytes on; MN-major v: the same atoms, a 16-key k step 2 KB on
-  const uint64_t q_desc = wgmma_desc(smem + wg * kTile, 16, 1024);
+  const uint64_t q_desc = wgmma_desc(smem + wg * kQTile, 16, 1024);
   mbar_wait(&q_bar, 0);
-  float qa[8][4];  // f32: this warp's q rows as raw A values, 8 k steps over d
-  if constexpr (kF32) {
-    const float* q_tile = reinterpret_cast<const float*>(smem + wg * kTile);
+  // f32: this warp's q rows split into three parts of wgmma's A registers
+  // once (A register j of k step ks holds row lr[j % 2], columns 16 ks +
+  // 8 (j / 2) + 2t, +1), so the score products read only k from shared
+  // memory, and the pre-pass splits only k and v
+  uint32_t qa[kParts<T>][4][4];
+  if constexpr (kIsF32<T>) {
+    const float* q_tile = reinterpret_cast<const float*>(smem + wg * kQTile);
 #pragma unroll
-    for (int ks = 0; ks < 8; ++ks) {
-      qa[ks][0] = sw32(q_tile, lr[0], ks * 8 + t);
-      qa[ks][1] = sw32(q_tile, lr[1], ks * 8 + t);
-      qa[ks][2] = sw32(q_tile, lr[0], ks * 8 + t + 4);
-      qa[ks][3] = sw32(q_tile, lr[1], ks * 8 + t + 4);
+    for (int ks = 0; ks < 4; ++ks) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const float2 x = bias_pair(q_tile, lr[j & 1], 2 * ks + (j >> 1), t);
+        split_pair(x.x, x.y, qa[0][ks][j], qa[1][ks][j], qa[2][ks][j]);
+      }
     }
   }
 
-  // bf16: each block's O += P v runs while the next block's stage is waited
-  // for and its S = q k^T is issued: the P v group is waited for (and its
-  // stage released) only before the accumulators are rescaled. f32: the
-  // products are synchronous, and a warp releases the stage after its P v.
-  uint32_t pa[4][4];  // bf16: P of the block in flight, wgmma's A registers
+  // Each block's O += P v runs while the next block's stage is waited for
+  // and its S = q k^T is issued: the P v group is waited for (and its stage
+  // released) only before the accumulators are rescaled.
+  uint32_t pa[kParts<T>][4][4];  // P of the block in flight, wgmma's A registers
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kBK;
     const int stage = kb % kFwdStages;
@@ -569,42 +702,25 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
     }
     mbar_wait(&full_bar[stage], (kb / kFwdStages) & 1);
     const uint8_t* st = smem + kQBytes + stage * kStage;
-    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kTile + wg * kBias);
+    const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kOpTile + wg * kBias);
 
     // S = q k^T over d
-    if constexpr (kF32) {
-      const float* k_tile = reinterpret_cast<const float*>(st);
-#pragma unroll
-      for (int i = 0; i < 32; ++i) s[i] = 0.0f;
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        uint32_t hi[4], lo[4];
-        split_frag(qa[ks], hi, lo);
-#pragma unroll
-        for (int nt = 0; nt < 8; ++nt) {
-          const int kr = nt * 8 + g;
-          mma_3xtf32(&s[4 * nt], hi, lo, sw32(k_tile, kr, ks * 8 + t),
-                     sw32(k_tile, kr, ks * 8 + t + 4));
-        }
-      }
+    wgmma_fence();
+    if constexpr (kIsF32<T>) {
+      wgmma_by_rows_rs<T, kPartTile>(s, qa, wgmma_desc(st, 16, 1024));
     } else {
-      const uint64_t k_desc = wgmma_desc(st, 16, 1024);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        wgmma_m64n64k16_ss(s, q_desc + 2 * ks, k_desc + 2 * ks, ks);
-      }
-      wgmma_commit();
-      if (kb > 0) {  // the previous block's P v is done: release its stage
-        wgmma_wait<1>();
-        reg_fence(acc);
-        reg_fence(pa);
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty_bar[(kb - 1) % kFwdStages]);
-      }
-      wgmma_wait<0>();
-      reg_fence(s);
+      wgmma_by_rows<T, kPartTile, kPartTile>(s, q_desc, wgmma_desc(st, 16, 1024));
     }
+    wgmma_commit();
+    if (kb > 0) {  // the previous block's P v is done: release its stage
+      wgmma_wait<1>();
+      reg_fence(acc);
+      reg_fence(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[(kb - 1) % kFwdStages]);
+    }
+    wgmma_wait<0>();
+    reg_fence(s);
 
     // scale + bias in f32; keys >= S (in the last block only) masked out.
     // Rows >= S take whatever bias lies there: they are neither stored nor
@@ -663,47 +779,17 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       acc[4 * dt + 3] *= alpha[1];
     }
 
-    if constexpr (kF32) {
-      // O += P v, P not rounded; k step ks takes keys 8ks + 2t and 2t + 1
-      // as its k t and t + 4 (the S accumulators' own columns)
-      const float* v_tile = reinterpret_cast<const float*>(st + kTile);
-#pragma unroll
-      for (int ks = 0; ks < 8; ++ks) {
-        const float a[4] = {s[4 * ks], s[4 * ks + 2], s[4 * ks + 1], s[4 * ks + 3]};
-        uint32_t hi[4], lo[4];
-        split_frag(a, hi, lo);
-#pragma unroll
-        for (int dt = 0; dt < 8; ++dt) {
-          mma_3xtf32(&acc[4 * dt], hi, lo, sw32(v_tile, ks * 8 + 2 * t, dt * 8 + g),
-                     sw32(v_tile, ks * 8 + 2 * t + 1, dt * 8 + g));
-        }
-      }
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty_bar[stage]);
-    } else {
-      // O += P v: the score accumulators, rounded to bf16, are wgmma's A
-      // registers; v is read [key][d] as a transposed (MN-major) B
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        pa[ks][0] = pack_bf16x2(s[8 * ks + 0], s[8 * ks + 1]);  // row g,   keys 16ks + 2t
-        pa[ks][1] = pack_bf16x2(s[8 * ks + 2], s[8 * ks + 3]);  // row g+8
-        pa[ks][2] = pack_bf16x2(s[8 * ks + 4], s[8 * ks + 5]);  // row g,   keys 16ks + 8 + 2t
-        pa[ks][3] = pack_bf16x2(s[8 * ks + 6], s[8 * ks + 7]);  // row g+8
-      }
-      const uint64_t v_desc = wgmma_desc(st + kTile, 16, 1024);
-      wgmma_fence();
-#pragma unroll
-      for (int ks = 0; ks < 4; ++ks) {
-        wgmma_m64n64k16_rs_tb(acc, pa[ks], v_desc + ks * (2048 >> 4));
-      }
-      wgmma_commit();
-    }
+    // O += P v: the score accumulators (rounded to bf16, or split into
+    // three parts) are wgmma's A registers; v is read [key][d] as a
+    // transposed (MN-major) B
+    to_a(pa, s);
+    wgmma_fence();
+    wgmma_by_cols<T, kPartTile, 4>(acc, pa, wgmma_desc(st + kOpTile, 16, 1024));
+    wgmma_commit();
   }
-  if constexpr (!kF32) {
-    wgmma_wait<0>();
-    reg_fence(acc);
-    reg_fence(pa);
-  }
+  wgmma_wait<0>();
+  reg_fence(acc);
+  reg_fence(pa);
 
   // o / l at the caller's strides; lse = m + log(l), +inf past S
 #pragma unroll
@@ -750,6 +836,13 @@ int encode_plane(CUtensorMap* map, const void* x, int B, int H, int P, int rows 
   return encode_map(map, kMapType<BiasT>, 2, x, dims, strides, box);
 }
 
+// the map of one operand's split parts, a contiguous (3 B, H, S, 64) bf16
+// tensor (part p of batch b is batch p B + b), boxes of `box_rows` rows
+int encode_parts(CUtensorMap* map, const bf16* parts, int B, int H, int S, int box_rows) {
+  const Strides cs{static_cast<long long>(H) * S * kD, static_cast<long long>(S) * kD, kD};
+  return encode_operand(map, parts, cs, S, H, 3 * B, box_rows);
+}
+
 template <typename T, typename BiasT, bool kDropout, bool kLse>
 int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, int B, int S,
                       int H, int P, float scale, int seed, float keep, float inv_keep,
@@ -764,17 +857,26 @@ int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, 
   return static_cast<int>(cudaGetLastError());
 }
 
-// with_lse = 0 is flash_attention_packed: no dropout, no lse (lse unused)
+// with_lse = 0 is flash_attention_packed: no dropout, no lse (lse unused).
+// f32 k and v are read from `kv_parts` only: their split parts, (2, 3, B,
+// H, S, 64) bf16, which the caller's split pre-pass wrote
 template <typename T, typename BiasT>
-int launch_fwd(const T* q, const T* k, const T* v, const void* bias, T* o, float* lse,
-               const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
-               int B, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-               int dropout, int with_lse, cudaStream_t st) {
+int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const void* bias, T* o,
+               float* lse, const Strides& sq, const Strides& sk, const Strides& sv,
+               const Strides& so, int B, int S, int H, int P, float scale, int seed, float keep,
+               float inv_keep, int dropout, int with_lse, cudaStream_t st) {
   if (!with_lse && dropout) return static_cast<int>(cudaErrorInvalidValue);
   FwdMaps maps;
   int err = encode_operand(&maps.q, q, sq, S, H, B);
-  if (err == 0) err = encode_operand(&maps.k, k, sk, S, H, B);
-  if (err == 0) err = encode_operand(&maps.v, v, sv, S, H, B);
+  if constexpr (kIsF32<T>) {
+    if (kv_parts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
+    if (err == 0) err = encode_parts(&maps.k, kv_parts, B, H, S, 64);
+    if (err == 0) err = encode_parts(&maps.v, kv_parts + n, B, H, S, 64);
+  } else {
+    if (err == 0) err = encode_operand(&maps.k, k, sk, S, H, B);
+    if (err == 0) err = encode_operand(&maps.v, v, sv, S, H, B);
+  }
   if (err == 0) err = encode_plane<BiasT>(&maps.bias, bias, B, H, P);
   if (err != 0) return err;
   if (!with_lse) {
@@ -834,24 +936,6 @@ struct BwdTiling {
   static constexpr int kOpBoxRows = kIsF32<T> ? 32 : 64;
   static constexpr int kBiasBoxRows = kNarrow ? 32 : 64;
 };
-
-// the bf16 parts of an operand tile: the tile itself in bf16; hi, mid and
-// lo in f32, each a bf16 tile of 128-byte rows
-template <typename T>
-constexpr int kParts = kIsF32<T> ? 3 : 1;
-
-// the bf16 products that make up one product of split operands, smallest
-// first, as (part of A, part of B) with 0 hi, 1 mid, 2 lo: lo hi, hi lo,
-// mid mid, mid hi, hi mid, hi hi; the three of order 2^-24 and below (mid
-// lo, lo mid, lo lo) are left out. bf16 operands: hi hi alone
-template <typename T>
-constexpr int kTerms = kIsF32<T> ? 6 : 1;
-__host__ __device__ constexpr int term_a(int terms, int i) {
-  return terms == 1 ? 0 : i == 0 ? 2 : (i == 2 || i == 3) ? 1 : 0;
-}
-__host__ __device__ constexpr int term_b(int terms, int i) {
-  return terms == 1 ? 0 : i == 1 ? 2 : (i == 2 || i == 4) ? 1 : 0;
-}
 
 // q, k, v, do as (D, rows, H, B) maps by their strides (f32: of their split
 // parts), boxes of kOpBoxRows rows; bias, gbias and dbias as (P, B*H*P)
@@ -948,74 +1032,6 @@ __device__ __forceinline__ uint32_t pairs_t_addr(const bf16* tile, int warp, int
   const int query = 8 * (2 * j + (m >> 1)) + q8;
   return smem_addr(tile) + query * 128 + (((2 * warp + (m & 1)) ^ q8) << 4);
 }
-// the low (c = 0) or high (c = 1) bf16 of a pair, as f32
-__device__ __forceinline__ float pair_half(uint32_t w, int c) {
-  return __uint_as_float(c ? (w & 0xFFFF0000u) : (w << 16));
-}
-
-// x = hi + mid + lo for two values, each part a bf16 pair as wgmma's A
-// registers take it: hi = bf16(x), mid = bf16(x - hi), lo = bf16(x - hi -
-// mid). Both differences are exact in f32, and the parts hold x's 24 bits
-__device__ __forceinline__ void split_pair(float x0, float x1, uint32_t& hi, uint32_t& mid,
-                                           uint32_t& lo) {
-  hi = pack_bf16x2(x0, x1);
-  const float r0 = x0 - pair_half(hi, 0), r1 = x1 - pair_half(hi, 1);
-  mid = pack_bf16x2(r0, r1);
-  lo = pack_bf16x2(r0 - pair_half(mid, 0), r1 - pair_half(mid, 1));
-}
-
-// the score accumulators (index 4nt + e: row g + 8 (e >> 1), column
-// 8nt + 2t + (e & 1)) as wgmma's A registers, kK k steps of 16 columns, one
-// set per part: rounded to bf16 (one part), or split into hi, mid and lo
-// (three)
-template <int kN, int kK>
-__device__ __forceinline__ void to_a(uint32_t (&a)[kN][kK][4], const float (&x)[8 * kK]) {
-#pragma unroll
-  for (int ks = 0; ks < kK; ++ks) {
-    // j: row g, columns 16ks + 2t; row g+8; row g, columns 16ks + 8 + 2t; row g+8
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float x0 = x[8 * ks + 2 * j], x1 = x[8 * ks + 2 * j + 1];
-      if constexpr (kN == 1) {
-        a[0][ks][j] = pack_bf16x2(x0, x1);
-      } else {
-        split_pair(x0, x1, a[0][ks][j], a[1][ks][j], a[2][ks][j]);
-      }
-    }
-  }
-}
-
-// d = A B^T over d (64 wide), A and B [row][d] operand tiles read K-major
-// as stored (part tiles kPartA and kPartB bytes apart): every product of
-// parts, each over 4 k steps of 16; B has as many rows as d has columns
-template <typename T, int kPartA, int kPartB, int kN>
-__device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b) {
-#pragma unroll
-  for (int i = 0; i < kTerms<T>; ++i) {
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + 2 * ks,
-               b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
-    }
-  }
-}
-
-// d (64 x 64) += A B, A (64 x 16 kK) in registers as one set of fragments
-// per part, B a [k][n] operand tile read as a transposed (MN-major) B (part
-// tiles kPartB bytes apart), a 16-row k step 2 KB on
-template <typename T, int kPartB, int kK>
-__device__ __forceinline__ void wgmma_by_cols(float (&d)[32],
-                                              const uint32_t (&a)[kParts<T>][kK][4], uint64_t b) {
-#pragma unroll
-  for (int i = 0; i < kTerms<T>; ++i) {
-#pragma unroll
-    for (int ks = 0; ks < kK; ++ks) {
-      wgmma_m64n64k16_rs_tb(d, a[term_a(kTerms<T>, i)][ks],
-                            b + term_b(kTerms<T>, i) * (kPartB >> 4) + ks * (2048 >> 4));
-    }
-  }
-}
-
 // 64 x 64 wgmma accumulators, times `mul`, stored as T at the rows < S of
 // a plane with row stride `rs`; row0 is the warpgroup's first row
 template <typename T>
@@ -1048,22 +1064,6 @@ __device__ __forceinline__ float row_delta(const T* dr, const T* orow) {
     for (int e = 0; e < kVec; ++e) acc += mmee_to_float(de[e]) * mmee_to_float(oe[e]);
   }
   return acc;
-}
-
-// rows [r0, r0 + rows) of an operand into dst, part by part (part p of
-// batch b is batch p B + b of the operand's map; part tiles `part` bytes
-// apart), in boxes of kBoxRows rows (thread 0)
-template <int kParts_, int kBoxRows>
-__device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map,
-                                             uint64_t* bar, int r0, int rows, int part, int h,
-                                             int b) {
-#pragma unroll
-  for (int p = 0; p < kParts_; ++p) {
-    for (int rb = 0; rb < rows; rb += kBoxRows) {
-      tma_load_4d(dst + p * part + rb * 128, map, bar, 0, r0 + rb, h,
-                  p * static_cast<int>(gridDim.z) + b);
-    }
-  }
 }
 
 // a rows x cols tile of a (B, H, P, P) plane tensor (boxes of kBoxRows rows
@@ -1541,16 +1541,13 @@ int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dou
   using Tiling = BwdTiling<T, BiasT, false>;
   int err = 0;
   if constexpr (kIsF32<T>) {
-    // an operand's parts are a (3 B, H, S, 64) tensor: part p of batch b is
-    // batch p B + b
     const bf16* parts = split_parts(delta, B, H, P);
-    const size_t n = static_cast<size_t>(3) * B * H * S * kD;
-    const Strides cs{static_cast<long long>(H) * S * kD, static_cast<long long>(S) * kD, kD};
+    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
     constexpr int kRows = Tiling::kOpBoxRows;
-    err = encode_operand(&m->q, parts, cs, S, H, 3 * B, kRows);
-    if (err == 0) err = encode_operand(&m->k, parts + n, cs, S, H, 3 * B, kRows);
-    if (err == 0) err = encode_operand(&m->v, parts + 2 * n, cs, S, H, 3 * B, kRows);
-    if (err == 0) err = encode_operand(&m->dout, parts + 3 * n, cs, S, H, 3 * B, kRows);
+    err = encode_parts(&m->q, parts, B, H, S, kRows);
+    if (err == 0) err = encode_parts(&m->k, parts + n, B, H, S, kRows);
+    if (err == 0) err = encode_parts(&m->v, parts + 2 * n, B, H, S, kRows);
+    if (err == 0) err = encode_parts(&m->dout, parts + 3 * n, B, H, S, kRows);
   } else {
     err = encode_operand(&m->q, q, ss.q, S, H, B);
     if (err == 0) err = encode_operand(&m->k, k, ss.k, S, H, B);
@@ -1615,7 +1612,7 @@ int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const 
 }
 
 // ---------------------------------------------------------------------------
-// the split pre-pass of the f32 backwards
+// the split pre-pass of the f32 forwards (k, v) and backwards (q, k, v, do)
 // ---------------------------------------------------------------------------
 
 // up to four f32 (B, H, S, 64) operands and their element strides
@@ -1628,7 +1625,7 @@ struct SplitSrc {
 // tensors hi, mid, lo (split_pair) of `parts`, (operand, part, B, H, S, 64)
 // contiguous, 16-byte loads and stores. Bound by bytes: 4 read and 6
 // written per value, 0.11 ms for q, k, v and do at B = 16, H = 12, S = 768
-// on an H100 (3.35 TB/s)
+// on an H100 (3.35 TB/s), 0.056 ms for k and v
 __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant__ SplitSrc src,
                                                            bf16* __restrict__ parts, int B,
                                                            int H, int S) {
@@ -1686,6 +1683,17 @@ struct DqTiles {
   static constexpr int kA = kIsF32<T> ? 1 : kBQ * kLD;
   static constexpr int kKt = kIsF32<T> ? 1 : kD * kLD;
   static constexpr int kRows = 64 * kPitch<T>;
+};
+
+// (A'): this warp's A fragments of 16 rows over d: 4 k steps of bf16 pairs, or 8
+// k steps of raw f32 values (split into tf32 at each product)
+template <typename T>
+struct AFrags {
+  typedef uint32_t type[4][4];
+};
+template <>
+struct AFrags<float> {
+  typedef float type[8][4];
 };
 
 // this warp's q and do rows as A fragments, through the shared tiles
@@ -2004,10 +2012,13 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
 
 // Every entry takes its operands (q, k, v, o, do and the gradients) as
 // bf16 (qkv_is_bf16 = 1) or f32 (0), and the bias (and gbias, dbias) as
-// bf16 (bias_is_bf16 = 1) or f32 (0). Every backward takes `delta`, scratch
-// of B * H * P floats; with f32 operands it is followed by the split parts
-// of q, k, v and do, (4, 3, B, H, S, 64) bf16, which the caller writes with
-// mmee_split_bf16x3 before the call.
+// bf16 (bias_is_bf16 = 1) or f32 (0). With f32 operands the kernels read
+// k and v (and in the backwards q and do) only as their split parts, which
+// the caller writes with mmee_split_bf16x3 before the call: every forward
+// takes those of k and v as `kv_parts`, (2, 3, B, H, S, 64) bf16 (null with
+// bf16 operands), and splits q itself; every backward takes `delta`,
+// scratch of B * H * P floats, followed with f32 operands by the parts of
+// q, k, v and do, (4, 3, B, H, S, 64) bf16.
 
 // split_bf16x3: n (1 to 4) f32 (B, H, S, 64) operands x0.., at the element
 // strides `strides` gives (a host array of 3n: batch, head, row; 16-byte
@@ -2034,32 +2045,33 @@ extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
 // of 64
 extern "C" int mmee_flash_attention_packed(const void* q, const void* k, const void* v,
                                            const void* bias, int bias_is_bf16,
-                                           int qkv_is_bf16, void* o, int B, int S, int H,
-                                           int P, float scale, void* stream) {
+                                           int qkv_is_bf16, const void* kv_parts, void* o,
+                                           int B, int S, int H, int P, float scale,
+                                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides ps = packed_strides(S, H);
   return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), bias, static_cast<T*>(o),
-                                       nullptr, ps, ps, ps, ps, B, S, H, P, scale, 0, 1.0f,
-                                       1.0f, 0, 0, st);
+    return launch_fwd<T, decltype(bt)>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), nullptr, ps, ps, ps, ps,
+        B, S, H, P, scale, 0, 1.0f, 1.0f, 0, 0, st);
   });
 }
 
 extern "C" int mmee_flash_attention_packed_train_fwd(
     const void* q, const void* k, const void* v, const void* bias,
-    int bias_is_bf16, int qkv_is_bf16, void* o, void* lse, int B, int S, int H, int P,
-    float scale, int seed, float keep, float inv_keep, int dropout,
+    int bias_is_bf16, int qkv_is_bf16, const void* kv_parts, void* o, void* lse, int B, int S,
+    int H, int P, float scale, int seed, float keep, float inv_keep, int dropout,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides ps = packed_strides(S, H);
   return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), bias, static_cast<T*>(o),
-                                       static_cast<float*>(lse), ps, ps, ps, ps, B, S, H, P,
-                                       scale, seed, keep, inv_keep, dropout, 1, st);
+    return launch_fwd<T, decltype(bt)>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
+        ps, ps, ps, ps, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
   });
 }
 
@@ -2115,17 +2127,18 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
 // `strides` is a host array of 12: (batch, head, row) of q, k, v, o.
 extern "C" int mmee_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
-    int qkv_is_bf16, void* o, void* lse, const long long* strides, int B, int S, int H, int P,
-    float scale, int seed, float keep, float inv_keep, int dropout, void* stream) {
+    int qkv_is_bf16, const void* kv_parts, void* o, void* lse, const long long* strides, int B,
+    int S, int H, int P, float scale, int seed, float keep, float inv_keep, int dropout,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3);
   return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), bias, static_cast<T*>(o),
-                                       static_cast<float*>(lse), sq, sk, sv, so, B, S, H, P,
-                                       scale, seed, keep, inv_keep, dropout, 1, st);
+    return launch_fwd<T, decltype(bt)>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
+        sq, sk, sv, so, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
   });
 }
 

@@ -238,6 +238,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b,
   wgmma_m64n32k16_ss(d, a, b, acc);
 }
 
+// d (64 x 64 f32) (+)= A (64 x 16 bf16 in registers, the mma.sync A
+// fragment layout per warp) times B (16 x 64, K-major in shared memory:
+// stored [n][k])
+__device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " MMEE_WGMMA_REGS32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : MMEE_WGMMA_D32(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
 // d (64 x 64 f32) += A (64 x 16 bf16 in registers, the mma.sync A fragment
 // layout per warp) times B (16 x 64, MN-major in shared memory: stored [k][n])
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],

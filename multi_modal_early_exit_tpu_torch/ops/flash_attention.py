@@ -16,10 +16,12 @@ softmax, p cast to v's dtype, then p v.
 Every CUDA kernel here takes its operands (q, k, v, o, do) all in bf16 or
 all in f32, and multiplies in that type with f32 accumulation, as the TPU
 kernels do: bf16 on the bf16 tensor cores; f32 good to about f32's
-precision, the forwards by 3xTF32, the backwards by six bf16 products of
-operands split into three bf16 parts each (``split_bf16x3``; its plain
-version and ``split_matmul_plain`` show the arithmetic on the CPU). Other
-dtypes, or mixed ones, raise ``TypeError``. Under
+precision, on the same tensor cores by six bf16 products of operands split
+into three bf16 parts each: every f32 forward and backward first splits its
+operands (``split_bf16x3``, one launch: k and v before a forward, which
+splits q itself, q, k, v and do before a backward; its plain version and
+``split_matmul_plain``, which the plain versions take as ``matmul``, show the
+arithmetic on the CPU). Other dtypes, or mixed ones, raise ``TypeError``. Under
 autograd it is an ``autograd.Function`` whose backward is the JAX package's
 ``_packed_bwd``: the head-form forward (``flash_attention_fwd``) recomputes
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
@@ -141,14 +143,16 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
 
 def flash_attention_packed_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    num_heads: int,
+    num_heads: int, matmul=torch.matmul,
 ) -> torch.Tensor:
-    """Plain PyTorch ``flash_attention_packed`` (dense (B, H, S, S) scores)."""
+    """Plain PyTorch ``flash_attention_packed`` (dense (B, H, S, S) scores).
+    Its two products go through ``matmul`` (``split_matmul_plain``: the f32
+    kernel's arithmetic)."""
     s, d = q.shape[1], q.shape[2] // num_heads
-    scores = torch.matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
+    scores = matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
-    out = torch.matmul(p.to(torch.float32), _heads(v, num_heads))
+    out = matmul(p.to(torch.float32), _heads(v, num_heads))
     return _packed(out).to(q.dtype)
 
 
@@ -157,7 +161,7 @@ def _flash_attention_packed_fn():
     lib = cuda_build.load("flash_attention_packed_train")
     fn = lib.mmee_flash_attention_packed
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -174,12 +178,13 @@ def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
     is_bf16 = _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
     kbias = _kernel_width(bias)
     out = torch.empty_like(q)
+    parts = _fwd_kv_parts(k, v, num_heads)
     lib, fn = _flash_attention_packed_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
-            int(kbias.dtype == torch.bfloat16), is_bf16, out.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
             b, s, num_heads, kbias.shape[-1], 1.0 / math.sqrt(hd // num_heads), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
@@ -218,8 +223,10 @@ def flash_attention_packed(
 ) -> torch.Tensor:
     """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
     CUDA tensors launch the kernel (counted in
-    ``flash_attention_packed.launches``). Differentiable in q, k, v and the
-    bias (``_PackedAttention``); without autograd nothing is saved."""
+    ``flash_attention_packed.launches``), f32 ones after splitting k and v by
+    ``split_bf16x3`` (one launch, counted there). Differentiable in q, k,
+    v and the bias (``_PackedAttention``); without autograd nothing is
+    saved."""
     _check_packed("flash_attention_packed", q, k, v, bias, num_heads)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
         return _PackedAttention.apply(q, k, v, bias, num_heads)
@@ -249,15 +256,16 @@ def attention_dropout_scale(
 
 def flash_attention_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int = 0, rate: float = 0.0,
+    seed: int = 0, rate: float = 0.0, matmul=torch.matmul,
 ):
     """Plain PyTorch head-form forward on (B, H, S, D) q/k/v: (out (B, H,
     S, D) in q's dtype, lse (B, H, P) f32, +inf past S). Dense f32 scores,
     keys j >= S left out; dropout scales the normalised p, which is rounded
-    to v's dtype before p v. The training forward's plain version on the
-    heads of the packed projections."""
+    to v's dtype before p v. Its two products go through ``matmul``
+    (``split_matmul_plain``: the f32 kernel's arithmetic). The training
+    forward's plain version on the heads of the packed projections."""
     b, h, s, d = q.shape
-    scores = torch.matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
+    scores = matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
     scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
@@ -265,7 +273,7 @@ def flash_attention_fwd_plain(
     p = e / denom
     if rate > 0.0:
         p = p * attention_dropout_scale(seed, b, h, s, rate, q.device)
-    out = torch.matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
+    out = matmul(p.to(v.dtype).to(torch.float32), v.to(torch.float32))
     lse = torch.full((b, h, bias.shape[-1]), math.inf, dtype=torch.float32, device=q.device)
     lse[:, :, :s] = (m + torch.log(denom))[..., 0]
     return out.to(q.dtype), lse
@@ -273,12 +281,13 @@ def flash_attention_fwd_plain(
 
 def flash_attention_packed_train_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int, num_heads: int, rate: float = 0.0,
+    seed: int, num_heads: int, rate: float = 0.0, matmul=torch.matmul,
 ):
     """Plain PyTorch training forward: (out (B, S, H*D) in q's dtype,
-    lse (B, H, P) f32, +inf past S). Dropout scales the normalised p."""
+    lse (B, H, P) f32, +inf past S). Dropout scales the normalised p; the
+    products go through ``matmul``."""
     out, lse = flash_attention_fwd_plain(
-        *(_split(x, num_heads) for x in (q, k, v)), bias, seed, rate)
+        *(_split(x, num_heads) for x in (q, k, v)), bias, seed, rate, matmul)
     return _packed(out), lse
 
 
@@ -390,7 +399,7 @@ def _train_fns():
     lib = cuda_build.load("flash_attention_packed_train")
     fwd = lib.mmee_flash_attention_packed_train_fwd
     fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
@@ -454,6 +463,22 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
 split_bf16x3.launches = 0
 
 
+def _fwd_kv_parts(k, v, num_heads=None):
+    """The forward kernels' split operands: None for bf16 k/v, which the
+    kernels load as they are (nothing is allocated or launched); for f32
+    ones the three bf16 parts of k and v, (2, 3, B, H, S, 64), written here
+    by ``split_bf16x3`` (the kernels split q themselves). k, v are (B, H, S,
+    64), or packed (B, S, H*64) with ``num_heads``."""
+    if k.dtype == torch.bfloat16:
+        return None
+    return split_bf16x3(*(x if num_heads is None else _split(x, num_heads) for x in (k, v)))
+
+
+def _ptr(x) -> int:
+    """A tensor's data pointer for the kernels, 0 for None."""
+    return 0 if x is None else x.data_ptr()
+
+
 def _bwd_scratch(b: int, num_heads: int, p: int, q, k, v, do) -> torch.Tensor:
     """The backward kernels' ``delta`` scratch: B*H*P f32, and with f32
     operands after it the split parts of q, k, v and do, in that order,
@@ -501,7 +526,9 @@ def flash_attention_packed_train_fwd(
 ):
     """Training forward: (out (B, S, H*D) in q's dtype, lse (B, H, P) f32,
     +inf past S). CPU tensors run the plain version; CUDA tensors launch the
-    kernel (counted in ``flash_attention_packed_train_fwd.launches``)."""
+    kernel (counted in ``flash_attention_packed_train_fwd.launches``), f32
+    ones after splitting k and v by ``split_bf16x3`` (one launch, counted
+    there)."""
     _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
     if q.device.type == "cpu":
         return flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, num_heads, rate)
@@ -511,12 +538,14 @@ def flash_attention_packed_train_fwd(
     p = bias.shape[-1]
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
+    parts = _fwd_kv_parts(k, v, num_heads)
     lib, fwd, _ = _train_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            int(bias.dtype == torch.bfloat16), is_bf16, out.data_ptr(), lse.data_ptr(),
+            int(bias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
+            lse.data_ptr(),
             b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
             *_dropout_args(seed, rate), stream,
         )
@@ -693,7 +722,7 @@ def _headform_fns():
     lib = cuda_build.load("flash_attention_packed_train")
     fwd = lib.mmee_flash_attention_fwd
     fwd.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+        [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]
@@ -717,7 +746,8 @@ def flash_attention_fwd(
     """Head-form forward: out (B, H, S, D) in q's dtype and q's layout, and
     with ``with_lse`` also the lse (B, H, P) f32, +inf past S. CPU tensors
     run the plain version; CUDA tensors launch the kernel (counted in
-    ``flash_attention_fwd.launches``)."""
+    ``flash_attention_fwd.launches``), f32 ones after splitting k and v by
+    ``split_bf16x3`` (one launch, counted there)."""
     _check_headform("flash_attention_fwd", q, k, v, bias)
     if q.device.type == "cpu":
         out, lse = flash_attention_fwd_plain(q, k, v, bias, seed, rate)
@@ -728,12 +758,14 @@ def flash_attention_fwd(
     kbias = _kernel_width(bias)
     out = torch.empty_like(q)  # keeps q's layout when q is dense
     lse = torch.empty((b, h, kbias.shape[-1]), dtype=torch.float32, device=q.device)
+    parts = _fwd_kv_parts(k, v)
     lib, fwd, _ = _headform_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
-            int(kbias.dtype == torch.bfloat16), is_bf16, out.data_ptr(), lse.data_ptr(),
+            int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
+            lse.data_ptr(),
             _strides(q, k, v, out), b, s, h, kbias.shape[-1], 1.0 / math.sqrt(d),
             *_dropout_args(seed, rate), stream,
         )

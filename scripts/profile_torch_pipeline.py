@@ -72,8 +72,9 @@ GROUPS = (
     # the head-form and the packed training backward launch the same dq
     # kernel in bf16 (and the same bodies in f32): one group
     (ATTN_BWD, ("bwd_dq_kernel",)),
-    # every backward launches a dk/dv kernel, and an f32 one the split
-    # pre-pass: see group_of
+    # every backward launches a dk/dv kernel: see group_of
+    # every f32 forward and backward first splits its operands
+    ("split_bf16x3 (f32 attention forwards and backwards)", ("split_bf16x3_kernel",)),
     ("table_grads", ("table_grads_kernel",)),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply", "adam")),
@@ -82,7 +83,7 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
-    if "bwd_dkv_kernel" in low or "split_bf16x3_kernel" in low:  # in the mode in effect's
+    if "bwd_dkv_kernel" in low:  # in the mode in effect's
         return "flash_attention_packed_train_tables_bwd" if use_table_grad_attention() else ATTN_BWD
     for group, keys in GROUPS:
         if any(k in low for k in keys):

@@ -12,8 +12,10 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
 - ``flash_attention_packed``, the serving forward (no lse, no dropout);
 - the packed training forward at dropout rates 0 and 0.1;
 - its backward (#8), plain at both rates and chained at 0.1, and in f32
-  (f32 q/k/v and bias) plain and chained at 0.1, beside the f32 forward at
-  0.1;
+  (f32 q/k/v and bias) plain and chained at 0.1;
+- the f32 forwards: the serving forward (#2), the training forward (#7) at
+  0.1 and the head-form forward (#5) at rate 0 on the packed views, each
+  with its split pre-pass, and that pre-pass (of k and v) alone;
 - the head-form forward and backward (#5/#6) on the packed tensors' (B, H,
   S, D) views at rate 0, the backward also in f32;
 - the table-gradient backward (#9) at rate 0.1, also in f32;
@@ -29,12 +31,13 @@ call: the wall time of 200 calls issued back to back at a tiny shape (batch
 host issues the next, so the wrapper's own cost, tensor-map encoding
 included.
 
-``--profile`` prints, for each backward, the device time of every kernel
-it launches (a torch.profiler trace of 10 calls). ``--ptxas`` first compiles
+``--profile`` prints, for each backward and each f32 forward, the device
+time of every kernel it launches (a torch.profiler trace of 10 calls): the
+split pre-pass apart from the kernel. ``--ptxas`` first compiles
 the checkout's training source once more with ``-Xptxas -v`` (into a
 temporary directory) and prints the registers, stack, spills and static
 SASS instruction count (``cuobjdump -sass``) of every kernel whose name
-holds ``bwd`` or ``fwd_kernel``.
+holds ``bwd`` or ``fwd_kernel`` (the forward's bf16 and f32 instantiations).
 
 To compare two versions, run it on each in one call, in turns (parent,
 change, change, parent). The last line is one JSON object with the card's
@@ -217,6 +220,8 @@ def main() -> int:
     q32, k32, v32, do32 = (x.float() for x in (q, k, v, do))
     bias32, gbias32 = bias.float(), gbias.float()
     o32, lse32 = fa.flash_attention_packed_train_fwd(q32, k32, v32, bias32, 7, h, 0.1)
+    cases["f32_packed_serving_fwd"] = lambda: fa.flash_attention_packed(
+        q32, k32, v32, bias32, h)
     cases["f32_packed_fwd@0.1"] = lambda: fa.flash_attention_packed_train_fwd(
         q32, k32, v32, bias32, 7, h, 0.1)
     cases["f32_packed_bwd@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
@@ -224,6 +229,9 @@ def main() -> int:
     cases["f32_packed_bwd_chained@0.1"] = lambda: fa.flash_attention_packed_train_bwd(
         q32, k32, v32, bias32, 7, o32, lse32, do32, h, 0.1, gbias32)
     views32 = [x.view(b, s, h, d).transpose(1, 2) for x in (q32, k32, v32, do32)]
+    cases["f32_headform_fwd@0.0"] = lambda: fa.flash_attention_fwd(
+        *views32[:3], bias32, 0, 0.0, with_lse=True)
+    cases["f32_sdpa@0.0"] = lambda: sdpa(*views32[:3], attn_mask=bias32[:, :, :s, :s])
     o_h32, lse_h32 = fa.flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
     cases["f32_headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
         *views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
@@ -231,6 +239,7 @@ def main() -> int:
         q32, k32, v32, bias32, pos, cx, cy, 7, o32, lse32, do32, h, 0.1)
     if hasattr(fa, "split_bf16x3"):
         cases["f32_split"] = lambda: fa.split_bf16x3(*views32)
+        cases["f32_split_kv"] = lambda: fa.split_bf16x3(*views32[1:3])
     cases["f32_sdpa_bwd@0.0"] = sdpa_backward(views32[:3], bias32[:, :, :s, :s], views32[3])
 
     tq, tk, tv, tdo = (x[:1, :64, :d].contiguous() for x in (q, k, v, do))
@@ -251,7 +260,7 @@ def main() -> int:
         *tviews[:3], tbias, 0, th_o, th_lse, tviews[3], 0.0)
     if opts.profile:
         for name in cases:
-            if "bwd" in name:
+            if "bwd" in name or (name.startswith("f32_") and "fwd" in name):
                 kernel_split(name, cases[name])
     readings = {name: [] for name in cases}
     hosts = {name: [] for name in tiny}

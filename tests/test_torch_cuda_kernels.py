@@ -749,10 +749,11 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
 
 
 # ---------------------------------------------------------------------------
-# f32 operands: every attention kernel's f32 instantiation (3xTF32, or in
-# the backwards six bf16 products of split operands, on the tensor cores)
-# against its plain version in f32, within 1e-4 of each output's largest
-# value (plain TF32 would miss this by an order of magnitude)
+# f32 operands: every attention kernel's f32 instantiation (six bf16
+# products of split operands on the tensor cores; (A') of the tables
+# backward and the fused kernel by 3xTF32) against its plain version in f32,
+# within 1e-4 of each output's largest value (plain TF32 would miss this by
+# an order of magnitude)
 # ---------------------------------------------------------------------------
 
 F32_BAR = 1e-4
@@ -945,7 +946,8 @@ def test_f32_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
         o_h, lse_h = flash_attention_fwd(*views[:3], bias, 99, rate, with_lse=True)
         args = (*views[:3], bias, 99, o_h, lse_h, views[3], rate)
         runs.append((flash_attention_bwd(*args), flash_attention_bwd(*args)))
-    assert split_bf16x3.launches == before + 8
+    # one split per backward (8), and one per f32 forward (the 2 head-form ones)
+    assert split_bf16x3.launches == before + 10
     torch.cuda.synchronize()
     for first, again in runs:
         for name, a, w in zip(("dq", "dk", "dv", "dbias"), first, again):
@@ -1007,3 +1009,78 @@ def test_f32_backward_with_a_bf16_bias_matches_plain(cuda, b, s, p, h, rate, cha
     pad = got[3][:, :, s:, :]
     assert torch.equal(pad, torch.zeros_like(pad) if gbias is None else gbias[:, :, s:, :])
     assert not got_h[3][:, :, s:, :].any() and not got_h[3][:, :, :, s:].any()
+
+
+# the f32 forwards (#2, #5, #7) on split operands: one split pre-pass per
+# call, odd P / 64 (one warpgroup live in the last tile), the paths' 709
+# inside 768, P = 64
+
+
+@pytest.mark.parametrize("b,s,p,h", F32_BWD_SHAPES)
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_forwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
+    """#2, #7 and #5 (both layouts) in f32: a second run gives the same bits,
+    and at rate 0 the training forward gives #2's (one template, one split)."""
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.float32)
+    runs = [((flash_attention_packed(q, k, v, bias, h),),
+             (flash_attention_packed(q, k, v, bias, h),)),
+            (flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate),
+             flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate))]
+    for layout in ("contiguous", "packed"):
+        views = [_heads_view(x, h, layout) for x in (q, k, v)]
+        runs.append((flash_attention_fwd(*views, bias, 99, rate, with_lse=True),
+                     flash_attention_fwd(*views, bias, 99, rate, with_lse=True)))
+    torch.cuda.synchronize()
+    for first, again in runs:
+        for a, w in zip(first, again):
+            real = a[:, :, :s] if a.shape == (b, h, p) else a  # the lse: +inf past S
+            assert torch.isfinite(real).all()
+            assert torch.equal(a, w)
+    if rate == 0.0:
+        assert torch.equal(runs[1][0][0], runs[0][0][0])
+
+
+@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (1, 130, 192, 3), (2, 709, 768, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+def test_f32_forward_with_a_bf16_bias_matches_plain(cuda, b, s, p, h, rate):
+    """f32 q/k/v with a bf16 bias (the 177 KB ring): #7, #2 at rate 0, and #5
+    at both layouts, against their plain versions within the f32 bar."""
+    q, k, v = _f32(cuda, b, s, h)
+    bias = _train_bias(cuda, b, s, p, h, torch.bfloat16)
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate)
+    want_out, want_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+    got = [("out", out, want_out), ("lse", lse[:, :, :s], want_lse[:, :, :s])]
+    if rate == 0.0:
+        got.append(("#2 out", flash_attention_packed(q, k, v, bias, h),
+                    flash_attention_packed_plain(q, k, v, bias, h)))
+    for layout in ("contiguous", "packed"):
+        views = [_heads_view(x, h, layout) for x in (q, k, v)]
+        o_h, lse_h = flash_attention_fwd(*views, bias, 99, rate, with_lse=True)
+        want_o, want_l = flash_attention_fwd_plain(*views, bias, 99, rate)
+        got += [(f"{layout} out", o_h, want_o), (f"{layout} lse", lse_h[:, :, :s], want_l[:, :, :s])]
+    torch.cuda.synchronize()
+    for name, a, w in got:
+        _assert_f32_close(name, a, w)
+
+
+def test_forward_splits_f32_operands_only(cuda):
+    """Each f32 forward launches one split pre-pass (of k and v) before its
+    kernel; a bf16 forward launches none."""
+    b, s, p, h = 1, 130, 192, 3
+    for dtype, splits in ((torch.bfloat16, 0), (torch.float32, 1)):
+        q, k, v = _qkv(cuda, b, s, h, 0, dtype)
+        bias = _train_bias(cuda, b, s, p, h, dtype)
+        views = [_heads_view(x, h, "packed") for x in (q, k, v)]
+        for name, fn, call in (
+                ("flash_attention_packed", flash_attention_packed,
+                 lambda: flash_attention_packed(q, k, v, bias, h)),
+                ("flash_attention_packed_train_fwd", flash_attention_packed_train_fwd,
+                 lambda: flash_attention_packed_train_fwd(q, k, v, bias, 3, h, 0.1)),
+                ("flash_attention_fwd", flash_attention_fwd,
+                 lambda: flash_attention_fwd(*views, bias, 3, 0.1, with_lse=True))):
+            before, split_before = fn.launches, split_bf16x3.launches
+            call()
+            assert fn.launches == before + 1, name
+            assert split_bf16x3.launches == split_before + splits, (name, dtype)
+    torch.cuda.synchronize()

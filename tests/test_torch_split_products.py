@@ -1,9 +1,9 @@
-"""PyTorch port, the arithmetic of the f32 attention backward kernels on the
-CPU: f32 operands split into three bf16 parts (``split_bf16x3_plain``), and
-a product of split operands as six bf16 products summed in f32
-(``split_matmul_plain``), then the f32 backward with its five products
-taken that way against the JAX package's Pallas backwards in interpret
-mode."""
+"""PyTorch port, the arithmetic of the f32 attention kernels on the CPU: f32
+operands split into three bf16 parts (``split_bf16x3_plain``), and a product
+of split operands as six bf16 products summed in f32 (``split_matmul_plain``),
+then the f32 forwards with their two products and the f32 backwards with
+their five taken that way against the JAX package's Pallas kernels in
+interpret mode."""
 
 import numpy as np
 import pytest
@@ -21,6 +21,9 @@ from multi_modal_early_exit_tpu_torch.ops import flash_attention as tfa
 F32_BAR = 1e-4
 # f32 accumulation over a depth of 64: 64 * 2^-24 = 3.8e-6 of the scale
 DEPTH64_BAR = 4e-6
+# the forwards' lse against the Pallas forward's, absolute (lse is of order
+# 5 here, where one f32 ulp is 4.8e-7)
+LSE_ATOL = 1e-6
 
 # normal f32 magnitudes at which the split is exact: lo stays a normal
 # bf16 above 2^-100 (its exponent is x's less 23 at the least), and bf16
@@ -143,6 +146,58 @@ def test_split_backward_matches_pallas_headform_backward(interpret_mode, rate):
         torch.from_numpy(np.array(lse)[..., 0]), torch.from_numpy(do), rate,
         matmul=tfa.split_matmul_plain)
     _assert_within_bar(got, wants)
+
+
+def _assert_fwd_within_bar(out, want_out, lse=None, want_lse=None):
+    """out within ``F32_BAR`` of its scale; the lse of the S real rows
+    within ``LSE_ATOL``."""
+    want_out = np.asarray(want_out)
+    assert out.shape == want_out.shape
+    err = np.abs(out.numpy() - want_out).max() / np.abs(want_out).max()
+    assert err <= F32_BAR, ("out", err)
+    if lse is not None:
+        lse_err = np.abs(lse[:, :, :S].numpy() - np.asarray(want_lse)[:, :, :S]).max()
+        assert lse_err <= LSE_ATOL, ("lse", lse_err)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.25])
+def test_split_forward_matches_pallas_packed_train_forward(interpret_mode, rate):
+    """The packed f32 training forward (#7) with both products through
+    ``split_matmul_plain`` (the f32 kernels' arithmetic) against
+    ``_flash_packed_train_fwd_impl`` in interpret mode at a ragged S (70 in
+    P = 128): out within ``F32_BAR`` of its scale, lse within ``LSE_ATOL``."""
+    q, k, v, _, bias, _ = _case(5, "packed")
+    o, lse = jfa._flash_packed_train_fwd_impl(
+        *(jnp.asarray(a) for a in (q, k, v, bias)), jnp.asarray([SEED], jnp.int32), H, P, rate)
+    got_o, got_lse = tfa.flash_attention_packed_train_fwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), SEED, H, rate,
+        matmul=tfa.split_matmul_plain)
+    _assert_fwd_within_bar(got_o, o, got_lse, lse)
+
+
+def test_split_forward_matches_pallas_headform_forward(interpret_mode):
+    """The head-form f32 forward (#5) with the lse, through
+    ``split_matmul_plain``, against ``_flash_attention_fwd_impl`` in
+    interpret mode."""
+    q, k, v, _, bias, _ = _case(6, "head")
+    o, lse = jfa._flash_attention_fwd_impl(
+        *(jnp.asarray(a) for a in (q, k, v, bias)), jnp.asarray([SEED], jnp.int32), P, 0.0,
+        with_lse=True)
+    got_o, got_lse = tfa.flash_attention_fwd_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), SEED, 0.0,
+        matmul=tfa.split_matmul_plain)
+    _assert_fwd_within_bar(got_o, o, got_lse, np.asarray(lse)[..., 0])
+
+
+def test_split_forward_matches_pallas_packed_forward(interpret_mode):
+    """The serving forward ``flash_attention_packed`` (#2) in f32 through
+    ``split_matmul_plain`` against ``_flash_packed_impl`` in interpret
+    mode."""
+    q, k, v, _, bias, _ = _case(7, "packed")
+    want = jfa._flash_packed_impl(*(jnp.asarray(a) for a in (q, k, v, bias)), H, P)
+    got = tfa.flash_attention_packed_plain(
+        *(torch.from_numpy(a) for a in (q, k, v, bias)), H, matmul=tfa.split_matmul_plain)
+    _assert_fwd_within_bar(got, want)
 
 
 @pytest.fixture
