@@ -38,8 +38,8 @@ Phases, each reported on its own line:
    or the pair of kernels it replaces. Then every kernel again at f32
    inputs (f32 q/k/v and bias; the attention kernels' f32 instantiations,
    the forwards and backwards by six bf16 products of operands split into
-   three bf16 parts on the tensor cores, the fused kernel and the tables
-   backward's dq kernel by 3xTF32) against its plain version in f32, at
+   three bf16 parts on the tensor cores, the fused kernel by 3xTF32)
+   against its plain version in f32, at
    both shapes: outputs, lse and gradients within ``F32_BAR`` (1e-4) of
    each output's largest value, the f32 forwards' and backwards' bits the
    same on a second run, the table gradients (``table_grads`` and the
@@ -49,7 +49,8 @@ Phases, each reported on its own line:
    timed beside f32 SDPA and an f32 bound (FLOPs over a sixth of the bf16
    peak for split operands, a third of the TF32 one for 3xTF32), the f32
    forwards also beside their design's floor (the bytes of the pre-pass
-   and of a kernel that reads the parts);
+   and of a kernel that reads the parts), ``table_grads`` and the tables
+   backward beside theirs in both types;
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -84,7 +85,9 @@ Phases, each reported on its own line:
    backwards (36 kernels); the gradient check against phase 5's f32 CPU
    reference with ``GRAD_LIMITS``, and against phase 5's chained gradients
    on the card with ``CHAINED_LIMITS``. docs/sec and peak memory beside
-   phase 5's.
+   phase 5's, and the attention backward's device ms of one more, traced,
+   step (the tables backward's three kernels) beside phase 5's (the
+   chained backward's two and ``table_grads``).
 4f. serving in f32: phase 4's model, thresholds procedure and batches with
    f32 weights, through ``Pipeline.predict_features``. Checks: as phase 4,
    with the small-input logits within the north star's f32 bars (atol 2e-4,
@@ -156,9 +159,9 @@ PEAKS = {
 }
 # the f32 attention forwards and backwards multiply by six bf16 passes of
 # split operands, so their operations bound is FLOPs over a sixth of the
-# bf16 peak (165 TFLOP/s on an H100 SXM); the fused kernel and the tables
-# backward's dq kernel by 3xTF32, three TF32 passes per product, FLOPs over
-# a third of the TF32 peak (165 TFLOP/s too)
+# bf16 peak (165 TFLOP/s on an H100 SXM); the fused kernel by 3xTF32, three
+# TF32 passes per product, FLOPs over a third of the TF32 peak (165 TFLOP/s
+# too)
 TF32_PASSES = 3
 SPLIT_PASSES = 6
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
@@ -954,16 +957,22 @@ def phase_kernels(name):
     print(f"kernel table_grads: {notes['table_grads']}, kernel_ms {e['ms']:.4f}, plain_ms "
           f"{e['plain_ms']:.4f}, library_ms null (no one PyTorch call buckets g into the "
           f"three tables; the plain version is three index_add_ calls after the bucket "
-          f"maps), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+          f"maps), bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}; the design reads g "
+          f"once: its floor is the bound)")
     tg_ms = e["ms"]
 
     # ---- the table-gradient backward ----------------------------------------
     tables_args = t["tables_args"]
     chained_ms = next(r["ms"] for r in results if r["name"] == "flash_attention_packed_train_bwd")
-    tables_bound = bound(block_bytes + 8 * qkv_bytes + lse_bytes
-                         + sum(a.numel() * a.element_size() for a in vecs)
-                         + sum(a.numel() * 4 for a in t["tables_out"]),
+    vec_table_bytes = (sum(a.numel() * a.element_size() for a in vecs)
+                       + sum(a.numel() * 4 for a in t["tables_out"]))
+    tables_bound = bound(block_bytes + 8 * qkv_bytes + lse_bytes + vec_table_bytes,
                          10 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak)
+    # the design's floor: (A') reads the bias block, q, do, k, v and o (for
+    # delta) and the lse, writes dq and delta; (B) reads the bias block, q,
+    # do, k, v, the lse and delta, writes dk and dv: the bias twice, no
+    # gbias and no dbias
+    tables_floor = (2 * block_bytes + 12 * qkv_bytes + 3 * lse_bytes + vec_table_bytes) / bw * 1e3
     e = entry("flash_attention_packed_train_tables_bwd", "flash_attention_packed_train.cu",
               "ops/flash_attention.py:1038",
               time_ms(lambda: flash_attention_packed_train_tables_bwd(*tables_args), iters=10),
@@ -976,7 +985,8 @@ def phase_kernels(name):
           f"gradients; the pair it replaces, the chained backward + table_grads: "
           f"{chained_ms:.4f} + {tg_ms:.4f} ms; per step of 12 layers {12 * e['ms']:.3f} ms "
           f"against {12 * chained_ms + tg_ms:.3f} ms), "
-          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
+          f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']}; design floor "
+          f"{tables_floor:.4f} ms)")
 
     # ---- f32: every kernel again at f32 inputs (the attention kernels'
     # f32 instantiations), against f32 plain versions, then timed beside
@@ -1081,17 +1091,20 @@ def phase_kernels(name):
     del views32, o_h32, lse_h32, hbwd32
     dbias32 = t32["dbias"]
     f32_entry("table_grads", time_ms(lambda: table_grads(*vecs, dbias32)),
-              bound(block32 + sum(a.numel() * a.element_size() for a in vecs)
-                    + sum(a.numel() * 4 for a in t32["tables_out"]),
-                    3 * B * HEADS * s * s, bw, f32_peak), None, " (f32 g)")
+              bound(block32 + vec_table_bytes, 3 * B * HEADS * s * s, bw, f32_peak), None,
+              " (f32 g; the design reads g once: its floor is the bound)")
     tables32 = t32["tables_args"]
+    # the design's floor in f32: the split pre-pass reads q, k, v, do and
+    # writes their parts; (A') and (B) each read the f32 bias block and the
+    # parts of q, do, k, v, (A') also o and do in f32 for delta
+    floor32 = (2 * block32 + 4 * qkv32 + 12 * qkv_bytes + 2 * 12 * qkv_bytes + 2 * qkv32
+               + 3 * qkv32 + 3 * lse_bytes + vec_table_bytes) / bw * 1e3
     f32_entry("flash_attention_packed_train_tables_bwd",
               time_ms(lambda: flash_attention_packed_train_tables_bwd(*tables32), iters=10),
-              bound(block32 + 8 * qkv32 + lse_bytes
-                    + sum(a.numel() * a.element_size() for a in vecs)
-                    + sum(a.numel() * 4 for a in t32["tables_out"]),
-                    bwd_flops, bw, tf32_peak), None,
-              f" (rate {rate}; (A') 3xTF32, its dk/dv on split operands)")
+              bound(block32 + 8 * qkv32 + lse_bytes + vec_table_bytes, bwd_flops, bw,
+                    split_peak), None,
+              f" (rate {rate}; (A') and (B) on split operands; design floor {floor32:.4f} ms, "
+              f"pre-pass included)")
 
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
@@ -1481,6 +1494,14 @@ def gradient_gate(names, loss, grads, ref_loss, ref_grads, what, limits=GRAD_LIM
             + " (tensors: those above 1e-2 of the largest gradient)")
 
 
+# the device-time groups of phases 5 and 5b's traced step: the attention
+# backward (the chained pair, or the tables backward's three kernels) and
+# table_grads
+TRACE_5 = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel"),
+           "table_grads": ("table_grads_kernel",)}
+TRACE_5B = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel", "table_partials_sum_kernel")}
+
+
 def train_counters():
     """The launch counters of the kernels a training step can run, by the
     name of the kernel (the head-form pair under their wrappers' names)."""
@@ -1556,7 +1577,7 @@ def phase_train(card: str):
     # the backward launches two kernels per layer: dq/dbias and dk/dv
     want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
             "flash_attention_packed_train_bwd": 24}
-    run = train_steps(cfg, model32, batches, args, want)
+    run = train_steps(cfg, model32, batches, args, want, trace=TRACE_5)
     print(f"trained EE LayoutLMv3-base ({n_params / 1e6:.1f}M f32 master params, bf16 "
           f"forward, dropout {cfg.backbone.hidden_dropout_prob}, {args.learning_rate} lr): "
           f"warm-up step {run['t_warm']:.2f} s, then {TRAIN_STEPS} steps of {B} documents in "
@@ -1585,8 +1606,16 @@ def phase_train_tables(card: str, trained):
     # the tables backward launches three kernels per layer
     want = {"materialize_bias": 1, "flash_attention_packed_train": 12,
             "flash_attention_packed_train_tables_bwd": 36}
-    run = train_steps(cfg, model32, t["batches"], t["args"], want)
+    run = train_steps(cfg, model32, t["batches"], t["args"], want, trace=TRACE_5B)
     print(f"trained with MMEE_TABLE_GRADS=1: {beside_phase_5(run, t['run'])}, on {card}")
+    base = t["run"]["traced"]
+    pair = base["attention backward"] + base["table_grads"]
+    print(f"attention backward per step, one traced step each: "
+          f"{run['traced']['attention backward']:.3f} device ms with MMEE_TABLE_GRADS=1 (the "
+          f"tables backward's three kernels, 12 calls) "
+          f"against phase 5's {pair:.3f} (the chained backward {base['attention backward']:.3f} "
+          f"+ table_grads {base['table_grads']:.3f}); all kernels {run['traced']['all']:.2f} "
+          f"against {base['all']:.2f} device ms, on {card}")
     return run["launches"]
 
 

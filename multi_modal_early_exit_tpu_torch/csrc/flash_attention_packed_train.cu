@@ -20,9 +20,8 @@
 // bf16 or in f32, a template parameter T; the bias is bf16 or f32 on its
 // own. As in the TPU kernels, the products multiply in the operands' type
 // with f32 accumulation: bf16 on the bf16 tensor cores; f32 good to about
-// f32's precision, in the forward and the backward's (A) and (B) by six bf16
-// products of operands split into three bf16 parts (split_bf16x3 below) on
-// the bf16 ones, in (A') by 3xTF32 (common.cuh) on the TF32 ones. The f32
+// f32's precision, in every kernel by six bf16 products of operands split
+// into three bf16 parts (split_bf16x3 below) on the bf16 ones. The f32
 // instantiations round nothing that the bf16 ones round to the operand
 // type: p before p.v, p.c before dv, ds before dq and dk.
 //
@@ -166,18 +165,23 @@
 //   SM (the chained (A) 64 wide, 208 KB, one). delta is still rowsum(do o)
 //   of the f32 do and o.
 // - Backward with table gradients, three kernels, deterministic as well:
-//   (A') is (A) over the rows and keys < S only, writing no dbias: each key
-//   block's f32 ds tile goes to shared memory, and one thread per (row,
-//   table) walks it with a running sum while the bucket stays the same,
-//   flushing into that row's own column of a [bin][row] histogram; the CTA
-//   then sums each bin over its 64 rows in order into a per-CTA partial;
-//   (B) as above (bwd_dkv_kernel; (A') stays on mma.sync in both
-//   types); (C) sums the partials of each (bin, head) over (b, q
+//   (A') is (A)'s tables mode (bwd_dq_kernel<..., kTables>, on (A)'s body in
+//   both operand types): it walks only the keys < S, loads no gbias, writes
+//   no dbias and keeps each block's f32 ds in registers; while the next
+//   block's score products run, each warp sums that ds into a [bin][row]
+//   f32 histogram of its own 16 rows, each thread walking its own keys of
+//   its two rows, the quad's 6 (row, table) pairs in 6 phases, so no entry
+//   has two writers and each sums in a fixed order; the CTA then sums each
+//   bin over its 64 rows in a fixed order into a per-CTA partial. (B) is
+//   bwd_dkv_kernel; (C) sums the partials of each (bin, head) over (b, q
 //   block) in a fixed order. It sums f32 ds: the Pallas kernel's bf16 ds
-//   stash only saves VMEM. Bound at B=16, S=P=768, H=12, D=64, bf16: it
-//   must read the bias (226.5 MB), q/k/v/o/do (94.4 MB) and the lse, and
-//   write dq/dk/dv (56.6 MB): 113 us at 3.35 TB/s, against 73 us for its
-//   7.25e10 FLOPs. No (B, H, P, P) cotangent exists.
+//   stash only saves VMEM. The histogram (40 KB) keeps (A') in bf16 at two
+//   CTAs per SM (113 KB), against (A)'s three. Bound at B=16, S=P=768,
+//   H=12, D=64, bf16: it must read the bias (226.5 MB), q/k/v/o/do (94.4 MB)
+//   and the lse, and write dq/dk/dv (56.6 MB): 113 us at 3.35 TB/s, against
+//   73 us for its 7.25e10 FLOPs; the design reads the bias twice, as (A)
+//   and (B) do, and q/k/v/do twice: 0.68 GB, 203 us. No (B, H, P, P)
+//   cotangent exists.
 //
 // The dropout mask is a pure function of (seed, b*H + h, i, j) with global
 // positions i, j (lowbias32 position hash, ops/hashing.py), so the forward
@@ -193,18 +197,8 @@ namespace {
 constexpr int kD = 64;       // head dim
 constexpr int kBQ = 64;      // rows per CTA (4 warps x 16)
 constexpr int kBK = 64;      // columns per block
-constexpr int kLD = kD + 8;  // shared row pitch in bf16 (144 B)
-constexpr int kThreads = 128;
 
 typedef __nv_bfloat16 bf16;
-
-// the f32 overloads of common.cuh beside this file's bf16 ones
-using ::load_a_frags;
-using ::mma_rows_by_tile;
-
-// the pitch of a [row][d] shared tile of T
-template <typename T>
-constexpr int kPitch = kIsF32<T> ? kLD32 : kLD;
 
 __device__ __forceinline__ uint32_t lowbias32(uint32_t x) {
   x ^= x >> 16;
@@ -257,106 +251,6 @@ Strides packed_strides(int S, int H) {
 template <typename T>
 __device__ __forceinline__ T* plane_of(T* x, const Strides& st, int b, int h) {
   return x + b * st.b + h * st.h;
-}
-
-// rows [r0, r0 + 64) of a plane with row stride `rs` into a [row][d]
-// shared tile at T's pitch; rows >= limit read as zero
-template <typename T>
-__device__ __forceinline__ void load_rows(T* dst, const T* src, int r0, int limit, long long rs,
-                                          int tid) {
-  constexpr int kVec = 16 / static_cast<int>(sizeof(T));  // elements per 16-byte vector
-  for (int idx = tid; idx < 64 * (kD / kVec); idx += kThreads) {
-    const int r = idx / (kD / kVec), c = (idx % (kD / kVec)) * kVec;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * kPitch<T> + c]) = val;
-  }
-}
-
-// the same rows into a bf16 [row][d] tile and its transpose [d][row]
-__device__ __forceinline__ void load_rows_both(bf16* dst, bf16* dst_t,
-                                               const bf16* src, int r0,
-                                               int limit, long long rs, int tid) {
-  for (int idx = tid; idx < 64 * (kD / 8); idx += kThreads) {
-    const int r = idx / (kD / 8), c = (idx % (kD / 8)) * 8;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (r0 + r < limit) {
-      val = *reinterpret_cast<const uint4*>(src + (r0 + r) * rs + c);
-    }
-    *reinterpret_cast<uint4*>(&dst[r * kLD + c]) = val;
-    const bf16* ve = reinterpret_cast<const bf16*>(&val);
-#pragma unroll
-    for (int e = 0; e < 8; ++e) dst_t[(c + e) * kLD + r] = ve[e];
-  }
-}
-
-// this warp's 16 rows of a bf16 [row][d] tile as mma A fragments (4 k-steps)
-__device__ __forceinline__ void load_a_frags(uint32_t (&a)[4][4], const bf16* tile,
-                                             int wr, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    const bf16* p = &tile[(wr + g) * kLD + ks * 16 + 2 * t];
-    a[ks][0] = ld_u32(p);
-    a[ks][1] = ld_u32(p + 8 * kLD);
-    a[ks][2] = ld_u32(p + 8);
-    a[ks][3] = ld_u32(p + 8 * kLD + 8);
-  }
-}
-
-// acc[nt] (16 x 64) = A (16 x 64 over d) times tile^T, tile [col][d] bf16
-// (the f32 overload is in common.cuh)
-__device__ __forceinline__ void mma_rows_by_tile(float (&acc)[8][4],
-                                                 const uint32_t (&a)[4][4],
-                                                 const bf16* tile, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] = 0.0f;
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      const bf16* p = &tile[(nt * 8 + g) * kLD + ks * 16 + 2 * t];
-      mma_bf16_16816(acc[nt], a[ks], ld_u32(p), ld_u32(p + 8));
-    }
-  }
-}
-
-// out[dt] (16 x 64 over d) += X (16 x 64 over columns, f32 accumulators
-// rounded to bf16) times tile_t^T, tile_t [d][column] bf16
-__device__ __forceinline__ void mma_acc_by_tile_t(float (&out)[8][4],
-                                                  const float (&x)[8][4],
-                                                  const bf16* tile_t, int g, int t) {
-#pragma unroll
-  for (int ks = 0; ks < 4; ++ks) {
-    uint32_t pa[4];
-    pa[0] = pack_bf16x2(x[2 * ks][0], x[2 * ks][1]);
-    pa[1] = pack_bf16x2(x[2 * ks][2], x[2 * ks][3]);
-    pa[2] = pack_bf16x2(x[2 * ks + 1][0], x[2 * ks + 1][1]);
-    pa[3] = pack_bf16x2(x[2 * ks + 1][2], x[2 * ks + 1][3]);
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      const bf16* p = &tile_t[(dt * 8 + g) * kLD + ks * 16 + 2 * t];
-      mma_bf16_16816(out[dt], pa, ld_u32(p), ld_u32(p + 8));
-    }
-  }
-}
-
-// 16 x 64 f32 accumulators, times `mul`, stored as T at rows `row` of a
-// plane with row stride `rs`
-template <typename T>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[8][4],
-                                           const int (&row)[2], int limit, long long rs,
-                                           float mul, int t) {
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    if (row[r] >= limit) continue;
-    T* orow = dst + row[r] * rs;
-#pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      store_pair(orow + dt * 8 + 2 * t, acc[dt][2 * r] * mul, acc[dt][2 * r + 1] * mul);
-    }
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -974,7 +868,37 @@ struct DqSmem {
   static constexpr int kDeltaOff = kRing + kDqStages * kStage;  // 64 floats
   static constexpr int kBarOff = kDeltaOff + 64 * 4;  // full, empty, then q's barrier
   static constexpr int kBytes = kBarOff + (2 * kDqStages + 1) * 8;
+  static constexpr int kTabOff = (kBytes + 15) & ~15;  // the tables mode's region
 };
+
+// the tables mode of (A): the (B, S) bucket vectors (positions, x0, y1),
+// the bucket LUTs, and the per-CTA partial sums it writes, (B, H, n_qb,
+// nb1 + 2 nb2) f32
+struct TablesArgs {
+  const int* pos;
+  const int* cx;
+  const int* cy;
+  const int* lut1;
+  const int* lut2;
+  float* partial;
+  int nb1, nb2, max1, max2;
+};
+
+// the tables mode's shared memory after DqSmem::kTabOff: a [bin][row] f32
+// histogram of the CTA's 64 rows, each warp's key vectors of two blocks
+// ([parity][warp][table][key] int), the two LUTs as bytes
+constexpr int kHistPitch = 64;
+// the table that thread t of a quad walks in phase p of the tables mode's
+// walk (2 bits at 2 (4p + t); thread p rests): each thread walks every
+// table once, and a phase's three threads three different tables
+constexpr uint32_t kWalkTables = 0x6096090u;
+__host__ __device__ constexpr int tables_keys_off(int n_bins) { return n_bins * kHistPitch * 4; }
+__host__ __device__ constexpr int tables_lut_off(int n_bins, int kw) {
+  return tables_keys_off(n_bins) + 2 * 4 * 3 * kw * 4;
+}
+__host__ __device__ constexpr int tables_bytes(int n_bins, int kw, int max1, int max2) {
+  return tables_lut_off(n_bins, kw) + ((max1 + 1 + max2 + 1 + 15) & ~15);
+}
 
 // (B): k and v (64 rows), then the ring: each stage q, do (kW rows) and the
 // bias tile [query][key] of this CTA's keys; then each stage's kW lse and
@@ -1092,16 +1016,18 @@ __device__ __forceinline__ void load_plane_tile(uint8_t* dst, const CUtensorMap*
 // with dS in wgmma's A registers (rounded to bf16, or split into three
 // parts) and k read [key][d] as an MN-major B. The next block's score
 // products queue behind that product, and its mask bits are made while
-// both run.
-template <typename T, typename BiasT, bool kDropout, bool kChained>
-__global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::kCtas))
+// both run. kTables is the tables backward's (A'): keys < S only, no dbias,
+// each block's ds summed into the CTA's table histogram (see walk below).
+template <typename T, typename BiasT, bool kDropout, bool kChained, bool kTables>
+__global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT, kChained>::kCtas))
     bwd_dq_kernel(const __grid_constant__ BwdMaps maps,
                   const T* __restrict__ dout, const T* __restrict__ o,  // delta's inputs
                   const float* __restrict__ lse,  // (B, H, P)
                   T* __restrict__ dq,             // (B, H, S, D) by strides
                   float* __restrict__ delta,      // (B, H, P), written here
                   Strides sdo, Strides so, Strides sdq, int S, int H, int P, float scale,
-                  int seed, float keep, float inv_keep) {
+                  int seed, float keep, float inv_keep, const TablesArgs tab) {
+  static_assert(!(kTables && kChained), "the tables mode reads no gbias");
   using Smem = DqSmem<T, BiasT, kChained>;
   using Tiling = BwdTiling<T, BiasT, kChained>;
   constexpr int kW = Smem::kW;
@@ -1121,7 +1047,9 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int plane = b * H + h;
-  const int n_kb = P / kW;  // every column of the plane: dbias is P x P
+  // every column of the plane, as dbias is P x P; in the tables mode only
+  // the keys < S, which carry ds
+  const int n_kb = kTables ? (S + kW - 1) / kW : P / kW;
   const int ct = threadIdx.x;
   const int warp = ct / 32, lane = ct % 32;
   const int g = lane >> 2, t = lane & 3;
@@ -1171,8 +1099,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
     for (int kb = 0; kb < kDqStages && kb < n_kb; ++kb) load_block(kb);
   }
 
-  // delta of the tile's rows, one thread per row (zero past S), summed as
-  // the tables backward's (A') sums it: the two paths give the same dq/dk/dv
+  // delta of the tile's rows, one thread per row (zero past S)
   if (ct < 64) {
     const int i = q0 + ct;
     float acc = 0.0f;
@@ -1182,7 +1109,29 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
     s_delta[ct] = acc;
     delta[static_cast<size_t>(plane) * P + i] = acc;
   }
-  __syncthreads();  // s_delta, and the barriers' initialisation
+  // the tables mode: a zeroed histogram, the LUTs as bytes, and this
+  // thread's two rows' positions, x0 and y1
+  const int n_bins = kTables ? tab.nb1 + 2 * tab.nb2 : 0;
+  float* s_hist = reinterpret_cast<float*>(smem + Smem::kTabOff);
+  int* s_keys = reinterpret_cast<int*>(smem + Smem::kTabOff + tables_keys_off(n_bins));
+  uint8_t* s_lut = smem + Smem::kTabOff + tables_lut_off(n_bins, kW);
+  int vrow[2][3] = {{0, 0, 0}, {0, 0, 0}};
+  if constexpr (kTables) {
+    for (int e = ct; e < n_bins * kHistPitch; e += kBwdThreads) s_hist[e] = 0.0f;
+    for (int e = ct; e <= tab.max1; e += kBwdThreads) s_lut[e] = static_cast<uint8_t>(tab.lut1[e]);
+    for (int e = ct; e <= tab.max2; e += kBwdThreads) {
+      s_lut[tab.max1 + 1 + e] = static_cast<uint8_t>(tab.lut2[e]);
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (row[r] < S) {
+        vrow[r][0] = tab.pos[b * S + row[r]];
+        vrow[r][1] = tab.cx[b * S + row[r]];
+        vrow[r][2] = tab.cy[b * S + row[r]];
+      }
+    }
+  }
+  __syncthreads();  // s_delta, the barriers' initialisation (and the tables' region)
   float lse_r[2], delta_r[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
@@ -1197,6 +1146,60 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
   uint32_t pa[kParts<T>][kW / 16][4];  // dS of the block in flight, wgmma's A registers
   const uint64_t q_desc = wgmma_desc(smem, 16, 1024);
   const uint64_t do_desc = wgmma_desc(smem + kTile, 16, 1024);
+
+  // The tables mode: block kb's f32 ds (ds_prev, the accumulator layout:
+  // rows lr[0], lr[1], keys 8nt + 2t + c) goes into the histogram while
+  // block kb + 1's score products run. A quad's 4 threads hold the same two
+  // rows, each its own 16 keys (8 at kW = 32), so a (row, table) column has
+  // four writers: the walk runs in 4 phases, and in phase p thread t != p
+  // walks table kWalkTables[p][t] for both its rows, two independent chains
+  // of adds, while the three threads of a quad take three different tables.
+  // No entry has two writers in a phase, every thread walks 3 tables, and
+  // each (bin, row) entry sums in a fixed order. Table T's column of row r
+  // is (r + 8T) % 64: the adds of one row of every quad then fall in 24
+  // different banks.
+  float ds_prev[kN];
+  auto walk = [&](int kbp) {
+    const int* kv = s_keys + ((kbp & 1) * 4 + warp) * 3 * kW;
+    __syncwarp();  // the block's keys, staged by the warp
+    for (int phase = 0; phase < 4; ++phase) {
+      if (phase != t) {
+        const int tbl = (kWalkTables >> (2 * (4 * phase + t))) & 3;
+        const int* keys = kv + tbl * kW;
+        const uint8_t* lut = s_lut + (tbl == 0 ? 0 : tab.max1 + 1);
+        const int half = (tbl == 0 ? tab.nb1 : tab.nb2) / 2;
+        const int maxd = tbl == 0 ? tab.max1 : tab.max2;
+        const int v0 = tbl == 0 ? vrow[0][0] : tbl == 1 ? vrow[0][1] : vrow[0][2];
+        const int v1 = tbl == 0 ? vrow[1][0] : tbl == 1 ? vrow[1][1] : vrow[1][2];
+        float* base = s_hist + (tbl == 0 ? 0 : tbl == 1 ? tab.nb1 : tab.nb1 + tab.nb2) * kHistPitch;
+        float* col0 = base + ((lr[0] + 8 * tbl) & 63);
+        float* col1 = base + ((lr[1] + 8 * tbl) & 63);
+        // every bucket first (loads that do not wait for the adds), then
+        // the adds in key order, the two rows' side by side
+        int b0[kW / 4], b1[kW / 4];
+#pragma unroll
+        for (int e = 0; e < kW / 8; ++e) {
+          const int2 kk = *reinterpret_cast<const int2*>(keys + 8 * e + 2 * t);
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const int key = c ? kk.y : kk.x;
+            const int rel0 = key - v0, rel1 = key - v1;
+            b0[2 * e + c] = (rel0 > 0 ? half : 0) + lut[min(abs(rel0), maxd)];
+            b1[2 * e + c] = (rel1 > 0 ? half : 0) + lut[min(abs(rel1), maxd)];
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < kW / 4; ++e) {
+          float* p0 = col0 + b0[e] * kHistPitch;
+          float* p1 = col1 + b1[e] * kHistPitch;
+          const float h0 = *p0, h1 = *p1;  // two columns: never one address
+          *p0 = h0 + ds_prev[4 * (e >> 1) + (e & 1)];
+          *p1 = h1 + ds_prev[4 * (e >> 1) + 2 + (e & 1)];
+        }
+      }
+      __syncwarp();  // the next phase hands the columns to other threads
+    }
+  };
   mbar_wait(q_bar, 0);
 
   for (int kb = 0; kb < n_kb; ++kb) {
@@ -1224,6 +1227,16 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
         kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
       }
     }
+    if constexpr (kTables) {  // while the products run: the previous block's
+                              // walk, and this block's keys staged by the warp
+      if (kb > 0) walk(kb - 1);
+      int* kv = s_keys + ((kb & 1) * 4 + warp) * 3 * kW;
+      for (int e = lane; e < 3 * kW; e += 32) {
+        const int tbl = e / kW, j = k0 + e % kW;
+        const int* vec = tbl == 0 ? tab.pos : tbl == 1 ? tab.cx : tab.cy;
+        kv[e] = j < S ? vec[b * S + j] : 0;
+      }
+    }
     wgmma_wait<0>();
     reg_fence(s);
     reg_fence(dp);
@@ -1233,7 +1246,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
       // the previous block's dQ += dS k and this warp's dbias store out of
       // its stage are done: release the stage, and refill it
       const int prev = (kb - 1) % kDqStages;
-      if (lane == 0) tma_store_wait_read<0>();
+      if (!kTables && lane == 0) tma_store_wait_read<0>();
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty_bar[prev]);
       if (ct == 0 && kb - 1 + kDqStages < n_kb) {
@@ -1290,14 +1303,16 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
               ds[1] += gv.y;
             }
           }
-          if constexpr (kBf16Bias) {
+          if constexpr (kTables) {
+            // no dbias: the walk sums ds
+          } else if constexpr (kBf16Bias) {
             out_w[m] = pack_bf16x2(ds[0], ds[1]);
           } else {
             put_pair(out, lr[r], nt, t, ds[0], ds[1]);  // the pair this thread read
           }
         }
         // the warp's own rows, read above by the same warp
-        if constexpr (kBf16Bias) stsm_x4(pairs_addr(out, warp, lane, j), out_w);
+        if constexpr (kBf16Bias && !kTables) stsm_x4(pairs_addr(out, warp, lane, j), out_w);
       }
     };
     if (q0 + 64 <= S && k0 + kW <= S) {
@@ -1305,18 +1320,23 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
     } else {
       ds_tile(std::false_type{});
     }
-    // dbias out by TMA, each warp its own 16 rows: no barrier across warps
-    fence_async_smem();
-    __syncwarp();
-    if (lane == 0) {
+    if constexpr (kTables) {
 #pragma unroll
-      for (int c = 0; c < kW; c += Tile<BiasT>::kBoxCols) {
-        tma_store_2d(&maps.dbias,
-                     reinterpret_cast<const uint8_t*>(out) + (c / Tile<BiasT>::kBoxCols) * 8192 +
-                         warp * 2048,
-                     k0 + c, plane * P + q0 + warp * 16);
+      for (int i = 0; i < kN; ++i) ds_prev[i] = s[i];
+    } else {
+      // dbias out by TMA, each warp its own 16 rows: no barrier across warps
+      fence_async_smem();
+      __syncwarp();
+      if (lane == 0) {
+#pragma unroll
+        for (int c = 0; c < kW; c += Tile<BiasT>::kBoxCols) {
+          tma_store_2d(&maps.dbias,
+                       reinterpret_cast<const uint8_t*>(out) +
+                           (c / Tile<BiasT>::kBoxCols) * 8192 + warp * 2048,
+                       k0 + c, plane * P + q0 + warp * 16);
+        }
+        tma_store_commit();
       }
-      tma_store_commit();
     }
 
     // dQ += dS k: dS rounded to bf16 or split; k read [key][d] as a
@@ -1331,8 +1351,21 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, kChained>::k
   wgmma_wait<0>();
   reg_fence(dq_acc);
   reg_fence(pa);
-  if (lane == 0) tma_store_wait_all();
+  if (!kTables && lane == 0) tma_store_wait_all();
   store_acc(plane_of(dq, sdq, b, h), dq_acc, q0, warp * 16 + g, S, sdq.s, scale, t);
+  if constexpr (kTables) {
+    walk(n_kb - 1);
+    __syncthreads();
+    // this CTA's partial sums, each bin over its 64 row columns in a fixed
+    // order (rotated by the bin, so the threads of a warp read 32 banks)
+    float* part = tab.partial + (static_cast<size_t>(plane) * gridDim.x + blockIdx.x) * n_bins;
+    for (int bin = ct; bin < n_bins; bin += kBwdThreads) {
+      const float* hrow = s_hist + bin * kHistPitch;
+      float acc = 0.0f;
+      for (int r = 0; r < 64; ++r) acc += hrow[(r + bin) & 63];
+      part[bin] = acc;
+    }
+  }
 }
 
 // (B) One CTA per (64-key tile, head, batch), one warpgroup (rows: keys);
@@ -1595,14 +1628,14 @@ int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const 
   err = by_flag(dropout, [&](auto drop) {
     return by_flag(gbias != nullptr, [&](auto chained) {
       constexpr bool kChained = decltype(chained)::value;
-      auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, kChained>;
+      auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, kChained, false>;
       constexpr int smem = DqSmem<T, BiasT, kChained>::kBytes;
       static std::atomic<uint64_t> ready{0};
       const int e = set_smem_limit_once(kernel, smem, ready);
       if (e != 0) return e;
       kernel<<<dim3(P / kBQ, H, B), kBwdThreads, smem, st>>>(
           maps, dout, o, lse, dq, delta, ss.dout, ss.o, ss.dq, S, H, P, scale, seed, keep,
-          inv_keep);
+          inv_keep, TablesArgs{});
       return static_cast<int>(cudaGetLastError());
     });
   });
@@ -1660,270 +1693,6 @@ __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant
   *reinterpret_cast<uint4*>(out + 2 * n) = lo;
 }
 
-// ---------------------------------------------------------------------------
-// the tables backward's (A') on mma.sync: its helpers, bf16 and f32
-// ---------------------------------------------------------------------------
-
-// dq += ds k over one key block: bf16 rounds ds and reads the transposed
-// k tile, f32 reads k as stored
-__device__ __forceinline__ void dq_step(float (&dq)[8][4], const float (&ds)[8][4],
-                                        const bf16* s_k, const bf16* s_kt, int g, int t) {
-  mma_acc_by_tile_t(dq, ds, s_kt, g, t);
-}
-__device__ __forceinline__ void dq_step(float (&dq)[8][4], const float (&ds)[8][4],
-                                        const float* s_k, const float*, int g, int t) {
-  mma_acc_by_rows(dq, ds, s_k, g, t);
-}
-
-// shared tiles of the dq kernels: bf16 stages q and do in s_a and keeps k
-// transposed in s_kt; f32 stages q and do in s_k and s_v and needs no
-// transposed copy (s_a and s_kt are left one element)
-template <typename T>
-struct DqTiles {
-  static constexpr int kA = kIsF32<T> ? 1 : kBQ * kLD;
-  static constexpr int kKt = kIsF32<T> ? 1 : kD * kLD;
-  static constexpr int kRows = 64 * kPitch<T>;
-};
-
-// (A'): this warp's A fragments of 16 rows over d: 4 k steps of bf16 pairs, or 8
-// k steps of raw f32 values (split into tf32 at each product)
-template <typename T>
-struct AFrags {
-  typedef uint32_t type[4][4];
-};
-template <>
-struct AFrags<float> {
-  typedef float type[8][4];
-};
-
-// this warp's q and do rows as A fragments, through the shared tiles
-template <typename T>
-__device__ __forceinline__ void load_q_do_frags(typename AFrags<T>::type& qa,
-                                                typename AFrags<T>::type& da, T* s_a, T* s_k,
-                                                T* s_v, const T* qp, const T* dop, int q0,
-                                                int S, long long q_rs, long long do_rs,
-                                                int tid, int wr, int g, int t) {
-  if constexpr (kIsF32<T>) {
-    load_rows(s_k, qp, q0, S, q_rs, tid);
-    load_rows(s_v, dop, q0, S, do_rs, tid);
-    __syncthreads();
-    load_a_frags(qa, s_k, wr, g, t);
-    load_a_frags(da, s_v, wr, g, t);
-  } else {
-    load_rows(s_a, qp, q0, S, q_rs, tid);
-    __syncthreads();
-    load_a_frags(qa, s_a, wr, g, t);
-    __syncthreads();
-    load_rows(s_a, dop, q0, S, do_rs, tid);
-    __syncthreads();
-    load_a_frags(da, s_a, wr, g, t);
-  }
-}
-
-// one key block's k (and, in bf16, its transpose) and v
-template <typename T>
-__device__ __forceinline__ void load_k_v(T* s_k, T* s_kt, T* s_v, const T* kp, const T* vp,
-                                         int k0, int S, long long k_rs, long long v_rs,
-                                         int tid) {
-  if constexpr (kIsF32<T>) {
-    load_rows(s_k, kp, k0, S, k_rs, tid);
-  } else {
-    load_rows_both(s_k, s_kt, kp, k0, S, k_rs, tid);
-  }
-  load_rows(s_v, vp, k0, S, v_rs, tid);
-}
-
-
-// ---------------------------------------------------------------------------
-// backward with table gradients (A'): delta, dq and per-CTA partial sums of
-// ds over the three bias tables' buckets; no dbias is written
-// ---------------------------------------------------------------------------
-
-// a running (bucket, sum) along one row for one table; flushes into the
-// row's own column of a [bin][row] histogram, so no two threads write one
-// entry and the sums do not depend on the order in which threads run
-struct RowRun {
-  int bucket = -1;
-  float sum = 0.0f;
-  __device__ __forceinline__ void add(float* hist_row, int bkt, float x) {
-    if (bkt != bucket) {
-      if (bucket >= 0) hist_row[bucket * kBQ] += sum;
-      bucket = bkt;
-      sum = 0.0f;
-    }
-    sum += x;
-  }
-  __device__ __forceinline__ void flush(float* hist_row) {
-    if (bucket >= 0) hist_row[bucket * kBQ] += sum;
-  }
-};
-
-__device__ __forceinline__ int bucket_of(int rel, int half, const int* lut, int max_d) {
-  return (rel > 0 ? half : 0) + lut[min(abs(rel), max_d)];
-}
-
-template <typename T, typename BiasT>
-__global__ void __launch_bounds__(kThreads) train_bwd_dq_tables_kernel(
-    const T* __restrict__ q, const T* __restrict__ k,
-    const T* __restrict__ v, const BiasT* __restrict__ bias,
-    const T* __restrict__ dout, const T* __restrict__ o,
-    const float* __restrict__ lse,     // (B, H, P)
-    const int* __restrict__ pos, const int* __restrict__ cx,
-    const int* __restrict__ cy,        // (B, S)
-    const int* __restrict__ lut1, const int* __restrict__ lut2,
-    T* __restrict__ dq,                // (B, S, H*D)
-    float* __restrict__ delta,         // (B, H, P), rows < S written here
-    float* __restrict__ partial,       // (B, H, n_qb, nb1 + 2 * nb2)
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep,
-    int dropout, int nb1, int nb2, int max1, int max2) {
-  __shared__ __align__(16) T s_a[DqTiles<T>::kA];      // bf16: q, then do
-  __shared__ __align__(16) T s_k[DqTiles<T>::kRows];   // [key][d]
-  __shared__ __align__(16) T s_kt[DqTiles<T>::kKt];    // bf16: [d][key]
-  __shared__ __align__(16) T s_v[DqTiles<T>::kRows];   // [key][d]
-  __shared__ float s_delta[kBQ];
-  __shared__ int s_kp[kBK], s_kx[kBK], s_ky[kBK];
-  extern __shared__ float dyn[];
-  const int n_bins = nb1 + 2 * nb2;
-  float* s_ds = dyn;                         // [row][key], pitch kBK + 1
-  float* s_hist = s_ds + kBQ * (kBK + 1);    // [bin][row]
-  int* s_l1 = reinterpret_cast<int*>(s_hist + n_bins * kBQ);
-  int* s_l2 = s_l1 + max1 + 1;
-
-  const int q0 = blockIdx.x * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, t = lane & 3;
-  const int hd = H * kD;
-  const size_t plane = static_cast<size_t>(b) * H + h;
-  const size_t batch_off = static_cast<size_t>(b) * S * hd + h * kD;
-  const int wr = warp * 16;
-  const int* pos_b = pos + static_cast<size_t>(b) * S;
-  const int* cx_b = cx + static_cast<size_t>(b) * S;
-  const int* cy_b = cy + static_cast<size_t>(b) * S;
-
-  for (int e = tid; e < n_bins * kBQ; e += kThreads) s_hist[e] = 0.0f;
-  for (int e = tid; e <= max1; e += kThreads) s_l1[e] = lut1[e];
-  for (int e = tid; e <= max2; e += kThreads) s_l2[e] = lut2[e];
-
-  // delta of this block's rows, one thread per row
-  if (tid < kBQ) {
-    const int i = q0 + tid;
-    float acc = 0.0f;
-    if (i < S) {
-      const size_t off = batch_off + static_cast<size_t>(i) * hd;
-      acc = row_delta(dout + off, o + off);
-    }
-    s_delta[tid] = acc;
-    delta[plane * P + i] = acc;
-  }
-  typename AFrags<T>::type qa, da;
-  load_q_do_frags<T>(qa, da, s_a, s_k, s_v, q + batch_off, dout + batch_off, q0, S, hd, hd,
-                     tid, wr, g, t);
-
-  const int row[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float lse_r[2], delta_r[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    lse_r[r] = row[r] < S ? lse[plane * P + row[r]] : 0.0f;
-    delta_r[r] = s_delta[wr + g + 8 * r];
-  }
-  const Dropout drop(seed, static_cast<int>(plane), keep, inv_keep);
-  float dq_acc[8][4];
-#pragma unroll
-  for (int dt = 0; dt < 8; ++dt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[dt][e] = 0.0f;
-  }
-
-  // the table walk: thread tid owns row tid % 64 of this block, for tables
-  // T1 and Tx (tid < 64) or Ty (tid >= 64), and keeps one running sum per
-  // table along that row across every key block
-  const int walk_row = tid % kBQ;
-  const bool walk_first = tid < kBQ;
-  const int wi = q0 + walk_row;
-  int w_pos = 0, w_x = 0, w_y = 0;
-  if (wi < S) {
-    w_pos = pos_b[wi];
-    w_x = cx_b[wi];
-    w_y = cy_b[wi];
-  }
-  float* hist_a = s_hist + (walk_first ? 0 : nb1 + nb2) * kBQ + walk_row;  // T1 or Ty
-  float* hist_x = s_hist + nb1 * kBQ + walk_row;
-  RowRun run_a, run_x;
-
-  const int n_kb = (S + kBK - 1) / kBK;  // keys >= S carry no ds
-  for (int kbi = 0; kbi < n_kb; ++kbi) {
-    const int k0 = kbi * kBK;
-    __syncthreads();  // the previous block's tiles and ds are consumed
-    load_k_v(s_k, s_kt, s_v, k + batch_off, v + batch_off, k0, S, hd, hd, tid);
-    for (int c = tid; c < kBK; c += kThreads) {
-      const int j = k0 + c;
-      s_kp[c] = j < S ? pos_b[j] : 0;
-      s_kx[c] = j < S ? cx_b[j] : 0;
-      s_ky[c] = j < S ? cy_b[j] : 0;
-    }
-    __syncthreads();
-
-    float s[8][4], dp[8][4];
-    mma_rows_by_tile(s, qa, s_k, g, t);   // q k^T
-    mma_rows_by_tile(dp, da, s_v, g, t);  // do v^T
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int cl = nt * 8 + 2 * t;
-        const int col = k0 + cl;
-        const size_t off = (plane * P + row[r]) * static_cast<size_t>(P) + col;
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * r + c;
-          float ds = 0.0f;
-          if (row[r] < S && col + c < S) {
-            const float p = expf(s[nt][e] * scale + mmee_to_float(bias[off + c]) - lse_r[r]);
-            float dpv = dp[nt][e];
-            if (dropout) dpv *= drop.scale(row[r], col + c);
-            ds = p * (dpv - delta_r[r]);
-          }
-          s[nt][e] = ds;
-          s_ds[(wr + g + 8 * r) * (kBK + 1) + cl + c] = ds;
-        }
-      }
-    }
-    dq_step(dq_acc, s, s_k, s_kt, g, t);  // dq += ds k
-    __syncthreads();  // s_ds holds the block's f32 ds
-
-    if (wi < S) {
-      const float* ds_row = s_ds + walk_row * (kBK + 1);
-      const int n = min(kBK, S - k0);
-      const int half1 = nb1 / 2, half2 = nb2 / 2;
-      for (int c = 0; c < n; ++c) {
-        const float x = ds_row[c];
-        if (walk_first) {
-          run_a.add(hist_a, bucket_of(s_kp[c] - w_pos, half1, s_l1, max1), x);
-          run_x.add(hist_x, bucket_of(s_kx[c] - w_x, half2, s_l2, max2), x);
-        } else {
-          run_a.add(hist_a, bucket_of(s_ky[c] - w_y, half2, s_l2, max2), x);
-        }
-      }
-    }
-  }
-  store_rows(dq + batch_off, dq_acc, row, S, hd, scale, t);
-  run_a.flush(hist_a);
-  if (walk_first) run_x.flush(hist_x);
-  __syncthreads();
-
-  // this CTA's partial sums, each over its 64 rows in row order
-  float* out = partial + (plane * gridDim.x + blockIdx.x) * n_bins;
-  for (int bin = tid; bin < n_bins; bin += kThreads) {
-    const float* hrow = s_hist + bin * kBQ;
-    float acc = 0.0f;
-    for (int r = 0; r < kBQ; ++r) acc += hrow[r];
-    out[bin] = acc;
-  }
-}
-
 // the (n_bins, H) table gradients: each entry sums its (b, q block)
 // partials in a fixed order, so the result is the same on every run
 __global__ void table_partials_sum_kernel(const float* __restrict__ partial,
@@ -1958,30 +1727,32 @@ int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, cons
                       float* delta, float* partial, float* tables, int B, int S, int H, int P,
                       float scale, int seed, float keep, float inv_keep, int dropout, int nb1,
                       int nb2, int max1, int max2, cudaStream_t st) {
-  const BiasT* bp = static_cast<const BiasT*>(bias);
-  const int n_qb = (S + kBQ - 1) / kBQ;
-  const int n_bins = nb1 + 2 * nb2;
-  const size_t smem = sizeof(float) * (kBQ * (kBK + 1) + static_cast<size_t>(n_bins) * kBQ) +
-                      sizeof(int) * (max1 + 1 + max2 + 1);
-  auto kernel = train_bwd_dq_tables_kernel<T, BiasT>;
-  int err = static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
-  if (err != 0) return err;
-  kernel<<<dim3(n_qb, H, B), kThreads, smem, st>>>(
-      q, k, v, bp, dout, o, lse, pos, cx, cy, lut1, lut2, dq, delta, partial,
-      S, H, P, scale, seed, keep, inv_keep, dropout, nb1, nb2, max1, max2);
-  err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  // (B): the backward pair's dk/dv kernel
   const Strides ps = packed_strides(S, H);
   const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
   BwdMaps maps;
-  err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss, B, S,
-                                  H, P);
-  if (err == 0) {
-    err = launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
-                                   inv_keep, dropout, st);
-  }
+  int err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss, B,
+                                      S, H, P);
+  if (err != 0) return err;
+  const int n_qb = (S + kBQ - 1) / kBQ;
+  const int n_bins = nb1 + 2 * nb2;
+  const TablesArgs tab{pos, cx, cy, lut1, lut2, partial, nb1, nb2, max1, max2};
+  // (A'): (A)'s tables mode over the q blocks with a row < S
+  err = by_flag(dropout, [&](auto drop) {
+    using Smem = DqSmem<T, BiasT, false>;
+    auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, false, true>;
+    const int smem = Smem::kTabOff + tables_bytes(n_bins, Smem::kW, max1, max2);
+    const int e = static_cast<int>(
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
+    if (e != 0) return e;
+    kernel<<<dim3(n_qb, H, B), kBwdThreads, smem, st>>>(maps, dout, o, lse, dq, delta, ps, ps, ps,
+                                                        S, H, P, scale, seed, keep, inv_keep,
+                                                        tab);
+    return static_cast<int>(cudaGetLastError());
+  });
+  if (err != 0) return err;
+  // (B): the backward pair's dk/dv kernel
+  err = launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
+                                 inv_keep, dropout, st);
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
   return static_cast<int>(cudaGetLastError());

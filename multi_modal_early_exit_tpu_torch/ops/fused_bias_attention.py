@@ -22,8 +22,10 @@ where the formula lands exactly on an integer.
 ``materialize_bias`` is differentiable in the three tables. Its backward is
 ``table_grads``: dT[r, h] = the sum of the bias cotangent over the (b, i, j)
 of the true S x S block whose bucket is r, for each table. On a CUDA tensor
-it launches ``csrc/table_grads.cu``; on a CPU tensor it runs
-``table_grads_plain`` (``index_add_`` over the bucket maps). Pad rows and
+it launches ``csrc/table_grads.cu`` (one-hot products on the tensor cores,
+the TPU kernel's formulation); on a CPU tensor it runs ``table_grads_plain``
+(``index_add_`` over the bucket maps, or with ``onehot=True`` the kernel's
+arithmetic: one-hot matrix products, f32 g in three bf16 parts). Pad rows and
 columns (>= S) carry no gradient: the bias's pad rows are finite, and must
 not leak into the tables.
 
@@ -256,12 +258,25 @@ def table_grads_plain(
     max_rel: int = 128,
     rel2d_bins: int = 64,
     max_rel2d: int = 256,
+    onehot: bool = False,
 ):
     """Plain PyTorch ``table_grads``: ``index_add_`` of the true S x S block
-    of ``g`` over the bucket maps. Returns (dT1, dTx, dTy), f32."""
+    of ``g`` over the bucket maps. Returns (dT1, dTx, dTy), f32.
+
+    ``onehot=True`` computes what the kernel computes, as the Pallas kernel
+    and the CUDA kernel do: per table the product of the (bins, B*S*S)
+    one-hot bucket matrix with g's (B*S*S, H) values, in f32; an f32 g as the
+    sum of the products of its three bf16 parts (``split_bf16x3_plain``),
+    lo first."""
+    # imported here: ops.flash_attention imports this module
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import split_bf16x3_plain
+
     s = position_ids.shape[1]
     h = g.shape[1]
     gt = g[:, :, :s, :s].to(torch.float32).permute(0, 2, 3, 1).reshape(-1, h)
+    parts = (gt,)
+    if onehot and g.dtype == torch.float32:
+        parts = tuple(split_bf16x3_plain(gt).to(torch.float32).flip(0))  # lo, mid, hi
 
     def one(vec, num_buckets, max_distance):
         vec = vec.to(torch.int32)
@@ -269,7 +284,12 @@ def table_grads_plain(
             vec[:, None, :] - vec[:, :, None], num_buckets, max_distance
         ).reshape(-1)  # [b, i, j], as gt's rows
         out = torch.zeros((num_buckets, h), dtype=torch.float32, device=g.device)
-        return out.index_add_(0, bkt, gt)
+        if not onehot:
+            return out.index_add_(0, bkt, gt)
+        hot = F.one_hot(bkt, num_buckets).to(torch.float32).t()
+        for part in parts:
+            out = out + hot @ part
+        return out
 
     return (one(position_ids, rel_bins, max_rel), one(cx, rel2d_bins, max_rel2d),
             one(cy, rel2d_bins, max_rel2d))
@@ -284,7 +304,8 @@ def _table_grads_fn():
     return lib, fn
 
 
-TABLE_GRADS_MAX_HEADS = 16  # one head per lane of a half-warp
+TABLE_GRADS_MAX_HEADS = 16  # N of the kernel's products: 16 (b, h) planes
+TABLE_GRADS_MAX_BINS = 64   # M of the kernel's products
 
 
 def table_grads(
@@ -300,7 +321,9 @@ def table_grads(
     """(dT1 (rel_bins, H), dTx, dTy (rel2d_bins, H)) f32 from the bias
     cotangent ``g`` (B, H, P, P), P >= S; rows and columns >= S are left
     out. CPU tensors run ``table_grads_plain``; CUDA tensors launch the
-    kernel (counted in ``table_grads.launches``)."""
+    kernel (counted in ``table_grads.launches``), which takes g contiguous
+    and 16-byte aligned, H <= 16, P % 16 == 0 and at most 64 bins a table,
+    and sums with float atomics (the last bits vary from run to run)."""
     vecs = (position_ids, cx, cy)
     _check_vectors("table_grads", vecs)
     b, s = position_ids.shape
@@ -318,6 +341,10 @@ def table_grads(
         raise ValueError(f"the table_grads kernel takes at most {TABLE_GRADS_MAX_HEADS} heads")
     if p % 16:
         raise ValueError(f"the table_grads kernel needs P % 16 == 0, got P = {p}")
+    if max(rel_bins, rel2d_bins) > TABLE_GRADS_MAX_BINS:
+        raise ValueError(f"the table_grads kernel takes at most {TABLE_GRADS_MAX_BINS} bins")
+    if g.data_ptr() % 16:
+        raise ValueError("the table_grads kernel reads g by TMA: it must be 16-byte aligned")
     lut1 = bucket_lut(rel_bins, max_rel, device)
     lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
     out = torch.zeros((rel_bins + 2 * rel2d_bins) * h, dtype=torch.float32, device=device)

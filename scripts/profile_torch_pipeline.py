@@ -67,12 +67,9 @@ GROUPS = (
     # flash_attention_packed, the training forward and the head-form
     # forward launch one kernel
     ("flash_attention_packed / _train / flash_attention_fwd", ("fwd_kernel",)),
-    ("flash_attention_packed_train_tables_bwd", ("train_bwd_dq_tables_kernel",
-                                                 "table_partials_sum_kernel")),
-    # the head-form and the packed training backward launch the same dq
-    # kernel in bf16 (and the same bodies in f32): one group
-    (ATTN_BWD, ("bwd_dq_kernel",)),
-    # every backward launches a dk/dv kernel: see group_of
+    ("flash_attention_packed_train_tables_bwd", ("table_partials_sum_kernel",)),
+    # every backward launches the dq and the dk/dv kernel (the tables
+    # backward the dq kernel's tables mode): see group_of
     # every f32 forward and backward first splits its operands
     ("split_bf16x3 (f32 attention forwards and backwards)", ("split_bf16x3_kernel",)),
     ("table_grads", ("table_grads_kernel",)),
@@ -83,7 +80,7 @@ GROUPS = (
 
 def group_of(name: str) -> str:
     low = name.lower()
-    if "bwd_dkv_kernel" in low:  # in the mode in effect's
+    if "bwd_dq_kernel" in low or "bwd_dkv_kernel" in low:  # in the mode in effect's
         return "flash_attention_packed_train_tables_bwd" if use_table_grad_attention() else ATTN_BWD
     for group, keys in GROUPS:
         if any(k in low for k in keys):

@@ -18,7 +18,11 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
   with its split pre-pass, and that pre-pass (of k and v) alone;
 - the head-form forward and backward (#5/#6) on the packed tensors' (B, H,
   S, D) views at rate 0, the backward also in f32;
-- the table-gradient backward (#9) at rate 0.1, also in f32;
+- the table-gradient backward (#9) at rate 0.1, also in f32, and
+  ``table_grads`` (#4) on a bf16 and an f32 cotangent, on the main paths'
+  bias inputs (``chip_smoke.main_path_bias_inputs`` of the checkout: word
+  boxes in random order), and again with the boxes in reading order
+  (sorted by y1, then x0);
 - where the checkout has it, the f32 backwards' split pre-pass
   (``split_bf16x3`` of q, k, v and do; part of each f32 backward's time);
 - the yardsticks, one PyTorch call each: ``scaled_dot_product_attention``
@@ -31,6 +35,7 @@ call: the wall time of 200 calls issued back to back at a tiny shape (batch
 host issues the next, so the wrapper's own cost, tensor-map encoding
 included.
 
+``--cases REGEX`` times only the cases whose name matches.
 ``--profile`` prints, for each backward and each f32 forward, the device
 time of every kernel it launches (a torch.profiler trace of 10 calls): the
 split pre-pass apart from the kernel. ``--ptxas`` first compiles
@@ -97,44 +102,46 @@ def host_us(fn, iters: int = 200, warmup: int = 10) -> float:
 
 def ptxas_report(cuda_build) -> None:
     """ptxas' registers, stack and spills of the training source's attention
-    kernels, as ``-Xptxas -v`` reports them."""
-    src = cuda_build.CSRC / "flash_attention_packed_train.cu"
-    sass = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        lib = os.path.join(tmp, "lib.so")
-        res = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
-                              "-o", lib, str(src)], capture_output=True, text=True, check=True)
-        dump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
-        if os.path.exists(dump):  # static SASS instructions per kernel
-            fn = None
-            for line in subprocess.run([dump, "-sass", lib], capture_output=True, text=True,
-                                       check=True).stdout.splitlines():
-                found = re.search(r"Function : (\w+)", line)
-                if found:
-                    fn = found.group(1)
-                elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
-                    sass[fn] = sass.get(fn, 0) + 1
-    name, rows = None, []
-    for line in (res.stdout + res.stderr).splitlines():
-        found = re.search(r"Compiling entry function '(\w+)'", line)
-        if found:
-            name, stack = found.group(1), ("?", "?", "?")
-        found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
-                          r"(\d+) bytes spill loads", line)
-        if found and name:
-            stack = found.groups()
-        found = re.search(r"Used (\d+) registers", line)
-        if found and name:
-            rows.append((name, int(found.group(1)), stack))
-            name = None
-    names = [r[0] for r in rows]
-    if shutil.which("c++filt"):
-        names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
-                               text=True, check=True).stdout.splitlines()
-    for full, (name, regs, (stack, st, ld)) in zip(names, rows):
-        if "bwd" in full or "fwd_kernel" in full:
-            print(f"ptxas {full}: {regs} registers, {stack} B stack, {st} B spill stores, "
-                  f"{ld} B spill loads, {sass.get(name, '?')} SASS instructions")
+    kernels and of the table_grads kernel, as ``-Xptxas -v`` reports them."""
+    for source, keep in (("flash_attention_packed_train", ("bwd", "fwd_kernel")),
+                         ("table_grads", ("table_grads_kernel",))):
+        src = cuda_build.CSRC / f"{source}.cu"
+        sass = {}
+        with tempfile.TemporaryDirectory() as tmp:
+            lib = os.path.join(tmp, "lib.so")
+            res = subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-Xptxas", "-v",
+                                  "-o", lib, str(src)], capture_output=True, text=True, check=True)
+            dump = os.path.join(os.path.dirname(cuda_build.find_nvcc()), "cuobjdump")
+            if os.path.exists(dump):  # static SASS instructions per kernel
+                fn = None
+                for line in subprocess.run([dump, "-sass", lib], capture_output=True, text=True,
+                                           check=True).stdout.splitlines():
+                    found = re.search(r"Function : (\w+)", line)
+                    if found:
+                        fn = found.group(1)
+                    elif fn and re.match(r"\s+/\*[0-9a-f]{4,}\*/", line):
+                        sass[fn] = sass.get(fn, 0) + 1
+        name, rows = None, []
+        for line in (res.stdout + res.stderr).splitlines():
+            found = re.search(r"Compiling entry function '(\w+)'", line)
+            if found:
+                name, stack = found.group(1), ("?", "?", "?")
+            found = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                              r"(\d+) bytes spill loads", line)
+            if found and name:
+                stack = found.groups()
+            found = re.search(r"Used (\d+) registers", line)
+            if found and name:
+                rows.append((name, int(found.group(1)), stack))
+                name = None
+        names = [r[0] for r in rows]
+        if shutil.which("c++filt"):
+            names = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                                   text=True, check=True).stdout.splitlines()
+        for full, (name, regs, (stack, st, ld)) in zip(names, rows):
+            if any(k in full for k in keep):
+                print(f"ptxas {full}: {regs} registers, {stack} B stack, {st} B spill stores, "
+                      f"{ld} B spill loads, {sass.get(name, '?')} SASS instructions")
 
 
 def kernel_split(name, fn, calls: int = 10) -> None:
@@ -166,6 +173,8 @@ def main() -> int:
                         help="print each backward's device time by kernel (torch.profiler)")
     parser.add_argument("--ptxas", action="store_true",
                         help="print ptxas' registers and spills of the attention kernels")
+    parser.add_argument("--cases", default="",
+                        help="time only the cases whose name matches this regular expression")
     opts = parser.parse_args()
     if not torch.cuda.is_available():
         print("time_train_attention: no CUDA device", file=sys.stderr)
@@ -174,6 +183,8 @@ def main() -> int:
     sys.path.insert(0, root)
     from multi_modal_early_exit_tpu_torch.ops import cuda_build
     from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
+    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+    from chip_smoke import main_path_bias_inputs
 
     if not cuda_build.__file__.startswith(root):
         raise RuntimeError(f"imported {cuda_build.__file__}, not the package under {root}")
@@ -205,12 +216,23 @@ def main() -> int:
     o_h, lse_h = fa.flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
     cases["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
         *views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
-    pos = torch.arange(s, dtype=torch.int32, device="cuda").repeat(b, 1)
-    cx, cy = (torch.randint(0, 1000, (b, s), generator=g, dtype=torch.int32).to("cuda")
-              for _ in range(2))
-    o1, lse1 = fa.flash_attention_packed_train_fwd(q, k, v, bias, 7, h, 0.1)
-    cases["packed_tables_bwd@0.1"] = lambda: fa.flash_attention_packed_train_tables_bwd(
-        q, k, v, bias, pos, cx, cy, 7, o1, lse1, do, h, 0.1)
+    # the tables backward and table_grads on the main paths' bias inputs,
+    # and on the same with the boxes in reading order (sorted by y1, x0)
+    vecs = main_path_bias_inputs(torch.device("cuda"), torch.Generator().manual_seed(0))[0]
+    key = (vecs[2].long() * 4096 + vecs[1].long()).sort(dim=1).values
+    reading = [vecs[0], (key % 4096).to(torch.int32).contiguous(),
+               (key // 4096).to(torch.int32).contiguous(), *vecs[3:]]
+    g_bias = (torch.randn((b, h, s, s), generator=g) * 1e-3).to("cuda", torch.bfloat16)
+    for tag, vv in (("", vecs), ("_reading", reading)):
+        tbias = fba.materialize_bias(*vv)
+        ot, lset = fa.flash_attention_packed_train_fwd(q, k, v, tbias, 7, h, 0.1)
+        cases[f"packed_tables_bwd@0.1{tag}"] = lambda vv=vv, tbias=tbias, ot=ot, lset=lset: (
+            fa.flash_attention_packed_train_tables_bwd(q, k, v, tbias, *vv[:3], 7, ot, lset, do,
+                                                       h, 0.1))
+        cases[f"table_grads{tag}"] = lambda vv=vv: fba.table_grads(*vv[:3], g_bias)
+    g_bias32 = (torch.randn((b, h, s, s), generator=g) * 1e-3).to("cuda")  # all 24 bits
+    cases["f32_table_grads"] = lambda: fba.table_grads(*vecs[:3], g_bias32)
+    cases["f32_table_grads_reading"] = lambda: fba.table_grads(*reading[:3], g_bias32)
     mask = bias[:, :, :s, :s]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases["sdpa@0.0"] = lambda: sdpa(*views[:3], attn_mask=mask)
@@ -235,8 +257,10 @@ def main() -> int:
     o_h32, lse_h32 = fa.flash_attention_fwd(*views32[:3], bias32, 0, 0.0, with_lse=True)
     cases["f32_headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
         *views32[:3], bias32, 0, o_h32, lse_h32, views32[3], 0.0)
+    tbias32 = fba.materialize_bias(*vecs, out_dtype=torch.float32)
+    ot32, lset32 = fa.flash_attention_packed_train_fwd(q32, k32, v32, tbias32, 7, h, 0.1)
     cases["f32_packed_tables_bwd@0.1"] = lambda: fa.flash_attention_packed_train_tables_bwd(
-        q32, k32, v32, bias32, pos, cx, cy, 7, o32, lse32, do32, h, 0.1)
+        q32, k32, v32, tbias32, *vecs[:3], 7, ot32, lset32, do32, h, 0.1)
     if hasattr(fa, "split_bf16x3"):
         cases["f32_split"] = lambda: fa.split_bf16x3(*views32)
         cases["f32_split_kv"] = lambda: fa.split_bf16x3(*views32[1:3])
@@ -258,6 +282,9 @@ def main() -> int:
     th_o, th_lse = fa.flash_attention_fwd(*tviews[:3], tbias, 0, 0.0, with_lse=True)
     tiny["headform_bwd@0.0"] = lambda: fa.flash_attention_bwd(
         *tviews[:3], tbias, 0, th_o, th_lse, tviews[3], 0.0)
+    if opts.cases:
+        cases = {n: fn for n, fn in cases.items() if re.search(opts.cases, n)}
+        tiny = {n: fn for n, fn in tiny.items() if re.search(opts.cases, n)}
     if opts.profile:
         for name in cases:
             if "bwd" in name or (name.startswith("f32_") and "fwd" in name):

@@ -199,21 +199,38 @@ def test_train_autograd_runs_the_kernels(cuda):
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
 
 
-@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (3, 300, 384, 12), (16, 709, 768, 12)])
+def _reading_order(cx, cy):
+    """x0 / y1 of boxes in reading order: sorted by y1, then x0."""
+    y = torch.sort(cy * 1000 + cx, dim=1).values
+    return (y % 1000).to(torch.int32).contiguous(), (y // 1000).to(torch.int32).contiguous()
+
+
+# (2, 20, 128, 4) has B*H = 8 < 16 planes a box; H = 16 fills the products'
+# N; P = 320 and 448 are odd multiples of 64; P = 400 is a multiple of 16 only
+@pytest.mark.parametrize("b,s,p,h", [(2, 20, 128, 4), (3, 300, 384, 12), (16, 709, 768, 12),
+                                     (2, 300, 320, 16), (3, 390, 400, 16), (1, 445, 448, 7)])
 @pytest.mark.parametrize("g_dtype", [torch.bfloat16, torch.float32])
-def test_table_grads_kernel_matches_plain(cuda, b, s, p, h, g_dtype):
+@pytest.mark.parametrize("order", ["random", "reading"])
+def test_table_grads_kernel_matches_plain(cuda, b, s, p, h, g_dtype, order):
     pos, cx, cy = _bias_args(cuda, b, s, h)[:3]
+    if order == "reading":
+        cx, cy = _reading_order(cx, cy)
     gen = torch.Generator().manual_seed(2)
     g = torch.randn((b, h, p, p), generator=gen).to(cuda, g_dtype)  # finite pad rows
     before = table_grads.launches
     got = table_grads(pos, cx, cy, g)
     assert table_grads.launches == before + 1
+    again = table_grads(pos, cx, cy, g)
     want = table_grads_plain(pos, cx, cy, g)
+    onehot = table_grads_plain(pos, cx, cy, g, onehot=True)
     torch.cuda.synchronize()
-    for a, w in zip(got, want):
+    for a, a2, w, w1 in zip(got, again, want, onehot):
         # f32 sums of up to B*S*S terms, added in another (and run-to-run
-        # varying) order through float atomics
+        # varying: float atomics across CTAs) order; the one-hot plain
+        # version is the kernel's arithmetic (an f32 g in three bf16 parts)
         torch.testing.assert_close(a, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
+        torch.testing.assert_close(a, w1, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
+        torch.testing.assert_close(a2, a, atol=1e-5 * w.abs().max().item(), rtol=1e-5)
 
 
 def test_bias_backward_runs_table_grads(cuda):
@@ -958,9 +975,9 @@ def test_f32_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
 @pytest.mark.parametrize("b,s,p,h", F32_BWD_SHAPES)
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 def test_f32_tables_dkv_equals_the_packed_backward(cuda, b, s, p, h, rate):
-    """#9 in f32 runs #8's dk/dv kernel on the same split parts, after a
-    delta summed as (A) sums it: its dk and dv are #8 plain's bits; its dq
-    ((A') on mma.sync, 3xTF32) within the f32 bar of #8's."""
+    """#9 in f32 runs #8's pair in the tables mode on the same split parts:
+    (A') is (A)'s body walking the keys < S only, and (B) #8's dk/dv kernel,
+    so its dq, dk and dv are all #8 plain's bits."""
     args = _bias_args(cuda, b, s, h)
     pos, cx, cy = args[:3]
     bias = _tables_bias(args, p, torch.float32)
@@ -971,8 +988,8 @@ def test_f32_tables_dkv_equals_the_packed_backward(cuda, b, s, p, h, rate):
                                                   rate)
     want = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate)
     torch.cuda.synchronize()
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
-    _assert_f32_close("dq", got[0], want[0])
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert torch.equal(a, w), name
 
 
 
