@@ -18,12 +18,14 @@ Phases, each reported on its own line:
    there too beside SDPA), its backward, plain and chained
    (dq/dk/dv/dbias within 2e-2 of each output's largest value, the same
    bits on a second run) and
-   ``table_grads`` (within 1e-4 of the largest table gradient); the two
-   kernels of the bias modes: ``fused_bias_attention`` on the packed
+   ``table_grads`` (within 1e-4 of the largest table gradient, the same
+   bits on a second run); the two
+   kernels of the bias modes: ``fused_bias_attention`` (the forward kernel
+   with the bias built on chip) on the packed
    projections' transposed view (within 1e-2 of its plain version and
    bit-equal to ``materialize_bias`` + ``flash_attention_packed``, then the
    same at unit-scale tables, where dropping any one table moves the
-   outputs past the tolerance) and the table-gradient
+   outputs past the tolerance; timed beside that pair) and the table-gradient
    backward (dq/dk/dv within 2e-2 of their scale, the three table gradients
    within ``TABLE_GRAD_LIMIT`` of theirs, the same on a second run); the
    head-form forward and backward (``flash_attention_fwd``/``_bwd``, the
@@ -38,19 +40,21 @@ Phases, each reported on its own line:
    or the pair of kernels it replaces. Then every kernel again at f32
    inputs (f32 q/k/v and bias; the attention kernels' f32 instantiations,
    the forwards and backwards by six bf16 products of operands split into
-   three bf16 parts on the tensor cores, the fused kernel by 3xTF32)
+   three bf16 parts on the tensor cores)
    against its plain version in f32, at
    both shapes: outputs, lse and gradients within ``F32_BAR`` (1e-4) of
    each output's largest value, the f32 forwards' and backwards' bits the
-   same on a second run, the table gradients (``table_grads`` and the
-   tables backward) within ``TABLE_GRAD_LIMIT``, the fused kernel within
-   1e-4 of ``materialize_bias`` + ``flash_attention_packed`` in f32, and the
+   same on a second run, the table gradients (``table_grads``, the same
+   bits on a second run, and the tables backward) within
+   ``TABLE_GRAD_LIMIT``, the fused kernel bit-equal to ``materialize_bias``
+   + ``flash_attention_packed`` in f32, and the
    split pre-pass (``split_bf16x3``) bit-equal to its plain version; each
    timed beside f32 SDPA and an f32 bound (FLOPs over a sixth of the bf16
-   peak for split operands, a third of the TF32 one for 3xTF32), the f32
+   peak for split operands), the f32
    forwards also beside their design's floor (the bytes of the pre-pass
    and of a kernel that reads the parts), ``table_grads`` and the tables
-   backward beside theirs in both types;
+   backward beside theirs in both types, the fused kernel beside its f32
+   pair;
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -58,14 +62,16 @@ Phases, each reported on its own line:
    logits; launch counts of one bias build and 12 attention calls per batch;
    at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
    away from the thresholds; the bf16 kernel path agrees with the f32 plain
-   path (on the CPU) on a small input;
+   path (on the CPU) on a small input; the device ms of one more, traced,
+   call (4 batches: all kernels, the attention, the bias build);
 5. training path: the same model with f32 master weights, trained by
    ``EETrainer.train_step`` (one_stage_subgraphs_weighted, bf16 forward,
    dropout 0.1, AdamW at lr 2e-5, ``scan_fold=12``: every layer in one step,
    bench.py's train schedule, where the bias cotangent is chained) on
    batches of 16 documents: one warm-up
    step, then 3 timed steps. Checks: finite losses, parameters that moved,
-   launch counts per step of 1 bias build, 1 ``table_grads``, 12 training
+   launch counts per step of 1 bias build, 1 ``table_grads`` (2 kernels:
+   the per-CTA sums and their fixed-order sum), 12 training
    attention forwards and 12 chained backwards (24 kernels: dq/dbias and
    dk/dv); the gradients of one loss on 2 documents at dropout 0, bf16
    kernel path against the f32 plain path on the CPU: relative L2 over all
@@ -76,8 +82,8 @@ Phases, each reported on its own line:
    kernel): the same model, thresholds and batches as phase 4. Checks: 12
    ``fused_bias_attention`` launches and no bias build or attention launch
    per batch; exits equal phase 4's for the documents away from the
-   thresholds, logits within the bf16 tolerance. docs/sec and peak memory
-   beside phase 4's;
+   thresholds, logits within the bf16 tolerance. docs/sec, peak memory and
+   the device ms of one more, traced, call beside phase 4's;
 5b. training with ``MMEE_TABLE_GRADS=1`` (the table gradients in the
    attention backward): 1 + 3 steps as in phase 5. Checks: finite losses,
    parameters that moved (the rel-pos tables too), per step 1 bias build, no
@@ -123,9 +129,17 @@ Phases, each reported on its own line:
    (one ``split_bf16x3`` per forward and per backward). docs/sec and peak
    memory beside phase 5c's, and the f32 attention's device ms (forward
    kernel, backward kernels, split pre-passes) in one more, traced, step.
+4t. the tiny config (hidden 64, 4 heads of 16, 2 layers: head dim 16,
+   which the kernels take zero-padded to their 64): 2 batches of 16 served
+   through ``Pipeline.predict_features`` in f32 and in bf16, and one
+   ``EETrainer`` step in bf16. Checks: the launch counts (every attention
+   call in the kernels); the f32 kernel path's logits within the north
+   star's f32 bars of the f32 plain path on the CPU, and its f32 gradients
+   within ``TINY_GRAD_LIMITS``; bf16 logits within the bf16 tolerance;
+   a finite loss and parameters that moved.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
@@ -150,19 +164,15 @@ import time
 import numpy as np
 import torch
 
-# published peaks (dense) by card: bytes/s, bf16 tensor FLOP/s, f32 FLOP/s,
-# TF32 tensor FLOP/s
+# published peaks (dense) by card: bytes/s, bf16 tensor FLOP/s, f32 FLOP/s
 PEAKS = {
-    "H100 PCIe": (2.0e12, 756e12, 51e12, 378e12),
-    "H100 NVL": (3.9e12, 835e12, 60e12, 417e12),
-    "H100": (3.35e12, 989e12, 67e12, 495e12),  # SXM
+    "H100 PCIe": (2.0e12, 756e12, 51e12),
+    "H100 NVL": (3.9e12, 835e12, 60e12),
+    "H100": (3.35e12, 989e12, 67e12),  # SXM
 }
-# the f32 attention forwards and backwards multiply by six bf16 passes of
-# split operands, so their operations bound is FLOPs over a sixth of the
-# bf16 peak (165 TFLOP/s on an H100 SXM); the fused kernel by 3xTF32, three
-# TF32 passes per product, FLOPs over a third of the TF32 peak (165 TFLOP/s
-# too)
-TF32_PASSES = 3
+# the f32 attention kernels multiply by six bf16 passes of split operands,
+# so their operations bound is FLOPs over a sixth of the bf16 peak (165
+# TFLOP/s on an H100 SXM)
 SPLIT_PASSES = 6
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
 N_BATCHES = 4
@@ -199,9 +209,9 @@ CHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
 # layers' bf16 bias cotangents where phase 5 adds each layer's ds to the
 # running one in the kernel)
 UNCHAINED_LIMITS = {"tensors but the tables": 1e-6, "rel-pos tables": 2e-2}
-# the f32 attention kernels (six bf16 products of split operands, or
-# 3xTF32) against their f32 plain versions on the card, over each output's
-# largest value; plain TF32 (~3 digits) misses it
+# the f32 attention kernels (six bf16 products of split operands) against
+# their f32 plain versions on the card, over each output's largest value;
+# plain TF32 (~3 digits) misses it
 F32_BAR = 1e-4
 # phase 5f's gradient checks, the f32 kernel path on the card against phase
 # 5's f32 plain path on the CPU, by phase 5's groups. On an H100, with the
@@ -214,6 +224,10 @@ F32_BAR = 1e-4
 # 7.90e-5 and 2.21e-5, eight draws at most 1.15e-5, 1.08e-4 and 3.63e-5.)
 # None may be looser than 1e-3
 F32_GRAD_LIMITS = {"tensors": 5e-5, "rel-pos tables": 3e-4, "q/k/v weights": 1e-4}
+# phase 4t's f32 gradient check of the tiny config (head dim 16, padded to
+# the kernels' 64) against the f32 plain path on the CPU: the card tests'
+# 1e-4 of each tensor's scale, and F32_GRAD_LIMITS' bar on the tables
+TINY_GRAD_LIMITS = {"tensors": 1e-4, "rel-pos tables": 3e-4, "q/k/v weights": 1e-4}
 SWITCHES = ("MMEE_FUSED_BIAS", "MMEE_TABLE_GRADS", "MMEE_CHAINED_DBIAS", "MMEE_LAYERS_PER_STEP")
 
 
@@ -571,16 +585,18 @@ def compare_kernels(args, gen):
     # ---- table_grads on the chained backward's dbias -------------------
     vecs = args[:3]
     got = table_grads(*vecs, dbias)
+    again = table_grads(*vecs, dbias)
     want = table_grads_plain(*vecs, dbias)
     torch.cuda.synchronize()
     tg_err, tg_abs = 0.0, 0.0
-    for a, w in zip(got, want):
+    for a, w, a2 in zip(got, want, again):
         check(bool(torch.isfinite(a).all()), "table_grads gave non-finite values")
+        check(torch.equal(a, a2), f"table_grads differs between two runs (S {s})")
         tg_err = max(tg_err, scaled_err(a, w))
         tg_abs = max(tg_abs, (a - w).abs().max().item())
     check(tg_err <= 1e-4, f"table_grads error {tg_err} > 1e-4 of its scale (S {s})")
     errs["table_grads"] = tg_abs
-    notes["table_grads"] = f"error {tg_err:.3e} of scale (tol 1e-4)"
+    notes["table_grads"] = f"error {tg_err:.3e} of scale (tol 1e-4), equal on a second run"
 
     # ---- the table-gradient backward: dq/dk/dv and dT, deterministic ----
     tables_args = (q, k, v, bias, *vecs, seed, t_out, lse, do, HEADS, rate)
@@ -615,8 +631,9 @@ def compare_kernels_f32(args, gen):
     each output's largest value, the table gradients (of ``table_grads``
     and of the tables backward) within ``TABLE_GRAD_LIMIT``;
     ``materialize_bias`` bit-equal; the fused
-    kernel also within ``F32_BAR`` of ``materialize_bias`` +
-    ``flash_attention_packed`` in f32; the training forward at rate 0
+    kernel also bit-equal to ``materialize_bias`` + ``flash_attention_packed``
+    in f32; ``table_grads`` the same bits on a second run; the training
+    forward at rate 0
     bit-equal to ``flash_attention_packed`` (one kernel). The training
     kernels at rate ``TRAIN_RATE``, the head form at rates 0 and
     ``TRAIN_RATE`` and both layouts. Raises on a disagreement. Returns (max
@@ -656,8 +673,11 @@ def compare_kernels_f32(args, gen):
              fba.fused_bias_attention_plain(qh, kh, vh, *bias_args))
         pair = fa.flash_attention_packed(
             q, k, v, fba.materialize_bias(*bias_args, out_dtype=f32), HEADS)
-        gate("fused_bias_attention", "vs the pair" + tag,
-             fused.transpose(1, 2).reshape(B, s, -1), pair)
+        # it builds the f32 bias the pair reads and shares its arithmetic
+        check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), pair),
+              f"f32 fused_bias_attention{tag} differs from materialize_bias + "
+              f"flash_attention_packed (S {s})")
+        notes["fused_bias_attention"]["vs the pair" + tag] = "bit-equal"
         del fused, pair
 
     seed, rate = 1234, TRAIN_RATE
@@ -730,9 +750,12 @@ def compare_kernels_f32(args, gen):
     # table_grads and its plain version sum the same f32 values in other
     # orders (the plain one by float atomics on the card): TABLE_GRAD_LIMIT
     vecs = args[:3]
-    for what, a, w in zip(("dt1", "dtx", "dty"), fba.table_grads(*vecs, dbias),
-                          fba.table_grads_plain(*vecs, dbias)):
+    for what, a, w, a2 in zip(("dt1", "dtx", "dty"), fba.table_grads(*vecs, dbias),
+                              fba.table_grads_plain(*vecs, dbias),
+                              fba.table_grads(*vecs, dbias)):
         gate("table_grads", what, a, w, TABLE_GRAD_LIMIT)
+        check(torch.equal(a, a2), f"f32 table_grads {what} differs between two runs (S {s})")
+    notes["table_grads"]["two runs"] = "equal"
 
     tables_args = (q, k, v, bias, *vecs, seed, t_out, lse, do, HEADS, rate)
     got = fa.flash_attention_packed_train_tables_bwd(*tables_args)
@@ -847,16 +870,18 @@ def phase_kernels(name):
           f"{e['library_ms']:.4f} (SDPA, max diff {lib_err:.3e}), "
           f"bound {e['bound_ms'] * 1e3:.1f} us ({e['bound_by']})")
 
-    # ---- fused_bias_attention on the projections' view --------------------
+    # ---- fused_bias_attention on the projections' view: the forward kernel
+    # with the bias built on chip, beside the pair it replaces ------------
     qh, kh, vh = heads(q), heads(k), heads(v)
     pair_ms = time_ms(lambda: flash_attention_packed(q, k, v, materialize_bias(*args), HEADS))
-    e = entry("fused_bias_attention", "fused_bias_attention.cu",
+    e = entry("fused_bias_attention", "flash_attention_packed_train.cu",
               "ops/fused_bias_attention.py:70",
               time_ms(lambda: fused_bias_attention(qh, kh, vh, *args)),
               time_ms(lambda: fused_bias_attention_plain(qh, kh, vh, *args), iters=5),
               # q/k/v read and o written, the vectors and tables read
               bound(4 * qkv_bytes + in_bytes, 4 * B * HEADS * s * s * HEAD_DIM, bw, bf16_peak),
               None)
+    e["pair_ms"] = pair_ms
     print(f"kernel fused_bias_attention: {notes['fused_bias_attention']}, kernel_ms "
           f"{e['ms']:.4f}, plain_ms {e['plain_ms']:.4f}, library_ms null (no one PyTorch "
           f"call builds this bias; the pair it replaces, materialize_bias + "
@@ -991,7 +1016,6 @@ def phase_kernels(name):
     # ---- f32: every kernel again at f32 inputs (the attention kernels'
     # f32 instantiations), against f32 plain versions, then timed beside
     # f32 SDPA and an f32 bound --------------------------------------------
-    tf32_peak = peaks_for(name)[3] / TF32_PASSES
     split_peak = bf16_peak / SPLIT_PASSES
     notes32 = compare_kernels_f32(unpadded, gen)[1]
     print(f"f32 kernels at S {s_true} inside P 768 (untimed; errors over scale, tol "
@@ -1035,9 +1059,17 @@ def phase_kernels(name):
               bound(block32 + 4 * qkv32, fwd_flops, bw, split_peak), sdpa32,
               " (SDPA, f32" + fwd_floor() + ")")
     qh32, kh32, vh32 = heads(q32), heads(k32), heads(v32)
+    pair32 = time_ms(lambda: flash_attention_packed(
+        q32, k32, v32, materialize_bias(*args, out_dtype=torch.float32), HEADS))
+    by_name["fused_bias_attention"]["f32_pair_ms"] = pair32
+    # its own floor: the split pre-pass, then q read and o written in f32
+    # and the k/v parts read, no bias
+    fused_floor = (2 * (2 * qkv32 + 6 * qkv_bytes) + in_bytes) / bw * 1e3
     f32_entry("fused_bias_attention",
               time_ms(lambda: fused_bias_attention(qh32, kh32, vh32, *args)),
-              bound(4 * qkv32 + in_bytes, fwd_flops, bw, tf32_peak), None)
+              bound(4 * qkv32 + in_bytes, fwd_flops, bw, split_peak), None,
+              f" (split pre-pass included; the f32 pair it replaces, materialize_bias + "
+              f"flash_attention_packed: {pair32:.4f} ms; design floor {fused_floor:.4f} ms)")
     f32_entry("flash_attention_packed_train",
               time_ms(lambda: flash_attention_packed_train_fwd(q32, k32, v32, bias32, seed, HEADS,
                                                                rate)),
@@ -1293,7 +1325,6 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
           f"expected early, forced and final exits: {hist}, forced {forced}")
     beside = "" if base is None else (
         f" (phase 4: {base['docs_per_sec']:.1f} docs/sec, {base['peak_mb']:.1f} MiB)")
-    traced = ""
     if dtype == torch.float32:  # the f32 attention's device time in one more call
         ms = device_ms(lambda: pipe.predict_features(batch),
                        {"attention": ("fwd_kernel<", "split_bf16x3_kernel"),
@@ -1301,13 +1332,18 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
         traced = (f"; one more call traced: the f32 attention (split pre-pass and forward "
                   f"kernel) {ms['attention']:.3f} device ms (the pre-pass {ms['split']:.3f}) "
                   f"of {ms['all']:.3f}")
+    else:  # phase 4b prints its own beside these
+        ms = device_ms(lambda: pipe.predict_features(batch),
+                       {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",)})
+        traced = (f"; one more call traced: {ms['all']:.3f} device ms, the attention "
+                  f"{ms['attention']:.3f}, the bias build {ms['bias']:.3f}")
     print(f"served {n_docs} documents in {N_BATCHES} batches of {B} ({tag}): "
           f"{n_docs / dt:.1f} docs/sec (predict_features, host clock), "
           f"exits {hist}, capacity-exited {forced}, launches {launches}, "
           f"peak memory {peak_mb:.1f} MiB{beside}{traced}")
     served = dict(model=model, cfg=cfg, pipe=pipe, batch=batch, chunks=chunks, thr=thr,
                   far=far, got_ids=got_ids, got_logits=got_logits, results=results,
-                  docs_per_sec=n_docs / dt, peak_mb=peak_mb)
+                  docs_per_sec=n_docs / dt, peak_mb=peak_mb, device_ms=ms)
     return launches, served
 
 
@@ -1360,13 +1396,104 @@ def phase_serve_fused(served):
     same = [a["exit_name"] == b["exit_name"] for a, b in zip(results, s["results"])]
     check(len(results) == n_docs and all(x for x, f in zip(same, far.tolist()) if f),
           "the fused-bias Pipeline's exits differ from phase 4's away from the thresholds")
+    ms, base = device_ms(lambda: pipe.predict_features(s["batch"]),
+                         {"attention": ("fwd_kernel<",)}), s["device_ms"]
     print(f"served with MMEE_FUSED_BIAS=1: full-capacity exits equal phase 4's for "
           f"{int(far.sum())}/{n_docs} documents farther than 1e-2 from every threshold "
           f"({int(agree.sum())}/{n_docs} in all), logit max diff {logit_err:.3e}; Pipeline: "
           f"{n_docs / dt:.1f} docs/sec (phase 4: {s['docs_per_sec']:.1f}), exits equal "
           f"phase 4's for {sum(same)}/{n_docs} documents, launches {launches}, peak memory "
-          f"{peak_mb:.1f} MiB (phase 4: {s['peak_mb']:.1f} MiB)")
+          f"{peak_mb:.1f} MiB (phase 4: {s['peak_mb']:.1f} MiB); one more call traced: "
+          f"{ms['all']:.3f} device ms per {N_BATCHES} batches, the fused attention "
+          f"{ms['attention']:.3f} (phase 4: {base['all']:.3f}, the attention "
+          f"{base['attention']:.3f} + the bias build {base['bias']:.3f})")
     return launches
+
+
+def phase_tiny(card: str):
+    """Phase 4t: the tiny config (4 heads of 16: the kernels take the head
+    dim zero-padded to 64) served and trained on the card, gated against
+    the f32 plain path on the CPU."""
+    from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
+    from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
+    from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
+    from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward, init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
+        EEModelConfig,
+        LayoutLMv3Config,
+    )
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.training.subgraphs import (
+        exit_loss_weights,
+        subgraph_param_counts,
+    )
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    cfg = EEModelConfig(
+        backbone=LayoutLMv3Config.tiny(num_labels=16),
+        exit=ExitConfig(exits="text_avg,1", training_strategy="one_stage_subgraphs_weighted"),
+    )
+    bb = cfg.backbone
+    head_dim, layers = bb.hidden_size // bb.num_attention_heads, bb.num_hidden_layers
+    model32 = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    rng = np.random.default_rng(2)
+    tok = HashWordTokenizer(vocab_size=bb.vocab_size)
+    n_batches, seq = 2, 32
+    feats, pages = synthetic_pages(n_batches * B, rng, tok, seq)
+    data = {k: torch.from_numpy(v) for k, v in feats.items()}
+    data["pixel_values"] = preprocess_images(torch.from_numpy(pages).cuda(),
+                                             size=bb.input_size).cpu()
+    keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
+    counters = train_counters()
+    readings = []
+    with torch.no_grad():
+        cpu_logits = ee_forward(model32, cfg, *[data[k][:B] for k in keys]).policy_logits()
+    for dtype in (torch.float32, torch.bfloat16):
+        model = copy.deepcopy(model32).to("cuda", dtype)
+        with torch.no_grad():
+            got = ee_forward(model, cfg, *[data[k][:B].cuda() for k in keys])
+            got = got.policy_logits().float().cpu()
+        err = (got - cpu_logits).abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"tiny config: non-finite {dtype} logits")
+        if dtype == torch.float32:
+            check(f32_close(got, cpu_logits), f"tiny config f32 kernel path vs f32 plain path: "
+                  f"{err} (atol 2e-4, rtol 1e-3)")
+        else:
+            check(bf16_close(err, cpu_logits), f"tiny config bf16 kernel path: {err}")
+        pipe = Pipeline(model, cfg, batch_size=B, tokenizer=tok, device="cuda")
+        before = launch_counts()
+        results = pipe.predict_features(data)
+        ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+        want = {"materialize_bias": n_batches, "flash_attention_packed": layers * n_batches}
+        if dtype == torch.float32:
+            want["split_bf16x3"] = layers * n_batches
+        check(ran == want, f"tiny config {DTYPE_NAMES[dtype]} serving launched {ran}, not {want}")
+        check(len(results) == n_batches * B and all(
+            0.0 <= r["confidence"] <= 1.0 and r["label_id"] in range(16) for r in results),
+            "tiny config: malformed results")
+        readings.append(f"{DTYPE_NAMES[dtype]} logits max diff {err:.3e}")
+    # one bf16 training step, then the f32 gradients against the CPU's
+    batch = {k: v[:B][None].cuda() for k, v in data.items()}
+    batch["labels"] = torch.from_numpy(rng.integers(0, 16, B))[None].cuda()
+    trainer = EETrainer(cfg, copy.deepcopy(model32), TrainingArguments(bf16=True,
+                        learning_rate=2e-5), total_steps=10, device="cuda")
+    probe = trainer.model.backbone.encoder.layers[0].attention.query.weight.detach().clone()
+    before = launch_counts()
+    loss = trainer.train_step(batch, torch.Generator().manual_seed(1))[0]
+    torch.cuda.synchronize()
+    ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+    want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": layers,
+            "flash_attention_packed_train_bwd": 2 * layers}
+    check(ran == want, f"tiny config training step launched {ran}, not {want}")
+    check(math.isfinite(loss), f"tiny config: loss {loss}")
+    check(not torch.equal(probe, trainer.model.backbone.encoder.layers[0].attention.query
+                          .weight.detach()), "tiny config: the step moved no query weight")
+    weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
+    train_gradient_check(cfg, model32, batch, weights, dtype=None, limits=TINY_GRAD_LIMITS)
+    print(f"tiny config (head dim {head_dim}, {layers} layers) on the card: served "
+          f"{n_batches} batches of {B} in f32 and bf16 ({'; '.join(readings)}, tol f32 atol 2e-4 "
+          f"/ rtol 1e-3, bf16 5% of scale + 0.05), one bf16 training step (loss {loss:.4f}), "
+          f"launches per step {ran}, on {card}")
 
 
 def train_setup(n_batches: int, scan_fold: int = 12, remat: bool = False,
@@ -1575,7 +1702,7 @@ def phase_train(card: str):
     weights = exit_loss_weights(subgraph_param_counts(model32, cfg))
     reference, chained = train_gradient_check(cfg, model32, batches[0], weights)
     # the backward launches two kernels per layer: dq/dbias and dk/dv
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+    want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
             "flash_attention_packed_train_bwd": 24}
     run = train_steps(cfg, model32, batches, args, want, trace=TRACE_5)
     print(f"trained EE LayoutLMv3-base ({n_params / 1e6:.1f}M f32 master params, bf16 "
@@ -1648,7 +1775,7 @@ def phase_train_default(card: str, trained):
     _, (loss, grads) = train_gradient_check(cfg, model32, t["batches"][0], t["weights"],
                                             t["reference"])
     ran = {name: n - before[name] for name, n in launch_counts().items() if n > before[name]}
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
+    want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed": 12,
             "flash_attention_fwd": 12, "flash_attention_bwd": 24}
     check(ran == want, f"the scan_fold=1 gradient check launched {ran}, not {want}")
     names = [n for n, _ in model32.named_parameters()]
@@ -1695,7 +1822,7 @@ def phase_train_remat(card: str, trained, default):
     print("train with gradient_checkpointing: gradients bit-equal to phase 5c's at dropout 0 "
           "and to the same schedule's without checkpointing at dropout 0.1 (same seeds)")
     # 12 training forwards and 12 recomputed; 12 plain backwards of 2 kernels
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 24,
+    want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 24,
             "flash_attention_packed_train_bwd": 24}
     run = train_steps(cfg, model32, t["batches"], t["args"], want)
     print(f"trained with scan_fold=1 and gradient_checkpointing (dropout "
@@ -1721,9 +1848,9 @@ def phase_train_f32(card: str, trained, base):
     # every f32 forward splits k and v first, every f32 backward q, k, v and
     # do: one split_bf16x3 each
     checks = (
-        (1, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed": 12,
+        (1, {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed": 12,
              "flash_attention_fwd": 12, "flash_attention_bwd": 24, "split_bf16x3": 36}),
-        (12, {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+        (12, {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
               "flash_attention_packed_train_bwd": 24, "split_bf16x3": 24}),
     )
     for fold, want in checks:
@@ -1739,7 +1866,7 @@ def phase_train_f32(card: str, trained, base):
     args = TrainingArguments(bf16=False, learning_rate=t["args"].learning_rate)
     # 12 training forwards and 12 plain backwards of 2 kernels (each with a
     # split) per step
-    want = {"materialize_bias": 1, "table_grads": 1, "flash_attention_packed_train": 12,
+    want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
             "flash_attention_packed_train_bwd": 24, "split_bf16x3": 24}
     run = train_steps(cfg, model32, t["batches"][:F32_TRAIN_STEPS + 1], args, want,
                       trace={"forward": ("fwd_kernel<",),
@@ -1778,6 +1905,8 @@ def main() -> int:
     del served
     with bias_modes():
         serve32_launches = phase_main_path(torch.float32, base4)[0]
+    with bias_modes():
+        phase_tiny(card)
     with bias_modes():
         train_launches, trained = phase_train(card)
     with bias_modes(tables="1"):
@@ -1833,7 +1962,10 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms", "f32_bound_ms",
             "f32_bound_by", "f32_library_ms", "f32_max_abs_err", "f32_launches",
             "f32_launches_in", "ok")
-    print(json.dumps({"kernels": [{key: k[key] for key in keys} for k in kernels]}))
+    # the fused kernel's rows also carry the pair it replaces
+    extra = ("pair_ms", "f32_pair_ms")
+    print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
+                                  for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,9 +3,13 @@
 // position-hash dropout on the probabilities, and the same forward and
 // backward on the head form, (B, H, S, D) tensors given by their strides.
 // The forward without lse and dropout is also flash_attention_packed, the
-// deterministic attention of the serving path.
+// deterministic attention of the serving path, and, with the bias built on
+// chip from the relative-position tables instead of read from a (B, H, P,
+// P) tensor, fused_bias_attention.
 //
-// Replaces six TPU kernels of multi_modal_early_exit_tpu/ops/flash_attention.py:
+// Replaces seven TPU kernels: `_kernel` behind `fused_bias_attention`
+// (multi_modal_early_exit_tpu/ops/fused_bias_attention.py:70 and :165), and
+// six of multi_modal_early_exit_tpu/ops/flash_attention.py:
 // `_attn_fwd_packed_kernel` (:446, behind `flash_attention_packed` :490),
 // `_attn_fwd_packed_train_kernel` (:607, behind `_flash_packed_train_fwd_impl`
 // :753), `_attn_bwd_packed_kernel` (:652, behind `_flash_packed_bwd_impl`
@@ -99,9 +103,33 @@
 //   loads in flight.
 // - At rate 0 the lse and no-lse instantiations run the same arithmetic, so
 //   the training forward gives flash_attention_packed's bits, which the
-//   training schedules that run one or the other rely on; in bf16 that is
-//   also the arithmetic of fused_bias_attention.cu (expf, x = s * scale +
-//   bias, p rounded to bf16 unnormalised, the row sums in the same order).
+//   training schedules that run one or the other rely on.
+// - A built bias (kBuilt, fused_bias_attention: no dropout, no lse) is the
+//   same body with another source for each score's bias:
+//     bias[b, h, i, j] = (T1[bkt1(pos_j - pos_i), h] + Tx[bkt2(x0_j - x0_i), h])
+//                        + Ty[bkt2(y1_j - y1_i), h]  (+ -1e30 where j is masked)
+//   rounded once to q's type, the value materialize_bias.cu writes, so the
+//   output is materialize_bias + flash_attention_packed's, bit for bit, in
+//   bf16 and in f32, and no (B, H, P, P) tensor exists. Bound at B=16,
+//   S=768, H=12, D=64, bf16: q/k/v read and o written (75.5 MB, 22.6 us at
+//   3.35 TB/s) against 29 us for its 2.9e10 FLOPs, so by operations (f32:
+//   176 us at the split-operand rate); the bias stream of the pair (226.5
+//   MB written, then read) is gone. The bucket of a distance depends only on
+//   its sign and on min(|rel|, max), so each CTA first expands this head's
+//   three table columns over the clamped distances (e1[n] = T1[bkt1(n -
+//   max1), h] for n in [0, 2 max1], ex and ey over [0, 2 max2]: 5 KB at the
+//   default 128 / 256, from the LUTs of bucket_lut); a score's bias is then
+//   three gathers at clamp(v_j - v_i + max) (one DPX add-min-relu each), two
+//   adds in materialize_bias's order, the mask's add and the rounding, all
+//   in the consumers' registers where the bias tile was read. The producer
+//   warp's lanes stage each key block's pos/x0/y1/mask term (64 x 16 bytes,
+//   plain loads: a (B, S) row need not be 16-byte aligned) beside its k/v
+//   tiles, so a stage holds no bias tile. What binds it on an H100 (PERF.md):
+//   the bias arithmetic's issue slots, about 0.12 ms of 0.26 in bf16 (with
+//   no bias at all the same kernel reads 0.145); conflict-free gathers, the
+//   bias made while the score products run, and a third stage gained
+//   nothing, and builder warps that write the bias tile for the unchanged
+//   consumers (13 warps, one CTA per SM) lost (0.415 ms).
 //
 // Backward design. The forward's online softmax gives lse = m + log(sum),
 // which excludes the dropout factor c(i, j) (it multiplies the unnormalised
@@ -197,6 +225,7 @@ namespace {
 constexpr int kD = 64;       // head dim
 constexpr int kBQ = 64;      // rows per CTA (4 warps x 16)
 constexpr int kBK = 64;      // columns per block
+constexpr int kMaxDistance = 1024;  // the largest max_distance of a built bias
 
 typedef __nv_bfloat16 bf16;
 
@@ -398,17 +427,88 @@ struct Tile {
 };
 
 // q (both warpgroups' rows, as loaded: T), then the ring; each stage k, v
-// (every part: kOpTile) and the two warpgroups' bias tiles; 1 KB for
-// alignment. bf16 throughout: 81 KB, two CTAs per SM; f32 operands: 193 KB
-// with an f32 bias, 161 KB with a bf16 one, one
-template <typename T, typename BiasT>
+// (every part: kOpTile) and the two warpgroups' bias tiles, or with a built
+// bias the key block's vectors (64 int4); 1 KB for alignment. bf16
+// throughout: 81 KB, two CTAs per SM; f32 operands: 193 KB with an f32
+// bias, 161 KB with a bf16 one, one. A built bias: bf16 51 KB, f32 131 KB,
+// then the expanded tables (built_tables_bytes, 5 KB at the default
+// distances)
+template <typename T, typename BiasT, bool kBuilt = false>
 struct FwdSmem {
   static constexpr int kQTile = Tile<T>::kBytes;
   static constexpr int kOpTile = kParts<T> * kPartTile;
   static constexpr int kQ = 2 * kQTile;
-  static constexpr int kStage = 2 * kOpTile + 2 * Tile<BiasT>::kBytes;
+  static constexpr int kBias = kBuilt ? kBK * 16 : 2 * Tile<BiasT>::kBytes;
+  static constexpr int kStage = 2 * kOpTile + kBias;
   static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage;
 };
+
+// a bias built on chip (fused_bias_attention): the (B, S) int32 vectors,
+// the three (bins, H) f32 tables (scale folded in) and the LUTs of
+// bucket_lut (the one-sided bucket of |rel| = 0 .. max)
+struct BuiltBias {
+  const int* pos;
+  const int* cx;
+  const int* cy;
+  const int* mask;
+  const float* t1;
+  const float* tx;
+  const float* ty;
+  const int* lut1;
+  const int* lut2;
+  int nb1, nb2, max1, max2;
+};
+
+// the expanded tables of a built bias: e1 over 2 max1 + 1 clamped
+// distances, ex and ey over 2 max2 + 1 each, f32
+__host__ __device__ constexpr int built_tables_bytes(int max1, int max2) {
+  return 4 * ((2 * max1 + 1) + 2 * (2 * max2 + 1));
+}
+
+// e1[n] = T1[bkt1(n - max1), h] for n in [0, 2 max1], then ex and ey over
+// [0, 2 max2]: the table entry of every distance clamped to [-max, max],
+// which is the entry any distance reads, since its bucket depends on its
+// sign and on min(|rel|, max) alone (the buckets of materialize_bias.cu,
+// from the same LUTs)
+__device__ void build_tables(float* e, const BuiltBias& bb, int h, int H, int tid,
+                             int threads) {
+  const int n1 = 2 * bb.max1 + 1, n2 = 2 * bb.max2 + 1;
+  for (int n = tid; n < n1; n += threads) {
+    const int rel = n - bb.max1;
+    e[n] = bb.t1[((rel > 0 ? bb.nb1 / 2 : 0) + bb.lut1[abs(rel)]) * H + h];
+  }
+  for (int n = tid; n < n2; n += threads) {
+    const int rel = n - bb.max2;
+    const int bkt = (rel > 0 ? bb.nb2 / 2 : 0) + bb.lut2[abs(rel)];
+    e[n1 + n] = bb.tx[bkt * H + h];
+    e[n1 + n2 + n] = bb.ty[bkt * H + h];
+  }
+}
+
+// keys k0 + c (c = lane, lane + 32) of batch b as the consumers read them:
+// pos, x0, y1 and the mask's term (the bits of 0.0f, or of -1e30f where the
+// key is masked); keys >= S as zeros, masked. One lane per key, plain loads
+// (a (B, S) row need not be 16-byte aligned for a bulk copy)
+__device__ __forceinline__ void stage_key_vectors(int4* dst, const BuiltBias& bb, int b, int S,
+                                                  int k0, int lane) {
+#pragma unroll
+  for (int c = lane; c < kBK; c += 32) {
+    const int j = k0 + c;
+    int4 e = make_int4(0, 0, 0, __float_as_int(-1e30f));
+    if (j < S) {
+      const size_t at = static_cast<size_t>(b) * S + j;
+      e = make_int4(bb.pos[at], bb.cx[at], bb.cy[at],
+                    __float_as_int(bb.mask[at] != 0 ? 0.0f : -1e30f));
+    }
+    dst[c] = e;
+  }
+  __threadfence_block();
+}
+
+// named barrier 1 over the two consumer warpgroups (the producer warp runs on)
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"r"(kFwdConsumers) : "memory");
+}
 
 // q, k, v as (D, rows, H, B) maps, boxes of 64 rows: q at its strides (f32:
 // two 32-column boxes), k and v too in bf16, and in f32 as their parts (3 B
@@ -451,25 +551,30 @@ struct FwdOccupancy {
 // One CTA per (128-row q tile, head, batch): warps 0-7 are two consumer
 // warpgroups of 64 rows, warp 8 the producer. The producer loads q once and
 // then streams each 64-key block's k, v and bias tiles into a ring of
-// kFwdStages stages by TMA (in f32 every part of the k and v tiles); the
+// kFwdStages stages by TMA (in f32 every part of the k and v tiles; with a
+// built bias its lanes write the block's key vectors instead); the
 // consumers wait for a stage, run S = q k^T (wgmma, K-major as stored: bf16
 // q from shared memory; f32 q, split once into three parts, from
 // registers), the online softmax in registers, O += P v with P in wgmma's A
 // registers (rounded to bf16, or split into three parts) and v read
 // [key][d] as an MN-major B, and release the stage. A warpgroup whose rows
 // all lie at or past S only writes their lse (+inf), and nothing without
-// kLse.
-template <typename T, typename BiasT, bool kDropout, bool kLse>
+// kLse. With kBuilt (no dropout, no lse) the bias comes from `bb`, not the
+// bias map.
+template <typename T, typename BiasT, bool kDropout, bool kLse, bool kBuilt>
 __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kernel(
     const __grid_constant__ FwdMaps maps,
     T* __restrict__ o,        // (B, H, S, D) by strides
     float* __restrict__ lse,  // (B, H, P), or null without kLse
-    Strides so, int S, int H, int P, float scale, int seed, float keep, float inv_keep) {
-  constexpr int kQTile = FwdSmem<T, BiasT>::kQTile;
-  constexpr int kOpTile = FwdSmem<T, BiasT>::kOpTile;
+    Strides so, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
+    const __grid_constant__ BuiltBias bb) {
+  using Smem = FwdSmem<T, BiasT, kBuilt>;
+  static_assert(!kBuilt || (!kDropout && !kLse), "a built bias serves inference only");
+  constexpr int kQTile = Smem::kQTile;
+  constexpr int kOpTile = Smem::kOpTile;
   constexpr int kBias = Tile<BiasT>::kBytes;
-  constexpr int kQBytes = FwdSmem<T, BiasT>::kQ;
-  constexpr int kStage = FwdSmem<T, BiasT>::kStage;
+  constexpr int kQBytes = Smem::kQ;
+  constexpr int kStage = Smem::kStage;
   extern __shared__ uint8_t fwd_smem_raw[];
   __shared__ uint64_t full_bar[kFwdStages], empty_bar[kFwdStages], q_bar;
   uint8_t* smem = reinterpret_cast<uint8_t*>(
@@ -501,12 +606,15 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   __syncthreads();
 
   if (threadIdx.x >= kFwdConsumers) {
-    // ---- producer warp: one thread issues every copy ----
-    if (threadIdx.x == kFwdConsumers) {
+    // ---- producer warp: one thread issues every copy; with a built bias
+    // the warp's lanes also stage each block's key vectors ----
+    const int lane = threadIdx.x - kFwdConsumers;
+    if (!kBuilt && lane != 0) return;
+    if (lane == 0) {
       tma_prefetch_map(&maps.q);
       tma_prefetch_map(&maps.k);
       tma_prefetch_map(&maps.v);
-      tma_prefetch_map(&maps.bias);
+      if constexpr (!kBuilt) tma_prefetch_map(&maps.bias);
       mbar_expect_tx(&q_bar, n_live * kQTile);
       for (int w = 0; w < n_live; ++w) {
 #pragma unroll
@@ -515,20 +623,28 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
                       q0 + 64 * w, h, b);
         }
       }
-      const uint32_t stage_tx = 2 * kOpTile + n_live * kBias;
-      for (int kb = 0; kb < n_kb; ++kb) {
-        const int stage = kb % kFwdStages;
-        if (kb >= kFwdStages) mbar_wait(&empty_bar[stage], ((kb / kFwdStages) - 1) & 1);
-        uint8_t* st = smem + kQBytes + stage * kStage;
-        uint64_t* bar = &full_bar[stage];
+    }
+    const uint32_t stage_tx = 2 * kOpTile + (kBuilt ? 0 : n_live * kBias);
+    for (int kb = 0; kb < n_kb; ++kb) {
+      const int stage = kb % kFwdStages;
+      if (kb >= kFwdStages) mbar_wait(&empty_bar[stage], ((kb / kFwdStages) - 1) & 1);
+      uint8_t* st = smem + kQBytes + stage * kStage;
+      uint64_t* bar = &full_bar[stage];
+      if constexpr (kBuilt) {  // visible to the consumers through lane 0's arrival
+        stage_key_vectors(reinterpret_cast<int4*>(st + 2 * kOpTile), bb, b, S, kb * kBK, lane);
+        __syncwarp();
+      }
+      if (lane == 0) {
         mbar_expect_tx(bar, stage_tx);
         load_operand<kParts<T>, 64>(st, &maps.k, bar, kb * kBK, 64, kPartTile, h, b);
         load_operand<kParts<T>, 64>(st + kOpTile, &maps.v, bar, kb * kBK, 64, kPartTile, h, b);
-        for (int w = 0; w < n_live; ++w) {
+        if constexpr (!kBuilt) {
+          for (int w = 0; w < n_live; ++w) {
 #pragma unroll
-          for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
-            tma_load_2d(st + 2 * kOpTile + w * kBias + c * 8192, &maps.bias, bar,
-                        kb * kBK + c * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
+            for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
+              tma_load_2d(st + 2 * kOpTile + w * kBias + c * 8192, &maps.bias, bar,
+                          kb * kBK + c * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
+            }
           }
         }
       }
@@ -539,6 +655,14 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   // ---- consumer warpgroups ----
   const int wg = threadIdx.x / 128;
   const int ct = threadIdx.x % 128;
+  // a built bias: this head's expanded tables, built by both warpgroups
+  // while the first stages load
+  const float* e1 = reinterpret_cast<const float*>(smem + kQBytes + kFwdStages * kStage);
+  const int n1 = 2 * bb.max1 + 1, n2 = 2 * bb.max2 + 1;
+  if constexpr (kBuilt) {
+    build_tables(const_cast<float*>(e1), bb, h, H, threadIdx.x, kFwdConsumers);
+    consumers_sync();
+  }
   if (wg >= n_live) {  // rows q0 + 64 .. q0 + 127, all at or past S
     if constexpr (kLse) {
       if (ct < 64 && q0 + 64 + ct < P) lse_bh[q0 + 64 + ct] = INFINITY;
@@ -550,6 +674,20 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   const int lr[2] = {warp * 16 + g, warp * 16 + g + 8};  // rows within the warpgroup
   const int row[2] = {q0 + 64 * wg + lr[0], q0 + 64 * wg + lr[1]};
   const Dropout drop(seed, plane, keep, inv_keep);
+  // a built bias: max - this thread's rows' pos, x0, y1 (0 past S, as
+  // materialize_bias pads them), so that clamp(v_j - v_i, -max, max) + max
+  // is max(min(v_j + off, 2 max), 0)
+  int off[2][3];
+  if constexpr (kBuilt) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const bool real = row[r] < S;
+      const size_t at = static_cast<size_t>(b) * S + row[r];
+      off[r][0] = bb.max1 - (real ? bb.pos[at] : 0);
+      off[r][1] = bb.max2 - (real ? bb.cx[at] : 0);
+      off[r][2] = bb.max2 - (real ? bb.cy[at] : 0);
+    }
+  }
 
   // accumulator fragment (nt, e) at 4 nt + e: row g + 8 (e >> 1), column
   // 8 nt + 2t + (e & 1), as mma.sync's n-tiles lay it out
@@ -619,13 +757,36 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
     // scale + bias in f32; keys >= S (in the last block only) masked out.
     // Rows >= S take whatever bias lies there: they are neither stored nor
     // mixed with other rows.
+    if constexpr (kBuilt) {
+      // each score's bias from the expanded tables at its clamped distances,
+      // summed as materialize_bias sums it and rounded once to the bias type
+      const int4* keys = reinterpret_cast<const int4*>(st + 2 * kOpTile);
+      const float* ex = e1 + n1;
+      const float* ey = ex + n2;
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < 8; ++nt) {
 #pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const float2 bv2 = bias_pair(bias_tile, lr[r], nt, t);
-        s[4 * nt + 2 * r] = s[4 * nt + 2 * r] * scale + bv2.x;
-        s[4 * nt + 2 * r + 1] = s[4 * nt + 2 * r + 1] * scale + bv2.y;
+        for (int c = 0; c < 2; ++c) {
+          const int4 kv = keys[8 * nt + 2 * t + c];
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            float bv = (e1[__viaddmin_s32_relu(kv.x, off[r][0], n1 - 1)] +
+                        ex[__viaddmin_s32_relu(kv.y, off[r][1], n2 - 1)]) +
+                       ey[__viaddmin_s32_relu(kv.z, off[r][2], n2 - 1)];
+            bv = bv + __int_as_float(kv.w);
+            s[4 * nt + 2 * r + c] = s[4 * nt + 2 * r + c] * scale + mmee_round<BiasT>(bv);
+          }
+        }
+      }
+    } else {
+#pragma unroll
+      for (int nt = 0; nt < 8; ++nt) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          const float2 bv2 = bias_pair(bias_tile, lr[r], nt, t);
+          s[4 * nt + 2 * r] = s[4 * nt + 2 * r] * scale + bv2.x;
+          s[4 * nt + 2 * r + 1] = s[4 * nt + 2 * r + 1] * scale + bv2.y;
+        }
       }
     }
     if (k0 + kBK > S) {
@@ -737,23 +898,44 @@ int encode_parts(CUtensorMap* map, const bf16* parts, int B, int H, int S, int b
   return encode_operand(map, parts, cs, S, H, 3 * B, box_rows);
 }
 
-template <typename T, typename BiasT, bool kDropout, bool kLse>
+// the forward over a (P rows)-high grid of 128-row tiles; with kBuilt the
+// bias from `bb` (its expanded tables after the ring), else from maps.bias
+template <typename T, typename BiasT, bool kDropout, bool kLse, bool kBuilt = false>
 int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, int B, int S,
                       int H, int P, float scale, int seed, float keep, float inv_keep,
-                      cudaStream_t st) {
-  constexpr int smem = FwdSmem<T, BiasT>::kBytes;
-  auto kernel = fwd_kernel<T, BiasT, kDropout, kLse>;
+                      cudaStream_t st, const BuiltBias& bb = BuiltBias{}) {
+  constexpr int base = FwdSmem<T, BiasT, kBuilt>::kBytes;
+  const int smem = base + (kBuilt ? built_tables_bytes(bb.max1, bb.max2) : 0);
+  auto kernel = fwd_kernel<T, BiasT, kDropout, kLse, kBuilt>;
   static std::atomic<uint64_t> ready{0};
-  const int err = set_smem_limit_once(kernel, smem, ready);
+  const int err = set_smem_limit_once(
+      kernel, base + (kBuilt ? built_tables_bytes(kMaxDistance, kMaxDistance) : 0), ready);
   if (err != 0) return err;
   kernel<<<dim3((P + kFwdRows - 1) / kFwdRows, H, B), kFwdThreads, smem, st>>>(
-      maps, o, lse, so, S, H, P, scale, seed, keep, inv_keep);
+      maps, o, lse, so, S, H, P, scale, seed, keep, inv_keep, bb);
   return static_cast<int>(cudaGetLastError());
 }
 
-// with_lse = 0 is flash_attention_packed: no dropout, no lse (lse unused).
-// f32 k and v are read from `kv_parts` only: their split parts, (2, 3, B,
-// H, S, 64) bf16, which the caller's split pre-pass wrote
+// the maps of q at its strides, and of k and v: at their strides in bf16;
+// in f32 of their split parts `kv_parts`, (2, 3, B, H, S, 64) bf16, which
+// the caller's split pre-pass wrote (the kernel reads f32 k and v only so)
+template <typename T>
+int encode_qkv(FwdMaps* maps, const T* q, const T* k, const T* v, const bf16* kv_parts,
+               const Strides& sq, const Strides& sk, const Strides& sv, int B, int S, int H) {
+  int err = encode_operand(&maps->q, q, sq, S, H, B);
+  if constexpr (kIsF32<T>) {
+    if (kv_parts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
+    if (err == 0) err = encode_parts(&maps->k, kv_parts, B, H, S, 64);
+    if (err == 0) err = encode_parts(&maps->v, kv_parts + n, B, H, S, 64);
+  } else {
+    if (err == 0) err = encode_operand(&maps->k, k, sk, S, H, B);
+    if (err == 0) err = encode_operand(&maps->v, v, sv, S, H, B);
+  }
+  return err;
+}
+
+// with_lse = 0 is flash_attention_packed: no dropout, no lse (lse unused)
 template <typename T, typename BiasT>
 int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const void* bias, T* o,
                float* lse, const Strides& sq, const Strides& sk, const Strides& sv,
@@ -761,16 +943,7 @@ int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const v
                float inv_keep, int dropout, int with_lse, cudaStream_t st) {
   if (!with_lse && dropout) return static_cast<int>(cudaErrorInvalidValue);
   FwdMaps maps;
-  int err = encode_operand(&maps.q, q, sq, S, H, B);
-  if constexpr (kIsF32<T>) {
-    if (kv_parts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
-    if (err == 0) err = encode_parts(&maps.k, kv_parts, B, H, S, 64);
-    if (err == 0) err = encode_parts(&maps.v, kv_parts + n, B, H, S, 64);
-  } else {
-    if (err == 0) err = encode_operand(&maps.k, k, sk, S, H, B);
-    if (err == 0) err = encode_operand(&maps.v, v, sv, S, H, B);
-  }
+  int err = encode_qkv<T>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
   if (err == 0) err = encode_plane<BiasT>(&maps.bias, bias, B, H, P);
   if (err != 0) return err;
   if (!with_lse) {
@@ -781,6 +954,23 @@ int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const v
                                                            seed, keep, inv_keep, st)
                  : launch_fwd_kernel<T, BiasT, false, true>(maps, o, lse, so, B, S, H, P,
                                                             scale, seed, keep, inv_keep, st);
+}
+
+// fused_bias_attention: the forward without lse or dropout, its bias built
+// on chip from `bb` and rounded to T, the operands' type
+template <typename T>
+int launch_fused(const T* q, const T* k, const T* v, const bf16* kv_parts, T* o,
+                 const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
+                 const BuiltBias& bb, int B, int S, int H, float scale, cudaStream_t st) {
+  if (bb.max1 < 1 || bb.max2 < 1 || bb.max1 > kMaxDistance || bb.max2 > kMaxDistance) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FwdMaps maps;
+  memset(&maps, 0, sizeof(maps));  // no bias map
+  const int err = encode_qkv<T>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
+  if (err != 0) return err;
+  return launch_fwd_kernel<T, T, false, false, true>(maps, o, nullptr, so, B, S, H, S, scale, 0,
+                                                     1.0f, 1.0f, st, bb);
 }
 
 // calls fn(T{}, BiasT{}) with the operand and bias types the flags name
@@ -1887,6 +2077,41 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
         static_cast<float*>(partial), static_cast<float*>(tables), B, S, H, P, scale, seed,
         keep, inv_keep, dropout, nb1, nb2, max1, max2, st);
   });
+}
+
+// fused_bias_attention: o = softmax(q k^T scale + bias) v, each score's
+// bias built on chip from the (B, S) int32 vectors pos, cx, cy and mask and
+// the f32 tables t1 (nb1, H), tx and ty (nb2, H), with the attention scale
+// folded in, and rounded once to the operands' type, as materialize_bias
+// rounds it; keys j >= S do not exist. q, k, v and o are (B, H, S, 64) at
+// the strides `strides` gives (a host array of 12: batch, head, row of q,
+// k, v, o); f32 k and v are read from kv_parts only, as in
+// mmee_flash_attention_packed. lut1 and lut2 are bucket_lut's tables of
+// max1 + 1 and max2 + 1 entries; max1, max2 <= 1024.
+extern "C" int mmee_fused_bias_attention(
+    const void* q, const void* k, const void* v, int qkv_is_bf16, const void* kv_parts, void* o,
+    const long long* strides, const void* pos, const void* cx, const void* cy, const void* mask,
+    const void* t1, const void* tx, const void* ty, const void* lut1, const void* lut2, int B,
+    int S, int H, int nb1, int nb2, int max1, int max2, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
+                sv = strides_at(strides, 2), so = strides_at(strides, 3);
+  const BuiltBias bb{static_cast<const int*>(pos),   static_cast<const int*>(cx),
+                     static_cast<const int*>(cy),    static_cast<const int*>(mask),
+                     static_cast<const float*>(t1),  static_cast<const float*>(tx),
+                     static_cast<const float*>(ty),  static_cast<const int*>(lut1),
+                     static_cast<const int*>(lut2),  nb1,
+                     nb2,                            max1,
+                     max2};
+  const bf16* parts = static_cast<const bf16*>(kv_parts);
+  if (qkv_is_bf16) {
+    return launch_fused<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                              static_cast<const bf16*>(v), parts, static_cast<bf16*>(o), sq, sk,
+                              sv, so, bb, B, S, H, scale, st);
+  }
+  return launch_fused<float>(static_cast<const float*>(q), static_cast<const float*>(k),
+                             static_cast<const float*>(v), parts, static_cast<float*>(o), sq, sk,
+                             sv, so, bb, B, S, H, scale, st);
 }
 
 // ---------------------------------------------------------------------------

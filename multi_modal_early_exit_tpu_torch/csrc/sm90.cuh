@@ -367,6 +367,13 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank, cons
   }
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return kTensorMapError + static_cast<int>(CUDA_ERROR_NOT_FOUND);
+  // the driver call needs a current context on this thread; a thread that
+  // has made no runtime call yet (autograd's backward thread, before any
+  // launch) has none: cudaSetDevice makes the device's primary context current
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || cudaSetDevice(dev) != cudaSuccess) {
+    return kTensorMapError + static_cast<int>(CUDA_ERROR_INVALID_CONTEXT);
+  }
   const cuuint32_t unit[5] = {1, 1, 1, 1, 1};
   const CUresult r =
       fn(map, type, static_cast<cuuint32_t>(rank), const_cast<void*>(base), dims, strides, box,

@@ -41,10 +41,10 @@
 //   24 bits exactly), and each product is three bf16 products, lo first; a
 //   one-hot factor is exact in bf16.
 // - At the end the four warps' sums are added in a fixed order through
-//   shared memory, and each CTA adds its (bins x H) sums to the zeroed f32
-//   outputs with global atomicAdd. Float atomics make the order of the
-//   CTAs' sums, and so the last bits, vary from run to run; the tests state
-//   the tolerance.
+//   shared memory, and each CTA writes its (bins x H) sums into its own slot
+//   of an f32 partials buffer; a second launch (table_grads_sum_kernel) sums
+//   each (bin, head) over the CTAs in a fixed order. No float atomics: the
+//   result is the same bits on every run, as every other training kernel's.
 // - What binds it on an H100 (PERF.md): the products. The copies alone run
 //   at 0.088 ms in bf16 (g and the 4 planes of the next batch), with the
 //   buckets 0.108; the one-hot products, at mma.sync's rate, make the rest.
@@ -120,7 +120,7 @@ __global__ void __launch_bounds__(kThreads) table_grads_kernel(
     const int* __restrict__ pos, const int* __restrict__ cx,
     const int* __restrict__ cy,                              // (B, S)
     const int* __restrict__ lut1, const int* __restrict__ lut2,
-    float* __restrict__ out,  // dT1 (nb1, H), then dTx, dTy (nb2, H), zeroed
+    float* __restrict__ partial,  // per CTA: dT1 (nb1, H), then dTx, dTy (nb2, H)
     int S, int H, int box_planes, int nb1, int nb2, int max1, int max2) {
   using Cfg = TgCfg<GT>;
   constexpr bool kF32 = Cfg::kF32;
@@ -301,7 +301,7 @@ __global__ void __launch_bounds__(kThreads) table_grads_kernel(
 
   // the four warps' sums in a fixed order through the idle ring: warps 2
   // and 3 into slots 0 and 1, added by warps 0 and 1; then warp 1 into slot
-  // 0, added by warp 0, which adds the CTA's sums to the outputs
+  // 0, added by warp 0, which writes the CTA's sums to its partials slot
   float* red = reinterpret_cast<float*>(smem);
   auto at = [&](int sl, int T, int m, int nt, int e) {
     const int bin = 16 * m + g + 8 * (e >> 1), plane = 8 * nt + 2 * t + (e & 1);
@@ -336,6 +336,8 @@ __global__ void __launch_bounds__(kThreads) table_grads_kernel(
   if (warp == 0) {
     const int nbs[3] = {nb1, nb2, nb2};
     const int base[3] = {0, nb1, nb1 + nb2};
+    float* out = partial + (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) *
+                               (nb1 + 2 * nb2) * H;
 #pragma unroll
     for (int T = 0; T < 3; ++T)
 #pragma unroll
@@ -346,17 +348,46 @@ __global__ void __launch_bounds__(kThreads) table_grads_kernel(
           for (int e = 0; e < 4; ++e) {
             const int bin = 16 * m + g + 8 * (e >> 1), h = 8 * nt + 2 * t + (e & 1);
             const float v = acc[T][m][nt][e];
-            if (bin < nbs[T] && h < H && v != 0.0f) atomicAdd(&out[(base[T] + bin) * H + h], v);
+            if (bin < nbs[T] && h < H) out[(base[T] + bin) * H + h] = v;
           }
+  }
+}
+
+// out[e] = the sum of partial[c * n_out + e] over the n_ctas CTAs, in a
+// fixed order: thread (slice, e) of a block of 32 entries x 8 slices sums
+// CTAs slice, slice + 8, ... in turn, then slice 0 adds the 8 slices' sums
+// in order. Bound by reading the partials (2.9 MB at B = 16, S = 768 in
+// bf16: 0.9 us at 3.35 TB/s; a few us of latency in all)
+__global__ void __launch_bounds__(256) table_grads_sum_kernel(const float* __restrict__ partial,
+                                                              float* __restrict__ out,
+                                                              int n_ctas, int n_out) {
+  __shared__ float red[8][32];
+  const int e = blockIdx.x * 32 + threadIdx.x % 32;
+  const int slice = threadIdx.x / 32;
+  float acc = 0.0f;
+  if (e < n_out) {
+    for (int c = slice; c < n_ctas; c += 8) acc += partial[static_cast<size_t>(c) * n_out + e];
+  }
+  red[slice][threadIdx.x % 32] = acc;
+  __syncthreads();
+  if (slice == 0 && e < n_out) {
+    float sum = red[0][threadIdx.x];
+#pragma unroll
+    for (int i = 1; i < 8; ++i) sum += red[i][threadIdx.x];
+    out[e] = sum;
   }
 }
 
 template <typename GT>
 int launch_table_grads(const int* pos, const int* cx, const int* cy, const int* lut1,
-                       const int* lut2, const GT* g, float* out, int B, int S, int P, int H,
-                       int nb1, int nb2, int max1, int max2, cudaStream_t st) {
+                       const int* lut2, const GT* g, float* partial, long long n_partial,
+                       float* out, int B, int S, int P, int H, int nb1, int nb2, int max1,
+                       int max2, cudaStream_t st) {
   using Cfg = TgCfg<GT>;
-  if (H > kPlanes || nb1 > 16 * kBinTiles || nb2 > 16 * kBinTiles || S > P) {
+  const int n_out = (nb1 + 2 * nb2) * H;
+  const dim3 grid((S + Cfg::kCtaRows - 1) / Cfg::kCtaRows, B);
+  if (H > kPlanes || nb1 > 16 * kBinTiles || nb2 > 16 * kBinTiles || S > P ||
+      n_partial < static_cast<long long>(grid.x) * grid.y * n_out) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int box_planes = min(kPlanes, B * H);
@@ -376,32 +407,41 @@ int launch_table_grads(const int* pos, const int* cx, const int* cy, const int* 
   err = static_cast<int>(cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem)));
   if (err != 0) return err;
-  const dim3 grid((S + Cfg::kCtaRows - 1) / Cfg::kCtaRows, B);
-  kernel<<<grid, kThreads, smem, st>>>(map, pos, cx, cy, lut1, lut2, out, S, H, box_planes, nb1,
-                                       nb2, max1, max2);
+  kernel<<<grid, kThreads, smem, st>>>(map, pos, cx, cy, lut1, lut2, partial, S, H, box_planes,
+                                       nb1, nb2, max1, max2);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  table_grads_sum_kernel<<<(n_out + 31) / 32, 256, 0, st>>>(partial, out,
+                                                           static_cast<int>(grid.x * grid.y),
+                                                           n_out);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // g (B, H, P, P) bf16 or f32, contiguous and 16-byte aligned, P a multiple
-// of 16, H <= 16, nb1 and nb2 <= 64; out zeroed, (nb1 + 2 nb2) x H f32
+// of 16, H <= 16, nb1 and nb2 <= 64; out (nb1 + 2 nb2) x H f32, written in
+// two launches (the per-CTA sums, then their fixed-order sum); `partial`
+// scratch of n_partial floats, at least ceil(S / rows) * B * (nb1 + 2 nb2)
+// * H with rows = 32 for a bf16 g and 16 for an f32 one
 extern "C" int mmee_table_grads(const void* pos, const void* cx,
                                 const void* cy, const void* lut1,
                                 const void* lut2, const void* g, int g_is_bf16,
-                                void* out, int B, int S, int P, int H, int nb1,
-                                int nb2, int max1, int max2, void* stream) {
+                                void* partial, long long n_partial, void* out, int B,
+                                int S, int P, int H, int nb1, int nb2, int max1, int max2,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int* p = static_cast<const int*>(pos);
   const int* x = static_cast<const int*>(cx);
   const int* y = static_cast<const int*>(cy);
   const int* l1 = static_cast<const int*>(lut1);
   const int* l2 = static_cast<const int*>(lut2);
+  float* part = static_cast<float*>(partial);
   float* o = static_cast<float*>(out);
   if (g_is_bf16) {
-    return launch_table_grads(p, x, y, l1, l2, static_cast<const bf16*>(g), o, B, S, P, H, nb1,
-                              nb2, max1, max2, st);
+    return launch_table_grads(p, x, y, l1, l2, static_cast<const bf16*>(g), part, n_partial, o,
+                              B, S, P, H, nb1, nb2, max1, max2, st);
   }
-  return launch_table_grads(p, x, y, l1, l2, static_cast<const float*>(g), o, B, S, P, H, nb1,
-                            nb2, max1, max2, st);
+  return launch_table_grads(p, x, y, l1, l2, static_cast<const float*>(g), part, n_partial, o, B,
+                            S, P, H, nb1, nb2, max1, max2, st);
 }

@@ -9,7 +9,7 @@ bias kernel; keys j >= S do not exist). Deterministic: no dropout.
 
 On a CUDA tensor ``flash_attention_packed`` launches the forward kernel of
 ``csrc/flash_attention_packed_train.cu`` without lse or dropout (q/k/v all
-bf16 or all f32, head dim 64, bias bf16 or f32); on a CPU tensor it runs
+bf16 or all f32, bias bf16 or f32); on a CPU tensor it runs
 ``flash_attention_packed_plain``: dense f32 scores from the same inputs,
 softmax, p cast to v's dtype, then p v.
 
@@ -26,6 +26,16 @@ autograd it is an ``autograd.Function`` whose backward is the JAX package's
 ``_packed_bwd``: the head-form forward (``flash_attention_fwd``) recomputes
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
 dv and dbias; the packed tensors go to both as (B, H, S, D) views, no copy.
+
+The kernels' tiles are 64 wide in the head dim. The entry points
+(``flash_attention_packed``, ``flash_attention_packed_train``, its chained
+and tables twins, ``flash_attention`` and ``fused_bias_attention``) take a
+head dim D <= 64 on CUDA tensors through ``at_kernel_head_dim``: q, k and v
+zero-padded to 64 (``pad_head_dim``), the scale 1/sqrt(D) of the true D,
+the output's pad columns sliced off, outside the ``autograd.Function``s so
+that autograd slices the gradients. Zero columns add exact zeros to every
+score and give zero output and gradient columns, so this is D's attention;
+the dropout hash does not see D. A head dim above 64 raises.
 
 Head form: ``flash_attention`` takes (B, H, S, D) q/k/v of any strides with
 a unit last one, and has dropout on the probabilities. Its forward
@@ -72,8 +82,54 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
 )
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
-KERNEL_HEAD_DIM = 64
+KERNEL_HEAD_DIM = 64  # the kernels' tile width in the head dim
 KERNEL_TILE = 64  # the training kernels tile the bias width P by 64
+
+
+def pad_head_dim(x: torch.Tensor, num_heads=None) -> torch.Tensor:
+    """``x`` with its head dim zero-padded to ``KERNEL_HEAD_DIM``: (B, H, S,
+    D) -> (B, H, S, 64) contiguous, or with ``num_heads`` the packed (B, S,
+    H*D) -> (B, S, H*64)."""
+    if num_heads is None:
+        return F.pad(x, (0, KERNEL_HEAD_DIM - x.shape[-1])).contiguous()
+    b, s, hd = x.shape
+    d = hd // num_heads
+    return F.pad(x.reshape(b, s, num_heads, d), (0, KERNEL_HEAD_DIM - d)).reshape(
+        b, s, num_heads * KERNEL_HEAD_DIM)
+
+
+def _unpad_head_dim(x: torch.Tensor, d: int, num_heads=None) -> torch.Tensor:
+    """The inverse of ``pad_head_dim`` on an output: its first ``d``
+    columns of each head."""
+    if num_heads is None:
+        return x[..., :d]
+    b, s, _ = x.shape
+    return x.view(b, s, num_heads, KERNEL_HEAD_DIM)[..., :d].reshape(b, s, num_heads * d)
+
+
+def _kernel_layout(x: torch.Tensor) -> bool:
+    """Whether ``x`` goes to the kernels, and so to their head dim."""
+    return x.device.type == "cuda"
+
+
+def at_kernel_head_dim(what: str, fn, q, k, v, num_heads=None):
+    """``fn(q, k, v, scale)`` with ``scale`` = 1/sqrt(D) of q's head dim D
+    ((B, H, S, D) tensors, or packed (B, S, H*D) ones with ``num_heads``).
+    For the CUDA kernels (``_kernel_layout``) a D below ``KERNEL_HEAD_DIM`` is
+    zero-padded to it (``pad_head_dim``) and fn's output (its first output,
+    when it returns a tuple) sliced back to D; autograd slices the gradients.
+    A D above it raises ``ValueError``. Elsewhere fn sees the tensors as
+    they are."""
+    d = q.shape[-1] // num_heads if num_heads else q.shape[-1]
+    scale = 1.0 / math.sqrt(d)
+    if not _kernel_layout(q) or d == KERNEL_HEAD_DIM:
+        return fn(q, k, v, scale)
+    if d > KERNEL_HEAD_DIM:
+        raise ValueError(f"the {what} kernels take head dims up to {KERNEL_HEAD_DIM}, not {d}")
+    out = fn(*(pad_head_dim(x, num_heads) for x in (q, k, v)), scale)
+    if isinstance(out, tuple):
+        return (_unpad_head_dim(out[0], d, num_heads),) + out[1:]
+    return _unpad_head_dim(out, d, num_heads)
 
 
 def _split(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -122,8 +178,9 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     """What the CUDA attention kernels take: contiguous tensors on one card,
     16-byte aligned (the kernels load them by TMA; a misaligned one raises,
     there is no other body to fall back to), q/k/v (and o, do) all
-    bf16 or all f32, a bf16 or f32 bias, head dim 64. Returns the operand
-    flag (1 for bf16)."""
+    bf16 or all f32, a bf16 or f32 bias, head dim 64 (the entry points pad a
+    smaller one: ``at_kernel_head_dim``). Returns the operand flag (1 for
+    bf16)."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
@@ -141,16 +198,20 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     return is_bf16
 
 
+def _scale_of(d: int, scale) -> float:
+    return 1.0 / math.sqrt(d) if scale is None else scale
+
+
 def flash_attention_packed_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    num_heads: int, matmul=torch.matmul,
+    num_heads: int, matmul=torch.matmul, scale=None,
 ) -> torch.Tensor:
-    """Plain PyTorch ``flash_attention_packed`` (dense (B, H, S, S) scores).
-    Its two products go through ``matmul`` (``split_matmul_plain``: the f32
-    kernel's arithmetic)."""
+    """Plain PyTorch ``flash_attention_packed`` (dense (B, H, S, S) scores,
+    scaled by ``scale``, 1/sqrt(D) when None). Its two products go through
+    ``matmul`` (``split_matmul_plain``: the f32 kernel's arithmetic)."""
     s, d = q.shape[1], q.shape[2] // num_heads
     scores = matmul(_heads(q, num_heads), _heads(k, num_heads).transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
+    scores = scores * _scale_of(d, scale) + bias[:, :, :s, :s].to(torch.float32)
     p = torch.softmax(scores, dim=-1).to(v.dtype)
     out = matmul(p.to(torch.float32), _heads(v, num_heads))
     return _packed(out).to(q.dtype)
@@ -168,13 +229,13 @@ def _flash_attention_packed_fn():
     return lib, fn
 
 
-def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
+def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int, scale: float) -> torch.Tensor:
     """The forward: the plain version on CPU tensors, the kernel on CUDA
     tensors."""
-    b, s, hd = q.shape
+    b, s, _ = q.shape
     device = q.device
     if device.type == "cpu":
-        return flash_attention_packed_plain(q, k, v, bias, num_heads)
+        return flash_attention_packed_plain(q, k, v, bias, num_heads, scale=scale)
     is_bf16 = _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
     kbias = _kernel_width(bias)
     out = torch.empty_like(q)
@@ -185,7 +246,7 @@ def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int) -> torch.Tensor:
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
             int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
-            b, s, num_heads, kbias.shape[-1], 1.0 / math.sqrt(hd // num_heads), stream,
+            b, s, num_heads, kbias.shape[-1], scale, stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
     flash_attention_packed.launches += 1
@@ -198,20 +259,21 @@ class _PackedAttention(torch.autograd.Function):
     the gradients, both on (B, H, S, D) views of the packed tensors."""
 
     @staticmethod
-    def forward(ctx, q, k, v, bias, num_heads):
+    def forward(ctx, q, k, v, bias, num_heads, scale):
         ctx.save_for_backward(q, k, v, bias)
-        ctx.num_heads = num_heads
-        return _flash_attention_packed_fwd(q, k, v, bias, num_heads)
+        ctx.args = (num_heads, scale)
+        return _flash_attention_packed_fwd(q, k, v, bias, num_heads, scale)
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias = ctx.saved_tensors
-        h = ctx.num_heads
+        h, scale = ctx.args
         qh, kh, vh = (_split(x, h) for x in (q, k, v))
         gh = _split(g.to(q.dtype).contiguous(), h)
-        o, lse = flash_attention_fwd(qh, kh, vh, bias, 0, 0.0, with_lse=True)
-        dq, dk, dv, dbias = flash_attention_bwd(qh, kh, vh, bias, 0, o, lse, gh, 0.0)
-        return _packed(dq), _packed(dk), _packed(dv), dbias, None
+        o, lse = flash_attention_fwd(qh, kh, vh, bias, 0, 0.0, with_lse=True, scale=scale)
+        dq, dk, dv, dbias = flash_attention_bwd(qh, kh, vh, bias, 0, o, lse, gh, 0.0,
+                                                scale=scale)
+        return _packed(dq), _packed(dk), _packed(dv), dbias, None, None
 
 
 def flash_attention_packed(
@@ -223,14 +285,19 @@ def flash_attention_packed(
 ) -> torch.Tensor:
     """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
     CUDA tensors launch the kernel (counted in
-    ``flash_attention_packed.launches``), f32 ones after splitting k and v by
+    ``flash_attention_packed.launches``) at the kernels' head dim
+    (``at_kernel_head_dim``), f32 ones after splitting k and v by
     ``split_bf16x3`` (one launch, counted there). Differentiable in q, k,
     v and the bias (``_PackedAttention``); without autograd nothing is
     saved."""
     _check_packed("flash_attention_packed", q, k, v, bias, num_heads)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        return _PackedAttention.apply(q, k, v, bias, num_heads)
-    return _flash_attention_packed_fwd(q, k, v, bias, num_heads)
+
+    def run(q, k, v, scale):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+            return _PackedAttention.apply(q, k, v, bias, num_heads, scale)
+        return _flash_attention_packed_fwd(q, k, v, bias, num_heads, scale)
+
+    return at_kernel_head_dim("flash_attention_packed", run, q, k, v, num_heads)
 
 
 flash_attention_packed.launches = 0
@@ -256,17 +323,18 @@ def attention_dropout_scale(
 
 def flash_attention_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int = 0, rate: float = 0.0, matmul=torch.matmul,
+    seed: int = 0, rate: float = 0.0, matmul=torch.matmul, scale=None,
 ):
     """Plain PyTorch head-form forward on (B, H, S, D) q/k/v: (out (B, H,
-    S, D) in q's dtype, lse (B, H, P) f32, +inf past S). Dense f32 scores,
-    keys j >= S left out; dropout scales the normalised p, which is rounded
-    to v's dtype before p v. Its two products go through ``matmul``
-    (``split_matmul_plain``: the f32 kernel's arithmetic). The training
-    forward's plain version on the heads of the packed projections."""
+    S, D) in q's dtype, lse (B, H, P) f32, +inf past S). Dense f32 scores
+    (scaled by ``scale``, 1/sqrt(D) when None), keys j >= S left out;
+    dropout scales the normalised p, which is rounded to v's dtype before p
+    v. Its two products go through ``matmul`` (``split_matmul_plain``: the
+    f32 kernel's arithmetic). The training forward's plain version on the
+    heads of the packed projections."""
     b, h, s, d = q.shape
     scores = matmul(q.to(torch.float32), k.to(torch.float32).transpose(-1, -2))
-    scores = scores * (1.0 / math.sqrt(d)) + bias[:, :, :s, :s].to(torch.float32)
+    scores = scores * _scale_of(d, scale) + bias[:, :, :s, :s].to(torch.float32)
     m = scores.amax(dim=-1, keepdim=True)
     e = torch.exp(scores - m)
     denom = e.sum(dim=-1, keepdim=True)
@@ -281,13 +349,13 @@ def flash_attention_fwd_plain(
 
 def flash_attention_packed_train_fwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int, num_heads: int, rate: float = 0.0, matmul=torch.matmul,
+    seed: int, num_heads: int, rate: float = 0.0, matmul=torch.matmul, scale=None,
 ):
     """Plain PyTorch training forward: (out (B, S, H*D) in q's dtype,
     lse (B, H, P) f32, +inf past S). Dropout scales the normalised p; the
     products go through ``matmul``."""
     out, lse = flash_attention_fwd_plain(
-        *(_split(x, num_heads) for x in (q, k, v)), bias, seed, rate, matmul)
+        *(_split(x, num_heads) for x in (q, k, v)), bias, seed, rate, matmul, scale)
     return _packed(out), lse
 
 
@@ -324,7 +392,8 @@ def split_matmul_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul=torch.matmul):
+def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul=torch.matmul,
+                            scale=None):
     """The explicit backward formulas on (B, H, S, D) tensors: p from the
     lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c; ds is
     rounded to q's dtype before the dq/dk products, p c to do's before dv.
@@ -332,7 +401,7 @@ def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul=torch.
     f32 kernels' arithmetic). Returns (dq, dk, dv in the inputs' dtypes, ds
     (B, H, S, S) f32)."""
     b, h, s, d = q.shape
-    scale = 1.0 / math.sqrt(d)
+    scale = _scale_of(d, scale)
     qh, kh, vh, oh, doh = (x.to(torch.float32) for x in (q, k, v, o, do))
     scores = matmul(qh, kh.transpose(-1, -2)) * scale
     scores = scores + bias[:, :, :s, :s].to(torch.float32)
@@ -351,24 +420,26 @@ def _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul=torch.
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype), ds
 
 
-def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate, matmul=torch.matmul):
+def _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate, matmul=torch.matmul,
+                        scale=None):
     """``_attention_bwd_plain_ds`` on the packed layout: (dq, dk, dv packed
     in the inputs' dtypes, ds (B, H, S, S) f32)."""
     dq, dk, dv, ds = _attention_bwd_plain_ds(
         *(_split(x, num_heads) for x in (q, k, v)), bias, seed,
-        _split(o, num_heads), lse, _split(do, num_heads), rate, matmul)
+        _split(o, num_heads), lse, _split(do, num_heads), rate, matmul, scale)
     return _packed(dq), _packed(dk), _packed(dv), ds
 
 
 def flash_attention_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    rate: float = 0.0, matmul=torch.matmul,
+    rate: float = 0.0, matmul=torch.matmul, scale=None,
 ):
     """Plain PyTorch head-form backward by the explicit formulas of
     ``_attention_bwd_plain_ds``: (dq, dk, dv (B, H, S, D) in the inputs'
     dtypes, dbias = ds at the bias's shape and dtype, zero past S)."""
-    dq, dk, dv, ds = _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul)
+    dq, dk, dv, ds = _attention_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, rate, matmul,
+                                             scale)
     s = q.shape[2]
     dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
     dbias[:, :, :s, :s] = ds
@@ -378,14 +449,14 @@ def flash_attention_bwd_plain(
 def flash_attention_packed_train_bwd_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    num_heads: int, rate: float = 0.0, gbias=None, matmul=torch.matmul,
+    num_heads: int, rate: float = 0.0, gbias=None, matmul=torch.matmul, scale=None,
 ):
     """Plain PyTorch training backward by the explicit formulas: p from the
     lse, delta = rowsum(do o), ds = p (dp c - delta), dv from p c. Returns
     (dq, dk, dv, dbias); dbias is (B, H, P, P) in the bias dtype, gbias + ds
     when ``gbias`` is given, with ds zero past S."""
     dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate,
-                                         matmul)
+                                         matmul, scale)
     s = q.shape[1]
     dbias = torch.zeros(bias.shape, dtype=torch.float32, device=q.device)
     dbias[:, :, :s, :s] = ds
@@ -522,19 +593,21 @@ def _check_train_width(what: str, bias: torch.Tensor) -> None:
 
 def flash_attention_packed_train_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int, num_heads: int, rate: float = 0.0,
+    seed: int, num_heads: int, rate: float = 0.0, scale=None,
 ):
     """Training forward: (out (B, S, H*D) in q's dtype, lse (B, H, P) f32,
-    +inf past S). CPU tensors run the plain version; CUDA tensors launch the
-    kernel (counted in ``flash_attention_packed_train_fwd.launches``), f32
-    ones after splitting k and v by ``split_bf16x3`` (one launch, counted
-    there)."""
+    +inf past S), the scores scaled by ``scale`` (1/sqrt(D) when None). CPU
+    tensors run the plain version; CUDA tensors launch the kernel (counted in
+    ``flash_attention_packed_train_fwd.launches``), f32 ones after splitting k
+    and v by ``split_bf16x3`` (one launch, counted there)."""
     _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
+    scale = _scale_of(q.shape[-1] // num_heads, scale)
     if q.device.type == "cpu":
-        return flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, num_heads, rate)
+        return flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, num_heads, rate,
+                                                      scale=scale)
     is_bf16 = _check_cuda_kernel_args("flash_attention_packed_train", (q, k, v), bias, num_heads)
     _check_train_width("flash_attention_packed_train", bias)
-    b, s, hd = q.shape
+    b, s, _ = q.shape
     p = bias.shape[-1]
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
@@ -545,9 +618,7 @@ def flash_attention_packed_train_fwd(
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             int(bias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
-            lse.data_ptr(),
-            b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
-            *_dropout_args(seed, rate), stream,
+            lse.data_ptr(), b, s, num_heads, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed_train")
     flash_attention_packed_train_fwd.launches += 1
@@ -560,25 +631,27 @@ flash_attention_packed_train_fwd.launches = 0
 def flash_attention_packed_train_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    num_heads: int, rate: float = 0.0, gbias=None,
+    num_heads: int, rate: float = 0.0, gbias=None, scale=None,
 ):
     """Training backward: (dq, dk, dv in q's dtype, dbias (B, H, P, P) in the
-    bias dtype, gbias + ds when ``gbias`` is given). CPU tensors run the
-    plain version; CUDA tensors launch the kernel pair, one kernel for dq and
-    dbias and one for dk and dv (``flash_attention_packed_train_bwd.launches``
-    counts both: 2 per call), f32 ones after splitting q, k, v and do by
-    ``split_bf16x3`` (one launch, counted there)."""
+    bias dtype, gbias + ds when ``gbias`` is given), for the forward's
+    ``scale`` (1/sqrt(D) when None). CPU tensors run the plain version; CUDA
+    tensors launch the kernel pair, one kernel for dq and dbias and one for
+    dk and dv (``flash_attention_packed_train_bwd.launches`` counts both: 2
+    per call), f32 ones after splitting q, k, v and do by ``split_bf16x3``
+    (one launch, counted there)."""
     _check_packed("flash_attention_packed_train_bwd", q, k, v, bias, num_heads)
     if gbias is not None and gbias.shape != bias.shape:
         raise ValueError(f"gbias must have the bias shape {tuple(bias.shape)}")
+    scale = _scale_of(q.shape[-1] // num_heads, scale)
     if q.device.type == "cpu":
         return flash_attention_packed_train_bwd_plain(
-            q, k, v, bias, seed, o, lse, do, num_heads, rate, gbias
+            q, k, v, bias, seed, o, lse, do, num_heads, rate, gbias, scale=scale
         )
     what = "flash_attention_packed_train_bwd"
     is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
-    b, s, hd = q.shape
+    b, s, _ = q.shape
     p = bias.shape[-1]
     _check_lse(what, lse, (b, num_heads, p))
     if gbias is not None and (gbias.dtype != bias.dtype or not gbias.is_contiguous()
@@ -596,8 +669,7 @@ def flash_attention_packed_train_bwd(
             int(bias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), 0 if gbias is None else gbias.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            delta.data_ptr(), b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
-            *_dropout_args(seed, rate), stream,
+            delta.data_ptr(), b, s, num_heads, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
     flash_attention_packed_train_bwd.launches += 2
@@ -615,23 +687,23 @@ def _grad_like(g, like: torch.Tensor) -> torch.Tensor:
 
 class _PackedTrainChained(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, num_heads, rate):
+    def forward(ctx, q, k, v, bias, seed, num_heads, rate, scale):
         ctx.set_materialize_grads(False)
-        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate)
+        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate, scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.args = (seed, num_heads, rate)
+        ctx.args = (seed, num_heads, rate, scale)
         return out, bias.view_as(bias)
 
     @staticmethod
     def backward(ctx, g_out, g_bias):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        seed, num_heads, rate = ctx.args
+        seed, num_heads, rate, scale = ctx.args
         gbias = None if g_bias is None else _grad_like(g_bias, bias)
         dq, dk, dv, dbias = flash_attention_packed_train_bwd(
             q, k, v, bias, seed, out, lse, _grad_like(g_out, out), num_heads,
-            rate, gbias=gbias,
+            rate, gbias=gbias, scale=scale,
         )
-        return dq, dk, dv, dbias, None, None, None
+        return dq, dk, dv, dbias, None, None, None, None
 
 
 def flash_attention_packed_train(
@@ -652,10 +724,16 @@ def flash_attention_packed_train_chained(
     """``flash_attention_packed_train`` that also returns the bias, passed
     through: (out, bias). The bias output's incoming gradient (the running
     cotangent of the layers after this one; none at the last layer) is added
-    to this layer's ds by the backward kernel."""
+    to this layer's ds by the backward kernel. CUDA tensors run at the
+    kernels' head dim (``at_kernel_head_dim``)."""
     if bias.shape[-2] != bias.shape[-1]:
         raise ValueError(f"the chained op needs a square bias, got {tuple(bias.shape)}")
-    return _PackedTrainChained.apply(q, k, v, bias, int(seed), num_heads, float(rate))
+    _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
+    return at_kernel_head_dim(
+        "flash_attention_packed_train",
+        lambda q, k, v, scale: _PackedTrainChained.apply(
+            q, k, v, bias, int(seed), num_heads, float(rate), scale),
+        q, k, v, num_heads)
 
 
 # ---------------------------------------------------------------------------
@@ -687,7 +765,7 @@ def _check_headform_cuda(what: str, tensors, bias) -> int:
     if any(t.device != device for t in (*tensors, bias)):
         raise ValueError(f"{what} takes tensors on one device")
     is_bf16 = _check_operand_dtype(what, tensors)
-    if tensors[0].shape[-1] != KERNEL_HEAD_DIM:
+    if tensors[0].shape[-1] != KERNEL_HEAD_DIM:  # flash_attention pads a smaller one
         raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {tensors[0].shape[-1]}")
     for t in tensors:
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
@@ -741,16 +819,18 @@ def _headform_fns():
 
 def flash_attention_fwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
-    seed: int = 0, rate: float = 0.0, with_lse: bool = False,
+    seed: int = 0, rate: float = 0.0, with_lse: bool = False, scale=None,
 ):
     """Head-form forward: out (B, H, S, D) in q's dtype and q's layout, and
-    with ``with_lse`` also the lse (B, H, P) f32, +inf past S. CPU tensors
-    run the plain version; CUDA tensors launch the kernel (counted in
+    with ``with_lse`` also the lse (B, H, P) f32, +inf past S; the scores
+    scaled by ``scale`` (1/sqrt(D) when None). CPU tensors run the plain
+    version; CUDA tensors launch the kernel (counted in
     ``flash_attention_fwd.launches``), f32 ones after splitting k and v by
     ``split_bf16x3`` (one launch, counted there)."""
     _check_headform("flash_attention_fwd", q, k, v, bias)
+    scale = _scale_of(q.shape[-1], scale)
     if q.device.type == "cpu":
-        out, lse = flash_attention_fwd_plain(q, k, v, bias, seed, rate)
+        out, lse = flash_attention_fwd_plain(q, k, v, bias, seed, rate, scale=scale)
         return (out, lse) if with_lse else out
     is_bf16 = _check_headform_cuda("flash_attention_fwd", (q, k, v), bias)
     b, h, s, d = q.shape
@@ -766,7 +846,7 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
             int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
             lse.data_ptr(),
-            _strides(q, k, v, out), b, s, h, kbias.shape[-1], 1.0 / math.sqrt(d),
+            _strides(q, k, v, out), b, s, h, kbias.shape[-1], scale,
             *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_fwd")
@@ -780,11 +860,12 @@ flash_attention_fwd.launches = 0
 def flash_attention_bwd(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias: torch.Tensor,
     seed: int, o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor,
-    rate: float = 0.0,
+    rate: float = 0.0, scale=None,
 ):
     """Head-form backward from the forward's lse: (dq, dk, dv (B, H, S, D)
     in the inputs' dtypes and layouts, dbias = ds at the bias's shape and
-    dtype, exactly zero past S). delta = rowsum(do o) is computed in the
+    dtype, exactly zero past S), for the forward's ``scale`` (1/sqrt(D) when
+    None). delta = rowsum(do o) is computed in the
     kernel. CPU tensors run the plain version; CUDA tensors launch the
     kernel pair, one kernel for dq and dbias and one for dk and dv
     (``flash_attention_bwd.launches`` counts both: 2 per call), f32 ones
@@ -796,8 +877,9 @@ def flash_attention_bwd(
     p = bias.shape[-1]
     if o.shape != q.shape or do.shape != q.shape or lse.shape != (b, h, p):
         raise ValueError(f"{what}: o and do must be {tuple(q.shape)}, lse ({b}, {h}, {p})")
+    scale = _scale_of(d, scale)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, bias, seed, o, lse, do, rate)
+        return flash_attention_bwd_plain(q, k, v, bias, seed, o, lse, do, rate, scale=scale)
     is_bf16 = _check_headform_cuda(what, (q, k, v, o, do), bias)
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"{what}: lse must be f32 on q's device")
@@ -816,7 +898,7 @@ def flash_attention_bwd(
             int(kbias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             klse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dbias.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
-            b, s, h, pk, 1.0 / math.sqrt(d), *_dropout_args(seed, rate), stream,
+            b, s, h, pk, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
     flash_attention_bwd.launches += 2
@@ -828,21 +910,22 @@ flash_attention_bwd.launches = 0
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, seed, rate):
-        out, lse = flash_attention_fwd(q, k, v, bias, seed, rate, with_lse=True)
+    def forward(ctx, q, k, v, bias, seed, rate, scale):
+        out, lse = flash_attention_fwd(q, k, v, bias, seed, rate, with_lse=True, scale=scale)
         ctx.save_for_backward(q, k, v, bias, out, lse)
-        ctx.args = (seed, rate)
+        ctx.args = (seed, rate, scale)
         return out
 
     @staticmethod
     def backward(ctx, g):
         q, k, v, bias, out, lse = ctx.saved_tensors
-        seed, rate = ctx.args
+        seed, rate, scale = ctx.args
         do = g.to(out.dtype)
         if q.device.type == "cuda":  # the kernels take a unit last stride
             do = do.contiguous()
-        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, seed, out, lse, do, rate)
-        return dq, dk, dv, dbias, None, None
+        dq, dk, dv, dbias = flash_attention_bwd(q, k, v, bias, seed, out, lse, do, rate,
+                                                scale=scale)
+        return dq, dk, dv, dbias, None, None, None
 
 
 def flash_attention(
@@ -858,13 +941,19 @@ def flash_attention(
     (B, H, S, D) in q's dtype. Differentiable in q, k, v and the bias (dbias
     at the bias's shape, zero past S). The bias may be pre-padded wider than
     S; keys j >= S carry no weight. ``block_q`` is taken for the JAX
-    signature: the kernels tile by 64."""
+    signature: the kernels tile by 64. CUDA tensors run at the kernels' head
+    dim (``at_kernel_head_dim``)."""
     if dropout_rate > 0.0 and dropout_seed is None:
         raise ValueError("dropout_rate > 0 requires a dropout_seed")
     seed = 0 if dropout_seed is None else int(torch.as_tensor(dropout_seed).reshape(-1)[0])
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
-        return _FlashAttention.apply(q, k, v, bias, seed, float(dropout_rate))
-    return flash_attention_fwd(q, k, v, bias, seed, float(dropout_rate))
+    _check_headform("flash_attention", q, k, v, bias)
+
+    def run(q, k, v, scale):
+        if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+            return _FlashAttention.apply(q, k, v, bias, seed, float(dropout_rate), scale)
+        return flash_attention_fwd(q, k, v, bias, seed, float(dropout_rate), scale=scale)
+
+    return at_kernel_head_dim("flash_attention", run, q, k, v)
 
 
 def reference_attention(q, k, v, bias) -> torch.Tensor:
@@ -898,12 +987,13 @@ def flash_attention_packed_train_tables_bwd_plain(
     pos: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, seed: int,
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, num_heads: int,
     rate: float = 0.0, rel_bins: int = 32, max_rel: int = 128,
-    rel2d_bins: int = 64, max_rel2d: int = 256,
+    rel2d_bins: int = 64, max_rel2d: int = 256, scale=None,
 ):
     """Plain PyTorch tables backward: ds by the formulas of
     ``flash_attention_packed_train_bwd_plain``, in f32, then
     ``table_grads_plain`` of ds. Returns (dq, dk, dv, dT1, dTx, dTy)."""
-    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate)
+    dq, dk, dv, ds = _train_bwd_plain_ds(q, k, v, bias, seed, o, lse, do, num_heads, rate,
+                                         scale=scale)
     return (dq, dk, dv,
             *table_grads_plain(pos, cx, cy, ds, rel_bins, max_rel, rel2d_bins, max_rel2d))
 
@@ -926,11 +1016,12 @@ def flash_attention_packed_train_tables_bwd(
     pos: torch.Tensor, cx: torch.Tensor, cy: torch.Tensor, seed: int,
     o: torch.Tensor, lse: torch.Tensor, do: torch.Tensor, num_heads: int,
     rate: float = 0.0, rel_bins: int = 32, max_rel: int = 128,
-    rel2d_bins: int = 64, max_rel2d: int = 256,
+    rel2d_bins: int = 64, max_rel2d: int = 256, scale=None,
 ):
     """Training backward with the bias cotangent reduced into the three
     tables: (dq, dk, dv in q's dtype, dT1 (rel_bins, H), dTx, dTy
-    (rel2d_bins, H) f32). No dbias exists. CPU tensors run the plain
+    (rel2d_bins, H) f32), for the forward's ``scale`` (1/sqrt(D) when
+    None). No dbias exists. CPU tensors run the plain
     version; CUDA tensors launch three kernels: dq and the per-block table
     sums, dk and dv, and the fixed-order sum of the blocks
     (``flash_attention_packed_train_tables_bwd.launches`` counts all three: 3
@@ -943,9 +1034,10 @@ def flash_attention_packed_train_tables_bwd(
     if any(a.shape != (b, s) for a in vecs):
         raise ValueError(f"{what}: pos, cx and cy must be ({b}, {s})")
     bins = (rel_bins, max_rel, rel2d_bins, max_rel2d)
+    scale = _scale_of(hd // num_heads, scale)
     if q.device.type == "cpu":
         return flash_attention_packed_train_tables_bwd_plain(
-            q, k, v, bias, pos, cx, cy, seed, o, lse, do, num_heads, rate, *bins
+            q, k, v, bias, pos, cx, cy, seed, o, lse, do, num_heads, rate, *bins, scale=scale
         )
     is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
@@ -970,8 +1062,8 @@ def flash_attention_packed_train_tables_bwd(
             lse.data_ptr(), *(a.data_ptr() for a in vecs), lut1.data_ptr(),
             lut2.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), partial.data_ptr(), tables.data_ptr(),
-            b, s, num_heads, p, 1.0 / math.sqrt(hd // num_heads),
-            *_dropout_args(seed, rate), rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
+            b, s, num_heads, p, scale, *_dropout_args(seed, rate), rel_bins, rel2d_bins,
+            max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, what)
     flash_attention_packed_train_tables_bwd.launches += 3
@@ -984,21 +1076,21 @@ flash_attention_packed_train_tables_bwd.launches = 0
 
 class _PackedTrainTables(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, bias, t1, tx, ty, pos, cx, cy, seed, num_heads, rate, bins):
-        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate)
+    def forward(ctx, q, k, v, bias, t1, tx, ty, pos, cx, cy, seed, num_heads, rate, bins, scale):
+        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, num_heads, rate, scale)
         ctx.save_for_backward(q, k, v, bias, pos, cx, cy, out, lse)
-        ctx.args = (seed, num_heads, rate, bins)
+        ctx.args = (seed, num_heads, rate, bins, scale)
         return out
 
     @staticmethod
     def backward(ctx, g_out):
         q, k, v, bias, pos, cx, cy, out, lse = ctx.saved_tensors
-        seed, num_heads, rate, bins = ctx.args
+        seed, num_heads, rate, bins, scale = ctx.args
         dq, dk, dv, dt1, dtx, dty = flash_attention_packed_train_tables_bwd(
             q, k, v, bias, pos, cx, cy, seed, out, lse, _grad_like(g_out, out),
-            num_heads, rate, *bins,
+            num_heads, rate, *bins, scale=scale,
         )
-        return (dq, dk, dv, None, dt1, dtx, dty) + (None,) * 7
+        return (dq, dk, dv, None, dt1, dtx, dty) + (None,) * 8
 
 
 def flash_attention_packed_train_tables(
@@ -1012,7 +1104,8 @@ def flash_attention_packed_train_tables(
     H*D) in q's dtype; gradients flow to q, k, v and the f32 tables t1 (rel_bins,
     H), tx, ty (rel2d_bins, H), never to ``bias``.
 
-    The forward is ``flash_attention_packed_train``'s. Caller contract, as in
+    The forward is ``flash_attention_packed_train``'s; CUDA tensors run at
+    the kernels' head dim (``at_kernel_head_dim``). Caller contract, as in
     the JAX package: ``bias`` is detached and equals what ``materialize_bias``
     builds from (pos, cx, cy, the mask, t1, tx, ty); the backward
     differentiates through that relation, so no (B, H, P, P) cotangent
@@ -1027,7 +1120,10 @@ def flash_attention_packed_train_tables(
             f"tables must be ({rel_bins}, {h}) and ({rel2d_bins}, {h}); got "
             f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
         )
-    return _PackedTrainTables.apply(
-        q, k, v, bias, t1, tx, ty, pos, cx, cy, int(seed), num_heads, float(rate),
-        (rel_bins, max_rel, rel2d_bins, max_rel2d),
-    )
+    _check_packed("flash_attention_packed_train_tables", q, k, v, bias, num_heads)
+    return at_kernel_head_dim(
+        "flash_attention_packed_train_tables",
+        lambda q, k, v, scale: _PackedTrainTables.apply(
+            q, k, v, bias, t1, tx, ty, pos, cx, cy, int(seed), num_heads, float(rate),
+            (rel_bins, max_rel, rel2d_bins, max_rel2d), scale),
+        q, k, v, num_heads)

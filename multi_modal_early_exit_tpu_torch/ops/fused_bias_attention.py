@@ -23,17 +23,22 @@ where the formula lands exactly on an integer.
 ``table_grads``: dT[r, h] = the sum of the bias cotangent over the (b, i, j)
 of the true S x S block whose bucket is r, for each table. On a CUDA tensor
 it launches ``csrc/table_grads.cu`` (one-hot products on the tensor cores,
-the TPU kernel's formulation); on a CPU tensor it runs ``table_grads_plain``
+the TPU kernel's formulation, and a fixed-order sum of the CTAs' partial
+sums: the same bits on every run); on a CPU tensor it runs ``table_grads_plain``
 (``index_add_`` over the bucket maps, or with ``onehot=True`` the kernel's
 arithmetic: one-hot matrix products, f32 g in three bf16 parts). Pad rows and
 columns (>= S) carry no gradient: the bias's pad rows are finite, and must
 not leak into the tables.
 
 ``fused_bias_attention`` is attention with this bias built inside the
-kernel (``csrc/fused_bias_attention.cu``), so no (B, H, P, P) tensor exists:
-q/k/v are (B, H, S, D) tensors of any layout with unit last stride, and the
-bias of each score is the value ``materialize_bias`` would have written in
-the model dtype. Its plain version is ``materialize_bias_plain`` followed by
+kernel, so no (B, H, P, P) tensor exists: on CUDA tensors it launches the
+forward kernel of ``csrc/flash_attention_packed_train.cu`` (the one behind
+``flash_attention_packed``) with the bias built on chip in place of a bias
+tile, at the kernels' head dim (``at_kernel_head_dim``). q/k/v are (B, H, S,
+D) tensors of any layout with unit last stride, and the bias of each score
+is the value ``materialize_bias`` would have written in the model dtype, so
+the output is ``materialize_bias`` + ``flash_attention_packed``'s, bit for
+bit on the card. Its plain version is ``materialize_bias_plain`` followed by
 ``flash_attention_packed_plain``. It has no backward, as in the JAX package.
 """
 
@@ -299,13 +304,19 @@ def table_grads_plain(
 def _table_grads_fn():
     lib = cuda_build.load("table_grads")
     fn = lib.mmee_table_grads
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    fn.argtypes = (
+        [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+    )
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 TABLE_GRADS_MAX_HEADS = 16  # N of the kernel's products: 16 (b, h) planes
 TABLE_GRADS_MAX_BINS = 64   # M of the kernel's products
+# query rows per CTA of the kernel (csrc/table_grads.cu, TgCfg::kCtaRows): each
+# CTA writes its table sums to a partials buffer of its own
+TABLE_GRADS_CTA_ROWS = {torch.bfloat16: 32, torch.float32: 16}
 
 
 def table_grads(
@@ -321,9 +332,10 @@ def table_grads(
     """(dT1 (rel_bins, H), dTx, dTy (rel2d_bins, H)) f32 from the bias
     cotangent ``g`` (B, H, P, P), P >= S; rows and columns >= S are left
     out. CPU tensors run ``table_grads_plain``; CUDA tensors launch the
-    kernel (counted in ``table_grads.launches``), which takes g contiguous
-    and 16-byte aligned, H <= 16, P % 16 == 0 and at most 64 bins a table,
-    and sums with float atomics (the last bits vary from run to run)."""
+    kernels (``table_grads.launches`` counts both: 2 per call), which take
+    g contiguous and 16-byte aligned, H <= 16, P % 16 == 0 and at most 64
+    bins a table: per-CTA sums, then their sum in a fixed order, so the
+    result is the same bits on every run."""
     vecs = (position_ids, cx, cy)
     _check_vectors("table_grads", vecs)
     b, s = position_ids.shape
@@ -347,17 +359,20 @@ def table_grads(
         raise ValueError("the table_grads kernel reads g by TMA: it must be 16-byte aligned")
     lut1 = bucket_lut(rel_bins, max_rel, device)
     lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
-    out = torch.zeros((rel_bins + 2 * rel2d_bins) * h, dtype=torch.float32, device=device)
+    n_out = (rel_bins + 2 * rel2d_bins) * h
+    out = torch.empty(n_out, dtype=torch.float32, device=device)
+    partial = torch.empty(-(-s // TABLE_GRADS_CTA_ROWS[g.dtype]) * b * n_out,
+                          dtype=torch.float32, device=device)
     lib, fn = _table_grads_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(
             *(a.data_ptr() for a in vecs), lut1.data_ptr(), lut2.data_ptr(),
-            g.data_ptr(), int(g.dtype == torch.bfloat16), out.data_ptr(),
-            b, s, p, h, rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
+            g.data_ptr(), int(g.dtype == torch.bfloat16), partial.data_ptr(), partial.numel(),
+            out.data_ptr(), b, s, p, h, rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, "table_grads")
-    table_grads.launches += 1
+    table_grads.launches += 2
     n1, n2 = rel_bins * h, rel2d_bins * h
     return (out[:n1].view(rel_bins, h), out[n1:n1 + n2].view(rel2d_bins, h),
             out[n1 + n2:].view(rel2d_bins, h))
@@ -386,10 +401,12 @@ def fused_bias_attention_plain(
     max_rel: int = 128,
     rel2d_bins: int = 64,
     max_rel2d: int = 256,
+    scale=None,
 ) -> torch.Tensor:
     """Plain PyTorch ``fused_bias_attention``: ``materialize_bias_plain`` in
-    q's dtype, then ``flash_attention_packed_plain`` on the packed layout. Returns (B, H, S, D) in q's dtype, a view of a
-    (B, S, H, D) tensor."""
+    q's dtype, then ``flash_attention_packed_plain`` on the packed layout,
+    the scores scaled by ``scale`` (1/sqrt(D) when None). Returns (B, H, S,
+    D) in q's dtype, a view of a (B, S, H, D) tensor."""
     # imported here: ops.flash_attention imports this module
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
         _packed,
@@ -402,31 +419,32 @@ def fused_bias_attention_plain(
         max_rel=max_rel, rel2d_bins=rel2d_bins, max_rel2d=max_rel2d,
         out_dtype=q.dtype,
     )
-    out = flash_attention_packed_plain(_packed(q), _packed(k), _packed(v), bias, h)
+    out = flash_attention_packed_plain(_packed(q), _packed(k), _packed(v), bias, h, scale=scale)
     return out.view(b, s, h, d).transpose(1, 2)
 
 
 @functools.lru_cache(maxsize=None)
 def _fused_bias_attention_fn():
-    lib = cuda_build.load("fused_bias_attention")
+    lib = cuda_build.load("flash_attention_packed_train")
     fn = lib.mmee_fused_bias_attention
     fn.argtypes = (
-        [ctypes.c_void_p] * 4 + [ctypes.c_int] + [ctypes.c_longlong] * 12 + [ctypes.c_void_p] * 9
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 9
         + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
 
 
-FUSED_HEAD_DIM = 64
+FUSED_MAX_DISTANCE = 1024  # the kernel's expanded tables hold 2 max + 1 distances
 
 
-def _check_fused_cuda(q, k, v, vectors, tables) -> int:
+def _check_fused_cuda(q, k, v, vectors, tables, max_distances) -> int:
     """What the CUDA kernel takes: q/k/v all bf16 or all f32 with head dim
-    64, unit last stride and 16-byte aligned rows; int32 vectors and f32
-    tables, contiguous, on q's card. (The kernel itself refuses tables of
-    more than 64 buckets and distances past 1024.) Returns the operand flag
-    (1 for bf16)."""
+    64 (``at_kernel_head_dim`` pads a smaller one), unit last stride and
+    16-byte aligned rows; int32 vectors and f32 tables, contiguous, on q's
+    card; bucket distances of 1 to 1024. Returns the operand flag (1 for
+    bf16)."""
     what = "fused_bias_attention"
     if q.device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {q.device}")
@@ -437,8 +455,9 @@ def _check_fused_cuda(q, k, v, vectors, tables) -> int:
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the {what} kernel takes q, k, v all bfloat16 or all float32, not "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
-    if q.shape[-1] != FUSED_HEAD_DIM:
-        raise ValueError(f"the {what} kernel takes head dim {FUSED_HEAD_DIM}, not {q.shape[-1]}")
+    if not all(1 <= m <= FUSED_MAX_DISTANCE for m in max_distances):
+        raise ValueError(f"the {what} kernel takes bucket distances of 1 to "
+                         f"{FUSED_MAX_DISTANCE}, not {max_distances}")
     for t in (q, k, v):
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
@@ -470,14 +489,24 @@ def fused_bias_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + rel_bias + mask) v with the bias built in
     the kernel; (B, H, S, D) in q's dtype, in q's layout (a transposed view
-    of the packed projections gives a transposed view back).
+    of the packed projections gives a transposed view back) when D is 64.
 
     The bias of each score is rounded once to q's dtype, as
     ``materialize_bias`` rounds it. CPU tensors run
     ``fused_bias_attention_plain``; CUDA tensors launch the kernel (counted
-    in ``fused_bias_attention.launches``). No backward.
+    in ``fused_bias_attention.launches``) at the kernels' head dim
+    (``at_kernel_head_dim``), f32 ones after splitting k and v by
+    ``split_bf16x3`` (one launch, counted there). No backward.
     """
-    b, h, s, d = q.shape
+    # imported here: ops.flash_attention imports this module
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        _fwd_kv_parts,
+        _ptr,
+        _strides,
+        at_kernel_head_dim,
+    )
+
+    b, h, s, _ = q.shape
     if k.shape != q.shape or v.shape != q.shape:
         raise ValueError("fused_bias_attention: q, k and v must share one (B, H, S, D) shape")
     vectors = (position_ids, cx, cy, attention_mask)
@@ -491,26 +520,30 @@ def fused_bias_attention(
             f"{tuple(t1.shape)}, {tuple(tx.shape)}, {tuple(ty.shape)}"
         )
     bins = (rel_bins, max_rel, rel2d_bins, max_rel2d)
-    if q.device.type == "cpu":
-        return fused_bias_attention_plain(q, k, v, *vectors, *tables, *bins)
-    is_bf16 = _check_fused_cuda(q, k, v, vectors, tables)
-    device = q.device
-    out = torch.empty_like(q)  # keeps q's layout when q is dense
-    lut1 = bucket_lut(rel_bins, max_rel, device)
-    lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
-    lib, fn = _fused_bias_attention_fn()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        code = fn(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), is_bf16,
-            *(st for t in (q, k, v, out) for st in t.stride()[:3]),
-            *(a.data_ptr() for a in (*vectors, *tables)), lut1.data_ptr(), lut2.data_ptr(),
-            b, s, h, rel_bins, rel2d_bins, max_rel, max_rel2d,
-            1.0 / math.sqrt(d), stream,
-        )
-    cuda_build.check(lib, code, "fused_bias_attention")
-    fused_bias_attention.launches += 1
-    return out
+
+    def run(q, k, v, scale):
+        if q.device.type == "cpu":
+            return fused_bias_attention_plain(q, k, v, *vectors, *tables, *bins, scale=scale)
+        is_bf16 = _check_fused_cuda(q, k, v, vectors, tables, (max_rel, max_rel2d))
+        device = q.device
+        out = torch.empty_like(q)  # keeps q's layout when q is dense
+        parts = _fwd_kv_parts(k, v)
+        lut1 = bucket_lut(rel_bins, max_rel, device)
+        lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
+        lib, fn = _fused_bias_attention_fn()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            code = fn(
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), is_bf16, _ptr(parts), out.data_ptr(),
+                _strides(q, k, v, out), *(a.data_ptr() for a in (*vectors, *tables)),
+                lut1.data_ptr(), lut2.data_ptr(), b, s, h, rel_bins, rel2d_bins, max_rel,
+                max_rel2d, scale, stream,
+            )
+        cuda_build.check(lib, code, "fused_bias_attention")
+        fused_bias_attention.launches += 1
+        return out
+
+    return at_kernel_head_dim("fused_bias_attention", run, q, k, v)
 
 
 fused_bias_attention.launches = 0

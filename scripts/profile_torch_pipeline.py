@@ -63,7 +63,10 @@ TRAIN_TRACED_STEPS = 2
 ATTN_BWD = "flash_attention_bwd / flash_attention_packed_train_bwd"
 GROUPS = (
     ("materialize_bias", ("materialize_bias_kernel",)),
-    ("fused_bias_attention", ("fused_bias_attention_kernel",)),
+    # the forward kernel with the bias built on chip (its last template
+    # argument, kBuilt, true)
+    ("fused_bias_attention", ("fwd_kernel<__nv_bfloat16, __nv_bfloat16, false, false, true>",
+                              "fwd_kernel<float, float, false, false, true>")),
     # flash_attention_packed, the training forward and the head-form
     # forward launch one kernel
     ("flash_attention_packed / _train / flash_attention_fwd", ("fwd_kernel",)),
@@ -72,7 +75,7 @@ GROUPS = (
     # backward the dq kernel's tables mode): see group_of
     # every f32 forward and backward first splits its operands
     ("split_bf16x3 (f32 attention forwards and backwards)", ("split_bf16x3_kernel",)),
-    ("table_grads", ("table_grads_kernel",)),
+    ("table_grads", ("table_grads_kernel", "table_grads_sum_kernel")),
     ("gemm", ("nvjet", "gemm", "xmma", "cutlass", "cublas")),
     ("optimizer", ("multi_tensor_apply", "adam")),
 )

@@ -23,6 +23,11 @@ calls after 3 warm-ups, ``--rounds`` rounds, the median printed):
   bias inputs (``chip_smoke.main_path_bias_inputs`` of the checkout: word
   boxes in random order), and again with the boxes in reading order
   (sorted by y1, then x0);
+- ``fused_bias_attention`` (#3) on the packed projections' (B, H, S, D)
+  views and the main paths' bias inputs, beside the pair it replaces
+  (``materialize_bias`` (#1) then ``flash_attention_packed`` (#2)), #1
+  alone and #2 alone on that bias, in bf16 and in f32 (f32 q/k/v, f32
+  tables and bias);
 - where the checkout has it, the f32 backwards' split pre-pass
   (``split_bf16x3`` of q, k, v and do; part of each f32 backward's time);
 - the yardsticks, one PyTorch call each: ``scaled_dot_product_attention``
@@ -42,7 +47,9 @@ split pre-pass apart from the kernel. ``--ptxas`` first compiles
 the checkout's training source once more with ``-Xptxas -v`` (into a
 temporary directory) and prints the registers, stack, spills and static
 SASS instruction count (``cuobjdump -sass``) of every kernel whose name
-holds ``bwd`` or ``fwd_kernel`` (the forward's bf16 and f32 instantiations).
+holds ``bwd`` or ``fwd_kernel`` (the forward's bf16 and f32 instantiations,
+the fused kernel's, ``fwd_kernel<..., true>``, among them) and of the
+``table_grads`` kernels.
 
 To compare two versions, run it on each in one call, in turns (parent,
 change, change, parent). The last line is one JSON object with the card's
@@ -104,7 +111,7 @@ def ptxas_report(cuda_build) -> None:
     """ptxas' registers, stack and spills of the training source's attention
     kernels and of the table_grads kernel, as ``-Xptxas -v`` reports them."""
     for source, keep in (("flash_attention_packed_train", ("bwd", "fwd_kernel")),
-                         ("table_grads", ("table_grads_kernel",))):
+                         ("table_grads", ("table_grads_kernel", "table_grads_sum_kernel"))):
         src = cuda_build.CSRC / f"{source}.cu"
         sass = {}
         with tempfile.TemporaryDirectory() as tmp:
@@ -233,6 +240,13 @@ def main() -> int:
     g_bias32 = (torch.randn((b, h, s, s), generator=g) * 1e-3).to("cuda")  # all 24 bits
     cases["f32_table_grads"] = lambda: fba.table_grads(*vecs[:3], g_bias32)
     cases["f32_table_grads_reading"] = lambda: fba.table_grads(*reading[:3], g_bias32)
+    # #3 beside the pair it replaces (#1 then #2), and each of the pair alone
+    mbias = fba.materialize_bias(*vecs)
+    cases["fused"] = lambda: fba.fused_bias_attention(*views[:3], *vecs)
+    cases["fused_pair"] = lambda: fa.flash_attention_packed(q, k, v, fba.materialize_bias(*vecs),
+                                                            h)
+    cases["fused_pair_bias"] = lambda: fba.materialize_bias(*vecs)
+    cases["fused_pair_attention"] = lambda: fa.flash_attention_packed(q, k, v, mbias, h)
     mask = bias[:, :, :s, :s]
     sdpa = torch.nn.functional.scaled_dot_product_attention
     cases["sdpa@0.0"] = lambda: sdpa(*views[:3], attn_mask=mask)
@@ -264,6 +278,13 @@ def main() -> int:
     if hasattr(fa, "split_bf16x3"):
         cases["f32_split"] = lambda: fa.split_bf16x3(*views32)
         cases["f32_split_kv"] = lambda: fa.split_bf16x3(*views32[1:3])
+    mbias32 = fba.materialize_bias(*vecs, out_dtype=torch.float32)
+    cases["f32_fused"] = lambda: fba.fused_bias_attention(*views32[:3], *vecs)
+    cases["f32_fused_pair"] = lambda: fa.flash_attention_packed(
+        q32, k32, v32, fba.materialize_bias(*vecs, out_dtype=torch.float32), h)
+    cases["f32_fused_pair_bias"] = lambda: fba.materialize_bias(*vecs, out_dtype=torch.float32)
+    cases["f32_fused_pair_attention"] = lambda: fa.flash_attention_packed(
+        q32, k32, v32, mbias32, h)
     cases["f32_sdpa_bwd@0.0"] = sdpa_backward(views32[:3], bias32[:, :, :s, :s], views32[3])
 
     tq, tk, tv, tdo = (x[:1, :64, :d].contiguous() for x in (q, k, v, do))
@@ -287,7 +308,7 @@ def main() -> int:
         tiny = {n: fn for n, fn in tiny.items() if re.search(opts.cases, n)}
     if opts.profile:
         for name in cases:
-            if "bwd" in name or (name.startswith("f32_") and "fwd" in name):
+            if "bwd" in name or (name.startswith("f32_") and ("fwd" in name or "fused" in name)):
                 kernel_split(name, cases[name])
     readings = {name: [] for name in cases}
     hosts = {name: [] for name in tiny}

@@ -20,6 +20,7 @@ from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed_train,
     flash_attention_packed_train_bwd,
     flash_attention_packed_train_bwd_plain,
+    flash_attention_packed_train_chained,
     flash_attention_packed_train_fwd,
     flash_attention_packed_train_fwd_plain,
     flash_attention_packed_train_tables,
@@ -111,8 +112,8 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         flash_attention_packed(q.half(), k.half(), v.half(), bias, 2)
     with pytest.raises(TypeError):
         flash_attention_packed(q.float(), k, v, bias, 2)
-    with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
-        flash_attention_packed(q, k, v, torch.zeros((1, 4, 64, 64), device=cuda), 4)
+    with pytest.raises(ValueError, match="head dim"):  # one head of 128
+        flash_attention_packed(q, k, v, torch.zeros((1, 1, 64, 64), device=cuda), 1)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_packed(q, k, v, bias.transpose(2, 3), 2)
     args = _bias_args(cuda, 1, 16, 2)
@@ -219,18 +220,18 @@ def test_table_grads_kernel_matches_plain(cuda, b, s, p, h, g_dtype, order):
     g = torch.randn((b, h, p, p), generator=gen).to(cuda, g_dtype)  # finite pad rows
     before = table_grads.launches
     got = table_grads(pos, cx, cy, g)
-    assert table_grads.launches == before + 1
+    assert table_grads.launches == before + 2  # the per-CTA sums, then their sum
     again = table_grads(pos, cx, cy, g)
     want = table_grads_plain(pos, cx, cy, g)
     onehot = table_grads_plain(pos, cx, cy, g, onehot=True)
     torch.cuda.synchronize()
     for a, a2, w, w1 in zip(got, again, want, onehot):
-        # f32 sums of up to B*S*S terms, added in another (and run-to-run
-        # varying: float atomics across CTAs) order; the one-hot plain
-        # version is the kernel's arithmetic (an f32 g in three bf16 parts)
+        # f32 sums of up to B*S*S terms, added in another order; the one-hot
+        # plain version is the kernel's arithmetic (an f32 g in three bf16
+        # parts)
         torch.testing.assert_close(a, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
         torch.testing.assert_close(a, w1, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
-        torch.testing.assert_close(a2, a, atol=1e-5 * w.abs().max().item(), rtol=1e-5)
+        assert torch.equal(a2, a)  # deterministic: a fixed order, no atomics
 
 
 def test_bias_backward_runs_table_grads(cuda):
@@ -241,7 +242,7 @@ def test_bias_backward_runs_table_grads(cuda):
     g = torch.randn(bias.shape, generator=gen).to(cuda, bias.dtype)
     before = table_grads.launches
     bias.backward(g)
-    assert table_grads.launches == before + 1
+    assert table_grads.launches == before + 2
     for t, w in zip(tables, table_grads_plain(pos, cx, cy, g)):
         torch.testing.assert_close(t.grad, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
 
@@ -347,7 +348,11 @@ def _heads_view(x, h, layout):
     return view if layout == "packed" else view.contiguous()
 
 
-@pytest.mark.parametrize("b,s,h", [(2, 20, 4), (1, 130, 3), (3, 709, 12), (2, 768, 12)])
+# S = 20 and 64 (P = 64), 130 (odd P / 64), the paths' 709 inside 768 and 768
+FUSED_SHAPES = [(2, 20, 4), (2, 64, 2), (1, 130, 3), (3, 709, 12), (2, 768, 12)]
+
+
+@pytest.mark.parametrize("b,s,h", FUSED_SHAPES)
 @pytest.mark.parametrize("layout", ["contiguous", "packed"])
 def test_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
     args = _bias_args(cuda, b, s, h)  # one sample with its second half of keys masked
@@ -437,9 +442,9 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
         fused_bias_attention(q4.half(), k4.half(), v4.half(), *args)
     with pytest.raises(TypeError):
         fused_bias_attention(q4.float(), k4, v4, *args)
-    with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
-        fused_bias_attention(*(x.reshape(1, 4, 64, 32) for x in (q4, k4, v4)),
-                             *args[:4], *(torch.zeros((n, 4), device=cuda) for n in (32, 64, 64)))
+    with pytest.raises(ValueError, match="head dim"):  # one head of 128
+        fused_bias_attention(*(x.reshape(1, 1, 64, 128) for x in (q4, k4, v4)),
+                             *args[:4], *(torch.zeros((n, 1), device=cuda) for n in (32, 64, 64)))
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         fused_bias_attention(unaligned, k4, v4, *args)
@@ -750,9 +755,9 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention_fwd(q.half(), k.half(), v.half(), bias)
-    with pytest.raises(ValueError, match="head dim"):  # 4 heads of 32
-        flash_attention_fwd(*(x.reshape(1, 4, 64, 32) for x in (q, k, v)),
-                            torch.zeros((1, 4, 64, 64), device=cuda))
+    with pytest.raises(ValueError, match="head dim"):  # one head of 128
+        flash_attention_fwd(*(x.reshape(1, 1, 64, 128) for x in (q, k, v)),
+                            torch.zeros((1, 1, 64, 64), device=cuda))
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         flash_attention_fwd(unaligned, k, v, bias)
@@ -767,8 +772,7 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
 
 # ---------------------------------------------------------------------------
 # f32 operands: every attention kernel's f32 instantiation (six bf16
-# products of split operands on the tensor cores; (A') of the tables
-# backward and the fused kernel by 3xTF32) against its plain version in f32,
+# products of split operands on the tensor cores) against its plain version in f32,
 # within 1e-4 of each output's largest value (plain TF32 would miss this by
 # an order of magnitude)
 # ---------------------------------------------------------------------------
@@ -882,22 +886,25 @@ def test_f32_train_tables_backward_kernel_matches_plain(cuda, b, s, p, h, rate):
             assert _scaled_err(a, w) <= 1e-3, (name, _scaled_err(a, w))
 
 
-@pytest.mark.parametrize("b,s,h", [(2, 20, 4), (1, 130, 3), (1, 200, 2), (2, 256, 4),
-                                   (3, 709, 12)])
+@pytest.mark.parametrize("b,s,h", FUSED_SHAPES + [(1, 200, 2), (2, 256, 4)])
 @pytest.mark.parametrize("layout", ["contiguous", "packed"])
 def test_f32_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
+    """The f32 instantiation (split k/v parts, q split in registers, an f32
+    bias built on chip): within 1e-4 of the plain version, and bit-equal to
+    the f32 pair it replaces, whose arithmetic it shares."""
     args = _bias_args(cuda, b, s, h)
     qkv = _f32(cuda, b, s, h)
     q4, k4, v4 = (_heads_view(x, h, layout) for x in qkv)
-    before = fused_bias_attention.launches
+    before, split_before = fused_bias_attention.launches, split_bf16x3.launches
     got = fused_bias_attention(q4, k4, v4, *args)
     assert fused_bias_attention.launches == before + 1
+    assert split_bf16x3.launches == split_before + 1  # k and v
     want = fused_bias_attention_plain(q4, k4, v4, *args)
     pair = flash_attention_packed(*qkv, materialize_bias(*args, out_dtype=torch.float32), h)
     torch.cuda.synchronize()
     assert got.stride() == q4.stride()
     _assert_f32_close("out", got, want)
-    _assert_f32_close("out vs the pair", got.transpose(1, 2).reshape(b, s, -1), pair)
+    assert torch.equal(got.transpose(1, 2).reshape(b, s, -1), pair)
 
 
 def test_f32_packed_autograd_runs_the_headform_kernels(cuda):
@@ -1101,3 +1108,194 @@ def test_forward_splits_f32_operands_only(cuda):
             assert fn.launches == before + 1, name
             assert split_bf16x3.launches == split_before + splits, (name, dtype)
     torch.cuda.synchronize()
+
+
+# ---------------------------------------------------------------------------
+# head dims below 64: every entry point zero-pads q/k/v to the kernels' 64
+# (at_kernel_head_dim) and slices the output, autograd the gradients
+# ---------------------------------------------------------------------------
+
+
+def _small_heads(device, b, s, h, d, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, s, h * d), generator=g).to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("d", [16, 32])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dims_below_64_run_the_kernels(cuda, d, dtype):
+    """The packed, training (chained, with gradients), head-form and fused
+    entry points at D = 16 and 32 launch the kernels and agree with the
+    plain versions at D: bf16 within the D = 64 tests' bars, f32 within
+    ``F32_BAR`` of each output's scale."""
+    b, s, p, h = 2, 70, 128, 4
+    q, k, v, do = _small_heads(cuda, b, s, h, d, dtype)
+    bias = _train_bias(cuda, b, s, p, h, dtype)
+    bar = F32_BAR if dtype == torch.float32 else 2e-2
+
+    def close(name, got, want):
+        assert got.shape == want.shape and got.dtype == want.dtype, name
+        assert torch.isfinite(got.float()).all(), name
+        assert _scaled_err(got, want) <= bar, (name, _scaled_err(got, want))
+
+    before = flash_attention_packed.launches
+    close("packed", flash_attention_packed(q, k, v, bias, h),
+          flash_attention_packed_plain(q, k, v, bias, h))
+    assert flash_attention_packed.launches == before + 1
+    views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+    before = flash_attention_fwd.launches
+    close("head form", flash_attention(*views, bias),
+          flash_attention_fwd_plain(*views, bias)[0])
+    assert flash_attention_fwd.launches == before + 1
+
+    ts = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    counters = (flash_attention_packed_train_fwd, flash_attention_packed_train_bwd)
+    before = [f.launches for f in counters]
+    out, _ = flash_attention_packed_train_chained(*ts, bias, 7, h, 0.1)
+    out.backward(do)
+    assert [f.launches - n for f, n in zip(counters, before)] == [1, 2]
+    want_o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 7, h, 0.1)
+    wants = flash_attention_packed_train_bwd_plain(q, k, v, bias, 7, want_o, lse, do, h, 0.1)
+    close("train out", out.detach(), want_o)
+    for name, t, w in zip(("dq", "dk", "dv"), ts, wants):
+        close(name, t.grad, w)
+
+    args = _bias_args(cuda, b, s, h)
+    before = fused_bias_attention.launches
+    got = fused_bias_attention(*views, *args)
+    assert fused_bias_attention.launches == before + 1
+    close("fused", got, fused_bias_attention_plain(*views, *args))
+    # the padded kernels share their arithmetic: bit-equal to the padded pair
+    pair = flash_attention_packed(q, k, v, materialize_bias(*args, out_dtype=dtype), h)
+    assert torch.equal(got.transpose(1, 2).reshape(b, s, -1), pair)
+
+
+def test_a_head_dim_above_64_raises(cuda):
+    """D = 96: no kernel layout; each entry point raises, naming the limit."""
+    b, s, h, d = 1, 64, 2, 96
+    q, k, v, _ = _small_heads(cuda, b, s, h, d, torch.bfloat16)
+    bias = torch.zeros((b, h, s, s), device=cuda)
+    views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
+    args = _bias_args(cuda, b, s, h)
+    for call in (lambda: flash_attention_packed(q, k, v, bias, h),
+                 lambda: flash_attention_packed_train(q, k, v, bias, 0, h, 0.1),
+                 lambda: flash_attention_packed_train_tables(q, k, v, bias, *args[4:],
+                                                             *args[:3], 0, h, 0.1),
+                 lambda: flash_attention(*views, bias),
+                 lambda: fused_bias_attention(*views, *args)):
+        with pytest.raises(ValueError, match="head dims up to 64, not 96"):
+            call()
+
+
+def _tiny_setup():
+    """The tiny config as the repo defines it (4 heads of 16), random
+    weights, and 20 documents of 32 tokens on the CPU."""
+    from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
+        EEModelConfig,
+        LayoutLMv3Config,
+    )
+
+    cfg = EEModelConfig(backbone=LayoutLMv3Config.tiny(num_labels=4),
+                        exit=ExitConfig(exits=("text_avg", 1)))
+    assert cfg.backbone.hidden_size // cfg.backbone.num_attention_heads == 16
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    n, s = 20, 32
+    lengths = torch.randint(8, s + 1, (n,), generator=g)
+    feats = {
+        "input_ids": torch.randint(3, 1000, (n, s), generator=g),
+        "bbox": torch.sort(torch.randint(0, 1000, (n, s, 4), generator=g), -1).values,
+        "attention_mask": (torch.arange(s)[None] < lengths[:, None]).to(torch.int32),
+        "pixel_values": torch.randn((n, 3, 32, 32), generator=g),
+    }
+    return cfg, model, feats
+
+
+def test_tiny_config_serves_on_the_card(cuda):
+    """The tiny config through ``Pipeline.predict_features`` on the card,
+    its attention in the kernels: f32 logits within the north star's f32
+    bars (atol 2e-4, rtol 1e-3) of the CPU path's, the same exits and
+    labels, and in bf16 well-formed results."""
+    import copy
+
+    from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
+    from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+
+    cfg, model, feats = _tiny_setup()
+    small = [feats[k][:4] for k in ("input_ids", "bbox", "pixel_values", "attention_mask")]
+    with torch.no_grad():
+        want = ee_forward(model, cfg, *small).policy_logits()
+        before = (materialize_bias.launches, flash_attention_packed.launches)
+        got = ee_forward(copy.deepcopy(model).to(cuda), cfg, *[a.to(cuda) for a in small])
+        got = got.policy_logits().cpu()
+    assert (materialize_bias.launches - before[0], flash_attention_packed.launches - before[1]) \
+        == (1, cfg.backbone.num_hidden_layers)
+    assert ((got - want).abs() <= 2e-4 + 1e-3 * want.abs()).all(), (got - want).abs().max()
+    # full capacities and a threshold no confidence reaches: every document
+    # takes the final exit on both devices, whatever the last bits
+    kwargs = dict(batch_size=16, seq_len=32, tokenizer=HashWordTokenizer(vocab_size=1024),
+                  threshold=2.0)
+    cpu = Pipeline(copy.deepcopy(model), cfg, device="cpu", **kwargs).predict_features(feats)
+    for dtype in (torch.float32, torch.bfloat16):
+        pipe = Pipeline(copy.deepcopy(model).to(dtype=dtype), cfg, device=cuda, **kwargs)
+        before = flash_attention_packed.launches
+        results = pipe.predict_features(feats)
+        assert flash_attention_packed.launches > before
+        assert len(results) == len(cpu) == 20
+        for r, c in zip(results, cpu):
+            assert 0.0 <= r["confidence"] <= 1.0 and r["label_id"] in range(4), r
+            assert r["exit"] == c["exit"], (r, c)
+            if dtype == torch.float32:
+                assert abs(r["confidence"] - c["confidence"]) <= 2e-4 + 1e-3 * c["confidence"]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+def test_tiny_config_trains_on_the_card(cuda, bf16):
+    """One ``EETrainer`` step of the tiny config on the card through the
+    training kernels (bf16 and f32), and the f32 loss gradients against the
+    CPU path within 1e-4 of each tensor's largest gradient, dropout 0 (the
+    key biases' true gradient is 0: rounding noise there, held below 1e-10
+    of the largest gradient, as for one head of 64)."""
+    import copy
+
+    from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    cfg, model, feats = _tiny_setup()
+    batch = {k: v[None, :4] for k, v in feats.items()}
+    batch["labels"] = torch.tensor([[0, 3, 1, 2]])
+    trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=bf16), 1, device=cuda)
+    before = flash_attention_packed_train_bwd.launches
+    loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
+    assert math.isfinite(loss)
+    assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers
+    assert not torch.equal(trainer.model.backbone.encoder.layers[0].attention.query.weight.cpu(),
+                           model.backbone.encoder.layers[0].attention.query.weight)
+
+    rates = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                 classifier_dropout=0.0)
+    cfg0 = cfg.replace(backbone=cfg.backbone.replace(**rates))
+    small = {k: v[0] for k, v in batch.items()}
+
+    def grads(m, device):
+        loss, _ = ee_loss_fn(m, cfg0, small, device=device)
+        return loss.item(), torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+
+    before = flash_attention_packed.launches
+    gpu_loss, gpu = grads(copy.deepcopy(model).to(cuda), cuda)
+    assert flash_attention_packed.launches > before
+    cpu_loss, cpu = grads(model, "cpu")
+    assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
+    big = max(w.abs().max().item() for w in cpu if w is not None)
+    for (name, _), a, w in zip(model.named_parameters(), gpu, cpu):
+        if w is None:
+            assert a is None or not a.any(), name
+            continue
+        assert torch.isfinite(a).all(), name
+        if name.endswith(".key.bias"):
+            assert max(a.abs().max().item(), w.abs().max().item()) <= 1e-10 * big, name
+        else:
+            assert _scaled_err(a.cpu(), w) <= 1e-4, (name, _scaled_err(a.cpu(), w))

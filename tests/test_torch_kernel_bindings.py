@@ -112,3 +112,12 @@ def test_binding_matches_its_c_entry(bound, entry):
     assert fn.argtypes is not None and fn.restype is ctypes.c_int
     assert len(fn.argtypes) == len(params), (entry, len(fn.argtypes), params)
     assert [_kind_of_ctypes(t) for t in fn.argtypes] == [_kind_of_c(p) for p in params], entry
+
+
+def test_fused_bias_attention_binds_the_forward_kernels_library(bound):
+    """The fused kernel is a bias source of the attention forward, so its
+    entry lives in that forward's source and library, and no source of its
+    own is built."""
+    assert bound["mmee_fused_bias_attention"][0] == "flash_attention_packed_train"
+    assert bound["mmee_flash_attention_packed"][0] == "flash_attention_packed_train"
+    assert "fused_bias_attention" not in cuda_build.SOURCES
