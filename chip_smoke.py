@@ -54,7 +54,12 @@ Phases, each reported on its own line:
    forwards also beside their design's floor (the bytes of the pre-pass
    and of a kernel that reads the parts), ``table_grads`` and the tables
    backward beside theirs in both types, the fused kernel beside its f32
-   pair;
+   pair. Then the kernels whose bodies depend on the head dim (the
+   forwards #2, #3, #5, #7, the backwards #6, #8, #9 and the split
+   pre-pass) at head dim 128 (the same bias inputs in 6 heads of 128,
+   hidden 768, S = P = 768), bf16 and f32, against their plain versions at
+   the same tolerances, the same bits on a second run, the fused kernel
+   bit-equal to its pair, each timed beside SDPA at D = 128 and its bound;
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -130,22 +135,38 @@ Phases, each reported on its own line:
    memory beside phase 5c's, and the f32 attention's device ms (forward
    kernel, backward kernels, split pre-passes) in one more, traced, step.
 4t. the tiny config (hidden 64, 4 heads of 16, 2 layers: head dim 16,
-   which the kernels take zero-padded to their 64): 2 batches of 16 served
-   through ``Pipeline.predict_features`` in f32 and in bf16, and one
-   ``EETrainer`` step in bf16. Checks: the launch counts (every attention
-   call in the kernels); the f32 kernel path's logits within the north
-   star's f32 bars of the f32 plain path on the CPU, and its f32 gradients
-   within ``TINY_GRAD_LIMITS``; bf16 logits within the bf16 tolerance;
-   a finite loss and parameters that moved.
+   which the kernels take zero-padded to their 64), then the same with
+   hidden 384 in 4 heads of 96 (padded to 128) and hidden 512 in 4 heads of
+   128: each serves 2 batches of 16 through ``Pipeline.predict_features``
+   in f32 and in bf16 and takes one ``EETrainer`` step in bf16. Checks: the
+   launch counts (every attention call in the kernels); the f32 kernel
+   path's logits within the north star's f32 bars of the f32 plain path on
+   the CPU, and its f32 gradients within ``TINY_GRAD_LIMITS``; bf16 logits
+   within the bf16 tolerance; a finite loss and parameters that moved.
+6. anytime evaluation (after 4b, on phase 4's bf16 model): ``get_logits``
+   harvests the exit logits of ``build_synthetic``'s test and validation
+   splits (256 documents each, 512 tokens, 224-pixel pages, 16 labels) at
+   batch 16 into a temporary directory. Checks: a finite (4, 256, 16)
+   float64 store, two batches' rows bit-equal to ``ee_forward``'s policy
+   logits, 1 ``materialize_bias`` and 12 ``flash_attention_packed`` launches
+   per batch; the f32 model's harvest of 8 documents within the f32 bars of
+   the f32 plain path on the CPU, its exits equal away from the threshold;
+   finite, positive temperatures from ``calibrate``; 19 thresholds from
+   ``full_test_iteration`` and ``evaluate_checkpoint``'s ``results.json``;
+   a million-mixture ``mixture_pareto_sweep`` bit-equal between the torch
+   backend on the card and the native one. Prints the harvest's docs/sec,
+   one traced batch's device ms and both sweeps' seconds.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 4t, 5, 5c, 5d and 5f with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d, 5f and 6 with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it; the f32 fields from phase 3's
 f32 run and the f32 launches from phases 4f/5f; ``split_bf16x3`` runs in
-f32 only, on phases 4f's and 5f's paths), the last
+f32 only, on phases 4f's and 5f's paths; the ``_d128`` fields from phase
+3's head-dim-128 run; the anytime harvest's launches of the two kernels it
+runs from phase 6), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -1142,6 +1163,241 @@ def phase_kernels(name):
     return results
 
 
+H128, D128 = 6, 128  # hidden 768 in heads of 128
+
+
+def phase_kernels_d128(name, results):
+    """Phase 3 at head dim 128: every kernel whose body depends on the head
+    dim (the forwards #2, #3, #5, #7, the backwards #6, #8, #9 and the
+    split pre-pass) against its plain version on the paths' bias inputs in
+    H = 6 heads of 128 (hidden 768), bf16 and f32, at the 64-wide phase's
+    tolerances, the same bits on a second run: untimed at S = 709 inside
+    P = 768, then at S = P = 768, each timed by CUDA events beside SDPA at
+    D = 128 and its bound. Adds ``ms_d128``, ``bound_d128`` (and the
+    ``f32_`` twins, and ``library_ms_d128``) to the kernels' rows in
+    ``results``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(1)
+    args, s_true = main_path_bias_inputs(dev, gen)
+    scale = 1.0 / math.sqrt(D128)
+    args = list(args[:4]) + [(torch.randn((a.shape[0], H128), generator=gen) * 0.02 * scale)
+                             .to(dev) for a in args[4:]]
+    unpadded = [a[:, :s_true].contiguous() for a in args[:4]] + args[4:]
+    readings = compare_kernels_d128(name, unpadded, gen)
+    print(f"kernels at D = 128 (H = {H128} x {D128}) at S {s_true} inside P 768 (untimed; "
+          f"errors over scale, tol 2e-2 bf16 / {F32_BAR} f32, dT {TABLE_GRAD_LIMIT}; the same "
+          f"bits on a second run; the fused kernel bit-equal to its pair): "
+          f"{json.dumps(readings)}")
+    readings = compare_kernels_d128(name, args, gen, {e["name"]: e for e in results})
+    print(f"kernels at D = 128 (H = {H128} x {D128}, S = P = 768; the same tolerances and "
+          f"checks): {json.dumps(readings)}")
+    for e in results:
+        if "ms_d128" in e or "f32_ms_d128" in e:
+            parts = []
+            for pre in ("", "f32_"):
+                if f"{pre}ms_d128" in e:
+                    lib = e.get(f"{pre}library_ms_d128")
+                    parts.append(f"{pre or 'bf16_'}ms {e[f'{pre}ms_d128']:.4f} bound "
+                                 f"{e[f'{pre}bound_d128'] * 1e3:.1f} us "
+                                 f"({e[f'{pre}bound_d128_by']}) library "
+                                 + ("null" if lib is None else f"{lib:.4f}"))
+            print(f"kernel {e['name']} at D = 128: " + ", ".join(parts))
+
+
+def compare_kernels_d128(name, args, gen, by_name=None):
+    """The head-dim-128 kernels against their plain versions on the bias
+    inputs ``args`` (tables of H128 heads), bf16 and f32; with ``by_name``
+    (the kernels' rows) each is also timed and its ``*_d128`` fields set.
+    Raises on a disagreement; returns what each comparison read."""
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_bwd,
+        flash_attention_bwd_plain,
+        flash_attention_fwd,
+        flash_attention_fwd_plain,
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        flash_attention_packed_train_bwd,
+        flash_attention_packed_train_bwd_plain,
+        flash_attention_packed_train_fwd,
+        flash_attention_packed_train_fwd_plain,
+        flash_attention_packed_train_tables_bwd,
+        flash_attention_packed_train_tables_bwd_plain,
+        split_bf16x3,
+        split_bf16x3_plain,
+    )
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        fused_bias_attention,
+        fused_bias_attention_plain,
+        materialize_bias,
+    )
+
+    bw, bf16_peak = peaks_for(name)[:2]
+    dev, s = args[0].device, args[0].shape[1]
+    timed = by_name is not None
+    in_bytes = sum(a.numel() * a.element_size() for a in args)
+    vec_table_bytes = sum(a.numel() * a.element_size() for a in args[:3]) + sum(
+        a.shape[0] * H128 * 4 for a in args[4:])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    seed, rate = 1234, TRAIN_RATE
+    readings = {}
+    fwd_flops = 4 * B * H128 * s * s * D128
+    bwd_flops = 10 * B * H128 * s * s * D128
+
+    def heads(x):
+        return x.view(B, s, H128, D128).transpose(1, 2)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        f32 = dtype == torch.float32
+        pre, tag = ("f32_", "f32") if f32 else ("", "bf16")
+        bar = F32_BAR if f32 else 2e-2
+        peak = bf16_peak / SPLIT_PASSES if f32 else bf16_peak
+        esize = 4 if f32 else 2
+        q, k, v, do = (torch.randn((B, s, H128 * D128), generator=gen).to(dev, dtype)
+                       for _ in range(4))
+        do = do * 0.1
+        bias = materialize_bias(*args, out_dtype=dtype)
+        p = bias.shape[-1]
+        check(p == 768, f"D = 128 inputs: S {s}, P {p}")
+        qkv_bytes = B * s * H128 * D128 * esize
+        block = B * H128 * s * s * esize
+        plane = B * H128 * p * p * esize
+        lse_bytes = B * H128 * p * 4
+        mask4 = bias[:, :, :s, :s]
+
+        def gate(kname, what, got, want, again=None, limit=bar):
+            check(got.shape == want.shape and got.dtype == want.dtype,
+                  f"D = 128 {tag} {kname} {what} layout (S {s})")
+            check(bool(torch.isfinite(got.float()).all()), f"D = 128 {tag} {kname} {what} "
+                  f"not finite (S {s})")
+            err = scaled_err(got, want)
+            check(err <= limit, f"D = 128 {tag} {kname} {what} (S {s}): error {err} > {limit} "
+                  f"of its scale")
+            if again is not None:
+                check(torch.equal(got, again), f"D = 128 {tag} {kname} {what} differs between "
+                      f"two runs (S {s})")
+            readings.setdefault(f"{kname} {tag}", {})[what] = float(f"{err:.3e}")
+
+        def record(kname, fn, bound_pair, library_ms, iters=20):
+            if timed:
+                by_name[kname].update({
+                    f"{pre}ms_d128": time_ms(fn, iters=iters), f"{pre}bound_d128": bound_pair[0],
+                    f"{pre}bound_d128_by": bound_pair[1],
+                    f"{pre}library_ms_d128": library_ms() if library_ms else None})
+
+        def sdpa_ms():
+            return time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4))
+
+        def sdpa_bwd_ms():
+            qg, kg, vg = (heads(x).detach().requires_grad_() for x in (q, k, v))
+            mask_g = mask4.detach().clone().requires_grad_()
+            o_lib = sdpa(qg, kg, vg, attn_mask=mask_g)
+            return time_ms(lambda: torch.autograd.grad(o_lib, (qg, kg, vg, mask_g), heads(do),
+                                                       retain_graph=True), iters=10)
+
+        # #2 flash_attention_packed
+        out = flash_attention_packed(q, k, v, bias, H128)
+        gate("flash_attention_packed", "o", out, flash_attention_packed_plain(q, k, v, bias, H128),
+             flash_attention_packed(q, k, v, bias, H128))
+        record("flash_attention_packed", lambda: flash_attention_packed(q, k, v, bias, H128),
+               bound(block + 4 * qkv_bytes, fwd_flops, bw, peak), sdpa_ms)
+
+        # #3 fused_bias_attention: within the bar, bit-equal to the pair
+        qh, kh, vh = heads(q), heads(k), heads(v)
+        fused = fused_bias_attention(qh, kh, vh, *args)
+        gate("fused_bias_attention", "o", fused, fused_bias_attention_plain(qh, kh, vh, *args),
+             fused_bias_attention(qh, kh, vh, *args))
+        check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), out),
+              f"D = 128 {tag} fused_bias_attention differs from materialize_bias + "
+              f"flash_attention_packed (S {s})")
+        record("fused_bias_attention", lambda: fused_bias_attention(qh, kh, vh, *args),
+               bound(4 * qkv_bytes + in_bytes, fwd_flops, bw, peak), None)
+        del fused
+
+        # #7 the training forward at the path's rate; at rate 0 the serving bits
+        t_out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate)
+        ref_o, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, H128, rate)
+        gate("flash_attention_packed_train", "o", t_out, ref_o,
+             flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate)[0])
+        lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
+        check(lse_err <= 1e-3 and bool(torch.isinf(lse[:, :, s:]).all()),
+              f"D = 128 {tag} train forward lse error {lse_err} (S {s})")
+        check(torch.equal(flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, 0.0)[0],
+                          out), f"D = 128 {tag} train forward at rate 0 differs from "
+              f"flash_attention_packed (S {s})")
+        record("flash_attention_packed_train",
+               lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate),
+               bound(block + 4 * qkv_bytes + lse_bytes, fwd_flops, bw, peak), sdpa_ms)
+        del ref_o, ref_lse, out
+
+        # #8 the training backward, plain and chained
+        gbias = (torch.randn(bias.shape, generator=gen) * 1e-3).to(dev, dtype)
+        bwd_args = (q, k, v, bias, seed, t_out, lse, do, H128, rate)
+        for chained in (False, True):
+            extra = gbias if chained else None
+            got = flash_attention_packed_train_bwd(*bwd_args, extra)
+            again = flash_attention_packed_train_bwd(*bwd_args, extra)
+            want = flash_attention_packed_train_bwd_plain(*bwd_args, extra)
+            for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+                gate("flash_attention_packed_train_bwd", what + ("_chained" if chained else ""),
+                     a, w, a2)
+            del got, want, again
+        lib_bwd = sdpa_bwd_ms() if timed else None
+        record("flash_attention_packed_train_bwd",
+               lambda: flash_attention_packed_train_bwd(*bwd_args, gbias),
+               bound(block + 2 * plane + 8 * qkv_bytes + lse_bytes, bwd_flops, bw, peak),
+               lambda: lib_bwd, iters=10)
+
+        # #5/#6 the head form at the packed strides, rate 0
+        views = [heads(x) for x in (q, k, v, do)]
+        o_h, lse_h = flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True)
+        gate("flash_attention_fwd", "o", o_h,
+             flash_attention_fwd_plain(*views[:3], bias, 0, 0.0)[0],
+             flash_attention_fwd(*views[:3], bias, 0, 0.0))
+        record("flash_attention_fwd",
+               lambda: flash_attention_fwd(*views[:3], bias, 0, 0.0, with_lse=True),
+               bound(block + 4 * qkv_bytes + lse_bytes, fwd_flops, bw, peak), sdpa_ms)
+        hbwd = (*views[:3], bias, 0, o_h, lse_h, views[3], 0.0)
+        got, again, want = (flash_attention_bwd(*hbwd), flash_attention_bwd(*hbwd),
+                            flash_attention_bwd_plain(*hbwd))
+        for what, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+            gate("flash_attention_bwd", what, a, w, a2)
+        del got, again, want
+        record("flash_attention_bwd", lambda: flash_attention_bwd(*hbwd),
+               bound(block + plane + 8 * qkv_bytes + lse_bytes, bwd_flops, bw, peak),
+               lambda: lib_bwd, iters=10)
+
+        # #9 the table-gradient backward
+        tables_args = (q, k, v, bias, *args[:3], seed, t_out, lse, do, H128, rate)
+        got = flash_attention_packed_train_tables_bwd(*tables_args)
+        again = flash_attention_packed_train_tables_bwd(*tables_args)
+        want = flash_attention_packed_train_tables_bwd_plain(*tables_args)
+        for what, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+            gate("flash_attention_packed_train_tables_bwd", what, a, w, a2,
+                 bar if what in ("dq", "dk", "dv") else TABLE_GRAD_LIMIT)
+        del got, again, want
+        record("flash_attention_packed_train_tables_bwd",
+               lambda: flash_attention_packed_train_tables_bwd(*tables_args),
+               bound(block + 8 * qkv_bytes + lse_bytes + vec_table_bytes, bwd_flops, bw, peak),
+               None, iters=10)
+
+        # the split pre-pass (f32 only): bit-equal to its plain version
+        if f32:
+            parts = split_bf16x3(*views)
+            for i, x in enumerate(views):
+                check(torch.equal(parts[i], split_bf16x3_plain(x)),
+                      f"D = 128 split_bf16x3 differs from its plain version (operand {i}, S {s})")
+            readings["split_bf16x3 f32"] = "bit-equal"
+            if timed:  # f32 only: the row's plain fields are its f32 readings
+                split_bound = bound(4 * qkv_bytes + 12 * qkv_bytes // 2, 0, bw, bf16_peak)
+                by_name["split_bf16x3"].update(
+                    ms_d128=time_ms(lambda: split_bf16x3(*views)), bound_d128=split_bound[0],
+                    bound_d128_by=split_bound[1], library_ms_d128=None)
+        del views, o_h, lse_h, hbwd, tables_args, bwd_args, bias, q, k, v, do, t_out, lse
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    return readings
+
+
 def synthetic_pages(n, rng, tokenizer, seq_len):
     """n documents: word features (ragged lengths, word boxes on lines) and
     uint8 page images with text-like bands."""
@@ -1410,9 +1666,18 @@ def phase_serve_fused(served):
     return launches
 
 
-def phase_tiny(card: str):
+# the tiny config's widths with wider heads, by head dim (4 heads each):
+# hidden 384 in heads of 96 (padded to the kernels' 128) and 512 in heads
+# of 128; the layout embeddings' 4 coordinate + 2 shape widths sum to the
+# hidden size
+WIDE_HEADS = {96: dict(hidden_size=384, coordinate_size=64, shape_size=64),
+              128: dict(hidden_size=512, coordinate_size=96, shape_size=64)}
+
+
+def phase_tiny(card: str, head_dim: int = 16):
     """Phase 4t: the tiny config (4 heads of 16: the kernels take the head
-    dim zero-padded to 64) served and trained on the card, gated against
+    dim zero-padded to 64), or at the wider heads of ``WIDE_HEADS`` (96,
+    padded to 128, and 128), served and trained on the card, gated against
     the f32 plain path on the CPU."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
@@ -1429,12 +1694,18 @@ def phase_tiny(card: str):
     )
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
 
+    backbone = LayoutLMv3Config.tiny(num_labels=16)
+    if head_dim != 16:
+        widths = WIDE_HEADS[head_dim]
+        backbone = backbone.replace(intermediate_size=2 * widths["hidden_size"], **widths)
     cfg = EEModelConfig(
-        backbone=LayoutLMv3Config.tiny(num_labels=16),
+        backbone=backbone,
         exit=ExitConfig(exits="text_avg,1", training_strategy="one_stage_subgraphs_weighted"),
     )
     bb = cfg.backbone
-    head_dim, layers = bb.hidden_size // bb.num_attention_heads, bb.num_hidden_layers
+    layers = bb.num_hidden_layers
+    check(bb.hidden_size // bb.num_attention_heads == head_dim, f"tiny config head dim "
+          f"{bb.hidden_size // bb.num_attention_heads}, not {head_dim}")
     model32 = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     rng = np.random.default_rng(2)
     tok = HashWordTokenizer(vocab_size=bb.vocab_size)
@@ -1494,6 +1765,151 @@ def phase_tiny(card: str):
           f"{n_batches} batches of {B} in f32 and bf16 ({'; '.join(readings)}, tol f32 atol 2e-4 "
           f"/ rtol 1e-3, bf16 5% of scale + 0.05), one bf16 training step (loss {loss:.4f}), "
           f"launches per step {ran}, on {card}")
+
+
+ANYTIME_DOCS = 256  # phase 6's test and validation documents each
+
+
+def phase_anytime(card: str, served):
+    """Phase 6: the anytime evaluation of the paper on the card. Phase 4's
+    bf16 model (its heads as phase 4 re-centred them) harvests the exit
+    logits of ``build_synthetic``'s test and validation splits (256
+    documents each, 512 tokens, 224-pixel pages, 16 labels) with
+    ``get_logits`` at batch 16; the f32 model harvests 8 documents against
+    the f32 plain path on the CPU; ``calibrate`` fits the per-exit
+    temperatures; ``full_test_iteration`` sweeps the global thresholds
+    0.05-0.95 with the FLOPs analysis and ``evaluate_checkpoint`` reads the
+    dumped store back; ``mixture_pareto_sweep`` evaluates a million per-exit
+    threshold mixtures on the card and with the native backend, bit-equal.
+    Every file goes to a temporary directory. Returns the harvest's launches
+    (counts set to 0 just before it)."""
+    import tempfile
+
+    from multi_modal_early_exit_tpu_torch.data.datasets import build_synthetic
+    from multi_modal_early_exit_tpu_torch.data.loader import iterate_batches
+    from multi_modal_early_exit_tpu_torch.evaluation.analysis import Analysis
+    from multi_modal_early_exit_tpu_torch.evaluation.pipeline import (
+        SEQ_PAD_MULTIPLE,
+        calibrate,
+        evaluate_checkpoint,
+        full_test_iteration,
+        get_logits,
+    )
+    from multi_modal_early_exit_tpu_torch.evaluation.policy import Policy
+    from multi_modal_early_exit_tpu_torch.evaluation.thresholds import mixture_pareto_sweep
+    from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+
+    model, cfg = served["model"], served["cfg"]
+    n_exits = len(cfg.exit.exits) + 1
+    t0 = time.perf_counter()
+    kw = dict(n_eval=ANYTIME_DOCS, num_labels=16, seq_len=S_TEXT, image_size=224)
+    test, val = build_synthetic("test", **kw), build_synthetic("validation", **kw)
+    print(f"anytime: build_synthetic, {ANYTIME_DOCS} test + {ANYTIME_DOCS} validation "
+          f"documents, {time.perf_counter() - t0:.1f} s (host)")
+    first = next(iterate_batches(test, B))
+    cols = [torch.from_numpy(first[k]).cuda() for k in
+            ("input_ids", "bbox", "pixel_values", "attention_mask")]
+    with torch.inference_mode():  # warm-up batch
+        ee_forward(model, cfg, *cols, seq_pad_multiple=SEQ_PAD_MULTIPLE)
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as root:
+        config = {"checkpoint": "chip-smoke-base", "test_dataset": "synthetic_rvl_cdip",
+                  "labelset": "test", "exit_policy": "max_confidence_global_thresholding_policy"}
+        counters = {"materialize_bias": materialize_bias,
+                    "flash_attention_packed": flash_attention_packed}
+        for f in counters.values():
+            f.launches = 0
+        store, refs, stats = get_logits(model, cfg, test, config, batch_size=B, root=root)
+        launches = {name: f.launches for name, f in counters.items()}
+        n_batches = -(-ANYTIME_DOCS // B)
+        want = {"materialize_bias": n_batches,
+                "flash_attention_packed": cfg.backbone.num_hidden_layers * n_batches}
+        check(launches == want, f"the harvest launched {launches}, not {want}")
+        check(store.shape == (n_exits, ANYTIME_DOCS, 16) and store.dtype == np.float64
+              and bool(np.isfinite(store).all()), f"the harvested store {store.shape}")
+        with torch.inference_mode():  # two batches' rows against the direct forward
+            for i, batch in enumerate(iterate_batches(test, B)):
+                if i == 2:
+                    break
+                c = [torch.from_numpy(batch[k]).cuda() for k in
+                     ("input_ids", "bbox", "pixel_values", "attention_mask")]
+                direct = ee_forward(model, cfg, *c, seq_pad_multiple=SEQ_PAD_MULTIPLE)
+                direct = direct.policy_logits().to(torch.float64).cpu().numpy()
+                real = int(batch["sample_mask"].sum())
+                check(np.array_equal(store[:, i * B:i * B + real], direct[:, :real]),
+                      f"the store's batch {i} differs from ee_forward's policy logits")
+        ms = device_ms(lambda: ee_forward(model, cfg, *cols, seq_pad_multiple=SEQ_PAD_MULTIPLE),
+                       {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",)})
+        val_store, val_refs, _ = get_logits(model, cfg, val, dict(config, labelset="validation"),
+                                            batch_size=B, root=root)
+        print(f"anytime harvest: ({n_exits}, {ANYTIME_DOCS}, 16) f64 store, "
+              f"{stats['docs_per_sec']:.1f} docs/sec (host clock, after a warm-up batch, "
+              f"batch {B}), launches {launches} ({n_batches} batches), 2 batches bit-equal "
+              f"to ee_forward; one batch traced: {ms['all']:.3f} device ms, the attention "
+              f"{ms['attention']:.3f}, the bias build {ms['bias']:.3f}; on {card}")
+
+        # the f32 model on 8 documents against the f32 plain path on the CPU
+        model32 = copy.deepcopy(model).to(torch.float32)
+        few = test.select(np.arange(8))
+        got32 = get_logits(model32, cfg, few, {}, batch_size=8, use_cache=False)[0]
+        cpu32 = get_logits(copy.deepcopy(model32).cpu(), cfg, few, {}, batch_size=8,
+                           use_cache=False, device="cpu")[0]
+        del model32
+        err32 = float(np.abs(got32 - cpu32).max())
+        check(f32_close(torch.from_numpy(got32), torch.from_numpy(cpu32)),
+              f"f32 harvest vs the f32 plain path: {err32} (atol 2e-4, rtol 1e-3)")
+        msp = lambda x: np.max(np.exp(x - x.max(-1, keepdims=True))
+                               / np.exp(x - x.max(-1, keepdims=True)).sum(-1, keepdims=True), -1)
+        thr = widest_gap_threshold(msp(cpu32[:-1]).ravel(), 0.3, 0.7)
+        cfg_p = {"exit_threshold": thr}
+        far = np.all(np.abs(msp(cpu32) - thr) > 1e-4, axis=0)
+        gpu_exits = Policy(got32, cfg_p).max_confidence_global_thresholding_policy()[0]
+        cpu_exits = Policy(cpu32, cfg_p).max_confidence_global_thresholding_policy()[0]
+        check(bool((gpu_exits[far] == cpu_exits[far]).all()), f"f32 exits differ from the "
+              f"CPU's: {gpu_exits.tolist()} vs {cpu_exits.tolist()}")
+
+        # per-exit temperatures, the threshold sweep, the offline evaluation
+        t0 = time.perf_counter()
+        calibrated = calibrate(store, val_store, val_refs, config, root=root)
+        temps = config["calibration_metrics"]["temperature"]
+        check(len(temps) == n_exits and all(math.isfinite(t) and t > 0 for t in temps),
+              f"temperatures {temps}")
+        analysis = Analysis(model, cfg)
+        sweep_cfg = dict(config, calibrate=True)
+        logs = full_test_iteration(calibrated, refs, sweep_cfg, 0.05, 0.05, analysis, root=root)
+        out_dir = os.path.join(root, "chip-smoke-base-synthetic_rvl_cdip", sweep_cfg["exit_policy"])
+        check(len(logs) == 19 and os.path.exists(os.path.join(out_dir, "calibrated-metrics.json")),
+              f"full_test_iteration wrote {len(logs)} entries")
+        evaluate_checkpoint(os.path.join(root, "chip-smoke-base-synthetic_rvl_cdip"))
+        check(os.path.exists(os.path.join(root, "chip-smoke-base-synthetic_rvl_cdip",
+                                          "results.json")), "evaluate_checkpoint wrote nothing")
+        eval_s = time.perf_counter() - t0
+        best = max(logs, key=lambda r: r["accuracy"])
+
+        # a million per-exit threshold mixtures: the card and the native
+        # backend, bit-equal (sums of 0/1 and of exit ids over 256
+        # documents are exact in f32)
+        sweeps, secs = {}, {}
+        for backend, dev in (("torch", "cuda"), ("native", None)):
+            t0 = time.perf_counter()
+            sweeps[backend] = mixture_pareto_sweep(store, refs, num_mixtures=1_000_000,
+                                                   backend=backend, device=dev)
+            secs[backend] = time.perf_counter() - t0
+        for key in ("accuracy", "average_exit"):
+            check(np.array_equal(sweeps["torch"][key], sweeps["native"][key]),
+                  f"mixture sweep {key}: the torch backend differs from the native one")
+    print(f"anytime evaluation: f32 harvest of 8 documents vs the CPU's max diff {err32:.3e} "
+          f"(atol 2e-4 / rtol 1e-3), exits equal for {int(far.sum())}/8 documents farther "
+          f"than 1e-4 from threshold {thr:.4f}; temperatures {[round(t, 4) for t in temps]}; "
+          f"{len(logs)} thresholds swept and results.json written in {eval_s:.1f} s (host), "
+          f"best accuracy {best['accuracy']:.4f} at {best['exit_threshold']:.2f} "
+          f"({best['#GFLOPs used']:.1f} of {best['#GFLOPs total']:.1f} GFLOPs); 1,000,000 "
+          f"mixtures: torch on the card {secs['torch']:.2f} s, native {secs['native']:.2f} s "
+          f"(host clock, grid and mixtures included), accuracy and average exit bit-equal; "
+          f"on {card}")
+    return launches
 
 
 def train_setup(n_batches: int, scan_fold: int = 12, remat: bool = False,
@@ -1897,16 +2313,20 @@ def main() -> int:
     phase_build()
     with bias_modes():
         kernels = phase_kernels(name)
+        phase_kernels_d128(name, kernels)
     with bias_modes():
         serve_launches, served = phase_main_path()
     with bias_modes(fused="1"):
         fused_launches = phase_serve_fused(served)
+    with bias_modes():
+        anytime_launches = phase_anytime(card, served)
     base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
     del served
     with bias_modes():
         serve32_launches = phase_main_path(torch.float32, base4)[0]
-    with bias_modes():
-        phase_tiny(card)
+    for head_dim in (16, 96, 128):
+        with bias_modes():
+            phase_tiny(card, head_dim)
     with bias_modes():
         train_launches, trained = phase_train(card)
     with bias_modes(tables="1"):
@@ -1958,12 +2378,22 @@ def main() -> int:
                                      "flash_attention_packed_train_tables_bwd")
         check((k["f32_launches"] == 0) == only_phase_3,
               f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
+    # the anytime harvest (phase 6) runs the serving forward's two kernels
+    anytime_in = f"phase 6, get_logits over {ANYTIME_DOCS} documents"
+    for k in kernels:
+        if k["name"] in anytime_launches:
+            k["anytime_launches"] = anytime_launches[k["name"]]
+            k["anytime_launches_in"] = anytime_in
+            check(k["anytime_launches"] > 0, f"{k['name']} was never launched in phase 6")
     keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms", "f32_bound_ms",
             "f32_bound_by", "f32_library_ms", "f32_max_abs_err", "f32_launches",
             "f32_launches_in", "ok")
-    # the fused kernel's rows also carry the pair it replaces
-    extra = ("pair_ms", "f32_pair_ms")
+    # the fused kernel's rows also carry the pair it replaces; the
+    # head-dim-dependent kernels their readings at D = 128
+    extra = ("anytime_launches", "anytime_launches_in", "pair_ms", "f32_pair_ms", "ms_d128",
+             "bound_d128", "bound_d128_by", "library_ms_d128", "f32_ms_d128", "f32_bound_d128",
+             "f32_bound_d128_by", "f32_library_ms_d128")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

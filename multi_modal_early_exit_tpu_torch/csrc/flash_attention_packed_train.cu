@@ -217,14 +217,34 @@
 // it is the JAX package's mask bit for bit. Keys j >= S count as masked and
 // query rows >= S are computed from zeros and not stored; the forward writes
 // +inf as the lse of rows in [S, P).
+//
+// Head dims. Every kernel body takes the head dim as a template parameter
+// kD, 64 or 128 (the wrappers zero-pad any D <= 128 to the smaller of the
+// two; the TPU kernels take any D). A row of an operand tile is kD / 64
+// boxes of 64 bf16 columns (128 bytes, one swizzle span), a box of a tile
+// of R rows R x 128 bytes after the one before: the score products walk
+// the k steps of box 1 after those of box 0, and every product whose N is
+// the head dim (P v, dS k, p^T do, dS^T q) runs once per box into its own
+// 64-column accumulators. The 64-wide instantiations are the code they
+// were before the parameter existed. At 128 the budgets change:
+// - the bf16 forward holds 129 KB of shared memory, one CTA per SM;
+// - the f32 forward streams 32-key blocks (FwdTiling) and reads q's three
+//   parts from shared memory, written by the caller's pre-pass with k's and
+//   v's (three 128-wide sets of A registers do not fit beside the
+//   accumulators in 168 registers: 300-360 B of spills): 225 KB;
+// - the backward pair streams 32-wide blocks in (B), and in (A) too with
+//   f32 operands (BwdTiling); f32 operands take an f32 bias only (the
+//   wrappers widen a bf16 one, exactly); the f32 tables mode keeps its
+//   [bin][row] histogram in global memory, after the partials, as its
+//   shared memory is full (same writers, same order, same sums).
 
 #include "sm90.cuh"
 
 namespace {
 
-constexpr int kD = 64;       // head dim
+constexpr int kDBox = 64;    // head-dim columns of one 128-byte bf16 box
 constexpr int kBQ = 64;      // rows per CTA (4 warps x 16)
-constexpr int kBK = 64;      // columns per block
+constexpr int kBK = 64;      // keys per CTA of (B)
 constexpr int kMaxDistance = 1024;  // the largest max_distance of a built bias
 
 typedef __nv_bfloat16 bf16;
@@ -272,8 +292,8 @@ struct Strides {
 // the packed (B, S, H*D) layout seen as (B, H, S, D); computed by the
 // launchers and passed as a kernel argument, as the head form's strides are
 // (computed in the kernel, the forward measured 19 % slower on an H100)
-Strides packed_strides(int S, int H) {
-  return Strides{static_cast<long long>(S) * H * kD, kD, static_cast<long long>(H) * kD};
+Strides packed_strides(int S, int H, int D) {
+  return Strides{static_cast<long long>(S) * H * D, D, static_cast<long long>(H) * D};
 }
 
 // the (b, h) plane of an operand
@@ -343,32 +363,41 @@ __device__ __forceinline__ void to_a(uint32_t (&a)[kN][kK][4], const float (&x)[
   }
 }
 
-// d = A B^T over d (64 wide), A and B [row][d] operand tiles read K-major
-// as stored (part tiles kPartA and kPartB bytes apart): every product of
-// parts, each over 4 k steps of 16; B has as many rows as d has columns
-template <typename T, int kPartA, int kPartB, int kN>
+// the descriptor offset (16-byte units) of k step ks (16 columns of d) in
+// a tile of 64-column boxes kBox bytes apart: 4 steps of 32 bytes per box
+template <int kBox>
+__device__ __forceinline__ uint64_t k_step(int ks) {
+  return (ks >> 2) * (kBox >> 4) + 2 * (ks & 3);
+}
+
+// d = A B^T over d (16 kKs wide), A and B [row][d] operand tiles read
+// K-major as stored (part tiles kPartA and kPartB bytes apart, their
+// 64-column boxes kBoxA and kBoxB): every product of parts, each over kKs
+// k steps of 16; B has as many rows as d has columns
+template <typename T, int kPartA, int kPartB, int kBoxA, int kBoxB, int kKs, int kN>
 __device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b) {
 #pragma unroll
   for (int i = 0; i < kTerms<T>; ++i) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + 2 * ks,
-               b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
+    for (int ks = 0; ks < kKs; ++ks) {
+      wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + k_step<kBoxA>(ks),
+               b + term_b(kTerms<T>, i) * (kPartB >> 4) + k_step<kBoxB>(ks), i + ks);
     }
   }
 }
 
-// the same with A (64 x 64 over d) in registers, one set of fragments per
-// part (4 k steps of 16), and d 64 x 64
-template <typename T, int kPartB>
-__device__ __forceinline__ void wgmma_by_rows_rs(float (&d)[32],
-                                                 const uint32_t (&a)[kParts<T>][4][4], uint64_t b) {
+// the same with A (64 rows over d) in registers, one set of fragments per
+// part (kKs k steps of 16), and d 64 x 64 or 64 x 32
+template <typename T, int kPartB, int kBoxB, int kKs, int kN>
+__device__ __forceinline__ void wgmma_by_rows_rs(float (&d)[kN],
+                                                 const uint32_t (&a)[kParts<T>][kKs][4],
+                                                 uint64_t b) {
 #pragma unroll
   for (int i = 0; i < kTerms<T>; ++i) {
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
-      wgmma_m64n64k16_rs(d, a[term_a(kTerms<T>, i)][ks],
-                         b + term_b(kTerms<T>, i) * (kPartB >> 4) + 2 * ks, i + ks);
+    for (int ks = 0; ks < kKs; ++ks) {
+      wgmma_rs(d, a[term_a(kTerms<T>, i)][ks],
+               b + term_b(kTerms<T>, i) * (kPartB >> 4) + k_step<kBoxB>(ks), i + ks);
     }
   }
 }
@@ -389,18 +418,22 @@ __device__ __forceinline__ void wgmma_by_cols(float (&d)[32],
   }
 }
 
-// rows [r0, r0 + rows) of an operand into dst, part by part (part p of
-// batch b is batch p B + b of the operand's map; part tiles `part` bytes
-// apart), in boxes of kBoxRows rows (one thread)
-template <int kParts_, int kBoxRows>
+// rows [r0, r0 + rows) of an operand of kD columns into dst, part by part
+// (part p of batch b is batch p B + b of the operand's map; part tiles
+// `part` bytes apart), each part's 64-column boxes rows x 128 bytes apart,
+// in boxes of kBoxRows rows (one thread)
+template <int kParts_, int kBoxRows, int kD>
 __device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map,
                                              uint64_t* bar, int r0, int rows, int part, int h,
                                              int b) {
 #pragma unroll
   for (int p = 0; p < kParts_; ++p) {
-    for (int rb = 0; rb < rows; rb += kBoxRows) {
-      tma_load_4d(dst + p * part + rb * 128, map, bar, 0, r0 + rb, h,
-                  p * static_cast<int>(gridDim.z) + b);
+#pragma unroll
+    for (int db = 0; db < kD / kDBox; ++db) {
+      for (int rb = 0; rb < rows; rb += kBoxRows) {
+        tma_load_4d(dst + p * part + db * rows * 128 + rb * 128, map, bar, db * kDBox, r0 + rb,
+                    h, p * static_cast<int>(gridDim.z) + b);
+      }
     }
   }
 }
@@ -415,32 +448,47 @@ constexpr int kFwdStages = 2;        // depth of the shared-memory ring
 constexpr int kFwdRows = 128;        // query rows per CTA: 2 consumer warpgroups of 64
 constexpr int kFwdConsumers = 256;   // threads of the two consumer warpgroups
 constexpr int kFwdThreads = kFwdConsumers + 32;  // and one producer warp
-constexpr int kPartTile = 64 * 128;  // 64 rows of one bf16 part: 128-byte rows
 
-// a 64-row x 64-column tile of T as TMA writes it: one box of 128-byte rows
-// in bf16, two (32 columns each, 8 KB apart) in f32
-template <typename T>
+// a 64-row x kCols-column tile of T as TMA writes it: boxes of 128-byte
+// rows (64 bf16 or 32 f32 columns), 8 KB apart
+template <typename T, int kCols = 64>
 struct Tile {
   static constexpr int kBoxCols = 128 / static_cast<int>(sizeof(T));
-  static constexpr int kBoxes = 64 / kBoxCols;
-  static constexpr int kBytes = 64 * 64 * static_cast<int>(sizeof(T));
+  static constexpr int kBoxes = kCols / kBoxCols;
+  static constexpr int kBytes = 64 * kCols * static_cast<int>(sizeof(T));
+};
+
+// the forward's key blocks and occupancy by operand type and head dim: kW
+// keys per block; 32 for f32 operands at 128, whose 64-key stages would
+// not fit (321 KB); kQParts: q read as its three bf16 parts (from the
+// pre-pass) instead of as f32 split in registers, f32 at 128
+template <typename T, int kD>
+struct FwdTiling {
+  static constexpr int kW = kIsF32<T> && kD == 128 ? 32 : 64;
+  static constexpr int kCtas = kIsF32<T> || kD == 128 ? 1 : 2;  // CTAs per SM the ring allows
+  static constexpr bool kQParts = kIsF32<T> && kD == 128;
 };
 
 // q (both warpgroups' rows, as loaded: T), then the ring; each stage k, v
 // (every part: kOpTile) and the two warpgroups' bias tiles, or with a built
-// bias the key block's vectors (64 int4); 1 KB for alignment. bf16
-// throughout: 81 KB, two CTAs per SM; f32 operands: 193 KB with an f32
-// bias, 161 KB with a bf16 one, one. A built bias: bf16 51 KB, f32 131 KB,
-// then the expanded tables (built_tables_bytes, 5 KB at the default
-// distances)
-template <typename T, typename BiasT, bool kBuilt = false>
+// bias the key block's vectors (kW int4); 1 KB for alignment. At 64: bf16
+// throughout 81 KB, two CTAs per SM; f32 operands 193 KB with an f32 bias,
+// 161 KB with a bf16 one, one; a built bias bf16 51 KB, f32 131 KB, then
+// the expanded tables (built_tables_bytes, 5 KB at the default distances).
+// At 128 (one CTA): bf16 129 KB, f32 225 KB (q's parts, 32-key blocks),
+// built 98 and 195 KB
+template <typename T, typename BiasT, int kD, bool kBuilt = false>
 struct FwdSmem {
-  static constexpr int kQTile = Tile<T>::kBytes;
+  static constexpr int kW = FwdTiling<T, kD>::kW;
+  static constexpr int kQPart = 64 * kD * 2;  // 64 rows of one bf16 part of q
+  static constexpr int kQTile = FwdTiling<T, kD>::kQParts ? 3 * kQPart : Tile<T, kD>::kBytes;
+  static constexpr int kPartTile = kW * kD * 2;  // kW rows of one bf16 part
   static constexpr int kOpTile = kParts<T> * kPartTile;
   static constexpr int kQ = 2 * kQTile;
-  static constexpr int kBias = kBuilt ? kBK * 16 : 2 * Tile<BiasT>::kBytes;
+  static constexpr int kBias = kBuilt ? kW * 16 : 2 * 64 * kW * static_cast<int>(sizeof(BiasT));
   static constexpr int kStage = 2 * kOpTile + kBias;
   static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage;
+  static_assert(kBuilt || Tile<BiasT, kW>::kBoxes >= 1, "a bias tile is whole boxes");
 };
 
 // a bias built on chip (fused_bias_attention): the (B, S) int32 vectors,
@@ -489,10 +537,11 @@ __device__ void build_tables(float* e, const BuiltBias& bb, int h, int H, int ti
 // pos, x0, y1 and the mask's term (the bits of 0.0f, or of -1e30f where the
 // key is masked); keys >= S as zeros, masked. One lane per key, plain loads
 // (a (B, S) row need not be 16-byte aligned for a bulk copy)
+template <int kW>
 __device__ __forceinline__ void stage_key_vectors(int4* dst, const BuiltBias& bb, int b, int S,
                                                   int k0, int lane) {
 #pragma unroll
-  for (int c = lane; c < kBK; c += 32) {
+  for (int c = lane; c < kW; c += 32) {
     const int j = k0 + c;
     int4 e = make_int4(0, 0, 0, __float_as_int(-1e30f));
     if (j < S) {
@@ -543,36 +592,35 @@ __device__ __forceinline__ float sw32(const float* tile, int r, int c, int box =
                                          4 * (c & 3));
 }
 
-template <typename T>
-struct FwdOccupancy {
-  static constexpr int kCtas = kIsF32<T> ? 1 : 2;  // CTAs per SM the ring allows
-};
-
 // One CTA per (128-row q tile, head, batch): warps 0-7 are two consumer
 // warpgroups of 64 rows, warp 8 the producer. The producer loads q once and
-// then streams each 64-key block's k, v and bias tiles into a ring of
+// then streams each kW-key block's k, v and bias tiles into a ring of
 // kFwdStages stages by TMA (in f32 every part of the k and v tiles; with a
 // built bias its lanes write the block's key vectors instead); the
 // consumers wait for a stage, run S = q k^T (wgmma, K-major as stored: bf16
 // q from shared memory; f32 q, split once into three parts, from
 // registers), the online softmax in registers, O += P v with P in wgmma's A
 // registers (rounded to bf16, or split into three parts) and v read
-// [key][d] as an MN-major B, and release the stage. A warpgroup whose rows
-// all lie at or past S only writes their lse (+inf), and nothing without
-// kLse. With kBuilt (no dropout, no lse) the bias comes from `bb`, not the
-// bias map.
-template <typename T, typename BiasT, bool kDropout, bool kLse, bool kBuilt>
-__global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kernel(
+// [key][d] as an MN-major B (once per 64 columns of d), and release the
+// stage. A warpgroup whose rows all lie at or past S only writes their lse
+// (+inf), and nothing without kLse. With kBuilt (no dropout, no lse) the
+// bias comes from `bb`, not the bias map.
+template <typename T, typename BiasT, int kD, bool kDropout, bool kLse, bool kBuilt>
+__global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_kernel(
     const __grid_constant__ FwdMaps maps,
     T* __restrict__ o,        // (B, H, S, D) by strides
     float* __restrict__ lse,  // (B, H, P), or null without kLse
     Strides so, int S, int H, int P, float scale, int seed, float keep, float inv_keep,
     const __grid_constant__ BuiltBias bb) {
-  using Smem = FwdSmem<T, BiasT, kBuilt>;
+  using Smem = FwdSmem<T, BiasT, kD, kBuilt>;
   static_assert(!kBuilt || (!kDropout && !kLse), "a built bias serves inference only");
+  constexpr int kW = Smem::kW;     // keys per block
+  constexpr int kN = kW / 2;       // score accumulators per thread
+  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
   constexpr int kQTile = Smem::kQTile;
+  constexpr int kPartTile = Smem::kPartTile;
   constexpr int kOpTile = Smem::kOpTile;
-  constexpr int kBias = Tile<BiasT>::kBytes;
+  constexpr int kBias = 64 * kW * static_cast<int>(sizeof(BiasT));
   constexpr int kQBytes = Smem::kQ;
   constexpr int kStage = Smem::kStage;
   extern __shared__ uint8_t fwd_smem_raw[];
@@ -594,7 +642,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
     }
     return;
   }
-  const int n_kb = (S + kBK - 1) / kBK;
+  const int n_kb = (S + kW - 1) / kW;
   if (threadIdx.x == 0) {
     for (int s = 0; s < kFwdStages; ++s) {
       mbar_init(&full_bar[s], 1);
@@ -617,10 +665,15 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       if constexpr (!kBuilt) tma_prefetch_map(&maps.bias);
       mbar_expect_tx(&q_bar, n_live * kQTile);
       for (int w = 0; w < n_live; ++w) {
+        if constexpr (FwdTiling<T, kD>::kQParts) {
+          load_operand<3, 64, kD>(smem + w * kQTile, &maps.q, &q_bar, q0 + 64 * w, 64,
+                                  Smem::kQPart, h, b);
+        } else {
 #pragma unroll
-        for (int c = 0; c < Tile<T>::kBoxes; ++c) {
-          tma_load_4d(smem + w * kQTile + c * 8192, &maps.q, &q_bar, c * Tile<T>::kBoxCols,
-                      q0 + 64 * w, h, b);
+          for (int c = 0; c < Tile<T, kD>::kBoxes; ++c) {
+            tma_load_4d(smem + w * kQTile + c * 8192, &maps.q, &q_bar, c * Tile<T>::kBoxCols,
+                        q0 + 64 * w, h, b);
+          }
         }
       }
     }
@@ -631,19 +684,21 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       uint8_t* st = smem + kQBytes + stage * kStage;
       uint64_t* bar = &full_bar[stage];
       if constexpr (kBuilt) {  // visible to the consumers through lane 0's arrival
-        stage_key_vectors(reinterpret_cast<int4*>(st + 2 * kOpTile), bb, b, S, kb * kBK, lane);
+        stage_key_vectors<kW>(reinterpret_cast<int4*>(st + 2 * kOpTile), bb, b, S, kb * kW,
+                              lane);
         __syncwarp();
       }
       if (lane == 0) {
         mbar_expect_tx(bar, stage_tx);
-        load_operand<kParts<T>, 64>(st, &maps.k, bar, kb * kBK, 64, kPartTile, h, b);
-        load_operand<kParts<T>, 64>(st + kOpTile, &maps.v, bar, kb * kBK, 64, kPartTile, h, b);
+        load_operand<kParts<T>, kW, kD>(st, &maps.k, bar, kb * kW, kW, kPartTile, h, b);
+        load_operand<kParts<T>, kW, kD>(st + kOpTile, &maps.v, bar, kb * kW, kW, kPartTile, h,
+                                        b);
         if constexpr (!kBuilt) {
           for (int w = 0; w < n_live; ++w) {
 #pragma unroll
-            for (int c = 0; c < Tile<BiasT>::kBoxes; ++c) {
+            for (int c = 0; c < Tile<BiasT, kW>::kBoxes; ++c) {
               tma_load_2d(st + 2 * kOpTile + w * kBias + c * 8192, &maps.bias, bar,
-                          kb * kBK + c * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
+                          kb * kW + c * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
             }
           }
         }
@@ -690,25 +745,34 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   }
 
   // accumulator fragment (nt, e) at 4 nt + e: row g + 8 (e >> 1), column
-  // 8 nt + 2t + (e & 1), as mma.sync's n-tiles lay it out
-  float acc[32], s[32];
+  // 8 nt + 2t + (e & 1), as mma.sync's n-tiles lay it out; acc[db] holds d
+  // columns 64 db ..
+  float acc[kDH][32], s[kN];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) acc[i] = s[i] = 0.0f;
+  for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[db][i] = 0.0f;
+  }
+#pragma unroll
+  for (int i = 0; i < kN; ++i) s[i] = 0.0f;
   float m_run[2] = {-INFINITY, -INFINITY};
   float l_run[2] = {0.0f, 0.0f};
   // K-major q and k (part) tiles, 8-row atoms 1 KB apart, a 16-wide k step
-  // 32 bytes on; MN-major v: the same atoms, a 16-key k step 2 KB on
+  // 32 bytes on, a 64-column box a tile's rows x 128 bytes on; MN-major v:
+  // the same atoms, a 16-key k step 2 KB on
   const uint64_t q_desc = wgmma_desc(smem + wg * kQTile, 16, 1024);
   mbar_wait(&q_bar, 0);
-  // f32: this warp's q rows split into three parts of wgmma's A registers
-  // once (A register j of k step ks holds row lr[j % 2], columns 16 ks +
-  // 8 (j / 2) + 2t, +1), so the score products read only k from shared
-  // memory, and the pre-pass splits only k and v
-  uint32_t qa[kParts<T>][4][4];
-  if constexpr (kIsF32<T>) {
+  // f32 at 64: this warp's q rows split into three parts of wgmma's A
+  // registers once (A register j of k step ks holds row lr[j % 2], columns
+  // 16 ks + 8 (j / 2) + 2t, +1), so the score products read only k from
+  // shared memory, and the pre-pass splits only k and v; at 128 q's parts
+  // come from the pre-pass (kQParts) and the products read them as k's
+  constexpr bool kQInRegs = kIsF32<T> && !FwdTiling<T, kD>::kQParts;
+  uint32_t qa[kQInRegs ? 3 : 1][kQInRegs ? 4 * kDH : 1][4];
+  if constexpr (kQInRegs) {
     const float* q_tile = reinterpret_cast<const float*>(smem + wg * kQTile);
 #pragma unroll
-    for (int ks = 0; ks < 4; ++ks) {
+    for (int ks = 0; ks < 4 * kDH; ++ks) {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const float2 x = bias_pair(q_tile, lr[j & 1], 2 * ks + (j >> 1), t);
@@ -720,14 +784,14 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
   // Each block's O += P v runs while the next block's stage is waited for
   // and its S = q k^T is issued: the P v group is waited for (and its stage
   // released) only before the accumulators are rescaled.
-  uint32_t pa[kParts<T>][4][4];  // P of the block in flight, wgmma's A registers
+  uint32_t pa[kParts<T>][kW / 16][4];  // P of the block in flight, wgmma's A registers
   for (int kb = 0; kb < n_kb; ++kb) {
-    const int k0 = kb * kBK;
+    const int k0 = kb * kW;
     const int stage = kb % kFwdStages;
     uint32_t kept = 0;  // the dropout mask of this block, made while its loads fly
     if constexpr (kDropout) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN; ++i) {
         const int col = k0 + (i >> 2) * 8 + 2 * t + (i & 1);
         kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
       }
@@ -738,10 +802,11 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
 
     // S = q k^T over d
     wgmma_fence();
-    if constexpr (kIsF32<T>) {
-      wgmma_by_rows_rs<T, kPartTile>(s, qa, wgmma_desc(st, 16, 1024));
-    } else {
-      wgmma_by_rows<T, kPartTile, kPartTile>(s, q_desc, wgmma_desc(st, 16, 1024));
+    if constexpr (kQInRegs) {
+      wgmma_by_rows_rs<T, kPartTile, kW * 128, 4 * kDH>(s, qa, wgmma_desc(st, 16, 1024));
+    } else {  // bf16 q, or q's parts (Smem::kQPart apart)
+      wgmma_by_rows<T, Smem::kQPart, kPartTile, 8192, kW * 128, 4 * kDH>(
+          s, q_desc, wgmma_desc(st, 16, 1024));
     }
     wgmma_commit();
     if (kb > 0) {  // the previous block's P v is done: release its stage
@@ -764,7 +829,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       const float* ex = e1 + n1;
       const float* ey = ex + n2;
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kW / 8; ++nt) {
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
           const int4 kv = keys[8 * nt + 2 * t + c];
@@ -780,7 +845,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       }
     } else {
 #pragma unroll
-      for (int nt = 0; nt < 8; ++nt) {
+      for (int nt = 0; nt < kW / 8; ++nt) {
 #pragma unroll
         for (int r = 0; r < 2; ++r) {
           const float2 bv2 = bias_pair(bias_tile, lr[r], nt, t);
@@ -789,16 +854,16 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
         }
       }
     }
-    if (k0 + kBK > S) {
+    if (k0 + kW > S) {
 #pragma unroll
-      for (int i = 0; i < 32; ++i) {
+      for (int i = 0; i < kN; ++i) {
         if (k0 + (i >> 2) * 8 + 2 * t + (i & 1) >= S) s[i] = -INFINITY;
       }
     }
     // running row max
     float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int i = 0; i < 32; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
+    for (int i = 0; i < kN; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], s[i]);
     float m_use[2], alpha[2];
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -811,7 +876,7 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
     }
     float rs[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
+    for (int nt = 0; nt < kW / 8; ++nt) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float p = expf(s[4 * nt + e] - m_use[e >> 1]);
@@ -827,19 +892,26 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
       l_run[r] = l_run[r] * alpha[r] + rs[r];
     }
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      acc[4 * dt + 0] *= alpha[0];
-      acc[4 * dt + 1] *= alpha[0];
-      acc[4 * dt + 2] *= alpha[1];
-      acc[4 * dt + 3] *= alpha[1];
+    for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        acc[db][4 * dt + 0] *= alpha[0];
+        acc[db][4 * dt + 1] *= alpha[0];
+        acc[db][4 * dt + 2] *= alpha[1];
+        acc[db][4 * dt + 3] *= alpha[1];
+      }
     }
 
     // O += P v: the score accumulators (rounded to bf16, or split into
     // three parts) are wgmma's A registers; v is read [key][d] as a
-    // transposed (MN-major) B
+    // transposed (MN-major) B, one product per 64 columns of d
     to_a(pa, s);
     wgmma_fence();
-    wgmma_by_cols<T, kPartTile, 4>(acc, pa, wgmma_desc(st + kOpTile, 16, 1024));
+#pragma unroll
+    for (int db = 0; db < kDH; ++db) {
+      wgmma_by_cols<T, kPartTile, kW / 16>(
+          acc[db], pa, wgmma_desc(st + kOpTile + db * kW * 128, 16, 1024));
+    }
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -856,8 +928,12 @@ __global__ void __launch_bounds__(kFwdThreads, FwdOccupancy<T>::kCtas) fwd_kerne
     const float inv = 1.0f / l_run[r];
     T* orow = o + b * so.b + h * so.h + row[r] * so.s;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      store_pair(orow + dt * 8 + 2 * t, acc[4 * dt + 2 * r] * inv, acc[4 * dt + 2 * r + 1] * inv);
+    for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        store_pair(orow + db * kDBox + dt * 8 + 2 * t, acc[db][4 * dt + 2 * r] * inv,
+                   acc[db][4 * dt + 2 * r + 1] * inv);
+      }
     }
   }
 }
@@ -867,12 +943,12 @@ constexpr CUtensorMapDataType kMapType =
     kIsF32<T> ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
 
 // the tensor map of a (B, H, rows, D) operand at its element strides,
-// boxes of `box_rows` rows
+// boxes of `box_rows` rows and 128 bytes of columns
 template <typename T>
-int encode_operand(CUtensorMap* map, const T* x, const Strides& st, int rows, int H, int B,
-                   int box_rows = 64) {
-  const cuuint64_t dims[4] = {kD, static_cast<cuuint64_t>(rows), static_cast<cuuint64_t>(H),
-                              static_cast<cuuint64_t>(B)};
+int encode_operand(CUtensorMap* map, const T* x, const Strides& st, int D, int rows, int H,
+                   int B, int box_rows = 64) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(H), static_cast<cuuint64_t>(B)};
   const cuuint64_t strides[3] = {static_cast<cuuint64_t>(st.s) * sizeof(T),
                                  static_cast<cuuint64_t>(st.h) * sizeof(T),
                                  static_cast<cuuint64_t>(st.b) * sizeof(T)};
@@ -891,22 +967,22 @@ int encode_plane(CUtensorMap* map, const void* x, int B, int H, int P, int rows 
   return encode_map(map, kMapType<BiasT>, 2, x, dims, strides, box);
 }
 
-// the map of one operand's split parts, a contiguous (3 B, H, S, 64) bf16
+// the map of one operand's split parts, a contiguous (3 B, H, S, D) bf16
 // tensor (part p of batch b is batch p B + b), boxes of `box_rows` rows
-int encode_parts(CUtensorMap* map, const bf16* parts, int B, int H, int S, int box_rows) {
-  const Strides cs{static_cast<long long>(H) * S * kD, static_cast<long long>(S) * kD, kD};
-  return encode_operand(map, parts, cs, S, H, 3 * B, box_rows);
+int encode_parts(CUtensorMap* map, const bf16* parts, int B, int H, int S, int D, int box_rows) {
+  const Strides cs{static_cast<long long>(H) * S * D, static_cast<long long>(S) * D, D};
+  return encode_operand(map, parts, cs, D, S, H, 3 * B, box_rows);
 }
 
 // the forward over a (P rows)-high grid of 128-row tiles; with kBuilt the
 // bias from `bb` (its expanded tables after the ring), else from maps.bias
-template <typename T, typename BiasT, bool kDropout, bool kLse, bool kBuilt = false>
+template <typename T, typename BiasT, int kD, bool kDropout, bool kLse, bool kBuilt = false>
 int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, int B, int S,
                       int H, int P, float scale, int seed, float keep, float inv_keep,
                       cudaStream_t st, const BuiltBias& bb = BuiltBias{}) {
-  constexpr int base = FwdSmem<T, BiasT, kBuilt>::kBytes;
+  constexpr int base = FwdSmem<T, BiasT, kD, kBuilt>::kBytes;
   const int smem = base + (kBuilt ? built_tables_bytes(bb.max1, bb.max2) : 0);
-  auto kernel = fwd_kernel<T, BiasT, kDropout, kLse, kBuilt>;
+  auto kernel = fwd_kernel<T, BiasT, kD, kDropout, kLse, kBuilt>;
   static std::atomic<uint64_t> ready{0};
   const int err = set_smem_limit_once(
       kernel, base + (kBuilt ? built_tables_bytes(kMaxDistance, kMaxDistance) : 0), ready);
@@ -917,48 +993,57 @@ int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, 
 }
 
 // the maps of q at its strides, and of k and v: at their strides in bf16;
-// in f32 of their split parts `kv_parts`, (2, 3, B, H, S, 64) bf16, which
-// the caller's split pre-pass wrote (the kernel reads f32 k and v only so)
-template <typename T>
+// in f32 of their split parts `kv_parts`, (2, 3, B, H, S, D) bf16, which
+// the caller's split pre-pass wrote (the kernel reads f32 k and v only so),
+// boxes of the forward's kW rows; f32 at 128 also q's parts, the third
+// operand of `kv_parts` ((3, 3, B, H, S, 128)), boxes of 64 rows
+template <typename T, int kD>
 int encode_qkv(FwdMaps* maps, const T* q, const T* k, const T* v, const bf16* kv_parts,
                const Strides& sq, const Strides& sk, const Strides& sv, int B, int S, int H) {
-  int err = encode_operand(&maps->q, q, sq, S, H, B);
+  constexpr int kW = FwdTiling<T, kD>::kW;
+  int err = 0;
   if constexpr (kIsF32<T>) {
     if (kv_parts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
     const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
-    if (err == 0) err = encode_parts(&maps->k, kv_parts, B, H, S, 64);
-    if (err == 0) err = encode_parts(&maps->v, kv_parts + n, B, H, S, 64);
+    if constexpr (FwdTiling<T, kD>::kQParts) {
+      err = encode_parts(&maps->q, kv_parts + 2 * n, B, H, S, kD, 64);
+    } else {
+      err = encode_operand(&maps->q, q, sq, kD, S, H, B);
+    }
+    if (err == 0) err = encode_parts(&maps->k, kv_parts, B, H, S, kD, kW);
+    if (err == 0) err = encode_parts(&maps->v, kv_parts + n, B, H, S, kD, kW);
   } else {
-    if (err == 0) err = encode_operand(&maps->k, k, sk, S, H, B);
-    if (err == 0) err = encode_operand(&maps->v, v, sv, S, H, B);
+    err = encode_operand(&maps->q, q, sq, kD, S, H, B);
+    if (err == 0) err = encode_operand(&maps->k, k, sk, kD, S, H, B, kW);
+    if (err == 0) err = encode_operand(&maps->v, v, sv, kD, S, H, B, kW);
   }
   return err;
 }
 
 // with_lse = 0 is flash_attention_packed: no dropout, no lse (lse unused)
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const void* bias, T* o,
                float* lse, const Strides& sq, const Strides& sk, const Strides& sv,
                const Strides& so, int B, int S, int H, int P, float scale, int seed, float keep,
                float inv_keep, int dropout, int with_lse, cudaStream_t st) {
   if (!with_lse && dropout) return static_cast<int>(cudaErrorInvalidValue);
   FwdMaps maps;
-  int err = encode_qkv<T>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
+  int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
   if (err == 0) err = encode_plane<BiasT>(&maps.bias, bias, B, H, P);
   if (err != 0) return err;
   if (!with_lse) {
-    return launch_fwd_kernel<T, BiasT, false, false>(maps, o, nullptr, so, B, S, H, P, scale,
-                                                     seed, keep, inv_keep, st);
+    return launch_fwd_kernel<T, BiasT, kD, false, false>(maps, o, nullptr, so, B, S, H, P, scale,
+                                                         seed, keep, inv_keep, st);
   }
-  return dropout ? launch_fwd_kernel<T, BiasT, true, true>(maps, o, lse, so, B, S, H, P, scale,
-                                                           seed, keep, inv_keep, st)
-                 : launch_fwd_kernel<T, BiasT, false, true>(maps, o, lse, so, B, S, H, P,
-                                                            scale, seed, keep, inv_keep, st);
+  return dropout ? launch_fwd_kernel<T, BiasT, kD, true, true>(maps, o, lse, so, B, S, H, P,
+                                                               scale, seed, keep, inv_keep, st)
+                 : launch_fwd_kernel<T, BiasT, kD, false, true>(maps, o, lse, so, B, S, H, P,
+                                                                scale, seed, keep, inv_keep, st);
 }
 
 // fused_bias_attention: the forward without lse or dropout, its bias built
 // on chip from `bb` and rounded to T, the operands' type
-template <typename T>
+template <typename T, int kD>
 int launch_fused(const T* q, const T* k, const T* v, const bf16* kv_parts, T* o,
                  const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
                  const BuiltBias& bb, int B, int S, int H, float scale, cudaStream_t st) {
@@ -967,17 +1052,38 @@ int launch_fused(const T* q, const T* k, const T* v, const bf16* kv_parts, T* o,
   }
   FwdMaps maps;
   memset(&maps, 0, sizeof(maps));  // no bias map
-  const int err = encode_qkv<T>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
+  const int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
   if (err != 0) return err;
-  return launch_fwd_kernel<T, T, false, false, true>(maps, o, nullptr, so, B, S, H, S, scale, 0,
-                                                     1.0f, 1.0f, st, bb);
+  return launch_fwd_kernel<T, T, kD, false, false, true>(maps, o, nullptr, so, B, S, H, S, scale,
+                                                         0, 1.0f, 1.0f, st, bb);
 }
 
-// calls fn(T{}, BiasT{}) with the operand and bias types the flags name
+// calls fn(std::integral_constant<int, kD>{}) for a head dim the kernels
+// take (64 or 128); any other is cudaErrorInvalidValue
 template <typename Fn>
-int by_types(int qkv_is_bf16, int bias_is_bf16, Fn&& fn) {
-  if (qkv_is_bf16) return bias_is_bf16 ? fn(bf16{}, bf16{}) : fn(bf16{}, 0.0f);
-  return bias_is_bf16 ? fn(0.0f, bf16{}) : fn(0.0f, 0.0f);
+int by_dim(int D, Fn&& fn) {
+  if (D == 64) return fn(std::integral_constant<int, 64>{});
+  if (D == 128) return fn(std::integral_constant<int, 128>{});
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// calls fn(T{}, BiasT{}, std::integral_constant<int, kD>{}) with the
+// operand and bias types the flags name and the head dim D. f32 operands at
+// 128 take an f32 bias only (their wrappers widen a bf16 one)
+template <typename Fn>
+int by_types(int qkv_is_bf16, int bias_is_bf16, int D, Fn&& fn) {
+  return by_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    auto call = [&](auto t, auto bt) -> int {
+      if constexpr (kIsF32<decltype(t)> && !kIsF32<decltype(bt)> && kD == 128) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        return fn(t, bt, d);
+      }
+    };
+    if (qkv_is_bf16) return bias_is_bf16 ? call(bf16{}, bf16{}) : call(bf16{}, 0.0f);
+    return bias_is_bf16 ? call(0.0f, bf16{}) : call(0.0f, 0.0f);
+  });
 }
 
 // calls fn(std::integral_constant<bool, on>{}) for a runtime flag
@@ -1010,15 +1116,24 @@ constexpr int kBwdThreads = 128;  // one warpgroup, which also issues the copies
 // gbias tiles it holds one CTA per SM at either width (128 KB at 32), and
 // 64-wide blocks halve its blocks (0.91 ms against 1.04 at 32). f32
 // operands with a bf16 bias keep 64-wide blocks, one CTA per SM.
-template <typename T, typename BiasT, bool kChained>
+// At a head dim of 128 the accumulators of d double: (B) streams 32-wide
+// blocks (its dk and dv take 128 registers a thread), and with f32
+// operands (A) does too (their parts fill 224 KB chained at 32 wide); one
+// CTA per SM with f32 operands, two with bf16 ones (at 255 registers).
+template <typename T, typename BiasT, bool kChained, int kD = 64>
 struct BwdTiling {
   static constexpr bool kNarrow = kIsF32<T> && kIsF32<BiasT>;
-  static constexpr int kW = kNarrow && !kChained ? 32 : 64;  // streamed rows per block
-  static constexpr int kCtas = kIsF32<T> ? (kNarrow && !kChained ? 2 : 1) : 3;
-  // rows of the operand maps' and the bias maps' boxes: 32 in f32, so a
-  // 32-row tile is one box and a 64-row tile two
-  static constexpr int kOpBoxRows = kIsF32<T> ? 32 : 64;
-  static constexpr int kBiasBoxRows = kNarrow ? 32 : 64;
+  // streamed rows per block of (A) (kChained as given) and of (B)
+  static constexpr int kWDq = kD == 128 ? (kIsF32<T> ? 32 : 64) : (kNarrow && !kChained ? 32 : 64);
+  static constexpr int kWDkv = kD == 128 || kNarrow ? 32 : 64;
+  static constexpr int kCtas =
+      kD == 128 ? (kIsF32<T> ? 1 : 2) : kIsF32<T> ? (kNarrow && !kChained ? 2 : 1) : 3;
+  // rows of the operand maps' and the bias maps' boxes: 32 in f32 and at
+  // 128, so a 32-row tile is one box and a 64-row tile two
+  static constexpr int kOpBoxRows = kIsF32<T> || kD == 128 ? 32 : 64;
+  static constexpr int kBiasBoxRows = kNarrow || kD == 128 ? 32 : 64;
+  static_assert(kD == 64 || kIsF32<T> == kIsF32<BiasT> || !kIsF32<T>,
+                "f32 operands at 128 take an f32 bias");
 };
 
 // q, k, v, do as (D, rows, H, B) maps by their strides (f32: of their split
@@ -1043,13 +1158,14 @@ struct BwdStrides {
 // this CTA's 64 x kW tiles of the bias (and gbias when chained), the latter
 // also the staging tile of dbias; then delta of the 64 rows and the
 // barriers. bf16: 64 KB plain, three CTAs per SM; 80 KB chained, two. f32
-// (f32 bias): 112 KB plain, two; 208 KB chained (64 wide), one
-template <typename T, typename BiasT, bool kChained>
+// (f32 bias): 112 KB plain, two; 208 KB chained (64 wide), one. At 128:
+// bf16 112 KB plain, 128 KB chained; f32 208 KB plain, 224 KB chained
+template <typename T, typename BiasT, bool kChained, int kD = 64>
 struct DqSmem {
-  using Tiling = BwdTiling<T, BiasT, kChained>;
-  static constexpr int kW = Tiling::kW;
-  static constexpr int kPart = 64 * 128;        // a 64-row part tile
-  static constexpr int kStreamPart = kW * 128;  // a kW-row part tile
+  using Tiling = BwdTiling<T, BiasT, kChained, kD>;
+  static constexpr int kW = Tiling::kWDq;
+  static constexpr int kPart = 64 * kD * 2;        // a 64-row part tile
+  static constexpr int kStreamPart = kW * kD * 2;  // a kW-row part tile
   static constexpr int kTile = kParts<T> * kPart;
   static constexpr int kStreamTile = kParts<T> * kStreamPart;
   static constexpr int kBias = 64 * kW * static_cast<int>(sizeof(BiasT));
@@ -1059,6 +1175,9 @@ struct DqSmem {
   static constexpr int kBarOff = kDeltaOff + 64 * 4;  // full, empty, then q's barrier
   static constexpr int kBytes = kBarOff + (2 * kDqStages + 1) * 8;
   static constexpr int kTabOff = (kBytes + 15) & ~15;  // the tables mode's region
+  // the tables mode's histogram in global memory (after the partials): f32
+  // operands at 128 leave no room for it
+  static constexpr bool kGlobalHist = kIsF32<T> && kD == 128;
 };
 
 // the tables mode of (A): the (B, S) bucket vectors (positions, x0, y1),
@@ -1093,13 +1212,13 @@ __host__ __device__ constexpr int tables_bytes(int n_bins, int kw, int max1, int
 // (B): k and v (64 rows), then the ring: each stage q, do (kW rows) and the
 // bias tile [query][key] of this CTA's keys; then each stage's kW lse and
 // kW delta values, and the barriers. bf16: 65 KB, three CTAs per SM; f32
-// (f32 bias): 113 KB, two
-template <typename T, typename BiasT>
+// (f32 bias): 113 KB, two. At 128: bf16 81 KB, f32 209 KB
+template <typename T, typename BiasT, int kD = 64>
 struct DkvSmem {
-  using Tiling = BwdTiling<T, BiasT, false>;
-  static constexpr int kW = Tiling::kW;
-  static constexpr int kPart = 64 * 128;
-  static constexpr int kStreamPart = kW * 128;
+  using Tiling = BwdTiling<T, BiasT, false, kD>;
+  static constexpr int kW = Tiling::kWDkv;
+  static constexpr int kPart = 64 * kD * 2;
+  static constexpr int kStreamPart = kW * kD * 2;
   static constexpr int kTile = kParts<T> * kPart;
   static constexpr int kStreamTile = kParts<T> * kStreamPart;
   static constexpr int kBias = kW * 64 * static_cast<int>(sizeof(BiasT));
@@ -1146,25 +1265,30 @@ __device__ __forceinline__ uint32_t pairs_t_addr(const bf16* tile, int warp, int
   const int query = 8 * (2 * j + (m >> 1)) + q8;
   return smem_addr(tile) + query * 128 + (((2 * warp + (m & 1)) ^ q8) << 4);
 }
-// 64 x 64 wgmma accumulators, times `mul`, stored as T at the rows < S of
-// a plane with row stride `rs`; row0 is the warpgroup's first row
-template <typename T>
-__device__ __forceinline__ void store_acc(T* plane, const float (&acc)[32], int row0, int lr0,
-                                          int S, long long rs, float mul, int t) {
+// 64 x 64 D wgmma accumulators (one set per 64 columns), times `mul`,
+// stored as T at the rows < S of a plane with row stride `rs`; row0 is the
+// warpgroup's first row
+template <typename T, int kDH>
+__device__ __forceinline__ void store_acc(T* plane, const float (&acc)[kDH][32], int row0,
+                                          int lr0, int S, long long rs, float mul, int t) {
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + lr0 + 8 * r;
     if (row >= S) continue;
     T* orow = plane + row * rs;
 #pragma unroll
-    for (int dt = 0; dt < 8; ++dt) {
-      store_pair(orow + dt * 8 + 2 * t, acc[4 * dt + 2 * r] * mul, acc[4 * dt + 2 * r + 1] * mul);
+    for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+      for (int dt = 0; dt < 8; ++dt) {
+        store_pair(orow + db * kDBox + dt * 8 + 2 * t, acc[db][4 * dt + 2 * r] * mul,
+                   acc[db][4 * dt + 2 * r + 1] * mul);
+      }
     }
   }
 }
 
 // delta[i] = sum_d do[i, d] * o[i, d] in f32 for row i of a (b, h) plane
-template <typename T>
+template <typename T, int kD>
 __device__ __forceinline__ float row_delta(const T* dr, const T* orow) {
   constexpr int kVec = 16 / static_cast<int>(sizeof(T));
   float acc = 0.0f;
@@ -1208,8 +1332,9 @@ __device__ __forceinline__ void load_plane_tile(uint8_t* dst, const CUtensorMap*
 // products queue behind that product, and its mask bits are made while
 // both run. kTables is the tables backward's (A'): keys < S only, no dbias,
 // each block's ds summed into the CTA's table histogram (see walk below).
-template <typename T, typename BiasT, bool kDropout, bool kChained, bool kTables>
-__global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT, kChained>::kCtas))
+template <typename T, typename BiasT, int kD, bool kDropout, bool kChained, bool kTables>
+__global__ void __launch_bounds__(kBwdThreads,
+                                  (kTables ? 1 : BwdTiling<T, BiasT, kChained, kD>::kCtas))
     bwd_dq_kernel(const __grid_constant__ BwdMaps maps,
                   const T* __restrict__ dout, const T* __restrict__ o,  // delta's inputs
                   const float* __restrict__ lse,  // (B, H, P)
@@ -1218,9 +1343,10 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
                   Strides sdo, Strides so, Strides sdq, int S, int H, int P, float scale,
                   int seed, float keep, float inv_keep, const TablesArgs tab) {
   static_assert(!(kTables && kChained), "the tables mode reads no gbias");
-  using Smem = DqSmem<T, BiasT, kChained>;
-  using Tiling = BwdTiling<T, BiasT, kChained>;
+  using Smem = DqSmem<T, BiasT, kChained, kD>;
+  using Tiling = BwdTiling<T, BiasT, kChained, kD>;
   constexpr int kW = Smem::kW;
+  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
   constexpr int kN = kW / 2;  // accumulators of a 64 x kW block per thread
   constexpr int kTile = Smem::kTile;
   constexpr int kStreamTile = Smem::kStreamTile;
@@ -1254,10 +1380,10 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
     const bool live = q0 < S && kb * kW < S;
     mbar_expect_tx(bar, (live ? 2 * kStreamTile + kBias : 0) + (kChained ? kBias : 0));
     if (live) {
-      load_operand<kParts<T>, Tiling::kOpBoxRows>(st, &maps.k, bar, kb * kW, kW,
-                                                   Smem::kStreamPart, h, b);
-      load_operand<kParts<T>, Tiling::kOpBoxRows>(st + kStreamTile, &maps.v, bar, kb * kW, kW,
-                                                   Smem::kStreamPart, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(st, &maps.k, bar, kb * kW, kW,
+                                                       Smem::kStreamPart, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(st + kStreamTile, &maps.v, bar, kb * kW,
+                                                       kW, Smem::kStreamPart, h, b);
       load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar,
                                                    kb * kW, plane * P + q0, 64, kW);
     }
@@ -1281,10 +1407,10 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
     if constexpr (kChained) tma_prefetch_map(&maps.gbias);
     mbar_expect_tx(q_bar, q0 < S ? 2 * kTile : 0);
     if (q0 < S) {
-      load_operand<kParts<T>, Tiling::kOpBoxRows>(smem, &maps.q, q_bar, q0, 64, Smem::kPart, h,
-                                                   b);
-      load_operand<kParts<T>, Tiling::kOpBoxRows>(smem + kTile, &maps.dout, q_bar, q0, 64,
-                                                   Smem::kPart, h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem, &maps.q, q_bar, q0, 64, Smem::kPart,
+                                                       h, b);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem + kTile, &maps.dout, q_bar, q0, 64,
+                                                       Smem::kPart, h, b);
     }
     for (int kb = 0; kb < kDqStages && kb < n_kb; ++kb) load_block(kb);
   }
@@ -1294,17 +1420,24 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
     const int i = q0 + ct;
     float acc = 0.0f;
     if (i < S) {
-      acc = row_delta(plane_of(dout, sdo, b, h) + i * sdo.s, plane_of(o, so, b, h) + i * so.s);
+      acc = row_delta<T, kD>(plane_of(dout, sdo, b, h) + i * sdo.s,
+                             plane_of(o, so, b, h) + i * so.s);
     }
     s_delta[ct] = acc;
     delta[static_cast<size_t>(plane) * P + i] = acc;
   }
-  // the tables mode: a zeroed histogram, the LUTs as bytes, and this
+  // the tables mode: a zeroed histogram (in shared memory, or this CTA's
+  // in global memory after the partials), the LUTs as bytes, and this
   // thread's two rows' positions, x0 and y1
   const int n_bins = kTables ? tab.nb1 + 2 * tab.nb2 : 0;
-  float* s_hist = reinterpret_cast<float*>(smem + Smem::kTabOff);
-  int* s_keys = reinterpret_cast<int*>(smem + Smem::kTabOff + tables_keys_off(n_bins));
-  uint8_t* s_lut = smem + Smem::kTabOff + tables_lut_off(n_bins, kW);
+  const int n_smem_bins = Smem::kGlobalHist ? 0 : n_bins;
+  float* s_hist =
+      Smem::kGlobalHist
+          ? tab.partial + static_cast<size_t>(gridDim.z) * H * gridDim.x * n_bins +
+                (static_cast<size_t>(plane) * gridDim.x + blockIdx.x) * n_bins * kHistPitch
+          : reinterpret_cast<float*>(smem + Smem::kTabOff);
+  int* s_keys = reinterpret_cast<int*>(smem + Smem::kTabOff + tables_keys_off(n_smem_bins));
+  uint8_t* s_lut = smem + Smem::kTabOff + tables_lut_off(n_smem_bins, kW);
   int vrow[2][3] = {{0, 0, 0}, {0, 0, 0}};
   if constexpr (kTables) {
     for (int e = ct; e < n_bins * kHistPitch; e += kBwdThreads) s_hist[e] = 0.0f;
@@ -1330,9 +1463,12 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
   }
   const Dropout drop(seed, plane, keep, inv_keep);
 
-  float dq_acc[32], s[kN], dp[kN];
+  float dq_acc[kDH][32], s[kN], dp[kN];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dq_acc[i] = 0.0f;
+  for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dq_acc[db][i] = 0.0f;
+  }
   uint32_t pa[kParts<T>][kW / 16][4];  // dS of the block in flight, wgmma's A registers
   const uint64_t q_desc = wgmma_desc(smem, 16, 1024);
   const uint64_t do_desc = wgmma_desc(smem + kTile, 16, 1024);
@@ -1405,8 +1541,10 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
     // dQ += dS k (whose A registers stay live until the wait)
     if (live) {
       wgmma_fence();
-      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(s, q_desc, k_desc);
-      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(dp, do_desc, v_desc);
+      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(s, q_desc,
+                                                                                  k_desc);
+      wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(dp, do_desc,
+                                                                                  v_desc);
       wgmma_commit();
     }
     uint32_t kept = 0;  // this block's dropout mask, made while the products run
@@ -1530,11 +1668,14 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
     }
 
     // dQ += dS k: dS rounded to bf16 or split; k read [key][d] as a
-    // transposed B
+    // transposed B, once per 64 columns of d
     if (live) {
       to_a(pa, s);
       wgmma_fence();
-      wgmma_by_cols<T, Smem::kStreamPart>(dq_acc, pa, k_desc);
+#pragma unroll
+      for (int db = 0; db < kDH; ++db) {
+        wgmma_by_cols<T, Smem::kStreamPart>(dq_acc[db], pa, k_desc + db * ((kW * 128) >> 4));
+      }
       wgmma_commit();
     }
   }
@@ -1569,17 +1710,18 @@ __global__ void __launch_bounds__(kBwdThreads, (kTables ? 1 : BwdTiling<T, BiasT
 // then dV += (p c)^T do and dK += dS^T q with both in wgmma's A registers
 // (rounded to bf16, or split into three parts) and do, q read [query][d]
 // as MN-major B operands.
-template <typename T, typename BiasT, bool kDropout>
-__global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCtas))
+template <typename T, typename BiasT, int kD, bool kDropout>
+__global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::kCtas))
     bwd_dkv_kernel(const __grid_constant__ BwdMaps maps,
                    const float* __restrict__ lse,    // (B, H, P)
                    const float* __restrict__ delta,  // (B, H, P)
                    T* __restrict__ dk, T* __restrict__ dv,  // (B, H, S, D) by strides
                    Strides sdk, Strides sdv, int S, int H, int P, float scale, int seed,
                    float keep, float inv_keep) {
-  using Smem = DkvSmem<T, BiasT>;
-  using Tiling = BwdTiling<T, BiasT, false>;
+  using Smem = DkvSmem<T, BiasT, kD>;
+  using Tiling = BwdTiling<T, BiasT, false, kD>;
   constexpr int kW = Smem::kW;
+  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
   constexpr int kN = kW / 2;
   constexpr int kTile = Smem::kTile;
   constexpr int kStreamTile = Smem::kStreamTile;
@@ -1609,10 +1751,10 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
     uint8_t* rows = smem + Smem::kRowsOff + stage * 2 * kW * 4;
     uint64_t* bar = &full_bar[stage];
     mbar_expect_tx(bar, Smem::kStage + 2 * kW * 4);
-    load_operand<kParts<T>, Tiling::kOpBoxRows>(st, &maps.q, bar, i0, kW, Smem::kStreamPart, h,
-                                                 b);
-    load_operand<kParts<T>, Tiling::kOpBoxRows>(st + kStreamTile, &maps.dout, bar, i0, kW,
-                                                 Smem::kStreamPart, h, b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(st, &maps.q, bar, i0, kW, Smem::kStreamPart,
+                                                     h, b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(st + kStreamTile, &maps.dout, bar, i0, kW,
+                                                     Smem::kStreamPart, h, b);
     load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar, j0,
                                                  plane * P + i0, kW, 64);
     bulk_load(rows, lse + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
@@ -1631,18 +1773,21 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
     tma_prefetch_map(&maps.dout);
     tma_prefetch_map(&maps.bias);
     mbar_expect_tx(kv_bar, 2 * kTile);
-    load_operand<kParts<T>, Tiling::kOpBoxRows>(smem, &maps.k, kv_bar, j0, 64, Smem::kPart, h,
-                                                 b);
-    load_operand<kParts<T>, Tiling::kOpBoxRows>(smem + kTile, &maps.v, kv_bar, j0, 64,
-                                                 Smem::kPart, h, b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem, &maps.k, kv_bar, j0, 64, Smem::kPart,
+                                                     h, b);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem + kTile, &maps.v, kv_bar, j0, 64,
+                                                     Smem::kPart, h, b);
     for (int qb = 0; qb < kDkvStages && qb < n_qb; ++qb) load_block(qb);
   }
   __syncthreads();  // the barriers' initialisation
   const Dropout drop(seed, plane, keep, inv_keep);
 
-  float dk_acc[32], dv_acc[32], s[kN], dp[kN];
+  float dk_acc[kDH][32], dv_acc[kDH][32], s[kN], dp[kN];
 #pragma unroll
-  for (int i = 0; i < 32; ++i) dk_acc[i] = dv_acc[i] = 0.0f;
+  for (int db = 0; db < kDH; ++db) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) dk_acc[db][i] = dv_acc[db][i] = 0.0f;
+  }
   // the block in flight's (p c)^T and dS^T as wgmma's A registers
   uint32_t pd_a[kParts<T>][kW / 16][4], ds_a[kParts<T>][kW / 16][4];
   const uint64_t k_desc = wgmma_desc(smem, 16, 1024);
@@ -1660,8 +1805,10 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
     // S^T = k q^T and dP^T = v do^T over d, queued behind the previous
     // block's dV/dK products (whose A registers stay live until the wait)
     wgmma_fence();
-    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(s, k_desc, q_desc);
-    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart>(dp, v_desc, do_desc);
+    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(s, k_desc,
+                                                                                q_desc);
+    wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(dp, v_desc,
+                                                                                do_desc);
     wgmma_commit();
     uint32_t kept = 0;  // this block's dropout mask, made while the products run
     if constexpr (kDropout) {
@@ -1695,7 +1842,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
     uint32_t bias_w[8][2];  // bf16 pairs (queries 8nt + 2t, +1; key lr[r]) by ldmatrix.trans
     if constexpr (kBf16Bias) {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < kW / 16; ++j) {
         uint32_t d[4];
         ldsm_x4_trans(d, pairs_t_addr(bias_tile, warp, lane, j));
 #pragma unroll
@@ -1731,12 +1878,18 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
       p_ds_tile(std::false_type{});
     }
     // dV += (p c)^T do and dK += dS^T q, both rounded to bf16 or split; do
-    // and q read [query][d] as transposed B operands
+    // and q read [query][d] as transposed B operands, once per 64 columns
     to_a(pd_a, s);
     to_a(ds_a, dp);
     wgmma_fence();
-    wgmma_by_cols<T, Smem::kStreamPart>(dv_acc, pd_a, do_desc);
-    wgmma_by_cols<T, Smem::kStreamPart>(dk_acc, ds_a, q_desc);
+#pragma unroll
+    for (int db = 0; db < kDH; ++db) {
+      wgmma_by_cols<T, Smem::kStreamPart>(dv_acc[db], pd_a, do_desc + db * ((kW * 128) >> 4));
+    }
+#pragma unroll
+    for (int db = 0; db < kDH; ++db) {
+      wgmma_by_cols<T, Smem::kStreamPart>(dk_acc[db], ds_a, q_desc + db * ((kW * 128) >> 4));
+    }
     wgmma_commit();
   }
   wgmma_wait<0>();
@@ -1750,32 +1903,32 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false>::kCta
 
 // the split parts of q, k, v and do that the caller's split pre-pass
 // (mmee_split_bf16x3) wrote after delta's B * H * P floats in the f32
-// backwards' scratch: (4, 3, B, H, S, 64) bf16
+// backwards' scratch: (4, 3, B, H, S, D) bf16
 inline const bf16* split_parts(const float* delta, int B, int H, int P) {
   return reinterpret_cast<const bf16*>(delta + static_cast<size_t>(B) * H * P);
 }
 
 // q, k, v, do (f32: their split parts, from `delta`'s scratch) and the
 // bias, and gbias and dbias where given, with the boxes of BwdTiling
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dout,
                     const float* delta, const void* bias, const void* gbias, const void* dbias,
                     const BwdStrides& ss, int B, int S, int H, int P) {
-  using Tiling = BwdTiling<T, BiasT, false>;
+  using Tiling = BwdTiling<T, BiasT, false, kD>;
+  constexpr int kRows = Tiling::kOpBoxRows;
   int err = 0;
   if constexpr (kIsF32<T>) {
     const bf16* parts = split_parts(delta, B, H, P);
     const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
-    constexpr int kRows = Tiling::kOpBoxRows;
-    err = encode_parts(&m->q, parts, B, H, S, kRows);
-    if (err == 0) err = encode_parts(&m->k, parts + n, B, H, S, kRows);
-    if (err == 0) err = encode_parts(&m->v, parts + 2 * n, B, H, S, kRows);
-    if (err == 0) err = encode_parts(&m->dout, parts + 3 * n, B, H, S, kRows);
+    err = encode_parts(&m->q, parts, B, H, S, kD, kRows);
+    if (err == 0) err = encode_parts(&m->k, parts + n, B, H, S, kD, kRows);
+    if (err == 0) err = encode_parts(&m->v, parts + 2 * n, B, H, S, kD, kRows);
+    if (err == 0) err = encode_parts(&m->dout, parts + 3 * n, B, H, S, kD, kRows);
   } else {
-    err = encode_operand(&m->q, q, ss.q, S, H, B);
-    if (err == 0) err = encode_operand(&m->k, k, ss.k, S, H, B);
-    if (err == 0) err = encode_operand(&m->v, v, ss.v, S, H, B);
-    if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, S, H, B);
+    err = encode_operand(&m->q, q, ss.q, kD, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->k, k, ss.k, kD, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->v, v, ss.v, kD, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, kD, S, H, B, kRows);
   }
   constexpr int kBiasRows = Tiling::kBiasBoxRows;
   if (err == 0) err = encode_plane<BiasT>(&m->bias, bias, B, H, P, kBiasRows);
@@ -1787,13 +1940,13 @@ int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dou
 }
 
 // (B) alone: the dk/dv kernel that the tables backward shares
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T* dk, T* dv,
                    const BwdStrides& ss, int B, int S, int H, int P, float scale, int seed,
                    float keep, float inv_keep, int dropout, cudaStream_t st) {
   return by_flag(dropout, [&](auto drop) {
-    auto kernel = bwd_dkv_kernel<T, BiasT, decltype(drop)::value>;
-    constexpr int smem = DkvSmem<T, BiasT>::kBytes;
+    auto kernel = bwd_dkv_kernel<T, BiasT, kD, decltype(drop)::value>;
+    constexpr int smem = DkvSmem<T, BiasT, kD>::kBytes;
     static std::atomic<uint64_t> ready{0};
     const int err = set_smem_limit_once(kernel, smem, ready);
     if (err != 0) return err;
@@ -1805,21 +1958,21 @@ int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T*
 
 // the backward pair, (A) then (B); gbias null unless chained; with f32
 // operands `delta` is followed by the split parts of q, k, v and do
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                     const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
                     void* dbias, float* delta, const BwdStrides& ss, int B, int S, int H, int P,
                     float scale, int seed, float keep, float inv_keep, int dropout,
                     cudaStream_t st) {
   BwdMaps maps;
-  int err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, gbias, dbias, ss, B,
-                                      S, H, P);
+  int err = encode_bwd_maps<T, BiasT, kD>(&maps, q, k, v, dout, delta, bias, gbias, dbias, ss, B,
+                                          S, H, P);
   if (err != 0) return err;
   err = by_flag(dropout, [&](auto drop) {
     return by_flag(gbias != nullptr, [&](auto chained) {
       constexpr bool kChained = decltype(chained)::value;
-      auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, kChained, false>;
-      constexpr int smem = DqSmem<T, BiasT, kChained>::kBytes;
+      auto kernel = bwd_dq_kernel<T, BiasT, kD, decltype(drop)::value, kChained, false>;
+      constexpr int smem = DqSmem<T, BiasT, kChained, kD>::kBytes;
       static std::atomic<uint64_t> ready{0};
       const int e = set_smem_limit_once(kernel, smem, ready);
       if (e != 0) return e;
@@ -1830,25 +1983,26 @@ int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const 
     });
   });
   if (err != 0) return err;
-  return launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
-                                  inv_keep, dropout, st);
+  return launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
+                                      keep, inv_keep, dropout, st);
 }
 
 // ---------------------------------------------------------------------------
 // the split pre-pass of the f32 forwards (k, v) and backwards (q, k, v, do)
 // ---------------------------------------------------------------------------
 
-// up to four f32 (B, H, S, 64) operands and their element strides
+// up to four f32 (B, H, S, D) operands and their element strides
 struct SplitSrc {
   const float* x[4];
   Strides st[4];
 };
 
 // One thread per 8 values of a row of operand blockIdx.y: x into three bf16
-// tensors hi, mid, lo (split_pair) of `parts`, (operand, part, B, H, S, 64)
+// tensors hi, mid, lo (split_pair) of `parts`, (operand, part, B, H, S, kD)
 // contiguous, 16-byte loads and stores. Bound by bytes: 4 read and 6
-// written per value, 0.11 ms for q, k, v and do at B = 16, H = 12, S = 768
-// on an H100 (3.35 TB/s), 0.056 ms for k and v
+// written per value, 0.11 ms for q, k, v and do at B = 16, H = 12, S = 768,
+// D = 64 on an H100 (3.35 TB/s), 0.056 ms for k and v
+template <int kD>
 __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant__ SplitSrc src,
                                                            bf16* __restrict__ parts, int B,
                                                            int H, int S) {
@@ -1899,38 +2053,40 @@ __global__ void table_partials_sum_kernel(const float* __restrict__ partial,
   }
 }
 
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_bwd(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
                void* dbias, float* delta, int B, int S, int H, int P, float scale, int seed,
                float keep, float inv_keep, int dropout, cudaStream_t st) {
-  const Strides ps = packed_strides(S, H);
+  const Strides ps = packed_strides(S, H, kD);
   const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
-  return launch_bwd_pair<T, BiasT>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias, delta,
-                                   ss, B, S, H, P, scale, seed, keep, inv_keep, dropout, st);
+  return launch_bwd_pair<T, BiasT, kD>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias,
+                                       delta, ss, B, S, H, P, scale, seed, keep, inv_keep,
+                                       dropout, st);
 }
 
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                       const T* o, const float* lse, const int* pos, const int* cx,
                       const int* cy, const int* lut1, const int* lut2, T* dq, T* dk, T* dv,
                       float* delta, float* partial, float* tables, int B, int S, int H, int P,
                       float scale, int seed, float keep, float inv_keep, int dropout, int nb1,
                       int nb2, int max1, int max2, cudaStream_t st) {
-  const Strides ps = packed_strides(S, H);
+  const Strides ps = packed_strides(S, H, kD);
   const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
   BwdMaps maps;
-  int err = encode_bwd_maps<T, BiasT>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss, B,
-                                      S, H, P);
+  int err = encode_bwd_maps<T, BiasT, kD>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss,
+                                          B, S, H, P);
   if (err != 0) return err;
   const int n_qb = (S + kBQ - 1) / kBQ;
   const int n_bins = nb1 + 2 * nb2;
   const TablesArgs tab{pos, cx, cy, lut1, lut2, partial, nb1, nb2, max1, max2};
   // (A'): (A)'s tables mode over the q blocks with a row < S
   err = by_flag(dropout, [&](auto drop) {
-    using Smem = DqSmem<T, BiasT, false>;
-    auto kernel = bwd_dq_kernel<T, BiasT, decltype(drop)::value, false, true>;
-    const int smem = Smem::kTabOff + tables_bytes(n_bins, Smem::kW, max1, max2);
+    using Smem = DqSmem<T, BiasT, false, kD>;
+    auto kernel = bwd_dq_kernel<T, BiasT, kD, decltype(drop)::value, false, true>;
+    const int smem = Smem::kTabOff + tables_bytes(Smem::kGlobalHist ? 0 : n_bins, Smem::kW, max1,
+                                                  max2);
     const int e = static_cast<int>(
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     if (e != 0) return e;
@@ -1941,8 +2097,8 @@ int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, cons
   });
   if (err != 0) return err;
   // (B): the backward pair's dk/dv kernel
-  err = launch_bwd_dkv<T, BiasT>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
-                                 inv_keep, dropout, st);
+  err = launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
+                                     inv_keep, dropout, st);
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
   return static_cast<int>(cudaGetLastError());
@@ -1953,7 +2109,7 @@ Strides strides_at(const long long* strides, int i) {
   return Strides{strides[3 * i], strides[3 * i + 1], strides[3 * i + 2]};
 }
 
-template <typename T, typename BiasT>
+template <typename T, typename BiasT, int kD>
 int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                         const T* o, const float* lse, T* dq, T* dk, T* dv, void* dbias,
                         float* delta, const long long* strides, int B, int S, int H, int P,
@@ -1964,30 +2120,33 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
                 sdo = strides_at(strides, 4), sdq = strides_at(strides, 5),
                 sdk = strides_at(strides, 6), sdv = strides_at(strides, 7);
   const BwdStrides ss{sq, sk, sv, so, sdo, sdq, sdk, sdv};
-  return launch_bwd_pair<T, BiasT>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
-                                   delta, ss, B, S, H, P, scale, seed, keep, inv_keep, dropout,
-                                   st);
+  return launch_bwd_pair<T, BiasT, kD>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
+                                       delta, ss, B, S, H, P, scale, seed, keep, inv_keep,
+                                       dropout, st);
 }
 
 }  // namespace
 
 // Every entry takes its operands (q, k, v, o, do and the gradients) as
 // bf16 (qkv_is_bf16 = 1) or f32 (0), and the bias (and gbias, dbias) as
-// bf16 (bias_is_bf16 = 1) or f32 (0). With f32 operands the kernels read
-// k and v (and in the backwards q and do) only as their split parts, which
-// the caller writes with mmee_split_bf16x3 before the call: every forward
-// takes those of k and v as `kv_parts`, (2, 3, B, H, S, 64) bf16 (null with
-// bf16 operands), and splits q itself; every backward takes `delta`,
-// scratch of B * H * P floats, followed with f32 operands by the parts of
-// q, k, v and do, (4, 3, B, H, S, 64) bf16.
+// bf16 (bias_is_bf16 = 1) or f32 (0), with f32 operands at D = 128 f32
+// only. D, the head dim, is 64 or 128 (any other returns
+// cudaErrorInvalidValue). With f32 operands the kernels read k and v (and
+// in the backwards q and do) only as their split parts, which the caller
+// writes with mmee_split_bf16x3 before the call: every forward takes those
+// of k and v as `kv_parts`, (2, 3, B, H, S, D) bf16 (null with bf16
+// operands), and splits q itself, except at D = 128, where q's parts
+// follow, (3, 3, B, H, S, 128); every backward takes `delta`, scratch of
+// B * H * P floats, followed with f32 operands by the parts of q, k, v and
+// do, (4, 3, B, H, S, D) bf16.
 
-// split_bf16x3: n (1 to 4) f32 (B, H, S, 64) operands x0.., at the element
-// strides `strides` gives (a host array of 3n: batch, head, row; 16-byte
-// aligned rows), each into its three bf16 parts hi, mid, lo with x = hi +
-// mid + lo exactly; `parts` is (n, 3, B, H, S, 64), contiguous
+// split_bf16x3: n (1 to 4) f32 (B, H, S, D) operands x0.. (D 64 or 128),
+// at the element strides `strides` gives (a host array of 3n: batch, head,
+// row; 16-byte aligned rows), each into its three bf16 parts hi, mid, lo
+// with x = hi + mid + lo exactly; `parts` is (n, 3, B, H, S, D), contiguous
 extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
                                  const void* x3, int n, const long long* strides, void* parts,
-                                 int B, int H, int S, void* stream) {
+                                 int B, int H, int S, int D, void* stream) {
   if (n < 1 || n > 4) return static_cast<int>(cudaErrorInvalidValue);
   const void* xs[4] = {x0, x1, x2, x3};
   SplitSrc src;
@@ -1995,11 +2154,14 @@ extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
     src.x[i] = static_cast<const float*>(xs[i]);
     src.st[i] = i < n ? strides_at(strides, i) : Strides{0, 0, 0};
   }
-  const long long threads = static_cast<long long>(B) * H * S * (kD / 8);
-  split_bf16x3_kernel<<<dim3(static_cast<unsigned>((threads + 255) / 256), n), 256, 0,
-                        static_cast<cudaStream_t>(stream)>>>(src, static_cast<bf16*>(parts), B,
-                                                             H, S);
-  return static_cast<int>(cudaGetLastError());
+  return by_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    const long long threads = static_cast<long long>(B) * H * S * (kD / 8);
+    split_bf16x3_kernel<kD><<<dim3(static_cast<unsigned>((threads + 255) / 256), n), 256, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        src, static_cast<bf16*>(parts), B, H, S);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 // flash_attention_packed: o (B, S, H*D), no lse, no dropout; P a multiple
@@ -2007,13 +2169,14 @@ extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
 extern "C" int mmee_flash_attention_packed(const void* q, const void* k, const void* v,
                                            const void* bias, int bias_is_bf16,
                                            int qkv_is_bf16, const void* kv_parts, void* o,
-                                           int B, int S, int H, int P, float scale,
+                                           int B, int S, int H, int D, int P, float scale,
                                            void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides ps = packed_strides(S, H);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(
+    constexpr int kD = decltype(d)::value;
+    const Strides ps = packed_strides(S, H, kD);
+    return launch_fwd<T, decltype(bt), kD>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), nullptr, ps, ps, ps, ps,
         B, S, H, P, scale, 0, 1.0f, 1.0f, 0, 0, st);
@@ -2023,13 +2186,14 @@ extern "C" int mmee_flash_attention_packed(const void* q, const void* k, const v
 extern "C" int mmee_flash_attention_packed_train_fwd(
     const void* q, const void* k, const void* v, const void* bias,
     int bias_is_bf16, int qkv_is_bf16, const void* kv_parts, void* o, void* lse, int B, int S,
-    int H, int P, float scale, int seed, float keep, float inv_keep, int dropout,
+    int H, int D, int P, float scale, int seed, float keep, float inv_keep, int dropout,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const Strides ps = packed_strides(S, H);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(
+    constexpr int kD = decltype(d)::value;
+    const Strides ps = packed_strides(S, H, kD);
+    return launch_fwd<T, decltype(bt), kD>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
         ps, ps, ps, ps, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
@@ -2040,12 +2204,12 @@ extern "C" int mmee_flash_attention_packed_train_bwd(
     const void* q, const void* k, const void* v, const void* bias,
     int bias_is_bf16, int qkv_is_bf16, const void* dout, const void* o, const void* lse,
     const void* gbias, void* dq, void* dk, void* dv, void* dbias, void* delta,
-    int B, int S, int H, int P, float scale, int seed, float keep,
+    int B, int S, int H, int D, int P, float scale, int seed, float keep,
     float inv_keep, int dropout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_bwd<T, decltype(bt)>(
+    return launch_bwd<T, decltype(bt), decltype(d)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), static_cast<const T*>(o), static_cast<const float*>(lse),
         gbias, static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), dbias,
@@ -2056,19 +2220,20 @@ extern "C" int mmee_flash_attention_packed_train_bwd(
 // dq, dk, dv and the (nb1 + 2 * nb2, H) table gradients (dT1, then dTx,
 // dTy) in three kernels: (A') dq, delta and per-CTA table partials, (B) dk
 // and dv, and the fixed-order sum of the partials. `partial` is scratch of
-// B * H * ceil(S / 64) * (nb1 + 2 * nb2) floats.
+// B * H * ceil(S / 64) * (nb1 + 2 * nb2) floats, 65 times as many with f32
+// operands at D = 128 (the histograms after the partials).
 extern "C" int mmee_flash_attention_packed_train_bwd_tables(
     const void* q, const void* k, const void* v, const void* bias,
     int bias_is_bf16, int qkv_is_bf16, const void* dout, const void* o, const void* lse,
     const void* pos, const void* cx, const void* cy, const void* lut1,
     const void* lut2, void* dq, void* dk, void* dv, void* delta,
-    void* partial, void* tables, int B, int S, int H, int P, float scale,
+    void* partial, void* tables, int B, int S, int H, int D, int P, float scale,
     int seed, float keep, float inv_keep, int dropout, int nb1, int nb2,
     int max1, int max2, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_bwd_tables<T, decltype(bt)>(
+    return launch_bwd_tables<T, decltype(bt), decltype(d)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), static_cast<const T*>(o), static_cast<const float*>(lse),
         static_cast<const int*>(pos), static_cast<const int*>(cx), static_cast<const int*>(cy),
@@ -2083,16 +2248,16 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
 // bias built on chip from the (B, S) int32 vectors pos, cx, cy and mask and
 // the f32 tables t1 (nb1, H), tx and ty (nb2, H), with the attention scale
 // folded in, and rounded once to the operands' type, as materialize_bias
-// rounds it; keys j >= S do not exist. q, k, v and o are (B, H, S, 64) at
-// the strides `strides` gives (a host array of 12: batch, head, row of q,
-// k, v, o); f32 k and v are read from kv_parts only, as in
+// rounds it; keys j >= S do not exist. q, k, v and o are (B, H, S, D), D
+// 64 or 128, at the strides `strides` gives (a host array of 12: batch,
+// head, row of q, k, v, o); f32 k and v are read from kv_parts only, as in
 // mmee_flash_attention_packed. lut1 and lut2 are bucket_lut's tables of
 // max1 + 1 and max2 + 1 entries; max1, max2 <= 1024.
 extern "C" int mmee_fused_bias_attention(
     const void* q, const void* k, const void* v, int qkv_is_bf16, const void* kv_parts, void* o,
     const long long* strides, const void* pos, const void* cx, const void* cy, const void* mask,
     const void* t1, const void* tx, const void* ty, const void* lut1, const void* lut2, int B,
-    int S, int H, int nb1, int nb2, int max1, int max2, float scale, void* stream) {
+    int S, int H, int D, int nb1, int nb2, int max1, int max2, float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3);
@@ -2104,14 +2269,17 @@ extern "C" int mmee_fused_bias_attention(
                      nb2,                            max1,
                      max2};
   const bf16* parts = static_cast<const bf16*>(kv_parts);
-  if (qkv_is_bf16) {
-    return launch_fused<bf16>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                              static_cast<const bf16*>(v), parts, static_cast<bf16*>(o), sq, sk,
-                              sv, so, bb, B, S, H, scale, st);
-  }
-  return launch_fused<float>(static_cast<const float*>(q), static_cast<const float*>(k),
-                             static_cast<const float*>(v), parts, static_cast<float*>(o), sq, sk,
-                             sv, so, bb, B, S, H, scale, st);
+  return by_dim(D, [&](auto d) {
+    constexpr int kD = decltype(d)::value;
+    if (qkv_is_bf16) {
+      return launch_fused<bf16, kD>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                                    static_cast<const bf16*>(v), parts, static_cast<bf16*>(o),
+                                    sq, sk, sv, so, bb, B, S, H, scale, st);
+    }
+    return launch_fused<float, kD>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                   static_cast<const float*>(v), parts, static_cast<float*>(o),
+                                   sq, sk, sv, so, bb, B, S, H, scale, st);
+  });
 }
 
 // ---------------------------------------------------------------------------
@@ -2124,14 +2292,14 @@ extern "C" int mmee_fused_bias_attention(
 extern "C" int mmee_flash_attention_fwd(
     const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
     int qkv_is_bf16, const void* kv_parts, void* o, void* lse, const long long* strides, int B,
-    int S, int H, int P, float scale, int seed, float keep, float inv_keep, int dropout,
+    int S, int H, int D, int P, float scale, int seed, float keep, float inv_keep, int dropout,
     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_fwd<T, decltype(bt)>(
+    return launch_fwd<T, decltype(bt), decltype(d)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
         sq, sk, sv, so, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
@@ -2145,12 +2313,12 @@ extern "C" int mmee_flash_attention_fwd(
 extern "C" int mmee_flash_attention_bwd(
     const void* q, const void* k, const void* v, const void* bias, int bias_is_bf16,
     int qkv_is_bf16, const void* dout, const void* o, const void* lse, void* dq, void* dk,
-    void* dv, void* dbias, void* delta, const long long* strides, int B, int S, int H, int P,
-    float scale, int seed, float keep, float inv_keep, int dropout, void* stream) {
+    void* dv, void* dbias, void* delta, const long long* strides, int B, int S, int H, int D,
+    int P, float scale, int seed, float keep, float inv_keep, int dropout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return by_types(qkv_is_bf16, bias_is_bf16, [&](auto t, auto bt) {
+  return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
-    return launch_headform_bwd<T, decltype(bt)>(
+    return launch_headform_bwd<T, decltype(bt), decltype(d)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), static_cast<const T*>(o), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), dbias,

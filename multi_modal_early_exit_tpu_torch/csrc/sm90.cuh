@@ -180,6 +180,11 @@ __device__ __forceinline__ void reg_fence(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
+template <int M, int N>  // M sets of accumulators (one per 64 columns of the head dim)
+__device__ __forceinline__ void reg_fence(float (&d)[M][N]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m) reg_fence(d[m]);
+}
 __device__ __forceinline__ void reg_fence(uint32_t (&a)[4][4]) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -258,6 +263,29 @@ __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32], const uint32_
       ", {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
       : MMEE_WGMMA_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 32 f32) (+)= A (64 x 16 bf16 in registers, the mma.sync A
+// fragment layout per warp) times B (16 x 32, K-major in shared memory:
+// stored [n][k])
+__device__ __forceinline__ void wgmma_m64n32k16_rs(float (&d)[16], const uint32_t (&a)[4],
+                                                   uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}"
+      ", {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n}\n"
+      : MMEE_WGMMA_D16(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(accumulate));
+}
+// the same at n = 64 and n = 32, by the accumulators' size
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  wgmma_m64n64k16_rs(d, a, b, acc);
+}
+__device__ __forceinline__ void wgmma_rs(float (&d)[16], const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  wgmma_m64n32k16_rs(d, a, b, acc);
 }
 
 // d (64 x 64 f32) += A (64 x 16 bf16 in registers, the mma.sync A fragment

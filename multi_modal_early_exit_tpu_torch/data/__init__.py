@@ -1,1 +1,2 @@
-"""Host feature conversion, labels and device image preprocessing."""
+"""Data: datasets (synthetic and hub-backed), OCR ingestion, host feature
+conversion, labels, device image preprocessing and batch loading."""

@@ -19,7 +19,8 @@ kernels do: bf16 on the bf16 tensor cores; f32 good to about f32's
 precision, on the same tensor cores by six bf16 products of operands split
 into three bf16 parts each: every f32 forward and backward first splits its
 operands (``split_bf16x3``, one launch: k and v before a forward, which
-splits q itself, q, k, v and do before a backward; its plain version and
+splits q itself at head dim 64 and reads its parts too at 128, q, k, v and
+do before a backward; its plain version and
 ``split_matmul_plain``, which the plain versions take as ``matmul``, show the
 arithmetic on the CPU). Other dtypes, or mixed ones, raise ``TypeError``. Under
 autograd it is an ``autograd.Function`` whose backward is the JAX package's
@@ -27,15 +28,19 @@ autograd it is an ``autograd.Function`` whose backward is the JAX package's
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
 dv and dbias; the packed tensors go to both as (B, H, S, D) views, no copy.
 
-The kernels' tiles are 64 wide in the head dim. The entry points
-(``flash_attention_packed``, ``flash_attention_packed_train``, its chained
-and tables twins, ``flash_attention`` and ``fused_bias_attention``) take a
-head dim D <= 64 on CUDA tensors through ``at_kernel_head_dim``: q, k and v
-zero-padded to 64 (``pad_head_dim``), the scale 1/sqrt(D) of the true D,
-the output's pad columns sliced off, outside the ``autograd.Function``s so
-that autograd slices the gradients. Zero columns add exact zeros to every
-score and give zero output and gradient columns, so this is D's attention;
-the dropout hash does not see D. A head dim above 64 raises.
+The kernels take a head dim of 64 or 128 (``KERNEL_HEAD_DIMS``). The entry
+points (``flash_attention_packed``, ``flash_attention_packed_train``, its
+chained and tables twins, ``flash_attention`` and ``fused_bias_attention``)
+take any head dim D <= 128 on CUDA tensors through ``at_kernel_head_dim``:
+q, k and v zero-padded to the smallest kernel width that holds D
+(``pad_head_dim``: 16 -> 64, 96 -> 128), the scale 1/sqrt(D) of the true
+D, the output's pad columns sliced off, outside the ``autograd.Function``s
+so that autograd slices the gradients. Zero columns add exact zeros to
+every score and give zero output and gradient columns, so this is D's
+attention; the dropout hash does not see D. A head dim above 128 raises.
+With f32 operands at 128 the kernels take an f32 bias: a bf16 one is
+widened first (``_kernel_bias``, exact), and a bf16 dbias rounded from
+the kernel's f32 one, the rounding the kernel itself does.
 
 Head form: ``flash_attention`` takes (B, H, S, D) q/k/v of any strides with
 a unit last one, and has dropout on the probabilities. Its forward
@@ -82,20 +87,30 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
 )
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
-KERNEL_HEAD_DIM = 64  # the kernels' tile width in the head dim
+KERNEL_HEAD_DIMS = (64, 128)  # the kernels' widths in the head dim
 KERNEL_TILE = 64  # the training kernels tile the bias width P by 64
 
 
+def kernel_head_dim(d: int, what: str = "attention") -> int:
+    """The smallest of ``KERNEL_HEAD_DIMS`` that holds a head dim ``d``;
+    above the widest, ``ValueError`` naming the limit."""
+    for width in KERNEL_HEAD_DIMS:
+        if d <= width:
+            return width
+    raise ValueError(f"the {what} kernels take head dims up to {KERNEL_HEAD_DIMS[-1]}, not {d}")
+
+
 def pad_head_dim(x: torch.Tensor, num_heads=None) -> torch.Tensor:
-    """``x`` with its head dim zero-padded to ``KERNEL_HEAD_DIM``: (B, H, S,
-    D) -> (B, H, S, 64) contiguous, or with ``num_heads`` the packed (B, S,
-    H*D) -> (B, S, H*64)."""
+    """``x`` with its head dim D zero-padded to ``kernel_head_dim(D)``:
+    (B, H, S, D) -> (B, H, S, W) contiguous, or with ``num_heads`` the
+    packed (B, S, H*D) -> (B, S, H*W)."""
     if num_heads is None:
-        return F.pad(x, (0, KERNEL_HEAD_DIM - x.shape[-1])).contiguous()
+        d = x.shape[-1]
+        return F.pad(x, (0, kernel_head_dim(d) - d)).contiguous()
     b, s, hd = x.shape
     d = hd // num_heads
-    return F.pad(x.reshape(b, s, num_heads, d), (0, KERNEL_HEAD_DIM - d)).reshape(
-        b, s, num_heads * KERNEL_HEAD_DIM)
+    width = kernel_head_dim(d)
+    return F.pad(x.reshape(b, s, num_heads, d), (0, width - d)).reshape(b, s, num_heads * width)
 
 
 def _unpad_head_dim(x: torch.Tensor, d: int, num_heads=None) -> torch.Tensor:
@@ -104,7 +119,7 @@ def _unpad_head_dim(x: torch.Tensor, d: int, num_heads=None) -> torch.Tensor:
     if num_heads is None:
         return x[..., :d]
     b, s, _ = x.shape
-    return x.view(b, s, num_heads, KERNEL_HEAD_DIM)[..., :d].reshape(b, s, num_heads * d)
+    return x.view(b, s, num_heads, -1)[..., :d].reshape(b, s, num_heads * d)
 
 
 def _kernel_layout(x: torch.Tensor) -> bool:
@@ -115,17 +130,16 @@ def _kernel_layout(x: torch.Tensor) -> bool:
 def at_kernel_head_dim(what: str, fn, q, k, v, num_heads=None):
     """``fn(q, k, v, scale)`` with ``scale`` = 1/sqrt(D) of q's head dim D
     ((B, H, S, D) tensors, or packed (B, S, H*D) ones with ``num_heads``).
-    For the CUDA kernels (``_kernel_layout``) a D below ``KERNEL_HEAD_DIM`` is
-    zero-padded to it (``pad_head_dim``) and fn's output (its first output,
-    when it returns a tuple) sliced back to D; autograd slices the gradients.
-    A D above it raises ``ValueError``. Elsewhere fn sees the tensors as
-    they are."""
+    For the CUDA kernels (``_kernel_layout``) a D that is no kernel width is
+    zero-padded to the next one (``pad_head_dim``) and fn's output (its first
+    output, when it returns a tuple) sliced back to D; autograd slices the
+    gradients. A D above 128 raises ``ValueError``. Elsewhere fn sees the
+    tensors as they are."""
     d = q.shape[-1] // num_heads if num_heads else q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    if not _kernel_layout(q) or d == KERNEL_HEAD_DIM:
+    if not _kernel_layout(q) or d in KERNEL_HEAD_DIMS:
         return fn(q, k, v, scale)
-    if d > KERNEL_HEAD_DIM:
-        raise ValueError(f"the {what} kernels take head dims up to {KERNEL_HEAD_DIM}, not {d}")
+    kernel_head_dim(d, what)  # raises above the widest
     out = fn(*(pad_head_dim(x, num_heads) for x in (q, k, v)), scale)
     if isinstance(out, tuple):
         return (_unpad_head_dim(out[0], d, num_heads),) + out[1:]
@@ -174,13 +188,27 @@ def _check_operand_dtype(what: str, tensors) -> int:
     return int(dtype == torch.bfloat16)
 
 
+def _check_head_dim(d: int) -> None:
+    if d not in KERNEL_HEAD_DIMS:  # the entry points pad any other D <= 128
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, not {d}")
+
+
+def _kernel_bias(bias, is_bf16: int, d: int):
+    """The bias as the kernels take it: f32 operands at a head dim of 128
+    take an f32 bias (their bias tiles are 32 keys wide), so a bf16 one is
+    widened, exactly; else the bias itself. None stays None."""
+    if bias is None or is_bf16 or d != 128 or bias.dtype != torch.bfloat16:
+        return bias
+    return bias.to(torch.float32)
+
+
 def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     """What the CUDA attention kernels take: contiguous tensors on one card,
     16-byte aligned (the kernels load them by TMA; a misaligned one raises,
     there is no other body to fall back to), q/k/v (and o, do) all
-    bf16 or all f32, a bf16 or f32 bias, head dim 64 (the entry points pad a
-    smaller one: ``at_kernel_head_dim``). Returns the operand flag (1 for
-    bf16)."""
+    bf16 or all f32, a bf16 or f32 bias, head dim 64 or 128 (the entry
+    points pad any other: ``at_kernel_head_dim``). Returns the operand flag
+    (1 for bf16)."""
     device = tensors[0].device
     if device.type != "cuda":
         raise ValueError(f"{what} runs on cuda or cpu, not {device}")
@@ -192,9 +220,7 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     is_bf16 = _check_operand_dtype(what, tensors)
     if bias.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"bias must be bfloat16 or float32, not {bias.dtype}")
-    d = tensors[0].shape[-1] // num_heads
-    if d != KERNEL_HEAD_DIM:
-        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {d}")
+    _check_head_dim(tensors[0].shape[-1] // num_heads)
     return is_bf16
 
 
@@ -223,7 +249,7 @@ def _flash_attention_packed_fn():
     fn = lib.mmee_flash_attention_packed
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
@@ -232,21 +258,22 @@ def _flash_attention_packed_fn():
 def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int, scale: float) -> torch.Tensor:
     """The forward: the plain version on CPU tensors, the kernel on CUDA
     tensors."""
-    b, s, _ = q.shape
+    b, s, hd = q.shape
+    d = hd // num_heads
     device = q.device
     if device.type == "cpu":
         return flash_attention_packed_plain(q, k, v, bias, num_heads, scale=scale)
     is_bf16 = _check_cuda_kernel_args("flash_attention_packed", (q, k, v), bias, num_heads)
-    kbias = _kernel_width(bias)
+    kbias = _kernel_bias(_kernel_width(bias), is_bf16, d)
     out = torch.empty_like(q)
-    parts = _fwd_kv_parts(k, v, num_heads)
+    parts = _fwd_parts(q, k, v, num_heads)
     lib, fn = _flash_attention_packed_fn()
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         code = fn(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
             int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
-            b, s, num_heads, kbias.shape[-1], scale, stream,
+            b, s, num_heads, d, kbias.shape[-1], scale, stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
     flash_attention_packed.launches += 1
@@ -471,14 +498,14 @@ def _train_fns():
     fwd = lib.mmee_flash_attention_packed_train_fwd
     fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     fwd.restype = ctypes.c_int
     bwd = lib.mmee_flash_attention_packed_train_bwd
     bwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     )
     bwd.restype = ctypes.c_int
@@ -491,15 +518,16 @@ def _split_fn():
     fn = lib.mmee_split_bf16x3
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.POINTER(ctypes.c_longlong),
-                                 ctypes.c_void_p] + [ctypes.c_int] * 3 + [ctypes.c_void_p]
+                                 ctypes.c_void_p] + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
 
 
 def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
-    """One to four f32 (B, H, S, 64) tensors of one shape, each split into
-    its three bf16 parts (``split_bf16x3_plain``): (n, 3, B, H, S, 64) bf16,
+    """One to four f32 (B, H, S, D) tensors of one shape (D 64 or 128), each
+    split into its three bf16 parts (``split_bf16x3_plain``): (n, 3, B, H, S,
+    D) bf16,
     into ``out`` where given. CPU tensors run the plain version; CUDA
     tensors (rows 16-byte aligned: a unit last stride, the other strides
     multiples of 4, the data 16-byte aligned) launch the split pre-pass of
@@ -508,8 +536,9 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
     x0 = xs[0]
     if not 1 <= len(xs) <= 4 or any(x.shape != x0.shape or x.device != x0.device for x in xs):
         raise ValueError("split_bf16x3 takes one to four tensors of one shape on one device")
-    if x0.ndim != 4 or x0.shape[-1] != KERNEL_HEAD_DIM or any(x.dtype != torch.float32 for x in xs):
-        raise ValueError(f"split_bf16x3 takes f32 (B, H, S, {KERNEL_HEAD_DIM}) tensors")
+    if (x0.ndim != 4 or x0.shape[-1] not in KERNEL_HEAD_DIMS
+            or any(x.dtype != torch.float32 for x in xs)):
+        raise ValueError(f"split_bf16x3 takes f32 (B, H, S, D) tensors, D in {KERNEL_HEAD_DIMS}")
     b, h, s, d = x0.shape
     if out is None:
         out = torch.empty((len(xs), 3, b, h, s, d), dtype=torch.bfloat16, device=x0.device)
@@ -525,7 +554,7 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
     lib, fn = _split_fn()
     with torch.cuda.device(x0.device):
         stream = torch.cuda.current_stream(x0.device).cuda_stream
-        code = fn(*ptrs, len(xs), _strides(*xs), out.data_ptr(), b, h, s, stream)
+        code = fn(*ptrs, len(xs), _strides(*xs), out.data_ptr(), b, h, s, d, stream)
     cuda_build.check(lib, code, "split_bf16x3")
     split_bf16x3.launches += 1
     return out
@@ -534,15 +563,18 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
 split_bf16x3.launches = 0
 
 
-def _fwd_kv_parts(k, v, num_heads=None):
-    """The forward kernels' split operands: None for bf16 k/v, which the
+def _fwd_parts(q, k, v, num_heads=None):
+    """The forward kernels' split operands: None for bf16 q/k/v, which the
     kernels load as they are (nothing is allocated or launched); for f32
-    ones the three bf16 parts of k and v, (2, 3, B, H, S, 64), written here
-    by ``split_bf16x3`` (the kernels split q themselves). k, v are (B, H, S,
-    64), or packed (B, S, H*64) with ``num_heads``."""
+    ones the three bf16 parts of k and v, (2, 3, B, H, S, D), written here
+    by ``split_bf16x3`` (one launch): at head dim 64 the kernels split q
+    themselves, at 128 q's parts follow, (3, 3, B, H, S, 128). q, k, v are
+    (B, H, S, D), or packed (B, S, H*D) with ``num_heads``."""
     if k.dtype == torch.bfloat16:
         return None
-    return split_bf16x3(*(x if num_heads is None else _split(x, num_heads) for x in (k, v)))
+    d = q.shape[-1] // num_heads if num_heads else q.shape[-1]
+    xs = (k, v, q) if d == 128 else (k, v)
+    return split_bf16x3(*(x if num_heads is None else _split(x, num_heads) for x in xs))
 
 
 def _ptr(x) -> int:
@@ -553,17 +585,16 @@ def _ptr(x) -> int:
 def _bwd_scratch(b: int, num_heads: int, p: int, q, k, v, do) -> torch.Tensor:
     """The backward kernels' ``delta`` scratch: B*H*P f32, and with f32
     operands after it the split parts of q, k, v and do, in that order,
-    written here by ``split_bf16x3``. q, k, v, do are (B, H, S, 64), or
-    packed (B, S, H*64) and split into heads here (f32 only: the views cost
+    written here by ``split_bf16x3``. q, k, v, do are (B, H, S, D), or
+    packed (B, S, H*D) and split into heads here (f32 only: the views cost
     the bf16 backward's host time)."""
     n = b * num_heads * p
     if q.dtype == torch.bfloat16:
         return torch.empty(n, dtype=torch.float32, device=q.device)
     operands = [x if x.ndim == 4 else _split(x, num_heads) for x in (q, k, v, do)]
-    s = operands[0].shape[2]
-    scratch = torch.empty(n + 6 * b * num_heads * s * KERNEL_HEAD_DIM, dtype=torch.float32,
-                          device=q.device)
-    parts = scratch[n:].view(torch.bfloat16).view(4, 3, b, num_heads, s, KERNEL_HEAD_DIM)
+    s, d = operands[0].shape[2:]
+    scratch = torch.empty(n + 6 * b * num_heads * s * d, dtype=torch.float32, device=q.device)
+    parts = scratch[n:].view(torch.bfloat16).view(4, 3, b, num_heads, s, d)
     split_bf16x3(*operands, out=parts)
     return scratch
 
@@ -607,18 +638,20 @@ def flash_attention_packed_train_fwd(
                                                       scale=scale)
     is_bf16 = _check_cuda_kernel_args("flash_attention_packed_train", (q, k, v), bias, num_heads)
     _check_train_width("flash_attention_packed_train", bias)
-    b, s, _ = q.shape
+    b, s, hd = q.shape
+    d = hd // num_heads
+    bias = _kernel_bias(bias, is_bf16, d)
     p = bias.shape[-1]
     out = torch.empty_like(q)
     lse = torch.empty((b, num_heads, p), dtype=torch.float32, device=q.device)
-    parts = _fwd_kv_parts(k, v, num_heads)
+    parts = _fwd_parts(q, k, v, num_heads)
     lib, fwd, _ = _train_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         code = fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             int(bias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
-            lse.data_ptr(), b, s, num_heads, p, scale, *_dropout_args(seed, rate), stream,
+            lse.data_ptr(), b, s, num_heads, d, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed_train")
     flash_attention_packed_train_fwd.launches += 1
@@ -651,13 +684,16 @@ def flash_attention_packed_train_bwd(
     what = "flash_attention_packed_train_bwd"
     is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
-    b, s, _ = q.shape
+    b, s, hd = q.shape
+    d = hd // num_heads
     p = bias.shape[-1]
     _check_lse(what, lse, (b, num_heads, p))
     if gbias is not None and (gbias.dtype != bias.dtype or not gbias.is_contiguous()
                               or gbias.device != q.device or gbias.data_ptr() % 16):
         raise ValueError(f"{what}: gbias must be contiguous, 16-byte aligned, on q's device, "
                          f"in the bias dtype")
+    bias_dtype = bias.dtype
+    bias, gbias = _kernel_bias(bias, is_bf16, d), _kernel_bias(gbias, is_bf16, d)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     delta = _bwd_scratch(b, num_heads, p, q, k, v, do)
@@ -669,11 +705,11 @@ def flash_attention_packed_train_bwd(
             int(bias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             lse.data_ptr(), 0 if gbias is None else gbias.data_ptr(),
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), dbias.data_ptr(),
-            delta.data_ptr(), b, s, num_heads, p, scale, *_dropout_args(seed, rate), stream,
+            delta.data_ptr(), b, s, num_heads, d, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
     flash_attention_packed_train_bwd.launches += 2
-    return dq, dk, dv, dbias
+    return dq, dk, dv, dbias.to(bias_dtype)
 
 
 flash_attention_packed_train_bwd.launches = 0
@@ -753,7 +789,8 @@ def _check_headform(what: str, q, k, v, bias) -> None:
 
 
 def _check_headform_cuda(what: str, tensors, bias) -> int:
-    """What the kernels take in the head form: (B, H, rows, 64) tensors
+    """What the kernels take in the head form: (B, H, rows, D) tensors, D
+    64 or 128,
     on one card, all bf16 or all f32, each with a unit last stride, its
     other strides multiples of 8 and 16-byte aligned (the packed
     projections' transposed view is such a tensor; the forward's TMA tensor
@@ -765,8 +802,7 @@ def _check_headform_cuda(what: str, tensors, bias) -> int:
     if any(t.device != device for t in (*tensors, bias)):
         raise ValueError(f"{what} takes tensors on one device")
     is_bf16 = _check_operand_dtype(what, tensors)
-    if tensors[0].shape[-1] != KERNEL_HEAD_DIM:  # flash_attention pads a smaller one
-        raise ValueError(f"the kernel takes head dim {KERNEL_HEAD_DIM}, not {tensors[0].shape[-1]}")
+    _check_head_dim(tensors[0].shape[-1])  # flash_attention pads any other
     for t in tensors:
         if t.stride(3) != 1 or any(st % 8 for st in t.stride()[:3]) or t.data_ptr() % 16:
             raise ValueError(
@@ -801,7 +837,7 @@ def _headform_fns():
     fwd = lib.mmee_flash_attention_fwd
     fwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 3
-        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]
     )
@@ -809,7 +845,7 @@ def _headform_fns():
     bwd = lib.mmee_flash_attention_bwd
     bwd.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 8
-        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 4
+        + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_int] * 5
         + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
            ctypes.c_void_p]
     )
@@ -835,10 +871,10 @@ def flash_attention_fwd(
     is_bf16 = _check_headform_cuda("flash_attention_fwd", (q, k, v), bias)
     b, h, s, d = q.shape
     p = bias.shape[-1]
-    kbias = _kernel_width(bias)
+    kbias = _kernel_bias(_kernel_width(bias), is_bf16, d)
     out = torch.empty_like(q)  # keeps q's layout when q is dense
     lse = torch.empty((b, h, kbias.shape[-1]), dtype=torch.float32, device=q.device)
-    parts = _fwd_kv_parts(k, v)
+    parts = _fwd_parts(q, k, v)
     lib, fwd, _ = _headform_fns()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
@@ -846,7 +882,7 @@ def flash_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kbias.data_ptr(),
             int(kbias.dtype == torch.bfloat16), is_bf16, _ptr(parts), out.data_ptr(),
             lse.data_ptr(),
-            _strides(q, k, v, out), b, s, h, kbias.shape[-1], scale,
+            _strides(q, k, v, out), b, s, h, d, kbias.shape[-1], scale,
             *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_fwd")
@@ -883,7 +919,7 @@ def flash_attention_bwd(
     is_bf16 = _check_headform_cuda(what, (q, k, v, o, do), bias)
     if lse.dtype != torch.float32 or lse.device != q.device:
         raise ValueError(f"{what}: lse must be f32 on q's device")
-    kbias = _kernel_width(bias)
+    kbias = _kernel_bias(_kernel_width(bias), is_bf16, d)
     pk = kbias.shape[-1]
     dense = pk == p and lse.is_contiguous() and lse.data_ptr() % 16 == 0
     klse = lse if dense else F.pad(lse, (0, pk - p)).contiguous()  # a fresh, aligned copy
@@ -898,11 +934,11 @@ def flash_attention_bwd(
             int(kbias.dtype == torch.bfloat16), is_bf16, do.data_ptr(), o.data_ptr(),
             klse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dbias.data_ptr(), delta.data_ptr(), _strides(q, k, v, o, do, dq, dk, dv),
-            b, s, h, pk, scale, *_dropout_args(seed, rate), stream,
+            b, s, h, d, pk, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
     flash_attention_bwd.launches += 2
-    return dq, dk, dv, dbias[:, :, :p, :p]
+    return dq, dk, dv, dbias[:, :, :p, :p].to(bias.dtype)
 
 
 flash_attention_bwd.launches = 0
@@ -1004,7 +1040,7 @@ def _tables_bwd_fn():
     fn = lib.mmee_flash_attention_packed_train_bwd_tables
     fn.argtypes = (
         [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 14
-        + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
+        + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_int, ctypes.c_float,
                                 ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
@@ -1041,6 +1077,8 @@ def flash_attention_packed_train_tables_bwd(
         )
     is_bf16 = _check_cuda_kernel_args(what, (q, k, v, o, do), bias, num_heads)
     _check_train_width(what, bias)
+    d = hd // num_heads
+    bias = _kernel_bias(bias, is_bf16, d)
     p = bias.shape[-1]
     _check_lse(what, lse, (b, num_heads, p))
     if any(a.dtype != torch.int32 or not a.is_contiguous() or a.device != q.device for a in vecs):
@@ -1049,7 +1087,10 @@ def flash_attention_packed_train_tables_bwd(
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = _bwd_scratch(b, num_heads, p, q, k, v, do)
     n_qb = -(-s // KERNEL_TILE)
-    partial = torch.empty(b * num_heads * n_qb * n_bins, dtype=torch.float32, device=q.device)
+    # per-CTA partials; f32 operands at 128 also each CTA's (bins, 64 rows)
+    # histogram after them, which their shared memory cannot hold
+    per_cta = n_bins * (65 if not is_bf16 and d == 128 else 1)
+    partial = torch.empty(b * num_heads * n_qb * per_cta, dtype=torch.float32, device=q.device)
     tables = torch.empty((n_bins, num_heads), dtype=torch.float32, device=q.device)
     lut1 = bucket_lut(rel_bins, max_rel, q.device)
     lut2 = bucket_lut(rel2d_bins, max_rel2d, q.device)
@@ -1062,7 +1103,7 @@ def flash_attention_packed_train_tables_bwd(
             lse.data_ptr(), *(a.data_ptr() for a in vecs), lut1.data_ptr(),
             lut2.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             delta.data_ptr(), partial.data_ptr(), tables.data_ptr(),
-            b, s, num_heads, p, scale, *_dropout_args(seed, rate), rel_bins, rel2d_bins,
+            b, s, num_heads, d, p, scale, *_dropout_args(seed, rate), rel_bins, rel2d_bins,
             max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, what)

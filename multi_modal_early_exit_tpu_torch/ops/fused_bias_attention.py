@@ -430,7 +430,7 @@ def _fused_bias_attention_fn():
     fn.argtypes = (
         [ctypes.c_void_p] * 3 + [ctypes.c_int] + [ctypes.c_void_p] * 2
         + [ctypes.POINTER(ctypes.c_longlong)] + [ctypes.c_void_p] * 9
-        + [ctypes.c_int] * 7 + [ctypes.c_float, ctypes.c_void_p]
+        + [ctypes.c_int] * 8 + [ctypes.c_float, ctypes.c_void_p]
     )
     fn.restype = ctypes.c_int
     return lib, fn
@@ -441,7 +441,7 @@ FUSED_MAX_DISTANCE = 1024  # the kernel's expanded tables hold 2 max + 1 distanc
 
 def _check_fused_cuda(q, k, v, vectors, tables, max_distances) -> int:
     """What the CUDA kernel takes: q/k/v all bf16 or all f32 with head dim
-    64 (``at_kernel_head_dim`` pads a smaller one), unit last stride and
+    64 or 128 (``at_kernel_head_dim`` pads any other), unit last stride and
     16-byte aligned rows; int32 vectors and f32 tables, contiguous, on q's
     card; bucket distances of 1 to 1024. Returns the operand flag (1 for
     bf16)."""
@@ -455,6 +455,11 @@ def _check_fused_cuda(q, k, v, vectors, tables, max_distances) -> int:
     if q.dtype not in (torch.bfloat16, torch.float32) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"the {what} kernel takes q, k, v all bfloat16 or all float32, not "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
+    # imported here: ops.flash_attention imports this module
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+
+    if q.shape[-1] not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"the {what} kernel takes head dims {KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
     if not all(1 <= m <= FUSED_MAX_DISTANCE for m in max_distances):
         raise ValueError(f"the {what} kernel takes bucket distances of 1 to "
                          f"{FUSED_MAX_DISTANCE}, not {max_distances}")
@@ -489,7 +494,8 @@ def fused_bias_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + rel_bias + mask) v with the bias built in
     the kernel; (B, H, S, D) in q's dtype, in q's layout (a transposed view
-    of the packed projections gives a transposed view back) when D is 64.
+    of the packed projections gives a transposed view back) when D is 64 or
+    128.
 
     The bias of each score is rounded once to q's dtype, as
     ``materialize_bias`` rounds it. CPU tensors run
@@ -500,7 +506,7 @@ def fused_bias_attention(
     """
     # imported here: ops.flash_attention imports this module
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
-        _fwd_kv_parts,
+        _fwd_parts,
         _ptr,
         _strides,
         at_kernel_head_dim,
@@ -527,7 +533,7 @@ def fused_bias_attention(
         is_bf16 = _check_fused_cuda(q, k, v, vectors, tables, (max_rel, max_rel2d))
         device = q.device
         out = torch.empty_like(q)  # keeps q's layout when q is dense
-        parts = _fwd_kv_parts(k, v)
+        parts = _fwd_parts(q, k, v)
         lut1 = bucket_lut(rel_bins, max_rel, device)
         lut2 = bucket_lut(rel2d_bins, max_rel2d, device)
         lib, fn = _fused_bias_attention_fn()
@@ -536,8 +542,8 @@ def fused_bias_attention(
             code = fn(
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), is_bf16, _ptr(parts), out.data_ptr(),
                 _strides(q, k, v, out), *(a.data_ptr() for a in (*vectors, *tables)),
-                lut1.data_ptr(), lut2.data_ptr(), b, s, h, rel_bins, rel2d_bins, max_rel,
-                max_rel2d, scale, stream,
+                lut1.data_ptr(), lut2.data_ptr(), b, s, h, q.shape[-1], rel_bins, rel2d_bins,
+                max_rel, max_rel2d, scale, stream,
             )
         cuda_build.check(lib, code, "fused_bias_attention")
         fused_bias_attention.launches += 1

@@ -112,8 +112,9 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         flash_attention_packed(q.half(), k.half(), v.half(), bias, 2)
     with pytest.raises(TypeError):
         flash_attention_packed(q.float(), k, v, bias, 2)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 128
-        flash_attention_packed(q, k, v, torch.zeros((1, 1, 64, 64), device=cuda), 1)
+    wide = torch.zeros((1, 64, 192), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # one head of 192
+        flash_attention_packed(wide, wide, wide, torch.zeros((1, 1, 64, 64), device=cuda), 1)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_packed(q, k, v, bias.transpose(2, 3), 2)
     args = _bias_args(cuda, 1, 16, 2)
@@ -341,10 +342,10 @@ def test_f32_trainer_gradients_match_the_cpu_path(cuda):
 
 
 def _heads_view(x, h, layout):
-    """(B, S, H*64) -> (B, H, S, 64): the transposed view of the packed
+    """(B, S, H*D) -> (B, H, S, D): the transposed view of the packed
     projections, or that view made contiguous."""
     b, s, _ = x.shape
-    view = x.view(b, s, h, 64).transpose(1, 2)
+    view = x.view(b, s, h, -1).transpose(1, 2)
     return view if layout == "packed" else view.contiguous()
 
 
@@ -442,8 +443,9 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
         fused_bias_attention(q4.half(), k4.half(), v4.half(), *args)
     with pytest.raises(TypeError):
         fused_bias_attention(q4.float(), k4, v4, *args)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 128
-        fused_bias_attention(*(x.reshape(1, 1, 64, 128) for x in (q4, k4, v4)),
+    wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # one head of 192
+        fused_bias_attention(wide, wide, wide,
                              *args[:4], *(torch.zeros((n, 1), device=cuda) for n in (32, 64, 64)))
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
@@ -755,9 +757,9 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
     bias = torch.zeros((1, 2, 64, 64), device=cuda)
     with pytest.raises(TypeError):
         flash_attention_fwd(q.half(), k.half(), v.half(), bias)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 128
-        flash_attention_fwd(*(x.reshape(1, 1, 64, 128) for x in (q, k, v)),
-                            torch.zeros((1, 1, 64, 64), device=cuda))
+    wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):  # one head of 192
+        flash_attention_fwd(wide, wide, wide, torch.zeros((1, 1, 64, 64), device=cuda))
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         flash_attention_fwd(unaligned, k, v, bias)
@@ -1128,7 +1130,18 @@ def test_head_dims_below_64_run_the_kernels(cuda, d, dtype):
     entry points at D = 16 and 32 launch the kernels and agree with the
     plain versions at D: bf16 within the D = 64 tests' bars, f32 within
     ``F32_BAR`` of each output's scale."""
-    b, s, p, h = 2, 70, 128, 4
+    _entries_at_head_dim(cuda, d, dtype, h=4)
+
+
+@pytest.mark.parametrize("d", [96, 128])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_head_dims_96_and_128_run_the_kernels(cuda, d, dtype):
+    """The same at D = 96 (padded to the kernels' 128) and 128, two heads."""
+    _entries_at_head_dim(cuda, d, dtype, h=2)
+
+
+def _entries_at_head_dim(cuda, d, dtype, h):
+    b, s, p = 2, 70, 128
     q, k, v, do = _small_heads(cuda, b, s, h, d, dtype)
     bias = _train_bias(cuda, b, s, p, h, dtype)
     bar = F32_BAR if dtype == torch.float32 else 2e-2
@@ -1171,8 +1184,9 @@ def test_head_dims_below_64_run_the_kernels(cuda, d, dtype):
 
 
 def test_a_head_dim_above_64_raises(cuda):
-    """D = 96: no kernel layout; each entry point raises, naming the limit."""
-    b, s, h, d = 1, 64, 2, 96
+    """D = 192, above the kernels' widest (128): each entry point raises,
+    naming the limit."""
+    b, s, h, d = 1, 64, 2, 192
     q, k, v, _ = _small_heads(cuda, b, s, h, d, torch.bfloat16)
     bias = torch.zeros((b, h, s, s), device=cuda)
     views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
@@ -1183,13 +1197,140 @@ def test_a_head_dim_above_64_raises(cuda):
                                                              *args[:3], 0, h, 0.1),
                  lambda: flash_attention(*views, bias),
                  lambda: fused_bias_attention(*views, *args)):
-        with pytest.raises(ValueError, match="head dims up to 64, not 96"):
+        with pytest.raises(ValueError, match="head dims up to 128, not 192"):
             call()
 
 
-def _tiny_setup():
-    """The tiny config as the repo defines it (4 heads of 16), random
-    weights, and 20 documents of 32 tokens on the CPU."""
+# ---------------------------------------------------------------------------
+# head dim 128: every attention kernel's 128-wide instantiation against its
+# plain version, at the bars of the 64-wide tests, and the same bits twice
+# ---------------------------------------------------------------------------
+
+# P = S rounded up to 128; P / 128 not whole; the paths' ragged shape in
+# heads of 128 (hidden 768)
+D128_SHAPES = [(2, 20, 128, 2), (1, 130, 192, 3), (2, 709, 768, 6)]
+
+
+def _qkv128(device, b, s, h, dtype, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn((b, s, h * 128), generator=g).to(device, dtype) for _ in range(4)]
+
+
+@pytest.mark.parametrize("b,s,p,h", D128_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_d128_forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype):
+    """#2, #5 and #7 (rates 0 and 0.1) at D = 128."""
+    q, k, v, _ = _qkv128(cuda, b, s, h, dtype)
+    bias = _train_bias(cuda, b, s, p, h, bias_dtype)
+    f32 = dtype == torch.float32
+    bar = F32_BAR if f32 else 2e-2
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, bias, h)
+    assert flash_attention_packed.launches == before + 1
+    assert torch.equal(flash_attention_packed(q, k, v, bias, h), got)
+    want = flash_attention_packed_plain(q, k, v, bias, h)
+    assert _scaled_err(got, want) <= bar, _scaled_err(got, want)
+    views = [_heads_view(x, h, "packed") for x in (q, k, v)]
+    for rate in (0.0, 0.1):
+        out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, h, rate)
+        w_out, w_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, h, rate)
+        assert _scaled_err(out, w_out) <= bar, (rate, _scaled_err(out, w_out))
+        torch.testing.assert_close(lse[:, :, :s], w_lse[:, :, :s], atol=1e-4, rtol=1e-5)
+        if rate == 0.0:  # the training forward at rate 0 is the serving kernel's arithmetic
+            assert torch.equal(out, got)
+        ho, hl = flash_attention_fwd(*views, bias, 1234, rate, with_lse=True)
+        assert torch.equal(ho.transpose(1, 2).reshape(b, s, -1), out)
+        assert torch.equal(hl, lse)
+    torch.cuda.synchronize()
+
+
+def _widen(x):
+    return x.to(torch.float32) if x is not None and x.dtype == torch.bfloat16 else x
+
+
+@pytest.mark.parametrize("b,s,p,h", D128_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_d128_backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained):
+    """#8 (plain and chained) and #6 at D = 128, the same bits twice; f32
+    operands with an f32 and with a bf16 bias (widened by the wrapper)."""
+    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=3)
+    f32 = dtype == torch.float32
+    for bias_dtype in ((torch.float32, torch.bfloat16) if f32 else (torch.bfloat16,)):
+        bias = _train_bias(cuda, b, s, p, h, bias_dtype)
+        g = torch.Generator().manual_seed(5)
+        gbias = ((torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda, bias_dtype)
+                 if chained else None)
+        o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
+        before = flash_attention_packed_train_bwd.launches
+        got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+        assert flash_attention_packed_train_bwd.launches == before + 2
+        again = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
+        want = flash_attention_packed_train_bwd_plain(q, k, v, _widen(bias) if f32 else bias,
+                                                      99, o, lse, do, h, rate,
+                                                      _widen(gbias) if f32 else gbias)
+        for name, a, w, a2 in zip(("dq", "dk", "dv", "dbias"), got, want, again):
+            assert a.shape == w.shape and torch.isfinite(a.float()).all(), name
+            assert torch.equal(a, a2), name
+            bar = F32_BAR if f32 and name != "dbias" else 2e-2
+            assert _scaled_err(a, w) <= bar, (name, bias_dtype, _scaled_err(a, w))
+        if not chained:
+            views = [_heads_view(x, h, "packed") for x in (q, k, v, o, do)]
+            hf = flash_attention_bwd(*views[:3], bias, 99, views[3], lse, views[4], rate)
+            for name, a, w in zip(("dq", "dk", "dv", "dbias"), hf, got):
+                a = a.transpose(1, 2).reshape(b, s, -1) if name != "dbias" else a
+                assert torch.equal(a, w if name != "dbias" else w[:, :, :p, :p]), name
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("b,s,p,h", D128_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_d128_tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype):
+    """#9 (rate 0.1), #3 and the split pre-pass at D = 128."""
+    args = _bias_args(cuda, b, s, h)
+    pos, cx, cy = args[:3]
+    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=4)
+    f32 = dtype == torch.float32
+    bias = _tables_bias(args, p, dtype)
+    o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, 0.1)
+    got = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
+                                                  h, 0.1)
+    again = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
+                                                    h, 0.1)
+    want = flash_attention_packed_train_tables_bwd_plain(q, k, v, bias, pos, cx, cy, 99, o,
+                                                         lse, do, h, 0.1)
+    for name, a, w, a2 in zip(("dq", "dk", "dv", "dt1", "dtx", "dty"), got, want, again):
+        assert torch.equal(a, a2), name
+        limit = (F32_BAR if f32 else 2e-2) if name in ("dq", "dk", "dv") else 1e-3
+        assert _scaled_err(a, w) <= limit, (name, _scaled_err(a, w))
+    views = [_heads_view(x, h, "packed") for x in (q, k, v)]
+    fused = fused_bias_attention(*views, *args)
+    want_f = fused_bias_attention_plain(*views, *args)
+    assert _scaled_err(fused, want_f) <= (F32_BAR if f32 else 2e-2)
+    pair = flash_attention_packed(q, k, v, materialize_bias(*args, out_dtype=dtype), h)
+    assert torch.equal(fused.transpose(1, 2).reshape(b, s, -1), pair)
+    if f32:
+        x = [_heads_view(a, h, "packed") for a in (q, k, v, do)]
+        parts = split_bf16x3(*x)
+        assert parts.shape == (4, 3, b, h, s, 128)
+        for i in range(4):
+            assert torch.equal(parts[i], split_bf16x3_plain(x[i]))
+    torch.cuda.synchronize()
+
+
+# the tiny config's widths with wider heads, by head dim: hidden 384 in 4
+# heads of 96 (padded to the kernels' 128) and 512 in 4 heads of 128 (the
+# layout embeddings' 4 coordinate + 2 shape widths sum to the hidden size)
+WIDE_HEADS = {96: dict(hidden_size=384, coordinate_size=64, shape_size=64),
+              128: dict(hidden_size=512, coordinate_size=96, shape_size=64)}
+
+
+def _tiny_setup(head_dim=16):
+    """The tiny config as the repo defines it (4 heads of 16), or with the
+    wider heads of ``WIDE_HEADS``, random weights, and 20 documents of 32
+    tokens on the CPU."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
     from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
@@ -1197,9 +1338,12 @@ def _tiny_setup():
         LayoutLMv3Config,
     )
 
-    cfg = EEModelConfig(backbone=LayoutLMv3Config.tiny(num_labels=4),
-                        exit=ExitConfig(exits=("text_avg", 1)))
-    assert cfg.backbone.hidden_size // cfg.backbone.num_attention_heads == 16
+    backbone = LayoutLMv3Config.tiny(num_labels=4)
+    if head_dim != 16:
+        widths = WIDE_HEADS[head_dim]
+        backbone = backbone.replace(intermediate_size=2 * widths["hidden_size"], **widths)
+    cfg = EEModelConfig(backbone=backbone, exit=ExitConfig(exits=("text_avg", 1)))
+    assert cfg.backbone.hidden_size // cfg.backbone.num_attention_heads == head_dim
     model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cpu")
     g = torch.Generator().manual_seed(1)
     n, s = 20, 32
@@ -1218,13 +1362,26 @@ def test_tiny_config_serves_on_the_card(cuda):
     its attention in the kernels: f32 logits within the north star's f32
     bars (atol 2e-4, rtol 1e-3) of the CPU path's, the same exits and
     labels, and in bf16 well-formed results."""
+    _serves_on_the_card(cuda, 16)
+
+
+@pytest.mark.parametrize("head_dim", sorted(WIDE_HEADS))
+def test_wide_head_configs_serve_and_train_on_the_card(cuda, head_dim):
+    """The tiny config at head dims 96 and 128 serves and trains on the card
+    through the kernels, at the bars of the tiny config's tests."""
+    _serves_on_the_card(cuda, head_dim)
+    for bf16 in (False, True):
+        _trains_on_the_card(cuda, bf16, head_dim)
+
+
+def _serves_on_the_card(cuda, head_dim):
     import copy
 
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
     from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
 
-    cfg, model, feats = _tiny_setup()
+    cfg, model, feats = _tiny_setup(head_dim)
     small = [feats[k][:4] for k in ("input_ids", "bbox", "pixel_values", "attention_mask")]
     with torch.no_grad():
         want = ee_forward(model, cfg, *small).policy_logits()
@@ -1259,12 +1416,16 @@ def test_tiny_config_trains_on_the_card(cuda, bf16):
     CPU path within 1e-4 of each tensor's largest gradient, dropout 0 (the
     key biases' true gradient is 0: rounding noise there, held below 1e-10
     of the largest gradient, as for one head of 64)."""
+    _trains_on_the_card(cuda, bf16, 16)
+
+
+def _trains_on_the_card(cuda, bf16, head_dim):
     import copy
 
     from multi_modal_early_exit_tpu_torch.training.losses import ee_loss_fn
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
 
-    cfg, model, feats = _tiny_setup()
+    cfg, model, feats = _tiny_setup(head_dim)
     batch = {k: v[None, :4] for k, v in feats.items()}
     batch["labels"] = torch.tensor([[0, 3, 1, 2]])
     trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=bf16), 1, device=cuda)

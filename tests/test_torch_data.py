@@ -117,3 +117,34 @@ def test_port_imports_neither_jax_nor_the_jax_package():
             top = mod.split(".")[0]
             assert top not in ("jax", "jaxlib", "flax", "optax"), (path, mod)
             assert top != "multi_modal_early_exit_tpu", (path, mod)
+
+
+def _module_level_imports(path: pathlib.Path):
+    """Modules imported by statements at a file's top level (not inside a
+    function or class body, where an import runs only when it is called)."""
+    tree = ast.parse(path.read_text())
+    stack = list(tree.body)
+    while stack:
+        node = stack.pop()
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            yield node.module
+        elif isinstance(node, (ast.If, ast.Try, ast.With)):  # still module level
+            for field in ("body", "orelse", "finalbody", "handlers"):
+                stack.extend(getattr(node, field, []) or [])
+        elif isinstance(node, ast.ExceptHandler):
+            stack.extend(node.body)
+
+
+def test_port_imports_no_host_only_package_at_module_level():
+    """The card's machine has no scikit-learn, HuggingFace datasets,
+    pytesseract or PIL: no module of the port (nor chip_smoke.py) imports
+    one at module level; the hub builders and OCR import theirs inside."""
+    files = sorted((ROOT / "multi_modal_early_exit_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert any(p.name == "datasets.py" for p in files)
+    for path in files:
+        for mod in _module_level_imports(path):
+            top = mod.split(".")[0]
+            assert top not in ("sklearn", "datasets", "pytesseract", "PIL"), (path, mod)

@@ -1,13 +1,16 @@
-"""PyTorch port, head dims below the kernels' 64 (the tiny configs' D = 16).
+"""PyTorch port, head dims other than the kernels' 64 and 128 (the tiny
+configs' D = 16; D = 96 from a checkpoint's config).
 
-On CUDA tensors every attention entry point pads q, k and v's head dim D to
-64 with zeros (``at_kernel_head_dim``: ``pad_head_dim``), runs at 64 with the
-scale of the true D and slices the output; autograd slices the gradients.
-Here ``_kernel_layout`` is forced on, so the entry points take that path on
-CPU tensors: pad, the plain versions at 64, slice. Each is held against the
-JAX package's Pallas kernels in interpret mode (as tests/test_flash_attention.py
-runs them) at D = 16 and 32 (H = 4, S = 70 inside P = 128), within the bars
-the D = 64 tests of the same functions use. f32 inputs from numpy seeds.
+On CUDA tensors every attention entry point pads q, k and v's head dim D
+with zeros to the smallest kernel width that holds it (``at_kernel_head_dim``:
+``pad_head_dim``, 16 -> 64, 96 -> 128), runs there with the scale of the
+true D and slices the output; autograd slices the gradients. Here
+``_kernel_layout`` is forced on, so the entry points take that path on CPU
+tensors: pad, the plain versions at the kernel width, slice. Each is held
+against the JAX package's Pallas kernels in interpret mode (as
+tests/test_flash_attention.py runs them) at D = 16 and 32 (H = 4) and at
+D = 96 and 128 (H = 2), S = 70 inside P = 128, within the bars the D = 64
+tests of the same functions use. f32 inputs from numpy seeds.
 """
 
 import math
@@ -32,7 +35,12 @@ torch.set_num_threads(2)
 B, H, S, P = 2, 4, 70, 128
 FWD_TOL = dict(atol=2e-5, rtol=1e-4)   # tests/test_torch_flash_headform.py
 GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
-HEAD_DIMS = [16, 32]
+HEAD_DIMS = [16, 32, 96, 128]
+
+
+def _h(d):
+    """Heads of the case at head dim d: 4 up to 64, 2 above."""
+    return H if d <= 64 else 2
 
 
 @pytest.fixture(autouse=True)
@@ -53,10 +61,11 @@ def kernel_layout(monkeypatch):
                  "flash_attention_bwd_plain", "flash_attention_packed_train_fwd_plain",
                  "flash_attention_packed_train_bwd_plain"):
         fn = getattr(tfa, name)
-        heads = H if "packed" in name else 1  # packed (B, S, H*D), else (B, H, S, D)
+        packed = "packed" in name  # packed (B, S, H*D), else (B, H, S, D)
 
-        def spy(*args, _fn=fn, _heads=heads, **kwargs):
-            seen.append(args[0].shape[-1] // _heads)
+        def spy(*args, _fn=fn, _packed=packed, **kwargs):
+            heads = args[3].shape[1] if _packed else 1  # the bias is (B, H, P, P)
+            seen.append(args[0].shape[-1] // heads)
             return _fn(*args, **kwargs)
 
         monkeypatch.setattr(tfa, name, spy)
@@ -65,20 +74,21 @@ def kernel_layout(monkeypatch):
 
 
 def _packed_case(seed, d, dtype=np.float32):
-    """numpy f32 packed q, k, v and a cotangent (B, S, H*d), a (B, H, P, P)
+    """numpy f32 packed q, k, v and a cotangent (B, S, h*d), a (B, h, P, P)
     bias with masked pad keys and a masked tail of keys in one sample, and
-    a bias cotangent."""
+    a bias cotangent; h = _h(d)."""
     rng = np.random.default_rng(seed)
-    q, k, v, do = (rng.standard_normal((B, S, H * d)).astype(dtype) for _ in range(4))
-    bias = rng.standard_normal((B, H, P, P)).astype(np.float32)
+    h = _h(d)
+    q, k, v, do = (rng.standard_normal((B, S, h * d)).astype(dtype) for _ in range(4))
+    bias = rng.standard_normal((B, h, P, P)).astype(np.float32)
     bias[:, :, :, S:] = -1e30
     bias[0, :, :, 50:S] = -1e30
-    gbias = rng.standard_normal((B, H, P, P)).astype(np.float32)
+    gbias = rng.standard_normal((B, h, P, P)).astype(np.float32)
     return q, k, v, do, bias, gbias
 
 
 def _heads(x, d):
-    return x.reshape(B, S, H, d).transpose(0, 2, 1, 3)
+    return x.reshape(B, S, _h(d), d).transpose(0, 2, 1, 3)
 
 
 def _jax_grads(fn, arrays, g):
@@ -98,12 +108,13 @@ def test_packed_attention_at_the_kernel_head_dim_matches_pallas(kernel_layout, d
     """#2 ``flash_attention_packed`` and its gradients (the head-form pair
     #5/#6 in its backward) against ``jax.vjp`` of the Pallas op."""
     q, k, v, do, bias, _ = _packed_case(0, d)
-    want_o, wants = _jax_grads(lambda q, k, v, b: jfa.flash_attention_packed(q, k, v, b, H),
+    h = _h(d)
+    want_o, wants = _jax_grads(lambda q, k, v, b: jfa.flash_attention_packed(q, k, v, b, h),
                                (q, k, v, bias), do)
-    got_o, gots = _port_grads(lambda q, k, v, b: tfa.flash_attention_packed(q, k, v, b, H),
+    got_o, gots = _port_grads(lambda q, k, v, b: tfa.flash_attention_packed(q, k, v, b, h),
                               (q, k, v, bias), do)
-    assert kernel_layout and set(kernel_layout) == {tfa.KERNEL_HEAD_DIM}
-    assert got_o.shape == (B, S, H * d)
+    assert kernel_layout and set(kernel_layout) == {tfa.kernel_head_dim(d)}
+    assert got_o.shape == (B, S, h * d)
     np.testing.assert_allclose(got_o, want_o, **FWD_TOL)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), gots, wants):
         np.testing.assert_allclose(a, w, err_msg=name, **GRAD_TOL)
@@ -118,7 +129,7 @@ def test_headform_attention_at_the_kernel_head_dim_matches_pallas(kernel_layout,
     g = np.ascontiguousarray(_heads(do, d))
     want_o, wants = _jax_grads(lambda q, k, v, b: jfa.flash_attention(q, k, v, b, 16), arrays, g)
     got_o, gots = _port_grads(lambda q, k, v, b: tfa.flash_attention(q, k, v, b, 16), arrays, g)
-    assert kernel_layout and set(kernel_layout) == {tfa.KERNEL_HEAD_DIM}
+    assert kernel_layout and set(kernel_layout) == {tfa.kernel_head_dim(d)}
     np.testing.assert_allclose(got_o, want_o, **FWD_TOL)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), gots, wants):
         np.testing.assert_allclose(a, w, err_msg=name, **GRAD_TOL)
@@ -133,29 +144,30 @@ def test_train_attention_at_the_kernel_head_dim_matches_pallas(kernel_layout, d,
     Pallas pair: to 1e-4 of each tensor's scale, as at D = 64
     (tests/test_torch_train_ops.py). The dropout hash does not see D."""
     q, k, v, do, bias, gbias = _packed_case(2, d)
+    h = _h(d)
     seed = jnp.asarray([17], jnp.int32)
     arrays = [jnp.asarray(a) for a in (q, k, v, bias)]
     if chained:
         def fn(q, k, v, b):
-            return jfa.flash_attention_packed_train_chained(q, k, v, b, seed, H, rate=rate)
+            return jfa.flash_attention_packed_train_chained(q, k, v, b, seed, h, rate=rate)
 
         (want_o, _), vjp = jax.vjp(fn, *arrays)
         wants = vjp((jnp.asarray(do), jnp.asarray(gbias)))
     else:
         want_o, vjp = jax.vjp(
-            lambda q, k, v, b: jfa.flash_attention_packed_train(q, k, v, b, seed, H, rate=rate),
+            lambda q, k, v, b: jfa.flash_attention_packed_train(q, k, v, b, seed, h, rate=rate),
             *arrays)
         wants = vjp(jnp.asarray(do))
     ts = [torch.from_numpy(a).requires_grad_() for a in (q, k, v, bias)]
     if chained:
-        out, bias_out = tfa.flash_attention_packed_train_chained(*ts, 17, H, rate)
+        out, bias_out = tfa.flash_attention_packed_train_chained(*ts, 17, h, rate)
         loss = (out * torch.from_numpy(do)).sum() + (bias_out * torch.from_numpy(gbias)).sum()
     else:
-        out = tfa.flash_attention_packed_train(*ts, 17, H, rate)
+        out = tfa.flash_attention_packed_train(*ts, 17, h, rate)
         loss = (out * torch.from_numpy(do)).sum()
     loss.backward()
-    assert kernel_layout and set(kernel_layout) == {tfa.KERNEL_HEAD_DIM}
-    assert out.shape == (B, S, H * d)
+    assert kernel_layout and set(kernel_layout) == {tfa.kernel_head_dim(d)}
+    assert out.shape == (B, S, h * d)
     for a, w in [(out.detach(), want_o)] + list(zip((t.grad for t in ts), wants)):
         w = np.asarray(w)
         np.testing.assert_allclose(a.numpy(), w, atol=1e-4 * np.abs(w).max(), rtol=1e-4)
@@ -164,7 +176,8 @@ def test_train_attention_at_the_kernel_head_dim_matches_pallas(kernel_layout, d,
 def _fused_case(seed, d):
     cfg = JLayoutLMv3Config.tiny()
     rng = np.random.default_rng(seed)
-    qkv = [rng.standard_normal((B, S, H, d)).astype(np.float32) for _ in range(3)]
+    h = _h(d)
+    qkv = [rng.standard_normal((B, S, h, d)).astype(np.float32) for _ in range(3)]
     pos = np.broadcast_to(np.arange(S, dtype=np.int32), (B, S)).copy()
     x0 = rng.integers(0, 900, (B, S, 1))
     y0 = rng.integers(0, 900, (B, S, 1))
@@ -172,7 +185,7 @@ def _fused_case(seed, d):
     mask = np.ones((B, S), np.int32)
     mask[1, -9:] = 0
     scale = 1.0 / math.sqrt(d)
-    tables = [(rng.standard_normal((n, H)) * scale).astype(np.float32)
+    tables = [(rng.standard_normal((n, h)) * scale).astype(np.float32)
               for n in (cfg.rel_pos_bins, cfg.rel_2d_pos_bins, cfg.rel_2d_pos_bins)]
     bins = dict(rel_bins=cfg.rel_pos_bins, max_rel=cfg.max_rel_pos,
                 rel2d_bins=cfg.rel_2d_pos_bins, max_rel2d=cfg.max_rel_2d_pos)
@@ -201,7 +214,7 @@ def test_fused_bias_attention_at_the_kernel_head_dim_matches_pallas(monkeypatch,
     got = tfba.fused_bias_attention(
         *(torch.from_numpy(a).transpose(1, 2) for a in qkv), *(torch.from_numpy(a) for a in vecs),
         *(torch.from_numpy(t) for t in tables), **bins).numpy()
-    assert seen == [tfa.KERNEL_HEAD_DIM] and got.shape == (B, H, S, d)
+    assert seen == [tfa.kernel_head_dim(d)] and got.shape == (B, _h(d), S, d)
     np.testing.assert_allclose(got[0], want[0], atol=5e-3, rtol=1e-2)
     np.testing.assert_allclose(got[1, :, :-9], want[1, :, :-9], atol=5e-3, rtol=1e-2)
 
@@ -228,6 +241,7 @@ def test_fused_plain_is_bit_equal_to_the_pair(d, layout):
 def _entries(d):
     """Each entry point as a call on tensors of head dim ``d``."""
     q, k, v, do, bias, _ = _packed_case(5, d)
+    h = _h(d)
     qkv = [torch.from_numpy(a) for a in (q, k, v)]
     tb = torch.from_numpy(bias)
     heads = [torch.from_numpy(np.ascontiguousarray(_heads(a, d))) for a in (q, k, v)]
@@ -235,13 +249,13 @@ def _entries(d):
     vt = [torch.from_numpy(a) for a in vecs]
     tt = [torch.from_numpy(t) for t in tables]
     return {
-        "flash_attention_packed": lambda: tfa.flash_attention_packed(*qkv, tb, H),
+        "flash_attention_packed": lambda: tfa.flash_attention_packed(*qkv, tb, h),
         "flash_attention_packed_train": lambda: tfa.flash_attention_packed_train(
-            *qkv, tb, 3, H, 0.1),
+            *qkv, tb, 3, h, 0.1),
         "flash_attention_packed_train_chained": lambda: tfa.flash_attention_packed_train_chained(
-            *qkv, tb, 3, H, 0.1),
+            *qkv, tb, 3, h, 0.1),
         "flash_attention_packed_train_tables": lambda: tfa.flash_attention_packed_train_tables(
-            *qkv, tb, *tt, *vt[:3], 3, H, 0.1, **bins),
+            *qkv, tb, *tt, *vt[:3], 3, h, 0.1, **bins),
         "flash_attention": lambda: tfa.flash_attention(*heads, tb),
         "fused_bias_attention": lambda: tfba.fused_bias_attention(
             *(torch.from_numpy(a).transpose(1, 2) for a in fq), *vt, *tt, **bins),
@@ -253,10 +267,25 @@ ENTRIES = list(_entries(8))
 
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_a_head_dim_above_the_kernels_raises(monkeypatch, entry):
-    """D = 96 has no kernel layout: the entry point raises, naming the limit."""
+    """D = 192 has no kernel layout: the entry point raises, naming the limit."""
     monkeypatch.setattr(tfa, "_kernel_layout", lambda x: True)
-    with pytest.raises(ValueError, match="head dims up to 64, not 96"):
-        _entries(96)[entry]()
+    with pytest.raises(ValueError, match="head dims up to 128, not 192"):
+        _entries(192)[entry]()
+
+
+@pytest.mark.parametrize("entry", ENTRIES)
+def test_a_head_dim_between_the_kernel_widths_runs_padded(monkeypatch, entry):
+    """D = 96 (where D = 64 and 128 have kernels) runs: padded to 128, its
+    output sliced back to 96."""
+    monkeypatch.setattr(tfa, "_kernel_layout", lambda x: True)
+    widths = []
+    pad = tfa.pad_head_dim
+    monkeypatch.setattr(tfa, "pad_head_dim",
+                        lambda x, *a: widths.append(pad(x, *a).shape[-1]) or pad(x, *a))
+    out = _entries(96)[entry]()
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.shape[-1] in (96, _h(96) * 96) and widths
+    assert set(widths) == ({128} if out.shape[-1] == 96 else {_h(96) * 128})
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
@@ -268,17 +297,19 @@ def test_cpu_entries_run_the_head_dim_as_it_is(monkeypatch, entry):
     monkeypatch.setattr(tfa, "pad_head_dim", lambda *a: calls.append(1) or pad(*a))
     out = _entries(96)[entry]()
     out = out[0] if isinstance(out, tuple) else out
-    assert out.shape[-1] in (96, H * 96) and not calls
+    assert out.shape[-1] in (96, _h(96) * 96) and not calls
 
 
 @pytest.mark.parametrize("d", HEAD_DIMS)
 def test_pad_head_dim_adds_zero_columns(d):
-    """Both layouts: the first d columns of each head are x, the rest 0."""
+    """Both layouts: the first d columns of each head are x, the rest 0, up
+    to the next kernel width."""
     rng = np.random.default_rng(7)
     x = torch.from_numpy(rng.standard_normal((B, S, H * d)).astype(np.float32))
-    packed = tfa.pad_head_dim(x, H).view(B, S, H, tfa.KERNEL_HEAD_DIM)
+    width = tfa.kernel_head_dim(d)
+    packed = tfa.pad_head_dim(x, H).view(B, S, H, width)
     assert torch.equal(packed[..., :d], x.view(B, S, H, d)) and not packed[..., d:].any()
     heads = x.view(B, S, H, d).transpose(1, 2)
     padded = tfa.pad_head_dim(heads)
-    assert padded.is_contiguous() and padded.shape == (B, H, S, tfa.KERNEL_HEAD_DIM)
+    assert padded.is_contiguous() and padded.shape == (B, H, S, width)
     assert torch.equal(padded[..., :d], heads) and not padded[..., d:].any()
