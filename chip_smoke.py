@@ -60,6 +60,9 @@ Phases, each reported on its own line:
    hidden 768, S = P = 768), bf16 and f32, against their plain versions at
    the same tolerances, the same bits on a second run, the fused kernel
    bit-equal to its pair, each timed beside SDPA at D = 128 and its bound;
+   then the same in the kernels' wide mode at D = 192 (4 heads), 256 (3) and
+   320 (2) (``WIDE_DIMS``: untimed at S = 709 inside P = 768 at 192, then at
+   S = P = 768 at each, timed beside SDPA at the same D);
 4. serving path: EE LayoutLMv3-base (exits text_avg, vision_avg, 7; random
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
@@ -136,8 +139,9 @@ Phases, each reported on its own line:
    kernel, backward kernels, split pre-passes) in one more, traced, step.
 4t. the tiny config (hidden 64, 4 heads of 16, 2 layers: head dim 16,
    which the kernels take zero-padded to their 64), then the same with
-   hidden 384 in 4 heads of 96 (padded to 128) and hidden 512 in 4 heads of
-   128: each serves 2 batches of 16 through ``Pipeline.predict_features``
+   hidden 384 in 4 heads of 96 (padded to 128), hidden 512 in 4 heads of
+   128, and in the wide mode hidden 384 in 2 heads of 192 and 512 in 2
+   heads of 256: each serves 2 batches of 16 through ``Pipeline.predict_features``
    in f32 and in bf16 and takes one ``EETrainer`` step in bf16. Checks: the
    launch counts (every attention call in the kernels); the f32 kernel
    path's logits within the north star's f32 bars of the f32 plain path on
@@ -156,17 +160,39 @@ Phases, each reported on its own line:
    a million-mixture ``mixture_pareto_sweep`` bit-equal between the torch
    backend on the card and the native one. Prints the harvest's docs/sec,
    one traced batch's device ms and both sweeps' seconds.
+7. the command-line path at full width (after every earlier phase), in a
+   temporary directory that it removes: ``cli.train.main`` on
+   ``CLI_TRAIN`` (EE LayoutLMv3-base, random weights, bf16, batch 16, 2
+   epochs of 4 steps at the default schedule, a checkpoint per epoch);
+   a trainer resumed from a checkpoint saved with its optimizer state and
+   step; 2 steps with ``bf16_momentum``; ``cli.evaluate.main`` on the best
+   checkpoint (dump, then ``--full_test --calibrate``); ``cli.research.main``
+   over the dump (10^6 mixtures, torch and native backends);
+   ``Pipeline.from_checkpoint``. Checks: finite losses; per step 1
+   ``materialize_bias``, 2 ``table_grads``, 12 training forwards and 12
+   plain backwards (24 kernels); two checkpoints with their config.json;
+   the test metrics' keys (the JAX package's); the resumed trainer's
+   parameters bit-equal to those of one that kept going; bf16 first
+   moments; a finite float64 (4, 32, 16) store, finite positive
+   temperatures, one sweep result per threshold, 1 ``materialize_bias``, 12
+   ``flash_attention_packed`` and 12 ``split_bf16x3`` launches per
+   harvested batch (the checkpoint's f32 weights); the two
+   Pareto fronts bit-equal; ``from_checkpoint``'s predictions bit-equal to
+   an in-memory ``Pipeline``'s, its backbone config the trained model's.
+   Prints each step's seconds, train docs/sec, the peak memory with the
+   bf16 and the f32 first moment, and the CLIs' seconds.
 
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 4t, 5, 5c, 5d, 5f and 6 with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6 and 7 with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
 launches counted on the path that runs it; the f32 fields from phase 3's
 f32 run and the f32 launches from phases 4f/5f; ``split_bf16x3`` runs in
 f32 only, on phases 4f's and 5f's paths; the ``_d128`` fields from phase
-3's head-dim-128 run; the anytime harvest's launches of the two kernels it
-runs from phase 6), the last
+3's head-dim-128 run, the ``_wide`` fields (keyed by D) from its wide-mode
+runs; the anytime harvest's launches of the two kernels it runs from phase
+6, and the command-line path's (``cli_launches``) from phase 7), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -1204,11 +1230,53 @@ def phase_kernels_d128(name, results):
             print(f"kernel {e['name']} at D = 128: " + ", ".join(parts))
 
 
-def compare_kernels_d128(name, args, gen, by_name=None):
-    """The head-dim-128 kernels against their plain versions on the bias
-    inputs ``args`` (tables of H128 heads), bf16 and f32; with ``by_name``
-    (the kernels' rows) each is also timed and its ``*_d128`` fields set.
-    Raises on a disagreement; returns what each comparison read."""
+# phase 3's wide head dims, (D, H) at hidden 768, 768 and 640: the kernels'
+# wide mode (score side streamed 64 columns at a time, outputs in 64-column
+# groups)
+WIDE_DIMS = ((192, 4), (256, 3), (320, 2))
+
+
+def phase_kernels_wide(name, results):
+    """Phase 3 in the kernels' wide mode: every kernel whose body depends on
+    the head dim (#2, #3, #5, #7, #6, #8, #9 and the split pre-pass) against
+    its plain version at each of ``WIDE_DIMS`` on the paths' bias inputs (B
+    = 16), bf16 and f32, at the D = 128 run's tolerances and checks (the
+    same bits twice; the fused kernel bit-equal to its pair; the training
+    forward at rate 0 to the serving one): untimed at S = 709 inside P = 768
+    at the first D, then at S = P = 768 at each, timed by CUDA events beside
+    SDPA at the same D and the bound. Adds the ``*_wide`` fields (keyed by
+    D) to the kernels' rows in ``results``."""
+    dev = torch.device("cuda")
+    by_name = {e["name"]: e for e in results}
+    for i, (d, h) in enumerate(WIDE_DIMS):
+        gen = torch.Generator().manual_seed(1)
+        args, s_true = main_path_bias_inputs(dev, gen)
+        scale = 1.0 / math.sqrt(d)
+        args = list(args[:4]) + [(torch.randn((a.shape[0], h), generator=gen) * 0.02 * scale)
+                                 .to(dev) for a in args[4:]]
+        if i == 0:
+            unpadded = [a[:, :s_true].contiguous() for a in args[:4]] + args[4:]
+            readings = compare_kernels_d128(name, unpadded, gen, d=d, h=h)
+            print(f"kernels at D = {d} (H = {h}, wide mode) at S {s_true} inside P 768 "
+                  f"(untimed; the D = 128 tolerances and checks): {json.dumps(readings)}")
+        readings = compare_kernels_d128(name, args, gen, by_name, d=d, h=h)
+        print(f"kernels at D = {d} (H = {h}, wide mode, S = P = 768; the D = 128 tolerances "
+              f"and checks): {json.dumps(readings)}")
+    for e in results:
+        for pre in ("", "f32_"):
+            for d, wide_ms in sorted(e.get(f"{pre}ms_wide", {}).items(), key=lambda x: int(x[0])):
+                lib = e[f"{pre}library_ms_wide"][d]
+                print(f"kernel {e['name']} at D = {d} ({pre or 'bf16_'}): ms {wide_ms:.4f} bound "
+                      f"{e[f'{pre}bound_wide'][d] * 1e3:.1f} us ({e[f'{pre}bound_wide_by'][d]}) "
+                      f"library " + ("null" if lib is None else f"{lib:.4f}"))
+
+
+def compare_kernels_d128(name, args, gen, by_name=None, d=D128, h=H128):
+    """The kernels at head dim ``d`` (128, or a wide one) against their plain
+    versions on the bias inputs ``args`` (tables of ``h`` heads), bf16 and
+    f32; with ``by_name`` (the kernels' rows) each is also timed and its
+    ``*_d128`` fields set (at a wide ``d``: the ``*_wide`` fields, keyed by
+    ``d``). Raises on a disagreement; returns what each comparison read."""
     from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
         flash_attention_bwd,
         flash_attention_bwd_plain,
@@ -1236,15 +1304,25 @@ def compare_kernels_d128(name, args, gen, by_name=None):
     timed = by_name is not None
     in_bytes = sum(a.numel() * a.element_size() for a in args)
     vec_table_bytes = sum(a.numel() * a.element_size() for a in args[:3]) + sum(
-        a.shape[0] * H128 * 4 for a in args[4:])
+        a.shape[0] * h * 4 for a in args[4:])
     sdpa = torch.nn.functional.scaled_dot_product_attention
     seed, rate = 1234, TRAIN_RATE
     readings = {}
-    fwd_flops = 4 * B * H128 * s * s * D128
-    bwd_flops = 10 * B * H128 * s * s * D128
+    fwd_flops = 4 * B * h * s * s * d
+    bwd_flops = 10 * B * h * s * s * d
 
     def heads(x):
-        return x.view(B, s, H128, D128).transpose(1, 2)
+        return x.view(B, s, h, d).transpose(1, 2)
+
+    def put(row, pre, **fields):
+        """A kernel row's fields at this head dim: ``{pre}ms_d128`` ... at
+        128, ``{pre}ms_wide[d]`` ... at a wide d (bound_by after the name)."""
+        for field, value in fields.items():
+            base, by = (field[:-3], "_by") if field.endswith("_by") else (field, "")
+            if d == D128:
+                row[f"{pre}{base}_d128{by}"] = value
+            else:
+                row.setdefault(f"{pre}{base}_wide{by}", {})[str(d)] = value
 
     for dtype in (torch.bfloat16, torch.float32):
         f32 = dtype == torch.float32
@@ -1252,37 +1330,35 @@ def compare_kernels_d128(name, args, gen, by_name=None):
         bar = F32_BAR if f32 else 2e-2
         peak = bf16_peak / SPLIT_PASSES if f32 else bf16_peak
         esize = 4 if f32 else 2
-        q, k, v, do = (torch.randn((B, s, H128 * D128), generator=gen).to(dev, dtype)
+        q, k, v, do = (torch.randn((B, s, h * d), generator=gen).to(dev, dtype)
                        for _ in range(4))
         do = do * 0.1
         bias = materialize_bias(*args, out_dtype=dtype)
         p = bias.shape[-1]
-        check(p == 768, f"D = 128 inputs: S {s}, P {p}")
-        qkv_bytes = B * s * H128 * D128 * esize
-        block = B * H128 * s * s * esize
-        plane = B * H128 * p * p * esize
-        lse_bytes = B * H128 * p * 4
+        check(p == 768, f"D = {d} inputs: S {s}, P {p}")
+        qkv_bytes = B * s * h * d * esize
+        block = B * h * s * s * esize
+        plane = B * h * p * p * esize
+        lse_bytes = B * h * p * 4
         mask4 = bias[:, :, :s, :s]
 
         def gate(kname, what, got, want, again=None, limit=bar):
             check(got.shape == want.shape and got.dtype == want.dtype,
-                  f"D = 128 {tag} {kname} {what} layout (S {s})")
-            check(bool(torch.isfinite(got.float()).all()), f"D = 128 {tag} {kname} {what} "
+                  f"D = {d} {tag} {kname} {what} layout (S {s})")
+            check(bool(torch.isfinite(got.float()).all()), f"D = {d} {tag} {kname} {what} "
                   f"not finite (S {s})")
             err = scaled_err(got, want)
-            check(err <= limit, f"D = 128 {tag} {kname} {what} (S {s}): error {err} > {limit} "
+            check(err <= limit, f"D = {d} {tag} {kname} {what} (S {s}): error {err} > {limit} "
                   f"of its scale")
             if again is not None:
-                check(torch.equal(got, again), f"D = 128 {tag} {kname} {what} differs between "
+                check(torch.equal(got, again), f"D = {d} {tag} {kname} {what} differs between "
                       f"two runs (S {s})")
             readings.setdefault(f"{kname} {tag}", {})[what] = float(f"{err:.3e}")
 
         def record(kname, fn, bound_pair, library_ms, iters=20):
             if timed:
-                by_name[kname].update({
-                    f"{pre}ms_d128": time_ms(fn, iters=iters), f"{pre}bound_d128": bound_pair[0],
-                    f"{pre}bound_d128_by": bound_pair[1],
-                    f"{pre}library_ms_d128": library_ms() if library_ms else None})
+                put(by_name[kname], pre, ms=time_ms(fn, iters=iters), bound=bound_pair[0],
+                    bound_by=bound_pair[1], library_ms=library_ms() if library_ms else None)
 
         def sdpa_ms():
             return time_ms(lambda: sdpa(heads(q), heads(k), heads(v), attn_mask=mask4))
@@ -1295,10 +1371,10 @@ def compare_kernels_d128(name, args, gen, by_name=None):
                                                        retain_graph=True), iters=10)
 
         # #2 flash_attention_packed
-        out = flash_attention_packed(q, k, v, bias, H128)
-        gate("flash_attention_packed", "o", out, flash_attention_packed_plain(q, k, v, bias, H128),
-             flash_attention_packed(q, k, v, bias, H128))
-        record("flash_attention_packed", lambda: flash_attention_packed(q, k, v, bias, H128),
+        out = flash_attention_packed(q, k, v, bias, h)
+        gate("flash_attention_packed", "o", out, flash_attention_packed_plain(q, k, v, bias, h),
+             flash_attention_packed(q, k, v, bias, h))
+        record("flash_attention_packed", lambda: flash_attention_packed(q, k, v, bias, h),
                bound(block + 4 * qkv_bytes, fwd_flops, bw, peak), sdpa_ms)
 
         # #3 fused_bias_attention: within the bar, bit-equal to the pair
@@ -1307,31 +1383,31 @@ def compare_kernels_d128(name, args, gen, by_name=None):
         gate("fused_bias_attention", "o", fused, fused_bias_attention_plain(qh, kh, vh, *args),
              fused_bias_attention(qh, kh, vh, *args))
         check(torch.equal(fused.transpose(1, 2).reshape(B, s, -1), out),
-              f"D = 128 {tag} fused_bias_attention differs from materialize_bias + "
+              f"D = {d} {tag} fused_bias_attention differs from materialize_bias + "
               f"flash_attention_packed (S {s})")
         record("fused_bias_attention", lambda: fused_bias_attention(qh, kh, vh, *args),
                bound(4 * qkv_bytes + in_bytes, fwd_flops, bw, peak), None)
         del fused
 
         # #7 the training forward at the path's rate; at rate 0 the serving bits
-        t_out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate)
-        ref_o, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, H128, rate)
+        t_out, lse = flash_attention_packed_train_fwd(q, k, v, bias, seed, h, rate)
+        ref_o, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, seed, h, rate)
         gate("flash_attention_packed_train", "o", t_out, ref_o,
-             flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate)[0])
+             flash_attention_packed_train_fwd(q, k, v, bias, seed, h, rate)[0])
         lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
         check(lse_err <= 1e-3 and bool(torch.isinf(lse[:, :, s:]).all()),
-              f"D = 128 {tag} train forward lse error {lse_err} (S {s})")
-        check(torch.equal(flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, 0.0)[0],
-                          out), f"D = 128 {tag} train forward at rate 0 differs from "
+              f"D = {d} {tag} train forward lse error {lse_err} (S {s})")
+        check(torch.equal(flash_attention_packed_train_fwd(q, k, v, bias, seed, h, 0.0)[0],
+                          out), f"D = {d} {tag} train forward at rate 0 differs from "
               f"flash_attention_packed (S {s})")
         record("flash_attention_packed_train",
-               lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, H128, rate),
+               lambda: flash_attention_packed_train_fwd(q, k, v, bias, seed, h, rate),
                bound(block + 4 * qkv_bytes + lse_bytes, fwd_flops, bw, peak), sdpa_ms)
         del ref_o, ref_lse, out
 
         # #8 the training backward, plain and chained
         gbias = (torch.randn(bias.shape, generator=gen) * 1e-3).to(dev, dtype)
-        bwd_args = (q, k, v, bias, seed, t_out, lse, do, H128, rate)
+        bwd_args = (q, k, v, bias, seed, t_out, lse, do, h, rate)
         for chained in (False, True):
             extra = gbias if chained else None
             got = flash_attention_packed_train_bwd(*bwd_args, extra)
@@ -1367,7 +1443,7 @@ def compare_kernels_d128(name, args, gen, by_name=None):
                lambda: lib_bwd, iters=10)
 
         # #9 the table-gradient backward
-        tables_args = (q, k, v, bias, *args[:3], seed, t_out, lse, do, H128, rate)
+        tables_args = (q, k, v, bias, *args[:3], seed, t_out, lse, do, h, rate)
         got = flash_attention_packed_train_tables_bwd(*tables_args)
         again = flash_attention_packed_train_tables_bwd(*tables_args)
         want = flash_attention_packed_train_tables_bwd_plain(*tables_args)
@@ -1385,13 +1461,12 @@ def compare_kernels_d128(name, args, gen, by_name=None):
             parts = split_bf16x3(*views)
             for i, x in enumerate(views):
                 check(torch.equal(parts[i], split_bf16x3_plain(x)),
-                      f"D = 128 split_bf16x3 differs from its plain version (operand {i}, S {s})")
+                      f"D = {d} split_bf16x3 differs from its plain version (operand {i}, S {s})")
             readings["split_bf16x3 f32"] = "bit-equal"
             if timed:  # f32 only: the row's plain fields are its f32 readings
                 split_bound = bound(4 * qkv_bytes + 12 * qkv_bytes // 2, 0, bw, bf16_peak)
-                by_name["split_bf16x3"].update(
-                    ms_d128=time_ms(lambda: split_bf16x3(*views)), bound_d128=split_bound[0],
-                    bound_d128_by=split_bound[1], library_ms_d128=None)
+                put(by_name["split_bf16x3"], "", ms=time_ms(lambda: split_bf16x3(*views)),
+                    bound=split_bound[0], bound_by=split_bound[1], library_ms=None)
         del views, o_h, lse_h, hbwd, tables_args, bwd_args, bias, q, k, v, do, t_out, lse
         torch.cuda.empty_cache()
     torch.cuda.synchronize()
@@ -1666,19 +1741,24 @@ def phase_serve_fused(served):
     return launches
 
 
-# the tiny config's widths with wider heads, by head dim (4 heads each):
-# hidden 384 in heads of 96 (padded to the kernels' 128) and 512 in heads
-# of 128; the layout embeddings' 4 coordinate + 2 shape widths sum to the
-# hidden size
+# the tiny config's widths with wider heads, by head dim: hidden 384 in
+# heads of 96 (padded to the kernels' 128) and 512 in heads of 128 (4 heads
+# each), and in the kernels' wide mode hidden 384 in 2 heads of 192 and 512
+# in 2 heads of 256; the layout embeddings' 4 coordinate + 2 shape widths
+# sum to the hidden size
 WIDE_HEADS = {96: dict(hidden_size=384, coordinate_size=64, shape_size=64),
-              128: dict(hidden_size=512, coordinate_size=96, shape_size=64)}
+              128: dict(hidden_size=512, coordinate_size=96, shape_size=64),
+              192: dict(hidden_size=384, coordinate_size=64, shape_size=64,
+                        num_attention_heads=2),
+              256: dict(hidden_size=512, coordinate_size=96, shape_size=64,
+                        num_attention_heads=2)}
 
 
 def phase_tiny(card: str, head_dim: int = 16):
     """Phase 4t: the tiny config (4 heads of 16: the kernels take the head
     dim zero-padded to 64), or at the wider heads of ``WIDE_HEADS`` (96,
-    padded to 128, and 128), served and trained on the card, gated against
-    the f32 plain path on the CPU."""
+    padded to 128, 128, and the wide mode's 192 and 256), served and trained
+    on the card, gated against the f32 plain path on the CPU."""
     from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
     from multi_modal_early_exit_tpu_torch.data.features import HashWordTokenizer
     from multi_modal_early_exit_tpu_torch.data.images import preprocess_images
@@ -2299,6 +2379,233 @@ def phase_train_f32(card: str, trained, base):
           f"on {card}")
     return total
 
+# phase 7's run of cli.train: EE LayoutLMv3-base at __graft_entry__.py's
+# widths, random weights, the synthetic RVL-CDIP splits (64 training, 32
+# validation and 32 test documents of 512 tokens and 224-pixel pages)
+CLI_TRAIN = ["with", "model_size=base", "dataset=synthetic_rvl_cdip", "model_weights=",
+             "epochs=2", "batch_size=16", "eval_batch_size=16", "compute_dtype=bfloat16",
+             "exits=text_avg,vision_avg,7", "training_strategy=one_stage_subgraphs_weighted",
+             "lr=2e-5", "output_dir=save"]
+CLI_STEP_LAUNCHES = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
+                     "flash_attention_packed_train_bwd": 24}
+# cli.evaluate harvests with the checkpoint's f32 weights, as the JAX
+# package's does: a batch splits k and v before every attention call
+CLI_BATCH_LAUNCHES = {"materialize_bias": 1, "flash_attention_packed": 12, "split_bf16x3": 12}
+
+
+def phase_cli(card: str):
+    """Phase 7: the command-line path at full width, in a temporary
+    directory that it removes. ``cli.train`` (``CLI_TRAIN``: 2 epochs of 4
+    steps at the default schedule, a checkpoint per epoch), a resume from a
+    checkpoint saved with its optimizer state (2 steps bit-equal to the
+    same 2 steps without the save), 2 steps with the bf16 first moment,
+    ``cli.evaluate`` on the best checkpoint (dump, then a full sweep with
+    calibration), ``cli.research`` over the dump on the torch and the
+    native backends (the Pareto fronts bit-equal) and
+    ``Pipeline.from_checkpoint`` (bit-equal to a ``Pipeline`` over the same
+    state dict in memory). Returns the launches of the kernels over the
+    phase's train and evaluate calls."""
+    import shutil
+    import tempfile
+
+    from multi_modal_early_exit_tpu_torch.cli import evaluate as cli_evaluate
+    from multi_modal_early_exit_tpu_torch.cli import research as cli_research
+    from multi_modal_early_exit_tpu_torch.cli import train as cli_train
+    from multi_modal_early_exit_tpu_torch.config.experiment import parse_cli
+    from multi_modal_early_exit_tpu_torch.data.datasets import build_dataset
+    from multi_modal_early_exit_tpu_torch.data.loader import iterate_batches
+    from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.training import checkpoint as ckpt
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    counters = train_counters()
+    try:
+        for f in counters.values():
+            f.launches = 0
+        # 1. train: each step timed, its launches counted, by wrapping the
+        # trainer's step; each checkpoint's validation accuracy recorded
+        steps, saves = [], []
+        step_fn, save_fn = EETrainer.train_step, ckpt.CheckpointManager.save
+
+        def timed_step(self, batch, rng):
+            torch.cuda.synchronize()
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = step_fn(self, batch, rng)
+            torch.cuda.synchronize()
+            steps.append((time.perf_counter() - t0, out[0],
+                          {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}))
+            return out
+
+        def recorded_save(self, epoch, state_dict, config=None, opt_state=None, metric=None):
+            saves.append((epoch, metric))
+            return save_fn(self, epoch, state_dict, config, opt_state, metric)
+
+        EETrainer.train_step, ckpt.CheckpointManager.save = timed_step, recorded_save
+        torch.cuda.reset_peak_memory_stats()
+        try:
+            t0 = time.perf_counter()
+            metrics = cli_train.main(list(CLI_TRAIN))
+            t_train = time.perf_counter() - t0
+        finally:
+            EETrainer.train_step, ckpt.CheckpointManager.save = step_fn, save_fn
+        train_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        check(len(steps) == 8, f"cli.train took {len(steps)} steps, not 8")
+        check(all(math.isfinite(loss) for _, loss, _ in steps),
+              f"cli.train losses {[loss for _, loss, _ in steps]}")
+        for _, _, ran in steps:
+            check(ran == CLI_STEP_LAUNCHES, f"a cli.train step launched {ran}, not "
+                  f"{CLI_STEP_LAUNCHES}")
+        check(set(metrics) == {"accuracy", "exit_0_accuracy", "exit_1_accuracy",
+                               "exit_2_accuracy", "exit_0_share", "exit_1_share",
+                               "exit_2_share", "exit_3_share"},
+              f"cli.train's test metrics {sorted(metrics)}")
+        run_dir = os.path.join("save", cli_train.experiment_name(parse_cli(list(CLI_TRAIN))))
+        ckpts = sorted(os.listdir(run_dir))
+        check(ckpts == ["checkpoint-0", "checkpoint-1"] and all(
+            os.path.exists(os.path.join(run_dir, c, "config.json")) for c in ckpts),
+            f"cli.train wrote {ckpts}")
+        best_epoch = max(saves, key=lambda x: (x[1], -x[0]))[0]  # the first best, as the manager
+        best = os.path.join(run_dir, f"checkpoint-{best_epoch}")
+        timed = [dt for dt, _, _ in steps]
+        print(f"cli.train (EE LayoutLMv3-base, bf16, batch 16, scan_fold 1, dropout 0.1): 8 steps "
+              f"of {[round(t, 4) for t in timed]} s, {16 * len(timed[1:]) / sum(timed[1:]):.1f} "
+              f"train docs/sec after the first step (host clock), losses "
+              f"{[round(x, 4) for _, x, _ in steps]}, launches per step {CLI_STEP_LAUNCHES}, "
+              f"{t_train:.1f} s with evaluation and checkpoints, peak memory {train_peak:.1f} MiB, "
+              f"test metrics {json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}, "
+              f"best {best}, on {card}")
+
+        # 2. resume: a trainer built from a checkpoint saved with its optimizer
+        # state takes the 2 steps that one which kept going takes, bit for bit
+        cfg = parse_cli(list(CLI_TRAIN))
+        train_ds = build_dataset(cfg.dataset, "train")
+        batches = [{k: v[None] for k, v in b.items() if k != "sample_mask"}
+                   for b in iterate_batches(train_ds, 16, drop_last=True)]
+        model_cfg, model = cli_evaluate.load_assets(parse_cli(["-c", best] + CLI_TRAIN[1:]))[1:]
+        args = TrainingArguments(learning_rate=cfg.lr, bf16=True)
+        going = EETrainer(model_cfg, model, args, total_steps=8)
+        gen = torch.Generator().manual_seed(3)
+        for b in batches[:2]:
+            going.train_step(b, gen)
+        ckpt.save_checkpoint("resume", going.model.state_dict(), cfg.to_dict(),
+                             going.optimizer.state_dict(), step=2)
+        state, _, opt_state, step = ckpt.load_checkpoint("resume", with_opt_state=True)
+        check(step == 2 and opt_state is not None, "the resume checkpoint lost its step or state")
+        fresh = EEModel(model_cfg, device="cpu")
+        fresh.load_state_dict(state, strict=True)
+        resumed = EETrainer(model_cfg, fresh, args, total_steps=8)
+        resumed.optimizer.load_state_dict(opt_state)
+        gen_resumed = torch.Generator()
+        gen_resumed.set_state(gen.get_state())
+        for b in batches[2:4]:
+            going.train_step(b, gen)
+            resumed.train_step(b, gen_resumed)
+        torch.cuda.synchronize()
+        a, b_ = going.model.state_dict(), resumed.model.state_dict()
+        differ = [k for k in a if not torch.equal(a[k], b_[k])]
+        check(not differ, f"the resumed trainer's parameters differ in {differ[:5]}")
+        del going, resumed, fresh, model, state, opt_state, a, b_
+
+        # 3. the bf16 first moment: 2 steps beside the f32 moment's
+        peaks, moments = {}, {}
+        for bf16_momentum in (False, True):
+            model = cli_evaluate.load_assets(parse_cli(["-c", best] + CLI_TRAIN[1:]))[2]
+            trainer = EETrainer(model_cfg, model, TrainingArguments(
+                learning_rate=cfg.lr, bf16=True, bf16_momentum=bf16_momentum), total_steps=8)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses = [trainer.train_step(b, torch.Generator().manual_seed(4))[0]
+                      for b in batches[:2]]
+            torch.cuda.synchronize()
+            peaks[bf16_momentum] = torch.cuda.max_memory_allocated() / 2 ** 20
+            check(all(math.isfinite(x) for x in losses), f"bf16_momentum={bf16_momentum} "
+                  f"losses {losses}")
+            mu = {st["exp_avg"].dtype for st in trainer.optimizer.adamw.state.values()}
+            moments[bf16_momentum] = sum(st["exp_avg"].numel() * st["exp_avg"].element_size()
+                                         for st in trainer.optimizer.adamw.state.values())
+            want_mu = torch.bfloat16 if bf16_momentum else torch.float32
+            check(mu == {want_mu}, f"bf16_momentum={bf16_momentum}: first moments in {mu}")
+            del trainer, model
+            torch.cuda.empty_cache()
+        print(f"bf16_momentum: 2 steps, peak memory {peaks[True]:.1f} MiB against "
+              f"{peaks[False]:.1f} MiB with the f32 first moment (moments "
+              f"{moments[True] / 2 ** 20:.1f} against {moments[False] / 2 ** 20:.1f} MiB), "
+              f"on {card}")
+
+        # 4. evaluate the best checkpoint: dump, then a full sweep with calibration
+        ev_args = ["-c", best, "-d", "synthetic_rvl_cdip", "with", "eval_batch_size=16"]
+        readings = {}
+        for mode, extra in (("dump", []), ("full_test", [
+                "--full_test", "True", "--calibrate", "True", "--exit_threshold", "0.05",
+                "--step", "0.05"])):
+            before = launch_counts()
+            t0 = time.perf_counter()
+            out = cli_evaluate.main(ev_args[:4] + extra + ev_args[4:])
+            dt = time.perf_counter() - t0
+            ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+            # the dump harvests the 32 test documents, the sweep the 32
+            # validation ones (the test store comes from the dump): 2 batches
+            want = {n: 2 * c for n, c in CLI_BATCH_LAUNCHES.items()}
+            check(out["mode"] == mode and ran == want, f"cli.evaluate {mode}: {out}, launched "
+                  f"{ran}, not {want}")
+            readings[mode] = round(dt, 3)
+        root = os.path.join("results", f"{os.path.basename(best)}-synthetic_rvl_cdip")
+        store = np.load(os.path.join(root, "exit_logits-test.npz"))["arr_0"]
+        check(store.shape == (4, 32, 16) and store.dtype == np.float64
+              and bool(np.isfinite(store).all()), f"dumped store {store.shape} {store.dtype}")
+        with open(os.path.join(root, "config.json")) as f:
+            temps = json.load(f)["calibration_metrics"]["temperature"]
+        check(all(math.isfinite(t) and t > 0 for t in temps), f"temperatures {temps}")
+        with open(os.path.join(root, "max_confidence_global_thresholding_policy",
+                               "calibrated-metrics.json")) as f:
+            results = json.load(f)
+        thresholds = np.arange(0.05, 1, 0.05)
+        check(len(results) == len(thresholds), f"{len(results)} sweep results for "
+              f"{len(thresholds)} thresholds")
+
+        # 5. research over the dump: torch on the card, then native
+        fronts, seconds = {}, {}
+        for backend in ("torch", "native"):
+            t0 = time.perf_counter()
+            cli_research.main(["--checkpoint-dir", root, "--num-mixtures", "1000000",
+                               "--backend", backend])
+            seconds[backend] = round(time.perf_counter() - t0, 3)
+            with open(os.path.join(root, "mixture_search.json")) as f:
+                fronts[backend] = json.load(f)["pareto"]
+        check(fronts["torch"] == fronts["native"] and fronts["torch"],
+              "the torch and native mixture searches' Pareto fronts differ")
+
+        # 6. Pipeline.from_checkpoint against a Pipeline over the same state dict
+        pipe = Pipeline.from_checkpoint(best, batch_size=16)
+        state, _, _, _ = ckpt.load_checkpoint(best)
+        in_memory = EEModel(model_cfg, device="cpu")
+        in_memory.load_state_dict(state, strict=True)
+        ref = Pipeline(in_memory, model_cfg, batch_size=16)
+        check(pipe.cfg.backbone == model_cfg.backbone, "from_checkpoint's backbone config "
+              "differs from the trained model's")
+        test_ds = build_dataset(cfg.dataset, "test")
+        feats = {k: test_ds.arrays[k] for k in ("input_ids", "bbox", "attention_mask",
+                                                "pixel_values")}
+        got, want = pipe.predict_features(feats), ref.predict_features(feats)
+        check(len(got) == 32 and got == want, "Pipeline.from_checkpoint's predictions differ "
+              "from the in-memory Pipeline's")
+        print(f"cli.evaluate on {best}: dump {readings['dump']} s, full sweep with calibration "
+              f"{readings['full_test']} s ({len(results)} thresholds), store {store.shape} "
+              f"float64, temperatures {[round(t, 4) for t in temps]}, launches per harvested "
+              f"batch {CLI_BATCH_LAUNCHES}; cli.research, 10^6 mixtures: torch "
+              f"{seconds['torch']} s, native {seconds['native']} s, Pareto fronts bit-equal "
+              f"({len(fronts['torch'])} points); Pipeline.from_checkpoint bit-equal to the "
+              f"in-memory Pipeline on 2 batches; on {card}")
+        return {name: f.launches for name, f in counters.items()}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+
 
 def main() -> int:
     if not torch.cuda.is_available():
@@ -2314,6 +2621,7 @@ def main() -> int:
     with bias_modes():
         kernels = phase_kernels(name)
         phase_kernels_d128(name, kernels)
+        phase_kernels_wide(name, kernels)
     with bias_modes():
         serve_launches, served = phase_main_path()
     with bias_modes(fused="1"):
@@ -2324,7 +2632,7 @@ def main() -> int:
     del served
     with bias_modes():
         serve32_launches = phase_main_path(torch.float32, base4)[0]
-    for head_dim in (16, 96, 128):
+    for head_dim in (16, 96, 128, 192, 256):
         with bias_modes():
             phase_tiny(card, head_dim)
     with bias_modes():
@@ -2337,6 +2645,8 @@ def main() -> int:
         phase_train_remat(card, trained, default_grads)
     with bias_modes():
         train32_launches = phase_train_f32(card, trained, default_run)
+    with bias_modes():
+        cli_launches = phase_cli(card)
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # the split pre-pass runs before every f32 forward and backward
     f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]
@@ -2378,6 +2688,14 @@ def main() -> int:
                                      "flash_attention_packed_train_tables_bwd")
         check((k["f32_launches"] == 0) == only_phase_3,
               f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
+    # the command-line path (phase 7): cli.train's steps, evaluations and
+    # checkpoints, the resume and bf16-moment steps, cli.evaluate's harvests
+    # and the Pipeline.from_checkpoint batches
+    cli_in = "phase 7, the command-line path"
+    for k in kernels:
+        if k["name"] in CLI_STEP_LAUNCHES or k["name"] in CLI_BATCH_LAUNCHES:
+            k["cli_launches"], k["cli_launches_in"] = cli_launches[k["name"]], cli_in
+            check(k["cli_launches"] > 0, f"{k['name']} was never launched in phase 7")
     # the anytime harvest (phase 6) runs the serving forward's two kernels
     anytime_in = f"phase 6, get_logits over {ANYTIME_DOCS} documents"
     for k in kernels:
@@ -2393,7 +2711,9 @@ def main() -> int:
     # head-dim-dependent kernels their readings at D = 128
     extra = ("anytime_launches", "anytime_launches_in", "pair_ms", "f32_pair_ms", "ms_d128",
              "bound_d128", "bound_d128_by", "library_ms_d128", "f32_ms_d128", "f32_bound_d128",
-             "f32_bound_d128_by", "f32_library_ms_d128")
+             "f32_bound_d128_by", "f32_library_ms_d128", "ms_wide", "bound_wide",
+             "bound_wide_by", "library_ms_wide", "f32_ms_wide", "f32_bound_wide",
+             "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

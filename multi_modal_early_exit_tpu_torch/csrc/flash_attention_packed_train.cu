@@ -219,8 +219,9 @@
 // +inf as the lse of rows in [S, P).
 //
 // Head dims. Every kernel body takes the head dim as a template parameter
-// kD, 64 or 128 (the wrappers zero-pad any D <= 128 to the smaller of the
-// two; the TPU kernels take any D). A row of an operand tile is kD / 64
+// kD: 64, 128, or kWide for any multiple of 64 above 128 (the wrappers
+// zero-pad any other D to the next of these; the TPU kernels take any D).
+// A row of an operand tile is kD / 64
 // boxes of 64 bf16 columns (128 bytes, one swizzle span), a box of a tile
 // of R rows R x 128 bytes after the one before: the score products walk
 // the k steps of box 1 after those of box 0, and every product whose N is
@@ -237,6 +238,29 @@
 //   wrappers widen a bf16 one, exactly); the f32 tables mode keeps its
 //   [bin][row] histogram in global memory, after the partials, as its
 //   shared memory is full (same writers, same order, same sums).
+// The wide mode (kD == kWide, D > 128 a multiple of 64) keeps every tile
+// and accumulator at the 64-wide instantiation's size whatever D is:
+// - the outputs whose N is the head dim (o, dq, dk, dv) are computed in
+//   64-column groups, one CTA each (grid y = h + H g, g < D / 64), so no
+//   accumulator grows: the dk/dv kernel's two would take 2 x 64 x 256 f32
+//   per warpgroup at D = 256, 256 registers a thread;
+// - each group recomputes the scores over all of D. The score products
+//   (q k^T, and do v^T in the backward) walk the D / 64 boxes one ring
+//   stage each, q's box streamed with k's (f32: three bf16 parts of q at D
+//   = 256 take 96 KB, which no longer fits beside the ring), accumulating in
+//   box order, the same in every group; a block's last stage also holds the
+//   group's box of the output side's operand (v; k for dq; q and do for dk
+//   and dv) and the bias tiles. A stage: forward bf16 48 KB (two CTAs per
+//   SM), f32 88 KB (32-key blocks, one); (A) bf16 48/56 KB plain/chained,
+//   f32 92/100 KB; (B) bf16 56 KB, f32 104 KB; two stages each;
+// - group 0 alone writes the lse, delta, dbias (gbias + ds chained) and the
+//   tables mode's partials, so every output keeps one writer and C5's
+//   determinism holds; f32 operands take an f32 bias, and the f32 tables
+//   mode keeps its histogram in global memory, as at 128;
+// - the 64- and 128-wide instantiations are the parent's code: their
+//   statements are unchanged, and ptxas gives them the same registers,
+//   spills and SASS. Each group recomputing the scores and every box's
+//   stage waited for make the wide mode right, not fast (PERF.md).
 
 #include "sm90.cuh"
 
@@ -246,6 +270,16 @@ constexpr int kDBox = 64;    // head-dim columns of one 128-byte bf16 box
 constexpr int kBQ = 64;      // rows per CTA (4 warps x 16)
 constexpr int kBK = 64;      // keys per CTA of (B)
 constexpr int kMaxDistance = 1024;  // the largest max_distance of a built bias
+// the kD of the wide mode: a (zero-padded) head dim D above 128, a multiple
+// of 64. The score products stream D / 64 boxes through the ring; the
+// outputs whose N is the head dim run in 64-column groups, one per CTA
+// (grid y = H * D / 64), so every tile and accumulator is the 64-wide one
+constexpr int kWide = 0;
+template <int kD>
+constexpr bool kIsWide = kD == kWide;
+// the columns of d a tile holds: 64 in the wide mode
+template <int kD>
+constexpr int kTileD = kIsWide<kD> ? kDBox : kD;
 
 typedef __nv_bfloat16 bf16;
 
@@ -375,13 +409,14 @@ __device__ __forceinline__ uint64_t k_step(int ks) {
 // 64-column boxes kBoxA and kBoxB): every product of parts, each over kKs
 // k steps of 16; B has as many rows as d has columns
 template <typename T, int kPartA, int kPartB, int kBoxA, int kBoxB, int kKs, int kN>
-__device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b) {
+__device__ __forceinline__ void wgmma_by_rows(float (&d)[kN], uint64_t a, uint64_t b,
+                                              int acc = 0) {
 #pragma unroll
   for (int i = 0; i < kTerms<T>; ++i) {
 #pragma unroll
     for (int ks = 0; ks < kKs; ++ks) {
       wgmma_ss(d, a + term_a(kTerms<T>, i) * (kPartA >> 4) + k_step<kBoxA>(ks),
-               b + term_b(kTerms<T>, i) * (kPartB >> 4) + k_step<kBoxB>(ks), i + ks);
+               b + term_b(kTerms<T>, i) * (kPartB >> 4) + k_step<kBoxB>(ks), i + ks + acc);
     }
   }
 }
@@ -418,21 +453,21 @@ __device__ __forceinline__ void wgmma_by_cols(float (&d)[32],
   }
 }
 
-// rows [r0, r0 + rows) of an operand of kD columns into dst, part by part
-// (part p of batch b is batch p B + b of the operand's map; part tiles
-// `part` bytes apart), each part's 64-column boxes rows x 128 bytes apart,
-// in boxes of kBoxRows rows (one thread)
+// rows [r0, r0 + rows) of an operand of kD columns from column 64 box0 on
+// into dst, part by part (part p of batch b is batch p B + b of the
+// operand's map; part tiles `part` bytes apart), each part's 64-column boxes
+// rows x 128 bytes apart, in boxes of kBoxRows rows (one thread)
 template <int kParts_, int kBoxRows, int kD>
 __device__ __forceinline__ void load_operand(uint8_t* dst, const CUtensorMap* map,
                                              uint64_t* bar, int r0, int rows, int part, int h,
-                                             int b) {
+                                             int b, int box0 = 0) {
 #pragma unroll
   for (int p = 0; p < kParts_; ++p) {
 #pragma unroll
     for (int db = 0; db < kD / kDBox; ++db) {
       for (int rb = 0; rb < rows; rb += kBoxRows) {
-        tma_load_4d(dst + p * part + db * rows * 128 + rb * 128, map, bar, db * kDBox, r0 + rb,
-                    h, p * static_cast<int>(gridDim.z) + b);
+        tma_load_4d(dst + p * part + db * rows * 128 + rb * 128, map, bar, (box0 + db) * kDBox,
+                    r0 + rb, h, p * static_cast<int>(gridDim.z) + b);
       }
     }
   }
@@ -464,9 +499,9 @@ struct Tile {
 // pre-pass) instead of as f32 split in registers, f32 at 128
 template <typename T, int kD>
 struct FwdTiling {
-  static constexpr int kW = kIsF32<T> && kD == 128 ? 32 : 64;
+  static constexpr int kW = kIsF32<T> && (kD == 128 || kIsWide<kD>) ? 32 : 64;
   static constexpr int kCtas = kIsF32<T> || kD == 128 ? 1 : 2;  // CTAs per SM the ring allows
-  static constexpr bool kQParts = kIsF32<T> && kD == 128;
+  static constexpr bool kQParts = kIsF32<T> && (kD == 128 || kIsWide<kD>);
 };
 
 // q (both warpgroups' rows, as loaded: T), then the ring; each stage k, v
@@ -476,17 +511,27 @@ struct FwdTiling {
 // 161 KB with a bf16 one, one; a built bias bf16 51 KB, f32 131 KB, then
 // the expanded tables (built_tables_bytes, 5 KB at the default distances).
 // At 128 (one CTA): bf16 129 KB, f32 225 KB (q's parts, 32-key blocks),
-// built 98 and 195 KB
+// built 98 and 195 KB.
+// Wide (kWide): no resident q. A stage holds one 64-column box of the q
+// tile (both warpgroups, every part) and of the key block's k tile, and,
+// in the last box's stage of a block, the block's v box of this CTA's
+// column group and its bias tiles (or key vectors); each region 1 KB
+// aligned. bf16: 48 KB a stage, 97 KB, two CTAs per SM; f32 (32-key
+// blocks, f32 bias): 88 KB a stage, 177 KB, one; built bf16 33 KB, f32 73
+// KB a stage
 template <typename T, typename BiasT, int kD, bool kBuilt = false>
 struct FwdSmem {
   static constexpr int kW = FwdTiling<T, kD>::kW;
-  static constexpr int kQPart = 64 * kD * 2;  // 64 rows of one bf16 part of q
-  static constexpr int kQTile = FwdTiling<T, kD>::kQParts ? 3 * kQPart : Tile<T, kD>::kBytes;
-  static constexpr int kPartTile = kW * kD * 2;  // kW rows of one bf16 part
+  static constexpr int kQPart = 64 * kTileD<kD> * 2;  // 64 rows of one bf16 part of q
+  static constexpr int kQTile =
+      FwdTiling<T, kD>::kQParts ? 3 * kQPart : Tile<T, kTileD<kD>>::kBytes;
+  static constexpr int kPartTile = kW * kTileD<kD> * 2;  // kW rows of one bf16 part
   static constexpr int kOpTile = kParts<T> * kPartTile;
-  static constexpr int kQ = 2 * kQTile;
+  static constexpr int kQ = kIsWide<kD> ? 0 : 2 * kQTile;
   static constexpr int kBias = kBuilt ? kW * 16 : 2 * 64 * kW * static_cast<int>(sizeof(BiasT));
-  static constexpr int kStage = 2 * kOpTile + kBias;
+  // wide: the q box after the bias region (rounded up to 1 KB)
+  static constexpr int kQOff = 2 * kOpTile + ((kBias + 1023) & ~1023);
+  static constexpr int kStage = kIsWide<kD> ? kQOff + 2 * kQTile : 2 * kOpTile + kBias;
   static constexpr int kBytes = 1024 + kQ + kFwdStages * kStage;
   static_assert(kBuilt || Tile<BiasT, kW>::kBoxes >= 1, "a bias tile is whole boxes");
 };
@@ -604,7 +649,12 @@ __device__ __forceinline__ float sw32(const float* tile, int r, int c, int box =
 // [key][d] as an MN-major B (once per 64 columns of d), and release the
 // stage. A warpgroup whose rows all lie at or past S only writes their lse
 // (+inf), and nothing without kLse. With kBuilt (no dropout, no lse) the
-// bias comes from `bb`, not the bias map.
+// bias comes from `bb`, not the bias map. Wide (kD == kWide): grid y is
+// h + H g over the D / 64 column groups g; each block's scores accumulate
+// over the D / 64 stages of its boxes (q's and k's), in box order in every
+// group, so every group computes the same scores, maxima and sums; the
+// block's last stage also holds v's box g, and the CTA writes o's columns
+// 64 g .. 64 g + 63. Only group 0 writes the lse.
 template <typename T, typename BiasT, int kD, bool kDropout, bool kLse, bool kBuilt>
 __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_kernel(
     const __grid_constant__ FwdMaps maps,
@@ -616,7 +666,8 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
   static_assert(!kBuilt || (!kDropout && !kLse), "a built bias serves inference only");
   constexpr int kW = Smem::kW;     // keys per block
   constexpr int kN = kW / 2;       // score accumulators per thread
-  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
+  constexpr int kDH = kTileD<kD> / kDBox;  // 64-column boxes of d in a tile
+  constexpr bool kWideD = kIsWide<kD>;
   constexpr int kQTile = Smem::kQTile;
   constexpr int kPartTile = Smem::kPartTile;
   constexpr int kOpTile = Smem::kOpTile;
@@ -629,12 +680,15 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
       (reinterpret_cast<uintptr_t>(fwd_smem_raw) + 1023) & ~static_cast<uintptr_t>(1023));
 
   const int q0 = blockIdx.x * kFwdRows;
-  const int h = blockIdx.y;
+  const int h = kWideD ? blockIdx.y % H : blockIdx.y;
+  const int grp = kWideD ? blockIdx.y / H : 0;        // the column group
+  const int n_box = kWideD ? gridDim.y / H : 1;       // 64-column boxes of d
   const int b = blockIdx.z;
   const int plane = b * H + h;
   float* lse_bh = kLse ? lse + static_cast<size_t>(plane) * P : nullptr;
   const int n_live = q0 + 64 < S ? 2 : (q0 < S ? 1 : 0);  // warpgroups with a row < S
   if (n_live == 0) {  // pad rows only
+    if (grp != 0) return;
     if constexpr (kLse) {
       for (int r = threadIdx.x; r < kFwdRows && q0 + r < P; r += kFwdThreads) {
         lse_bh[q0 + r] = INFINITY;
@@ -663,8 +717,8 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
       tma_prefetch_map(&maps.k);
       tma_prefetch_map(&maps.v);
       if constexpr (!kBuilt) tma_prefetch_map(&maps.bias);
-      mbar_expect_tx(&q_bar, n_live * kQTile);
-      for (int w = 0; w < n_live; ++w) {
+      if constexpr (!kWideD) mbar_expect_tx(&q_bar, n_live * kQTile);
+      for (int w = 0; w < n_live && !kWideD; ++w) {
         if constexpr (FwdTiling<T, kD>::kQParts) {
           load_operand<3, 64, kD>(smem + w * kQTile, &maps.q, &q_bar, q0 + 64 * w, 64,
                                   Smem::kQPart, h, b);
@@ -678,6 +732,48 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
       }
     }
     const uint32_t stage_tx = 2 * kOpTile + (kBuilt ? 0 : n_live * kBias);
+    if constexpr (kWideD) {
+      // stage n: box c = n % n_box of block kb = n / n_box (q's rows of both
+      // warpgroups and k's), and in a block's last box also v's box g and
+      // the bias tiles (or the key vectors)
+      for (int n = 0; n < n_kb * n_box; ++n) {
+        const int kb = n / n_box, c = n % n_box;
+        const bool last = c == n_box - 1;
+        const int stage = n % kFwdStages;
+        if (n >= kFwdStages) mbar_wait(&empty_bar[stage], ((n / kFwdStages) - 1) & 1);
+        uint8_t* st = smem + stage * kStage;
+        uint64_t* bar = &full_bar[stage];
+        if constexpr (kBuilt) {
+          if (last) {
+            stage_key_vectors<kW>(reinterpret_cast<int4*>(st + 2 * kOpTile), bb, b, S, kb * kW,
+                                  lane);
+          }
+          __syncwarp();
+        }
+        if (lane == 0) {
+          mbar_expect_tx(bar, n_live * kQTile + kOpTile + (last ? stage_tx - kOpTile : 0));
+          for (int w = 0; w < n_live; ++w) {
+            load_operand<kParts<T>, 64, kDBox>(st + Smem::kQOff + w * kQTile, &maps.q, bar,
+                                               q0 + 64 * w, 64, Smem::kQPart, h, b, c);
+          }
+          load_operand<kParts<T>, kW, kDBox>(st, &maps.k, bar, kb * kW, kW, kPartTile, h, b, c);
+          if (last) {
+            load_operand<kParts<T>, kW, kDBox>(st + kOpTile, &maps.v, bar, kb * kW, kW,
+                                               kPartTile, h, b, grp);
+            if constexpr (!kBuilt) {
+              for (int w = 0; w < n_live; ++w) {
+#pragma unroll
+                for (int cb = 0; cb < Tile<BiasT, kW>::kBoxes; ++cb) {
+                  tma_load_2d(st + 2 * kOpTile + w * kBias + cb * 8192, &maps.bias, bar,
+                              kb * kW + cb * Tile<BiasT>::kBoxCols, plane * P + q0 + 64 * w);
+                }
+              }
+            }
+          }
+        }
+      }
+      return;
+    }
     for (int kb = 0; kb < n_kb; ++kb) {
       const int stage = kb % kFwdStages;
       if (kb >= kFwdStages) mbar_wait(&empty_bar[stage], ((kb / kFwdStages) - 1) & 1);
@@ -720,7 +816,7 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
   }
   if (wg >= n_live) {  // rows q0 + 64 .. q0 + 127, all at or past S
     if constexpr (kLse) {
-      if (ct < 64 && q0 + 64 + ct < P) lse_bh[q0 + 64 + ct] = INFINITY;
+      if (grp == 0 && ct < 64 && q0 + 64 + ct < P) lse_bh[q0 + 64 + ct] = INFINITY;
     }
     return;
   }
@@ -761,13 +857,13 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
   // 32 bytes on, a 64-column box a tile's rows x 128 bytes on; MN-major v:
   // the same atoms, a 16-key k step 2 KB on
   const uint64_t q_desc = wgmma_desc(smem + wg * kQTile, 16, 1024);
-  mbar_wait(&q_bar, 0);
+  if constexpr (!kWideD) mbar_wait(&q_bar, 0);
   // f32 at 64: this warp's q rows split into three parts of wgmma's A
   // registers once (A register j of k step ks holds row lr[j % 2], columns
   // 16 ks + 8 (j / 2) + 2t, +1), so the score products read only k from
   // shared memory, and the pre-pass splits only k and v; at 128 q's parts
   // come from the pre-pass (kQParts) and the products read them as k's
-  constexpr bool kQInRegs = kIsF32<T> && !FwdTiling<T, kD>::kQParts;
+  constexpr bool kQInRegs = kIsF32<T> && !FwdTiling<T, kD>::kQParts && !kWideD;
   uint32_t qa[kQInRegs ? 3 : 1][kQInRegs ? 4 * kDH : 1][4];
   if constexpr (kQInRegs) {
     const float* q_tile = reinterpret_cast<const float*>(smem + wg * kQTile);
@@ -796,10 +892,34 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
         kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
       }
     }
-    mbar_wait(&full_bar[stage], (kb / kFwdStages) & 1);
-    const uint8_t* st = smem + kQBytes + stage * kStage;
+    int last_stage = stage;  // the stage of the block's v and bias
+    if constexpr (kWideD) {
+      // S = q k^T over d, one box a stage (the previous block's P v is done);
+      // each box's stage is released once its products are, but the last
+      for (int c = 0; c < n_box; ++c) {
+        const int n = kb * n_box + c;
+        last_stage = n % kFwdStages;
+        mbar_wait(&full_bar[last_stage], (n / kFwdStages) & 1);
+        const uint8_t* box_st = smem + last_stage * kStage;
+        wgmma_fence();
+        wgmma_by_rows<T, Smem::kQPart, kPartTile, 8192, kW * 128, 4>(
+            s, wgmma_desc(box_st + Smem::kQOff + wg * kQTile, 16, 1024),
+            wgmma_desc(box_st, 16, 1024), c > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        if (c < n_box - 1) {
+          __syncwarp();
+          if (lane == 0) mbar_arrive(&empty_bar[last_stage]);
+        }
+      }
+    } else {
+      mbar_wait(&full_bar[stage], (kb / kFwdStages) & 1);
+    }
+    const uint8_t* st = smem + kQBytes + last_stage * kStage;
     const BiasT* bias_tile = reinterpret_cast<const BiasT*>(st + 2 * kOpTile + wg * kBias);
 
+    if constexpr (!kWideD) {
     // S = q k^T over d
     wgmma_fence();
     if constexpr (kQInRegs) {
@@ -818,6 +938,7 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
     }
     wgmma_wait<0>();
     reg_fence(s);
+    }
 
     // scale + bias in f32; keys >= S (in the last block only) masked out.
     // Rows >= S take whatever bias lies there: they are neither stored nor
@@ -913,6 +1034,13 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
           acc[db], pa, wgmma_desc(st + kOpTile + db * kW * 128, 16, 1024));
     }
     wgmma_commit();
+    if constexpr (kWideD) {  // the block's last stage is free once P v is done
+      wgmma_wait<0>();
+      reg_fence(acc);
+      reg_fence(pa);
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty_bar[last_stage]);
+    }
   }
   wgmma_wait<0>();
   reg_fence(acc);
@@ -922,11 +1050,11 @@ __global__ void __launch_bounds__(kFwdThreads, (FwdTiling<T, kD>::kCtas)) fwd_ke
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     if constexpr (kLse) {
-      if (t == 0) lse_bh[row[r]] = row[r] < S ? m_run[r] + logf(l_run[r]) : INFINITY;
+      if (t == 0 && grp == 0) lse_bh[row[r]] = row[r] < S ? m_run[r] + logf(l_run[r]) : INFINITY;
     }
     if (row[r] >= S) continue;
     const float inv = 1.0f / l_run[r];
-    T* orow = o + b * so.b + h * so.h + row[r] * so.s;
+    T* orow = o + b * so.b + h * so.h + row[r] * so.s + grp * kDBox;
 #pragma unroll
     for (int db = 0; db < kDH; ++db) {
 #pragma unroll
@@ -978,7 +1106,7 @@ int encode_parts(CUtensorMap* map, const bf16* parts, int B, int H, int S, int D
 // bias from `bb` (its expanded tables after the ring), else from maps.bias
 template <typename T, typename BiasT, int kD, bool kDropout, bool kLse, bool kBuilt = false>
 int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, int B, int S,
-                      int H, int P, float scale, int seed, float keep, float inv_keep,
+                      int H, int D, int P, float scale, int seed, float keep, float inv_keep,
                       cudaStream_t st, const BuiltBias& bb = BuiltBias{}) {
   constexpr int base = FwdSmem<T, BiasT, kD, kBuilt>::kBytes;
   const int smem = base + (kBuilt ? built_tables_bytes(bb.max1, bb.max2) : 0);
@@ -987,7 +1115,8 @@ int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, 
   const int err = set_smem_limit_once(
       kernel, base + (kBuilt ? built_tables_bytes(kMaxDistance, kMaxDistance) : 0), ready);
   if (err != 0) return err;
-  kernel<<<dim3((P + kFwdRows - 1) / kFwdRows, H, B), kFwdThreads, smem, st>>>(
+  const int groups = kIsWide<kD> ? D / kDBox : 1;  // the wide mode's column groups
+  kernel<<<dim3((P + kFwdRows - 1) / kFwdRows, H * groups, B), kFwdThreads, smem, st>>>(
       maps, o, lse, so, S, H, P, scale, seed, keep, inv_keep, bb);
   return static_cast<int>(cudaGetLastError());
 }
@@ -995,27 +1124,29 @@ int launch_fwd_kernel(const FwdMaps& maps, T* o, float* lse, const Strides& so, 
 // the maps of q at its strides, and of k and v: at their strides in bf16;
 // in f32 of their split parts `kv_parts`, (2, 3, B, H, S, D) bf16, which
 // the caller's split pre-pass wrote (the kernel reads f32 k and v only so),
-// boxes of the forward's kW rows; f32 at 128 also q's parts, the third
-// operand of `kv_parts` ((3, 3, B, H, S, 128)), boxes of 64 rows
+// boxes of the forward's kW rows; f32 at 128 and wide also q's parts, the
+// third operand of `kv_parts` ((3, 3, B, H, S, D)), boxes of 64 rows. D is
+// the head dim (kD, or the wide mode's)
 template <typename T, int kD>
 int encode_qkv(FwdMaps* maps, const T* q, const T* k, const T* v, const bf16* kv_parts,
-               const Strides& sq, const Strides& sk, const Strides& sv, int B, int S, int H) {
+               const Strides& sq, const Strides& sk, const Strides& sv, int B, int S, int H,
+               int D) {
   constexpr int kW = FwdTiling<T, kD>::kW;
   int err = 0;
   if constexpr (kIsF32<T>) {
     if (kv_parts == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
+    const size_t n = static_cast<size_t>(3) * B * H * S * D;  // one operand's parts
     if constexpr (FwdTiling<T, kD>::kQParts) {
-      err = encode_parts(&maps->q, kv_parts + 2 * n, B, H, S, kD, 64);
+      err = encode_parts(&maps->q, kv_parts + 2 * n, B, H, S, D, 64);
     } else {
-      err = encode_operand(&maps->q, q, sq, kD, S, H, B);
+      err = encode_operand(&maps->q, q, sq, D, S, H, B);
     }
-    if (err == 0) err = encode_parts(&maps->k, kv_parts, B, H, S, kD, kW);
-    if (err == 0) err = encode_parts(&maps->v, kv_parts + n, B, H, S, kD, kW);
+    if (err == 0) err = encode_parts(&maps->k, kv_parts, B, H, S, D, kW);
+    if (err == 0) err = encode_parts(&maps->v, kv_parts + n, B, H, S, D, kW);
   } else {
-    err = encode_operand(&maps->q, q, sq, kD, S, H, B);
-    if (err == 0) err = encode_operand(&maps->k, k, sk, kD, S, H, B, kW);
-    if (err == 0) err = encode_operand(&maps->v, v, sv, kD, S, H, B, kW);
+    err = encode_operand(&maps->q, q, sq, D, S, H, B);
+    if (err == 0) err = encode_operand(&maps->k, k, sk, D, S, H, B, kW);
+    if (err == 0) err = encode_operand(&maps->v, v, sv, D, S, H, B, kW);
   }
   return err;
 }
@@ -1024,20 +1155,20 @@ int encode_qkv(FwdMaps* maps, const T* q, const T* k, const T* v, const bf16* kv
 template <typename T, typename BiasT, int kD>
 int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const void* bias, T* o,
                float* lse, const Strides& sq, const Strides& sk, const Strides& sv,
-               const Strides& so, int B, int S, int H, int P, float scale, int seed, float keep,
-               float inv_keep, int dropout, int with_lse, cudaStream_t st) {
+               const Strides& so, int B, int S, int H, int D, int P, float scale, int seed,
+               float keep, float inv_keep, int dropout, int with_lse, cudaStream_t st) {
   if (!with_lse && dropout) return static_cast<int>(cudaErrorInvalidValue);
   FwdMaps maps;
-  int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
+  int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H, D);
   if (err == 0) err = encode_plane<BiasT>(&maps.bias, bias, B, H, P);
   if (err != 0) return err;
   if (!with_lse) {
-    return launch_fwd_kernel<T, BiasT, kD, false, false>(maps, o, nullptr, so, B, S, H, P, scale,
-                                                         seed, keep, inv_keep, st);
+    return launch_fwd_kernel<T, BiasT, kD, false, false>(maps, o, nullptr, so, B, S, H, D, P,
+                                                         scale, seed, keep, inv_keep, st);
   }
-  return dropout ? launch_fwd_kernel<T, BiasT, kD, true, true>(maps, o, lse, so, B, S, H, P,
+  return dropout ? launch_fwd_kernel<T, BiasT, kD, true, true>(maps, o, lse, so, B, S, H, D, P,
                                                                scale, seed, keep, inv_keep, st)
-                 : launch_fwd_kernel<T, BiasT, kD, false, true>(maps, o, lse, so, B, S, H, P,
+                 : launch_fwd_kernel<T, BiasT, kD, false, true>(maps, o, lse, so, B, S, H, D, P,
                                                                 scale, seed, keep, inv_keep, st);
 }
 
@@ -1046,36 +1177,39 @@ int launch_fwd(const T* q, const T* k, const T* v, const bf16* kv_parts, const v
 template <typename T, int kD>
 int launch_fused(const T* q, const T* k, const T* v, const bf16* kv_parts, T* o,
                  const Strides& sq, const Strides& sk, const Strides& sv, const Strides& so,
-                 const BuiltBias& bb, int B, int S, int H, float scale, cudaStream_t st) {
+                 const BuiltBias& bb, int B, int S, int H, int D, float scale, cudaStream_t st) {
   if (bb.max1 < 1 || bb.max2 < 1 || bb.max1 > kMaxDistance || bb.max2 > kMaxDistance) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   FwdMaps maps;
   memset(&maps, 0, sizeof(maps));  // no bias map
-  const int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H);
+  const int err = encode_qkv<T, kD>(&maps, q, k, v, kv_parts, sq, sk, sv, B, S, H, D);
   if (err != 0) return err;
-  return launch_fwd_kernel<T, T, kD, false, false, true>(maps, o, nullptr, so, B, S, H, S, scale,
-                                                         0, 1.0f, 1.0f, st, bb);
+  return launch_fwd_kernel<T, T, kD, false, false, true>(maps, o, nullptr, so, B, S, H, D, S,
+                                                         scale, 0, 1.0f, 1.0f, st, bb);
 }
 
 // calls fn(std::integral_constant<int, kD>{}) for a head dim the kernels
-// take (64 or 128); any other is cudaErrorInvalidValue
+// take: 64, 128, or the wide mode (kWide) for a multiple of 64 above 128;
+// any other is cudaErrorInvalidValue
 template <typename Fn>
 int by_dim(int D, Fn&& fn) {
   if (D == 64) return fn(std::integral_constant<int, 64>{});
   if (D == 128) return fn(std::integral_constant<int, 128>{});
+  if (D > 128 && D % kDBox == 0) return fn(std::integral_constant<int, kWide>{});
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // calls fn(T{}, BiasT{}, std::integral_constant<int, kD>{}) with the
 // operand and bias types the flags name and the head dim D. f32 operands at
-// 128 take an f32 bias only (their wrappers widen a bf16 one)
+// 128 and wide take an f32 bias only (their wrappers widen a bf16 one)
 template <typename Fn>
 int by_types(int qkv_is_bf16, int bias_is_bf16, int D, Fn&& fn) {
   return by_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
     auto call = [&](auto t, auto bt) -> int {
-      if constexpr (kIsF32<decltype(t)> && !kIsF32<decltype(bt)> && kD == 128) {
+      if constexpr (kIsF32<decltype(t)> && !kIsF32<decltype(bt)> &&
+                    (kD == 128 || kIsWide<kD>)) {
         return static_cast<int>(cudaErrorInvalidValue);
       } else {
         return fn(t, bt, d);
@@ -1120,20 +1254,27 @@ constexpr int kBwdThreads = 128;  // one warpgroup, which also issues the copies
 // blocks (its dk and dv take 128 registers a thread), and with f32
 // operands (A) does too (their parts fill 224 KB chained at 32 wide); one
 // CTA per SM with f32 operands, two with bf16 ones (at 255 registers).
+// Wide (kWide): every tile is 64 columns, and a stage holds one box of each
+// score operand and, in a block's last stage, the output group's tiles
+// (DqSmem, DkvSmem); bf16 64-wide blocks, two CTAs per SM; f32 32-wide
+// (f32 bias only), one.
 template <typename T, typename BiasT, bool kChained, int kD = 64>
 struct BwdTiling {
   static constexpr bool kNarrow = kIsF32<T> && kIsF32<BiasT>;
   // streamed rows per block of (A) (kChained as given) and of (B)
-  static constexpr int kWDq = kD == 128 ? (kIsF32<T> ? 32 : 64) : (kNarrow && !kChained ? 32 : 64);
+  static constexpr int kWDq = kD == 128 || kIsWide<kD>
+                                  ? (kIsF32<T> ? 32 : 64)
+                                  : (kNarrow && !kChained ? 32 : 64);
   static constexpr int kWDkv = kD == 128 || kNarrow ? 32 : 64;
-  static constexpr int kCtas =
-      kD == 128 ? (kIsF32<T> ? 1 : 2) : kIsF32<T> ? (kNarrow && !kChained ? 2 : 1) : 3;
+  static constexpr int kCtas = kD == 128 || kIsWide<kD>
+                                   ? (kIsF32<T> ? 1 : 2)
+                                   : kIsF32<T> ? (kNarrow && !kChained ? 2 : 1) : 3;
   // rows of the operand maps' and the bias maps' boxes: 32 in f32 and at
   // 128, so a 32-row tile is one box and a 64-row tile two
   static constexpr int kOpBoxRows = kIsF32<T> || kD == 128 ? 32 : 64;
   static constexpr int kBiasBoxRows = kNarrow || kD == 128 ? 32 : 64;
   static_assert(kD == 64 || kIsF32<T> == kIsF32<BiasT> || !kIsF32<T>,
-                "f32 operands at 128 take an f32 bias");
+                "f32 operands at 128 and wide take an f32 bias");
 };
 
 // q, k, v, do as (D, rows, H, B) maps by their strides (f32: of their split
@@ -1159,25 +1300,31 @@ struct BwdStrides {
 // also the staging tile of dbias; then delta of the 64 rows and the
 // barriers. bf16: 64 KB plain, three CTAs per SM; 80 KB chained, two. f32
 // (f32 bias): 112 KB plain, two; 208 KB chained (64 wide), one. At 128:
-// bf16 112 KB plain, 128 KB chained; f32 208 KB plain, 224 KB chained
+// bf16 112 KB plain, 128 KB chained; f32 208 KB plain, 224 KB chained.
+// Wide: no resident q and do; a stage holds k, v (kW rows), the bias (and
+// gbias) tiles, q and do (64 rows), each one 64-column box, and k's box of
+// the CTA's column group for dq: bf16 96 KB plain, 112 KB chained; f32 184
+// KB plain, 200 KB chained
 template <typename T, typename BiasT, bool kChained, int kD = 64>
 struct DqSmem {
   using Tiling = BwdTiling<T, BiasT, kChained, kD>;
   static constexpr int kW = Tiling::kWDq;
-  static constexpr int kPart = 64 * kD * 2;        // a 64-row part tile
-  static constexpr int kStreamPart = kW * kD * 2;  // a kW-row part tile
+  static constexpr int kPart = 64 * kTileD<kD> * 2;        // a 64-row part tile
+  static constexpr int kStreamPart = kW * kTileD<kD> * 2;  // a kW-row part tile
   static constexpr int kTile = kParts<T> * kPart;
   static constexpr int kStreamTile = kParts<T> * kStreamPart;
   static constexpr int kBias = 64 * kW * static_cast<int>(sizeof(BiasT));
-  static constexpr int kStage = 2 * kStreamTile + (kChained ? 2 : 1) * kBias;
-  static constexpr int kRing = 2 * kTile;
+  // wide: q's box, then do's, then k's box of the group, after the bias
+  static constexpr int kQOff = 2 * kStreamTile + (kChained ? 2 : 1) * kBias;
+  static constexpr int kStage = kIsWide<kD> ? kQOff + 2 * kTile + kStreamTile : kQOff;
+  static constexpr int kRing = kIsWide<kD> ? 0 : 2 * kTile;
   static constexpr int kDeltaOff = kRing + kDqStages * kStage;  // 64 floats
   static constexpr int kBarOff = kDeltaOff + 64 * 4;  // full, empty, then q's barrier
   static constexpr int kBytes = kBarOff + (2 * kDqStages + 1) * 8;
   static constexpr int kTabOff = (kBytes + 15) & ~15;  // the tables mode's region
   // the tables mode's histogram in global memory (after the partials): f32
-  // operands at 128 leave no room for it
-  static constexpr bool kGlobalHist = kIsF32<T> && kD == 128;
+  // operands at 128 and wide leave no room for it
+  static constexpr bool kGlobalHist = kIsF32<T> && (kD == 128 || kIsWide<kD>);
 };
 
 // the tables mode of (A): the (B, S) bucket vectors (positions, x0, y1),
@@ -1212,18 +1359,23 @@ __host__ __device__ constexpr int tables_bytes(int n_bins, int kw, int max1, int
 // (B): k and v (64 rows), then the ring: each stage q, do (kW rows) and the
 // bias tile [query][key] of this CTA's keys; then each stage's kW lse and
 // kW delta values, and the barriers. bf16: 65 KB, three CTAs per SM; f32
-// (f32 bias): 113 KB, two. At 128: bf16 81 KB, f32 209 KB
+// (f32 bias): 113 KB, two. At 128: bf16 81 KB, f32 209 KB. Wide: no
+// resident k and v; a stage holds q, do (kW rows), the bias tile, k and v
+// (64 rows), each one 64-column box, then q's and do's boxes of the CTA's
+// column group: bf16 113 KB, f32 209 KB
 template <typename T, typename BiasT, int kD = 64>
 struct DkvSmem {
   using Tiling = BwdTiling<T, BiasT, false, kD>;
   static constexpr int kW = Tiling::kWDkv;
-  static constexpr int kPart = 64 * kD * 2;
-  static constexpr int kStreamPart = kW * kD * 2;
+  static constexpr int kPart = 64 * kTileD<kD> * 2;
+  static constexpr int kStreamPart = kW * kTileD<kD> * 2;
   static constexpr int kTile = kParts<T> * kPart;
   static constexpr int kStreamTile = kParts<T> * kStreamPart;
   static constexpr int kBias = kW * 64 * static_cast<int>(sizeof(BiasT));
-  static constexpr int kStage = 2 * kStreamTile + kBias;
-  static constexpr int kRing = 2 * kTile;
+  // wide: k's box, v's box, then q's and do's boxes of the group
+  static constexpr int kKOff = 2 * kStreamTile + kBias;
+  static constexpr int kStage = kIsWide<kD> ? kKOff + 2 * kTile + 2 * kStreamTile : kKOff;
+  static constexpr int kRing = kIsWide<kD> ? 0 : 2 * kTile;
   static constexpr int kRowsOff = kRing + kDkvStages * kStage;  // lse, then delta, per stage
   static constexpr int kBarOff = kRowsOff + kDkvStages * 2 * kW * 4;  // full, empty, k/v's
   static constexpr int kBytes = kBarOff + (2 * kDkvStages + 1) * 8;
@@ -1332,6 +1484,11 @@ __device__ __forceinline__ void load_plane_tile(uint8_t* dst, const CUtensorMap*
 // products queue behind that product, and its mask bits are made while
 // both run. kTables is the tables backward's (A'): keys < S only, no dbias,
 // each block's ds summed into the CTA's table histogram (see walk below).
+// Wide (kD == kWide): grid y is h + H g over the D / 64 column groups g;
+// every block's S and dP accumulate over the D / 64 stages of its boxes in
+// box order (the same in every group), the block's last stage also holding
+// k's box g for dq's columns 64 g .. 64 g + 63; only group 0 writes delta,
+// dbias and the tables mode's partials, so each output has one writer.
 template <typename T, typename BiasT, int kD, bool kDropout, bool kChained, bool kTables>
 __global__ void __launch_bounds__(kBwdThreads,
                                   (kTables ? 1 : BwdTiling<T, BiasT, kChained, kD>::kCtas))
@@ -1346,7 +1503,8 @@ __global__ void __launch_bounds__(kBwdThreads,
   using Smem = DqSmem<T, BiasT, kChained, kD>;
   using Tiling = BwdTiling<T, BiasT, kChained, kD>;
   constexpr int kW = Smem::kW;
-  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
+  constexpr int kDH = kTileD<kD> / kDBox;  // 64-column boxes of d in a tile
+  constexpr bool kWideD = kIsWide<kD>;
   constexpr int kN = kW / 2;  // accumulators of a 64 x kW block per thread
   constexpr int kTile = Smem::kTile;
   constexpr int kStreamTile = Smem::kStreamTile;
@@ -1360,7 +1518,10 @@ __global__ void __launch_bounds__(kBwdThreads,
   uint64_t* q_bar = empty_bar + kDqStages;
 
   const int q0 = blockIdx.x * 64;
-  const int h = blockIdx.y;
+  const int h = kWideD ? blockIdx.y % H : blockIdx.y;
+  const int grp = kWideD ? blockIdx.y / H : 0;   // the column group
+  const int n_box = kWideD ? gridDim.y / H : 1;  // 64-column boxes of d
+  const bool lead = grp == 0;  // writes delta, dbias and the tables' partials
   const int b = blockIdx.z;
   const int plane = b * H + h;
   // every column of the plane, as dbias is P x P; in the tables mode only
@@ -1392,6 +1553,50 @@ __global__ void __launch_bounds__(kBwdThreads,
                                                    bar, kb * kW, plane * P + q0, 64, kW);
     }
   };
+  // wide: stage n holds box c = n % n_box of block kb = n / n_box's k and v
+  // and of the CTA's q and do; a block's last stage also its bias (and
+  // gbias) tiles and k's box g. A block with no row or key < S loads only
+  // its gbias, as above
+  const int n_chunks = n_kb * n_box;
+  auto load_chunk = [&](int n) {
+    const int kb = n / n_box, c = n % n_box;
+    const bool last = c == n_box - 1;
+    uint8_t* st = smem + (n % kDqStages) * Smem::kStage;
+    uint64_t* bar = &full_bar[n % kDqStages];
+    const bool live = q0 < S && kb * kW < S;
+    mbar_expect_tx(bar, (live ? 2 * kStreamTile + 2 * kTile + (last ? kBias + kStreamTile : 0) : 0) +
+                            (kChained && last ? kBias : 0));
+    if (live) {
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st, &maps.k, bar, kb * kW, kW,
+                                                          Smem::kStreamPart, h, b, c);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + kStreamTile, &maps.v, bar, kb * kW,
+                                                          kW, Smem::kStreamPart, h, b, c);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kQOff, &maps.q, bar, q0, 64,
+                                                          Smem::kPart, h, b, c);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kQOff + kTile, &maps.dout,
+                                                          bar, q0, 64, Smem::kPart, h, b, c);
+      if (last) {
+        load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar,
+                                                     kb * kW, plane * P + q0, 64, kW);
+        load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kQOff + 2 * kTile, &maps.k,
+                                                            bar, kb * kW, kW, Smem::kStreamPart,
+                                                            h, b, grp);
+      }
+    }
+    if (kChained && last) {
+      load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile + kBias, &maps.gbias,
+                                                   bar, kb * kW, plane * P + q0, 64, kW);
+    }
+  };
+  // wide: a stage's release by the four warps, and its refill (thread 0)
+  auto release_chunk = [&](int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[n % kDqStages]);
+    if (ct == 0 && n + kDqStages < n_chunks) {
+      mbar_wait(&empty_bar[n % kDqStages], (n / kDqStages) & 1);
+      load_chunk(n + kDqStages);
+    }
+  };
   if (ct == 0) {
     for (int s = 0; s < kDqStages; ++s) {
       mbar_init(&full_bar[s], 1);
@@ -1405,6 +1610,9 @@ __global__ void __launch_bounds__(kBwdThreads,
     tma_prefetch_map(&maps.dout);
     tma_prefetch_map(&maps.bias);
     if constexpr (kChained) tma_prefetch_map(&maps.gbias);
+    if constexpr (kWideD) {
+      for (int n = 0; n < kDqStages && n < n_chunks; ++n) load_chunk(n);
+    } else {
     mbar_expect_tx(q_bar, q0 < S ? 2 * kTile : 0);
     if (q0 < S) {
       load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem, &maps.q, q_bar, q0, 64, Smem::kPart,
@@ -1413,18 +1621,26 @@ __global__ void __launch_bounds__(kBwdThreads,
                                                        Smem::kPart, h, b);
     }
     for (int kb = 0; kb < kDqStages && kb < n_kb; ++kb) load_block(kb);
+    }
   }
 
-  // delta of the tile's rows, one thread per row (zero past S)
+  // delta of the tile's rows, one thread per row (zero past S); wide: the
+  // sum of the 64-column boxes' sums, in box order
   if (ct < 64) {
     const int i = q0 + ct;
     float acc = 0.0f;
     if (i < S) {
+      if constexpr (kWideD) {
+        const T* dr = plane_of(dout, sdo, b, h) + i * sdo.s;
+        const T* orow = plane_of(o, so, b, h) + i * so.s;
+        for (int c = 0; c < n_box; ++c) acc += row_delta<T, kDBox>(dr + c * kDBox, orow + c * kDBox);
+      } else {
       acc = row_delta<T, kD>(plane_of(dout, sdo, b, h) + i * sdo.s,
                              plane_of(o, so, b, h) + i * so.s);
+      }
     }
     s_delta[ct] = acc;
-    delta[static_cast<size_t>(plane) * P + i] = acc;
+    if (lead) delta[static_cast<size_t>(plane) * P + i] = acc;
   }
   // the tables mode: a zeroed histogram (in shared memory, or this CTA's
   // in global memory after the partials), the LUTs as bytes, and this
@@ -1439,7 +1655,7 @@ __global__ void __launch_bounds__(kBwdThreads,
   int* s_keys = reinterpret_cast<int*>(smem + Smem::kTabOff + tables_keys_off(n_smem_bins));
   uint8_t* s_lut = smem + Smem::kTabOff + tables_lut_off(n_smem_bins, kW);
   int vrow[2][3] = {{0, 0, 0}, {0, 0, 0}};
-  if constexpr (kTables) {
+  if (kTables && lead) {
     for (int e = ct; e < n_bins * kHistPitch; e += kBwdThreads) s_hist[e] = 0.0f;
     for (int e = ct; e <= tab.max1; e += kBwdThreads) s_lut[e] = static_cast<uint8_t>(tab.lut1[e]);
     for (int e = ct; e <= tab.max2; e += kBwdThreads) {
@@ -1497,7 +1713,8 @@ __global__ void __launch_bounds__(kBwdThreads,
         const int maxd = tbl == 0 ? tab.max1 : tab.max2;
         const int v0 = tbl == 0 ? vrow[0][0] : tbl == 1 ? vrow[0][1] : vrow[0][2];
         const int v1 = tbl == 0 ? vrow[1][0] : tbl == 1 ? vrow[1][1] : vrow[1][2];
-        float* base = s_hist + (tbl == 0 ? 0 : tbl == 1 ? tab.nb1 : tab.nb1 + tab.nb2) * kHistPitch;
+        float* base =
+            s_hist + (tbl == 0 ? 0 : tbl == 1 ? tab.nb1 : tab.nb1 + tab.nb2) * kHistPitch;
         float* col0 = base + ((lr[0] + 8 * tbl) & 63);
         float* col1 = base + ((lr[1] + 8 * tbl) & 63);
         // every bucket first (loads that do not wait for the adds), then
@@ -1526,20 +1743,47 @@ __global__ void __launch_bounds__(kBwdThreads,
       __syncwarp();  // the next phase hands the columns to other threads
     }
   };
-  mbar_wait(q_bar, 0);
+  if constexpr (!kWideD) mbar_wait(q_bar, 0);
 
   for (int kb = 0; kb < n_kb; ++kb) {
     const int k0 = kb * kW;
     const int stage = kb % kDqStages;
-    mbar_wait(&full_bar[stage], (kb / kDqStages) & 1);
-    uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
-    const uint64_t k_desc = wgmma_desc(st, 16, 1024);
+    int last_n = stage;  // wide: the chunk of the block's last stage (its bias, k's box g)
+    if constexpr (kWideD) {
+      // S = q k^T and dP = do v^T over d, one box a stage, each stage
+      // released once its products are done, but the last
+      const bool live_w = q0 < S && k0 < S;
+      for (int c = 0; c < n_box; ++c) {
+        last_n = kb * n_box + c;
+        mbar_wait(&full_bar[last_n % kDqStages], (last_n / kDqStages) & 1);
+        const uint8_t* box_st = smem + (last_n % kDqStages) * Smem::kStage;
+        if (live_w) {
+          wgmma_fence();
+          wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4>(
+              s, wgmma_desc(box_st + Smem::kQOff, 16, 1024), wgmma_desc(box_st, 16, 1024),
+              c > 0);
+          wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4>(
+              dp, wgmma_desc(box_st + Smem::kQOff + kTile, 16, 1024),
+              wgmma_desc(box_st + kStreamTile, 16, 1024), c > 0);
+          wgmma_commit();
+          wgmma_wait<0>();
+          reg_fence(s);
+          reg_fence(dp);
+        }
+        if (c < n_box - 1) release_chunk(last_n);
+      }
+    } else {
+      mbar_wait(&full_bar[stage], (kb / kDqStages) & 1);
+    }
+    uint8_t* st = smem + Smem::kRing + (kWideD ? last_n % kDqStages : stage) * Smem::kStage;
+    // wide: k's box g, the B operand of dq's product
+    const uint64_t k_desc = wgmma_desc(st + (kWideD ? Smem::kQOff + 2 * kTile : 0), 16, 1024);
     const uint64_t v_desc = wgmma_desc(st + kStreamTile, 16, 1024);
     const bool live = q0 < S && k0 < S;
 
     // S = q k^T and dP = do v^T over d, queued behind the previous block's
     // dQ += dS k (whose A registers stay live until the wait)
-    if (live) {
+    if (!kWideD && live) {
       wgmma_fence();
       wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(s, q_desc,
                                                                                   k_desc);
@@ -1555,8 +1799,8 @@ __global__ void __launch_bounds__(kBwdThreads,
         kept |= static_cast<uint32_t>(drop.keeps(row[(i >> 1) & 1], col)) << i;
       }
     }
-    if constexpr (kTables) {  // while the products run: the previous block's
-                              // walk, and this block's keys staged by the warp
+    if (kTables && lead) {  // while the products run: the previous block's
+                            // walk, and this block's keys staged by the warp
       if (kb > 0) walk(kb - 1);
       int* kv = s_keys + ((kb & 1) * 4 + warp) * 3 * kW;
       for (int e = lane; e < 3 * kW; e += 32) {
@@ -1570,7 +1814,7 @@ __global__ void __launch_bounds__(kBwdThreads,
     reg_fence(dp);
     reg_fence(dq_acc);
     reg_fence(pa);
-    if (kb > 0) {
+    if (!kWideD && kb > 0) {
       // the previous block's dQ += dS k and this warp's dbias store out of
       // its stage are done: release the stage, and refill it
       const int prev = (kb - 1) % kDqStages;
@@ -1651,7 +1895,7 @@ __global__ void __launch_bounds__(kBwdThreads,
     if constexpr (kTables) {
 #pragma unroll
       for (int i = 0; i < kN; ++i) ds_prev[i] = s[i];
-    } else {
+    } else if (lead) {
       // dbias out by TMA, each warp its own 16 rows: no barrier across warps
       fence_async_smem();
       __syncwarp();
@@ -1678,13 +1922,23 @@ __global__ void __launch_bounds__(kBwdThreads,
       }
       wgmma_commit();
     }
+    if constexpr (kWideD) {
+      // the block's dQ += dS k and this warp's dbias store out of its last
+      // stage are done: release it (and refill)
+      wgmma_wait<0>();
+      reg_fence(dq_acc);
+      reg_fence(pa);
+      if (!kTables && lead && lane == 0) tma_store_wait_read<0>();
+      release_chunk(last_n);
+    }
   }
   wgmma_wait<0>();
   reg_fence(dq_acc);
   reg_fence(pa);
-  if (!kTables && lane == 0) tma_store_wait_all();
-  store_acc(plane_of(dq, sdq, b, h), dq_acc, q0, warp * 16 + g, S, sdq.s, scale, t);
-  if constexpr (kTables) {
+  if (!kTables && lead && lane == 0) tma_store_wait_all();
+  store_acc(plane_of(dq, sdq, b, h) + grp * kDBox, dq_acc, q0, warp * 16 + g, S, sdq.s, scale,
+            t);
+  if (kTables && lead) {
     walk(n_kb - 1);
     __syncthreads();
     // this CTA's partial sums, each bin over its 64 row columns in a fixed
@@ -1709,7 +1963,11 @@ __global__ void __launch_bounds__(kBwdThreads,
 // queries or keys >= S (by index: the lse of pad rows may be 0 or +inf),
 // then dV += (p c)^T do and dK += dS^T q with both in wgmma's A registers
 // (rounded to bf16, or split into three parts) and do, q read [query][d]
-// as MN-major B operands.
+// as MN-major B operands. Wide (kD == kWide): grid y is h + H g over the D
+// / 64 column groups g; each block's S^T and dP^T accumulate over the D /
+// 64 stages of its boxes (k's, v's, q's and do's) in box order, the block's
+// last stage also holding q's and do's boxes g, its bias tile, lse and
+// delta; the CTA writes dk's and dv's columns 64 g .. 64 g + 63.
 template <typename T, typename BiasT, int kD, bool kDropout>
 __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::kCtas))
     bwd_dkv_kernel(const __grid_constant__ BwdMaps maps,
@@ -1721,7 +1979,8 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
   using Smem = DkvSmem<T, BiasT, kD>;
   using Tiling = BwdTiling<T, BiasT, false, kD>;
   constexpr int kW = Smem::kW;
-  constexpr int kDH = kD / kDBox;  // 64-column boxes of d
+  constexpr int kDH = kTileD<kD> / kDBox;  // 64-column boxes of d in a tile
+  constexpr bool kWideD = kIsWide<kD>;
   constexpr int kN = kW / 2;
   constexpr int kTile = Smem::kTile;
   constexpr int kStreamTile = Smem::kStreamTile;
@@ -1733,7 +1992,9 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
   uint64_t* kv_bar = empty_bar + kDkvStages;
 
   const int j0 = blockIdx.x * 64;
-  const int h = blockIdx.y;
+  const int h = kWideD ? blockIdx.y % H : blockIdx.y;
+  const int grp = kWideD ? blockIdx.y / H : 0;    // the column group
+  const int n_box = kWideD ? gridDim.y / H : 1;  // 64-column boxes of d
   const int b = blockIdx.z;
   const int plane = b * H + h;
   const int n_qb = (S + kW - 1) / kW;
@@ -1760,6 +2021,50 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
     bulk_load(rows, lse + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
     bulk_load(rows + kW * 4, delta + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
   };
+  // wide: stage n holds box c = n % n_box of block qb = n / n_box's q and
+  // do and of the CTA's k and v; a block's last stage also its bias tile,
+  // q's and do's boxes g, its lse and delta
+  const int n_chunks = n_qb * n_box;
+  auto load_chunk = [&](int n) {
+    const int qb = n / n_box, c = n % n_box;
+    const bool last = c == n_box - 1;
+    const int i0 = qb * kW;
+    const int stage = n % kDkvStages;
+    uint8_t* st = smem + stage * Smem::kStage;
+    uint8_t* rows = smem + Smem::kRowsOff + stage * 2 * kW * 4;
+    uint64_t* bar = &full_bar[stage];
+    mbar_expect_tx(bar, 2 * kStreamTile + 2 * kTile +
+                            (last ? Smem::kBias + 2 * kStreamTile + 2 * kW * 4 : 0));
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st, &maps.q, bar, i0, kW,
+                                                        Smem::kStreamPart, h, b, c);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + kStreamTile, &maps.dout, bar, i0, kW,
+                                                        Smem::kStreamPart, h, b, c);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kKOff, &maps.k, bar, j0, 64,
+                                                        Smem::kPart, h, b, c);
+    load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kKOff + kTile, &maps.v, bar, j0,
+                                                        64, Smem::kPart, h, b, c);
+    if (last) {
+      load_plane_tile<BiasT, Tiling::kBiasBoxRows>(st + 2 * kStreamTile, &maps.bias, bar, j0,
+                                                   plane * P + i0, kW, 64);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(st + Smem::kKOff + 2 * kTile, &maps.q,
+                                                          bar, i0, kW, Smem::kStreamPart, h, b,
+                                                          grp);
+      load_operand<kParts<T>, Tiling::kOpBoxRows, kDBox>(
+          st + Smem::kKOff + 2 * kTile + kStreamTile, &maps.dout, bar, i0, kW, Smem::kStreamPart,
+          h, b, grp);
+      bulk_load(rows, lse + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
+      bulk_load(rows + kW * 4, delta + static_cast<size_t>(plane) * P + i0, kW * 4, bar);
+    }
+  };
+  // wide: a stage's release by the four warps, and its refill (thread 0)
+  auto release_chunk = [&](int n) {
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty_bar[n % kDkvStages]);
+    if (ct == 0 && n + kDkvStages < n_chunks) {
+      mbar_wait(&empty_bar[n % kDkvStages], (n / kDkvStages) & 1);
+      load_chunk(n + kDkvStages);
+    }
+  };
   if (ct == 0) {
     for (int s = 0; s < kDkvStages; ++s) {
       mbar_init(&full_bar[s], 1);
@@ -1772,12 +2077,16 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
     tma_prefetch_map(&maps.v);
     tma_prefetch_map(&maps.dout);
     tma_prefetch_map(&maps.bias);
+    if constexpr (kWideD) {
+      for (int n = 0; n < kDkvStages && n < n_chunks; ++n) load_chunk(n);
+    } else {
     mbar_expect_tx(kv_bar, 2 * kTile);
     load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem, &maps.k, kv_bar, j0, 64, Smem::kPart,
                                                      h, b);
     load_operand<kParts<T>, Tiling::kOpBoxRows, kD>(smem + kTile, &maps.v, kv_bar, j0, 64,
                                                      Smem::kPart, h, b);
     for (int qb = 0; qb < kDkvStages && qb < n_qb; ++qb) load_block(qb);
+    }
   }
   __syncthreads();  // the barriers' initialisation
   const Dropout drop(seed, plane, keep, inv_keep);
@@ -1792,16 +2101,40 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
   uint32_t pd_a[kParts<T>][kW / 16][4], ds_a[kParts<T>][kW / 16][4];
   const uint64_t k_desc = wgmma_desc(smem, 16, 1024);
   const uint64_t v_desc = wgmma_desc(smem + kTile, 16, 1024);
-  mbar_wait(kv_bar, 0);
+  if constexpr (!kWideD) mbar_wait(kv_bar, 0);
 
   for (int qb = 0; qb < n_qb; ++qb) {
     const int i0 = qb * kW;
-    const int stage = qb % kDkvStages;
-    mbar_wait(&full_bar[stage], (qb / kDkvStages) & 1);
+    int last_n = qb;  // wide: the chunk of the block's last stage
+    if constexpr (kWideD) {
+      // S^T = k q^T and dP^T = v do^T over d, one box a stage, each stage
+      // released once its products are done, but the last
+      for (int c = 0; c < n_box; ++c) {
+        last_n = qb * n_box + c;
+        mbar_wait(&full_bar[last_n % kDkvStages], (last_n / kDkvStages) & 1);
+        const uint8_t* box_st = smem + (last_n % kDkvStages) * Smem::kStage;
+        wgmma_fence();
+        wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4>(
+            s, wgmma_desc(box_st + Smem::kKOff, 16, 1024), wgmma_desc(box_st, 16, 1024), c > 0);
+        wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4>(
+            dp, wgmma_desc(box_st + Smem::kKOff + kTile, 16, 1024),
+            wgmma_desc(box_st + kStreamTile, 16, 1024), c > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        reg_fence(s);
+        reg_fence(dp);
+        if (c < n_box - 1) release_chunk(last_n);
+      }
+    }
+    const int stage = last_n % kDkvStages;
+    if constexpr (!kWideD) mbar_wait(&full_bar[stage], (qb / kDkvStages) & 1);
     const uint8_t* st = smem + Smem::kRing + stage * Smem::kStage;
-    const uint64_t q_desc = wgmma_desc(st, 16, 1024);
-    const uint64_t do_desc = wgmma_desc(st + kStreamTile, 16, 1024);
+    // wide: q's and do's boxes g, the B operands of dk's and dv's products
+    const uint64_t q_desc = wgmma_desc(st + (kWideD ? Smem::kKOff + 2 * kTile : 0), 16, 1024);
+    const uint64_t do_desc = wgmma_desc(
+        st + (kWideD ? Smem::kKOff + 2 * kTile + kStreamTile : kStreamTile), 16, 1024);
 
+    if constexpr (!kWideD) {
     // S^T = k q^T and dP^T = v do^T over d, queued behind the previous
     // block's dV/dK products (whose A registers stay live until the wait)
     wgmma_fence();
@@ -1810,6 +2143,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
     wgmma_by_rows<T, Smem::kPart, Smem::kStreamPart, 64 * 128, kW * 128, 4 * kDH>(dp, v_desc,
                                                                                 do_desc);
     wgmma_commit();
+    }
     uint32_t kept = 0;  // this block's dropout mask, made while the products run
     if constexpr (kDropout) {
 #pragma unroll
@@ -1825,7 +2159,7 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
     reg_fence(dv_acc);
     reg_fence(pd_a);
     reg_fence(ds_a);
-    if (qb > 0) {  // the previous block's dV/dK products are done: release and refill
+    if (!kWideD && qb > 0) {  // the previous block's dV/dK products are done: release and refill
       const int prev = (qb - 1) % kDkvStages;
       __syncwarp();
       if (lane == 0) mbar_arrive(&empty_bar[prev]);
@@ -1891,14 +2225,23 @@ __global__ void __launch_bounds__(kBwdThreads, (BwdTiling<T, BiasT, false, kD>::
       wgmma_by_cols<T, Smem::kStreamPart>(dk_acc[db], ds_a, q_desc + db * ((kW * 128) >> 4));
     }
     wgmma_commit();
+    if constexpr (kWideD) {  // the block's last stage is free once dV/dK are done
+      wgmma_wait<0>();
+      reg_fence(dk_acc);
+      reg_fence(dv_acc);
+      reg_fence(pd_a);
+      reg_fence(ds_a);
+      release_chunk(last_n);
+    }
   }
   wgmma_wait<0>();
   reg_fence(dk_acc);
   reg_fence(dv_acc);
   reg_fence(pd_a);
   reg_fence(ds_a);
-  store_acc(plane_of(dk, sdk, b, h), dk_acc, j0, warp * 16 + g, S, sdk.s, scale, t);
-  store_acc(plane_of(dv, sdv, b, h), dv_acc, j0, warp * 16 + g, S, sdv.s, 1.0f, t);
+  store_acc(plane_of(dk, sdk, b, h) + grp * kDBox, dk_acc, j0, warp * 16 + g, S, sdk.s, scale,
+            t);
+  store_acc(plane_of(dv, sdv, b, h) + grp * kDBox, dv_acc, j0, warp * 16 + g, S, sdv.s, 1.0f, t);
 }
 
 // the split parts of q, k, v and do that the caller's split pre-pass
@@ -1913,22 +2256,22 @@ inline const bf16* split_parts(const float* delta, int B, int H, int P) {
 template <typename T, typename BiasT, int kD>
 int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dout,
                     const float* delta, const void* bias, const void* gbias, const void* dbias,
-                    const BwdStrides& ss, int B, int S, int H, int P) {
+                    const BwdStrides& ss, int B, int S, int H, int D, int P) {
   using Tiling = BwdTiling<T, BiasT, false, kD>;
   constexpr int kRows = Tiling::kOpBoxRows;
   int err = 0;
   if constexpr (kIsF32<T>) {
     const bf16* parts = split_parts(delta, B, H, P);
-    const size_t n = static_cast<size_t>(3) * B * H * S * kD;  // one operand's parts
-    err = encode_parts(&m->q, parts, B, H, S, kD, kRows);
-    if (err == 0) err = encode_parts(&m->k, parts + n, B, H, S, kD, kRows);
-    if (err == 0) err = encode_parts(&m->v, parts + 2 * n, B, H, S, kD, kRows);
-    if (err == 0) err = encode_parts(&m->dout, parts + 3 * n, B, H, S, kD, kRows);
+    const size_t n = static_cast<size_t>(3) * B * H * S * D;  // one operand's parts
+    err = encode_parts(&m->q, parts, B, H, S, D, kRows);
+    if (err == 0) err = encode_parts(&m->k, parts + n, B, H, S, D, kRows);
+    if (err == 0) err = encode_parts(&m->v, parts + 2 * n, B, H, S, D, kRows);
+    if (err == 0) err = encode_parts(&m->dout, parts + 3 * n, B, H, S, D, kRows);
   } else {
-    err = encode_operand(&m->q, q, ss.q, kD, S, H, B, kRows);
-    if (err == 0) err = encode_operand(&m->k, k, ss.k, kD, S, H, B, kRows);
-    if (err == 0) err = encode_operand(&m->v, v, ss.v, kD, S, H, B, kRows);
-    if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, kD, S, H, B, kRows);
+    err = encode_operand(&m->q, q, ss.q, D, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->k, k, ss.k, D, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->v, v, ss.v, D, S, H, B, kRows);
+    if (err == 0) err = encode_operand(&m->dout, dout, ss.dout, D, S, H, B, kRows);
   }
   constexpr int kBiasRows = Tiling::kBiasBoxRows;
   if (err == 0) err = encode_plane<BiasT>(&m->bias, bias, B, H, P, kBiasRows);
@@ -1940,9 +2283,15 @@ int encode_bwd_maps(BwdMaps* m, const T* q, const T* k, const T* v, const T* dou
 }
 
 // (B) alone: the dk/dv kernel that the tables backward shares
+// the wide mode's column groups of a head dim D (1 at 64 and 128)
+template <int kD>
+int column_groups(int D) {
+  return kIsWide<kD> ? D / kDBox : 1;
+}
+
 template <typename T, typename BiasT, int kD>
 int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T* dk, T* dv,
-                   const BwdStrides& ss, int B, int S, int H, int P, float scale, int seed,
+                   const BwdStrides& ss, int B, int S, int H, int D, int P, float scale, int seed,
                    float keep, float inv_keep, int dropout, cudaStream_t st) {
   return by_flag(dropout, [&](auto drop) {
     auto kernel = bwd_dkv_kernel<T, BiasT, kD, decltype(drop)::value>;
@@ -1950,7 +2299,7 @@ int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T*
     static std::atomic<uint64_t> ready{0};
     const int err = set_smem_limit_once(kernel, smem, ready);
     if (err != 0) return err;
-    kernel<<<dim3((S + kBK - 1) / kBK, H, B), kBwdThreads, smem, st>>>(
+    kernel<<<dim3((S + kBK - 1) / kBK, H * column_groups<kD>(D), B), kBwdThreads, smem, st>>>(
         maps, lse, delta, dk, dv, ss.dk, ss.dv, S, H, P, scale, seed, keep, inv_keep);
     return static_cast<int>(cudaGetLastError());
   });
@@ -1961,12 +2310,12 @@ int launch_bwd_dkv(const BwdMaps& maps, const float* lse, const float* delta, T*
 template <typename T, typename BiasT, int kD>
 int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                     const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
-                    void* dbias, float* delta, const BwdStrides& ss, int B, int S, int H, int P,
-                    float scale, int seed, float keep, float inv_keep, int dropout,
+                    void* dbias, float* delta, const BwdStrides& ss, int B, int S, int H, int D,
+                    int P, float scale, int seed, float keep, float inv_keep, int dropout,
                     cudaStream_t st) {
   BwdMaps maps;
   int err = encode_bwd_maps<T, BiasT, kD>(&maps, q, k, v, dout, delta, bias, gbias, dbias, ss, B,
-                                          S, H, P);
+                                          S, H, D, P);
   if (err != 0) return err;
   err = by_flag(dropout, [&](auto drop) {
     return by_flag(gbias != nullptr, [&](auto chained) {
@@ -1976,14 +2325,14 @@ int launch_bwd_pair(const T* q, const T* k, const T* v, const void* bias, const 
       static std::atomic<uint64_t> ready{0};
       const int e = set_smem_limit_once(kernel, smem, ready);
       if (e != 0) return e;
-      kernel<<<dim3(P / kBQ, H, B), kBwdThreads, smem, st>>>(
+      kernel<<<dim3(P / kBQ, H * column_groups<kD>(D), B), kBwdThreads, smem, st>>>(
           maps, dout, o, lse, dq, delta, ss.dout, ss.o, ss.dq, S, H, P, scale, seed, keep,
           inv_keep, TablesArgs{});
       return static_cast<int>(cudaGetLastError());
     });
   });
   if (err != 0) return err;
-  return launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed,
+  return launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, D, P, scale, seed,
                                       keep, inv_keep, dropout, st);
 }
 
@@ -2001,14 +2350,16 @@ struct SplitSrc {
 // tensors hi, mid, lo (split_pair) of `parts`, (operand, part, B, H, S, kD)
 // contiguous, 16-byte loads and stores. Bound by bytes: 4 read and 6
 // written per value, 0.11 ms for q, k, v and do at B = 16, H = 12, S = 768,
-// D = 64 on an H100 (3.35 TB/s), 0.056 ms for k and v
+// D = 64 on an H100 (3.35 TB/s), 0.056 ms for k and v. Wide (kWide): D
+// columns, the kernel argument
 template <int kD>
 __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant__ SplitSrc src,
                                                            bf16* __restrict__ parts, int B,
-                                                           int H, int S) {
+                                                           int H, int S, int D) {
+  const int d = kIsWide<kD> ? D : kD;
   const long long rows = static_cast<long long>(B) * H * S;
   const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= rows * (kD / 8)) return;
+  if (i >= rows * (d / 8)) return;
   const float* x = nullptr;
   Strides st{0, 0, 0};
 #pragma unroll
@@ -2018,8 +2369,8 @@ __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant
       st = src.st[j];
     }
   }
-  const long long row = i / (kD / 8);
-  const int c = static_cast<int>(i % (kD / 8)) * 8;
+  const long long row = i / (d / 8);
+  const int c = static_cast<int>(i % (d / 8)) * 8;
   const int s = static_cast<int>(row % S);
   const int bh = static_cast<int>(row / S);
   const float* p = x + (bh / H) * st.b + (bh % H) * st.h + s * st.s + c;
@@ -2030,8 +2381,8 @@ __global__ void __launch_bounds__(256) split_bf16x3_kernel(const __grid_constant
   split_pair(v0.z, v0.w, hi.y, mid.y, lo.y);
   split_pair(v1.x, v1.y, hi.z, mid.z, lo.z);
   split_pair(v1.z, v1.w, hi.w, mid.w, lo.w);
-  const size_t n = static_cast<size_t>(rows) * kD;  // one part
-  bf16* out = parts + blockIdx.y * 3 * n + row * kD + c;
+  const size_t n = static_cast<size_t>(rows) * d;  // one part
+  bf16* out = parts + blockIdx.y * 3 * n + row * d + c;
   *reinterpret_cast<uint4*>(out) = hi;
   *reinterpret_cast<uint4*>(out + n) = mid;
   *reinterpret_cast<uint4*>(out + 2 * n) = lo;
@@ -2056,12 +2407,12 @@ __global__ void table_partials_sum_kernel(const float* __restrict__ partial,
 template <typename T, typename BiasT, int kD>
 int launch_bwd(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                const T* o, const float* lse, const void* gbias, T* dq, T* dk, T* dv,
-               void* dbias, float* delta, int B, int S, int H, int P, float scale, int seed,
-               float keep, float inv_keep, int dropout, cudaStream_t st) {
-  const Strides ps = packed_strides(S, H, kD);
+               void* dbias, float* delta, int B, int S, int H, int D, int P, float scale,
+               int seed, float keep, float inv_keep, int dropout, cudaStream_t st) {
+  const Strides ps = packed_strides(S, H, D);
   const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
   return launch_bwd_pair<T, BiasT, kD>(q, k, v, bias, dout, o, lse, gbias, dq, dk, dv, dbias,
-                                       delta, ss, B, S, H, P, scale, seed, keep, inv_keep,
+                                       delta, ss, B, S, H, D, P, scale, seed, keep, inv_keep,
                                        dropout, st);
 }
 
@@ -2069,14 +2420,14 @@ template <typename T, typename BiasT, int kD>
 int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                       const T* o, const float* lse, const int* pos, const int* cx,
                       const int* cy, const int* lut1, const int* lut2, T* dq, T* dk, T* dv,
-                      float* delta, float* partial, float* tables, int B, int S, int H, int P,
-                      float scale, int seed, float keep, float inv_keep, int dropout, int nb1,
-                      int nb2, int max1, int max2, cudaStream_t st) {
-  const Strides ps = packed_strides(S, H, kD);
+                      float* delta, float* partial, float* tables, int B, int S, int H, int D,
+                      int P, float scale, int seed, float keep, float inv_keep, int dropout,
+                      int nb1, int nb2, int max1, int max2, cudaStream_t st) {
+  const Strides ps = packed_strides(S, H, D);
   const BwdStrides ss{ps, ps, ps, ps, ps, ps, ps, ps};
   BwdMaps maps;
   int err = encode_bwd_maps<T, BiasT, kD>(&maps, q, k, v, dout, delta, bias, nullptr, nullptr, ss,
-                                          B, S, H, P);
+                                          B, S, H, D, P);
   if (err != 0) return err;
   const int n_qb = (S + kBQ - 1) / kBQ;
   const int n_bins = nb1 + 2 * nb2;
@@ -2090,15 +2441,14 @@ int launch_bwd_tables(const T* q, const T* k, const T* v, const void* bias, cons
     const int e = static_cast<int>(
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem));
     if (e != 0) return e;
-    kernel<<<dim3(n_qb, H, B), kBwdThreads, smem, st>>>(maps, dout, o, lse, dq, delta, ps, ps, ps,
-                                                        S, H, P, scale, seed, keep, inv_keep,
-                                                        tab);
+    kernel<<<dim3(n_qb, H * column_groups<kD>(D), B), kBwdThreads, smem, st>>>(
+        maps, dout, o, lse, dq, delta, ps, ps, ps, S, H, P, scale, seed, keep, inv_keep, tab);
     return static_cast<int>(cudaGetLastError());
   });
   if (err != 0) return err;
   // (B): the backward pair's dk/dv kernel
-  err = launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, P, scale, seed, keep,
-                                     inv_keep, dropout, st);
+  err = launch_bwd_dkv<T, BiasT, kD>(maps, lse, delta, dk, dv, ss, B, S, H, D, P, scale, seed,
+                                     keep, inv_keep, dropout, st);
   if (err != 0) return err;
   table_partials_sum_kernel<<<H, 256, 0, st>>>(partial, tables, B, H, n_qb, n_bins);
   return static_cast<int>(cudaGetLastError());
@@ -2112,8 +2462,8 @@ Strides strides_at(const long long* strides, int i) {
 template <typename T, typename BiasT, int kD>
 int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, const T* dout,
                         const T* o, const float* lse, T* dq, T* dk, T* dv, void* dbias,
-                        float* delta, const long long* strides, int B, int S, int H, int P,
-                        float scale, int seed, float keep, float inv_keep, int dropout,
+                        float* delta, const long long* strides, int B, int S, int H, int D,
+                        int P, float scale, int seed, float keep, float inv_keep, int dropout,
                         cudaStream_t st) {
   const Strides sq = strides_at(strides, 0), sk = strides_at(strides, 1),
                 sv = strides_at(strides, 2), so = strides_at(strides, 3),
@@ -2121,7 +2471,7 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
                 sdk = strides_at(strides, 6), sdv = strides_at(strides, 7);
   const BwdStrides ss{sq, sk, sv, so, sdo, sdq, sdk, sdv};
   return launch_bwd_pair<T, BiasT, kD>(q, k, v, bias, dout, o, lse, nullptr, dq, dk, dv, dbias,
-                                       delta, ss, B, S, H, P, scale, seed, keep, inv_keep,
+                                       delta, ss, B, S, H, D, P, scale, seed, keep, inv_keep,
                                        dropout, st);
 }
 
@@ -2129,18 +2479,19 @@ int launch_headform_bwd(const T* q, const T* k, const T* v, const void* bias, co
 
 // Every entry takes its operands (q, k, v, o, do and the gradients) as
 // bf16 (qkv_is_bf16 = 1) or f32 (0), and the bias (and gbias, dbias) as
-// bf16 (bias_is_bf16 = 1) or f32 (0), with f32 operands at D = 128 f32
-// only. D, the head dim, is 64 or 128 (any other returns
-// cudaErrorInvalidValue). With f32 operands the kernels read k and v (and
-// in the backwards q and do) only as their split parts, which the caller
-// writes with mmee_split_bf16x3 before the call: every forward takes those
-// of k and v as `kv_parts`, (2, 3, B, H, S, D) bf16 (null with bf16
-// operands), and splits q itself, except at D = 128, where q's parts
-// follow, (3, 3, B, H, S, 128); every backward takes `delta`, scratch of
-// B * H * P floats, followed with f32 operands by the parts of q, k, v and
-// do, (4, 3, B, H, S, D) bf16.
+// bf16 (bias_is_bf16 = 1) or f32 (0), with f32 operands at D >= 128 f32
+// only. D, the head dim, is 64, 128 or a multiple of 64 above 128 (the
+// wide mode); any other returns cudaErrorInvalidValue. With f32 operands
+// the kernels read k and v (and in the backwards q and do) only as their
+// split parts, which the caller writes with mmee_split_bf16x3 before the
+// call: every forward takes those of k and v as `kv_parts`, (2, 3, B, H,
+// S, D) bf16 (null with bf16 operands), and splits q itself, except at D
+// >= 128, where q's parts follow, (3, 3, B, H, S, D); every backward takes
+// `delta`, scratch of B * H * P floats, followed with f32 operands by the
+// parts of q, k, v and do, (4, 3, B, H, S, D) bf16.
 
-// split_bf16x3: n (1 to 4) f32 (B, H, S, D) operands x0.. (D 64 or 128),
+// split_bf16x3: n (1 to 4) f32 (B, H, S, D) operands x0.. (D a head dim of
+// the kernels: 64, 128 or a multiple of 64 above),
 // at the element strides `strides` gives (a host array of 3n: batch, head,
 // row; 16-byte aligned rows), each into its three bf16 parts hi, mid, lo
 // with x = hi + mid + lo exactly; `parts` is (n, 3, B, H, S, D), contiguous
@@ -2156,10 +2507,10 @@ extern "C" int mmee_split_bf16x3(const void* x0, const void* x1, const void* x2,
   }
   return by_dim(D, [&](auto d) {
     constexpr int kD = decltype(d)::value;
-    const long long threads = static_cast<long long>(B) * H * S * (kD / 8);
+    const long long threads = static_cast<long long>(B) * H * S * (D / 8);
     split_bf16x3_kernel<kD><<<dim3(static_cast<unsigned>((threads + 255) / 256), n), 256, 0,
                               static_cast<cudaStream_t>(stream)>>>(
-        src, static_cast<bf16*>(parts), B, H, S);
+        src, static_cast<bf16*>(parts), B, H, S, D);
     return static_cast<int>(cudaGetLastError());
   });
 }
@@ -2175,11 +2526,11 @@ extern "C" int mmee_flash_attention_packed(const void* q, const void* k, const v
   return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
     constexpr int kD = decltype(d)::value;
-    const Strides ps = packed_strides(S, H, kD);
+    const Strides ps = packed_strides(S, H, D);
     return launch_fwd<T, decltype(bt), kD>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), nullptr, ps, ps, ps, ps,
-        B, S, H, P, scale, 0, 1.0f, 1.0f, 0, 0, st);
+        B, S, H, D, P, scale, 0, 1.0f, 1.0f, 0, 0, st);
   });
 }
 
@@ -2192,11 +2543,11 @@ extern "C" int mmee_flash_attention_packed_train_fwd(
   return by_types(qkv_is_bf16, bias_is_bf16, D, [&](auto t, auto bt, auto d) {
     using T = decltype(t);
     constexpr int kD = decltype(d)::value;
-    const Strides ps = packed_strides(S, H, kD);
+    const Strides ps = packed_strides(S, H, D);
     return launch_fwd<T, decltype(bt), kD>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
-        ps, ps, ps, ps, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
+        ps, ps, ps, ps, B, S, H, D, P, scale, seed, keep, inv_keep, dropout, 1, st);
   });
 }
 
@@ -2213,7 +2564,7 @@ extern "C" int mmee_flash_attention_packed_train_bwd(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), static_cast<const T*>(o), static_cast<const float*>(lse),
         gbias, static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), dbias,
-        static_cast<float*>(delta), B, S, H, P, scale, seed, keep, inv_keep, dropout, st);
+        static_cast<float*>(delta), B, S, H, D, P, scale, seed, keep, inv_keep, dropout, st);
   });
 }
 
@@ -2221,7 +2572,7 @@ extern "C" int mmee_flash_attention_packed_train_bwd(
 // dTy) in three kernels: (A') dq, delta and per-CTA table partials, (B) dk
 // and dv, and the fixed-order sum of the partials. `partial` is scratch of
 // B * H * ceil(S / 64) * (nb1 + 2 * nb2) floats, 65 times as many with f32
-// operands at D = 128 (the histograms after the partials).
+// operands at D >= 128 (the histograms after the partials).
 extern "C" int mmee_flash_attention_packed_train_bwd_tables(
     const void* q, const void* k, const void* v, const void* bias,
     int bias_is_bf16, int qkv_is_bf16, const void* dout, const void* o, const void* lse,
@@ -2239,7 +2590,7 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
         static_cast<const int*>(pos), static_cast<const int*>(cx), static_cast<const int*>(cy),
         static_cast<const int*>(lut1), static_cast<const int*>(lut2), static_cast<T*>(dq),
         static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(delta),
-        static_cast<float*>(partial), static_cast<float*>(tables), B, S, H, P, scale, seed,
+        static_cast<float*>(partial), static_cast<float*>(tables), B, S, H, D, P, scale, seed,
         keep, inv_keep, dropout, nb1, nb2, max1, max2, st);
   });
 }
@@ -2249,7 +2600,7 @@ extern "C" int mmee_flash_attention_packed_train_bwd_tables(
 // the f32 tables t1 (nb1, H), tx and ty (nb2, H), with the attention scale
 // folded in, and rounded once to the operands' type, as materialize_bias
 // rounds it; keys j >= S do not exist. q, k, v and o are (B, H, S, D), D
-// 64 or 128, at the strides `strides` gives (a host array of 12: batch,
+// a head dim of the kernels, at the strides `strides` gives (a host array of 12: batch,
 // head, row of q, k, v, o); f32 k and v are read from kv_parts only, as in
 // mmee_flash_attention_packed. lut1 and lut2 are bucket_lut's tables of
 // max1 + 1 and max2 + 1 entries; max1, max2 <= 1024.
@@ -2274,11 +2625,11 @@ extern "C" int mmee_fused_bias_attention(
     if (qkv_is_bf16) {
       return launch_fused<bf16, kD>(static_cast<const bf16*>(q), static_cast<const bf16*>(k),
                                     static_cast<const bf16*>(v), parts, static_cast<bf16*>(o),
-                                    sq, sk, sv, so, bb, B, S, H, scale, st);
+                                    sq, sk, sv, so, bb, B, S, H, D, scale, st);
     }
     return launch_fused<float, kD>(static_cast<const float*>(q), static_cast<const float*>(k),
                                    static_cast<const float*>(v), parts, static_cast<float*>(o),
-                                   sq, sk, sv, so, bb, B, S, H, scale, st);
+                                   sq, sk, sv, so, bb, B, S, H, D, scale, st);
   });
 }
 
@@ -2302,7 +2653,7 @@ extern "C" int mmee_flash_attention_fwd(
     return launch_fwd<T, decltype(bt), decltype(d)::value>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const bf16*>(kv_parts), bias, static_cast<T*>(o), static_cast<float*>(lse),
-        sq, sk, sv, so, B, S, H, P, scale, seed, keep, inv_keep, dropout, 1, st);
+        sq, sk, sv, so, B, S, H, D, P, scale, seed, keep, inv_keep, dropout, 1, st);
   });
 }
 
@@ -2322,7 +2673,7 @@ extern "C" int mmee_flash_attention_bwd(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), bias,
         static_cast<const T*>(dout), static_cast<const T*>(o), static_cast<const float*>(lse),
         static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), dbias,
-        static_cast<float*>(delta), strides, B, S, H, P, scale, seed, keep, inv_keep, dropout,
-        st);
+        static_cast<float*>(delta), strides, B, S, H, D, P, scale, seed, keep, inv_keep,
+        dropout, st);
   });
 }

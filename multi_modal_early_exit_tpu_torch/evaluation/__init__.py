@@ -1,8 +1,8 @@
 """Anytime evaluation over per-exit logit stores: metrics, exit policies,
 per-exit temperature calibration, threshold sweeps, FLOPs analysis and the
-harvest-calibrate-sweep pipeline. The port's copy of the JAX package's
-``evaluation`` package, without scikit-learn; ``operating_points`` and
-``plots`` are not ported yet (ROADMAP.md A2)."""
+harvest-calibrate-sweep pipeline, serving operating points and exit plots.
+The port's copy of the JAX package's ``evaluation`` package, without
+scikit-learn."""
 
 from multi_modal_early_exit_tpu_torch.evaluation.metrics import (  # noqa: F401
     METRICS,

@@ -11,11 +11,16 @@ so the mapping is mechanical:
   ``ModuleList`` index;
 - every other leaf (embedding tables, [CLS] token, bias tables) maps 1:1,
   including ``embedding_exits`` by name and ``lte``.
+
+``convert_torch_state_dict`` is the port's copy of the JAX package's
+converter of a HuggingFace LayoutLMv3 state dict into that tree (numpy
+leaves), so a pretrained checkpoint reaches the port as
+``jax_tree_to_state_dict(convert_torch_state_dict(...))``.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -126,3 +131,83 @@ def load_jax_params(
 def to_jax_params(model: nn.Module) -> Dict[str, Any]:
     """The model's parameters as a JAX-layout tree of numpy arrays."""
     return state_dict_to_jax_tree(model.state_dict())
+
+
+# ---------------------------------------------------------------------------
+# HuggingFace LayoutLMv3 -> the JAX-layout tree (numpy leaves)
+# ---------------------------------------------------------------------------
+
+
+def _t(x) -> np.ndarray:
+    """A tensor (or array) as numpy."""
+    if hasattr(x, "detach"):
+        x = x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def _hf_linear(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"kernel": _t(sd[f"{prefix}.weight"]).T.copy(), "bias": _t(sd[f"{prefix}.bias"]).copy()}
+
+
+def _hf_layer_norm(sd: Mapping[str, Any], prefix: str) -> Dict[str, np.ndarray]:
+    return {"scale": _t(sd[f"{prefix}.weight"]).copy(), "bias": _t(sd[f"{prefix}.bias"]).copy()}
+
+
+def convert_torch_state_dict(sd: Mapping[str, Any], cfg, prefix: str = "layoutlmv3.") -> Dict:
+    """Map an HF ``LayoutLMv3ForSequenceClassification`` (or bare
+    ``LayoutLMv3Model`` with ``prefix=""``) state dict onto the backbone's
+    JAX-layout tree, as the JAX package's converter does; ``cfg`` is the
+    backbone's ``LayoutLMv3Config``."""
+    p = prefix
+    emb = f"{p}embeddings."
+    embeddings = {
+        name: _t(sd[f"{emb}{name}.weight"]).copy()
+        for name in ("word_embeddings", "position_embeddings", "token_type_embeddings",
+                     "x_position_embeddings", "y_position_embeddings",
+                     "h_position_embeddings", "w_position_embeddings")
+    }
+    embeddings["LayerNorm"] = _hf_layer_norm(sd, f"{emb}LayerNorm")
+
+    # Conv2d (O, C, kh, kw) -> the patch matmul's ((C*kh*kw), O) kernel; the
+    # patch extractor flattens in (c, ph, pw) order, which this reshape matches
+    conv_w = _t(sd[f"{p}patch_embed.proj.weight"])
+    visual = {
+        "patch_embed": {"kernel": conv_w.reshape(conv_w.shape[0], -1).T.copy(),
+                        "bias": _t(sd[f"{p}patch_embed.proj.bias"]).copy()},
+        "cls_token": _t(sd[f"{p}cls_token"]).copy(),
+        "pos_embed": _t(sd[f"{p}pos_embed"]).copy(),
+        "norm": _hf_layer_norm(sd, f"{p}norm"),
+    }
+
+    layers = []
+    for i in range(cfg.num_hidden_layers):
+        lp = f"{p}encoder.layer.{i}."
+        layers.append({
+            "attention": {
+                "query": _hf_linear(sd, f"{lp}attention.self.query"),
+                "key": _hf_linear(sd, f"{lp}attention.self.key"),
+                "value": _hf_linear(sd, f"{lp}attention.self.value"),
+                "output": _hf_linear(sd, f"{lp}attention.output.dense"),
+                "output_LayerNorm": _hf_layer_norm(sd, f"{lp}attention.output.LayerNorm"),
+            },
+            "intermediate": _hf_linear(sd, f"{lp}intermediate.dense"),
+            "output": _hf_linear(sd, f"{lp}output.dense"),
+            "output_LayerNorm": _hf_layer_norm(sd, f"{lp}output.LayerNorm"),
+        })
+    encoder: Dict[str, Any] = {"layers": _stack(layers)}
+    if cfg.has_relative_attention_bias:
+        encoder["rel_pos_bias"] = _t(sd[f"{p}encoder.rel_pos_bias.weight"]).T.copy()
+    if cfg.has_spatial_attention_bias:
+        encoder["rel_pos_x_bias"] = _t(sd[f"{p}encoder.rel_pos_x_bias.weight"]).T.copy()
+        encoder["rel_pos_y_bias"] = _t(sd[f"{p}encoder.rel_pos_y_bias.weight"]).T.copy()
+
+    params: Dict[str, Any] = {
+        "embeddings": embeddings,
+        "visual": visual,
+        "LayerNorm": _hf_layer_norm(sd, f"{p}LayerNorm"),
+        "encoder": encoder,
+    }
+    if "classifier.dense.weight" in sd:
+        params["classifier"] = {"dense": _hf_linear(sd, "classifier.dense"),
+                                "out_proj": _hf_linear(sd, "classifier.out_proj")}
+    return params

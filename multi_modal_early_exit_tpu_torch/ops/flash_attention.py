@@ -28,19 +28,23 @@ autograd it is an ``autograd.Function`` whose backward is the JAX package's
 the lse, then the head-form backward (``flash_attention_bwd``) gives dq, dk,
 dv and dbias; the packed tensors go to both as (B, H, S, D) views, no copy.
 
-The kernels take a head dim of 64 or 128 (``KERNEL_HEAD_DIMS``). The entry
+The kernels take a head dim of 64 or 128 (``KERNEL_HEAD_DIMS``), or any
+multiple of 64 above 128 in their wide mode: the score products stream the
+head dim 64 columns at a time through the shared-memory ring, and the
+outputs whose width is the head dim (o, dq, dk, dv) are computed in
+64-column groups, one CTA per group, each recomputing the scores. The entry
 points (``flash_attention_packed``, ``flash_attention_packed_train``, its
 chained and tables twins, ``flash_attention`` and ``fused_bias_attention``)
-take any head dim D <= 128 on CUDA tensors through ``at_kernel_head_dim``:
-q, k and v zero-padded to the smallest kernel width that holds D
-(``pad_head_dim``: 16 -> 64, 96 -> 128), the scale 1/sqrt(D) of the true
-D, the output's pad columns sliced off, outside the ``autograd.Function``s
-so that autograd slices the gradients. Zero columns add exact zeros to
-every score and give zero output and gradient columns, so this is D's
-attention; the dropout hash does not see D. A head dim above 128 raises.
-With f32 operands at 128 the kernels take an f32 bias: a bf16 one is
-widened first (``_kernel_bias``, exact), and a bf16 dbias rounded from
-the kernel's f32 one, the rounding the kernel itself does.
+take any head dim D on CUDA tensors through ``at_kernel_head_dim``: q, k and
+v zero-padded to the smallest kernel width that holds D (``pad_head_dim``:
+16 -> 64, 96 -> 128, 192 -> 192, 200 -> 256), the scale 1/sqrt(D) of the
+true D, the output's pad columns sliced off, outside the
+``autograd.Function``s so that autograd slices the gradients. Zero columns
+add exact zeros to every score and give zero output and gradient columns,
+so this is D's attention; the dropout hash does not see D. With f32
+operands at 128 and above the kernels take an f32 bias: a bf16 one is
+widened first (``_kernel_bias``, exact), and a bf16 dbias rounded from the
+kernel's f32 one, the rounding the kernel itself does.
 
 Head form: ``flash_attention`` takes (B, H, S, D) q/k/v of any strides with
 a unit last one, and has dropout on the probabilities. Its forward
@@ -87,17 +91,24 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
 )
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
 
-KERNEL_HEAD_DIMS = (64, 128)  # the kernels' widths in the head dim
-KERNEL_TILE = 64  # the training kernels tile the bias width P by 64
+KERNEL_HEAD_DIMS = (64, 128)  # the kernels' widths in the head dim up to 128
+KERNEL_TILE = 64  # the training kernels tile the bias width P by 64, and the
+                  # wide mode the head dim
 
 
-def kernel_head_dim(d: int, what: str = "attention") -> int:
-    """The smallest of ``KERNEL_HEAD_DIMS`` that holds a head dim ``d``;
-    above the widest, ``ValueError`` naming the limit."""
+def kernel_head_dim(d: int) -> int:
+    """The kernels' width for a head dim ``d``: the smallest of
+    ``KERNEL_HEAD_DIMS`` that holds it, or above 128 the wide mode's, ``d``
+    rounded up to a multiple of 64."""
     for width in KERNEL_HEAD_DIMS:
         if d <= width:
             return width
-    raise ValueError(f"the {what} kernels take head dims up to {KERNEL_HEAD_DIMS[-1]}, not {d}")
+    return -(-d // KERNEL_TILE) * KERNEL_TILE
+
+
+def _is_kernel_head_dim(d: int) -> bool:
+    """Whether the kernels take a head dim ``d`` as it is."""
+    return d in KERNEL_HEAD_DIMS or (d > KERNEL_HEAD_DIMS[-1] and d % KERNEL_TILE == 0)
 
 
 def pad_head_dim(x: torch.Tensor, num_heads=None) -> torch.Tensor:
@@ -133,13 +144,11 @@ def at_kernel_head_dim(what: str, fn, q, k, v, num_heads=None):
     For the CUDA kernels (``_kernel_layout``) a D that is no kernel width is
     zero-padded to the next one (``pad_head_dim``) and fn's output (its first
     output, when it returns a tuple) sliced back to D; autograd slices the
-    gradients. A D above 128 raises ``ValueError``. Elsewhere fn sees the
-    tensors as they are."""
+    gradients. Elsewhere fn sees the tensors as they are."""
     d = q.shape[-1] // num_heads if num_heads else q.shape[-1]
     scale = 1.0 / math.sqrt(d)
-    if not _kernel_layout(q) or d in KERNEL_HEAD_DIMS:
+    if not _kernel_layout(q) or _is_kernel_head_dim(d):
         return fn(q, k, v, scale)
-    kernel_head_dim(d, what)  # raises above the widest
     out = fn(*(pad_head_dim(x, num_heads) for x in (q, k, v)), scale)
     if isinstance(out, tuple):
         return (_unpad_head_dim(out[0], d, num_heads),) + out[1:]
@@ -189,15 +198,16 @@ def _check_operand_dtype(what: str, tensors) -> int:
 
 
 def _check_head_dim(d: int) -> None:
-    if d not in KERNEL_HEAD_DIMS:  # the entry points pad any other D <= 128
-        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS}, not {d}")
+    if not _is_kernel_head_dim(d):  # the entry points pad any other D
+        raise ValueError(f"the kernel takes head dims {KERNEL_HEAD_DIMS} or multiples of "
+                         f"{KERNEL_TILE} above {KERNEL_HEAD_DIMS[-1]}, not {d}")
 
 
 def _kernel_bias(bias, is_bf16: int, d: int):
     """The bias as the kernels take it: f32 operands at a head dim of 128
-    take an f32 bias (their bias tiles are 32 keys wide), so a bf16 one is
-    widened, exactly; else the bias itself. None stays None."""
-    if bias is None or is_bf16 or d != 128 or bias.dtype != torch.bfloat16:
+    and above take an f32 bias (their bias tiles are 32 keys wide), so a
+    bf16 one is widened, exactly; else the bias itself. None stays None."""
+    if bias is None or is_bf16 or d < 128 or bias.dtype != torch.bfloat16:
         return bias
     return bias.to(torch.float32)
 
@@ -206,8 +216,9 @@ def _check_cuda_kernel_args(what: str, tensors, bias, num_heads: int) -> int:
     """What the CUDA attention kernels take: contiguous tensors on one card,
     16-byte aligned (the kernels load them by TMA; a misaligned one raises,
     there is no other body to fall back to), q/k/v (and o, do) all
-    bf16 or all f32, a bf16 or f32 bias, head dim 64 or 128 (the entry
-    points pad any other: ``at_kernel_head_dim``). Returns the operand flag
+    bf16 or all f32, a bf16 or f32 bias, head dim 64, 128 or a multiple of
+    64 above (the entry points pad any other: ``at_kernel_head_dim``).
+    Returns the operand flag
     (1 for bf16)."""
     device = tensors[0].device
     if device.type != "cuda":
@@ -525,7 +536,8 @@ def _split_fn():
 
 
 def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
-    """One to four f32 (B, H, S, D) tensors of one shape (D 64 or 128), each
+    """One to four f32 (B, H, S, D) tensors of one shape (D a kernel head
+    dim: 64, 128 or a multiple of 64 above), each
     split into its three bf16 parts (``split_bf16x3_plain``): (n, 3, B, H, S,
     D) bf16,
     into ``out`` where given. CPU tensors run the plain version; CUDA
@@ -536,9 +548,9 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
     x0 = xs[0]
     if not 1 <= len(xs) <= 4 or any(x.shape != x0.shape or x.device != x0.device for x in xs):
         raise ValueError("split_bf16x3 takes one to four tensors of one shape on one device")
-    if (x0.ndim != 4 or x0.shape[-1] not in KERNEL_HEAD_DIMS
+    if (x0.ndim != 4 or not _is_kernel_head_dim(x0.shape[-1])
             or any(x.dtype != torch.float32 for x in xs)):
-        raise ValueError(f"split_bf16x3 takes f32 (B, H, S, D) tensors, D in {KERNEL_HEAD_DIMS}")
+        raise ValueError("split_bf16x3 takes f32 (B, H, S, D) tensors at a kernel head dim")
     b, h, s, d = x0.shape
     if out is None:
         out = torch.empty((len(xs), 3, b, h, s, d), dtype=torch.bfloat16, device=x0.device)
@@ -568,12 +580,12 @@ def _fwd_parts(q, k, v, num_heads=None):
     kernels load as they are (nothing is allocated or launched); for f32
     ones the three bf16 parts of k and v, (2, 3, B, H, S, D), written here
     by ``split_bf16x3`` (one launch): at head dim 64 the kernels split q
-    themselves, at 128 q's parts follow, (3, 3, B, H, S, 128). q, k, v are
-    (B, H, S, D), or packed (B, S, H*D) with ``num_heads``."""
+    themselves, at 128 and above q's parts follow, (3, 3, B, H, S, D). q,
+    k, v are (B, H, S, D), or packed (B, S, H*D) with ``num_heads``."""
     if k.dtype == torch.bfloat16:
         return None
     d = q.shape[-1] // num_heads if num_heads else q.shape[-1]
-    xs = (k, v, q) if d == 128 else (k, v)
+    xs = (k, v, q) if d >= 128 else (k, v)
     return split_bf16x3(*(x if num_heads is None else _split(x, num_heads) for x in xs))
 
 
@@ -790,7 +802,7 @@ def _check_headform(what: str, q, k, v, bias) -> None:
 
 def _check_headform_cuda(what: str, tensors, bias) -> int:
     """What the kernels take in the head form: (B, H, rows, D) tensors, D
-    64 or 128,
+    a kernel head dim,
     on one card, all bf16 or all f32, each with a unit last stride, its
     other strides multiples of 8 and 16-byte aligned (the packed
     projections' transposed view is such a tensor; the forward's TMA tensor
@@ -1087,9 +1099,9 @@ def flash_attention_packed_train_tables_bwd(
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     delta = _bwd_scratch(b, num_heads, p, q, k, v, do)
     n_qb = -(-s // KERNEL_TILE)
-    # per-CTA partials; f32 operands at 128 also each CTA's (bins, 64 rows)
-    # histogram after them, which their shared memory cannot hold
-    per_cta = n_bins * (65 if not is_bf16 and d == 128 else 1)
+    # per-CTA partials; f32 operands at 128 and above also each CTA's (bins,
+    # 64 rows) histogram after them, which their shared memory cannot hold
+    per_cta = n_bins * (65 if not is_bf16 and d >= 128 else 1)
     partial = torch.empty(b * num_heads * n_qb * per_cta, dtype=torch.float32, device=q.device)
     tables = torch.empty((n_bins, num_heads), dtype=torch.float32, device=q.device)
     lut1 = bucket_lut(rel_bins, max_rel, q.device)

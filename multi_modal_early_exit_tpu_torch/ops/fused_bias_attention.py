@@ -440,8 +440,10 @@ FUSED_MAX_DISTANCE = 1024  # the kernel's expanded tables hold 2 max + 1 distanc
 
 
 def _check_fused_cuda(q, k, v, vectors, tables, max_distances) -> int:
-    """What the CUDA kernel takes: q/k/v all bf16 or all f32 with head dim
-    64 or 128 (``at_kernel_head_dim`` pads any other), unit last stride and
+    """What the CUDA kernel takes: q/k/v all bf16 or all f32 at a kernel
+    head dim, 64, 128 or a multiple of 64 above, which the kernel's wide
+    mode computes in 64-column groups (``at_kernel_head_dim`` pads any
+    other D), unit last stride and
     16-byte aligned rows; int32 vectors and f32 tables, contiguous, on q's
     card; bucket distances of 1 to 1024. Returns the operand flag (1 for
     bf16)."""
@@ -456,10 +458,9 @@ def _check_fused_cuda(q, k, v, vectors, tables, max_distances) -> int:
         raise TypeError(f"the {what} kernel takes q, k, v all bfloat16 or all float32, not "
                         f"{q.dtype}, {k.dtype}, {v.dtype}")
     # imported here: ops.flash_attention imports this module
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import KERNEL_HEAD_DIMS
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import _check_head_dim
 
-    if q.shape[-1] not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"the {what} kernel takes head dims {KERNEL_HEAD_DIMS}, not {q.shape[-1]}")
+    _check_head_dim(q.shape[-1])
     if not all(1 <= m <= FUSED_MAX_DISTANCE for m in max_distances):
         raise ValueError(f"the {what} kernel takes bucket distances of 1 to "
                          f"{FUSED_MAX_DISTANCE}, not {max_distances}")
@@ -494,8 +495,8 @@ def fused_bias_attention(
 ) -> torch.Tensor:
     """softmax(q k^T / sqrt(d) + rel_bias + mask) v with the bias built in
     the kernel; (B, H, S, D) in q's dtype, in q's layout (a transposed view
-    of the packed projections gives a transposed view back) when D is 64 or
-    128.
+    of the packed projections gives a transposed view back) when D is a
+    kernel head dim (64, 128 or a multiple of 64 above).
 
     The bias of each score is rounded once to q's dtype, as
     ``materialize_bias`` rounds it. CPU tensors run

@@ -85,6 +85,23 @@ class Pipeline:
         self._n_capacity_exited = 0
         self._cascade = make_cascade_forward(cfg, capacities=caps, threshold=threshold)
 
+    @classmethod
+    def from_checkpoint(cls, directory: str, **kwargs) -> "Pipeline":
+        """A pipeline over a training checkpoint (``training/checkpoint.py``
+        layout): the backbone config read off the state dict's shapes
+        (``infer_backbone_config``), the ``ExitConfig`` from the saved run
+        config. ``kwargs`` go to ``Pipeline`` (``device`` among them)."""
+        from multi_modal_early_exit_tpu_torch.config.experiment import ExperimentConfig
+        from multi_modal_early_exit_tpu_torch.models.registry import infer_backbone_config
+        from multi_modal_early_exit_tpu_torch.training.checkpoint import load_checkpoint
+
+        state, saved, _, _ = load_checkpoint(directory)
+        exp = ExperimentConfig.from_dict(saved or {})
+        cfg = EEModelConfig(backbone=infer_backbone_config(state), exit=exp.exit_config())
+        model = EEModel(cfg, device="cpu")
+        model.load_state_dict(state, strict=True)
+        return cls(model, cfg, **kwargs)
+
     def preprocess(
         self,
         images: Sequence,

@@ -10,7 +10,10 @@ package's ``training/trainer.py`` (optax + jit there, eager PyTorch here).
   update, no weight decay, and no share in the clipping norm;
 - gradient clipping is optax's ``clip_by_global_norm``: scale by
   max_norm / norm when the norm exceeds max_norm (``clip_grad_norm_`` adds
-  1e-6 to the norm, optax does not).
+  1e-6 to the norm, optax does not);
+- ``bf16_momentum`` stores Adam's first moment in bf16 (``AdamWBf16Mu``,
+  optax's ``adamw(mu_dtype=bfloat16)``); the second moment and the master
+  weights stay f32.
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ class TrainingArguments:
     warmup_ratio: float = 0.0
     max_grad_norm: float = 0.0  # 0 disables clipping
     bf16: bool = False  # mixed precision: bf16 forward, f32 master params
-    bf16_momentum: bool = False  # bf16 Adam first moment: not in the port
+    bf16_momentum: bool = False  # Adam's first moment stored in bf16
 
 
 def _is_trainable_two_stage(name: str) -> bool:
@@ -69,11 +72,70 @@ def linear_schedule(args: TrainingArguments, total_steps: int) -> Callable[[int]
     return schedule
 
 
+class AdamWBf16Mu(torch.optim.Optimizer):
+    """AdamW whose first moment is stored in bf16: optax's ``adamw(...,
+    mu_dtype=jnp.bfloat16)`` step by step, in its order and types. With g
+    the f32 gradient and t the step count after the increment:
+
+        mu  = 0.1 g + f32(bf16(0.9) * mu_bf16)   (the product in bf16, as
+                                                  XLA takes the weakly typed
+                                                  b1 in mu's type)
+        nu  = 0.001 g^2 + 0.999 nu                (f32)
+        u   = (mu / (1 - 0.9^t)) / (sqrt(nu / (1 - 0.999^t)) + eps)
+        u   = u + wd p;  p = p + (-lr) u
+        mu_bf16 = bf16(mu)
+
+    The second moment and the parameters stay in their (f32) type. Its
+    state per parameter: ``step`` (an int64 tensor), ``exp_avg`` (bf16) and
+    ``exp_avg_sq``."""
+
+    def __init__(self, params, lr: float, betas=(0.9, 0.999), eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        super().__init__(params, dict(lr=lr, betas=betas, eps=eps, weight_decay=weight_decay))
+
+    def load_state_dict(self, state_dict) -> None:
+        """``torch.optim.Optimizer.load_state_dict``, which casts every
+        moment to its parameter's type, then the first moments back to bf16
+        (exact: they were bf16 when saved)."""
+        super().load_state_dict(state_dict)
+        for state in self.state.values():
+            state["exp_avg"] = state["exp_avg"].to(torch.bfloat16)
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        for group in self.param_groups:
+            b1, b2 = group["betas"]
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad.to(torch.float32)
+                state = self.state[p]
+                if not state:
+                    state["step"] = torch.zeros((), dtype=torch.int64)
+                    state["exp_avg"] = torch.zeros_like(p, dtype=torch.bfloat16)
+                    state["exp_avg_sq"] = torch.zeros_like(p, dtype=torch.float32)
+                state["step"] += 1
+                t = int(state["step"])
+                b1_mu = torch.tensor(b1, dtype=torch.bfloat16, device=p.device)
+                mu = g * (1 - b1) + (state["exp_avg"] * b1_mu).to(torch.float32)
+                nu = g * g * (1 - b2) + state["exp_avg_sq"] * b2
+                f32 = dict(dtype=torch.float32, device=p.device)
+                bc1 = 1 - torch.tensor(b1, **f32) ** t
+                bc2 = 1 - torch.tensor(b2, **f32) ** t
+                u = (mu / bc1) / (torch.sqrt(nu / bc2) + group["eps"])
+                if group["weight_decay"]:
+                    u = u + group["weight_decay"] * p
+                p.add_(torch.tensor(-group["lr"], **f32) * u)
+                state["exp_avg"] = mu.to(torch.bfloat16)
+                state["exp_avg_sq"] = nu
+        return None
+
+
 @dataclasses.dataclass
 class Optimizer:
     """AdamW over the trainable parameters, its schedule and clipping."""
 
-    adamw: torch.optim.AdamW
+    adamw: torch.optim.Optimizer
     params: Dict[str, torch.nn.Parameter]  # the trainable ones, by name
     schedule: Callable[[int], float]
     max_grad_norm: float
@@ -94,6 +156,15 @@ class Optimizer:
         self.adamw.zero_grad(set_to_none=True)
         self.step += 1
 
+    def state_dict(self) -> Dict[str, Any]:
+        """The moments and the schedule's step: tensors, ints and plain
+        containers only (``torch.load(weights_only=True)`` reads them)."""
+        return {"adamw": self.adamw.state_dict(), "step": self.step}
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.adamw.load_state_dict(state["adamw"])
+        self.step = int(state["step"])
+
 
 def make_optimizer(
     model: EEModel,
@@ -102,18 +173,15 @@ def make_optimizer(
     freeze_backbone: bool = False,
 ) -> Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay) with the
-    linear schedule; ``freeze_backbone`` leaves out every parameter that is
-    not a second-stage trainable."""
-    if args.bf16_momentum:
-        raise NotImplementedError(
-            "bf16_momentum (a bf16 Adam first moment) has no torch.optim "
-            "counterpart in the port yet"
-        )
+    linear schedule, its first moment in bf16 with ``bf16_momentum``
+    (``AdamWBf16Mu``); ``freeze_backbone`` leaves out every parameter that
+    is not a second-stage trainable."""
     params = {
         n: p for n, p in model.named_parameters()
         if not freeze_backbone or _is_trainable_two_stage(n)
     }
-    adamw = torch.optim.AdamW(
+    adam = AdamWBf16Mu if args.bf16_momentum else torch.optim.AdamW
+    adamw = adam(
         list(params.values()), lr=args.learning_rate, betas=(0.9, 0.999),
         eps=1e-8, weight_decay=args.weight_decay,
     )

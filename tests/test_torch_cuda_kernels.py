@@ -9,6 +9,8 @@ import math
 import pytest
 import torch
 
+from multi_modal_early_exit_tpu_torch.ops import flash_attention as flash_module
+from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fused_module
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_bwd,
@@ -113,8 +115,12 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
     with pytest.raises(TypeError):
         flash_attention_packed(q.float(), k, v, bias, 2)
     wide = torch.zeros((1, 64, 192), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 192
-        flash_attention_packed(wide, wide, wide, torch.zeros((1, 1, 64, 64), device=cuda), 1)
+    wide_bias = torch.zeros((1, 1, 64, 64), device=cuda)
+    before = flash_attention_packed.launches  # one head of 192 runs (the wide mode)
+    assert torch.isfinite(flash_attention_packed(wide, wide, wide, wide_bias, 1).float()).all()
+    assert flash_attention_packed.launches == before + 1
+    _failing_binding_raises(lambda: flash_attention_packed(wide, wide, wide, wide_bias, 1),
+                            "_flash_attention_packed_fn", flash_attention_packed)
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_packed(q, k, v, bias.transpose(2, 3), 2)
     args = _bias_args(cuda, 1, 16, 2)
@@ -122,6 +128,27 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         materialize_bias(*[a.long() if i < 4 else a for i, a in enumerate(args)])
     with pytest.raises(TypeError):
         materialize_bias(*args, out_dtype=torch.float16)
+
+
+def _failing_binding_raises(call, fns_name, counter, module=flash_module):
+    """With the binding that ``module.<fns_name>()`` returns patched to fail
+    (a CUDA error code), ``call`` raises and launches nothing: no plain
+    version runs in the kernel's place."""
+    fns = getattr(module, fns_name)()
+
+    def failing(*args):
+        return 1  # cudaErrorInvalidValue
+
+    patched = (fns[0],) + tuple(failing for _ in fns[1:])
+    before = counter.launches
+    mp = pytest.MonkeyPatch()
+    mp.setattr(module, fns_name, lambda: patched)
+    try:
+        with pytest.raises(RuntimeError, match="CUDA error 1"):
+            call()
+    finally:
+        mp.undo()
+    assert counter.launches == before
 
 
 def _train_bias(device, b, s, p, h, dtype, seed=1):
@@ -444,9 +471,12 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
     with pytest.raises(TypeError):
         fused_bias_attention(q4.float(), k4, v4, *args)
     wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 192
-        fused_bias_attention(wide, wide, wide,
-                             *args[:4], *(torch.zeros((n, 1), device=cuda) for n in (32, 64, 64)))
+    wide_args = (*args[:4], *(torch.zeros((n, 1), device=cuda) for n in (32, 64, 64)))
+    before = fused_bias_attention.launches  # one head of 192 runs (the wide mode)
+    assert torch.isfinite(fused_bias_attention(wide, wide, wide, *wide_args).float()).all()
+    assert fused_bias_attention.launches == before + 1
+    _failing_binding_raises(lambda: fused_bias_attention(wide, wide, wide, *wide_args),
+                            "_fused_bias_attention_fn", fused_bias_attention, fused_module)
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         fused_bias_attention(unaligned, k4, v4, *args)
@@ -758,8 +788,12 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
     with pytest.raises(TypeError):
         flash_attention_fwd(q.half(), k.half(), v.half(), bias)
     wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError, match="head dim"):  # one head of 192
-        flash_attention_fwd(wide, wide, wide, torch.zeros((1, 1, 64, 64), device=cuda))
+    wide_bias = torch.zeros((1, 1, 64, 64), device=cuda)
+    before = flash_attention_fwd.launches  # one head of 192 runs (the wide mode)
+    assert torch.isfinite(flash_attention_fwd(wide, wide, wide, wide_bias).float()).all()
+    assert flash_attention_fwd.launches == before + 1
+    _failing_binding_raises(lambda: flash_attention_fwd(wide, wide, wide, wide_bias),
+                            "_headform_fns", flash_attention_fwd)
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         flash_attention_fwd(unaligned, k, v, bias)
@@ -1184,21 +1218,13 @@ def _entries_at_head_dim(cuda, d, dtype, h):
 
 
 def test_a_head_dim_above_64_raises(cuda):
-    """D = 192, above the kernels' widest (128): each entry point raises,
-    naming the limit."""
-    b, s, h, d = 1, 64, 2, 192
-    q, k, v, _ = _small_heads(cuda, b, s, h, d, torch.bfloat16)
-    bias = torch.zeros((b, h, s, s), device=cuda)
-    views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
-    args = _bias_args(cuda, b, s, h)
-    for call in (lambda: flash_attention_packed(q, k, v, bias, h),
-                 lambda: flash_attention_packed_train(q, k, v, bias, 0, h, 0.1),
-                 lambda: flash_attention_packed_train_tables(q, k, v, bias, *args[4:],
-                                                             *args[:3], 0, h, 0.1),
-                 lambda: flash_attention(*views, bias),
-                 lambda: fused_bias_attention(*views, *args)):
-        with pytest.raises(ValueError, match="head dims up to 128, not 192"):
-            call()
+    """D = 192 (a kernel width of the wide mode) and 200 (padded to 256),
+    above 128, where the entry points raised before the wide mode existed:
+    each entry point now runs on the kernels and agrees with the plain
+    versions at D, in bf16 and f32, two heads."""
+    for d in (192, 200):
+        for dtype in (torch.bfloat16, torch.float32):
+            _entries_at_head_dim(cuda, d, dtype, h=2)
 
 
 # ---------------------------------------------------------------------------
@@ -1211,9 +1237,42 @@ def test_a_head_dim_above_64_raises(cuda):
 D128_SHAPES = [(2, 20, 128, 2), (1, 130, 192, 3), (2, 709, 768, 6)]
 
 
-def _qkv128(device, b, s, h, dtype, seed=0):
+def _qkv128(device, b, s, h, dtype, seed=0, d=128):
     g = torch.Generator().manual_seed(seed)
-    return [torch.randn((b, s, h * 128), generator=g).to(device, dtype) for _ in range(4)]
+    return [torch.randn((b, s, h * d), generator=g).to(device, dtype) for _ in range(4)]
+
+
+# the wide mode: head dims above 128 in 64-column groups, at P = S rounded
+# up to 128, P / 128 not whole, and the paths' ragged shape
+WIDE_DIMS = [192, 256, 320]
+WIDE_SHAPES = [(2, 20, 128, 2), (1, 130, 192, 2), (1, 709, 768, 2)]
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("b,s,p,h", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
+def test_wide_forwards_match_plain(cuda, d, b, s, p, h, dtype, bias_dtype):
+    """#2, #5 and #7 (rates 0 and 0.1) in the wide mode."""
+    _forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype, d)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("b,s,p,h", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("chained", [False, True])
+def test_wide_backwards_match_plain(cuda, d, b, s, p, h, dtype, rate, chained):
+    """#8 (plain and chained) and #6 in the wide mode, the same bits twice."""
+    _backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained, d)
+
+
+@pytest.mark.parametrize("d", WIDE_DIMS)
+@pytest.mark.parametrize("b,s,p,h", WIDE_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_wide_tables_fused_and_split_match_plain(cuda, d, b, s, p, h, dtype):
+    """#9 (rate 0.1), #3 and the split pre-pass in the wide mode."""
+    _tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype, d)
 
 
 @pytest.mark.parametrize("b,s,p,h", D128_SHAPES)
@@ -1221,7 +1280,11 @@ def _qkv128(device, b, s, h, dtype, seed=0):
 @pytest.mark.parametrize("bias_dtype", [torch.bfloat16, torch.float32])
 def test_d128_forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype):
     """#2, #5 and #7 (rates 0 and 0.1) at D = 128."""
-    q, k, v, _ = _qkv128(cuda, b, s, h, dtype)
+    _forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype)
+
+
+def _forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype, d=128):
+    q, k, v, _ = _qkv128(cuda, b, s, h, dtype, d=d)
     bias = _train_bias(cuda, b, s, p, h, bias_dtype)
     f32 = dtype == torch.float32
     bar = F32_BAR if f32 else 2e-2
@@ -1256,7 +1319,11 @@ def _widen(x):
 def test_d128_backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained):
     """#8 (plain and chained) and #6 at D = 128, the same bits twice; f32
     operands with an f32 and with a bf16 bias (widened by the wrapper)."""
-    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=3)
+    _backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained)
+
+
+def _backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained, d=128):
+    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=3, d=d)
     f32 = dtype == torch.float32
     for bias_dtype in ((torch.float32, torch.bfloat16) if f32 else (torch.bfloat16,)):
         bias = _train_bias(cuda, b, s, p, h, bias_dtype)
@@ -1289,9 +1356,13 @@ def test_d128_backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_d128_tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype):
     """#9 (rate 0.1), #3 and the split pre-pass at D = 128."""
+    _tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype)
+
+
+def _tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype, d=128):
     args = _bias_args(cuda, b, s, h)
     pos, cx, cy = args[:3]
-    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=4)
+    q, k, v, do = _qkv128(cuda, b, s, h, dtype, seed=4, d=d)
     f32 = dtype == torch.float32
     bias = _tables_bias(args, p, dtype)
     o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, 0.1)
@@ -1314,7 +1385,7 @@ def test_d128_tables_fused_and_split_match_plain(cuda, b, s, p, h, dtype):
     if f32:
         x = [_heads_view(a, h, "packed") for a in (q, k, v, do)]
         parts = split_bf16x3(*x)
-        assert parts.shape == (4, 3, b, h, s, 128)
+        assert parts.shape == (4, 3, b, h, s, d)
         for i in range(4):
             assert torch.equal(parts[i], split_bf16x3_plain(x[i]))
     torch.cuda.synchronize()

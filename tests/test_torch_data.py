@@ -112,6 +112,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "multi_modal_early_exit_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
+    # the command-line path's modules among them
+    assert {"cli/train.py", "cli/evaluate.py", "cli/research.py", "config/experiment.py",
+            "models/registry.py", "training/checkpoint.py", "utils/seeding.py",
+            "utils/wandb_compat.py", "evaluation/plots.py",
+            "evaluation/operating_points.py"} <= {
+        p.relative_to(ROOT / "multi_modal_early_exit_tpu_torch").as_posix() for p in files[:-1]}
     for path in files:
         for mod in _imported_modules(path):
             top = mod.split(".")[0]
@@ -138,13 +144,15 @@ def _module_level_imports(path: pathlib.Path):
 
 
 def test_port_imports_no_host_only_package_at_module_level():
-    """The card's machine has no scikit-learn, HuggingFace datasets,
-    pytesseract or PIL: no module of the port (nor chip_smoke.py) imports
-    one at module level; the hub builders and OCR import theirs inside."""
+    """The card's machine has no scikit-learn, HuggingFace datasets or
+    transformers, pytesseract or PIL: no module of the port (nor
+    chip_smoke.py) imports one at module level, nor matplotlib or wandb; the
+    hub builders, OCR, the plots and the CLIs import theirs inside."""
     files = sorted((ROOT / "multi_modal_early_exit_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert any(p.name == "datasets.py" for p in files)
     for path in files:
         for mod in _module_level_imports(path):
             top = mod.split(".")[0]
-            assert top not in ("sklearn", "datasets", "pytesseract", "PIL"), (path, mod)
+            assert top not in ("sklearn", "datasets", "pytesseract", "PIL", "transformers",
+                               "matplotlib", "wandb"), (path, mod)

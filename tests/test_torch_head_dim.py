@@ -1,16 +1,19 @@
-"""PyTorch port, head dims other than the kernels' 64 and 128 (the tiny
-configs' D = 16; D = 96 from a checkpoint's config).
+"""PyTorch port, head dims other than the kernels' 64 (the tiny configs'
+D = 16; D = 96 from a checkpoint's config; 128; and the wide mode's head
+dims above 128).
 
 On CUDA tensors every attention entry point pads q, k and v's head dim D
 with zeros to the smallest kernel width that holds it (``at_kernel_head_dim``:
-``pad_head_dim``, 16 -> 64, 96 -> 128), runs there with the scale of the
+``pad_head_dim``, 16 -> 64, 96 -> 128, 200 -> 256; a multiple of 64 above
+128 is a width of the kernels' wide mode), runs there with the scale of the
 true D and slices the output; autograd slices the gradients. Here
 ``_kernel_layout`` is forced on, so the entry points take that path on CPU
 tensors: pad, the plain versions at the kernel width, slice. Each is held
 against the JAX package's Pallas kernels in interpret mode (as
 tests/test_flash_attention.py runs them) at D = 16 and 32 (H = 4) and at
-D = 96 and 128 (H = 2), S = 70 inside P = 128, within the bars the D = 64
-tests of the same functions use. f32 inputs from numpy seeds.
+D = 96, 128, 192, 256 and 320 (H = 2), S = 70 inside P = 128, within the
+bars the D = 64 tests of the same functions use. f32 inputs from numpy
+seeds.
 """
 
 import math
@@ -35,7 +38,7 @@ torch.set_num_threads(2)
 B, H, S, P = 2, 4, 70, 128
 FWD_TOL = dict(atol=2e-5, rtol=1e-4)   # tests/test_torch_flash_headform.py
 GRAD_TOL = dict(atol=3e-5, rtol=1e-4)
-HEAD_DIMS = [16, 32, 96, 128]
+HEAD_DIMS = [16, 32, 96, 128, 192, 256, 320]
 
 
 def _h(d):
@@ -267,10 +270,20 @@ ENTRIES = list(_entries(8))
 
 @pytest.mark.parametrize("entry", ENTRIES)
 def test_a_head_dim_above_the_kernels_raises(monkeypatch, entry):
-    """D = 192 has no kernel layout: the entry point raises, naming the limit."""
+    """Above 128, where the entry points raised before the kernels' wide
+    mode: D = 320 runs at the wide width 320 as it is, and D = 200 runs
+    padded to 256, its output sliced back to 200."""
     monkeypatch.setattr(tfa, "_kernel_layout", lambda x: True)
-    with pytest.raises(ValueError, match="head dims up to 128, not 192"):
-        _entries(192)[entry]()
+    pad = tfa.pad_head_dim
+    for d, width in ((320, 320), (200, 256)):
+        widths = []
+        monkeypatch.setattr(tfa, "pad_head_dim",
+                            lambda x, *a: widths.append(pad(x, *a).shape[-1]) or pad(x, *a))
+        out = _entries(d)[entry]()
+        out = out[0] if isinstance(out, tuple) else out
+        assert out.shape[-1] in (d, _h(d) * d) and torch.isfinite(out).all()
+        want = set() if width == d else ({width} if out.shape[-1] == d else {_h(d) * width})
+        assert set(widths) == want, (d, widths)
 
 
 @pytest.mark.parametrize("entry", ENTRIES)
