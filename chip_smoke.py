@@ -182,8 +182,43 @@ Phases, each reported on its own line:
    Prints each step's seconds, train docs/sec, the peak memory with the
    bf16 and the f32 first moment, and the CLIs' seconds.
 
+8. the model variants and the anytime engine at full width (after phase 7):
+   8a. LayoutLMv2-base (12 layers, hidden 768, 12 heads x 64, the
+   ResNeXt-101 32x8d FPN tower at 224 pixels, 512 text + 49 visual tokens,
+   16 labels; random weights from ``build_model``'s seed): first its five
+   kernels against their plain versions at its shapes (``compare_path_kernels``:
+   batch 16, S = 561 inside P = 640, the model's unscaled tables, phase 3's
+   tolerances); ``get_logits``
+   harvests 64 synthetic documents in bf16 at batch 16 (561 tokens padded to
+   640); ``cli.train.main`` with ``model=layoutlmv2`` (1 epoch, 1 + 3 steps,
+   bf16, dropout 0.1, batch 16). Checks: a finite (1, 64, 16) float64 store,
+   two batches bit-equal to ``forward_sequence_classification``, 1
+   ``materialize_bias`` and 12 ``flash_attention_packed`` launches a batch;
+   the f32 model's logits on 4 documents within atol 2e-4 / rtol 1e-3 of the
+   f32 plain path on the CPU; finite losses, parameters that moved, per step
+   1 ``materialize_bias``, 2 ``table_grads``, 12 training forwards and 12
+   plain backwards (24 kernels); the gradients of one loss on 2 documents
+   at dropout 0 against the f32 plain path on the CPU: bf16 on the card
+   within phase 5's relative L2 bar (5e-2) over every tensor and
+   ``GRAD_LIMITS`` over every tensor outside the visual tower, f32 on the
+   card within ``F32_GRAD_LIMITS`` outside the tower (the tower's worst
+   tensor printed: bf16 on the card and on the CPU, f32 on the card).
+   Prints the harvest's docs/sec, one
+   traced batch's device ms (the visual tower traced alone, the attention,
+   the rest), the steps' seconds and the peak memory.
+   8b. ``AnytimeEngine`` on phase 4's bf16 model and 64 documents (kept on
+   the host since phase 6) in batches of 32, buckets (8, 16, 32), after its
+   two kernels against their plain versions at its largest bucket (32, S =
+   709 inside P = 768). Checks:
+   exits equal ``decide_exits(ee_forward())`` away from the threshold, the
+   ``collect_store`` store against ``ee_forward``'s policy logits, patience
+   at t = 2 equal to the offline patience policy of the engine's store, per
+   stage 1 ``materialize_bias`` and one ``flash_attention_packed`` per layer
+   on the bucket of its survivors. Prints its docs/sec beside the
+   full-capacity cascade ``Pipeline``'s on the same batches.
+
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6 and 7 with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6, 7 and 8 with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
@@ -192,7 +227,8 @@ f32 run and the f32 launches from phases 4f/5f; ``split_bf16x3`` runs in
 f32 only, on phases 4f's and 5f's paths; the ``_d128`` fields from phase
 3's head-dim-128 run, the ``_wide`` fields (keyed by D) from its wide-mode
 runs; the anytime harvest's launches of the two kernels it runs from phase
-6, and the command-line path's (``cli_launches``) from phase 7), the last
+6, the command-line path's (``cli_launches``) from phase 7, LayoutLMv2's
+(``v2_launches``) and the engine's (``engine_launches``) from phase 8), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -2607,6 +2643,478 @@ def phase_cli(card: str):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 8a: LayoutLMv2-base at full width through the user's entry points
+V2_DOCS = 64  # the harvest's synthetic documents (4 batches of 16)
+V2_TRAIN = ["with", "model=layoutlmv2", "model_size=base", "dataset=synthetic_rvl_cdip",
+            "model_weights=", "epochs=1", "batch_size=16", "eval_batch_size=16",
+            "compute_dtype=bfloat16", "lr=2e-5", "output_dir=save"]
+# v2 takes the plain bias tensor in every layer: the training forward, the
+# unchained backward (2 kernels a call) and the tables' backward (2)
+V2_STEP_LAUNCHES = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
+                    "flash_attention_packed_train_bwd": 24}
+V2_BATCH_LAUNCHES = {"materialize_bias": 1, "flash_attention_packed": 12}
+
+
+def v2_loss_grads(model, cfg, batch, device, dtype):
+    """(loss, gradients) of ``sequence_classification_loss`` on the first 2
+    documents of a training batch, at dropout 0 (deterministic), on
+    ``device`` in the compute dtype ``dtype``."""
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import (
+        sequence_classification_loss,
+    )
+
+    small = {k: v[:2].to(device) for k, v in batch.items()}
+    loss, _ = sequence_classification_loss(model, cfg, small, deterministic=True,
+                                           compute_dtype=dtype, device=device)
+    params = [p for _, p in model.named_parameters()]
+    gs = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
+
+
+def compare_path_kernels(args, gen, training: bool) -> str:
+    """The kernels of a phase-8 path against their plain versions at that
+    path's shapes (``args``: its seven bias inputs, B x S, P = S rounded up
+    to 128; bf16 q/k/v of 12 heads of 64 from ``gen``), at phase 3's
+    tolerances: ``materialize_bias`` bit-equal, ``flash_attention_packed``
+    within 1e-2; with ``training``, also the training forward at dropout
+    ``TRAIN_RATE`` (out within 2e-2, lse within 1e-3), its plain (unchained)
+    backward (dq/dk/dv/dbias within 2e-2 of each output's scale, dbias 0 in
+    the pad rows) and ``table_grads`` on that dbias (within 1e-4 of the
+    largest table gradient). Returns a summary of the readings."""
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
+        flash_attention_packed,
+        flash_attention_packed_plain,
+        flash_attention_packed_train_bwd,
+        flash_attention_packed_train_bwd_plain,
+        flash_attention_packed_train_fwd,
+        flash_attention_packed_train_fwd_plain,
+    )
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+        materialize_bias,
+        materialize_bias_plain,
+        table_grads,
+        table_grads_plain,
+    )
+
+    dev, (b, s) = args[0].device, args[0].shape
+    bias = materialize_bias(*args)
+    check(torch.equal(bias, materialize_bias_plain(*args)),
+          f"materialize_bias differs from its plain version (B {b}, S {s})")
+    q, k, v = (torch.randn((b, s, HEADS * HEAD_DIM), generator=gen).to(dev, torch.bfloat16)
+               for _ in range(3))
+    err = (flash_attention_packed(q, k, v, bias, HEADS).float()
+           - flash_attention_packed_plain(q, k, v, bias, HEADS).float()).abs().max().item()
+    check(err <= 1e-2, f"flash_attention_packed max error {err} > 1e-2 (B {b}, S {s})")
+    read = (f"B {b}, S {s} inside P {bias.shape[-1]}: materialize_bias bit-equal, "
+            f"flash_attention_packed max error {err:.3e} (tol 1e-2)")
+    if not training:
+        return read
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, HEADS, TRAIN_RATE)
+    ref_out, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, HEADS,
+                                                              TRAIN_RATE)
+    out_err = (out.float() - ref_out.float()).abs().max().item()
+    lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
+    check(out_err <= 2e-2 and lse_err <= 1e-3, f"train forward out {out_err} (tol 2e-2), lse "
+          f"{lse_err} (tol 1e-3) (B {b}, S {s})")
+    do = (torch.randn(out.shape, generator=gen) * 0.1).to(dev, torch.bfloat16)
+    bwd_args = (q, k, v, bias, 1234, out, lse, do, HEADS, TRAIN_RATE)
+    got = flash_attention_packed_train_bwd(*bwd_args)
+    want = flash_attention_packed_train_bwd_plain(*bwd_args)
+    errs = {}
+    for what, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        check(bool(torch.isfinite(a.float()).all()), f"train backward {what} not finite")
+        errs[what] = scaled_err(a, w)
+        check(errs[what] <= 2e-2, f"train backward {what} {errs[what]} of its scale > 2e-2 "
+              f"(B {b}, S {s})")
+    check(not got[3][:, :, s:, :].any(), "train backward: dbias is not 0 in the pad rows")
+    tg = max(scaled_err(a, w) for a, w in zip(table_grads(*args[:3], got[3]),
+                                              table_grads_plain(*args[:3], got[3])))
+    check(tg <= 1e-4, f"table_grads error {tg} > 1e-4 of its scale (B {b}, S {s})")
+    return (f"{read}; flash_attention_packed_train out {out_err:.3e} (tol 2e-2), lse "
+            f"{lse_err:.3e} (tol 1e-3); its backward "
+            + ", ".join(f"{w} {e:.3e}" for w, e in errs.items())
+            + f" of scale (tol 2e-2), dbias 0 in the pad; table_grads {tg:.3e} of scale "
+            f"(tol 1e-4)")
+
+
+def phase_v2(card: str):
+    """Phase 8a: LayoutLMv2-base at full width (12 layers, hidden 768, 12
+    heads of 64, the ResNeXt-101 32x8d FPN tower at 224 pixels, 512 text
+    tokens + 49 visual, 16 labels; random weights from ``build_model``'s
+    seed). Its kernels against their plain versions at its shapes
+    (``compare_path_kernels``); ``get_logits`` harvests ``V2_DOCS`` synthetic documents in bf16
+    at batch 16 (a (1, N, 16) store, rows bit-equal to
+    ``forward_sequence_classification``'s, 1 #1 and 12 #2 a batch); the f32
+    model's logits on 4 documents against the f32 plain path on the CPU;
+    ``cli.train.main`` with ``model=layoutlmv2`` (1 + 3 steps at dropout
+    0.1, batch 16, the launches of each step); the gradients of one loss on
+    2 documents at dropout 0 against the f32 plain path on the CPU (bf16:
+    the relative L2 bar over every tensor, ``GRAD_LIMITS`` outside the
+    visual tower; f32: ``F32_GRAD_LIMITS`` outside the tower). Returns the launches of the harvest and of the steps
+    by kernel (counts set to 0 before each)."""
+    import shutil
+    import tempfile
+
+    from multi_modal_early_exit_tpu_torch.cli import train as cli_train
+    from multi_modal_early_exit_tpu_torch.config.experiment import parse_cli
+    from multi_modal_early_exit_tpu_torch.data.datasets import build_dataset, build_synthetic
+    from multi_modal_early_exit_tpu_torch.data.loader import iterate_batches
+    from multi_modal_early_exit_tpu_torch.evaluation.pipeline import SEQ_PAD_MULTIPLE, get_logits
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import (
+        forward_sequence_classification,
+        sequence_layout,
+        visual_backbone_apply,
+    )
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
+        bias_tables,
+        bias_vectors,
+    )
+    from multi_modal_early_exit_tpu_torch.models.registry import build_model
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
+
+    counters = train_counters()
+    exp = parse_cli(V2_TRAIN)
+    t0 = time.perf_counter()
+    cfg, model32 = build_model(exp.replace(device="cpu"), num_labels=16, image_size=224,
+                               seq_len=S_TEXT)
+    n_params = sum(p.numel() for p in model32.parameters())
+    tower = sum(p.numel() for p in model32.visual_backbone.parameters())
+    check((cfg.hidden_size, cfg.num_hidden_layers, cfg.num_attention_heads,
+           cfg.backbone_depths, cfg.backbone_groups) == (768, 12, 12, (3, 4, 23, 3), 32),
+          f"not LayoutLMv2-base: {cfg}")
+    model = copy.deepcopy(model32).to("cuda", torch.bfloat16)
+    print(f"LayoutLMv2-base: {n_params / 1e6:.1f}M params ({tower / 1e6:.1f}M in the "
+          f"ResNeXt-101 32x8d FPN tower), vocab {cfg.vocab_size}, init "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    # ---- serving: get_logits over V2_DOCS documents, bf16, batch 16 ------
+    docs = build_synthetic("test", n_eval=V2_DOCS, num_labels=16, seq_len=S_TEXT,
+                           image_size=224)
+    keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
+    first = next(iterate_batches(docs, B))
+    cols = [torch.from_numpy(first[k]).cuda() for k in keys]
+    # the path's kernels at its shapes: the first batch's sequence, S = 561
+    # (P = 640), the model's unscaled tables
+    full_bbox, pos, full_mask = sequence_layout(cfg, cols[1], cols[3], cfg.num_visual_tokens)
+    enc_cfg = cfg.encoder_cfg()
+    bias_args = (*bias_vectors(pos, full_bbox, full_mask),
+                 *bias_tables(model32, enc_cfg, "cpu"))
+    read = compare_path_kernels([a.cuda() for a in bias_args], torch.Generator().manual_seed(8),
+                                training=True)
+    print(f"v2 kernels against their plain versions at the path's shapes: {read}")
+    with torch.inference_mode():  # warm-up batch
+        forward_sequence_classification(model, cfg, *cols, seq_pad_multiple=SEQ_PAD_MULTIPLE)
+    torch.cuda.synchronize()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    store, refs, stats = get_logits(model, cfg, docs, {}, batch_size=B, use_cache=False)
+    serve_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    harvest = {n: f.launches for n, f in counters.items() if f.launches}
+    n_batches = -(-V2_DOCS // B)
+    want = {n: c * n_batches for n, c in V2_BATCH_LAUNCHES.items()}
+    check(harvest == want, f"the v2 harvest launched {harvest}, not {want}")
+    check(store.shape == (1, V2_DOCS, 16) and store.dtype == np.float64
+          and bool(np.isfinite(store).all()), f"the v2 store {store.shape} {store.dtype}")
+    with torch.inference_mode():  # two batches' rows against the direct forward
+        for i, batch in enumerate(iterate_batches(docs, B)):
+            if i == 2:
+                break
+            c = [torch.from_numpy(batch[k]).cuda() for k in keys]
+            direct = forward_sequence_classification(model, cfg, *c,
+                                                     seq_pad_multiple=SEQ_PAD_MULTIPLE)
+            direct = direct.logits[None].to(torch.float64).cpu().numpy()
+            check(np.array_equal(store[:, i * B:(i + 1) * B], direct),
+                  f"the v2 store's batch {i} differs from forward_sequence_classification's")
+        tower_ms = device_ms(lambda: visual_backbone_apply(model.visual_backbone, cfg, cols[2]),
+                             {})
+        ms = device_ms(lambda: forward_sequence_classification(
+            model, cfg, *cols, seq_pad_multiple=SEQ_PAD_MULTIPLE),
+            {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",)})
+    rest = ms["all"] - tower_ms["all"] - ms["attention"]
+    print(f"v2 harvest: (1, {V2_DOCS}, 16) f64 store, {stats['docs_per_sec']:.1f} docs/sec "
+          f"(host clock, after a warm-up batch, batch {B}, 561 tokens padded to 640), "
+          f"launches {harvest} ({n_batches} batches), 2 batches bit-equal to "
+          f"forward_sequence_classification, peak memory {serve_peak:.1f} MiB; one batch "
+          f"traced: {ms['all']:.3f} device ms: the visual tower {tower_ms['all']:.3f} (traced "
+          f"alone), the attention {ms['attention']:.3f}, the rest {rest:.3f} (the bias build "
+          f"{ms['bias']:.3f}); on {card}")
+
+    # the f32 model on 4 documents against the f32 plain path on the CPU
+    few = [torch.from_numpy(first[k][:4]) for k in keys]
+    with torch.inference_mode():
+        t0 = time.perf_counter()
+        cpu32 = forward_sequence_classification(model32, cfg, *few).logits
+        t_cpu = time.perf_counter() - t0
+        gpu_model32 = copy.deepcopy(model32).cuda()
+        got32 = forward_sequence_classification(gpu_model32, cfg,
+                                                *(x.cuda() for x in few)).logits.cpu()
+        del gpu_model32
+    err32 = (got32 - cpu32).abs().max().item()
+    check(f32_close(got32, cpu32), f"v2 f32 kernel path vs f32 plain path: {err32} "
+          f"(atol 2e-4, rtol 1e-3)")
+    print(f"v2 reference: f32 kernel path vs f32 plain path (CPU, {t_cpu:.1f} s), 4 documents: "
+          f"logit max diff {err32:.3e} at logit scale {cpu32.abs().max().item():.3f} "
+          f"(atol 2e-4 / rtol 1e-3)")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- training: cli.train, 1 epoch of 4 steps, bf16 forward ----------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_v2_")
+    cwd = os.getcwd()
+    os.chdir(tmp)
+    steps, probe = [], {}
+    step_fn = EETrainer.train_step
+    probed = ("encoder.layers.0.attention.query.weight", "encoder.rel_pos_bias",
+              "classifier.weight", "visual_backbone.stem_conv",
+              "visual_backbone.stages.2.22.bn2.weight")
+
+    def timed_step(self, batch, rng):
+        if not probe:
+            params = dict(self.model.named_parameters())
+            probe.update({n: params[n].detach().clone() for n in probed})
+        torch.cuda.synchronize()
+        before = launch_counts()
+        t0 = time.perf_counter()
+        out = step_fn(self, batch, rng)
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - t0, out[0],
+                      {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}))
+        if len(steps) == 4:
+            params = dict(self.model.named_parameters())
+            probe.update({n: torch.equal(t, params[n].detach()) for n, t in probe.items()})
+        return out
+
+    for f in counters.values():
+        f.launches = 0
+    EETrainer.train_step = timed_step
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        t0 = time.perf_counter()
+        metrics = cli_train.main(list(V2_TRAIN))
+        t_train = time.perf_counter() - t0
+    finally:
+        EETrainer.train_step = step_fn
+        os.chdir(cwd)
+        shutil.rmtree(tmp, ignore_errors=True)
+    train_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    trained = {n: sum(s[2].get(n, 0) for s in steps) for n in V2_STEP_LAUNCHES}
+    check(len(steps) == 4, f"cli.train took {len(steps)} steps of v2, not 4")
+    check(all(math.isfinite(loss) for _, loss, _ in steps),
+          f"v2 losses {[loss for _, loss, _ in steps]}")
+    for _, _, ran in steps:
+        check(ran == V2_STEP_LAUNCHES, f"a v2 step launched {ran}, not {V2_STEP_LAUNCHES}")
+    still = [n for n, same in probe.items() if same is True]
+    check(not still, f"v2 parameters that did not move in 4 steps: {still}")
+    check(set(metrics) == {"accuracy", "exit_0_share"}, f"v2 test metrics {sorted(metrics)}")
+    timed = [dt for dt, _, _ in steps]
+    print(f"v2 cli.train (bf16, batch {B}, dropout {cfg.hidden_dropout_prob}, lr 2e-5): 4 steps "
+          f"of {[round(t, 4) for t in timed]} s, {B * 3 / sum(timed[1:]):.1f} train docs/sec "
+          f"after the first step (host clock), losses {[round(x, 4) for _, x, _ in steps]}, "
+          f"launches per step {V2_STEP_LAUNCHES}, {t_train:.1f} s with the validation, the "
+          f"test evaluation and a checkpoint, peak memory {train_peak:.1f} MiB, test metrics "
+          f"{json.dumps({k: round(float(v), 4) for k, v in metrics.items()})}, on {card}")
+
+    # ---- gradients of one loss on 2 documents, dropout 0 ----------------
+    # against the f32 plain path on the CPU: bf16 on the card within phase
+    # 5's relative L2 bar over every gradient and GRAD_LIMITS over every
+    # tensor outside the visual tower (the tensors that the attention
+    # kernels' backward feeds), f32 on the card within F32_GRAD_LIMITS over
+    # the same tensors. The tower's bias gradients sum terms that cancel:
+    # rounding moves them far more than the other tensors' (bf16 on the
+    # plain path alone, and f32 cuDNN against the CPU), so its worst tensor
+    # is printed for bf16 on the card, bf16 on the CPU and f32 on the card.
+    train = build_dataset("synthetic_rvl_cdip", "train")
+    tb = next(iterate_batches(train, B))
+    batch = {k: torch.from_numpy(tb[k]) for k in keys + ("labels",)}
+    cfg0 = cfg.replace(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0)
+    t0 = time.perf_counter()
+    cpu_loss, cpu_grads = v2_loss_grads(model32, cfg0, batch, "cpu", None)
+    t_cpu = time.perf_counter() - t0
+    names = [n for n, _ in model32.named_parameters()]
+    outside = [i for i, n in enumerate(names) if not n.startswith("visual_backbone.")]
+    big = max(g.abs().max().item() for g in cpu_grads)
+    tower_worst, summaries = {}, {}
+    for where, dtype in (("card", torch.bfloat16), ("cpu", torch.bfloat16), ("card", None)):
+        device = "cuda" if where == "card" else "cpu"
+        grad_model = copy.deepcopy(model32).to(device)
+        loss, grads = v2_loss_grads(grad_model, cfg0, batch, device, dtype)
+        del grad_model
+        grads = [g.cpu() for g in grads]
+        tag = f"{'f32' if dtype is None else 'bf16'} on the {where}"
+        tower_worst[tag] = max((scaled_err(a, b), n) for n, a, b in zip(names, grads, cpu_grads)
+                               if n.startswith("visual_backbone.")
+                               and b.abs().max().item() >= 1e-2 * big)
+        if where == "cpu":
+            continue
+        if dtype is not None:
+            diff = sum((a - b).square().sum() for a, b in zip(grads, cpu_grads))
+            rel_l2 = math.sqrt(diff.item() / sum(b.square().sum() for b in cpu_grads).item())
+            check(rel_l2 <= 5e-2, f"v2 bf16 gradients: relative L2 {rel_l2} over every tensor")
+        summaries[tag] = gradient_gate(
+            [names[i] for i in outside], loss, [grads[i] for i in outside], cpu_loss,
+            [cpu_grads[i] for i in outside],
+            f"v2 {tag} kernel-path gradients vs the f32 plain path",
+            GRAD_LIMITS if dtype is not None else F32_GRAD_LIMITS)
+    print(f"v2 train reference (f32 plain path on the CPU, {t_cpu:.1f} s), 2 documents, "
+          f"dropout 0: bf16 on the card: relative L2 over every tensor {rel_l2:.3e} (tol "
+          f"5e-2); outside the visual tower: {summaries['bf16 on the card']}; f32 on the card, "
+          f"outside the tower (F32_GRAD_LIMITS): {summaries['f32 on the card']}; the tower's "
+          f"worst tensor above 1e-2 of the largest gradient: "
+          + ", ".join(f"{tag} {n} {e:.3e}" for tag, (e, n) in tower_worst.items()))
+    del cpu_grads
+    torch.cuda.empty_cache()
+    return harvest, trained
+
+
+ENGINE_BATCH = 32  # phase 8b's batch; buckets (8, 16, 32)
+
+
+@torch.no_grad()
+def phase_engine(card: str, kept):
+    """Phase 8b: ``AnytimeEngine`` on phase 4's EE LayoutLMv3-base bf16
+    model (its heads as phase 4 re-centred them) over phase 4's 64
+    documents in 2 batches of 32, buckets (8, 16, 32), one global
+    max-confidence threshold in the widest gap of the exits' criteria.
+    Its two kernels against their plain versions at the largest bucket
+    (``compare_path_kernels``). Checks: the exits equal ``decide_exits(ee_forward())`` for the
+    documents 1e-2 away from the threshold, their logits within the bf16
+    tolerance; the ``collect_store`` store against ``ee_forward``'s policy
+    logits; patience at t = 2 equal to the offline ``patience_policy`` of
+    the engine's own store; per stage 1 #1 and one #2 per layer, on the
+    bucket of the stage's survivors. Prints the engine's docs/sec beside
+    the full-capacity cascade ``Pipeline``'s on the same batches. Returns
+    the launches of the timed run (counts set to 0 just before it)."""
+    import dataclasses
+
+    from multi_modal_early_exit_tpu_torch.evaluation.policy import Policy
+    from multi_modal_early_exit_tpu_torch.models.ee.engine import AnytimeEngine, _round_bucket
+    from multi_modal_early_exit_tpu_torch.models.ee.model import decide_exits, ee_forward
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
+        bias_tables,
+        bias_vectors,
+        sequence_layout,
+    )
+    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
+    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+
+    model, cfg = kept["model"].to("cuda"), kept["cfg"]
+    keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
+    data = {k: kept["batch"][k].cuda() for k in keys}
+    n_docs = data["input_ids"].shape[0]
+    chunks = [[data[k][i:i + ENGINE_BATCH] for k in keys]
+              for i in range(0, n_docs, ENGINE_BATCH)]
+    refs = [ee_forward(model, cfg, *c) for c in chunks]
+    crit = torch.cat([r.exit_criteria for r in refs], 1).float().cpu().numpy()
+    thr = widest_gap_threshold(crit[:-1].ravel(), 0.6, 0.9)
+    far = torch.from_numpy(np.abs(crit[:-1] - thr).min(axis=0) > 1e-2)
+    check(int(far.sum()) >= n_docs // 4, f"only {int(far.sum())} documents lie 1e-2 away "
+          f"from the engine's threshold {thr}")
+    engine = AnytimeEngine(model, cfg, threshold=thr, max_batch=ENGINE_BATCH, min_bucket=8)
+    check(engine.buckets == (8, 16, 32), f"buckets {engine.buckets}")
+    # the path's kernels at its largest bucket: 32 documents, S = 709 (P = 768)
+    full_bbox, pos, full_mask = sequence_layout(cfg.backbone, chunks[0][1], chunks[0][3],
+                                                cfg.backbone.num_visual_tokens)
+    read = compare_path_kernels(
+        [*bias_vectors(pos, full_bbox, full_mask), *bias_tables(model.backbone, cfg.backbone,
+                                                                 "cuda")],
+        torch.Generator().manual_seed(9), training=False)
+    print(f"engine kernels against their plain versions at the path's shapes: {read}")
+    counters = {"materialize_bias": materialize_bias,
+                "flash_attention_packed": flash_attention_packed}
+
+    # per stage: 1 bias build and one attention call per layer, on the
+    # bucket of the stage's survivors
+    stage_fn, stages = engine._stage, []
+
+    def counted(idx, hidden, *rest):
+        before = {n: f.launches for n, f in counters.items()}
+        out = stage_fn(idx, hidden, *rest)
+        a, b_layer = engine.stage_bounds[idx]
+        ran = {n: f.launches - before[n] for n, f in counters.items()}
+        check(ran == {"materialize_bias": 1, "flash_attention_packed": b_layer - a},
+              f"engine stage {idx} launched {ran}")
+        stages.append((idx, hidden.shape[0]))
+        return out
+
+    engine._stage = counted
+    engine.infer(*chunks[0])  # warm-up
+    stages.clear()
+    for f in counters.values():
+        f.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    outs = [engine.infer(*c) for c in chunks]
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = {n: f.launches for n, f in counters.items()}
+    got_logits = torch.from_numpy(np.concatenate([o[0] for o in outs]))
+    got_ids = torch.from_numpy(np.concatenate([o[1] for o in outs]))
+    want_ids = torch.cat([decide_exits(r, cfg.exit, thr).cpu() for r in refs])
+    store = torch.cat([r.policy_logits().float().cpu() for r in refs], 1)
+    want_logits = store[want_ids.long(), torch.arange(n_docs)]
+    agree = got_ids == want_ids
+    check(bool(agree[far].all()), f"engine exits differ from decide_exits(ee_forward()): "
+          f"{got_ids.tolist()} vs {want_ids.tolist()}")
+    logit_err = (got_logits - want_logits)[agree].abs().max().item()
+    check(bool(torch.isfinite(got_logits).all()) and bf16_close(logit_err, want_logits),
+          f"engine logits differ from ee_forward's by {logit_err}")
+    # each stage ran on the bucket of the rows still running
+    alive = [[(ids >= 2 + s).sum() for s in range(2)] for ids in
+             (got_ids[i:i + ENGINE_BATCH] for i in range(0, n_docs, ENGINE_BATCH))]
+    want_stages = [(s, _round_bucket(int(n), engine.buckets))
+                   for per_batch in alive for s, n in enumerate(per_batch) if n]
+    check(stages == want_stages, f"engine stages {stages}, not {want_stages}")
+    hist = np.bincount(got_ids.numpy(), minlength=4).tolist()
+
+    # collect_store: every stage on every document, the whole store
+    engine_store = [engine.infer(*c, collect_store=True)[2] for c in chunks]
+    engine_store = torch.from_numpy(np.concatenate(engine_store, 1))
+    store_err = (engine_store - store).abs().max().item()
+    check(engine_store.shape == store.shape and bf16_close(store_err, store),
+          f"the engine's store differs from ee_forward's policy logits by {store_err}")
+
+    # patience at t = 2 against the offline policy of the engine's own store
+    pcfg = cfg.replace(exit=dataclasses.replace(cfg.exit, inference_strategy="patience"))
+    patient = AnytimeEngine(model, pcfg, threshold=2, max_batch=ENGINE_BATCH, min_bucket=8)
+    p_ids, p_store = [], []
+    for c in chunks:
+        _, ids, st = patient.infer(*c, collect_store=True)
+        p_ids.append(ids)
+        p_store.append(st)
+    p_ids = np.concatenate(p_ids)
+    offline = Policy(np.concatenate(p_store, 1).astype(np.float64),
+                     {"exit_threshold": 2}).patience_policy()[0]
+    check(np.array_equal(p_ids, offline), f"patience t=2 exits {p_ids.tolist()} differ from "
+          f"the offline policy's {offline.tolist()}")
+    p_offline_fwd = Policy(store.numpy().astype(np.float64),
+                           {"exit_threshold": 2}).patience_policy()[0]
+
+    # the cascade Pipeline at full capacity on the same batches
+    pipe = Pipeline(model, cfg, threshold=thr, batch_size=ENGINE_BATCH, tokenizer=kept["tok"])
+    pipe.predict_features({k: v[:ENGINE_BATCH] for k, v in data.items()})  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    served = pipe.predict_features(data)
+    torch.cuda.synchronize()
+    dt_pipe = time.perf_counter() - t0
+    pipe_ids = torch.tensor([r["exit"] for r in served])
+    check(bool((pipe_ids == got_ids)[far].all()), "the cascade's exits differ from the engine's")
+    print(f"engine: {n_docs} documents in {len(chunks)} batches of {ENGINE_BATCH}, threshold "
+          f"{thr:.4f}, exits {hist}, stages (stage, bucket) {stages}, launches {launches}: "
+          f"{n_docs / dt:.1f} docs/sec (host clock, after a warm-up batch) beside the "
+          f"full-capacity cascade Pipeline's {n_docs / dt_pipe:.1f} on the same batches; "
+          f"exits equal decide_exits(ee_forward()) for {int(far.sum())}/{n_docs} documents "
+          f"farther than 1e-2 from the threshold ({int(agree[~far].sum())} of {int((~far).sum())} "
+          f"nearer agree), logit max diff {logit_err:.3e}; collect_store vs ee_forward's policy "
+          f"logits max diff {store_err:.3e} (bit-equal: {bool(store_err == 0.0)}); patience "
+          f"t=2 equal to the offline policy of its own store, {int((p_ids == p_offline_fwd).sum())}"
+          f"/{n_docs} equal to that of ee_forward's store, exits "
+          f"{np.bincount(p_ids, minlength=4).tolist()}; on {card}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2629,6 +3137,9 @@ def main() -> int:
     with bias_modes():
         anytime_launches = phase_anytime(card, served)
     base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
+    # phase 8b's engine runs on phase 4's model and documents: kept on the host
+    kept = dict(model=served["model"].to("cpu"), cfg=served["cfg"], tok=served["pipe"].tokenizer,
+                batch={k: v.cpu() for k, v in served["batch"].items()})
     del served
     with bias_modes():
         serve32_launches = phase_main_path(torch.float32, base4)[0]
@@ -2647,6 +3158,11 @@ def main() -> int:
         train32_launches = phase_train_f32(card, trained, default_run)
     with bias_modes():
         cli_launches = phase_cli(card)
+    with bias_modes():
+        v2_harvest, v2_train = phase_v2(card)
+    with bias_modes():
+        engine_launches = phase_engine(card, kept)
+    del kept
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # the split pre-pass runs before every f32 forward and backward
     f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]
@@ -2703,6 +3219,20 @@ def main() -> int:
             k["anytime_launches"] = anytime_launches[k["name"]]
             k["anytime_launches_in"] = anytime_in
             check(k["anytime_launches"] > 0, f"{k['name']} was never launched in phase 6")
+    # phase 8: LayoutLMv2-base's harvest and training steps, and the engine
+    v2 = {n: v2_harvest.get(n, 0) + v2_train.get(n, 0) for n in set(v2_harvest) | set(v2_train)}
+    v2_in = (f"phase 8a, LayoutLMv2-base: get_logits over {V2_DOCS} documents and 4 "
+             f"cli.train steps")
+    engine_in = f"phase 8b, AnytimeEngine over 64 documents in batches of {ENGINE_BATCH}"
+    for k in kernels:
+        if k["name"] in v2:
+            k["v2_launches"], k["v2_launches_in"] = v2[k["name"]], v2_in
+            check(k["v2_launches"] > 0, f"{k['name']} was never launched in phase 8a")
+        if k["name"] in engine_launches:
+            k["engine_launches"], k["engine_launches_in"] = engine_launches[k["name"]], engine_in
+            check(k["engine_launches"] > 0, f"{k['name']} was never launched in phase 8b")
+    check(set(v2) == {"materialize_bias", "flash_attention_packed", "flash_attention_packed_train",
+                      "flash_attention_packed_train_bwd", "table_grads"}, f"phase 8a ran {v2}")
     keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms", "f32_bound_ms",
             "f32_bound_by", "f32_library_ms", "f32_max_abs_err", "f32_launches",
@@ -2713,7 +3243,8 @@ def main() -> int:
              "bound_d128", "bound_d128_by", "library_ms_d128", "f32_ms_d128", "f32_bound_d128",
              "f32_bound_d128_by", "f32_library_ms_d128", "ms_wide", "bound_wide",
              "bound_wide_by", "library_ms_wide", "f32_ms_wide", "f32_bound_wide",
-             "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in")
+             "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in",
+             "v2_launches", "v2_launches_in", "engine_launches", "engine_launches_in")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

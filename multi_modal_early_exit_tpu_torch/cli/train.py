@@ -94,7 +94,8 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
         f"{steps_per_epoch} steps (global batch {global_batch}) on {trainer.device}"
     )
     t0 = time.perf_counter()
-    num_exits = model_cfg.exit.num_exits
+    # dense baselines (layoutlmv2) have no exit heads
+    num_exits = model_cfg.exit.num_exits if hasattr(model_cfg, "exit") else 0
     try:
         for epoch in range(start_epoch, cfg.epochs):
             losses = []

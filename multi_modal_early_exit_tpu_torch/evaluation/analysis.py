@@ -167,3 +167,16 @@ def calc_flops(
         "exit_threshold": config.get("exit_threshold"),
         "epsilon": config.get("epsilon"),
     }
+
+
+def xla_flops(fn, *example_args) -> Optional[float]:
+    """Measured FLOPs of one ``fn(*example_args)`` call, a cross-check of
+    the analytic counts: ``utils.profiling.compiled_cost``'s
+    ``FlopCounterMode`` count (the JAX package's name; it reads XLA's cost
+    analysis there). None when the call fails."""
+    from multi_modal_early_exit_tpu_torch.utils.profiling import compiled_cost
+
+    try:
+        return compiled_cost(fn, *example_args)["flops"]
+    except Exception:  # noqa: BLE001 - a cross-check never fails its caller
+        return None

@@ -112,7 +112,9 @@ def get_logits(
 ) -> Tuple[np.ndarray, np.ndarray, Dict[str, float]]:
     """Harvest the (E+1, N, K) per-exit logit store for a whole split.
 
-    One batched ``ee_forward`` per batch under ``torch.inference_mode()``,
+    One batched ``ee_forward`` per batch (for a dense ``LayoutLMv2Config``,
+    ``forward_sequence_classification``, a (1, N, K) store) under
+    ``torch.inference_mode()``,
     in the model's dtype, on ``device``: the card unless the caller passes
     ``device="cpu"`` (no card raises); the model is moved there, as
     ``Pipeline`` moves its own. On the card the sequence is padded to a
@@ -129,11 +131,10 @@ def get_logits(
     """
     from multi_modal_early_exit_tpu_torch.device import resolve_device
     from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import (
+        forward_sequence_classification,
+    )
 
-    if not hasattr(cfg, "exit"):
-        raise NotImplementedError(
-            "get_logits serves the early-exit model only: the dense LayoutLMv2 baseline is "
-            "not ported yet (ROADMAP.md A10)")
     device = resolve_device(device)
     name = config.get("labelset", dataset.split)
     output_path = config_to_checkpoint(config, root=root)
@@ -167,10 +168,16 @@ def get_logits(
     end = time.perf_counter()
     with torch.inference_mode():
         for batch in prefetch_to_device(batches(), device):
-            store = ee_forward(
-                model, cfg, batch["input_ids"], batch["bbox"], batch["pixel_values"],
-                batch["attention_mask"], seq_pad_multiple=pad_multiple,
-            ).policy_logits().to(torch.float64).cpu().numpy()  # waits for the card
+            args = (model, cfg, batch["input_ids"], batch["bbox"], batch["pixel_values"],
+                    batch["attention_mask"])
+            if hasattr(cfg, "exit"):
+                logits = ee_forward(*args, seq_pad_multiple=pad_multiple).policy_logits()
+            else:
+                # the dense baseline (LayoutLMv2Config): a single-row store,
+                # so the policy and metric stack downstream runs unchanged
+                logits = forward_sequence_classification(
+                    *args, seq_pad_multiple=pad_multiple).logits[None]
+            store = logits.to(torch.float64).cpu().numpy()  # waits for the card
             keep = batch["sample_mask"].cpu().numpy() > 0
             stores.append(store[:, keep])
             refs.append(batch["labels"].cpu().numpy()[keep])

@@ -61,13 +61,16 @@ class EEModel(nn.Module):
     """Backbone + exit heads, uninitialised, on ``device`` (``cuda`` by
     default). ``encoder_exits[i]`` is the head of the i-th encoder exit;
     ``embedding_exits`` is keyed by exit name; ``lte`` exists with
-    ``use_lte``."""
+    ``use_lte``. ``with_text``/``with_vision`` prune the backbone's towers
+    (the dense ``dit`` and ``bert`` variants, which have no exits)."""
 
-    def __init__(self, cfg: EEModelConfig, device=None):
+    def __init__(self, cfg: EEModelConfig, device=None, with_text: bool = True,
+                 with_vision: bool = True):
         super().__init__()
         device = resolve_device(device)
         backbone, exit_cfg = cfg.backbone, cfg.exit
-        self.backbone = LayoutLMv3Model(backbone, device="cpu")
+        self.backbone = LayoutLMv3Model(backbone, device="cpu", with_text=with_text,
+                                        with_vision=with_vision)
         emb = {
             name: ExitHead(backbone, exit_cfg)
             for name in EMBEDDING_FORWARD_ORDER
@@ -93,11 +96,14 @@ def init_ee_params(
     generator: Optional[torch.Generator] = None,
     device=None,
     dtype: torch.dtype = torch.float32,
+    with_text: bool = True,
+    with_vision: bool = True,
 ) -> EEModel:
     """Random EE parameters from a (CPU) ``generator`` (seed 0 if none),
-    with the JAX package's shapes and std, on ``device`` in ``dtype``."""
+    with the JAX package's shapes and std, on ``device`` in ``dtype``;
+    ``with_text``/``with_vision`` as in ``EEModel``."""
     device = resolve_device(device)
-    model = EEModel(cfg, device="cpu")
+    model = EEModel(cfg, device="cpu", with_text=with_text, with_vision=with_vision)
     reset_parameters(model, generator or torch.Generator().manual_seed(0),
                      cfg.backbone.initializer_range)
     return model.to(device=device, dtype=dtype)

@@ -10,7 +10,9 @@ so the mapping is mechanical:
   (one head per encoder exit) carry a leading axis that becomes a
   ``ModuleList`` index;
 - every other leaf (embedding tables, [CLS] token, bias tables) maps 1:1,
-  including ``embedding_exits`` by name and ``lte``.
+  including ``embedding_exits`` by name and ``lte``;
+- a list (LayoutLMv2's ``stages`` and ``fpn_lateral``) becomes
+  ``ModuleList`` indices too.
 
 ``convert_torch_state_dict`` is the port's copy of the JAX package's
 converter of a HuggingFace LayoutLMv3 state dict into that tree (numpy
@@ -41,6 +43,10 @@ def jax_tree_to_state_dict(tree: Dict[str, Any]) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
 
     def walk(node, prefix: str) -> None:
+        if isinstance(node, (list, tuple)):
+            for i, child in enumerate(node):
+                walk(child, f"{prefix}{i}.")
+            return
         if not isinstance(node, dict):
             out[prefix[:-1]] = _leaf(node)
             return
@@ -102,6 +108,8 @@ def state_dict_to_jax_tree(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             if key in STACKED:
                 items = [fold(child[str(i)]) for i in range(len(child))]
                 folded[key] = _stack(items)
+            elif isinstance(child, dict) and child and all(k.isdigit() for k in child):
+                folded[key] = [fold(child[str(i)]) for i in range(len(child))]
             else:
                 folded[key] = fold(child)
         return folded

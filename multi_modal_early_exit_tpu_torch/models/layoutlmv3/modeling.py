@@ -24,7 +24,11 @@ its bias cotangent to the running one in the kernel. With
 ``cfg.gradient_checkpointing`` each group of ``effective_scan_fold`` layers
 is recomputed in the backward (``torch.utils.checkpoint``). On CUDA tensors
 the attention and bias ops are the hand-written kernels, on CPU tensors
-their plain PyTorch versions. Masked keys carry -1e30.
+their plain PyTorch versions. Masked keys carry -1e30. With no bias at all
+(the image-only ``dit``, ``forward_image_classification``) the attention is
+composed of torch ops, as the JAX package composes it in XLA: no kernel.
+``LayoutLMv3Model`` allocates only the towers a variant uses (``bert``:
+text, ``dit``: vision).
 
 Two opt-in bias modes, off by default as in the JAX package and switched by
 the same environment variables, read at call time:
@@ -312,15 +316,20 @@ class ClassificationHead(nn.Module):
 class LayoutLMv3Model(nn.Module):
     """The multimodal backbone's parameters (text + vision + encoder +
     classifier), uninitialised, on ``device`` (``cuda`` by default);
-    ``init_params`` or ``convert.load_jax_params`` fills them."""
+    ``init_params`` or ``convert.load_jax_params`` fills them. The
+    single-modality variants (``dit`` image-only, ``bert`` text-only) pass
+    ``with_text=False`` / ``with_vision=False``: the unused tower is not
+    allocated, and neither is the post-concat LayerNorm."""
 
-    def __init__(self, cfg: LayoutLMv3Config, device=None):
+    def __init__(self, cfg: LayoutLMv3Config, device=None, with_text: bool = True,
+                 with_vision: bool = True):
         super().__init__()
         device = resolve_device(device)
-        self.embeddings = TextEmbeddings(cfg)
-        self.visual = VisualEmbeddings(cfg)
+        self.embeddings = TextEmbeddings(cfg) if with_text else None
+        self.visual = VisualEmbeddings(cfg) if with_vision else None
         # post-concat modality LayerNorm
-        self.LayerNorm = LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+        self.LayerNorm = (LayerNorm(cfg.hidden_size, cfg.layer_norm_eps)
+                          if with_text and with_vision else None)
         self.encoder = Encoder(cfg)
         self.classifier = ClassificationHead(cfg)
         self.to(device)
@@ -340,11 +349,14 @@ def init_params(
     generator: Optional[torch.Generator] = None,
     device=None,
     dtype: torch.dtype = torch.float32,
+    with_text: bool = True,
+    with_vision: bool = True,
 ) -> LayoutLMv3Model:
     """Random backbone parameters from a (CPU) ``generator``, with the JAX
-    package's shapes and std, moved to ``device`` (``cuda`` by default)."""
+    package's shapes and std, moved to ``device`` (``cuda`` by default);
+    ``with_text``/``with_vision`` as in ``LayoutLMv3Model``."""
     device = resolve_device(device)
-    model = LayoutLMv3Model(cfg, device="cpu")
+    model = LayoutLMv3Model(cfg, device="cpu", with_text=with_text, with_vision=with_vision)
     reset_parameters(model, generator or torch.Generator().manual_seed(0),
                      cfg.initializer_range)
     return model.to(device=device, dtype=dtype)
@@ -634,6 +646,29 @@ def _attn_epilogue(
     return p.output_LayerNorm(out + hidden)
 
 
+def _attention_no_bias(
+    p: Attention, cfg: LayoutLMv3Config, hidden: torch.Tensor,
+    deterministic: bool, seed_attn: Optional[int], seed_out: Optional[int],
+) -> torch.Tensor:
+    """softmax(q k^T / sqrt(d)) v composed of torch ops, as the JAX package
+    composes it in XLA when there is no bias (``dit``): the products
+    accumulate in f32, the probabilities take v's type, then the attention
+    dropout."""
+    b, s, width = hidden.shape
+    heads, d = cfg.num_attention_heads, cfg.head_dim
+
+    def split(x):  # (B, S, H*D) -> (B, H, S, D)
+        return x.view(b, s, heads, d).transpose(1, 2)
+
+    q, k, v = split(p.query(hidden)), split(p.key(hidden)), split(p.value(hidden))
+    scores = torch.matmul((q / math.sqrt(d)).float(), k.float().transpose(-1, -2))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    probs = dropout(probs, cfg.attention_probs_dropout_prob, deterministic, seed_attn)
+    ctx = torch.matmul(probs.float(), v.float()).to(hidden.dtype)
+    ctx = ctx.transpose(1, 2).reshape(b, s, width)
+    return _attn_epilogue(p, cfg, ctx, hidden, deterministic, seed_out)
+
+
 def attention_apply(
     p: Attention,
     cfg: LayoutLMv3Config,
@@ -644,7 +679,8 @@ def attention_apply(
     seed_out: Optional[int] = None,
 ):
     """softmax(q k^T / sqrt(d) + bias) v on the packed projections, then the
-    epilogue. The bias is a (B, H, P, P) tensor or a context. A tensor runs
+    epilogue. The bias is None (composed of torch ops: no kernel, as in the
+    JAX package), a (B, H, P, P) tensor or a context. A tensor runs
     ``flash_attention_packed`` at attention dropout 0 (differentiable, as
     in the JAX package) and ``flash_attention_packed_train`` above it. With
     a ``ChainedBiasContext`` (training) it returns ``(out,
@@ -652,6 +688,8 @@ def attention_apply(
     (training) runs the table-gradient attention, a ``FusedBiasContext``
     (inference) the attention that builds the bias in the kernel."""
     heads = cfg.num_attention_heads
+    if attn_bias is None:
+        return _attention_no_bias(p, cfg, hidden, deterministic, seed_attn, seed_out)
     if isinstance(attn_bias, ChainedBiasContext):
         qp, kp, vp, rate, seed = _packed_qkv_and_seed(p, cfg, hidden, deterministic, seed_attn)
         ctx, bias_out = flash_attention_packed_train_chained(
@@ -893,3 +931,75 @@ def backbone_apply(
         text_embeddings=text_emb,
         combined_embeddings=combined,
     )
+
+
+# ---------------------------------------------------------------------------
+# classification forwards
+# ---------------------------------------------------------------------------
+
+
+def forward_image_classification(
+    p: LayoutLMv3Model,
+    cfg: LayoutLMv3Config,
+    pixel_values: torch.Tensor,
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Image-only ViT-style classification (the reference's ``dit`` model,
+    EE/configs.py:429-449): patch embedding + an encoder with no bias (its
+    attention composed of torch ops) + the classifier on [CLS]."""
+    rngs = RngStream(None if deterministic else rng)
+    vis_emb = embed_vision(p.visual, cfg, pixel_values)
+    final, _ = encoder_apply(p.encoder, cfg, vis_emb, None, collect_cls=False,
+                             deterministic=deterministic, rng=rngs)
+    return classifier_apply(p.classifier, cfg, final[:, 0, :], deterministic, rngs)
+
+
+def forward_text_classification(
+    p: LayoutLMv3Model,
+    cfg: LayoutLMv3Config,
+    input_ids: torch.Tensor,
+    bbox: Optional[torch.Tensor] = None,
+    attention_mask: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Text-only classification (the reference's ``bert`` model,
+    EE/configs.py:482-493): text(+layout) embeddings + an encoder with the
+    1D relative bias (``make_attention_bias``; the spatial tables are zero
+    when the config has none) + the classifier on [CLS]. ``bbox`` defaults
+    to zeros (no layout signal)."""
+    rngs = RngStream(None if deterministic else rng)
+    b, s = input_ids.shape
+    dev = input_ids.device
+    if bbox is None:
+        bbox = torch.zeros((b, s, 4), dtype=torch.int32, device=dev)
+    if attention_mask is None:
+        attention_mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    text_emb = embed_text(p.embeddings, cfg, input_ids, bbox,
+                          deterministic=deterministic, rngs=rngs)
+    position_ids = torch.arange(s, device=dev).expand(b, s)
+    bias = make_attention_bias(p, cfg, position_ids, bbox, attention_mask,
+                               dtype=text_emb.dtype)
+    final, _ = encoder_apply(p.encoder, cfg, text_emb, bias, collect_cls=False,
+                             deterministic=deterministic, rng=rngs)
+    return classifier_apply(p.classifier, cfg, final[:, 0, :], deterministic, rngs)
+
+
+def forward_sequence_classification(
+    p: LayoutLMv3Model,
+    cfg: LayoutLMv3Config,
+    input_ids: torch.Tensor,
+    bbox: torch.Tensor,
+    pixel_values: torch.Tensor,
+    attention_mask: Optional[torch.Tensor] = None,
+    deterministic: bool = True,
+    rng: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Dense (no-exit) classification logits
+    (parity: LayoutLMv3ForSequenceClassification.forward)."""
+    out = backbone_apply(p, cfg, input_ids, bbox, pixel_values, attention_mask,
+                         deterministic=deterministic, rng=rng, collect_cls=False)
+    rngs = RngStream(None if deterministic else rng)
+    return classifier_apply(p.classifier, cfg, out.last_hidden_state[:, 0, :],
+                            deterministic, rngs)

@@ -8,14 +8,20 @@ names and what the port builds for them:
                      (``use_lte=True``)
 - ``layoutlmv3``     the dense LayoutLMv3 classifier: an ``EEModel`` with no
                      exits, the JAX package's ``{"backbone": ...}`` tree
-- ``dit`` / ``dit_rvl``, ``bert``, ``layoutlmv2``: not ported yet
-                     (``NotImplementedError``, ROADMAP.md A10)
+- ``dit`` / ``dit_rvl``  the image-only classifier: an ``EEModel`` with no
+                     exits, no text tower and no relative or spatial bias
+                     (``forward_image_classification``)
+- ``bert``           the text-only classifier: no visual tower and no
+                     spatial bias (``forward_text_classification``)
+- ``layoutlmv2``     the genuine LayoutLMv2 (``models/layoutlmv2``): a
+                     ``(LayoutLMv2Config, LayoutLMv2Model)`` pair, a dense
+                     baseline trained with ``sequence_classification_loss``
 - ``pix2struct``     ``NotImplementedError`` (parity: EE/configs.py:508)
 
-When a HuggingFace LayoutLMv3 checkpoint is in the local cache,
-``model_weights`` is converted into the model (``convert.
-convert_torch_state_dict``); otherwise the parameters are random, drawn
-from the caller's generator.
+When a HuggingFace LayoutLMv3 (for v2: LayoutLMv2) checkpoint is in the
+local cache, ``model_weights`` is converted into the model (``convert.
+convert_torch_state_dict``, ``layoutlmv2.convert.convert_v2_torch_state_dict``);
+otherwise the parameters are random, drawn from the caller's generator.
 """
 
 from __future__ import annotations
@@ -36,7 +42,6 @@ MODEL_NAMES = (
     "EElayoutlmv3", "LTElayoutlmv3", "layoutlmv3", "dit", "dit_rvl",
     "bert", "layoutlmv2", "pix2struct",
 )
-NOT_PORTED = ("dit", "dit_rvl", "bert", "layoutlmv2")
 
 
 def _backbone_config(
@@ -99,6 +104,87 @@ def _maybe_load_pretrained(
             type="error",
         )
         return None
+
+
+def _maybe_load_pretrained_v2(v2, weights: str) -> Optional[Dict[str, np.ndarray]]:
+    """The v2 twin of ``_maybe_load_pretrained``: a locally cached HF
+    LayoutLMv2 checkpoint's transformer side as the port's state dict (the
+    visual tower keeps its init, see ``layoutlmv2/convert.py``); None when
+    transformers is absent or the checkpoint is not cached, and None,
+    logged as an error, when the conversion fails."""
+    from multi_modal_early_exit_tpu_torch.utils.logging import logger_message
+
+    try:
+        from transformers import LayoutLMv2Model
+    except ImportError:
+        return None
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.convert import (
+        convert_v2_torch_state_dict,
+        jax_tree_to_state_dict,
+    )
+
+    try:
+        hf = LayoutLMv2Model.from_pretrained(weights, local_files_only=True)
+    except (OSError, ValueError, ImportError):
+        return None
+    try:
+        return jax_tree_to_state_dict(convert_v2_torch_state_dict(hf.state_dict(), v2, prefix=""))
+    except (KeyError, ValueError) as e:
+        logger_message(f"FAILED converting v2 weights '{weights}' ({e!r}); random init",
+                       type="error")
+        return None
+
+
+def _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len, generator):
+    """The genuine LayoutLMv2 (parity: HF LayoutLMv2ForSequenceClassification,
+    built through AutoModel in the reference, EE/configs.py:451-462): the
+    ``(LayoutLMv2Config, LayoutLMv2Model)`` pair, on ``cfg.device``."""
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.config import LayoutLMv2Config
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import init_params
+    from multi_modal_early_exit_tpu_torch.utils.logging import logger_message
+
+    size = getattr(cfg, "model_size", "base")
+    v2 = (LayoutLMv2Config.tiny if size == "tiny" else LayoutLMv2Config.base)(
+        num_labels=num_labels)
+    if num_hidden_layers:
+        v2 = v2.replace(num_hidden_layers=num_hidden_layers)
+    if image_size and image_size != v2.input_size:
+        v2 = v2.replace(input_size=image_size)
+    if seq_len and seq_len > v2.max_position_embeddings - 2:
+        v2 = v2.replace(max_position_embeddings=seq_len + 2)
+    # widen the vocab to the data layer's tokenizer range: its
+    # HashWordTokenizer emits ids in [0, 50265) whatever the model, and a
+    # 30522-row table would make the gather raise (ROADMAP.md C3);
+    # pretrained rows take the front, the widened tail keeps its init
+    v2 = v2.replace(vocab_size=max(v2.vocab_size, LayoutLMv3Config.base().vocab_size))
+    model = init_params(v2, generator, device="cpu")
+    weights = getattr(cfg, "model_weights", "") or ""
+    if "layoutlmv3" in weights:
+        # the experiment default names the v3 checkpoint; v2 loads its own
+        # (parity: EE/configs.py:451-462 from_pretrained layoutlmv2-base)
+        weights = "microsoft/layoutlmv2-base-uncased"
+    if weights and size == "base":
+        pre = _maybe_load_pretrained_v2(v2, weights)
+        if pre is not None:
+            state = model.state_dict()
+            emb = pad_embedding_tables(
+                {k[len("embeddings."):]: v for k, v in pre.items()
+                 if k.startswith("embeddings.")},
+                {k[len("embeddings."):]: v for k, v in state.items()
+                 if k.startswith("embeddings.")})
+            pre = {k: v for k, v in pre.items()
+                   if not k.startswith(("classifier.", "embeddings."))}
+            pre.update({f"embeddings.{k}": v for k, v in emb.items()})
+            state.update({k: torch.as_tensor(np.asarray(v)) for k, v in pre.items()})
+            model.load_state_dict(state, strict=True)
+        else:
+            logger_message(
+                "layoutlmv2 baseline trains from RANDOM init (pretrained "
+                f"'{weights}' unavailable) — numbers are not comparable "
+                "to the reference's from_pretrained baseline",
+                type="warning",
+            )
+    return v2, model.to(resolve_device(getattr(cfg, "device", None) or "cuda"))
 
 
 def pad_embedding_tables(pre: Dict, init: Dict) -> Dict:
@@ -190,7 +276,8 @@ def build_model(
     seq_len: Optional[int] = None,
     generator: Optional[torch.Generator] = None,
 ):
-    """``(EEModelConfig, EEModel)`` from an ExperimentConfig-like object, the
+    """``(EEModelConfig, EEModel)`` from an ExperimentConfig-like object
+    (for ``layoutlmv2``: ``(LayoutLMv2Config, LayoutLMv2Model)``), the
     model random from ``generator`` (a CPU generator seeded with
     ``cfg.seed`` if none) or converted from a cached pretrained checkpoint,
     on ``cfg.device`` (``cuda`` by default)."""
@@ -203,32 +290,41 @@ def build_model(
         raise NotImplementedError(
             "pix2struct is not implemented (parity: EE/configs.py:508)"
         )
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported to PyTorch yet (ROADMAP.md A10)")
 
     generator = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
+    if name == "layoutlmv2":
+        return _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len,
+                                 generator)
     bb = _backbone_config(cfg, num_labels, image_size, seq_len)
     if num_hidden_layers:
         bb = bb.replace(num_hidden_layers=num_hidden_layers)
+    if name in ("dit", "dit_rvl"):
+        # image-only: no text tower, and no 1D/2D relative bias, as a ViT
+        bb = bb.replace(has_relative_attention_bias=False, has_spatial_attention_bias=False)
+    if name == "bert":
+        bb = bb.replace(has_spatial_attention_bias=False)
 
     exit_cfg = cfg.exit_config() if hasattr(cfg, "exit_config") else ExitConfig()
     if name == "LTElayoutlmv3":
         exit_cfg = ExitConfig(**{**exit_cfg.to_dict(), "use_lte": True})
-    if name == "layoutlmv3":  # dense: the backbone alone, no exits
+    if name in ("layoutlmv3", "dit", "dit_rvl", "bert"):
+        # dense: the backbone alone, no exits; the single-modality variants
+        # allocate only the tower they use (EE/configs.py:429-449, 482-493)
         exit_cfg = ExitConfig(exits=())
     model_cfg = EEModelConfig(backbone=bb, exit=exit_cfg)
-    model = init_ee_params(model_cfg, generator, device="cpu")
+    model = init_ee_params(model_cfg, generator, device="cpu",
+                           with_text=name not in ("dit", "dit_rvl"), with_vision=name != "bert")
 
     weights = getattr(cfg, "model_weights", "") or ""
     if weights and bb.input_size == 224 and getattr(cfg, "model_size", "base") == "base":
         pretrained = _maybe_load_pretrained(bb, weights)
         if pretrained is not None:
             # the classifier keeps its random init: the label count differs
-            # per dataset
+            # per dataset; a pruned variant takes only its own towers
             backbone = model.backbone.state_dict()
             pretrained = pad_embedding_tables(
-                {k: v for k, v in pretrained.items() if not k.startswith("classifier.")},
+                {k: v for k, v in pretrained.items()
+                 if not k.startswith("classifier.") and k in backbone},
                 backbone)
             backbone.update({k: torch.as_tensor(np.asarray(v)) for k, v in pretrained.items()})
             model.backbone.load_state_dict(backbone, strict=True)

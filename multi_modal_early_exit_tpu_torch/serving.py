@@ -11,7 +11,7 @@ device), the capacity-constrained cascade, and postprocessing:
 
 Batches are padded to the pipeline's static batch size (by repeating rows)
 so every cascade call has the same shapes. Words and boxes come with the
-request (OCR ingestion is not ported yet).
+request, or from OCR (tesseract) when the request has none.
 """
 
 from __future__ import annotations
@@ -108,12 +108,15 @@ class Pipeline:
         words: Optional[Sequence[Sequence[str]]] = None,
         boxes: Optional[Sequence[Sequence[Sequence[int]]]] = None,
     ) -> Dict[str, object]:
-        """Host features (numpy) plus normalized ``pixel_values`` on the device."""
+        """Host features (numpy) plus normalized ``pixel_values`` on the
+        device. Without words or boxes each page is OCR'd
+        (``data.ocr.apply_tesseract``; pytesseract must be installed)."""
         if words is None or boxes is None:
-            raise ValueError(
-                "words and boxes are required: OCR ingestion is not part of "
-                "the PyTorch port yet"
-            )
+            from multi_modal_early_exit_tpu_torch.data.ocr import apply_tesseract
+
+            pairs = [apply_tesseract(im.convert("RGB")) for im in images]
+            words = [p[0] for p in pairs]
+            boxes = [p[1] for p in pairs]
         feats = [
             convert_words_to_features(w, b, self.tokenizer, self.seq_len)
             for w, b in zip(words, boxes)

@@ -13,7 +13,10 @@ package's ``training/trainer.py`` (optax + jit there, eager PyTorch here).
   1e-6 to the norm, optax does not);
 - ``bf16_momentum`` stores Adam's first moment in bf16 (``AdamWBf16Mu``,
   optax's ``adamw(mu_dtype=bfloat16)``); the second moment and the master
-  weights stay f32.
+  weights stay f32;
+- a dense config without ``.exit`` (``LayoutLMv2Config``) trains with its
+  cross-entropy (``layoutlmv2.modeling.sequence_classification_loss``), and
+  ``evaluate`` reads a single-row (1, B, K) store.
 """
 
 from __future__ import annotations
@@ -195,18 +198,22 @@ def make_train_step(
     accum_steps: int = 1,
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
+    loss_fn: Optional[Callable] = None,
 ) -> Callable:
     """The train step ``step(model, batch, rng) -> (loss, aux)``.
 
     Each array of ``batch`` is (accum_steps, micro_bs, ...). Every
     micro-batch's gradients (entropyreg applied) are summed, divided by
     ``accum_steps`` and applied once; the loss is the micro-batch mean and
-    ``aux`` the last micro-batch's."""
+    ``aux`` the last micro-batch's. ``loss_fn`` (``ee_loss_fn`` by default,
+    the same signature) lets a dense baseline train through the same step."""
     device = resolve_device(device)
-    use_entropyreg = cfg.exit.training_strategy.uses_entropyreg
+    strategy = cfg.exit.training_strategy if hasattr(cfg, "exit") else None
+    use_entropyreg = strategy is not None and strategy.uses_entropyreg
+    loss_fn = loss_fn if loss_fn is not None else ee_loss_fn
 
     def loss_and_grads(model, micro, rng):
-        loss, aux = ee_loss_fn(
+        loss, aux = loss_fn(
             model, cfg, micro, rng=rng, exit_weights=exit_weights,
             compute_dtype=compute_dtype, device=device,
         )
@@ -243,7 +250,8 @@ def make_train_step(
 
 
 class EETrainer:
-    """Train and evaluate an ``EEModel`` over batches of numpy arrays or
+    """Train and evaluate an ``EEModel`` (or, for a config without
+    ``.exit``, a dense ``LayoutLMv2Model``) over batches of numpy arrays or
     tensors, on ``device`` (``cuda`` unless the caller passes ``"cpu"``;
     the model is moved there). ``train_step`` takes one (accum, micro_bs,
     ...) batch and a CPU ``torch.Generator`` for the dropout seeds."""
@@ -259,17 +267,28 @@ class EETrainer:
         self.device = resolve_device(device)
         self.cfg, self.args = cfg, args
         self.model = model.to(self.device)
-        strategy = cfg.exit.training_strategy
+        # dense configs (LayoutLMv2Config) carry no .exit: a plain CE
+        # objective through the same step (the reference trains dense
+        # AutoModels through its generic trainer, EE/IC_only.py:176-178)
+        self.is_ee = hasattr(cfg, "exit")
+        strategy = cfg.exit.training_strategy if self.is_ee else None
+        loss_fn = None
+        if not self.is_ee:
+            from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import (
+                sequence_classification_loss as loss_fn,
+            )
         self.exit_weights = (
             exit_loss_weights(subgraph_param_counts(model, cfg)).to(self.device)
-            if strategy.is_weighted else None
+            if strategy is not None and strategy.is_weighted else None
         )
         self.optimizer = make_optimizer(
-            model, args, total_steps, freeze_backbone=strategy.is_two_stage
+            model, args, total_steps,
+            freeze_backbone=strategy is not None and strategy.is_two_stage,
         )
         self._step_fn = make_train_step(
             cfg, self.optimizer, self.exit_weights, args.gradient_accumulation_steps,
             compute_dtype=torch.bfloat16 if args.bf16 else None, device=self.device,
+            loss_fn=loss_fn,
         )
         self.step = 0
 
@@ -284,8 +303,9 @@ class EETrainer:
         """Final and per-exit accuracy, and each exit's share of the batch
         under the max-softmax policy at the config's global threshold. The
         forward runs in the training's compute dtype (bf16 with ``bf16``,
-        which the CUDA kernels need)."""
-        thr = float(self.cfg.exit.global_threshold)
+        which the CUDA kernels need). A dense model's store is its logits
+        alone, (1, B, K)."""
+        thr = float(self.cfg.exit.global_threshold) if self.is_ee else 1.0
         dtype = torch.bfloat16 if self.args.bf16 else torch.float32
         params = {n: p.to(dtype) for n, p in self.model.named_parameters()}
         correct, total = 0, 0
@@ -297,7 +317,8 @@ class EETrainer:
                 self.cfg, b["input_ids"], b["bbox"], b["pixel_values"].to(dtype),
                 b.get("attention_mask"),
             ))
-            store = out.policy_logits().to(torch.float64).cpu().numpy()
+            logits = out.policy_logits() if self.is_ee else out.logits[None]
+            store = logits.to(torch.float64).cpu().numpy()
             labels = b["labels"].cpu().numpy()
             preds = store.argmax(-1)
             if exit_correct is None:

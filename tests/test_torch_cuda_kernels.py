@@ -1531,3 +1531,122 @@ def _trains_on_the_card(cuda, bf16, head_dim):
             assert max(a.abs().max().item(), w.abs().max().item()) <= 1e-10 * big, name
         else:
             assert _scaled_err(a.cpu(), w) <= 1e-4, (name, _scaled_err(a.cpu(), w))
+
+
+# ---------------------------------------------------------------------------
+# LayoutLMv2's shape: 512 text tokens + a 7x7 visual grid, S = 561 inside
+# P = 640, unscaled relative-position tables (v2 adds its bias unscaled)
+# ---------------------------------------------------------------------------
+
+V2_S, V2_P = 561, 640
+
+
+def _v2_bias_args(device, b=4, h=12, seed=7):
+    """The v2 sequence's bias inputs as ``layoutlmv2.modeling`` builds them:
+    text positions then visual ones restarting at 0, word boxes then the
+    grid's, ragged text masks; the tables at the raw scale of v2's
+    (no 1/sqrt(d) folded in)."""
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.config import LayoutLMv2Config
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import sequence_layout
+
+    cfg = LayoutLMv2Config.base()
+    g = torch.Generator().manual_seed(seed)
+    lengths = torch.randint(50, 513, (b,), generator=g)
+    mask = (torch.arange(512)[None] < lengths[:, None]).to(torch.int32)
+    bbox = torch.sort(torch.randint(0, 1000, (b, 512, 4), generator=g), -1).values
+    full_bbox, pos, full_mask = sequence_layout(cfg, bbox, mask, cfg.num_visual_tokens)
+    tables = [torch.randn((n, h), generator=g) * 0.02
+              for n in (cfg.rel_pos_bins, cfg.rel_2d_pos_bins, cfg.rel_2d_pos_bins)]
+    args = [pos, full_bbox[:, :, 0].contiguous(), full_bbox[:, :, 3].contiguous(), full_mask]
+    return [x.to(device) for x in args + tables]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_v2_bias_and_serving_attention_match_plain(cuda, dtype):
+    """#1 bit-equal to its plain version at S = 561 (P = 640) with the
+    unscaled tables, then #2 on that bias within its tolerance (bf16: one
+    bf16 step; f32: 1e-4 of the output's scale)."""
+    args = _v2_bias_args(cuda)
+    bias = materialize_bias(*args, out_dtype=dtype)
+    assert bias.shape == (4, 12, V2_P, V2_P)
+    assert torch.equal(bias, materialize_bias_plain(*args, out_dtype=dtype))
+    q, k, v = _qkv(cuda, 4, V2_S, 12, dtype=dtype)
+    before = flash_attention_packed.launches
+    got = flash_attention_packed(q, k, v, bias, 12)
+    assert flash_attention_packed.launches == before + 1
+    want = flash_attention_packed_plain(q, k, v, bias, 12)
+    torch.cuda.synchronize()
+    if dtype == torch.bfloat16:
+        torch.testing.assert_close(got.float(), want.float(), atol=1e-2, rtol=1e-2)
+    else:
+        assert _scaled_err(got, want) <= 1e-4
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_v2_training_kernels_match_plain(cuda, dtype):
+    """v2's training step at its shape: #7 at dropout 0.1 (out, lse), #8
+    plain (unchained: v2 never chains the bias) and #4 on #8's dbias,
+    against their plain versions at the training kernels' tolerances (bf16:
+    2e-2 of each output's scale; f32: 1e-4; the tables 1e-4)."""
+    args = _v2_bias_args(cuda, seed=8)
+    bias = materialize_bias(*args, out_dtype=dtype)
+    q, k, v = _qkv(cuda, 4, V2_S, 12, seed=2, dtype=dtype)
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 77, 12, 0.1)
+    want_out, want_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 77, 12, 0.1)
+    bar = 2e-2 if dtype == torch.bfloat16 else 1e-4
+    assert _scaled_err(out, want_out) <= bar
+    torch.testing.assert_close(lse[:, :, :V2_S], want_lse[:, :, :V2_S], atol=1e-4, rtol=1e-5)
+    do = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
+    before = flash_attention_packed_train_bwd.launches
+    got = flash_attention_packed_train_bwd(q, k, v, bias, 77, want_out, want_lse, do, 12, 0.1)
+    assert flash_attention_packed_train_bwd.launches == before + 2
+    want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 77, want_out, want_lse, do, 12,
+                                                  0.1)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
+        assert torch.isfinite(a.float()).all(), name
+        assert _scaled_err(a, w) <= bar, (name, _scaled_err(a, w))
+    assert not got[3][:, :, V2_S:, :].any()  # pad rows get no cotangent
+    pos, cx, cy = args[:3]
+    grads = table_grads(pos, cx, cy, got[3])
+    for a, w in zip(grads, table_grads_plain(pos, cx, cy, got[3])):
+        assert _scaled_err(a, w) <= 1e-4
+
+
+def test_tiny_v2_runs_on_the_card(cuda):
+    """The tiny LayoutLMv2 (heads of 16, padded to the kernels' 64) in f32:
+    the forward on the card within the f32 bars of the CPU's (atol 2e-4 /
+    rtol 1e-3), 1 #1 and one #2 per layer; one bf16 ``EETrainer`` step
+    through #1, #7, #8 and #4."""
+    import copy
+
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2 import modeling as v2
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.config import LayoutLMv2Config
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+
+    cfg = LayoutLMv2Config.tiny()
+    model = v2.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x0 = torch.randint(0, 900, (3, 20), generator=g)
+    feats = (torch.randint(3, 900, (3, 20), generator=g),
+             torch.stack([x0, x0 // 2, x0 + 50, x0 // 2 + 30], -1),
+             torch.randn((3, 3, 32, 32), generator=g), torch.ones((3, 20), dtype=torch.int32))
+    with torch.no_grad():
+        want = v2.forward_sequence_classification(model, cfg, *feats).logits
+        before = (materialize_bias.launches, flash_attention_packed.launches)
+        got = v2.forward_sequence_classification(copy.deepcopy(model).to(cuda), cfg,
+                                                 *(f.to(cuda) for f in feats)).logits
+    assert (materialize_bias.launches - before[0], flash_attention_packed.launches - before[1]) \
+        == (1, cfg.num_hidden_layers)
+    torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
+
+    trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=True), 1, device=cuda)
+    batch = {k: v[None] for k, v in zip(("input_ids", "bbox", "pixel_values", "attention_mask"),
+                                        feats)}
+    batch["labels"] = torch.tensor([[0, 3, 1]])
+    counts = (flash_attention_packed_train_fwd.launches, flash_attention_packed_train_bwd.launches,
+              table_grads.launches)
+    loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(2))
+    assert math.isfinite(loss)
+    assert (flash_attention_packed_train_fwd.launches - counts[0],
+            flash_attention_packed_train_bwd.launches - counts[1],
+            table_grads.launches - counts[2]) == (2, 4, 2)

@@ -143,5 +143,31 @@ def test_get_logits_needs_a_card_or_the_cpu(harvested):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             tpipe.get_logits(model, tcfg, data, {}, root=str(root / "none"), use_cache=False)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tpipe.get_logits(model, tcfg.backbone, data, {}, device="cpu", use_cache=False)
+
+
+def test_dense_layoutlmv2_harvest_matches_jax(tmp_path):
+    """The dense branch: both packages' ``get_logits`` of a tiny LayoutLMv2
+    (the JAX parameters carried into the port) write a single-row (1, N, K)
+    float64 store, equal within the f32 bars, and the same references."""
+    import jax
+
+    from multi_modal_early_exit_tpu.models.layoutlmv2 import modeling as JM
+    from multi_modal_early_exit_tpu.models.layoutlmv2.config import LayoutLMv2Config as JC
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2 import modeling as TM
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.config import LayoutLMv2Config as TC
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv2.convert import load_jax_params
+
+    jcfg, tcfg = JC.tiny().replace(vocab_size=VOCAB), TC.tiny().replace(vocab_size=VOCAB)
+    params = JM.init_params(jax.random.key(2), jcfg)
+    model = load_jax_params(TM.LayoutLMv2Model(tcfg, device="cpu"),
+                            jax.tree.map(np.asarray, params))
+    config = {"checkpoint": "v2", "test_dataset": "synthetic_rvl_cdip_tiny", "labelset": "test"}
+    store, refs, _ = tpipe.get_logits(
+        model, tcfg, tds.build_dataset("synthetic_rvl_cdip_tiny", "test"), dict(config),
+        batch_size=3, root=str(tmp_path / "port"), device="cpu")
+    jstore, jrefs, _ = jpipe.get_logits(
+        params, jcfg, jds.build_dataset("synthetic_rvl_cdip_tiny", "test"), dict(config),
+        batch_size=3, root=str(tmp_path / "jax"))
+    assert store.dtype == jstore.dtype == np.float64 and store.shape == jstore.shape == (1, 8, 4)
+    np.testing.assert_array_equal(refs, jrefs)
+    np.testing.assert_allclose(store, jstore, **STORE_TOL)

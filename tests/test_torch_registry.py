@@ -65,13 +65,37 @@ def test_backbone_config_matches_jax(argv, kwargs):
     assert _fields(got) == _fields(want)
 
 
-@pytest.mark.parametrize("model", ["dit", "dit_rvl", "bert", "layoutlmv2", "pix2struct"])
+@pytest.mark.parametrize("model", ["pix2struct"])
 def test_models_the_port_lacks_raise(model):
     _, tcfg = _configs(TINY + [f"model={model}"])
-    with pytest.raises(NotImplementedError, match="A10" if model != "pix2struct" else "pix2"):
+    with pytest.raises(NotImplementedError, match="pix2"):
         TR.build_model(tcfg, num_labels=4)
     with pytest.raises(ValueError, match="unknown model"):
         TR.build_model(tcfg.replace(model="nonsense"), num_labels=4)
+
+
+@pytest.mark.parametrize("model", ["dit", "dit_rvl", "bert", "layoutlmv2"])
+def test_build_model_variants_match_jax(model):
+    """The variants the port once refused: the JAX registry's config (for
+    dit no relative or spatial bias, for bert no spatial bias, no exits;
+    for layoutlmv2 its own config with the widened vocabulary) and its
+    parameter names and shapes (dit without the text tower, bert without
+    the visual one), on the CPU when asked."""
+    jcfg, tcfg = _configs(TINY + [f"model={model}"])
+    kwargs = dict(num_labels=4, image_size=32, seq_len=64)
+    j_model_cfg, params = JR.build_model(jcfg, rng=jax.random.key(0), **kwargs)
+    t_model_cfg, t_model = TR.build_model(tcfg, **kwargs)
+    if model == "layoutlmv2":
+        assert _fields(t_model_cfg) == _fields(j_model_cfg)
+        assert t_model_cfg.vocab_size == 50265
+    else:
+        assert _fields(t_model_cfg.backbone) == _fields(j_model_cfg.backbone)
+        assert t_model_cfg.exit.to_dict() == j_model_cfg.exit.to_dict()
+        assert t_model_cfg.num_exits == 0
+    want = {k: v.shape for k, v in jax_tree_to_state_dict(jax.tree.map(np.asarray, params)).items()}
+    got = {k: tuple(v.shape) for k, v in t_model.state_dict().items()}
+    assert got == want
+    assert all(v.device.type == "cpu" for v in t_model.state_dict().values())
 
 
 @pytest.mark.parametrize("model", ["EElayoutlmv3", "layoutlmv3"])

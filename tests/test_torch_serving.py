@@ -56,5 +56,43 @@ def test_predict_from_words_and_images(pipelines):
     assert len(results) == 3
     assert len({(r["label"], r["exit"]) for r in results}) == 1  # same inputs
     assert all(0.0 < r["confidence"] <= 1.0 for r in results)
-    with pytest.raises(ValueError, match="words and boxes"):
-        tp.predict(images)
+    from multi_modal_early_exit_tpu_torch.data.ocr import have_tesseract
+
+    if not have_tesseract():  # without words the pages go through OCR
+        with pytest.raises(RuntimeError, match="pytesseract is not installed"):
+            tp.predict(images)
+
+
+def test_preprocess_ocrs_pages_without_words(pipelines, monkeypatch):
+    """Without words or boxes, ``preprocess`` OCRs each page
+    (``data.ocr.apply_tesseract``, monkeypatched here: no tesseract) and
+    gives the features that the words and boxes would give, as the JAX
+    Pipeline's fallback does."""
+    import numpy as np
+    from PIL import Image
+
+    from multi_modal_early_exit_tpu.data import ocr as jocr
+    from multi_modal_early_exit_tpu_torch.data import ocr as tocr
+
+    jp, tp = pipelines
+    images = [Image.new("L", (64, 48), 255 - 40 * i) for i in range(3)]
+    words = [["page", str(i), "total"] for i in range(3)]
+    boxes = [[[10, 10, 60, 30], [70, 10, 140, 30], [10, 40, 60, 70 + i]] for i in range(3)]
+    seen = []
+
+    def fake_ocr(image):
+        """The i-th page's words and boxes, i read off its grey level."""
+        seen.append(image.mode)
+        i = (255 - image.getpixel((0, 0))[0]) // 40
+        return words[i], boxes[i]
+
+    monkeypatch.setattr(tocr, "apply_tesseract", fake_ocr)
+    monkeypatch.setattr(jocr, "apply_tesseract", fake_ocr)
+    got = tp.preprocess(images)
+    jgot = jp.preprocess(images)
+    want = tp.preprocess(images, words, boxes)
+    assert seen == ["RGB"] * 6  # each page converted to RGB before the OCR
+    for key in ("input_ids", "bbox", "attention_mask"):
+        np.testing.assert_array_equal(got[key], want[key])
+        np.testing.assert_array_equal(got[key], np.asarray(jgot[key]))
+    assert torch.equal(got["pixel_values"], want["pixel_values"])
