@@ -217,8 +217,46 @@ Phases, each reported on its own line:
    on the bucket of its survivors. Prints its docs/sec beside the
    full-capacity cascade ``Pipeline``'s on the same batches.
 
+9. the parallel layer (after phase 8), with several ranks sharing this card
+   (their collectives go through the host, so nothing here measures
+   scaling). First, in this process, the kernels of the meshes' paths
+   against their plain versions at a rank's shapes (``compare_path_kernels``,
+   phase 3's tolerances): a (2, 2) rank's training batch, 8 of phase 5's
+   documents (S = 709 inside P = 768) at 6 heads of 64 (a 384-wide packed
+   row) with model rank 1's columns of the tables (#1, #2, #7, #8, #4), and
+   9d's second stage, 4 documents at 12 heads (#1, #2). 9a a world of one
+   rank on NCCL: 2 ``EETrainer`` steps (phase 5's model and batches) under
+   a (1, 1) mesh, bit-equal to 2 with no mesh; 9b four gloo ranks:
+   ``sharded_flash_attention`` (B 16, H 12, S = P 768, D 64, an f32 bias)
+   at mesh (2, 2) in bf16 and f32 and (4, 1) in bf16: at rate 0 each rank's
+   output and gradients bit-equal to the unsharded kernels' block (#5, #6),
+   at rate 0.1 within phase 3's tolerances of the plain version at the
+   shard's seed; 3 steps at (2, 2); 9c one launch of
+   ``python -m torch.distributed.run --standalone --nproc-per-node 4
+   chip_smoke.py --mesh-cli-rank DIR with mesh_shape=2,2 device=cuda:0 ...``
+   with ``MMEE_DIST_BACKEND=gloo`` (``mesh_cli_rank``): on the world and
+   mesh ``cli.train`` sets up, phase 5's gradient check (2 documents
+   through the CLI's ``step_batch`` and ``EETrainer``'s step, 6 heads a
+   rank) against phase 5's f32 CPU reference (``GRAD_LIMITS`` and the
+   relative L2), then ``cli.train.main`` (1 + 3 steps) and its resume from
+   checkpoint-0 (4 more), each rank's launches per step checked; the last
+   checkpoint loads on one device and serves through
+   ``Pipeline.from_checkpoint``; 9d two gloo ranks: the cascade per data
+   shard (``make_cascade_forward``, as ``Pipeline`` runs it) at capacities
+   (8, 4) on phase 5's first batch (heads rescaled as in phase 4), exits
+   and capacity flags bit-equal to the single-device cascade run shard by
+   shard; 3 steps at (2, 1). The ranks write their launch counts to JSON
+   files, which the phase sums (``mesh_launches``: #1, #2, #4, #5, #6, #7
+   and #8 each above 0). Prints the step seconds at (1, 1), (2, 1) and
+   (2, 2) with the collectives' share of each, and the phase's seconds by
+   part.
+
+   ``python3 chip_smoke.py --mesh-cli-rank DIR with ...`` is that launch's
+   rank (torchrun sets the rank); with no arguments the script runs every
+   phase.
+
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6, 7 and 8 with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6, 7, 8 and 9 with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
@@ -228,7 +266,8 @@ f32 only, on phases 4f's and 5f's paths; the ``_d128`` fields from phase
 3's head-dim-128 run, the ``_wide`` fields (keyed by D) from its wide-mode
 runs; the anytime harvest's launches of the two kernels it runs from phase
 6, the command-line path's (``cli_launches``) from phase 7, LayoutLMv2's
-(``v2_launches``) and the engine's (``engine_launches``) from phase 8), the last
+(``v2_launches``) and the engine's (``engine_launches``) from phase 8, the
+meshes' (``mesh_launches``, over every rank) from phase 9), the last
 ``{"ok": true, "device": {...}}``. Every failed check raises, so the script
 exits non-zero; it needs a CUDA device and the repository's package.
 """
@@ -1540,6 +1579,24 @@ def f32_close(got, want) -> bool:
     return bool(((got - want).abs() <= 2e-4 + 1e-3 * want.abs()).all())
 
 
+def rescale_heads(model, cfg, chunks) -> None:
+    """Rescale and re-centre each head's out_proj on the documents of
+    ``chunks`` (tuples of ``ee_forward``'s inputs) so that its logits vary
+    across them with std 1: random heads give every document nearly the
+    same logits."""
+    from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
+
+    heads = [*model.embedding_exits.values(), *model.encoder_exits, model.backbone.classifier]
+    store = torch.cat([ee_forward(model, cfg, *c).policy_logits().float() for c in chunks], 1)
+    with torch.no_grad():
+        for head, logits in zip(heads, store):
+            mean = logits.mean(dim=0)
+            gain = 1.0 / (logits - mean).std().item()
+            proj = head.out_proj
+            proj.weight.mul_(gain)
+            proj.bias.copy_(proj.bias * gain - gain * mean.to(proj.bias))
+
+
 @torch.no_grad()
 def phase_main_path(dtype=torch.bfloat16, base=None):
     """Phase 4 (bf16), or 4f (f32, with phase 4's readings ``base`` to
@@ -1612,15 +1669,7 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     # offset per class, a tiny spread across documents), so every criterion
     # sits near one value; rescale and re-centre each head's out_proj on
     # these documents so its logits vary across documents with std 1
-    heads = [*model.embedding_exits.values(), *model.encoder_exits, model.backbone.classifier]
-    store = torch.cat([ee_forward(model, cfg, *c).policy_logits().float() for c in chunks], 1)
-    with torch.no_grad():
-        for head, logits in zip(heads, store):
-            mean = logits.mean(dim=0)
-            gain = 1.0 / (logits - mean).std().item()
-            proj = head.out_proj
-            proj.weight.mul_(gain)
-            proj.bias.copy_(proj.bias * gain - gain * mean.to(proj.bias))
+    rescale_heads(model, cfg, chunks)
 
     # per-exit thresholds in the widest gap among each exit's top criteria
     # over all documents: a few exit at every exit, and more than 8 of a
@@ -2163,19 +2212,11 @@ TRACE_5B = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel", "table_par
 
 def train_counters():
     """The launch counters of the kernels a training step can run, by the
-    name of the kernel (the head-form pair under their wrappers' names)."""
-    from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
-    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+    name of the kernel (the head-form pair under their wrappers' names):
+    every counted wrapper but the serving-only fused attention."""
+    from multi_modal_early_exit_tpu_torch.utils.profiling import kernel_wrappers
 
-    return {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
-            "flash_attention_packed": fa.flash_attention_packed,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
-            "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
-            "flash_attention_packed_train_tables_bwd":
-                fa.flash_attention_packed_train_tables_bwd,
-            "split_bf16x3": fa.split_bf16x3}
+    return {k: f for k, f in kernel_wrappers().items() if k != "fused_bias_attention"}
 
 
 def train_steps(cfg, model32, batches, args, want, trace=None):
@@ -2477,9 +2518,10 @@ def phase_cli(card: str):
                           {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}))
             return out
 
-        def recorded_save(self, epoch, state_dict, config=None, opt_state=None, metric=None):
+        def recorded_save(self, epoch, state_dict, config=None, opt_state=None, metric=None,
+                          **kwargs):
             saves.append((epoch, metric))
-            return save_fn(self, epoch, state_dict, config, opt_state, metric)
+            return save_fn(self, epoch, state_dict, config, opt_state, metric, **kwargs)
 
         EETrainer.train_step, ckpt.CheckpointManager.save = timed_step, recorded_save
         torch.cuda.reset_peak_memory_stats()
@@ -2671,10 +2713,11 @@ def v2_loss_grads(model, cfg, batch, device, dtype):
     return loss.item(), [torch.zeros_like(p) if g is None else g for p, g in zip(params, gs)]
 
 
-def compare_path_kernels(args, gen, training: bool) -> str:
-    """The kernels of a phase-8 path against their plain versions at that
-    path's shapes (``args``: its seven bias inputs, B x S, P = S rounded up
-    to 128; bf16 q/k/v of 12 heads of 64 from ``gen``), at phase 3's
+def compare_path_kernels(args, gen, training: bool, heads: int = HEADS) -> str:
+    """The kernels of a phase-8 or phase-9 path against their plain versions
+    at that path's shapes (``args``: its seven bias inputs, B x S, P = S
+    rounded up to 128, the tables' columns one per head; bf16 q/k/v of
+    ``heads`` heads of 64 from ``gen``), at phase 3's
     tolerances: ``materialize_bias`` bit-equal, ``flash_attention_packed``
     within 1e-2; with ``training``, also the training forward at dropout
     ``TRAIN_RATE`` (out within 2e-2, lse within 1e-3), its plain (unchained)
@@ -2700,24 +2743,25 @@ def compare_path_kernels(args, gen, training: bool) -> str:
     bias = materialize_bias(*args)
     check(torch.equal(bias, materialize_bias_plain(*args)),
           f"materialize_bias differs from its plain version (B {b}, S {s})")
-    q, k, v = (torch.randn((b, s, HEADS * HEAD_DIM), generator=gen).to(dev, torch.bfloat16)
+    check(bias.shape[1] == heads, f"materialize_bias built {bias.shape[1]} heads, not {heads}")
+    q, k, v = (torch.randn((b, s, heads * HEAD_DIM), generator=gen).to(dev, torch.bfloat16)
                for _ in range(3))
-    err = (flash_attention_packed(q, k, v, bias, HEADS).float()
-           - flash_attention_packed_plain(q, k, v, bias, HEADS).float()).abs().max().item()
+    err = (flash_attention_packed(q, k, v, bias, heads).float()
+           - flash_attention_packed_plain(q, k, v, bias, heads).float()).abs().max().item()
     check(err <= 1e-2, f"flash_attention_packed max error {err} > 1e-2 (B {b}, S {s})")
-    read = (f"B {b}, S {s} inside P {bias.shape[-1]}: materialize_bias bit-equal, "
+    read = (f"B {b}, H {heads}, S {s} inside P {bias.shape[-1]}: materialize_bias bit-equal, "
             f"flash_attention_packed max error {err:.3e} (tol 1e-2)")
     if not training:
         return read
-    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, HEADS, TRAIN_RATE)
-    ref_out, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, HEADS,
+    out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, heads, TRAIN_RATE)
+    ref_out, ref_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, heads,
                                                               TRAIN_RATE)
     out_err = (out.float() - ref_out.float()).abs().max().item()
     lse_err = (lse[:, :, :s] - ref_lse[:, :, :s]).abs().max().item()
     check(out_err <= 2e-2 and lse_err <= 1e-3, f"train forward out {out_err} (tol 2e-2), lse "
           f"{lse_err} (tol 1e-3) (B {b}, S {s})")
     do = (torch.randn(out.shape, generator=gen) * 0.1).to(dev, torch.bfloat16)
-    bwd_args = (q, k, v, bias, 1234, out, lse, do, HEADS, TRAIN_RATE)
+    bwd_args = (q, k, v, bias, 1234, out, lse, do, heads, TRAIN_RATE)
     got = flash_attention_packed_train_bwd(*bwd_args)
     want = flash_attention_packed_train_bwd_plain(*bwd_args)
     errs = {}
@@ -3115,6 +3159,409 @@ def phase_engine(card: str, kept):
     return launches
 
 
+# phase 9: the parallel layer on one card (several ranks share it)
+MESH_TIMEOUT = 240  # seconds for each world of ranks and the torchrun launch
+MESH_COLLECTIVE_TIMEOUT = 60  # seconds for each collective of cli.train's ranks
+# phase 9b's cases: (mesh, dtype); the (4, 1) mesh's blocks differ from
+# (2, 2)'s in the batch alone, which the bf16 cases cover
+MESH_CASES = (((2, 2), "bfloat16"), ((2, 2), "float32"), ((4, 1), "bfloat16"))
+MESH_KERNELS = ("materialize_bias", "flash_attention_packed", "table_grads", "flash_attention_fwd",
+                "flash_attention_bwd", "flash_attention_packed_train",
+                "flash_attention_packed_train_bwd")
+CLI_MESH = ["with", "model_size=base", "dataset=synthetic_rvl_cdip", "model_weights=",
+            "batch_size=16", "eval_batch_size=16", "compute_dtype=bfloat16",
+            "exits=text_avg,vision_avg,7", "training_strategy=one_stage_subgraphs_weighted",
+            "lr=2e-5", "output_dir=save", "mesh_shape=2,2", "device=cuda:0"]
+# per rank and step of cli.train under (2, 2): 6 heads of 64 in 12 layers
+CLI_MESH_STEP = {"table_grads": 2, "flash_attention_packed_train": 12,
+                 "flash_attention_packed_train_bwd": 24}
+CLI_MESH_PARTS = ("gate", "train", "resume")  # what each rank of 9c's launch runs, in turn
+SERVE_CAPACITIES = (8, 4)  # phase 9d's per-shard capacities (shards of 8)
+
+
+def rank_launches(directory: str) -> dict:
+    """The kernel launch counts the ranks wrote into ``directory``
+    (``launches-rank<R>.json``), by rank."""
+    out = {}
+    for name in sorted(os.listdir(directory)):
+        if name.startswith("launches-rank") and name.endswith(".json"):
+            with open(os.path.join(directory, name)) as f:
+                out[int(name[len("launches-rank"):-len(".json")])] = json.load(f)
+    return out
+
+
+def summed(counts: dict) -> dict:
+    total = {}
+    for per_rank in counts.values():
+        for k, n in per_rank.items():
+            total[k] = total.get(k, 0) + n
+    return total
+
+
+def mesh_cli_rank(directory: str, argv) -> int:
+    """One rank of phase 9c's torchrun launch (``chip_smoke.py --mesh-cli-rank
+    DIR with ...``, from the directory the run writes into). On the world
+    and mesh that ``cli.train`` sets up (``setup_mesh``) it runs, in turn:
+    gate, phase 5's gradient check (``DIR/gate.pkl``: the dropout-0 config,
+    2 documents) through the CLI's batch glue (``step_batch``) and
+    ``EETrainer``'s step with the optimizer's update replaced by a capture,
+    the gathered gradients, loss and exit weights into ``DIR/gate-out.pkl``
+    (rank 0); train, ``cli.train.main(argv + ["epochs=1"])``; resume, the
+    same from its checkpoint-0 with ``epochs=2``. Each part's launch counts
+    go to ``DIR/<part>/launches-rank<R>.json``, and rank 0 writes the
+    wall-clock time at each part's end into ``DIR/times.json``."""
+    import glob
+    import pickle
+
+    import torch.distributed as dist
+
+    from multi_modal_early_exit_tpu_torch.cli import train
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.parallel.dryrun import numpy_state
+    from multi_modal_early_exit_tpu_torch.parallel.sharding import gather_params
+    from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts, write_launch_counts
+
+    times = {"start": time.time()}
+    mesh, device = train.setup_mesh(train.parse_cli(argv))
+    times["world"] = time.time()
+
+    def done(part):
+        os.makedirs(os.path.join(directory, part), exist_ok=True)
+        write_launch_counts(os.path.join(directory, part), mesh.rank)
+        launch_counts(reset=True)
+        times[part] = time.time()
+
+    with open(os.path.join(directory, "gate.pkl"), "rb") as f:
+        gate = pickle.load(f)
+    model = init_ee_params(gate["cfg"], torch.Generator().manual_seed(0), device="cpu")
+    trainer = EETrainer(gate["cfg"], model, TrainingArguments(bf16=True, learning_rate=2e-5), 10,
+                        device=device, mesh=mesh)
+    grads = {}
+    trainer.optimizer.apply = grads.update  # the reduced gradients, not applied
+    loss = trainer.train_step(train.step_batch(gate["batch"], 1, mesh), None)[0]
+    full = gather_params(grads, mesh)
+    if mesh.rank == 0:
+        with open(os.path.join(directory, "gate-out.pkl"), "wb") as f:
+            weights = trainer.exit_weights
+            pickle.dump({"loss": loss, "grads": numpy_state(full),
+                         "weights": None if weights is None else weights.cpu().numpy()}, f)
+    del model, trainer, grads, full
+    torch.cuda.empty_cache()
+    done("gate")
+    train.main(list(argv) + ["epochs=1"])
+    done("train")
+    first = glob.glob(os.path.join("save", "*", "checkpoint-0"))
+    check(len(first) == 1, f"cli.train wrote {first}")
+    train.main(list(argv) + ["epochs=2", f"checkpoint={first[0]}"])
+    done("resume")
+    if mesh.rank == 0:
+        with open(os.path.join(directory, "times.json"), "w") as f:
+            json.dump(times, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def run_cli_mesh(workdir: str, directory: str) -> float:
+    """``mesh_cli_rank`` under torchrun: 4 ranks on this card (gloo), mesh
+    (2, 2), from ``workdir``. Returns the wall-clock time it was launched;
+    a failed rank fails the phase."""
+    env = dict(os.environ, MMEE_DIST_BACKEND="gloo",
+               MMEE_DIST_TIMEOUT=str(MESH_COLLECTIVE_TIMEOUT), OMP_NUM_THREADS="2")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc-per-node", "4",
+           os.path.join(root, "chip_smoke.py"), "--mesh-cli-rank", directory] + CLI_MESH
+    launched = time.time()
+    proc = subprocess.run(cmd, cwd=workdir, env=env, capture_output=True, text=True,
+                          timeout=MESH_TIMEOUT)
+    check(proc.returncode == 0, f"torchrun cli.train exited {proc.returncode}:\n"
+          f"{proc.stdout[-3000:]}\n{proc.stderr[-6000:]}")
+    return launched
+
+
+def mesh_rank_bias_inputs(cfg, model32, rows, rank: int, mesh_shape=(2, 2)):
+    """The seven bias inputs that rank ``rank`` of ``mesh_shape`` builds for
+    ``rows`` (B x 512 text tokens on the card): its documents' position,
+    box and mask vectors (709 positions) and its heads' columns of
+    ``model32``'s three tables (``bias_tables`` under that rank's mesh)."""
+    import types
+
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
+        bias_tables,
+        bias_vectors,
+        sequence_layout,
+    )
+    from multi_modal_early_exit_tpu_torch.parallel.mesh import Mesh
+
+    bb = cfg.backbone
+    full_bbox, pos, full_mask = sequence_layout(bb, rows["bbox"], rows["attention_mask"],
+                                                bb.num_visual_tokens)
+    enc = model32.backbone.encoder
+    rank_enc = types.SimpleNamespace(
+        mesh=Mesh(mesh_shape, rank, torch.device("cuda")),
+        **{n: getattr(enc, n).detach().cuda() for n in REL_POS_TABLES})
+    with torch.no_grad():
+        tables = bias_tables(types.SimpleNamespace(encoder=rank_enc), bb, "cuda")
+    return [*bias_vectors(pos, full_bbox, full_mask), *tables]
+
+
+def phase_mesh(card: str, trained):
+    """Phase 9: the parallel layer at full width, ranks sharing this card.
+    First the kernels of the meshes' paths against their plain versions at
+    the shapes a rank gives them (``compare_path_kernels``, in this process):
+    a (2, 2) rank's training batch (8 documents, 6 heads, its tables'
+    columns) and 9d's second stage (4 documents, 12 heads). 9a a world of
+    one on NCCL: ``EETrainer`` steps under a (1, 1) mesh bit-equal to those
+    with no mesh; 9b (4 gloo ranks) the sharded head-form attention at (2,
+    2) in bf16 and f32 and at (4, 1) in bf16: rate 0 bit-equal to the
+    unsharded kernels' blocks (#5 and #6), rate 0.1 against the plain
+    version at each shard's seed; the (2, 2) steps' seconds; 9c one torchrun
+    launch of 4 ranks (``mesh_cli_rank``): the (2, 2) gradients of 2
+    documents, through ``cli.train``'s mesh and batch glue, against phase
+    5's f32 CPU reference (``GRAD_LIMITS``), then ``cli.train`` under (2, 2),
+    1 + 3 steps, and its resume from checkpoint-0, whose checkpoint loads on
+    one device; 9d (2 gloo ranks) the cascade per shard at capacities (8,
+    4), exits bit-equal to the single-device cascade run shard by shard,
+    and the (2, 1) steps' seconds. Returns the kernels' launches summed over
+    every rank of the phase (the comparisons uncounted)."""
+    import dataclasses
+    import pickle
+    import shutil
+    import tempfile
+
+    from multi_modal_early_exit_tpu_torch.models.ee.cascade import make_cascade_forward
+    from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel, ee_forward
+    from multi_modal_early_exit_tpu_torch.parallel import dryrun
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.training.checkpoint import load_checkpoint
+    from multi_modal_early_exit_tpu_torch.utils.profiling import uncounted
+
+    t_phase = time.perf_counter()
+    seconds = {}
+    torch.cuda.empty_cache()
+    cfg, model32, args = trained["cfg"], trained["model32"], dataclasses.asdict(trained["args"])
+    batches = [{k: v.cpu().numpy() for k, v in b.items()} for b in trained["batches"][:3]]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    dirs = {k: os.path.join(tmp, k) for k in ("9a", "9b", "9b-steps", "9c", "9d")}
+    for d in dirs.values():
+        os.makedirs(d)
+    try:
+        # the meshes' kernels at a rank's shapes
+        t0 = time.perf_counter()
+        first = {k: v[0] for k, v in trained["batches"][0].items()}
+        with uncounted():
+            rank_rows = {k: v[:B // 2] for k, v in first.items()}
+            read_tp = compare_path_kernels(
+                mesh_rank_bias_inputs(cfg, model32, rank_rows, rank=1),
+                torch.Generator().manual_seed(10), training=True, heads=HEADS // 2)
+            stage_rows = {k: v[:SERVE_CAPACITIES[1]] for k, v in first.items()}
+            read_stage = compare_path_kernels(
+                mesh_rank_bias_inputs(cfg, model32, stage_rows, rank=0, mesh_shape=(1, 1)),
+                torch.Generator().manual_seed(11), training=False)
+        seconds["kernels"] = time.perf_counter() - t0
+        print(f"9 kernels against their plain versions at a (2, 2) rank's training shapes "
+              f"(model rank 1's heads 6-11 and table columns, phase 5's first 8 documents): "
+              f"{read_tp}; at 9d's second stage (12 heads): {read_stage}; on {card}")
+
+        # 9a: a world of one on NCCL
+        t0 = time.perf_counter()
+        r = dryrun.spawn_world(1, dryrun.run_jobs, [
+            ("unit", "job_unit_mesh", dict(cfg=cfg, args=args, batches=batches[:2])),
+            ("launches", "job_launches", dict(directory=dirs["9a"]))],
+            backend="nccl", device="cuda:0", timeout=MESH_TIMEOUT, threads=8)[0]["unit"]
+        seconds["9a"] = time.perf_counter() - t0
+        check(r["backend"] == "nccl" and r["all_reduce"] == 1.0, f"9a's world: {r}")
+        check(not r["differ"], f"9a: the (1, 1) mesh's parameters differ in {r['differ'][:5]}")
+        unit_s = r["seconds"]["mesh"]
+        print(f"9a: 2 EETrainer steps under a (1, 1) mesh on NCCL bit-equal to 2 with no mesh "
+              f"(EE LayoutLMv3-base, bf16, dropout 0.1, batch 16): {unit_s} s under the mesh, "
+              f"{r['seconds']['single']} s without, on {card}")
+
+        # 9b (and the (2, 2) steps): 4 gloo ranks on this card
+        jobs = [(f"hf-{shape[0]}x{shape[1]}-{dt}-{rate}", "job_sharded_headform",
+                 dict(shape=shape, dtype=dt, rate=rate))
+                for shape, dt in MESH_CASES for rate in (0.0, TRAIN_RATE)]
+        jobs.append(("launches-9b", "job_launches", dict(directory=dirs["9b"], reset=True)))
+        jobs.append(("steps", "job_step_timing", dict(shape=(2, 2), cfg=cfg, args=args,
+                                                      batches=batches)))
+        jobs.append(("launches-steps", "job_launches", dict(directory=dirs["9b-steps"])))
+        t0 = time.perf_counter()
+        ranks = dryrun.spawn_world(4, dryrun.run_jobs, jobs, backend="gloo", device="cuda:0",
+                                   timeout=MESH_TIMEOUT, threads=2)
+        seconds["9b"] = time.perf_counter() - t0
+        read = {}
+        for key, _, kw in jobs:
+            if not key.startswith("hf-"):
+                continue
+            f32 = kw["dtype"] == "float32"
+            for rank, res in enumerate(ranks):
+                got = res[key]
+                if kw["rate"] == 0.0:
+                    check(all(got["equal"].values()), f"9b {key} rank {rank}: not bit-equal "
+                          f"to the unsharded kernels: {got['equal']}")
+                else:
+                    limit = F32_BAR if f32 else 2e-2
+                    check(all(e <= limit for e in got["errors"].values()),
+                          f"9b {key} rank {rank}: errors over scale {got['errors']} > {limit}")
+                    read[key] = max(read.get(key, 0.0), max(got["errors"].values()))
+        hf = {k: v for k, v in summed(rank_launches(dirs["9b"])).items() if v}
+        check(hf.get("flash_attention_fwd", 0) > 0 and hf.get("flash_attention_bwd", 0) > 0,
+              f"9b launched {hf}")
+        steps22 = ranks[0]["steps"]
+        losses = [res["steps"]["loss"] for res in ranks]
+        check(all(x == losses[0] and math.isfinite(x) for x in losses),
+              f"9b: the (2, 2) ranks' losses {losses}")
+        errors = json.dumps({k: f"{v:.2e}" for k, v in read.items()})
+        print(f"9b: sharded_flash_attention (B 16, H 12, S = P 768, D 64, f32 bias) in cases "
+              f"{[(list(s), d) for s, d in MESH_CASES]}: at rate 0 every rank's output, dq, dk, "
+              f"dv and dbias bit-equal to the unsharded kernels' block; at rate {TRAIN_RATE} the "
+              f"largest error over scale by case {errors} "
+              f"(tol 2e-2 bf16, {F32_BAR} f32) against the plain version at each shard's seed; "
+              f"launches over the 4 ranks before the steps {hf}; the world's call "
+              f"{seconds['9b']:.1f} s, on {card}")
+        del ranks
+
+        # 9c: one torchrun launch of 4 ranks: the gradient check through
+        # cli.train's mesh and batch glue, cli.train, and its resume
+        rates0 = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+                      classifier_dropout=0.0)
+        with open(os.path.join(dirs["9c"], "gate.pkl"), "wb") as f:
+            pickle.dump({"cfg": cfg.replace(backbone=cfg.backbone.replace(**rates0)),
+                         "batch": {k: v[0, :2] for k, v in batches[0].items()}}, f)
+        work = os.path.join(tmp, "cli")
+        os.makedirs(work)
+        launched = run_cli_mesh(work, dirs["9c"])
+        ended = time.time()
+        with open(os.path.join(dirs["9c"], "times.json")) as f:
+            at = json.load(f)
+        marks = [("start-up", launched, at["start"]), ("world", at["start"], at["world"])]
+        marks += [(p, at[a], at[p]) for a, p in zip(("world",) + CLI_MESH_PARTS, CLI_MESH_PARTS)]
+        marks.append(("exit", at["resume"], ended))
+        seconds["9c"] = ended - launched
+        seconds.update({f"9c {name}": b - a for name, a, b in marks})
+        with open(os.path.join(dirs["9c"], "gate-out.pkl"), "rb") as f:
+            gate = pickle.load(f)
+        check(np.array_equal(gate["weights"], trained["weights"].numpy()),
+              f"9c: the mesh trainer's exit weights {gate['weights']} are not phase 5's "
+              f"{trained['weights'].numpy()}")
+        names = [n for n, _ in model32.named_parameters()]
+        ref_loss, ref_grads, _ = trained["reference"]
+        grads = [torch.from_numpy(gate["grads"][n]) for n in names]
+        summary = gradient_gate(names, gate["loss"], grads, ref_loss, ref_grads,
+                                "(2, 2) mesh bf16 gradients vs the f32 plain path")
+        print(f"9c gradient check, in the torchrun launch's ranks before cli.train: 2 documents "
+              f"through cli.train's setup_mesh and step_batch (one a data shard) and "
+              f"EETrainer.train_step (6 heads a model shard), bf16 kernel path, the reduced "
+              f"gradients gathered, vs phase 5's f32 plain path on the CPU: {summary}; exit "
+              f"weights equal to phase 5's")
+        del gate, grads
+        run_dir = os.path.join(work, "save", os.listdir(os.path.join(work, "save"))[0])
+        check(sorted(os.listdir(run_dir)) == ["checkpoint-0", "checkpoint-1"],
+              f"cli.train under (2, 2) wrote {sorted(os.listdir(run_dir))}")
+        for part in CLI_MESH_PARTS[1:]:
+            per_rank = rank_launches(os.path.join(dirs["9c"], part))
+            check(sorted(per_rank) == [0, 1, 2, 3], f"launch counts of ranks {sorted(per_rank)}")
+            for rank, counts in per_rank.items():
+                for k, n in CLI_MESH_STEP.items():
+                    check(counts[k] == 4 * n, f"cli.train {part} rank {rank}: {k} {counts[k]} "
+                          f"launches in 4 steps, not {4 * n}")
+                check(counts["materialize_bias"] > 4 and counts["flash_attention_packed"] > 0,
+                      f"cli.train {part} rank {rank} launched {counts}")
+        state, saved, _, step = load_checkpoint(os.path.join(run_dir, "checkpoint-1"))
+        check(step == 1, f"the resumed run's checkpoint is of step {step}")
+        one = EEModel(cfg, device="cpu")
+        one.load_state_dict(state, strict=True)
+        check(all(bool(torch.isfinite(p).all()) for p in one.parameters()),
+              "the mesh checkpoint holds non-finite parameters")
+        pipe = Pipeline.from_checkpoint(os.path.join(run_dir, "checkpoint-1"), batch_size=B)
+        served = pipe.predict_features({k: batches[0][k][0] for k in (
+            "input_ids", "bbox", "attention_mask", "pixel_values")})
+        check(len(served) == B and all(math.isfinite(x["confidence"]) for x in served),
+              "the mesh checkpoint's Pipeline served malformed results")
+        split = ", ".join(f"{k[3:]} {v:.1f}" for k, v in seconds.items() if k.startswith("9c "))
+        print(f"9c: torchrun --nproc-per-node 4 chip_smoke.py --mesh-cli-rank (gloo, 4 ranks on "
+              f"cuda:0): cli.train with mesh_shape=2,2 (EE LayoutLMv3-base, bf16, batch 16, 8 "
+              f"documents a data shard, 6 heads a model shard), 1 + 3 steps, then its resume "
+              f"from checkpoint-0 (4 more steps) in the same ranks; per rank and step "
+              f"{CLI_MESH_STEP}; checkpoint-1 loads on one device (strict) and serves through "
+              f"Pipeline.from_checkpoint; the launch {seconds['9c']:.1f} s ({split}); on {card}")
+        del one, state, pipe
+
+        # 9d: the cascade per shard, 2 ranks, capacities (8, 4), and the (2, 1) steps
+        t0 = time.perf_counter()
+        model = copy.deepcopy(model32).to("cuda", torch.bfloat16)
+        rows = {k: torch.from_numpy(v[0]).cuda() for k, v in batches[0].items()}
+        chunk = [(rows["input_ids"], rows["bbox"], rows["pixel_values"].to(torch.bfloat16),
+                  rows["attention_mask"])]
+        with torch.no_grad():  # as phase 4 does
+            rescale_heads(model, cfg, chunk)
+            crit = ee_forward(model, cfg, *chunk[0]).exit_criteria.float().cpu().numpy()
+        thr = [widest_gap_threshold(row, 0.88, 0.97) for row in crit[:-1]]
+        state = dryrun.numpy_state(model.state_dict())
+        serve = {k: batches[0][k][0] for k in ("input_ids", "bbox", "attention_mask",
+                                                 "pixel_values")}
+        r2 = dryrun.spawn_world(2, dryrun.run_jobs, [
+            ("serve", "job_cascade", dict(cfg=cfg, state=state, batch=serve,
+                                          capacities=SERVE_CAPACITIES, threshold=thr,
+                                          dtype="bfloat16")),
+            ("steps", "job_step_timing", dict(shape=(2, 1), cfg=cfg, args=args,
+                                              batches=batches)),
+            ("launches", "job_launches", dict(directory=dirs["9d"]))],
+            backend="gloo", device="cuda:0", timeout=MESH_TIMEOUT, threads=4)
+        cascade = make_cascade_forward(cfg, capacities=SERVE_CAPACITIES, threshold=thr)
+        want = {"logits": [], "exit_ids": [], "capacity_exited": []}
+        with torch.no_grad(), uncounted():
+            for half in (slice(0, B // 2), slice(B // 2, B)):
+                res = cascade(model, *(torch.from_numpy(serve[k][half]).cuda() for k in (
+                    "input_ids", "bbox", "pixel_values", "attention_mask")))
+                for k in want:
+                    want[k].append(getattr(res, k).cpu().numpy())
+        want = {k: np.concatenate(v) for k, v in want.items()}
+        got = r2[0]["serve"]
+        check(np.array_equal(got["exit_ids"], want["exit_ids"])
+              and np.array_equal(got["capacity_exited"], want["capacity_exited"]),
+              f"9d: per-shard exits {got['exit_ids']} / {got['capacity_exited']} differ from the "
+              f"single-device cascade's shard by shard")
+        logit_err = float(np.abs(got["logits"] - want["logits"]).max())
+        check(logit_err <= 1e-4, f"9d: logits differ by {logit_err}")
+        check(got["capacity_exited"].sum() > 0 and len(set(got["exit_ids"].tolist())) > 1,
+              f"9d: no capacity exits or a single exit: {got}")
+        steps21 = r2[0]["steps"]
+        seconds["9d"] = time.perf_counter() - t0
+        print(f"9d: the cascade per data shard (make_cascade_forward, as Pipeline runs it; 2 "
+              f"ranks, 8 documents each, capacities {SERVE_CAPACITIES}, thresholds "
+              f"{[round(t, 4) for t in thr]}): exits {got['exit_ids'].tolist()} and capacity "
+              f"exits {int(got['capacity_exited'].sum())} bit-equal to the single-device "
+              f"cascade run shard by shard, logits within {logit_err:.1e}; on {card}")
+        del model
+
+        # the step seconds by mesh; the ranks share one card, so these are
+        # not scaling numbers
+        def share(run):
+            return [round(c / s, 3) for c, s in zip(run["collective_seconds"], run["seconds"])]
+
+        def secs(times):
+            return [round(t, 4) for t in times]
+
+        seconds["phase 9"] = time.perf_counter() - t_phase
+        print(f"9 step seconds (EE LayoutLMv3-base, bf16, global batch 16, first step first; "
+              f"all ranks share ONE card, so these are not scaling numbers): (1, 1) NCCL "
+              f"{secs(unit_s)}; (2, 1) gloo {secs(steps21['seconds'])}, collectives' host "
+              f"share {share(steps21)}; (2, 2) gloo {secs(steps22['seconds'])}, collectives' "
+              f"host share {share(steps22)}; phase 9's seconds by part "
+              f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}, on {card}")
+        counts = {i: summed(rank_launches(os.path.join(dirs["9c"], p)))
+                  for i, p in enumerate(CLI_MESH_PARTS)}
+        counts.update({k: summed(rank_launches(dirs[k])) for k in ("9a", "9b", "9b-steps", "9d")})
+        total = summed(counts)
+        for name in MESH_KERNELS:
+            check(total.get(name, 0) > 0, f"{name} was never launched under a mesh in phase 9")
+        return total
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3163,6 +3610,8 @@ def main() -> int:
     with bias_modes():
         engine_launches = phase_engine(card, kept)
     del kept
+    with bias_modes():
+        mesh_launches = phase_mesh(card, trained)
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # the split pre-pass runs before every f32 forward and backward
     f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]
@@ -3233,6 +3682,14 @@ def main() -> int:
             check(k["engine_launches"] > 0, f"{k['name']} was never launched in phase 8b")
     check(set(v2) == {"materialize_bias", "flash_attention_packed", "flash_attention_packed_train",
                       "flash_attention_packed_train_bwd", "table_grads"}, f"phase 8a ran {v2}")
+    # phase 9: every rank's launches under the meshes (the comparisons uncounted)
+    mesh_in = ("phase 9, summed over the ranks: 9a 2 steps under (1, 1) (NCCL), 9b "
+               "sharded_flash_attention at (2, 2) and (4, 1) and 3 steps under (2, 2), 9c the "
+               "(2, 2) gradient check and torchrun cli.train under (2, 2) (8 steps and their "
+               "evaluations), 9d the cascade per shard (2 ranks) and 3 steps under (2, 1)")
+    for k in kernels:
+        if k["name"] in MESH_KERNELS:
+            k["mesh_launches"], k["mesh_launches_in"] = mesh_launches[k["name"]], mesh_in
     keys = ("name", "route", "source", "replaces", "launches", "launches_in", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms", "f32_ms", "f32_bound_ms",
             "f32_bound_by", "f32_library_ms", "f32_max_abs_err", "f32_launches",
@@ -3244,7 +3701,8 @@ def main() -> int:
              "f32_bound_d128_by", "f32_library_ms_d128", "ms_wide", "bound_wide",
              "bound_wide_by", "library_ms_wide", "f32_ms_wide", "f32_bound_wide",
              "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in",
-             "v2_launches", "v2_launches_in", "engine_launches", "engine_launches_in")
+             "v2_launches", "v2_launches_in", "engine_launches", "engine_launches_in",
+             "mesh_launches", "mesh_launches_in")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {
@@ -3254,4 +3712,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--mesh-cli-rank"]:  # a rank of phase 9c's torchrun launch
+        sys.exit(mesh_cli_rank(sys.argv[2], sys.argv[3:]))
     sys.exit(main())

@@ -10,7 +10,22 @@ Pipeline: seed -> build model -> build 3 dataset splits -> train with the
 configured EE strategy -> evaluate on test (per-exit accuracies), with a
 checkpoint per epoch under ``output_dir/<experiment name>``. The port's
 counterpart of the JAX package's ``cli/train.py``: ``EETrainer`` on
-``device`` (the card unless ``with device=cpu``), one device only.
+``device`` (the card unless ``with device=cpu``).
+
+Across devices it runs one process per rank, launched by torchrun:
+
+    python -m torch.distributed.run --standalone --nproc-per-node 4 \
+        -m multi_modal_early_exit_tpu_torch.cli.train with mesh_shape=2,2 ...
+
+Each rank's device is ``cuda:LOCAL_RANK`` unless ``device`` names one
+(``device=cpu``: gloo ranks on the CPU). ``mesh_shape`` is (data, model);
+left at (1, 1) under several ranks it is pure data parallelism over all of
+them. Each rank loads every batch and takes its rows of the micro-batch
+axis (``shard_batch(..., axis=1)``, so gradient accumulation at 1 works
+under a data axis); rank 0 alone logs, writes checkpoints and returns the
+metrics (the others return ``{}``). A model axis above 1 needs LayoutLMv3
+with both towers (``models.registry.splits_over_model_axis``); any other
+model raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -18,10 +33,11 @@ from __future__ import annotations
 import os
 import sys
 import time
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multi_modal_early_exit_tpu_torch.config.experiment import (
     ExperimentConfig,
@@ -29,7 +45,13 @@ from multi_modal_early_exit_tpu_torch.config.experiment import (
 )
 from multi_modal_early_exit_tpu_torch.data.datasets import build_dataset
 from multi_modal_early_exit_tpu_torch.data.loader import accumulation_layout, iterate_batches
-from multi_modal_early_exit_tpu_torch.models.registry import build_model
+from multi_modal_early_exit_tpu_torch.models.registry import (
+    build_model,
+    splits_over_model_axis,
+)
+from multi_modal_early_exit_tpu_torch.parallel.mesh import create_mesh, default_mesh_shape
+from multi_modal_early_exit_tpu_torch.parallel.multihost import maybe_initialize_distributed
+from multi_modal_early_exit_tpu_torch.parallel.sharding import shard_batch, shard_model
 from multi_modal_early_exit_tpu_torch.training.checkpoint import (
     CheckpointManager,
     load_checkpoint,
@@ -40,14 +62,61 @@ from multi_modal_early_exit_tpu_torch.utils.seeding import seed_everything
 from multi_modal_early_exit_tpu_torch.utils.wandb_compat import init_wandb
 
 
+def mesh_shape_of(cfg: ExperimentConfig) -> Tuple[int, ...]:
+    """``cfg.mesh_shape`` as ints (the command line gives ``"2,2"``)."""
+    shape = cfg.mesh_shape
+    if isinstance(shape, str):
+        shape = shape.strip("()[] ").split(",")
+    return tuple(int(n) for n in shape)
+
+
+def setup_mesh(cfg: ExperimentConfig):
+    """``(mesh, device)``: a mesh over the torchrun world (``None`` for one
+    process) and this rank's device."""
+    device = cfg.device
+    shape = mesh_shape_of(cfg)
+    if shape[1] > 1 and not splits_over_model_axis(cfg.model):
+        raise NotImplementedError(
+            f"model {cfg.model!r} under mesh_shape {shape}: a model axis above 1 needs "
+            "LayoutLMv3's encoder with both towers; see ROADMAP.md A11. Use a data axis only.")
+    rank_device = None if device in ("cuda", None) else device
+    if not maybe_initialize_distributed(device=rank_device) or dist.get_world_size() == 1:
+        if int(np.prod(shape)) > 1:
+            raise ValueError(
+                f"mesh_shape {shape} needs one process per device: launch with "
+                "python -m torch.distributed.run --nproc-per-node N")
+        return (create_mesh((1, 1), device) if dist.is_initialized() else None), device
+    if int(np.prod(shape)) == 1:
+        shape = default_mesh_shape()
+    if rank_device is None:
+        rank_device = f"cuda:{os.environ.get('LOCAL_RANK', 0)}"
+    mesh = create_mesh(shape, rank_device)
+    return mesh, mesh.device
+
+
 def main(argv: Optional[list] = None) -> Dict[str, float]:
     cfg = parse_cli(argv if argv is not None else sys.argv[1:])
-    if int(np.prod(cfg.mesh_shape)) > 1:
-        raise NotImplementedError(
-            f"mesh_shape {tuple(cfg.mesh_shape)}: training across devices is not ported "
-            "yet (ROADMAP.md A11); the port trains on one device")
+    owns_world = not dist.is_initialized()
+    mesh, device = setup_mesh(cfg)
+    try:
+        return _train(cfg, mesh, device)
+    finally:
+        if owns_world and dist.is_initialized():  # the world this call set up
+            dist.destroy_process_group()
+
+
+def step_batch(batch: Dict[str, np.ndarray], accum: int, mesh) -> Dict[str, np.ndarray]:
+    """One training step's batch as this rank takes it: the accumulation
+    layout ``(accum, micro_bs, ...)``, and under a mesh this rank's rows of
+    the micro-batch axis."""
+    batch = accumulation_layout(batch, accum)
+    return batch if mesh is None else shard_batch(batch, mesh, axis=1)
+
+
+def _train(cfg: ExperimentConfig, mesh, device) -> Dict[str, float]:
+    writer = mesh is None or mesh.rank == 0
     generator = seed_everything(cfg.seed)
-    run = init_wandb(cfg.to_dict()) if cfg.use_wandb else None
+    run = init_wandb(cfg.to_dict()) if cfg.use_wandb and writer else None
 
     name = cfg.dataset
     train_ds = build_dataset(name, "train")
@@ -63,6 +132,9 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
         seq_len=train_ds.arrays["input_ids"].shape[-1],
         generator=generator,
     )
+    if mesh is not None:
+        model = shard_model(model, mesh, getattr(model_cfg, "backbone", model_cfg)
+                            .num_attention_heads)
 
     accum = max(cfg.gradient_accumulation_steps, 1)
     global_batch = cfg.batch_size * accum
@@ -76,22 +148,27 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
         weight_decay=cfg.weight_decay,
         bf16=cfg.compute_dtype in ("bfloat16", "bf16"),
     )
-    trainer = EETrainer(model_cfg, model, args, total_steps, device=cfg.device)
+    trainer = EETrainer(model_cfg, model, args, total_steps, device=device, mesh=mesh)
     manager = CheckpointManager(
         os.path.join(cfg.output_dir, experiment_name(cfg)), keep=3
     )
 
+    def log(message: str, level: str = "info") -> None:
+        if writer:
+            logger_message(message, level)
+
     start_epoch = 0
     if cfg.checkpoint and os.path.isdir(cfg.checkpoint):
         # resume: restore the weights (+ epoch counter) of a prior run
-        restored, _, _, step = load_checkpoint(cfg.checkpoint)
+        restored, _, _, step = load_checkpoint(cfg.checkpoint, mesh=mesh)
         trainer.model.load_state_dict(restored, strict=True)
         start_epoch = (step or 0) + 1
-        logger_message(f"resumed from {cfg.checkpoint} at epoch {start_epoch}")
+        log(f"resumed from {cfg.checkpoint} at epoch {start_epoch}")
 
-    logger_message(
+    log(
         f"Training {cfg.model} on {name}: {cfg.epochs} epochs x "
         f"{steps_per_epoch} steps (global batch {global_batch}) on {trainer.device}"
+        + (f", mesh {mesh.shape}" if mesh is not None else "")
     )
     t0 = time.perf_counter()
     # dense baselines (layoutlmv2) have no exit heads
@@ -104,7 +181,7 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
                 epoch=epoch, drop_last=True,
             ):
                 batch.pop("sample_mask", None)
-                loss, _ = trainer.train_step(accumulation_layout(batch, accum), generator)
+                loss, _ = trainer.train_step(step_batch(batch, accum, mesh), generator)
                 losses.append(loss)
             metrics = trainer.evaluate(
                 iterate_batches(val_ds, cfg.eval_batch_size or 8)
@@ -115,7 +192,7 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
                 f"/share={metrics[f'exit_{j}_share']:.3f}"
                 for j in range(num_exits)
             )
-            logger_message(
+            log(
                 f"epoch {epoch}: loss={mean_loss:.4f} "
                 f"val_accuracy={metrics['accuracy']:.4f} {per_exit}"
             )
@@ -124,7 +201,7 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
                 if metrics.get(f"exit_{j}_share", 0.0) < 0.01
             ]
             if dead:
-                logger_message(
+                log(
                     f"epoch {epoch}: exit head(s) {dead} capture <1% of "
                     f"validation traffic at threshold "
                     f"{model_cfg.exit.global_threshold} — dead exits waste "
@@ -136,23 +213,21 @@ def main(argv: Optional[list] = None) -> Dict[str, float]:
                 run.log({"epoch": epoch, "loss": mean_loss, **metrics})
             manager.save(
                 epoch, trainer.model.state_dict(), config=cfg.to_dict(),
-                metric=metrics["accuracy"],
+                metric=metrics["accuracy"], mesh=mesh,
             )
     except KeyboardInterrupt:
         # manual stop still proceeds to test evaluation
         # (parity: EE/IC_only.py:210-217)
-        logger_message("interrupted — evaluating current model", "warning")
+        log("interrupted — evaluating current model", "warning")
 
     test_metrics = trainer.evaluate(
         iterate_batches(test_ds, cfg.eval_batch_size or 8)
     )
-    logger_message(
-        f"done in {time.perf_counter() - t0:.1f}s; test metrics: {test_metrics}"
-    )
+    log(f"done in {time.perf_counter() - t0:.1f}s; test metrics: {test_metrics}")
     if run is not None:
         run.log({f"test_{k}": v for k, v in test_metrics.items()})
         run.finish()
-    return test_metrics
+    return test_metrics if writer else {}
 
 
 def debug_step(trainer: EETrainer, batch, generator: torch.Generator, n_steps: int = 5) -> list:

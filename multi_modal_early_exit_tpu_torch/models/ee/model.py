@@ -172,7 +172,7 @@ def ee_forward(
     device of the model and inputs. With ``deterministic=False`` every
     dropout draws its seed from ``rng`` (a CPU generator)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(model, "mesh", None))
     bb = backbone_apply(
         model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
         attention_mask, deterministic=deterministic, rng=rng,

@@ -376,7 +376,7 @@ def forward_sequence_classification(
     ``seq_pad_multiple`` pads the sequence once before the encoder (padded
     positions carry mask 0); the bias is built at a multiple of 128 either
     way. With ``deterministic=False`` the dropout seeds come from ``rng``."""
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     enc_cfg = cfg.encoder_cfg()
     b, s_t = input_ids.shape
     if attention_mask is None:

@@ -79,6 +79,14 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
     materialize_bias,
 )
 from multi_modal_early_exit_tpu_torch.ops.hashing import hash_dropout
+from multi_modal_early_exit_tpu_torch.parallel.layers import (
+    column_parallel,
+    copy_to_model,
+    model_parallel,
+    row_parallel,
+    shard_seed,
+    vocab_parallel_embedding,
+)
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -210,15 +218,34 @@ def dropout(
 
 class RngStream:
     """A stream of int32 dropout seeds drawn from one (CPU)
-    ``torch.Generator``; with no generator every seed is ``None``."""
+    ``torch.Generator``; with no generator every seed is ``None``.
 
-    def __init__(self, generator: Optional[torch.Generator]):
+    Under a ``mesh`` every rank draws the same sequence and offsets it by
+    ``parallel.layers.shard_seed``: a hidden or embedding dropout seed by the
+    rank's data index (the replicated activations of one model group keep
+    identical masks), an attention-probability seed by its linear shard index
+    (each rank's kernel hashes its local batch and head indices, as the JAX
+    package's ``sharded_flash_attention`` offsets them). Without a mesh, or
+    at index 0, the seeds are the drawn ones."""
+
+    def __init__(self, generator: Optional[torch.Generator], mesh=None):
         self.generator = generator
+        self.data_shard = mesh.data_index if mesh is not None else 0
+        self.shard = mesh.shard_index if mesh is not None else 0
 
-    def next(self) -> Optional[int]:
+    def _draw(self, shard: int) -> Optional[int]:
         if self.generator is None:
             return None
-        return int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator))
+        seed = int(torch.randint(0, 2 ** 31 - 1, (), generator=self.generator))
+        return shard_seed(seed, shard) if shard else seed
+
+    def next(self) -> Optional[int]:
+        """A hidden, embedding or classifier dropout seed."""
+        return self._draw(self.data_shard)
+
+    def next_attention(self) -> Optional[int]:
+        """An attention-probability dropout seed."""
+        return self._draw(self.shard)
 
 
 # ---------------------------------------------------------------------------
@@ -375,15 +402,21 @@ def create_position_ids_from_input_ids(
     return torch.cumsum(mask, dim=1) * mask + padding_idx
 
 
-def spatial_position_embeddings(p: TextEmbeddings, bbox: torch.Tensor) -> torch.Tensor:
-    """Concat of left/upper/right/lower coordinate + h/w shape embeddings."""
+def spatial_position_embeddings(p: TextEmbeddings, bbox: torch.Tensor, mesh=None,
+                                rows: int = 0) -> torch.Tensor:
+    """Concat of left/upper/right/lower coordinate + h/w shape embeddings.
+    Under a model axis (``mesh``) the tables hold this rank's share of their
+    ``rows`` rows (``vocab_parallel_embedding``)."""
+    def lookup(table, ids):
+        return vocab_parallel_embedding(ids, table, rows, mesh)
+
     bbox = bbox.long()
-    left = p.x_position_embeddings[bbox[:, :, 0]]
-    upper = p.y_position_embeddings[bbox[:, :, 1]]
-    right = p.x_position_embeddings[bbox[:, :, 2]]
-    lower = p.y_position_embeddings[bbox[:, :, 3]]
-    h = p.h_position_embeddings[torch.clamp(bbox[:, :, 3] - bbox[:, :, 1], 0, 1023)]
-    w = p.w_position_embeddings[torch.clamp(bbox[:, :, 2] - bbox[:, :, 0], 0, 1023)]
+    left = lookup(p.x_position_embeddings, bbox[:, :, 0])
+    upper = lookup(p.y_position_embeddings, bbox[:, :, 1])
+    right = lookup(p.x_position_embeddings, bbox[:, :, 2])
+    lower = lookup(p.y_position_embeddings, bbox[:, :, 3])
+    h = lookup(p.h_position_embeddings, torch.clamp(bbox[:, :, 3] - bbox[:, :, 1], 0, 1023))
+    w = lookup(p.w_position_embeddings, torch.clamp(bbox[:, :, 2] - bbox[:, :, 0], 0, 1023))
     return torch.cat([left, upper, right, lower, h, w], dim=-1)
 
 
@@ -402,10 +435,15 @@ def embed_text(
         position_ids = create_position_ids_from_input_ids(input_ids, cfg.pad_token_id)
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(input_ids)
-    x = p.word_embeddings[input_ids]
+    # under a model axis the word and position tables are split by rows
+    # (each partial lookup summed over the model group: the unsharded lookup
+    # bit for bit); without one these are plain lookups
+    mesh = model_parallel(p)
+    x = vocab_parallel_embedding(input_ids, p.word_embeddings, cfg.vocab_size, mesh)
     x = x + p.token_type_embeddings[token_type_ids.long()]
-    x = x + p.position_embeddings[position_ids.long()]
-    x = x + spatial_position_embeddings(p, bbox)
+    x = x + vocab_parallel_embedding(position_ids.long(), p.position_embeddings,
+                                     cfg.max_position_embeddings, mesh)
+    x = x + spatial_position_embeddings(p, bbox, mesh, cfg.max_2d_position_embeddings)
     x = p.LayerNorm(x)
     return dropout(x, cfg.hidden_dropout_prob, deterministic,
                    rngs.next() if rngs else None)
@@ -491,21 +529,34 @@ def bias_vectors(position_ids, bbox, attention_mask):
 def bias_tables(p: LayoutLMv3Model, cfg: LayoutLMv3Config, device):
     """(T1, Tx, Ty) f32 with 1/sqrt(d) folded in (when ``cfg.scale_bias``),
     differentiable in the encoder's tables; zeros for a bias the config
-    does not have."""
+    does not have. Under a model axis, the columns of this rank's heads
+    only (the tables are replicated; each rank's gradient lands in its own
+    columns)."""
     enc = p.encoder
-    heads = cfg.num_attention_heads
+    mesh = model_parallel(enc)
+    heads = local_heads(cfg, mesh)
+    first = mesh.model_index * heads if mesh is not None else 0
     scale = 1.0 / math.sqrt(cfg.head_dim) if cfg.scale_bias else 1.0
 
     def table(name: str, bins: int, present: bool) -> torch.Tensor:
         if not present:
             return torch.zeros((bins, heads), dtype=torch.float32, device=device)
-        return (getattr(enc, name).to(torch.float32) * scale).contiguous()
+        t = getattr(enc, name)
+        if mesh is not None:
+            t = t[:, first:first + heads]
+        return (t.to(torch.float32) * scale).contiguous()
 
     return (
         table("rel_pos_bias", cfg.rel_pos_bins, cfg.has_relative_attention_bias),
         table("rel_pos_x_bias", cfg.rel_2d_pos_bins, cfg.has_spatial_attention_bias),
         table("rel_pos_y_bias", cfg.rel_2d_pos_bins, cfg.has_spatial_attention_bias),
     )
+
+
+def local_heads(cfg: LayoutLMv3Config, mesh=None) -> int:
+    """The heads this rank computes: all of them, or H / tp under a model
+    axis."""
+    return cfg.num_attention_heads // (mesh.model_size if mesh is not None else 1)
 
 
 def bucket_kwargs(cfg: LayoutLMv3Config) -> dict:
@@ -630,19 +681,28 @@ def _packed_qkv_and_seed(
     p: Attention, cfg: LayoutLMv3Config, hidden: torch.Tensor,
     deterministic: bool, seed_attn: Optional[int],
 ):
-    """Packed (B, S, hidden) q/k/v and the attention dropout (rate, seed);
-    the rate is 0 when deterministic or without a seed."""
+    """Packed (B, S, hidden) q/k/v (this rank's heads, hidden / tp wide,
+    under a model axis) and the attention dropout (rate, seed); the rate is
+    0 when deterministic or without a seed."""
     rate = 0.0 if deterministic or seed_attn is None else cfg.attention_probs_dropout_prob
     seed = seed_attn if rate > 0.0 else 0
-    return p.query(hidden), p.key(hidden), p.value(hidden), rate, seed
+    return (*_qkv(p, hidden), rate, seed)
+
+
+def _qkv(p: Attention, hidden: torch.Tensor):
+    """The packed q/k/v projections: column parallel under a model axis."""
+    hidden = copy_to_model(hidden, model_parallel(p))
+    return p.query(hidden), p.key(hidden), p.value(hidden)
 
 
 def _attn_epilogue(
     p: Attention, cfg: LayoutLMv3Config, ctx: torch.Tensor, hidden: torch.Tensor,
     deterministic: bool = True, seed_out: Optional[int] = None,
 ) -> torch.Tensor:
-    """Output projection, dropout and residual LayerNorm."""
-    out = dropout(p.output(ctx), cfg.hidden_dropout_prob, deterministic, seed_out)
+    """Output projection (row parallel under a model axis), dropout and
+    residual LayerNorm."""
+    out = dropout(row_parallel(p.output, ctx, model_parallel(p)), cfg.hidden_dropout_prob,
+                  deterministic, seed_out)
     return p.output_LayerNorm(out + hidden)
 
 
@@ -654,18 +714,18 @@ def _attention_no_bias(
     composes it in XLA when there is no bias (``dit``): the products
     accumulate in f32, the probabilities take v's type, then the attention
     dropout."""
-    b, s, width = hidden.shape
-    heads, d = cfg.num_attention_heads, cfg.head_dim
+    b, s, _ = hidden.shape
+    heads, d = local_heads(cfg, model_parallel(p)), cfg.head_dim
 
     def split(x):  # (B, S, H*D) -> (B, H, S, D)
         return x.view(b, s, heads, d).transpose(1, 2)
 
-    q, k, v = split(p.query(hidden)), split(p.key(hidden)), split(p.value(hidden))
+    q, k, v = (split(x) for x in _qkv(p, hidden))
     scores = torch.matmul((q / math.sqrt(d)).float(), k.float().transpose(-1, -2))
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     probs = dropout(probs, cfg.attention_probs_dropout_prob, deterministic, seed_attn)
     ctx = torch.matmul(probs.float(), v.float()).to(hidden.dtype)
-    ctx = ctx.transpose(1, 2).reshape(b, s, width)
+    ctx = ctx.transpose(1, 2).reshape(b, s, heads * d)
     return _attn_epilogue(p, cfg, ctx, hidden, deterministic, seed_out)
 
 
@@ -686,8 +746,10 @@ def attention_apply(
     a ``ChainedBiasContext`` (training) it returns ``(out,
     ChainedBiasContext(bias passed through))``; a ``TrainBiasContext``
     (training) runs the table-gradient attention, a ``FusedBiasContext``
-    (inference) the attention that builds the bias in the kernel."""
-    heads = cfg.num_attention_heads
+    (inference) the attention that builds the bias in the kernel. Under a
+    model axis every path runs this rank's heads (the bias and the tables
+    hold only their columns)."""
+    heads = local_heads(cfg, model_parallel(p))
     if attn_bias is None:
         return _attention_no_bias(p, cfg, hidden, deterministic, seed_attn, seed_out)
     if isinstance(attn_bias, ChainedBiasContext):
@@ -712,18 +774,18 @@ def attention_apply(
         else:
             ctx = flash_attention_packed(qp, kp, vp, attn_bias, heads)
         return _attn_epilogue(p, cfg, ctx.to(hidden.dtype), hidden, deterministic, seed_out)
-    b, s, width = hidden.shape
+    b, s, _ = hidden.shape
 
     def split(x):  # (B, S, H*D) -> a (B, H, S, D) view, no copy
         return x.view(b, s, heads, cfg.head_dim).transpose(1, 2)
 
     c = attn_bias
     ctx = fused_bias_attention(
-        split(p.query(hidden)), split(p.key(hidden)), split(p.value(hidden)),
+        *(split(x) for x in _qkv(p, hidden)),
         c.position_ids, c.cx, c.cy, c.mask, c.t1, c.tx, c.ty, **bucket_kwargs(cfg),
     )
     # the kernel writes q's layout, so this is a view of (B, S, H, D)
-    ctx = ctx.transpose(1, 2).reshape(b, s, width).to(hidden.dtype)
+    ctx = ctx.transpose(1, 2).reshape(b, s, heads * cfg.head_dim).to(hidden.dtype)
     return _attn_epilogue(p, cfg, ctx, hidden)
 
 
@@ -736,14 +798,18 @@ def encoder_layer_apply(
     seeds: Optional[Tuple[Optional[int], ...]] = None,
 ):
     """One layer; ``seeds`` are the (attention, attention-output, MLP-output)
-    dropout seeds. Returns ``(out, ChainedBiasContext)`` when chained."""
+    dropout seeds. Returns ``(out, ChainedBiasContext)`` when chained. Under
+    a model axis the MLP is Megatron's: ``intermediate`` column parallel,
+    ``output`` row parallel (``parallel/layers.py``)."""
     r = seeds or (None, None, None)
     attn_out = attention_apply(p.attention, cfg, hidden, attn_bias, deterministic, r[0], r[1])
     chained = None
     if isinstance(attn_bias, ChainedBiasContext):
         attn_out, chained = attn_out
-    inter = gelu_exact(p.intermediate(attn_out))
-    out = dropout(p.output(inter), cfg.hidden_dropout_prob, deterministic, r[2])
+    mesh = model_parallel(p)
+    inter = gelu_exact(column_parallel(p.intermediate, attn_out, mesh))
+    out = dropout(row_parallel(p.output, inter, mesh), cfg.hidden_dropout_prob, deterministic,
+                  r[2])
     out = p.output_LayerNorm(out + attn_out)
     return out if chained is None else (out, chained)
 
@@ -789,7 +855,8 @@ def encoder_apply(
     taps = []
     for start in range(0, len(layers), fold):
         group = layers[start:start + fold]
-        seeds = [(rng.next(), rng.next(), rng.next()) if rng else None for _ in group]
+        seeds = [(rng.next_attention(), rng.next(), rng.next()) if rng else None
+                 for _ in group]
         if remat:
             params = [dict(layer.named_parameters()) for layer in group]
             hidden, attn_bias, group_taps = checkpoint(
@@ -890,7 +957,7 @@ def backbone_apply(
     (``attention_apply``), which is differentiable. Inference with
     ``MMEE_FUSED_BIAS=1`` builds no bias tensor; the fused attention has no
     backward, so it is taken only when deterministic with autograd off."""
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     b, s_t = input_ids.shape
     if attention_mask is None:
         attention_mask = torch.ones((b, s_t), dtype=torch.int32, device=input_ids.device)
@@ -948,7 +1015,7 @@ def forward_image_classification(
     """Image-only ViT-style classification (the reference's ``dit`` model,
     EE/configs.py:429-449): patch embedding + an encoder with no bias (its
     attention composed of torch ops) + the classifier on [CLS]."""
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     vis_emb = embed_vision(p.visual, cfg, pixel_values)
     final, _ = encoder_apply(p.encoder, cfg, vis_emb, None, collect_cls=False,
                              deterministic=deterministic, rng=rngs)
@@ -969,7 +1036,7 @@ def forward_text_classification(
     1D relative bias (``make_attention_bias``; the spatial tables are zero
     when the config has none) + the classifier on [CLS]. ``bbox`` defaults
     to zeros (no layout signal)."""
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     b, s = input_ids.shape
     dev = input_ids.device
     if bbox is None:
@@ -1000,6 +1067,6 @@ def forward_sequence_classification(
     (parity: LayoutLMv3ForSequenceClassification.forward)."""
     out = backbone_apply(p, cfg, input_ids, bbox, pixel_values, attention_mask,
                          deterministic=deterministic, rng=rng, collect_cls=False)
-    rngs = RngStream(None if deterministic else rng)
+    rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     return classifier_apply(p.classifier, cfg, out.last_hidden_state[:, 0, :],
                             deterministic, rngs)

@@ -44,6 +44,20 @@ MODEL_NAMES = (
 )
 
 
+def model_towers(name: str) -> Tuple[bool, bool]:
+    """(text tower, visual tower): which towers the ``EEModel`` that
+    ``build_model`` makes for ``name`` holds."""
+    return name not in ("dit", "dit_rvl"), name != "bert"
+
+
+def splits_over_model_axis(name: str) -> bool:
+    """Whether the model ``name`` builds can split over a model axis above
+    1: an ``EEModel`` with both towers, which is what
+    ``parallel.sharding.tensor_parallel_model`` asks of a built model."""
+    return name in MODEL_NAMES and name not in ("layoutlmv2", "pix2struct") \
+        and all(model_towers(name))
+
+
 def _backbone_config(
     cfg, num_labels: int, image_size: Optional[int], seq_len: Optional[int]
 ) -> LayoutLMv3Config:
@@ -312,8 +326,9 @@ def build_model(
         # allocate only the tower they use (EE/configs.py:429-449, 482-493)
         exit_cfg = ExitConfig(exits=())
     model_cfg = EEModelConfig(backbone=bb, exit=exit_cfg)
+    with_text, with_vision = model_towers(name)
     model = init_ee_params(model_cfg, generator, device="cpu",
-                           with_text=name not in ("dit", "dit_rvl"), with_vision=name != "bert")
+                           with_text=with_text, with_vision=with_vision)
 
     weights = getattr(cfg, "model_weights", "") or ""
     if weights and bb.input_size == 224 and getattr(cfg, "model_size", "base") == "base":

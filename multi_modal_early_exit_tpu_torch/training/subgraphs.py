@@ -15,7 +15,7 @@ list exactly its own layers and heads.
 
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,16 +27,19 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelCon
 BIAS_TABLES = ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")
 
 
-def _count(module) -> int:
-    if module is None:
-        return 0
-    if isinstance(module, torch.Tensor):
-        return module.numel()
-    return sum(p.numel() for p in module.parameters())
+def subgraph_param_counts(model: EEModel, cfg: EEModelConfig,
+                          numel: Optional[Dict[int, int]] = None) -> np.ndarray:
+    """(E,) parameter count of each exit's compute subgraph, canonical order.
+    ``numel`` (``id(parameter)`` -> count; ``parallel.sharding.full_numels``
+    under a mesh) replaces a parameter's own element count."""
+    numel = numel or {}
 
+    def _count(module) -> int:
+        if module is None:
+            return 0
+        params = [module] if isinstance(module, torch.Tensor) else module.parameters()
+        return sum(numel.get(id(p), p.numel()) for p in params)
 
-def subgraph_param_counts(model: EEModel, cfg: EEModelConfig) -> np.ndarray:
-    """(E,) parameter count of each exit's compute subgraph, canonical order."""
     bb = model.backbone
     text, vision, concat_ln = _count(bb.embeddings), _count(bb.visual), _count(bb.LayerNorm)
     enc = bb.encoder

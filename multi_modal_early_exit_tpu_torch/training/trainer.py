@@ -16,7 +16,15 @@ package's ``training/trainer.py`` (optax + jit there, eager PyTorch here).
   weights stay f32;
 - a dense config without ``.exit`` (``LayoutLMv2Config``) trains with its
   cross-entropy (``layoutlmv2.modeling.sequence_classification_loss``), and
-  ``evaluate`` reads a single-row (1, B, K) store.
+  ``evaluate`` reads a single-row (1, B, K) store;
+- under a ``parallel.mesh.Mesh`` (``EETrainer(..., mesh=...)``) each rank
+  computes on its rows and its parameter shards, and the step does by hand
+  what the JAX package's GSPMD step does: it averages every gradient over
+  the data group, sums the three relative-position tables' gradients over
+  the model group (each model rank reaches only its heads' columns), takes
+  the entropyreg statistics and the clipping norm over the whole mesh, and
+  weights the exits by the unsharded parameter counts. At dropout rate 0 a
+  step under any mesh is the single-device step, to reduction order.
 """
 
 from __future__ import annotations
@@ -32,8 +40,15 @@ from multi_modal_early_exit_tpu_torch.device import resolve_device
 from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
 from multi_modal_early_exit_tpu_torch.ops.criteria import entropy as entropy_fn
+from multi_modal_early_exit_tpu_torch.parallel.layers import (
+    all_reduce,
+    all_reduce_many,
+    broadcast_many,
+)
+from multi_modal_early_exit_tpu_torch.parallel.sharding import _spec_for, full_numels, shard_model
 from multi_modal_early_exit_tpu_torch.training.losses import batch_to_device, ee_loss_fn
 from multi_modal_early_exit_tpu_torch.training.subgraphs import (
+    BIAS_TABLES,
     apply_entropyreg,
     exit_loss_weights,
     subgraph_param_counts,
@@ -136,19 +151,34 @@ class AdamWBf16Mu(torch.optim.Optimizer):
 
 @dataclasses.dataclass
 class Optimizer:
-    """AdamW over the trainable parameters, its schedule and clipping."""
+    """AdamW over the trainable parameters, its schedule and clipping. Under
+    a ``mesh`` the parameters are this rank's shards and the clipping norm
+    is the global one: the squares of the split parameters summed over the
+    model group, the replicated ones counted once."""
 
     adamw: torch.optim.Optimizer
     params: Dict[str, torch.nn.Parameter]  # the trainable ones, by name
     schedule: Callable[[int], float]
     max_grad_norm: float
     step: int = 0
+    mesh: Any = None
+
+    def _global_norm(self, gs) -> torch.Tensor:
+        squares = [g.to(torch.float32).square().sum() for g in gs]
+        mesh = self.mesh
+        if mesh is None or mesh.model_size == 1:
+            return torch.sqrt(sum(squares))
+        split = [_spec_for(n, p.ndim) is not None for n, p in self.params.items()]
+        replicated = sum(s for s, sp in zip(squares, split) if not sp)
+        sharded = all_reduce(sum(s for s, sp in zip(squares, split) if sp),
+                             mesh.model_group, mesh.model_size)
+        return torch.sqrt(replicated + sharded)
 
     def apply(self, grads: Dict[str, torch.Tensor]) -> None:
         """One update from ``grads`` (by name; only trainable names are read)."""
         gs = [grads[n] for n in self.params]
         if self.max_grad_norm > 0:
-            norm = torch.sqrt(sum(g.to(torch.float32).square().sum() for g in gs))
+            norm = self._global_norm(gs)
             gs = [torch.where(norm < self.max_grad_norm, g, g / norm * self.max_grad_norm)
                   for g in gs]
         for p, g in zip(self.params.values(), gs):
@@ -174,11 +204,13 @@ def make_optimizer(
     args: TrainingArguments,
     total_steps: int,
     freeze_backbone: bool = False,
+    mesh=None,
 ) -> Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay) with the
     linear schedule, its first moment in bf16 with ``bf16_momentum``
     (``AdamWBf16Mu``); ``freeze_backbone`` leaves out every parameter that
-    is not a second-stage trainable."""
+    is not a second-stage trainable. ``mesh``: the model is sharded over
+    it (the clipping norm spans the model group)."""
     params = {
         n: p for n, p in model.named_parameters()
         if not freeze_backbone or _is_trainable_two_stage(n)
@@ -188,7 +220,43 @@ def make_optimizer(
         list(params.values()), lr=args.learning_rate, betas=(0.9, 0.999),
         eps=1e-8, weight_decay=args.weight_decay,
     )
-    return Optimizer(adamw, params, linear_schedule(args, total_steps), args.max_grad_norm)
+    return Optimizer(adamw, params, linear_schedule(args, total_steps), args.max_grad_norm,
+                     mesh=mesh)
+
+
+def data_mean(x: torch.Tensor, mesh) -> torch.Tensor:
+    """The mean of ``x`` over the data group (``x`` without one)."""
+    if mesh is None or mesh.data_size == 1:
+        return x
+    return all_reduce(x, mesh.data_group, mesh.data_size) / mesh.data_size
+
+
+def reduce_gradients(grads: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The mesh's gradient reductions (the gradients unchanged without
+    one): every gradient averaged over the data group; then, over the model
+    group, the relative-position tables' gradients summed (each rank holds
+    only its heads' columns) and every other replicated gradient taken from
+    the group's first rank, so the replicas stay bit-identical whatever
+    order a device's own reductions take."""
+    if mesh is None:
+        return grads
+    names = list(grads)
+    vals = [grads[n] for n in names]
+    if mesh.data_size > 1:
+        vals = [v / mesh.data_size
+                for v in all_reduce_many(vals, mesh.data_group, mesh.data_size)]
+    if mesh.model_size > 1:
+        tables = [i for i, n in enumerate(names) if n.rsplit(".", 1)[-1] in BIAS_TABLES]
+        for i, v in zip(tables, all_reduce_many([vals[i] for i in tables], mesh.model_group,
+                                                mesh.model_size)):
+            vals[i] = v
+        replicated = [i for i, n in enumerate(names)
+                      if _spec_for(n, vals[i].ndim) is None and i not in tables]
+        first = mesh.data_index * mesh.model_size  # the model group's first rank
+        for i, v in zip(replicated, broadcast_many([vals[i] for i in replicated], first,
+                                                   mesh.model_group)):
+            vals[i] = v
+    return dict(zip(names, vals))
 
 
 def make_train_step(
@@ -199,6 +267,7 @@ def make_train_step(
     compute_dtype: Optional[torch.dtype] = None,
     device=None,
     loss_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Callable:
     """The train step ``step(model, batch, rng) -> (loss, aux)``.
 
@@ -206,7 +275,13 @@ def make_train_step(
     micro-batch's gradients (entropyreg applied) are summed, divided by
     ``accum_steps`` and applied once; the loss is the micro-batch mean and
     ``aux`` the last micro-batch's. ``loss_fn`` (``ee_loss_fn`` by default,
-    the same signature) lets a dense baseline train through the same step."""
+    the same signature) lets a dense baseline train through the same step.
+
+    Under a ``mesh`` the model is sharded over it and ``batch`` holds this
+    rank's rows (``parallel.sharding.shard_batch(..., axis=1)``): the
+    entropyreg statistics are averaged over the data group before the
+    softmax, the gradients reduced by ``reduce_gradients``, and the loss is
+    the mean over the data group (the same on every rank)."""
     device = resolve_device(device)
     strategy = cfg.exit.training_strategy if hasattr(cfg, "exit") else None
     use_entropyreg = strategy is not None and strategy.uses_entropyreg
@@ -227,6 +302,7 @@ def make_train_step(
                     if aux["exit_logits"].shape[0] else aux["logits"].new_zeros((0,)),
                     entropy_fn(aux["logits"]).mean()[None],
                 ])
+                crit = data_mean(crit, mesh)
                 norm = torch.softmax(crit, dim=0) * crit.shape[0]
                 grads = apply_entropyreg(grads, cfg, 1.0 - torch.clamp(norm, max=1.0))
         return loss.detach(), {k: v.detach() if isinstance(v, torch.Tensor) else v
@@ -243,8 +319,10 @@ def make_train_step(
         if accum_steps > 1:
             grads = {n: g / accum_steps for n, g in grads.items()}
         with torch.no_grad():
+            grads = reduce_gradients(grads, mesh)
             optimizer.apply(grads)
-        return total / accum_steps, aux
+            loss = data_mean(total / accum_steps, mesh)
+        return loss, aux
 
     return train_step
 
@@ -254,7 +332,12 @@ class EETrainer:
     ``.exit``, a dense ``LayoutLMv2Model``) over batches of numpy arrays or
     tensors, on ``device`` (``cuda`` unless the caller passes ``"cpu"``;
     the model is moved there). ``train_step`` takes one (accum, micro_bs,
-    ...) batch and a CPU ``torch.Generator`` for the dropout seeds."""
+    ...) batch and a CPU ``torch.Generator`` for the dropout seeds.
+
+    With a ``mesh`` (``parallel.mesh.create_mesh``) the model is sharded
+    over it (``parallel.sharding.shard_model``, unless it already is) and
+    ``train_step`` takes this rank's rows; every rank passes a generator in
+    the same state. ``evaluate`` runs every batch whole on every rank."""
 
     def __init__(
         self,
@@ -263,9 +346,13 @@ class EETrainer:
         args: TrainingArguments,
         total_steps: int,
         device=None,
+        mesh=None,
     ):
         self.device = resolve_device(device)
-        self.cfg, self.args = cfg, args
+        self.cfg, self.args, self.mesh = cfg, args, mesh
+        if mesh is not None and getattr(model, "mesh", None) is None:
+            heads = getattr(getattr(cfg, "backbone", cfg), "num_attention_heads", None)
+            model = shard_model(model, mesh, heads)
         self.model = model.to(self.device)
         # dense configs (LayoutLMv2Config) carry no .exit: a plain CE
         # objective through the same step (the reference trains dense
@@ -277,18 +364,20 @@ class EETrainer:
             from multi_modal_early_exit_tpu_torch.models.layoutlmv2.modeling import (
                 sequence_classification_loss as loss_fn,
             )
+        # the weights of the unsharded model's parameter counts
         self.exit_weights = (
-            exit_loss_weights(subgraph_param_counts(model, cfg)).to(self.device)
+            exit_loss_weights(subgraph_param_counts(
+                model, cfg, numel=full_numels(self.model, mesh))).to(self.device)
             if strategy is not None and strategy.is_weighted else None
         )
         self.optimizer = make_optimizer(
             model, args, total_steps,
-            freeze_backbone=strategy is not None and strategy.is_two_stage,
+            freeze_backbone=strategy is not None and strategy.is_two_stage, mesh=mesh,
         )
         self._step_fn = make_train_step(
             cfg, self.optimizer, self.exit_weights, args.gradient_accumulation_steps,
             compute_dtype=torch.bfloat16 if args.bf16 else None, device=self.device,
-            loss_fn=loss_fn,
+            loss_fn=loss_fn, mesh=mesh,
         )
         self.step = 0
 

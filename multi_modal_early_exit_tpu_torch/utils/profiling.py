@@ -6,18 +6,73 @@ reference's three mechanisms (SURVEY.md §5): fvcore FLOP analysis ->
 FlopCounterMode`` over one call; on the card also its bytes and peak from
 ``torch.cuda``'s memory statistics); the wall-clock ``runtime_wrapper`` and
 ``DeviceTimer`` (each call synchronised with the card); per-layer hooks ->
-``profile_trace`` (``torch.profiler``, a Chrome trace).
+``profile_trace`` (``torch.profiler``, a Chrome trace). ``launch_counts``
+reads the kernel wrappers' launch counters, and ``write_launch_counts``
+writes a process's counts to ``<dir>/launches-rank<R>.json``, so that a
+multi-process run's counts can be summed.
 """
 
 from __future__ import annotations
 
 import contextlib
 import functools
+import json
 import os
 import time
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional
 
 import torch
+
+
+def kernel_wrappers() -> Dict[str, Callable]:
+    """The wrappers that count their kernels' launches (``fn.launches``),
+    by kernel name (the head-form pair under their wrappers' names)."""
+    from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
+    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+
+    return {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
+            "fused_bias_attention": fba.fused_bias_attention,
+            "flash_attention_packed": fa.flash_attention_packed,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd": fa.flash_attention_bwd,
+            "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
+            "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
+            "flash_attention_packed_train_tables_bwd":
+                fa.flash_attention_packed_train_tables_bwd,
+            "split_bf16x3": fa.split_bf16x3}
+
+
+def launch_counts(reset: bool = False) -> Dict[str, int]:
+    """Each kernel's launches in this process so far; ``reset`` sets the
+    counters to 0 after reading them."""
+    out = {}
+    for name, fn in kernel_wrappers().items():
+        out[name] = fn.launches
+        if reset:
+            fn.launches = 0
+    return out
+
+
+def write_launch_counts(directory: str, rank: Optional[int] = None) -> str:
+    """This process's ``launch_counts()`` into ``<directory>/launches-rank<R>.json``
+    (``R``: ``rank``, else the ``RANK`` variable, else 0); returns the path."""
+    rank = int(os.environ.get("RANK", 0)) if rank is None else rank
+    path = os.path.join(directory, f"launches-rank{rank}.json")
+    with open(path, "w") as f:
+        json.dump(launch_counts(), f)
+    return path
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside do not count: the counters are set back to their
+    values on entry (for calls that only check a kernel against another)."""
+    saved = launch_counts()
+    try:
+        yield
+    finally:
+        for name, fn in kernel_wrappers().items():
+            fn.launches = saved[name]
 
 
 def runtime_wrapper(fn: Callable) -> Callable:

@@ -112,13 +112,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((ROOT / "multi_modal_early_exit_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 15
-    # the command-line path's, the variants', the engine's and profiling's among them
+    # the command-line path's, the variants', the engine's, profiling's and the
+    # parallel layer's among them
     assert {"cli/train.py", "cli/evaluate.py", "cli/research.py", "config/experiment.py",
             "models/registry.py", "training/checkpoint.py", "utils/seeding.py",
             "utils/wandb_compat.py", "evaluation/plots.py",
             "evaluation/operating_points.py", "models/layoutlmv2/config.py",
             "models/layoutlmv2/modeling.py", "models/layoutlmv2/convert.py",
-            "models/ee/engine.py", "utils/profiling.py"} <= {
+            "models/ee/engine.py", "utils/profiling.py", "parallel/mesh.py",
+            "parallel/sharding.py", "parallel/multihost.py", "parallel/kernels.py",
+            "parallel/layers.py", "parallel/dryrun.py"} <= {
         p.relative_to(ROOT / "multi_modal_early_exit_tpu_torch").as_posix() for p in files[:-1]}
     for path in files:
         for mod in _imported_modules(path):
