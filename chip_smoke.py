@@ -226,16 +226,16 @@ Phases, each reported on its own line:
    row) with model rank 1's columns of the tables (#1, #2, #7, #8, #4), and
    9d's second stage, 4 documents at 12 heads (#1, #2). 9a a world of one
    rank on NCCL: 2 ``EETrainer`` steps (phase 5's model and batches) under
-   a (1, 1) mesh, bit-equal to 2 with no mesh; 9b four gloo ranks:
+   a (1, 1) mesh, bit-equal to 2 with no mesh; then one launch of
+   ``python -m torch.distributed.run --standalone --nproc-per-node 4
+   chip_smoke.py --mesh-cli-rank DIR with mesh_shape=2,2 device=cuda:0 ...``
+   with ``MMEE_DIST_BACKEND=gloo`` (``mesh_cli_rank``), four gloo ranks on
+   the world and mesh ``cli.train`` sets up, for 9b and 9c: 9b
    ``sharded_flash_attention`` (B 16, H 12, S = P 768, D 64, an f32 bias)
    at mesh (2, 2) in bf16 and f32 and (4, 1) in bf16: at rate 0 each rank's
    output and gradients bit-equal to the unsharded kernels' block (#5, #6),
    at rate 0.1 within phase 3's tolerances of the plain version at the
-   shard's seed; 3 steps at (2, 2); 9c one launch of
-   ``python -m torch.distributed.run --standalone --nproc-per-node 4
-   chip_smoke.py --mesh-cli-rank DIR with mesh_shape=2,2 device=cuda:0 ...``
-   with ``MMEE_DIST_BACKEND=gloo`` (``mesh_cli_rank``): on the world and
-   mesh ``cli.train`` sets up, phase 5's gradient check (2 documents
+   shard's seed; 3 steps at (2, 2); 9c phase 5's gradient check (2 documents
    through the CLI's ``step_batch`` and ``EETrainer``'s step, 6 heads a
    rank) against phase 5's f32 CPU reference (``GRAD_LIMITS`` and the
    relative L2), then ``cli.train.main`` (1 + 3 steps) and its resume from
@@ -255,8 +255,28 @@ Phases, each reported on its own line:
    rank (torchrun sets the rank); with no arguments the script runs every
    phase.
 
+10. the rest of the public surface (after phase 9), imported only through
+   the package root and the sub-packages' ``__init__``s, on phase 5's model
+   and documents (phase 4's configuration, random weights from seed 0):
+   10a ``ee_forward(collect_hidden=True, seq_pad_multiple=128)`` in bf16 at
+   batch 16, its logits, exit logits and criteria bit-equal to the call
+   without it, ``backbone_apply(collect_hidden=True).hidden_per_layer[-1]``
+   bit-equal to its ``last_hidden_state``, 1 ``materialize_bias`` and 12
+   ``flash_attention_packed`` launches a call; the f32 model on 2 documents
+   against the f32 plain path on the CPU, every layer's state within atol
+   5e-4 / rtol 1e-3, the policy logits within atol 2e-4 / rtol 1e-3; 10b
+   one bf16 step of two ``EETrainer``s from one state, one given every
+   ``TrainingArguments`` field (``SURFACE_ARGS``), bit-equal losses and
+   parameters and phase 5's launches; 10c the HF exporter's round trip on
+   the bf16 card model, bit-equal, the importer reading exactly the keys
+   the exporter wrote; 10d ``prefetch_to_device(buffer_size=k)`` for k = 1,
+   2, 3 giving the same batches, ``native.sweep.available()``, and
+   ``cli.train`` and ``EETrainer`` refusing ``dit``, ``dit_rvl`` and
+   ``bert``, named, before any launch. Prints a ``{"public_surface": ...}``
+   line with the readings and the phase's seconds by part.
+
 Every phase runs with MMEE_CHAINED_DBIAS and MMEE_LAYERS_PER_STEP unset and
-phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6, 7, 8 and 9 with the two bias switches unset, whatever the
+phases 4, 4f, 4t, 5, 5c, 5d, 5f, 6, 7, 8, 9 and 10 with the two bias switches unset, whatever the
 environment says; 4b and 5b set theirs and restore it.
 
 The next-to-last line is a JSON object with one entry per kernel (its
@@ -3160,7 +3180,7 @@ def phase_engine(card: str, kept):
 
 
 # phase 9: the parallel layer on one card (several ranks share it)
-MESH_TIMEOUT = 240  # seconds for each world of ranks and the torchrun launch
+MESH_TIMEOUT = 300  # seconds for each world of ranks and the torchrun launch
 MESH_COLLECTIVE_TIMEOUT = 60  # seconds for each collective of cli.train's ranks
 # phase 9b's cases: (mesh, dtype); the (4, 1) mesh's blocks differ from
 # (2, 2)'s in the batch alone, which the bf16 cases cover
@@ -3175,7 +3195,9 @@ CLI_MESH = ["with", "model_size=base", "dataset=synthetic_rvl_cdip", "model_weig
 # per rank and step of cli.train under (2, 2): 6 heads of 64 in 12 layers
 CLI_MESH_STEP = {"table_grads": 2, "flash_attention_packed_train": 12,
                  "flash_attention_packed_train_bwd": 24}
-CLI_MESH_PARTS = ("gate", "train", "resume")  # what each rank of 9c's launch runs, in turn
+# what each rank of 9c's launch runs, in turn: 9b's sharded head-form
+# attention and (2, 2) steps, then the gradient gate, cli.train and its resume
+CLI_MESH_PARTS = ("9b", "9b-steps", "gate", "train", "resume")
 SERVE_CAPACITIES = (8, 4)  # phase 9d's per-shard capacities (shards of 8)
 
 
@@ -3199,15 +3221,20 @@ def summed(counts: dict) -> dict:
 
 
 def mesh_cli_rank(directory: str, argv) -> int:
-    """One rank of phase 9c's torchrun launch (``chip_smoke.py --mesh-cli-rank
+    """One rank of phase 9's torchrun launch (``chip_smoke.py --mesh-cli-rank
     DIR with ...``, from the directory the run writes into). On the world
     and mesh that ``cli.train`` sets up (``setup_mesh``) it runs, in turn:
-    gate, phase 5's gradient check (``DIR/gate.pkl``: the dropout-0 config,
-    2 documents) through the CLI's batch glue (``step_batch``) and
+    9b, the jobs of ``DIR/9b.pkl`` (``dryrun.run_jobs``: the sharded
+    head-form attention cases), their results into ``DIR/9b-out-rank<R>.pkl``;
+    9b-steps, ``dryrun.job_step_timing`` at (2, 2) on ``DIR/9b.pkl``'s config
+    and batches, its reading into ``DIR/9b-steps-out-rank<R>.pkl``; gate,
+    phase 5's gradient check (``DIR/gate.pkl``: the dropout-0 config, 2
+    documents) through the CLI's batch glue (``step_batch``) and
     ``EETrainer``'s step with the optimizer's update replaced by a capture,
     the gathered gradients, loss and exit weights into ``DIR/gate-out.pkl``
     (rank 0); train, ``cli.train.main(argv + ["epochs=1"])``; resume, the
-    same from its checkpoint-0 with ``epochs=2``. Each part's launch counts
+    same from its checkpoint-0 with ``epochs=2``. The base model is built
+    once, from seed 0, for 9b-steps and the gate. Each part's launch counts
     go to ``DIR/<part>/launches-rank<R>.json``, and rank 0 writes the
     wall-clock time at each part's end into ``DIR/times.json``."""
     import glob
@@ -3217,7 +3244,7 @@ def mesh_cli_rank(directory: str, argv) -> int:
 
     from multi_modal_early_exit_tpu_torch.cli import train
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
-    from multi_modal_early_exit_tpu_torch.parallel.dryrun import numpy_state
+    from multi_modal_early_exit_tpu_torch.parallel import dryrun
     from multi_modal_early_exit_tpu_torch.parallel.sharding import gather_params
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
     from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts, write_launch_counts
@@ -3226,15 +3253,24 @@ def mesh_cli_rank(directory: str, argv) -> int:
     mesh, device = train.setup_mesh(train.parse_cli(argv))
     times["world"] = time.time()
 
-    def done(part):
+    def done(part, result=None):
         os.makedirs(os.path.join(directory, part), exist_ok=True)
         write_launch_counts(os.path.join(directory, part), mesh.rank)
         launch_counts(reset=True)
+        if result is not None:
+            with open(os.path.join(directory, f"{part}-out-rank{mesh.rank}.pkl"), "wb") as f:
+                pickle.dump(result, f)
         times[part] = time.time()
 
+    with open(os.path.join(directory, "9b.pkl"), "rb") as f:
+        sharded = pickle.load(f)
+    done("9b", dryrun.run_jobs(device, sharded["jobs"]))
     with open(os.path.join(directory, "gate.pkl"), "rb") as f:
         gate = pickle.load(f)
     model = init_ee_params(gate["cfg"], torch.Generator().manual_seed(0), device="cpu")
+    done("9b-steps", dryrun.job_step_timing(device, (2, 2), sharded["cfg"], sharded["args"],
+                                            sharded["batches"], state=model.state_dict()))
+    torch.cuda.empty_cache()
     trainer = EETrainer(gate["cfg"], model, TrainingArguments(bf16=True, learning_rate=2e-5), 10,
                         device=device, mesh=mesh)
     grads = {}
@@ -3244,7 +3280,7 @@ def mesh_cli_rank(directory: str, argv) -> int:
     if mesh.rank == 0:
         with open(os.path.join(directory, "gate-out.pkl"), "wb") as f:
             weights = trainer.exit_weights
-            pickle.dump({"loss": loss, "grads": numpy_state(full),
+            pickle.dump({"loss": loss, "grads": dryrun.numpy_state(full),
                          "weights": None if weights is None else weights.cpu().numpy()}, f)
     del model, trainer, grads, full
     torch.cuda.empty_cache()
@@ -3313,12 +3349,12 @@ def phase_mesh(card: str, trained):
     a (2, 2) rank's training batch (8 documents, 6 heads, its tables'
     columns) and 9d's second stage (4 documents, 12 heads). 9a a world of
     one on NCCL: ``EETrainer`` steps under a (1, 1) mesh bit-equal to those
-    with no mesh; 9b (4 gloo ranks) the sharded head-form attention at (2,
-    2) in bf16 and f32 and at (4, 1) in bf16: rate 0 bit-equal to the
+    with no mesh; then one torchrun launch of 4 gloo ranks
+    (``mesh_cli_rank``) for 9b and 9c: 9b the sharded head-form attention at
+    (2, 2) in bf16 and f32 and at (4, 1) in bf16: rate 0 bit-equal to the
     unsharded kernels' blocks (#5 and #6), rate 0.1 against the plain
-    version at each shard's seed; the (2, 2) steps' seconds; 9c one torchrun
-    launch of 4 ranks (``mesh_cli_rank``): the (2, 2) gradients of 2
-    documents, through ``cli.train``'s mesh and batch glue, against phase
+    version at each shard's seed; the (2, 2) steps' seconds; 9c the (2, 2)
+    gradients of 2 documents, through ``cli.train``'s mesh and batch glue, against phase
     5's f32 CPU reference (``GRAD_LIMITS``), then ``cli.train`` under (2, 2),
     1 + 3 steps, and its resume from checkpoint-0, whose checkpoint loads on
     one device; 9d (2 gloo ranks) the cascade per shard at capacities (8,
@@ -3343,7 +3379,7 @@ def phase_mesh(card: str, trained):
     cfg, model32, args = trained["cfg"], trained["model32"], dataclasses.asdict(trained["args"])
     batches = [{k: v.cpu().numpy() for k, v in b.items()} for b in trained["batches"][:3]]
     tmp = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
-    dirs = {k: os.path.join(tmp, k) for k in ("9a", "9b", "9b-steps", "9c", "9d")}
+    dirs = {k: os.path.join(tmp, k) for k in ("9a", "9c", "9d")}
     for d in dirs.values():
         os.makedirs(d)
     try:
@@ -3378,52 +3414,15 @@ def phase_mesh(card: str, trained):
               f"(EE LayoutLMv3-base, bf16, dropout 0.1, batch 16): {unit_s} s under the mesh, "
               f"{r['seconds']['single']} s without, on {card}")
 
-        # 9b (and the (2, 2) steps): 4 gloo ranks on this card
+        # 9b and 9c: one torchrun launch of 4 gloo ranks on this card: 9b's
+        # sharded head-form attention and (2, 2) steps, then the gradient
+        # check through cli.train's mesh and batch glue, cli.train, and its
+        # resume
         jobs = [(f"hf-{shape[0]}x{shape[1]}-{dt}-{rate}", "job_sharded_headform",
                  dict(shape=shape, dtype=dt, rate=rate))
                 for shape, dt in MESH_CASES for rate in (0.0, TRAIN_RATE)]
-        jobs.append(("launches-9b", "job_launches", dict(directory=dirs["9b"], reset=True)))
-        jobs.append(("steps", "job_step_timing", dict(shape=(2, 2), cfg=cfg, args=args,
-                                                      batches=batches)))
-        jobs.append(("launches-steps", "job_launches", dict(directory=dirs["9b-steps"])))
-        t0 = time.perf_counter()
-        ranks = dryrun.spawn_world(4, dryrun.run_jobs, jobs, backend="gloo", device="cuda:0",
-                                   timeout=MESH_TIMEOUT, threads=2)
-        seconds["9b"] = time.perf_counter() - t0
-        read = {}
-        for key, _, kw in jobs:
-            if not key.startswith("hf-"):
-                continue
-            f32 = kw["dtype"] == "float32"
-            for rank, res in enumerate(ranks):
-                got = res[key]
-                if kw["rate"] == 0.0:
-                    check(all(got["equal"].values()), f"9b {key} rank {rank}: not bit-equal "
-                          f"to the unsharded kernels: {got['equal']}")
-                else:
-                    limit = F32_BAR if f32 else 2e-2
-                    check(all(e <= limit for e in got["errors"].values()),
-                          f"9b {key} rank {rank}: errors over scale {got['errors']} > {limit}")
-                    read[key] = max(read.get(key, 0.0), max(got["errors"].values()))
-        hf = {k: v for k, v in summed(rank_launches(dirs["9b"])).items() if v}
-        check(hf.get("flash_attention_fwd", 0) > 0 and hf.get("flash_attention_bwd", 0) > 0,
-              f"9b launched {hf}")
-        steps22 = ranks[0]["steps"]
-        losses = [res["steps"]["loss"] for res in ranks]
-        check(all(x == losses[0] and math.isfinite(x) for x in losses),
-              f"9b: the (2, 2) ranks' losses {losses}")
-        errors = json.dumps({k: f"{v:.2e}" for k, v in read.items()})
-        print(f"9b: sharded_flash_attention (B 16, H 12, S = P 768, D 64, f32 bias) in cases "
-              f"{[(list(s), d) for s, d in MESH_CASES]}: at rate 0 every rank's output, dq, dk, "
-              f"dv and dbias bit-equal to the unsharded kernels' block; at rate {TRAIN_RATE} the "
-              f"largest error over scale by case {errors} "
-              f"(tol 2e-2 bf16, {F32_BAR} f32) against the plain version at each shard's seed; "
-              f"launches over the 4 ranks before the steps {hf}; the world's call "
-              f"{seconds['9b']:.1f} s, on {card}")
-        del ranks
-
-        # 9c: one torchrun launch of 4 ranks: the gradient check through
-        # cli.train's mesh and batch glue, cli.train, and its resume
+        with open(os.path.join(dirs["9c"], "9b.pkl"), "wb") as f:
+            pickle.dump({"jobs": jobs, "cfg": cfg, "args": args, "batches": batches}, f)
         rates0 = dict(hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
                       classifier_dropout=0.0)
         with open(os.path.join(dirs["9c"], "gate.pkl"), "wb") as f:
@@ -3438,8 +3437,51 @@ def phase_mesh(card: str, trained):
         marks = [("start-up", launched, at["start"]), ("world", at["start"], at["world"])]
         marks += [(p, at[a], at[p]) for a, p in zip(("world",) + CLI_MESH_PARTS, CLI_MESH_PARTS)]
         marks.append(("exit", at["resume"], ended))
-        seconds["9c"] = ended - launched
+        seconds["9b+9c"] = ended - launched
         seconds.update({f"9c {name}": b - a for name, a, b in marks})
+
+        def rank_outputs(part):
+            out = []
+            for rank in range(4):
+                with open(os.path.join(dirs["9c"], f"{part}-out-rank{rank}.pkl"), "rb") as f:
+                    out.append(pickle.load(f))
+            return out
+
+        ranks = rank_outputs("9b")
+        read = {}
+        for key, _, kw in jobs:
+            f32 = kw["dtype"] == "float32"
+            for rank, res in enumerate(ranks):
+                got = res[key]
+                if kw["rate"] == 0.0:
+                    check(all(got["equal"].values()), f"9b {key} rank {rank}: not bit-equal "
+                          f"to the unsharded kernels: {got['equal']}")
+                else:
+                    limit = F32_BAR if f32 else 2e-2
+                    check(all(e <= limit for e in got["errors"].values()),
+                          f"9b {key} rank {rank}: errors over scale {got['errors']} > {limit}")
+                    read[key] = max(read.get(key, 0.0), max(got["errors"].values()))
+        hf = {k: v for k, v in summed(rank_launches(os.path.join(dirs["9c"], "9b"))).items()
+              if v}
+        check(hf.get("flash_attention_fwd", 0) > 0 and hf.get("flash_attention_bwd", 0) > 0,
+              f"9b launched {hf}")
+        steps = rank_outputs("9b-steps")
+        steps22 = steps[0]
+        losses = [res["loss"] for res in steps]
+        check(all(x == losses[0] and math.isfinite(x) for x in losses),
+              f"9b: the (2, 2) ranks' losses {losses}")
+        errors = json.dumps({k: f"{v:.2e}" for k, v in read.items()})
+        print(f"9b, in the torchrun launch's ranks before 9c: sharded_flash_attention (B 16, H "
+              f"12, S = P 768, D 64, f32 bias) in cases "
+              f"{[(list(s), d) for s, d in MESH_CASES]}: at rate 0 every rank's output, dq, dk, "
+              f"dv and dbias bit-equal to the unsharded kernels' block; at rate {TRAIN_RATE} the "
+              f"largest error over scale by case {errors} "
+              f"(tol 2e-2 bf16, {F32_BAR} f32) against the plain version at each shard's seed; "
+              f"launches over the 4 ranks before the steps {hf}; "
+              f"{seconds['9c 9b']:.1f} s, then 3 steps at (2, 2) {seconds['9c 9b-steps']:.1f} s, "
+              f"on {card}")
+        del ranks, steps
+
         with open(os.path.join(dirs["9c"], "gate-out.pkl"), "rb") as f:
             gate = pickle.load(f)
         check(np.array_equal(gate["weights"], trained["weights"].numpy()),
@@ -3459,7 +3501,7 @@ def phase_mesh(card: str, trained):
         run_dir = os.path.join(work, "save", os.listdir(os.path.join(work, "save"))[0])
         check(sorted(os.listdir(run_dir)) == ["checkpoint-0", "checkpoint-1"],
               f"cli.train under (2, 2) wrote {sorted(os.listdir(run_dir))}")
-        for part in CLI_MESH_PARTS[1:]:
+        for part in ("train", "resume"):
             per_rank = rank_launches(os.path.join(dirs["9c"], part))
             check(sorted(per_rank) == [0, 1, 2, 3], f"launch counts of ranks {sorted(per_rank)}")
             for rank, counts in per_rank.items():
@@ -3481,11 +3523,12 @@ def phase_mesh(card: str, trained):
               "the mesh checkpoint's Pipeline served malformed results")
         split = ", ".join(f"{k[3:]} {v:.1f}" for k, v in seconds.items() if k.startswith("9c "))
         print(f"9c: torchrun --nproc-per-node 4 chip_smoke.py --mesh-cli-rank (gloo, 4 ranks on "
-              f"cuda:0): cli.train with mesh_shape=2,2 (EE LayoutLMv3-base, bf16, batch 16, 8 "
-              f"documents a data shard, 6 heads a model shard), 1 + 3 steps, then its resume "
-              f"from checkpoint-0 (4 more steps) in the same ranks; per rank and step "
-              f"{CLI_MESH_STEP}; checkpoint-1 loads on one device (strict) and serves through "
-              f"Pipeline.from_checkpoint; the launch {seconds['9c']:.1f} s ({split}); on {card}")
+              f"cuda:0): 9b's parts, then cli.train with mesh_shape=2,2 (EE LayoutLMv3-base, "
+              f"bf16, batch 16, 8 documents a data shard, 6 heads a model shard), 1 + 3 steps, "
+              f"then its resume from checkpoint-0 (4 more steps) in the same ranks; per rank and "
+              f"step {CLI_MESH_STEP}; checkpoint-1 loads on one device (strict) and serves "
+              f"through Pipeline.from_checkpoint; the launch {seconds['9b+9c']:.1f} s ({split}); "
+              f"on {card}")
         del one, state, pipe
 
         # 9d: the cascade per shard, 2 ranks, capacities (8, 4), and the (2, 1) steps
@@ -3553,13 +3596,230 @@ def phase_mesh(card: str, trained):
               f"{json.dumps({k: round(v, 1) for k, v in seconds.items()})}, on {card}")
         counts = {i: summed(rank_launches(os.path.join(dirs["9c"], p)))
                   for i, p in enumerate(CLI_MESH_PARTS)}
-        counts.update({k: summed(rank_launches(dirs[k])) for k in ("9a", "9b", "9b-steps", "9d")})
+        counts.update({k: summed(rank_launches(dirs[k])) for k in ("9a", "9d")})
         total = summed(counts)
         for name in MESH_KERNELS:
             check(total.get(name, 0) > 0, f"{name} was never launched under a mesh in phase 9")
         return total
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# phase 10: the rest of the public surface, at phase 4's configuration
+SURFACE_PAD = 128  # 10a's seq_pad_multiple: 709 tokens padded to 768
+HIDDEN_BAR = (5e-4, 1e-3)  # the north star's hidden-state bar (tests/test_golden_base.py:78)
+# phase 5's settings as bench.py:250 passes them, every field given, the
+# eight the train step does not read away from their defaults
+SURFACE_ARGS = dict(learning_rate=2e-5, num_epochs=3, train_batch_size=B, eval_batch_size=4,
+                    gradient_accumulation_steps=1, weight_decay=0.0, warmup_ratio=0.0,
+                    max_grad_norm=0.0, alpha=0.5, temperature=2.0, gamma=0.3, seed=7,
+                    log_every=1, bf16=True, bf16_momentum=False)
+SINGLE_TOWER = ("dit", "dit_rvl", "bert")
+
+
+def hidden_err(got, want):
+    """(max abs error, whether every element is within ``HIDDEN_BAR``)."""
+    atol, rtol = HIDDEN_BAR
+    diff = (got - want).abs()
+    return diff.max().item(), bool((diff <= atol + rtol * want.abs()).all())
+
+
+def phase_surface(card: str, trained):
+    """Phase 10: the rest of the JAX package's public surface at full width,
+    imported only through the package root and the sub-packages'
+    ``__init__``s, on phase 5's EE LayoutLMv3-base (phase 4's configuration:
+    12 layers, hidden 768, 12 x 64 heads, exits text_avg, vision_avg, 7,
+    random weights from seed 0) and documents. 10a ``collect_hidden``: bf16,
+    batch 16, ``ee_forward(collect_hidden=True, seq_pad_multiple=128)`` bit-equal
+    in its logits, exit logits and criteria to the same call without it, and
+    ``backbone_apply(collect_hidden=True).hidden_per_layer[-1]`` bit-equal
+    to its ``last_hidden_state``, each call launching 1 ``materialize_bias``
+    and 12 ``flash_attention_packed``; then the f32 model on 2 documents
+    against the f32 plain path on the CPU: the last hidden state and every
+    layer's within atol 5e-4 / rtol 1e-3, the policy logits within atol
+    2e-4 / rtol 1e-3. 10b ``TrainingArguments``: one bf16 step of two
+    ``EETrainer``s from one state (phase 5's settings), one given every
+    field (``SURFACE_ARGS``) and one without the eight the step does not
+    read: the same loss and parameters, bit for bit, and phase 5's launches.
+    10c the exporter: ``jax_params_to_torch_state_dict(to_jax_params(...))``
+    of 10a's bf16 backbone, imported back (``convert_torch_state_dict``,
+    which reads exactly the keys the exporter wrote) and loaded into a copy
+    filled with NaN, bit-equal on every parameter. 10d
+    ``prefetch_to_device(buffer_size=k)`` for k = 1, 2, 3, the same batches
+    in order; ``native.sweep.available()``; ``cli.train`` and ``EETrainer``
+    refuse ``dit``, ``dit_rvl`` and ``bert``, named, before any launch.
+    Prints one ``{"public_surface": ...}`` line."""
+    import dataclasses
+
+    import multi_modal_early_exit_tpu_torch as mmee
+    from multi_modal_early_exit_tpu_torch.cli import train as cli_train
+    from multi_modal_early_exit_tpu_torch.config import parse_cli
+    from multi_modal_early_exit_tpu_torch.data import prefetch_to_device
+    from multi_modal_early_exit_tpu_torch.models import build_model
+    from multi_modal_early_exit_tpu_torch.models.ee import ee_forward
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3 import (
+        backbone_apply,
+        convert_torch_state_dict,
+        jax_params_to_torch_state_dict,
+        load_jax_params,
+        to_jax_params,
+    )
+    from multi_modal_early_exit_tpu_torch.native import sweep
+    from multi_modal_early_exit_tpu_torch.training import EETrainer, TrainingArguments
+
+    t_phase = time.perf_counter()
+    seconds, read = {}, {}
+    cfg, model32 = trained["cfg"], trained["model32"]
+    check(isinstance(cfg.exit, mmee.ExitConfig) and mmee.Pipeline.__name__ == "Pipeline",
+          "the package root's exports")
+    keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
+    first = [trained["batches"][0][k][0] for k in keys]  # 16 documents on the card
+    counters = train_counters()
+
+    def counted(fn):
+        for f in counters.values():
+            f.launches = 0
+        out = fn()
+        return out, {n: f.launches for n, f in counters.items() if f.launches}
+
+    # 10a: collect_hidden, bf16 at batch 16, then f32 against the CPU
+    t0 = time.perf_counter()
+    model = copy.deepcopy(model32).to("cuda", torch.bfloat16)
+    cols = first[:2] + [first[2].to(torch.bfloat16)] + first[3:]
+    pad = dict(seq_pad_multiple=SURFACE_PAD)
+    with torch.no_grad():
+        hid, n_hid = counted(lambda: ee_forward(model, cfg, *cols, collect_hidden=True, **pad))
+        ref, n_ref = counted(lambda: ee_forward(model, cfg, *cols, **pad))
+        bb, n_bb = counted(lambda: backbone_apply(model.backbone, cfg.backbone, *cols,
+                                                  collect_hidden=True, **pad))
+    want = {"materialize_bias": 1, "flash_attention_packed": 12}
+    check(n_hid == n_ref == n_bb == want, f"10a launches per call {n_hid}, {n_ref}, {n_bb}, "
+          f"not {want}")
+    for name in ("logits", "exit_logits", "exit_criteria"):
+        check(torch.equal(getattr(hid, name), getattr(ref, name)),
+              f"10a: collect_hidden moved the {name}")
+    layers, width = cfg.backbone.num_hidden_layers, cfg.backbone.hidden_size
+    s_pad = -(-(S_TEXT + cfg.backbone.num_visual_tokens) // SURFACE_PAD) * SURFACE_PAD
+    check(ref.last_hidden_state is None and hid.last_hidden_state.shape == (B, s_pad, width)
+          and bb.hidden_per_layer.shape == (layers, B, s_pad, width),
+          f"10a shapes {tuple(hid.last_hidden_state.shape)}, {tuple(bb.hidden_per_layer.shape)}")
+    check(bool(torch.isfinite(bb.hidden_per_layer).all()), "10a: non-finite hidden states")
+    check(torch.equal(bb.hidden_per_layer[-1], hid.last_hidden_state),
+          "10a: the last layer's state is not ee_forward's last_hidden_state")
+    del hid, ref, bb
+    small = [c[:2] for c in first]
+    gpu32 = copy.deepcopy(model32).cuda()
+    with torch.no_grad():
+        g_out = ee_forward(gpu32, cfg, *small, collect_hidden=True, **pad)
+        g_bb = backbone_apply(gpu32.backbone, cfg.backbone, *small, collect_hidden=True, **pad)
+        cpu = [c.cpu() for c in small]
+        c_out = ee_forward(model32, cfg, *cpu, collect_hidden=True, **pad)
+        c_bb = backbone_apply(model32.backbone, cfg.backbone, *cpu, collect_hidden=True, **pad)
+    last_err, last_ok = hidden_err(g_out.last_hidden_state.cpu(), c_out.last_hidden_state)
+    layer_errs = [hidden_err(g.cpu(), c) for g, c in zip(g_bb.hidden_per_layer,
+                                                         c_bb.hidden_per_layer)]
+    a, b = g_out.policy_logits().cpu(), c_out.policy_logits()
+    logit_err = (a - b).abs().max().item()
+    check(last_ok, f"10a f32: last_hidden_state {last_err} off the CPU's (atol 5e-4, rtol 1e-3)")
+    check(all(ok for _, ok in layer_errs),
+          f"10a f32: hidden_per_layer off the CPU's: {[e for e, _ in layer_errs]}")
+    check(f32_close(a, b), f"10a f32: policy logits {logit_err} off the CPU's")
+    read["10a"] = dict(launches_per_call=n_hid, hidden_shape=[layers, B, s_pad, width],
+                       f32_last_hidden_err=last_err,
+                       f32_worst_layer_err=max(e for e, _ in layer_errs),
+                       f32_logit_err=logit_err)
+    del gpu32, g_out, g_bb, c_out, c_bb
+    seconds["10a"] = time.perf_counter() - t0
+
+    # 10b: TrainingArguments: every field given, or the step's alone
+    t0 = time.perf_counter()
+    check(set(SURFACE_ARGS) == {f.name for f in dataclasses.fields(TrainingArguments)},
+          f"TrainingArguments' fields {[f.name for f in dataclasses.fields(TrainingArguments)]}")
+    step_want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
+                 "flash_attention_packed_train_bwd": 24}
+    runs = []
+    for args in (TrainingArguments(learning_rate=2e-5, bf16=True),
+                 TrainingArguments(**SURFACE_ARGS)):
+        trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
+        (loss, _), n = counted(lambda: trainer.train_step(trained["batches"][0],
+                                                          torch.Generator().manual_seed(1)))
+        check(n == step_want and math.isfinite(loss), f"10b: loss {loss}, launches {n}")
+        runs.append((loss, {k: p.detach().clone() for k, p in trainer.model.named_parameters()},
+                     n))
+        del trainer
+    (loss_a, params_a, n_a), (loss_b, params_b, n_b) = runs
+    check(loss_a == loss_b, f"10b: losses {loss_a} and {loss_b}")
+    differ = [k for k in params_a if not torch.equal(params_a[k], params_b[k])]
+    check(not differ, f"10b: parameters differ after one step: {differ[:5]}")
+    read["10b"] = dict(loss=loss_a, launches_per_step=[n_a, n_b], parameters=len(params_a))
+    del runs, params_a, params_b
+    seconds["10b"] = time.perf_counter() - t0
+
+    # 10c: the exporter, round trip on the card model
+    t0 = time.perf_counter()
+    state = jax_params_to_torch_state_dict(to_jax_params(model.backbone), cfg.backbone)
+    check(all(k.startswith(("layoutlmv3.", "classifier.")) for k in state),
+          f"10c: keys outside the HF model's prefixes: {list(state)[:5]}")
+    reads = set()
+
+    class Reading(dict):
+        def __getitem__(self, key):
+            reads.add(key)
+            return super().__getitem__(key)
+
+    back = convert_torch_state_dict(Reading(state), cfg.backbone)
+    check(reads == set(state), f"10c: exported but not read {sorted(set(state) - reads)[:5]}, "
+          f"read but not exported {sorted(reads - set(state))[:5]}")
+    fresh = copy.deepcopy(model.backbone)
+    with torch.no_grad():
+        for p in fresh.parameters():
+            p.fill_(float("nan"))
+    load_jax_params(fresh, back, dtype=torch.bfloat16)
+    mine, theirs = model.backbone.state_dict(), fresh.state_dict()
+    differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+    check(not differ, f"10c: the round trip moved {differ[:5]}")
+    read["10c"] = dict(keys=len(state), parameters=len(mine))
+    del model, fresh, state, back
+    seconds["10c"] = time.perf_counter() - t0
+
+    # 10d: prefetch_to_device(buffer_size=), sweep.available, the refusals
+    t0 = time.perf_counter()
+    host = [{k: v[0].cpu().numpy() for k, v in b.items()} for b in trained["batches"]]
+    fetched = {k: list(prefetch_to_device(iter(host), "cuda", buffer_size=k)) for k in (1, 2, 3)}
+    for k, got in fetched.items():
+        check(len(got) == len(host), f"10d: buffer_size {k} gave {len(got)} batches")
+        for g, w, h in zip(got, fetched[1], host):
+            check(all(g[n].is_cuda and torch.equal(g[n], w[n])
+                      and np.array_equal(g[n].cpu().numpy(), h[n]) for n in h),
+                  f"10d: buffer_size {k} gave other batches than buffer_size 1")
+    del fetched
+    check(sweep.available(), "10d: the native sweep is not available")
+    refused = {}
+    for name in SINGLE_TOWER:
+        for where in ("cli.train", "EETrainer"):
+            def attempt():
+                try:
+                    if where == "cli.train":
+                        cli_train.main(["with", "debugEE", f"model={name}", "device=cuda"])
+                    else:
+                        exp = parse_cli(["with", "debugEE", f"model={name}", "device=cuda",
+                                         "model_weights="])
+                        mcfg, built = build_model(exp, num_labels=16)
+                        EETrainer(mcfg, built, TrainingArguments(), 1, device="cuda")
+                except NotImplementedError as e:  # the refusal this checks for
+                    return str(e)
+                return None
+
+            message, n = counted(attempt)
+            check(message is not None and repr(name) in message and not n,
+                  f"10d: {where} with model={name}: {message!r}, launches {n}")
+            refused[f"{where} {name}"] = message.split(":")[0]
+    read["10d"] = dict(buffer_sizes=[1, 2, 3], batches=len(host), sweep_available=True,
+                       refused=refused)
+    seconds["10d"] = time.perf_counter() - t0
+    seconds["phase 10"] = time.perf_counter() - t_phase
+    print(json.dumps({"public_surface": {
+        **read, "seconds": {k: round(v, 2) for k, v in seconds.items()}, "card": card}}))
 
 
 def main() -> int:
@@ -3612,6 +3872,8 @@ def main() -> int:
     del kept
     with bias_modes():
         mesh_launches = phase_mesh(card, trained)
+    with bias_modes():
+        phase_surface(card, trained)
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # the split pre-pass runs before every f32 forward and backward
     f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]

@@ -15,6 +15,19 @@ off TF32 (``torch.backends.cuda.matmul.allow_tf32`` and
 Every TPU (Pallas) kernel on the ported path is a hand-written CUDA kernel
 under ``csrc/`` (built by ``ops/cuda_build.py`` at first use), with a plain
 PyTorch version beside it that CPU tensors run.
+
+The package root exports what the JAX package's root does: ``Pipeline`` and
+the exit-config vocabulary. Importing it builds no kernel and imports
+neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"
+
+from multi_modal_early_exit_tpu_torch.config.exit_config import (  # noqa: F401
+    EarlyExitHead,
+    EarlyExitInference,
+    EarlyExitStrategy,
+    ExitConfig,
+)
+
+from multi_modal_early_exit_tpu_torch.serving import Pipeline  # noqa: F401,E402

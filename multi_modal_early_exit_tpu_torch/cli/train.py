@@ -25,7 +25,9 @@ axis (``shard_batch(..., axis=1)``, so gradient accumulation at 1 works
 under a data axis); rank 0 alone logs, writes checkpoints and returns the
 metrics (the others return ``{}``). A model axis above 1 needs LayoutLMv3
 with both towers (``models.registry.splits_over_model_axis``); any other
-model raises ``NotImplementedError``.
+model raises ``NotImplementedError``. So do ``dit``, ``dit_rvl`` and
+``bert`` under any mesh, before any data is built: ``EETrainer`` does not
+train them (``models.registry.trains_through_ee_trainer``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from multi_modal_early_exit_tpu_torch.data.datasets import build_dataset
 from multi_modal_early_exit_tpu_torch.data.loader import accumulation_layout, iterate_batches
 from multi_modal_early_exit_tpu_torch.models.registry import (
     build_model,
+    refuse_ee_trainer,
     splits_over_model_axis,
 )
 from multi_modal_early_exit_tpu_torch.parallel.mesh import create_mesh, default_mesh_shape
@@ -96,6 +99,7 @@ def setup_mesh(cfg: ExperimentConfig):
 
 def main(argv: Optional[list] = None) -> Dict[str, float]:
     cfg = parse_cli(argv if argv is not None else sys.argv[1:])
+    refuse_ee_trainer(cfg.model)  # before any world, data or model
     owns_world = not dist.is_initialized()
     mesh, device = setup_mesh(cfg)
     try:
@@ -143,9 +147,16 @@ def _train(cfg: ExperimentConfig, mesh, device) -> Dict[str, float]:
 
     args = TrainingArguments(
         learning_rate=cfg.lr,
+        num_epochs=cfg.epochs,
+        train_batch_size=cfg.batch_size,
+        eval_batch_size=cfg.eval_batch_size,
         gradient_accumulation_steps=accum,
         warmup_ratio=cfg.warmup_ratio,
         weight_decay=cfg.weight_decay,
+        alpha=cfg.alpha,
+        temperature=cfg.temperature,
+        gamma=cfg.gamma,
+        seed=cfg.seed,
         bf16=cfg.compute_dtype in ("bfloat16", "bf16"),
     )
     trainer = EETrainer(model_cfg, model, args, total_steps, device=device, mesh=mesh)

@@ -21,7 +21,7 @@ the pipeline runnable with no network and no extra packages.
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, List, Sequence
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -126,3 +126,15 @@ def convert_words_to_features(
         "bbox": np.asarray(token_boxes, np.int32),
         "attention_mask": np.asarray(attention_mask, np.int32),
     }
+
+
+def batch_features(
+    examples: Sequence[Dict[str, np.ndarray]],
+    extra: Optional[Dict[str, np.ndarray]] = None,
+) -> Dict[str, np.ndarray]:
+    """List of per-example dicts -> dict of stacked arrays, ``extra``'s
+    arrays added as they are (parity: collate_fn, EE/data/__init__.py:23-27)."""
+    out = {k: np.stack([e[k] for e in examples]) for k in examples[0]}
+    if extra:
+        out.update(extra)
+    return out

@@ -8,13 +8,14 @@ reference's torch DataLoader + collate_fn + CustomTrainer dataloaders
   ``sample_mask`` marks real rows), so the kernels see one shape;
 - optional gradient-accumulation layout (accum, micro_bs, ...) matching the
   trainer's steps (training/trainer.py);
-- device prefetch one batch ahead: the next batch's copy from pinned host
-  memory is enqueued without blocking before the current one is handed out,
-  so it overlaps the consumer's work on the card.
+- device prefetch ``buffer_size - 1`` batches ahead: the next batches'
+  copies from pinned host memory are enqueued without blocking before the
+  current one is handed out, so they overlap the consumer's work on the card.
 """
 
 from __future__ import annotations
 
+import collections
 from typing import Dict, Iterator
 
 import numpy as np
@@ -71,16 +72,20 @@ def accumulation_layout(
 def prefetch_to_device(
     iterator: Iterator[Dict[str, np.ndarray]],
     device,
+    buffer_size: int = 2,
 ) -> Iterator[Dict[str, torch.Tensor]]:
-    """Batches of numpy arrays as tensors on ``device``, one batch ahead.
+    """Batches of numpy arrays as tensors on ``device``, up to
+    ``buffer_size`` in flight: a batch is yielded once ``buffer_size``
+    batches have been put (the default, 2, puts the next batch before the
+    current one is yielded); with ``buffer_size`` 1 or less each batch is
+    yielded as soon as it is put, as in the JAX package.
 
     On a CUDA device each array is copied into pinned host memory and sent
-    with ``non_blocking=True`` on the current stream, and the next batch is
-    enqueued before the current one is yielded, so its transfer overlaps
-    the consumer's work (the counterpart of JAX's asynchronous
-    ``device_put``); PyTorch's pinned-memory allocator keeps each host
-    buffer until the copy from it has run. On the CPU the tensors share the
-    arrays' memory (``torch.from_numpy``)."""
+    with ``non_blocking=True`` on the current stream, so the transfers of
+    the batches ahead overlap the consumer's work (the counterpart of JAX's
+    asynchronous ``device_put``); PyTorch's pinned-memory allocator keeps
+    each host buffer until the copy from it has run. On the CPU the tensors
+    share the arrays' memory (``torch.from_numpy``)."""
     device = torch.device(device)
 
     def put(batch):
@@ -89,11 +94,10 @@ def prefetch_to_device(
         return {k: torch.from_numpy(np.ascontiguousarray(v)).pin_memory().to(
             device, non_blocking=True) for k, v in batch.items()}
 
-    ahead = None
+    queue = collections.deque()
     for item in iterator:
-        nxt = put(item)
-        if ahead is not None:
-            yield ahead
-        ahead = nxt
-    if ahead is not None:
-        yield ahead
+        queue.append(put(item))
+        if len(queue) >= buffer_size:
+            yield queue.popleft()
+    while queue:
+        yield queue.popleft()

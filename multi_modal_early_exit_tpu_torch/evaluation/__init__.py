@@ -38,3 +38,12 @@ from multi_modal_early_exit_tpu_torch.evaluation.thresholds import (  # noqa: F4
     time_global_sweeps,
     vectorized_global_sweep,
 )
+from multi_modal_early_exit_tpu_torch.evaluation.operating_points import (  # noqa: F401
+    OperatingPoint,
+    dead_exits_of,
+    paired_drop_ucb,
+    prune_dead_exits,
+    select_mixture_operating_point,
+    select_operating_points,
+    sweep_thresholds,
+)

@@ -1,1 +1,4 @@
-"""Model definitions: the LayoutLMv3 backbone and the early-exit model."""
+"""Model definitions: the LayoutLMv3 backbone, the early-exit model, the
+variants, and the registry's ``build_model``."""
+
+from multi_modal_early_exit_tpu_torch.models.registry import build_model  # noqa: F401

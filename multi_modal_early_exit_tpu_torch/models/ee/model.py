@@ -145,6 +145,7 @@ class EEOutputs:
     gate_inputs: Optional[torch.Tensor] = None  # (E, B, H) (gating only)
     gated_logits: Optional[torch.Tensor] = None  # (E, B, K) classifier(gate input)
     lte_scores: Optional[torch.Tensor] = None  # (E_lte, B) sigmoid scores
+    last_hidden_state: Optional[torch.Tensor] = None  # (B, S', H), collect_hidden only
 
     @property
     def num_exits(self) -> int:
@@ -166,17 +167,21 @@ def ee_forward(
     attention_mask: Optional[torch.Tensor] = None,
     deterministic: bool = True,
     rng: Optional[torch.Generator] = None,
+    collect_hidden: bool = False,
     seq_pad_multiple: Optional[int] = None,
 ) -> EEOutputs:
     """Every exit's logits and criterion from one batched forward, on the
     device of the model and inputs. With ``deterministic=False`` every
-    dropout draws its seed from ``rng`` (a CPU generator)."""
+    dropout draws its seed from ``rng`` (a CPU generator).
+    ``collect_hidden`` fills ``last_hidden_state`` with the encoder's output
+    (at the padded width S' when ``seq_pad_multiple`` pads, pad rows
+    included)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
     rngs = RngStream(None if deterministic else rng, getattr(model, "mesh", None))
     bb = backbone_apply(
         model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
         attention_mask, deterministic=deterministic, rng=rng,
-        collect_cls=bool(exit_cfg.encoder_exits),
+        collect_cls=bool(exit_cfg.encoder_exits), collect_hidden=collect_hidden,
         seq_pad_multiple=seq_pad_multiple,
     )
     b = input_ids.shape[0]
@@ -252,6 +257,7 @@ def ee_forward(
         gate_inputs=gate_inputs,
         gated_logits=gated_logits,
         lte_scores=lte_scores,
+        last_hidden_state=bb.last_hidden_state if collect_hidden else None,
     )
 
 

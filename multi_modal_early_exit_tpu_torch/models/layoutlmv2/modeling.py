@@ -391,8 +391,8 @@ def forward_sequence_classification(
         hidden, full_bbox, pos, full_mask = pad_sequence(
             seq_pad_multiple, hidden, full_bbox, pos, full_mask)
     bias = make_attention_bias(p, enc_cfg, pos, full_bbox, full_mask, dtype=hidden.dtype)
-    final, _ = encoder_apply(p.encoder, enc_cfg, hidden, bias, collect_cls=False,
-                             deterministic=deterministic, rng=rngs)
+    final, _, _ = encoder_apply(p.encoder, enc_cfg, hidden, bias, collect_cls=False,
+                                deterministic=deterministic, rng=rngs)
     head_in = torch.cat([final[:, 0, :], vis_emb.mean(dim=1),
                          final[:, s_t:s_t + s_v, :].mean(dim=1)], dim=-1)
     head_in = dropout(head_in, cfg.hidden_dropout_prob, deterministic, rngs.next())

@@ -17,7 +17,10 @@ so the mapping is mechanical:
 ``convert_torch_state_dict`` is the port's copy of the JAX package's
 converter of a HuggingFace LayoutLMv3 state dict into that tree (numpy
 leaves), so a pretrained checkpoint reaches the port as
-``jax_tree_to_state_dict(convert_torch_state_dict(...))``.
+``jax_tree_to_state_dict(convert_torch_state_dict(...))``;
+``jax_params_to_torch_state_dict`` (the JAX exporter's copy) goes back, so a
+model of the port leaves as an HF state dict through
+``jax_params_to_torch_state_dict(to_jax_params(model.backbone), cfg)``.
 """
 
 from __future__ import annotations
@@ -219,3 +222,73 @@ def convert_torch_state_dict(sd: Mapping[str, Any], cfg, prefix: str = "layoutlm
         params["classifier"] = {"dense": _hf_linear(sd, "classifier.dense"),
                                 "out_proj": _hf_linear(sd, "classifier.out_proj")}
     return params
+
+
+# ---------------------------------------------------------------------------
+# the exporter (inverse direction): the JAX-layout tree -> HuggingFace
+# ---------------------------------------------------------------------------
+
+
+def jax_params_to_torch_state_dict(params: Dict[str, Any], cfg,
+                                   prefix: str = "layoutlmv3.") -> Dict[str, torch.Tensor]:
+    """The exact inverse of ``convert_torch_state_dict``: a backbone's
+    JAX-layout tree (``to_jax_params(model.backbone)``, or the JAX package's
+    own tree) as an HF ``LayoutLMv3ForSequenceClassification`` state dict of
+    f32 tensors (a bare ``LayoutLMv3Model``'s with ``prefix=""``); ``cfg``
+    is the backbone's ``LayoutLMv3Config``. The port's copy of the JAX
+    package's exporter of the same name: importer after exporter is the
+    identity on every leaf."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def t(x) -> torch.Tensor:
+        return torch.tensor(np.asarray(x, np.float32))
+
+    def put_linear(name: str, p) -> None:
+        sd[f"{name}.weight"] = t(np.asarray(p["kernel"]).T)
+        sd[f"{name}.bias"] = t(p["bias"])
+
+    def put_layer_norm(name: str, p) -> None:
+        sd[f"{name}.weight"] = t(p["scale"])
+        sd[f"{name}.bias"] = t(p["bias"])
+
+    pre = prefix
+    emb = params["embeddings"]
+    for name in ("word_embeddings", "position_embeddings", "token_type_embeddings",
+                 "x_position_embeddings", "y_position_embeddings",
+                 "h_position_embeddings", "w_position_embeddings"):
+        sd[f"{pre}embeddings.{name}.weight"] = t(emb[name])
+    put_layer_norm(f"{pre}embeddings.LayerNorm", emb["LayerNorm"])
+
+    vis = params["visual"]
+    kernel = np.asarray(vis["patch_embed"]["kernel"])  # (C*ph*pw, O)
+    sd[f"{pre}patch_embed.proj.weight"] = t(
+        kernel.T.reshape(kernel.shape[1], cfg.num_channels, cfg.patch_size, cfg.patch_size))
+    sd[f"{pre}patch_embed.proj.bias"] = t(vis["patch_embed"]["bias"])
+    sd[f"{pre}cls_token"] = t(vis["cls_token"])
+    sd[f"{pre}pos_embed"] = t(vis["pos_embed"])
+    put_layer_norm(f"{pre}norm", vis["norm"])
+    put_layer_norm(f"{pre}LayerNorm", params["LayerNorm"])
+
+    enc = params["encoder"]
+    layers = enc["layers"]
+    for i in range(cfg.num_hidden_layers):
+        lp = f"{pre}encoder.layer.{i}."
+        att = _index(layers["attention"], i)
+        put_linear(f"{lp}attention.self.query", att["query"])
+        put_linear(f"{lp}attention.self.key", att["key"])
+        put_linear(f"{lp}attention.self.value", att["value"])
+        put_linear(f"{lp}attention.output.dense", att["output"])
+        put_layer_norm(f"{lp}attention.output.LayerNorm", att["output_LayerNorm"])
+        put_linear(f"{lp}intermediate.dense", _index(layers["intermediate"], i))
+        put_linear(f"{lp}output.dense", _index(layers["output"], i))
+        put_layer_norm(f"{lp}output.LayerNorm", _index(layers["output_LayerNorm"], i))
+    if cfg.has_relative_attention_bias:
+        sd[f"{pre}encoder.rel_pos_bias.weight"] = t(np.asarray(enc["rel_pos_bias"]).T)
+    if cfg.has_spatial_attention_bias:
+        sd[f"{pre}encoder.rel_pos_x_bias.weight"] = t(np.asarray(enc["rel_pos_x_bias"]).T)
+        sd[f"{pre}encoder.rel_pos_y_bias.weight"] = t(np.asarray(enc["rel_pos_y_bias"]).T)
+
+    if "classifier" in params:
+        put_linear("classifier.dense", params["classifier"]["dense"])
+        put_linear("classifier.out_proj", params["classifier"]["out_proj"])
+    return sd

@@ -822,10 +822,13 @@ def encoder_apply(
     collect_cls: bool = True,
     deterministic: bool = True,
     rng: Optional[RngStream] = None,
-) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Run every layer; returns ``(final_hidden, cls_per_layer)`` where
-    ``cls_per_layer`` is (L, B, H): the [CLS] state after each layer, the
-    encoder exits' input. A ``ChainedBiasContext`` is carried from each
+    collect_hidden: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
+    """Run every layer; returns ``(final_hidden, cls_per_layer,
+    hidden_per_layer)`` where ``cls_per_layer`` is (L, B, H): the [CLS]
+    state after each layer, the encoder exits' input, and, with
+    ``collect_hidden``, ``hidden_per_layer`` is (L, B, S, H): each layer's
+    output state (else None). A ``ChainedBiasContext`` is carried from each
     layer to the next; each layer draws three dropout seeds from ``rng``.
 
     With ``cfg.gradient_checkpointing`` under autograd, each group of
@@ -842,7 +845,7 @@ def encoder_apply(
     chained = isinstance(attn_bias, ChainedBiasContext)
 
     def run(h, bias, group, seeds, params):
-        taps = []
+        taps, states = [], []
         for layer, layer_seeds, prm in zip(group, seeds, params):
             args = (cfg, h, bias, deterministic, layer_seeds)
             out = (encoder_layer_apply(layer, *args) if prm is None
@@ -850,24 +853,28 @@ def encoder_apply(
             h, bias = out if chained else (out, bias)
             if collect_cls:
                 taps.append(h[:, 0, :])
-        return h, bias, taps
+            if collect_hidden:
+                states.append(h)
+        return h, bias, taps, states
 
-    taps = []
+    taps, states = [], []
     for start in range(0, len(layers), fold):
         group = layers[start:start + fold]
         seeds = [(rng.next_attention(), rng.next(), rng.next()) if rng else None
                  for _ in group]
         if remat:
             params = [dict(layer.named_parameters()) for layer in group]
-            hidden, attn_bias, group_taps = checkpoint(
+            hidden, attn_bias, group_taps, group_states = checkpoint(
                 run, hidden, attn_bias, group, seeds, params,
                 use_reentrant=False, preserve_rng_state=False,  # no torch RNG inside
             )
         else:
-            hidden, attn_bias, group_taps = run(hidden, attn_bias, group, seeds,
-                                                [None] * len(group))
+            hidden, attn_bias, group_taps, group_states = run(
+                hidden, attn_bias, group, seeds, [None] * len(group))
         taps += group_taps
-    return hidden, (torch.stack(taps) if collect_cls else None)
+        states += group_states
+    return (hidden, torch.stack(taps) if collect_cls else None,
+            torch.stack(states) if collect_hidden else None)
 
 
 def classifier_apply(
@@ -896,6 +903,7 @@ class BackboneOutput:
     visual_embeddings: torch.Tensor  # (B, Sv, H) pre-concat
     text_embeddings: torch.Tensor  # (B, St, H) pre-concat
     combined_embeddings: torch.Tensor  # (B, S, H) post-LN encoder input
+    hidden_per_layer: Optional[torch.Tensor] = None  # (L, B, S', H), collect_hidden only
 
 
 def sequence_layout(
@@ -944,11 +952,14 @@ def backbone_apply(
     deterministic: bool = True,
     rng: Optional[torch.Generator] = None,
     collect_cls: bool = True,
+    collect_hidden: bool = False,
     seq_pad_multiple: Optional[int] = None,
 ) -> BackboneOutput:
     """The multimodal backbone. ``seq_pad_multiple`` pads the concatenated
     sequence once before the encoder; the bias is always built at a width
-    that is a multiple of 128. With ``deterministic=False`` the dropout
+    that is a multiple of 128. ``collect_hidden`` fills
+    ``hidden_per_layer`` with every layer's output state, at the padded
+    width when ``seq_pad_multiple`` pads. With ``deterministic=False`` the dropout
     seeds come from ``rng``. The attention follows the JAX package's
     selection: when not deterministic, the table-gradient attention with
     ``MMEE_TABLE_GRADS=1``, else the chained training attention when
@@ -987,9 +998,9 @@ def backbone_apply(
             default=effective_scan_fold(cfg) == cfg.num_hidden_layers
         ):
             attn_bias = ChainedBiasContext(attn_bias)
-    final, cls_per_layer = encoder_apply(
+    final, cls_per_layer, hidden_per_layer = encoder_apply(
         p.encoder, cfg, hidden, attn_bias, collect_cls=collect_cls,
-        deterministic=deterministic, rng=rngs,
+        deterministic=deterministic, rng=rngs, collect_hidden=collect_hidden,
     )
     return BackboneOutput(
         last_hidden_state=final,
@@ -997,6 +1008,7 @@ def backbone_apply(
         visual_embeddings=vis_emb,
         text_embeddings=text_emb,
         combined_embeddings=combined,
+        hidden_per_layer=hidden_per_layer,
     )
 
 
@@ -1017,8 +1029,8 @@ def forward_image_classification(
     attention composed of torch ops) + the classifier on [CLS]."""
     rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     vis_emb = embed_vision(p.visual, cfg, pixel_values)
-    final, _ = encoder_apply(p.encoder, cfg, vis_emb, None, collect_cls=False,
-                             deterministic=deterministic, rng=rngs)
+    final, _, _ = encoder_apply(p.encoder, cfg, vis_emb, None, collect_cls=False,
+                                deterministic=deterministic, rng=rngs)
     return classifier_apply(p.classifier, cfg, final[:, 0, :], deterministic, rngs)
 
 
@@ -1048,8 +1060,8 @@ def forward_text_classification(
     position_ids = torch.arange(s, device=dev).expand(b, s)
     bias = make_attention_bias(p, cfg, position_ids, bbox, attention_mask,
                                dtype=text_emb.dtype)
-    final, _ = encoder_apply(p.encoder, cfg, text_emb, bias, collect_cls=False,
-                             deterministic=deterministic, rng=rngs)
+    final, _, _ = encoder_apply(p.encoder, cfg, text_emb, bias, collect_cls=False,
+                                deterministic=deterministic, rng=rngs)
     return classifier_apply(p.classifier, cfg, final[:, 0, :], deterministic, rngs)
 
 

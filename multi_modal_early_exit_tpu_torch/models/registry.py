@@ -58,6 +58,27 @@ def splits_over_model_axis(name: str) -> bool:
         and all(model_towers(name))
 
 
+def trains_through_ee_trainer(name: str) -> bool:
+    """Whether ``EETrainer``, and so ``cli.train``, trains the model ``name``
+    builds. Its loss runs ``ee_forward``, whose backbone needs both towers,
+    so the single-tower variants (``dit``, ``dit_rvl``: no text tower;
+    ``bert``: no visual tower) do not; in the JAX package they fail inside
+    the first step (ROADMAP.md C12). They train through their own forwards.
+    LayoutLMv2 trains with its own loss. Unknown names and ``pix2struct``
+    are ``build_model``'s to refuse."""
+    return name == "layoutlmv2" or all(model_towers(name))
+
+
+def refuse_ee_trainer(name: str) -> None:
+    """``NotImplementedError`` naming ``name`` unless
+    ``trains_through_ee_trainer(name)``."""
+    if not trains_through_ee_trainer(name):
+        raise NotImplementedError(
+            f"model {name!r} does not train through EETrainer or cli.train: their loss runs "
+            "ee_forward, whose backbone needs both towers, and this model has one (as in "
+            "the JAX package, ROADMAP.md C12); train it through its own forward")
+
+
 def _backbone_config(
     cfg, num_labels: int, image_size: Optional[int], seq_len: Optional[int]
 ) -> LayoutLMv3Config:
@@ -294,7 +315,8 @@ def build_model(
     (for ``layoutlmv2``: ``(LayoutLMv2Config, LayoutLMv2Model)``), the
     model random from ``generator`` (a CPU generator seeded with
     ``cfg.seed`` if none) or converted from a cached pretrained checkpoint,
-    on ``cfg.device`` (``cuda`` by default)."""
+    on ``cfg.device`` (``cuda`` by default). The model carries its name as
+    ``model.model_name``."""
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
 
     name = cfg.model
@@ -307,8 +329,10 @@ def build_model(
 
     generator = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
     if name == "layoutlmv2":
-        return _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len,
-                                 generator)
+        v2, model = _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len,
+                                      generator)
+        model.model_name = name
+        return v2, model
     bb = _backbone_config(cfg, num_labels, image_size, seq_len)
     if num_hidden_layers:
         bb = bb.replace(num_hidden_layers=num_hidden_layers)
@@ -343,4 +367,5 @@ def build_model(
                 backbone)
             backbone.update({k: torch.as_tensor(np.asarray(v)) for k, v in pretrained.items()})
             model.backbone.load_state_dict(backbone, strict=True)
+    model.model_name = name  # the name EETrainer's refusal reads
     return model_cfg, model.to(resolve_device(getattr(cfg, "device", None) or "cuda"))

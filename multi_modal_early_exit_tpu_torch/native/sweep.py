@@ -66,6 +66,15 @@ def _load() -> ctypes.CDLL:
         return lib
 
 
+def available() -> bool:
+    """Whether the library builds (or is built) and loads here."""
+    try:
+        _load()
+        return True
+    except (OSError, RuntimeError, AttributeError):  # no g++, a failed build, a bad library
+        return False
+
+
 def _check(scores, correct, thresholds, per_mixture: bool):
     scores = np.ascontiguousarray(scores, np.float32)
     correct = np.ascontiguousarray(correct, np.float32)

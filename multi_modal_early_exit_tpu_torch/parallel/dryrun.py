@@ -544,15 +544,16 @@ def job_sharded_headform(device, shape, dtype: str, rate: float, shape_bhsd=(16,
         return {"errors": errors, "seed": sseed}
 
 
-def job_step_timing(device, shape, cfg, args: Dict[str, Any], batches, seed: int = 1
-                    ) -> Dict[str, Any]:
-    """``EETrainer`` steps under mesh ``shape`` (random parameters from seed
-    0) on this rank's rows of each batch: each step's seconds and the
-    seconds inside collectives (``all_reduce`` and ``broadcast``, timed
-    from a synchronised device to a synchronised device) in it."""
+def job_step_timing(device, shape, cfg, args: Dict[str, Any], batches, seed: int = 1,
+                    state: Optional[Dict[str, Any]] = None) -> Dict[str, Any]:
+    """``EETrainer`` steps under mesh ``shape`` (``state``, else random
+    parameters from seed 0) on this rank's rows of each batch: each step's
+    seconds and the seconds inside collectives (``all_reduce`` and
+    ``broadcast``, timed from a synchronised device to a synchronised
+    device) in it."""
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
 
-    mesh, model = _sharded_model(device, shape, cfg, None)
+    mesh, model = _sharded_model(device, shape, cfg, state)
     trainer = EETrainer(cfg, model, TrainingArguments(**args), 10, device=device, mesh=mesh)
     gen = torch.Generator().manual_seed(seed)
     inside = [0.0]

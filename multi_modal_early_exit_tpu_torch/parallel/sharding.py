@@ -16,8 +16,10 @@ sharding.py``), on the port's parameter names and in ``nn.Linear``'s
 
 Heads are contiguous: rank m of the model axis holds heads
 ``m·H/tp … (m+1)·H/tp − 1``. An embedding's rows split in chunks of
-ceil(rows / tp) (``layers.shard_bounds``), so a vocabulary of 50265 rows
-shards over 2 ranks as the JAX package's padded sharding does.
+ceil(rows / tp) (``layers.shard_bounds``), the last rank's chunk short, so a
+vocabulary of 50265 rows shards over 2 ranks. The JAX package refuses an
+odd vocabulary there: its ``P(model, None)`` spec needs the rows to divide
+evenly (ROADMAP.md C11).
 
 Torch has no global array: a sharded state dict is this rank's slices, and
 ``gather_params`` puts the full tensors back together (every rank of the

@@ -39,6 +39,7 @@ from torch.func import functional_call
 from multi_modal_early_exit_tpu_torch.device import resolve_device
 from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+from multi_modal_early_exit_tpu_torch.models.registry import refuse_ee_trainer
 from multi_modal_early_exit_tpu_torch.ops.criteria import entropy as entropy_fn
 from multi_modal_early_exit_tpu_torch.parallel.layers import (
     all_reduce,
@@ -57,14 +58,27 @@ from multi_modal_early_exit_tpu_torch.training.subgraphs import (
 
 @dataclasses.dataclass
 class TrainingArguments:
-    """The JAX package's training knobs that the train step reads (the batch
-    size is the batch's own; the exit loss's gamma is ``cfg.exit.gamma``)."""
+    """The JAX package's training arguments, its fields in its order with its
+    defaults (the knobs of EETrainingArguments, EE_modules.py:288-298, and
+    the HF TrainingArguments subset the reference uses, IC_only.py:144-168).
+    As in the JAX package, the train step reads none of ``num_epochs``,
+    ``train_batch_size``, ``eval_batch_size``, ``alpha``, ``temperature``,
+    ``gamma``, ``seed`` and ``log_every``: the batch size is the batch's
+    own, and the exit loss's gamma is ``cfg.exit.gamma``."""
 
     learning_rate: float = 2e-5
+    num_epochs: int = 1
+    train_batch_size: int = 2
+    eval_batch_size: int = 8
     gradient_accumulation_steps: int = 1
     weight_decay: float = 0.0
     warmup_ratio: float = 0.0
     max_grad_norm: float = 0.0  # 0 disables clipping
+    alpha: float = 1.0
+    temperature: float = 1.0
+    gamma: float = 0.0
+    seed: int = 42
+    log_every: int = 10
     bf16: bool = False  # mixed precision: bf16 forward, f32 master params
     bf16_momentum: bool = False  # Adam's first moment stored in bf16
 
@@ -337,7 +351,11 @@ class EETrainer:
     With a ``mesh`` (``parallel.mesh.create_mesh``) the model is sharded
     over it (``parallel.sharding.shard_model``, unless it already is) and
     ``train_step`` takes this rank's rows; every rank passes a generator in
-    the same state. ``evaluate`` runs every batch whole on every rank."""
+    the same state. ``evaluate`` runs every batch whole on every rank.
+
+    A model ``models.registry.build_model`` made for ``dit``, ``dit_rvl`` or
+    ``bert`` raises ``NotImplementedError`` naming it
+    (``registry.trains_through_ee_trainer``)."""
 
     def __init__(
         self,
@@ -348,6 +366,10 @@ class EETrainer:
         device=None,
         mesh=None,
     ):
+        # a model build_model made carries its name: refuse, before any
+        # step, the variants whose loss cannot run (ROADMAP.md C12)
+        if getattr(model, "model_name", None) is not None:
+            refuse_ee_trainer(model.model_name)
         self.device = resolve_device(device)
         self.cfg, self.args, self.mesh = cfg, args, mesh
         if mesh is not None and getattr(model, "mesh", None) is None:

@@ -63,9 +63,9 @@ def test_dit_forward_matches_jax():
     want_hidden, _, _ = JM.encoder_apply(params["encoder"], jcfg, vis, attn_bias=None)
     with torch.no_grad():
         got = TM.forward_image_classification(model, tcfg, torch.from_numpy(px))
-        hidden, _ = TM.encoder_apply(model.encoder, tcfg,
-                                     TM.embed_vision(model.visual, tcfg, torch.from_numpy(px)),
-                                     None, collect_cls=False)
+        hidden, _, _ = TM.encoder_apply(model.encoder, tcfg,
+                                        TM.embed_vision(model.visual, tcfg, torch.from_numpy(px)),
+                                        None, collect_cls=False)
     assert got.shape == (3, 4)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **LOGITS)
     np.testing.assert_allclose(hidden.numpy(), np.asarray(want_hidden), **HIDDEN)
