@@ -1,0 +1,9 @@
+"""serve.elementwise_ms_per_batch: device ms per batch of every kernel in
+the traced slice that is none of the port's own (csrc/), a cuBLAS or
+CUTLASS GEMM, or a cuDNN convolution (tracing.kind)."""
+
+
+def read(run):
+    if run.trace is None or not run.units:
+        return None
+    return 1e3 * run.trace.kernel_s(kinds={"other"}) / run.units
