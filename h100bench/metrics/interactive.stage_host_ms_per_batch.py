@@ -1,0 +1,10 @@
+"""interactive.stage_host_ms_per_batch: host ms per batch inside the
+cascade's spans (``cascade.embed`` and each ``cascade.stage<i>``, their
+union): the time the host takes to issue a batch's model work, under the
+profiler. Above the batch's device busy time where launches set the pace."""
+
+from h100bench import spans
+
+
+def read(run):
+    return spans.host_ms_per_unit(run, spans.CASCADE)

@@ -1,0 +1,9 @@
+"""serve.stage_host_ms_per_batch: host ms per batch inside the cascade's
+spans (``cascade.embed`` and each ``cascade.stage<i>``, their union): the
+time the host takes to issue a batch's model work, under the profiler."""
+
+from h100bench import spans
+
+
+def read(run):
+    return spans.host_ms_per_unit(run, spans.CASCADE)

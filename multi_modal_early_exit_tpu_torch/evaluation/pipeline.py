@@ -51,6 +51,7 @@ from multi_modal_early_exit_tpu_torch.utils.artifacts import (
 )
 from multi_modal_early_exit_tpu_torch.utils.logging import logger_message
 from multi_modal_early_exit_tpu_torch.utils.meters import AverageMeter
+from multi_modal_early_exit_tpu_torch.utils.profiling import span
 
 
 def reprocess_batch_for_benchmark(batch: Dict, tokenizer, seq_len: int):
@@ -167,20 +168,29 @@ def get_logits(
     stores, refs = [], []
     end = time.perf_counter()
     with torch.inference_mode():
-        for batch in prefetch_to_device(batches(), device):
-            args = (model, cfg, batch["input_ids"], batch["bbox"], batch["pixel_values"],
-                    batch["attention_mask"])
-            if hasattr(cfg, "exit"):
-                logits = ee_forward(*args, seq_pad_multiple=pad_multiple).policy_logits()
-            else:
-                # the dense baseline (LayoutLMv2Config): a single-row store,
-                # so the policy and metric stack downstream runs unchanged
-                logits = forward_sequence_classification(
-                    *args, seq_pad_multiple=pad_multiple).logits[None]
-            store = logits.to(torch.float64).cpu().numpy()  # waits for the card
-            keep = batch["sample_mask"].cpu().numpy() > 0
-            stores.append(store[:, keep])
-            refs.append(batch["labels"].cpu().numpy()[keep])
+        # an explicit iterator, so the wait for each batch has its own span
+        fetch = prefetch_to_device(batches(), device)
+        while True:
+            with span("get_logits.data"):
+                batch = next(fetch, None)
+            if batch is None:
+                break
+            with span("get_logits.forward"):
+                args = (model, cfg, batch["input_ids"], batch["bbox"], batch["pixel_values"],
+                        batch["attention_mask"])
+                if hasattr(cfg, "exit"):
+                    logits = ee_forward(*args, seq_pad_multiple=pad_multiple).policy_logits()
+                else:
+                    # the dense baseline (LayoutLMv2Config): a single-row
+                    # store, so the policy and metric stack downstream runs
+                    # unchanged
+                    logits = forward_sequence_classification(
+                        *args, seq_pad_multiple=pad_multiple).logits[None]
+            with span("get_logits.store"):
+                store = logits.to(torch.float64).cpu().numpy()  # waits for the card
+                keep = batch["sample_mask"].cpu().numpy() > 0
+                stores.append(store[:, keep])
+                refs.append(batch["labels"].cpu().numpy()[keep])
             batch_time.update(time.perf_counter() - end)
             end = time.perf_counter()
 

@@ -45,6 +45,7 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     use_fused_bias_attention,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import LANE
+from multi_modal_early_exit_tpu_torch.utils.profiling import span
 
 
 def capacities_from_distribution(
@@ -151,6 +152,7 @@ def make_cascade_forward(
     # rank so the LEAST exit-worthy rows keep compute: for 'greater is
     # exit' criteria low values continue, for 'lower is exit' high values
     higher_exits = bool(sign(1.0, 0.0))
+    stage_spans = [f"cascade.stage{i}" for i in range(len(bounds))]
 
     @torch.no_grad()
     def cascade(model: EEModel, input_ids, bbox, pixel_values, attention_mask):
@@ -165,149 +167,151 @@ def make_cascade_forward(
             )
 
         # ---- stage 0: embeddings + embedding exits (full batch) --------
-        text_emb = embed_text(bb.embeddings, bb_cfg, input_ids, bbox)
-        vis_emb = embed_vision(bb.visual, bb_cfg, pixel_values)
-        combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
-        full_bbox, pos_ids, full_mask = sequence_layout(
-            bb_cfg, bbox, attention_mask, vis_emb.shape[1]
-        )
+        with span("cascade.embed"):
+            text_emb = embed_text(bb.embeddings, bb_cfg, input_ids, bbox)
+            vis_emb = embed_vision(bb.visual, bb_cfg, pixel_values)
+            combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
+            full_bbox, pos_ids, full_mask = sequence_layout(
+                bb_cfg, bbox, attention_mask, vis_emb.shape[1]
+            )
 
-        out_logits = torch.zeros((B, K), dtype=torch.float32, device=dev)
-        exit_ids = torch.full((B,), E, dtype=torch.int32, device=dev)
-        running = torch.ones((B,), dtype=torch.bool, device=dev)
-        last_crit = torch.zeros((B,), dtype=torch.float32, device=dev)
-        # patience: top-1 prediction at the previous exit (-1 = none yet);
-        # the agreement count lives in last_crit
-        prev_pred = torch.full((B,), -1, dtype=torch.int64, device=dev)
+            out_logits = torch.zeros((B, K), dtype=torch.float32, device=dev)
+            exit_ids = torch.full((B,), E, dtype=torch.int32, device=dev)
+            running = torch.ones((B,), dtype=torch.bool, device=dev)
+            last_crit = torch.zeros((B,), dtype=torch.float32, device=dev)
+            # patience: top-1 prediction at the previous exit (-1 = none yet);
+            # the agreement count lives in last_crit
+            prev_pred = torch.full((B,), -1, dtype=torch.int64, device=dev)
 
-        sources = {"vision_avg": vis_emb, "text_avg": text_emb,
-                   "text_visual_concat": combined}
-        for j, name in enumerate(emb_exits):
-            x = sources[name].mean(dim=1)
-            head_out = exit_head_apply(
-                model.embedding_exits[name], bb_cfg, x
-            ).to(torch.float32)
-            if exit_cfg.apply_gating:
-                # gate heads: 2-logit criterion; the prediction is the
-                # final classifier on the exit input
-                logits_j = classifier_apply(bb.classifier, bb_cfg, x).to(torch.float32)
-            else:
-                logits_j = head_out
-            if use_lte:
-                crit_j = (
-                    lte_head_apply(model.lte, x).to(torch.float32)
-                    if name == "text_visual_concat"
-                    else torch.full((B,), float("inf"), device=dev)
-                )
-            elif use_patience:
-                pred_j = logits_j.argmax(dim=-1)
-                crit_j = torch.where(pred_j == prev_pred, last_crit + 1.0, 0.0)
-                prev_pred = torch.where(running, pred_j, prev_pred)
-            else:
-                crit_j = crit_fn(head_out / temps[j])
-            exits_now = running & sign(crit_j, thrs[j])
-            # exiting rows take this exit's logits; rows that go on keep
-            # them as their best so far, for a later capacity-forced exit
-            out_logits = torch.where(running[:, None], logits_j, out_logits)
-            exit_ids = torch.where(exits_now, j, exit_ids).to(torch.int32)
-            last_crit = torch.where(running, crit_j, last_crit)
-            running = running & ~exits_now
-
-        capacity_exited = torch.zeros((B,), dtype=torch.bool, device=dev)
-        prev_bias = prev_sel = None
-        fused = has_both_biases(bb_cfg) and use_fused_bias_attention()
-        # pad once to the bias width: every stage runs at P = S_pad
-        state = pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask)
-
-        for stage_idx, (a, b_layer) in enumerate(bounds):
-            c = int(capacities[stage_idx])
-            # running rows outrank finished ones; among running rows the
-            # least exit-worthy come first; ties keep the lower row first
-            score = -last_crit if higher_exits else last_crit
-            score = torch.where(running, score, float("-inf"))
-            sel = torch.sort(score, descending=True, stable=True).indices[:c]
-            selected = torch.zeros((B,), dtype=torch.bool, device=dev)
-            selected[sel] = True
-            # capacity-forced exits take their last evaluated exit (the
-            # deepest embedding exit before stage 0, else the previous
-            # encoder exit) with their best-so-far logits
-            forced = running & ~selected
-            forced_exit = max(n_emb - 1, 0) if stage_idx == 0 else n_emb + stage_idx - 1
-            exit_ids = torch.where(forced, forced_exit, exit_ids).to(torch.int32)
-            capacity_exited = capacity_exited | forced
-            running = running & selected
-
-            hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
-            if fused:
-                # the attention kernel builds each stage's bias from its
-                # rows' vectors; no bias tensor exists to gather from
-                bias_c = fused_bias_context(bb, bb_cfg, pos_c, bbox_c, mask_c)
-            elif prev_bias is None:
-                bias_c = make_attention_bias(
-                    bb, bb_cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype
-                )
-                prev_bias, prev_sel = bias_c, sel
-            else:
-                # this stage's rows are a subset of the previous stage's:
-                # gather their bias rows instead of rebuilding them
-                pos_in_prev = torch.zeros((B,), dtype=torch.int64, device=dev)
-                pos_in_prev[prev_sel] = torch.arange(prev_sel.shape[0], device=dev)
-                bias_c = prev_bias[pos_in_prev[sel]]
-                prev_bias, prev_sel = bias_c, sel
-
-            for layer in bb.encoder.layers[a:b_layer]:
-                hidden_c = encoder_layer_apply(layer, bb_cfg, hidden_c, bias_c)
-
-            is_final = stage_idx == len(bounds) - 1
-            cls_c = hidden_c[:, 0, :]
-            if is_final:
-                logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
-                # the final classifier always exits; patience and LTE have no
-                # criterion there (ee_forward records 0 for both)
-                crit_c = (
-                    torch.zeros((c,), dtype=torch.float32, device=dev)
-                    if use_patience or use_lte
-                    else crit_fn(logits_c / temps[E])
-                )
-            else:
+            sources = {"vision_avg": vis_emb, "text_avg": text_emb,
+                       "text_visual_concat": combined}
+            for j, name in enumerate(emb_exits):
+                x = sources[name].mean(dim=1)
                 head_out = exit_head_apply(
-                    model.encoder_exits[stage_idx], bb_cfg, cls_c
+                    model.embedding_exits[name], bb_cfg, x
                 ).to(torch.float32)
                 if exit_cfg.apply_gating:
-                    logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
+                    # gate heads: 2-logit criterion; the prediction is the
+                    # final classifier on the exit input
+                    logits_j = classifier_apply(bb.classifier, bb_cfg, x).to(torch.float32)
                 else:
-                    logits_c = head_out
+                    logits_j = head_out
                 if use_lte:
-                    crit_c = lte_head_apply(model.lte, cls_c).to(torch.float32)
+                    crit_j = (
+                        lte_head_apply(model.lte, x).to(torch.float32)
+                        if name == "text_visual_concat"
+                        else torch.full((B,), float("inf"), device=dev)
+                    )
                 elif use_patience:
-                    pred_c = logits_c.argmax(dim=-1)
-                    crit_c = torch.where(pred_c == prev_pred[sel], last_crit[sel] + 1.0, 0.0)
-                    prev_pred[sel] = pred_c
+                    pred_j = logits_j.argmax(dim=-1)
+                    crit_j = torch.where(pred_j == prev_pred, last_crit + 1.0, 0.0)
+                    prev_pred = torch.where(running, pred_j, prev_pred)
                 else:
-                    crit_c = crit_fn(head_out / temps[n_emb + stage_idx])
+                    crit_j = crit_fn(head_out / temps[j])
+                exits_now = running & sign(crit_j, thrs[j])
+                # exiting rows take this exit's logits; rows that go on keep
+                # them as their best so far, for a later capacity-forced exit
+                out_logits = torch.where(running[:, None], logits_j, out_logits)
+                exit_ids = torch.where(exits_now, j, exit_ids).to(torch.int32)
+                last_crit = torch.where(running, crit_j, last_crit)
+                running = running & ~exits_now
 
-            # scatter stage results back to batch rows
-            sel_running = running[sel]  # selected rows still running
-            stage_thr = thrs[min(n_emb + stage_idx, E - 1)] if E else 0.0
-            pass_c = sign(crit_c, stage_thr) | is_final
-            exit_pos = E if is_final else n_emb + stage_idx
-            out_logits[sel] = torch.where(sel_running[:, None], logits_c, out_logits[sel])
-            exit_ids[sel] = torch.where(
-                sel_running & pass_c, exit_pos, exit_ids[sel]
-            ).to(torch.int32)
-            running[sel] = sel_running & ~pass_c
-            last_crit[sel] = crit_c
+            capacity_exited = torch.zeros((B,), dtype=torch.bool, device=dev)
+            prev_bias = prev_sel = None
+            fused = has_both_biases(bb_cfg) and use_fused_bias_attention()
+            # pad once to the bias width: every stage runs at P = S_pad
+            state = pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask)
 
-            if not is_final:
-                # scatter the compacted state back to batch rows so the next
-                # stage's selection indexes one frame; rows of non-selected
-                # samples are stale but `running` excludes them
-                new_state = []
-                for t, t_c in zip(state, (hidden_c, bbox_c, pos_c, mask_c)):
-                    full = torch.zeros_like(t)
-                    full[sel] = t_c
-                    new_state.append(full)
-                state = tuple(new_state)
+        for stage_idx, (a, b_layer) in enumerate(bounds):
+            with span(stage_spans[stage_idx]):
+                c = int(capacities[stage_idx])
+                # running rows outrank finished ones; among running rows the
+                # least exit-worthy come first; ties keep the lower row first
+                score = -last_crit if higher_exits else last_crit
+                score = torch.where(running, score, float("-inf"))
+                sel = torch.sort(score, descending=True, stable=True).indices[:c]
+                selected = torch.zeros((B,), dtype=torch.bool, device=dev)
+                selected[sel] = True
+                # capacity-forced exits take their last evaluated exit (the
+                # deepest embedding exit before stage 0, else the previous
+                # encoder exit) with their best-so-far logits
+                forced = running & ~selected
+                forced_exit = max(n_emb - 1, 0) if stage_idx == 0 else n_emb + stage_idx - 1
+                exit_ids = torch.where(forced, forced_exit, exit_ids).to(torch.int32)
+                capacity_exited = capacity_exited | forced
+                running = running & selected
+
+                hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
+                if fused:
+                    # the attention kernel builds each stage's bias from its
+                    # rows' vectors; no bias tensor exists to gather from
+                    bias_c = fused_bias_context(bb, bb_cfg, pos_c, bbox_c, mask_c)
+                elif prev_bias is None:
+                    bias_c = make_attention_bias(
+                        bb, bb_cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype
+                    )
+                    prev_bias, prev_sel = bias_c, sel
+                else:
+                    # this stage's rows are a subset of the previous stage's:
+                    # gather their bias rows instead of rebuilding them
+                    pos_in_prev = torch.zeros((B,), dtype=torch.int64, device=dev)
+                    pos_in_prev[prev_sel] = torch.arange(prev_sel.shape[0], device=dev)
+                    bias_c = prev_bias[pos_in_prev[sel]]
+                    prev_bias, prev_sel = bias_c, sel
+
+                for layer in bb.encoder.layers[a:b_layer]:
+                    hidden_c = encoder_layer_apply(layer, bb_cfg, hidden_c, bias_c)
+
+                is_final = stage_idx == len(bounds) - 1
+                cls_c = hidden_c[:, 0, :]
+                if is_final:
+                    logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
+                    # the final classifier always exits; patience and LTE have no
+                    # criterion there (ee_forward records 0 for both)
+                    crit_c = (
+                        torch.zeros((c,), dtype=torch.float32, device=dev)
+                        if use_patience or use_lte
+                        else crit_fn(logits_c / temps[E])
+                    )
+                else:
+                    head_out = exit_head_apply(
+                        model.encoder_exits[stage_idx], bb_cfg, cls_c
+                    ).to(torch.float32)
+                    if exit_cfg.apply_gating:
+                        logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
+                    else:
+                        logits_c = head_out
+                    if use_lte:
+                        crit_c = lte_head_apply(model.lte, cls_c).to(torch.float32)
+                    elif use_patience:
+                        pred_c = logits_c.argmax(dim=-1)
+                        crit_c = torch.where(pred_c == prev_pred[sel], last_crit[sel] + 1.0, 0.0)
+                        prev_pred[sel] = pred_c
+                    else:
+                        crit_c = crit_fn(head_out / temps[n_emb + stage_idx])
+
+                # scatter stage results back to batch rows
+                sel_running = running[sel]  # selected rows still running
+                stage_thr = thrs[min(n_emb + stage_idx, E - 1)] if E else 0.0
+                pass_c = sign(crit_c, stage_thr) | is_final
+                exit_pos = E if is_final else n_emb + stage_idx
+                out_logits[sel] = torch.where(sel_running[:, None], logits_c, out_logits[sel])
+                exit_ids[sel] = torch.where(
+                    sel_running & pass_c, exit_pos, exit_ids[sel]
+                ).to(torch.int32)
+                running[sel] = sel_running & ~pass_c
+                last_crit[sel] = crit_c
+
+                if not is_final:
+                    # scatter the compacted state back to batch rows so the next
+                    # stage's selection indexes one frame; rows of non-selected
+                    # samples are stale but `running` excludes them
+                    new_state = []
+                    for t, t_c in zip(state, (hidden_c, bbox_c, pos_c, mask_c)):
+                        full = torch.zeros_like(t)
+                        full[sel] = t_c
+                        new_state.append(full)
+                    state = tuple(new_state)
         return CascadeResult(out_logits, exit_ids, capacity_exited)
 
     return cascade

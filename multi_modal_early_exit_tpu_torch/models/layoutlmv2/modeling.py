@@ -62,6 +62,7 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     spatial_position_embeddings,
 )
 from multi_modal_early_exit_tpu_torch.training.losses import batch_to_device, cross_entropy
+from multi_modal_early_exit_tpu_torch.utils.profiling import span
 
 # detectron2 normalizes inside the backbone (BGR means and stds)
 PIXEL_MEAN = (103.53, 116.28, 123.675)
@@ -319,7 +320,8 @@ def embed_vision_v2(
     grid boxes' spatial embedding (+ the visual segment embedding), then
     the visual LayerNorm and dropout (parity:
     LayoutLMv2Model._calc_img_embeddings)."""
-    feats = visual_backbone_apply(p.visual_backbone, cfg, pixel_values)
+    with span("v2.tower"):
+        feats = visual_backbone_apply(p.visual_backbone, cfg, pixel_values)
     x = p.visual_proj(feats)
     b, n = x.shape[0], x.shape[1]
     x = x + p.embeddings.position_embeddings[:n][None]

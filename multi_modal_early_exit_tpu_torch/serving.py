@@ -35,6 +35,7 @@ from multi_modal_early_exit_tpu_torch.models.ee.cascade import (
 )
 from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel, canonical_exit_order
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
 
 
 class Pipeline:
@@ -81,8 +82,17 @@ class Pipeline:
             caps = tuple([batch_size] * n_stages)  # conservative: exact policy
         self.capacities = caps
         self.capacity_tail = capacity_tail
-        self._n_served = 0
-        self._n_capacity_exited = 0
+        self._n_emb = n_emb
+        # layers per encoder stage (stages split at the encoder exits)
+        ends = sorted(e for e in self.order if isinstance(e, int))
+        ends.append(cfg.backbone.num_hidden_layers)
+        self._stage_layers = [b - a for a, b in zip([0] + ends, ends)]
+        self._stage_counters = [
+            (f"cascade.stage{i}.rows", f"cascade.stage{i}.rows_wanted",
+             f"cascade.stage{i}.rows_refused") for i in range(n_stages)
+        ]
+        # this instance's totals of the counters it adds to the process's
+        self._counts: Dict[str, int] = {}
         self._cascade = make_cascade_forward(cfg, capacities=caps, threshold=threshold)
 
     @classmethod
@@ -142,54 +152,90 @@ class Pipeline:
     def predict_features(self, batch: Dict[str, object]) -> List[Dict]:
         """Run preprocessed features (numpy arrays or tensors) through the
         cascade; pads to the static batch size and chunks larger inputs."""
-        tensors = {
-            k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(self.device)
-            for k, v in batch.items()
-        }
+        with span("pipeline.copy_in"):
+            tensors = {
+                k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(self.device)
+                for k, v in batch.items()
+            }
         n = len(tensors["input_ids"])
         results: List[Dict] = []
         for start in range(0, n, self.batch_size):
-            idx = np.arange(start, min(start + self.batch_size, n))
-            real = len(idx)
-            if real < self.batch_size:
-                # pad a short batch by repeating its rows
-                idx = np.concatenate([idx, np.resize(idx, self.batch_size - real)])
-            rows = torch.as_tensor(idx, device=self.device)
-            chunk = {k: v[rows] for k, v in tensors.items()}
+            with span("pipeline.copy_in"):
+                idx = np.arange(start, min(start + self.batch_size, n))
+                real = len(idx)
+                if real < self.batch_size:
+                    # pad a short batch by repeating its rows
+                    idx = np.concatenate([idx, np.resize(idx, self.batch_size - real)])
+                rows = torch.as_tensor(idx, device=self.device)
+                chunk = {k: v[rows] for k, v in tensors.items()}
             res = self._cascade(
                 self.model, chunk["input_ids"], chunk["bbox"],
                 chunk["pixel_values"], chunk["attention_mask"],
             )
-            logits = res.logits[:real].cpu()
-            exits = res.exit_ids[:real].cpu()
-            forced = res.capacity_exited[:real].cpu()
-            self._n_served += real
-            self._n_capacity_exited += int(forced.sum())
-            probs = torch.softmax(logits.double(), dim=-1)
-            for i in range(real):
-                pred = int(probs[i].argmax())
-                e = int(exits[i])
-                results.append({
-                    "label": self.id2label.get(pred, str(pred)),
-                    "label_id": pred,
-                    "confidence": float(probs[i, pred]),
-                    "exit": e,
-                    "exit_name": str(self.order[e]) if e < len(self.order)
-                    else "final",
-                    "capacity_exited": bool(forced[i]),
-                })
+            with span("pipeline.answers"):
+                logits = res.logits[:real].cpu()
+                exits = res.exit_ids[:real].cpu()
+                forced = res.capacity_exited[:real].cpu()
+                self._count_chunk(exits.numpy(), forced.numpy())
+                probs = torch.softmax(logits.double(), dim=-1)
+                for i in range(real):
+                    pred = int(probs[i].argmax())
+                    e = int(exits[i])
+                    results.append({
+                        "label": self.id2label.get(pred, str(pred)),
+                        "label_id": pred,
+                        "confidence": float(probs[i, pred]),
+                        "exit": e,
+                        "exit_name": str(self.order[e]) if e < len(self.order)
+                        else "final",
+                        "capacity_exited": bool(forced[i]),
+                    })
         return results
+
+    def _tally(self, name: str, n: int) -> None:
+        self._counts[name] = self._counts.get(name, 0) + n
+        count(name, n)
+
+    def _count_chunk(self, exits: np.ndarray, forced: np.ndarray) -> None:
+        """Add one served chunk's real rows to the counters. A row's deepest
+        encoder stage is ``exit - n_emb + forced``: a row that left at
+        stage i's exit ran stage i, a capacity-forced row wanted the stage
+        that refused it, and an embedding exit wanted none (negative).
+        Stage i is wanted by the rows whose deepest stage is at least i,
+        and runs ``capacities[i]`` rows whatever the chunk holds."""
+        deepest = exits.astype(np.int64) - self._n_emb + forced
+        n_stages = len(self.capacities)
+        reached = np.bincount(deepest[deepest >= 0], minlength=n_stages)
+        wanted = np.cumsum(reached[::-1])[::-1]
+        refused = np.bincount(deepest[forced], minlength=n_stages)
+        self._tally("serving.documents", len(exits))
+        self._tally("serving.capacity_exited", int(forced.sum()))
+        for (rows, want, refuse), c, w, r in zip(
+            self._stage_counters, self.capacities, wanted, refused
+        ):
+            self._tally(rows, int(c))
+            self._tally(want, int(w))
+            self._tally(refuse, int(r))
 
     def metrics(self) -> Dict[str, float]:
         """Serving-health counters. ``capacity_exit_rate`` is the fraction of
         documents forced onto shallower best-so-far logits because a stage's
         capacity overflowed; the sizing rule designs for <= 1 - capacity_tail
-        under i.i.d. traffic."""
+        under i.i.d. traffic. ``encoder_fill`` is the share of the encoder
+        layers' rows run that served a real document still running:
+        sum_i L_i (wanted_i - refused_i) / sum_i L_i rows_i, with L_i stage
+        i's layer count (0 before any document)."""
+        counts = self._counts
+        served = counts.get("serving.documents", 0)
+        useful = run = 0
+        for (rows, want, refuse), layers in zip(self._stage_counters, self._stage_layers):
+            useful += layers * (counts.get(want, 0) - counts.get(refuse, 0))
+            run += layers * counts.get(rows, 0)
         return {
-            "documents_served": float(self._n_served),
+            "documents_served": float(served),
             "capacity_exit_rate": (
-                self._n_capacity_exited / self._n_served
-                if self._n_served else 0.0
+                counts.get("serving.capacity_exited", 0) / served if served else 0.0
             ),
             "capacity_tail": self.capacity_tail,
+            "encoder_fill": useful / run if run else 0.0,
         }

@@ -10,6 +10,12 @@ FlopCounterMode`` over one call; on the card also its bytes and peak from
 reads the kernel wrappers' launch counters, and ``write_launch_counts``
 writes a process's counts to ``<dir>/launches-rank<R>.json``, so that a
 multi-process run's counts can be summed.
+
+``span(name)`` marks a layer boundary: while a profiler records, it is a
+``record_function`` range, which the trace holds on the same clock as the
+device's kernels; otherwise it costs one flag read. ``count`` and
+``counters`` are the process's named work counters (rows served, rows a
+cascade stage ran and wanted), beside the launch counters.
 """
 
 from __future__ import annotations
@@ -22,6 +28,33 @@ import time
 from typing import Callable, Dict, Optional
 
 import torch
+from torch.profiler import record_function
+
+_profiler_enabled = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+_COUNTS: Dict[str, int] = {}
+
+
+def span(name: str):
+    """A context manager around one layer's work: ``record_function(name)``
+    while a profiler records (its range appears in the Chrome trace as a
+    ``user_annotation`` event), else a shared no-op. Spans sit at layer
+    boundaries, never inside an encoder layer."""
+    return record_function(name) if _profiler_enabled() else _OFF
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    _COUNTS[name] = _COUNTS.get(name, 0) + n
+
+
+def counters(reset: bool = False) -> Dict[str, int]:
+    """Every named counter's total in this process so far; ``reset``
+    clears them after reading."""
+    out = dict(_COUNTS)
+    if reset:
+        _COUNTS.clear()
+    return out
 
 
 def kernel_wrappers() -> Dict[str, Callable]:

@@ -156,6 +156,8 @@ def main() -> int:
 
     kernels = {}
     for evt in prof.key_averages():
+        if evt.is_user_annotation:
+            continue  # the program's spans: on the device side, ranges over its kernels
         dev_us = getattr(evt, "self_device_time_total", 0.0)
         if dev_us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = {"device_ms": dev_us / 1e3, "count": evt.count}
