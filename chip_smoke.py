@@ -54,7 +54,10 @@ Phases, each reported on its own line:
    forwards also beside their design's floor (the bytes of the pre-pass
    and of a kernel that reads the parts), ``table_grads`` and the tables
    backward beside theirs in both types, the fused kernel beside its f32
-   pair. Then the kernels whose bodies depend on the head dim (the
+   pair. Then ``add_layer_norm`` (the residual add and LayerNorm of the
+   no-grad path) at a served b64 batch's 49,152 rows of 768, bf16 and f32,
+   against the composed chain it replaces, both timed, beside its bytes
+   bound. Then the kernels whose bodies depend on the head dim (the
    forwards #2, #3, #5, #7, the backwards #6, #8, #9 and the split
    pre-pass) at head dim 128 (the same bias inputs in 6 heads of 128,
    hidden 768, S = P = 768), bf16 and f32, against their plain versions at
@@ -67,8 +70,8 @@ Phases, each reported on its own line:
    weights from a seed, bf16) served through ``Pipeline.predict_features``
    at batch 16 with capacities (16, 8), from word features and uint8 page
    images normalised on the card. Checks: well-formed results and finite
-   logits; launch counts of one bias build and 12 attention calls per batch;
-   at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
+   logits; launch counts of one bias build, 12 attention calls and 27
+   ``add_layer_norm`` calls (``V3_NORMS``) per batch; at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
    away from the thresholds; the bf16 kernel path agrees with the f32 plain
    path (on the CPU) on a small input; the device ms of one more, traced,
    call (4 batches: all kernels, the attention, the bias build);
@@ -88,8 +91,8 @@ Phases, each reported on its own line:
    gradient, the rel-pos tables and the q/k/v weights.
 4b. serving with ``MMEE_FUSED_BIAS=1`` (the bias built in the attention
    kernel): the same model, thresholds and batches as phase 4. Checks: 12
-   ``fused_bias_attention`` launches and no bias build or attention launch
-   per batch; exits equal phase 4's for the documents away from the
+   ``fused_bias_attention`` and 27 ``add_layer_norm`` launches and no bias
+   build or attention launch per batch; exits equal phase 4's for the documents away from the
    thresholds, logits within the bf16 tolerance. docs/sec, peak memory and
    the device ms of one more, traced, call beside phase 4's;
 5b. training with ``MMEE_TABLE_GRADS=1`` (the table gradients in the
@@ -193,7 +196,8 @@ Phases, each reported on its own line:
    640); ``cli.train.main`` with ``model=layoutlmv2`` (1 epoch, 1 + 3 steps,
    bf16, dropout 0.1, batch 16). Checks: a finite (1, 64, 16) float64 store,
    two batches bit-equal to ``forward_sequence_classification``, 1
-   ``materialize_bias`` and 12 ``flash_attention_packed`` launches a batch;
+   ``materialize_bias``, 12 ``flash_attention_packed`` and 26
+   ``add_layer_norm`` launches a batch;
    the f32 model's logits on 4 documents within atol 2e-4 / rtol 1e-3 of the
    f32 plain path on the CPU; finite losses, parameters that moved, per step
    1 ``materialize_bias``, 2 ``table_grads``, 12 training forwards and 12
@@ -318,6 +322,7 @@ PEAKS = {
 SPLIT_PASSES = 6
 B, S_TEXT, HEADS, HEAD_DIM = 16, 512, 12, 64
 N_BATCHES = 4
+V3_NORMS = 27  # a served batch's LayerNorms: text, vision, concat, 2 in each of 12 layers
 TRAIN_STEPS, TRAIN_RATE = 3, 0.1
 F32_TRAIN_STEPS = 2  # phase 5f's timed steps
 REL_POS_TABLES = ("rel_pos_bias", "rel_pos_x_bias", "rel_pos_y_bias")
@@ -1280,8 +1285,76 @@ def phase_kernels(name):
               f" (rate {rate}; (A') and (B) on split operands; design floor {floor32:.4f} ms, "
               f"pre-pass included)")
 
+    kernel_add_layer_norm(bw, results)
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
+
+
+LN_ROWS, LN_WIDTH = 64 * 768, 768  # a served batch of 64 documents, 768 positions each
+
+
+def bf16_ulps(got, want):
+    """|got - want| in bf16 ulps of want, each element's ulp taken at its
+    magnitude but not below 1/256 of the tensor's largest (where the f32
+    chain's own rounding, not the output's, sets the error)."""
+    w, g = want.float(), got.float()
+    mag = torch.clamp(w.abs(), min=w.abs().max().item() / 256)
+    return (g - w).abs() / torch.exp2(torch.floor(torch.log2(mag)) - 7)
+
+
+def kernel_add_layer_norm(bw, results):
+    """Phase 3's ``add_layer_norm`` (no TPU kernel: the JAX package leaves
+    LayerNorm to XLA) at a served b64 batch's shape, 49,152 rows of 768 with
+    a residual, bf16 then f32: against the composed chain it replaces (the
+    residual add and the 14-launch f32 LayerNorm, ``add_layer_norm_plain``),
+    in bf16 within 1 ulp on 99.9 % of the elements and 2 ulps on every one,
+    in f32 within 1e-5 of the output's scale; each timed beside the other
+    and beside the bytes bound (x and the residual read once, the output
+    written once). Appends the kernel's row (bf16 fields, then ``f32_*``)
+    to ``results``."""
+    from multi_modal_early_exit_tpu_torch.ops.layer_norm import (
+        add_layer_norm,
+        add_layer_norm_plain,
+    )
+
+    e = dict(name="add_layer_norm", route="cuda",
+             source="multi_modal_early_exit_tpu_torch/csrc/add_layer_norm.cu",
+             replaces="multi_modal_early_exit_tpu/models/layoutlmv3/modeling.py:63",
+             library_ms=None, f32_library_ms=None, ok=True)
+    for dtype in (torch.bfloat16, torch.float32):
+        g = torch.Generator(device="cuda").manual_seed(0)
+        x = (torch.randn((LN_ROWS, LN_WIDTH), generator=g, device="cuda") * 2 + 0.5).to(dtype)
+        r = torch.randn((LN_ROWS, LN_WIDTH), generator=g, device="cuda").to(dtype)
+        w = (1 + 0.1 * torch.randn(LN_WIDTH, generator=g, device="cuda")).to(dtype)
+        b = (0.1 * torch.randn(LN_WIDTH, generator=g, device="cuda")).to(dtype)
+        got, want = add_layer_norm(x, w, b, 1e-5, r), add_layer_norm_plain(x, w, b, 1e-5, r)
+        max_abs = (got.float() - want.float()).abs().max().item()
+        if dtype == torch.bfloat16:
+            ulps = bf16_ulps(got, want)
+            within1, worst = (ulps <= 1).float().mean().item(), ulps.max().item()
+            check(within1 >= 0.999 and worst <= 2,
+                  f"add_layer_norm bf16: {100 * within1:.4f} % of elements within 1 ulp "
+                  f"(at least 99.9 %), worst {worst:.3g} ulps (at most 2)")
+            err = f"{100 * within1:.4f} % within 1 bf16 ulp, worst {worst:.3g} ulps"
+        else:
+            rel = scaled_err(got, want)
+            check(rel <= 1e-5, f"add_layer_norm f32: error {rel:.3g} over scale (tol 1e-5)")
+            err = f"error over scale {rel:.3g}"
+        del got, want
+        ms = time_ms(lambda: add_layer_norm(x, w, b, 1e-5, r), iters=50)
+        plain_ms = time_ms(lambda: add_layer_norm_plain(x, w, b, 1e-5, r), iters=20)
+        n_bytes = 3 * x.numel() * x.element_size() + 2 * w.numel() * w.element_size()
+        bound_ms, bound_by = bound(n_bytes, 0, bw, 1.0)
+        pre = "" if dtype == torch.bfloat16 else "f32_"
+        e.update({f"{pre}ms": ms, f"{pre}bound_ms": bound_ms, f"{pre}bound_by": bound_by,
+                  f"{pre}max_abs_err": max_abs})
+        if dtype == torch.bfloat16:
+            e["plain_ms"] = plain_ms
+        print(f"kernel add_layer_norm ({LN_ROWS} x {LN_WIDTH}, {dtype}, with a residual): "
+              f"{err}, kernel_ms {ms:.4f}, composed_ms {plain_ms:.4f} (15 launches), "
+              f"bound {bound_ms * 1e3:.1f} us (bytes), {100 * bound_ms / ms:.1f} % of it")
+        del x, r
+    results.append(e)
 
 
 H128, D128 = 6, 128  # hidden 768 in heads of 128
@@ -1640,6 +1713,7 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
         split_bf16x3,
     )
     from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
 
     cfg = EEModelConfig(
@@ -1733,7 +1807,8 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     check(pipe.capacities == (16, 8), f"capacities {pipe.capacities}")
     pipe.predict_features({k: v[:B] for k, v in batch.items()})  # warm-up
     counters = {"materialize_bias": materialize_bias,
-                "flash_attention_packed": flash_attention_packed, "split_bf16x3": split_bf16x3}
+                "flash_attention_packed": flash_attention_packed, "split_bf16x3": split_bf16x3,
+                "add_layer_norm": add_layer_norm}
     for f in counters.values():
         f.launches = 0
     torch.cuda.synchronize()
@@ -1755,6 +1830,7 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     # an f32 attention call splits k and v first; a bf16 one does not
     check(launches["split_bf16x3"] == (12 * N_BATCHES if dtype == torch.float32 else 0),
           f"split launches {launches}")
+    check(launches["add_layer_norm"] == V3_NORMS * N_BATCHES, f"LayerNorm launches {launches}")
     hist = {name: sum(r["exit_name"] == name for r in results) for name in order}
     forced = sum(r["capacity_exited"] for r in results)
     check(forced > 0 and hist["final"] > 0 and hist[order[0]] + hist[order[1]] > 0,
@@ -1794,12 +1870,14 @@ def phase_serve_fused(served):
         fused_bias_attention,
         materialize_bias,
     )
+    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
 
     s = served
     model, cfg, far = s["model"], s["cfg"], s["far"]
     counters = {"fused_bias_attention": fused_bias_attention,
                 "materialize_bias": materialize_bias,
-                "flash_attention_packed": flash_attention_packed}
+                "flash_attention_packed": flash_attention_packed,
+                "add_layer_norm": add_layer_norm}
     full_cascade = make_cascade_forward(cfg, (B, B), s["thr"])
     res = [full_cascade(model, *c) for c in s["chunks"]]
     ids = torch.cat([r.exit_ids.cpu() for r in res])
@@ -1824,7 +1902,8 @@ def phase_serve_fused(served):
     dt = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
     launches = {name: f.launches for name, f in counters.items()}
-    want = {"fused_bias_attention": 12, "materialize_bias": 0, "flash_attention_packed": 0}
+    want = {"fused_bias_attention": 12, "materialize_bias": 0, "flash_attention_packed": 0,
+            "add_layer_norm": V3_NORMS}
     for name, per_batch in want.items():
         check(launches[name] == per_batch * N_BATCHES,
               f"{name}: {launches[name]} launches in {N_BATCHES} batches")
@@ -2714,7 +2793,9 @@ V2_TRAIN = ["with", "model=layoutlmv2", "model_size=base", "dataset=synthetic_rv
 # unchained backward (2 kernels a call) and the tables' backward (2)
 V2_STEP_LAUNCHES = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": 12,
                     "flash_attention_packed_train_bwd": 24}
-V2_BATCH_LAUNCHES = {"materialize_bias": 1, "flash_attention_packed": 12}
+# a batch's LayerNorms (add_layer_norm): the text and visual norms and two
+# in each of the 12 layers
+V2_BATCH_LAUNCHES = {"materialize_bias": 1, "flash_attention_packed": 12, "add_layer_norm": 26}
 
 
 def v2_loss_grads(model, cfg, batch, device, dtype):
@@ -2834,6 +2915,7 @@ def phase_v2(card: str):
         bias_vectors,
     )
     from multi_modal_early_exit_tpu_torch.models.registry import build_model
+    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
 
     counters = train_counters()
@@ -2871,10 +2953,12 @@ def phase_v2(card: str):
     torch.cuda.synchronize()
     for f in counters.values():
         f.launches = 0
+    add_layer_norm.launches = 0
     torch.cuda.reset_peak_memory_stats()
     store, refs, stats = get_logits(model, cfg, docs, {}, batch_size=B, use_cache=False)
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 20
     harvest = {n: f.launches for n, f in counters.items() if f.launches}
+    harvest["add_layer_norm"] = add_layer_norm.launches
     n_batches = -(-V2_DOCS // B)
     want = {n: c * n_batches for n, c in V2_BATCH_LAUNCHES.items()}
     check(harvest == want, f"the v2 harvest launched {harvest}, not {want}")
@@ -3887,6 +3971,7 @@ def main() -> int:
         "flash_attention_bwd": (default_launches, default_path),
         "materialize_bias": (serve_launches, f"{N_BATCHES} served batches"),
         "flash_attention_packed": (serve_launches, f"{N_BATCHES} served batches"),
+        "add_layer_norm": (serve_launches, f"{N_BATCHES} served batches"),
         "fused_bias_attention": (fused_launches,
                                  f"{N_BATCHES} served batches, MMEE_FUSED_BIAS=1"),
         "flash_attention_packed_train": (train_launches, f"{TRAIN_STEPS} training steps"),
@@ -3903,6 +3988,7 @@ def main() -> int:
     # in phase 3
     f32_paths = {"materialize_bias": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
                  "flash_attention_packed": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
+                 "add_layer_norm": (serve32_launches, f"phase 4f, {N_BATCHES} batches"),
                  "split_bf16x3": (f32_split, f32_split_in)}
     f32_train = (train32_launches, f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps")
     for k in kernels:
@@ -3943,7 +4029,8 @@ def main() -> int:
             k["engine_launches"], k["engine_launches_in"] = engine_launches[k["name"]], engine_in
             check(k["engine_launches"] > 0, f"{k['name']} was never launched in phase 8b")
     check(set(v2) == {"materialize_bias", "flash_attention_packed", "flash_attention_packed_train",
-                      "flash_attention_packed_train_bwd", "table_grads"}, f"phase 8a ran {v2}")
+                      "flash_attention_packed_train_bwd", "table_grads", "add_layer_norm"},
+          f"phase 8a ran {v2}")
     # phase 9: every rank's launches under the meshes (the comparisons uncounted)
     mesh_in = ("phase 9, summed over the ranks: 9a 2 steps under (1, 1) (NCCL), 9b "
                "sharded_flash_attention at (2, 2) and (4, 1) and 3 steps under (2, 2), 9c the "

@@ -24,9 +24,11 @@ its bias cotangent to the running one in the kernel. With
 ``cfg.gradient_checkpointing`` each group of ``effective_scan_fold`` layers
 is recomputed in the backward (``torch.utils.checkpoint``). On CUDA tensors
 the attention and bias ops are the hand-written kernels, on CPU tensors
-their plain PyTorch versions. Masked keys carry -1e30. With no bias at all
-(the image-only ``dit``, ``forward_image_classification``) the attention is
-composed of torch ops, as the JAX package composes it in XLA: no kernel.
+their plain PyTorch versions; outside autograd, LayerNorm and the residual
+add before it are one kernel on CUDA tensors (``layer_norm``). Masked keys
+carry -1e30. With no bias at all (the image-only ``dit``,
+``forward_image_classification``) the attention is composed of torch ops,
+as the JAX package composes it in XLA: no kernel.
 ``LayoutLMv3Model`` allocates only the towers a variant uses (``bert``:
 text, ``dit``: vision).
 
@@ -68,6 +70,7 @@ from torch.utils.checkpoint import checkpoint
 
 from multi_modal_early_exit_tpu_torch.device import resolve_device
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import LayoutLMv3Config
+from multi_modal_early_exit_tpu_torch.ops import layer_norm as ln_ops
 from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed,
     flash_attention_packed_train,
@@ -87,6 +90,7 @@ from multi_modal_early_exit_tpu_torch.parallel.layers import (
     shard_seed,
     vocab_parallel_embedding,
 )
+from multi_modal_early_exit_tpu_torch.utils.profiling import count
 
 # ---------------------------------------------------------------------------
 # primitives
@@ -151,18 +155,32 @@ class _LayerNormCore(torch.autograd.Function):
 
 
 def layer_norm(
-    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float
+    x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float,
+    residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """LayerNorm with f32 moments; output in x's dtype. Under autograd it is
-    ``_LayerNormCore`` (one-pass moments, hand VJP); otherwise two-pass
-    moments, as the JAX package's primal."""
-    if _needs_grad(x, weight, bias):
+    """LayerNorm(x + residual) with f32 moments; output in x's dtype. Under
+    autograd it is ``x + residual``, then ``_LayerNormCore`` (one-pass
+    moments, hand VJP). Otherwise two-pass moments, as the JAX package's
+    primal: on CUDA tensors the hand-written kernel
+    (``ops.layer_norm.add_layer_norm``, the add and the norm in one pass;
+    a strided or misaligned x or residual is copied dense first, and a
+    dtype or width the kernel does not build raises), on the CPU the same
+    composed of torch ops. Each call's rows count in
+    ``layer_norm.fused_rows`` or ``layer_norm.composed_rows``."""
+    rows = x.numel() // x.shape[-1]
+    grad = (_needs_grad(x, weight, bias) if residual is None
+            else _needs_grad(x, residual, weight, bias))
+    if grad:
+        count("layer_norm.composed_rows", rows)
+        if residual is not None:
+            x = x + residual
         return _LayerNormCore.apply(x, weight, bias, float(eps))
-    xf = x.to(torch.float32)
-    mean = xf.mean(dim=-1, keepdim=True)
-    var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    y = (xf - mean) * torch.rsqrt(var + eps)
-    return (y * weight.to(torch.float32) + bias.to(torch.float32)).to(x.dtype)
+    if ln_ops.on_card(x):
+        count("layer_norm.fused_rows", rows)
+        return ln_ops.add_layer_norm(ln_ops.dense(x), weight, bias, eps,
+                                     None if residual is None else ln_ops.dense(residual))
+    count("layer_norm.composed_rows", rows)
+    return ln_ops.add_layer_norm_plain(x, weight, bias, eps, residual)
 
 
 class LayerNorm(nn.Module):
@@ -177,8 +195,8 @@ class LayerNorm(nn.Module):
             self.weight.fill_(1.0)
             self.bias.zero_()
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return layer_norm(x, self.weight, self.bias, self.eps)
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+        return layer_norm(x, self.weight, self.bias, self.eps, residual)
 
 
 class _GeluExact(torch.autograd.Function):
@@ -703,7 +721,7 @@ def _attn_epilogue(
     residual LayerNorm."""
     out = dropout(row_parallel(p.output, ctx, model_parallel(p)), cfg.hidden_dropout_prob,
                   deterministic, seed_out)
-    return p.output_LayerNorm(out + hidden)
+    return p.output_LayerNorm(out, residual=hidden)
 
 
 def _attention_no_bias(
@@ -810,7 +828,7 @@ def encoder_layer_apply(
     inter = gelu_exact(column_parallel(p.intermediate, attn_out, mesh))
     out = dropout(row_parallel(p.output, inter, mesh), cfg.hidden_dropout_prob, deterministic,
                   r[2])
-    out = p.output_LayerNorm(out + attn_out)
+    out = p.output_LayerNorm(out, residual=attn_out)
     return out if chained is None else (out, chained)
 
 

@@ -12,6 +12,7 @@ import pytest
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
 from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
 from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+from multi_modal_early_exit_tpu_torch.ops import layer_norm as aln
 
 # (module, loader, C entry): every binding of the port
 BINDINGS = [
@@ -25,6 +26,7 @@ BINDINGS = [
     (fba, "_materialize_bias_fn", "mmee_materialize_bias"),
     (fba, "_table_grads_fn", "mmee_table_grads"),
     (fba, "_fused_bias_attention_fn", "mmee_fused_bias_attention"),
+    (aln, "_add_layer_norm_fn", "mmee_add_layer_norm"),
 ]
 LOADERS = sorted({(m, name) for m, name, _ in BINDINGS}, key=lambda x: (x[0].__name__, x[1]))
 
