@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 import operator
 from enum import Enum
-from typing import Callable, List, Sequence, Tuple, Union
+from typing import Callable, ClassVar, List, Sequence, Tuple, Union
 
 
 class StrChoice(str, Enum):
@@ -183,12 +183,15 @@ class ExitConfig:
     gamma: float = 0.0
     alpha: float = 0.5
     temperature: float = 1.0
+    # the deepest layer an encoder exit may follow (LayoutLMv3-base's 12; a
+    # deeper backbone's subclass raises it)
+    max_exit_layer: ClassVar[int] = 12
 
     def __post_init__(self):
         self.training_strategy = EarlyExitStrategy(self.training_strategy)
         self.inference_strategy = EarlyExitInference(self.inference_strategy)
         self.encoder_layer_strategy = EarlyExitHead(self.encoder_layer_strategy)
-        self.exits = parse_exits(self.exits)
+        self.exits = parse_exits(self.exits, self.max_exit_layer)
         if self.exit_head_num_layers not in (1, 2):
             raise ValueError("exit_head_num_layers must be 1 or 2")
 

@@ -18,6 +18,13 @@ The counterpart of the JAX package's ``models/ee/cascade.py``, run eagerly:
   stage hands its layers a ``FusedBiasContext`` of its gathered rows.
 
 FLOP cost is fixed per batch: stage i always costs c_i rows.
+
+What differs between backbones (the embedding, a stage's layers, an exit's
+input, the classifier) comes from a stages object chosen once, when the
+cascade is built: ``LayoutLMv3Stages`` below, or Moonlight's
+(``models.moonlight.modeling.CascadeStages``: no embedding exits, causal
+layers, the last real token read). Selection, capacity-forced exits and
+the criteria are shared.
 """
 
 from __future__ import annotations
@@ -44,8 +51,81 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     sequence_layout,
     use_fused_bias_attention,
 )
+from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
+from multi_modal_early_exit_tpu_torch.models.moonlight.modeling import CascadeStages
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import LANE
 from multi_modal_early_exit_tpu_torch.utils.profiling import span
+
+
+class _BiasCarry:
+    """One call's bias state: the fused switch, and the previous stage's
+    bias and rows (a later stage gathers its rows out of them)."""
+
+    __slots__ = ("fused", "bias", "sel", "batch")
+
+    def __init__(self, fused: bool, batch: int):
+        self.fused, self.bias, self.sel, self.batch = fused, None, None, batch
+
+
+class LayoutLMv3Stages:
+    """LayoutLMv3's pieces of the cascade: the text and vision embeddings
+    (the embedding exits' sources), the sequence padded once to the bias
+    width, the relative-position bias built at stage 0 and gathered after,
+    the [CLS] state at each exit."""
+
+    def __init__(self, cfg):
+        self.cfg = cfg
+
+    def embed(self, model, input_ids, bbox, pixel_values, attention_mask):
+        """(state: per-row tensors a stage gathers, the embedding exits'
+        sources, the call's carry)."""
+        bb, cfg = model.backbone, self.cfg
+        text_emb = embed_text(bb.embeddings, cfg, input_ids, bbox)
+        vis_emb = embed_vision(bb.visual, cfg, pixel_values)
+        combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
+        full_bbox, pos_ids, full_mask = sequence_layout(
+            cfg, bbox, attention_mask, vis_emb.shape[1]
+        )
+        sources = {"vision_avg": vis_emb, "text_avg": text_emb,
+                   "text_visual_concat": combined}
+        carry = _BiasCarry(has_both_biases(cfg) and use_fused_bias_attention(),
+                           input_ids.shape[0])
+        # pad once to the bias width: every stage runs at P = S_pad
+        state = list(pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask))
+        return state, sources, carry
+
+    def layers(self, model, state, sel, a: int, b: int, carry: _BiasCarry):
+        """Layers a..b-1 over the rows ``sel`` of ``state``: (hidden, the
+        other state tensors of those rows, the exit input). The gathered
+        input is referenced here alone, so it is freed after the first
+        layer."""
+        bb, cfg = model.backbone, self.cfg
+        hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
+        if carry.fused:
+            # the attention kernel builds each stage's bias from its
+            # rows' vectors; no bias tensor exists to gather from
+            bias_c = fused_bias_context(bb, cfg, pos_c, bbox_c, mask_c)
+        elif carry.bias is None:
+            bias_c = make_attention_bias(bb, cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype)
+            carry.bias, carry.sel = bias_c, sel
+        else:
+            # this stage's rows are a subset of the previous stage's:
+            # gather their bias rows instead of rebuilding them
+            pos_in_prev = torch.zeros((carry.batch,), dtype=torch.int64, device=sel.device)
+            pos_in_prev[carry.sel] = torch.arange(carry.sel.shape[0], device=sel.device)
+            bias_c = carry.bias[pos_in_prev[sel]]
+            carry.bias, carry.sel = bias_c, sel
+        for layer in bb.encoder.layers[a:b]:
+            hidden_c = encoder_layer_apply(layer, cfg, hidden_c, bias_c)
+        return hidden_c, (bbox_c, pos_c, mask_c), hidden_c[:, 0, :]
+
+    def classify(self, model, x):
+        return classifier_apply(model.backbone.classifier, self.cfg, x)
+
+
+def cascade_stages(cfg):
+    """The stages object of a backbone config."""
+    return CascadeStages(cfg) if isinstance(cfg, MoonlightConfig) else LayoutLMv3Stages(cfg)
 
 
 def capacities_from_distribution(
@@ -153,10 +233,10 @@ def make_cascade_forward(
     # exit' criteria low values continue, for 'lower is exit' high values
     higher_exits = bool(sign(1.0, 0.0))
     stage_spans = [f"cascade.stage{i}" for i in range(len(bounds))]
+    stages = cascade_stages(bb_cfg)
 
     @torch.no_grad()
     def cascade(model: EEModel, input_ids, bbox, pixel_values, attention_mask):
-        bb = model.backbone
         B = input_ids.shape[0]
         K = bb_cfg.num_labels
         dev = input_ids.device
@@ -168,11 +248,8 @@ def make_cascade_forward(
 
         # ---- stage 0: embeddings + embedding exits (full batch) --------
         with span("cascade.embed"):
-            text_emb = embed_text(bb.embeddings, bb_cfg, input_ids, bbox)
-            vis_emb = embed_vision(bb.visual, bb_cfg, pixel_values)
-            combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
-            full_bbox, pos_ids, full_mask = sequence_layout(
-                bb_cfg, bbox, attention_mask, vis_emb.shape[1]
+            state, sources, carry = stages.embed(
+                model, input_ids, bbox, pixel_values, attention_mask
             )
 
             out_logits = torch.zeros((B, K), dtype=torch.float32, device=dev)
@@ -183,8 +260,6 @@ def make_cascade_forward(
             # the agreement count lives in last_crit
             prev_pred = torch.full((B,), -1, dtype=torch.int64, device=dev)
 
-            sources = {"vision_avg": vis_emb, "text_avg": text_emb,
-                       "text_visual_concat": combined}
             for j, name in enumerate(emb_exits):
                 x = sources[name].mean(dim=1)
                 head_out = exit_head_apply(
@@ -193,7 +268,7 @@ def make_cascade_forward(
                 if exit_cfg.apply_gating:
                     # gate heads: 2-logit criterion; the prediction is the
                     # final classifier on the exit input
-                    logits_j = classifier_apply(bb.classifier, bb_cfg, x).to(torch.float32)
+                    logits_j = stages.classify(model, x).to(torch.float32)
                 else:
                     logits_j = head_out
                 if use_lte:
@@ -217,10 +292,6 @@ def make_cascade_forward(
                 running = running & ~exits_now
 
             capacity_exited = torch.zeros((B,), dtype=torch.bool, device=dev)
-            prev_bias = prev_sel = None
-            fused = has_both_biases(bb_cfg) and use_fused_bias_attention()
-            # pad once to the bias width: every stage runs at P = S_pad
-            state = pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask)
 
         for stage_idx, (a, b_layer) in enumerate(bounds):
             with span(stage_spans[stage_idx]):
@@ -241,31 +312,11 @@ def make_cascade_forward(
                 capacity_exited = capacity_exited | forced
                 running = running & selected
 
-                hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
-                if fused:
-                    # the attention kernel builds each stage's bias from its
-                    # rows' vectors; no bias tensor exists to gather from
-                    bias_c = fused_bias_context(bb, bb_cfg, pos_c, bbox_c, mask_c)
-                elif prev_bias is None:
-                    bias_c = make_attention_bias(
-                        bb, bb_cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype
-                    )
-                    prev_bias, prev_sel = bias_c, sel
-                else:
-                    # this stage's rows are a subset of the previous stage's:
-                    # gather their bias rows instead of rebuilding them
-                    pos_in_prev = torch.zeros((B,), dtype=torch.int64, device=dev)
-                    pos_in_prev[prev_sel] = torch.arange(prev_sel.shape[0], device=dev)
-                    bias_c = prev_bias[pos_in_prev[sel]]
-                    prev_bias, prev_sel = bias_c, sel
-
-                for layer in bb.encoder.layers[a:b_layer]:
-                    hidden_c = encoder_layer_apply(layer, bb_cfg, hidden_c, bias_c)
+                hidden_c, rest_c, cls_c = stages.layers(model, state, sel, a, b_layer, carry)
 
                 is_final = stage_idx == len(bounds) - 1
-                cls_c = hidden_c[:, 0, :]
                 if is_final:
-                    logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
+                    logits_c = stages.classify(model, cls_c).to(torch.float32)
                     # the final classifier always exits; patience and LTE have no
                     # criterion there (ee_forward records 0 for both)
                     crit_c = (
@@ -278,7 +329,7 @@ def make_cascade_forward(
                         model.encoder_exits[stage_idx], bb_cfg, cls_c
                     ).to(torch.float32)
                     if exit_cfg.apply_gating:
-                        logits_c = classifier_apply(bb.classifier, bb_cfg, cls_c).to(torch.float32)
+                        logits_c = stages.classify(model, cls_c).to(torch.float32)
                     else:
                         logits_c = head_out
                     if use_lte:
@@ -307,11 +358,11 @@ def make_cascade_forward(
                     # stage's selection indexes one frame; rows of non-selected
                     # samples are stale but `running` excludes them
                     new_state = []
-                    for t, t_c in zip(state, (hidden_c, bbox_c, pos_c, mask_c)):
+                    for t, t_c in zip(state, (hidden_c,) + rest_c):
                         full = torch.zeros_like(t)
                         full[sel] = t_c
                         new_state.append(full)
-                    state = tuple(new_state)
+                    state = new_state
         return CascadeResult(out_logits, exit_ids, capacity_exited)
 
     return cascade

@@ -2,8 +2,9 @@
 
 An exit head is optionally [dropout -> dense -> tanh]
 (``exit_head_num_layers == 2``), then dropout -> out_proj. Its output dim is
-num_labels for RAMP/EMBEXIT heads and 2 for GATE heads. The LTE head is a
-1-unit sigmoid regressor.
+num_labels for RAMP/EMBEXIT heads and 2 for GATE heads. A pre-norm
+backbone's head (Moonlight's) first normalises its input with a norm of its
+own. The LTE head is a 1-unit sigmoid regressor.
 """
 
 from __future__ import annotations
@@ -29,9 +30,11 @@ def head_output_dim(backbone: LayoutLMv3Config, exit_cfg: ExitConfig) -> int:
 
 
 class ExitHead(nn.Module):
-    def __init__(self, backbone: LayoutLMv3Config, exit_cfg: ExitConfig):
+    def __init__(self, backbone: LayoutLMv3Config, exit_cfg: ExitConfig,
+                 norm: Optional[nn.Module] = None):
         super().__init__()
         h = backbone.hidden_size
+        self.norm = norm
         self.dense = Linear(h, h) if exit_cfg.exit_head_num_layers == 2 else None
         self.out_proj = Linear(h, head_output_dim(backbone, exit_cfg))
 
@@ -46,6 +49,8 @@ def exit_head_apply(
     """The head's logits; with ``deterministic=False`` its dropouts (classifier
     rate) draw their seeds from ``rngs``."""
     rate = backbone.classifier_dropout_prob
+    if p.norm is not None:
+        x = p.norm(x)
     if p.dense is not None:
         x = dropout(x, rate, deterministic, rngs.next() if rngs else None)
         x = torch.tanh(p.dense(x))

@@ -12,6 +12,11 @@ The counterpart of the JAX package's ``models/ee/model.py``:
   ``decide_exits`` takes the first exit whose criterion clears the
   threshold.
 
+With a Moonlight backbone (``EEmoonlight``, ``models/moonlight``) the model
+reads text alone: encoder exits only, each head on the last real token
+through a norm of its own, and the classifier on that token after the final
+norm (the last-token pooling of a causal LM's sequence classifier).
+
 ``ee_forward`` is differentiable; inference callers run it under
 ``torch.no_grad()``. With ``deterministic=False`` the dropout seeds come from
 a ``torch.Generator``.
@@ -45,6 +50,8 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     classifier_apply,
     reset_parameters,
 )
+from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moonlight
+from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
 
 # Forward order of the embedding exits: vision first, then text, then
 # concat, whatever order the user listed them in.
@@ -62,13 +69,20 @@ class EEModel(nn.Module):
     default). ``encoder_exits[i]`` is the head of the i-th encoder exit;
     ``embedding_exits`` is keyed by exit name; ``lte`` exists with
     ``use_lte``. ``with_text``/``with_vision`` prune the backbone's towers
-    (the dense ``dit`` and ``bert`` variants, which have no exits)."""
+    (the dense ``dit`` and ``bert`` variants, which have no exits). A
+    ``MoonlightConfig`` backbone builds ``MoonlightModel``, encoder exits
+    only, each head with its own RMSNorm; its parameters are allocated on
+    the default device (under ``torch.device("meta")``, none)."""
 
     def __init__(self, cfg: EEModelConfig, device=None, with_text: bool = True,
                  with_vision: bool = True):
         super().__init__()
         device = resolve_device(device)
         backbone, exit_cfg = cfg.backbone, cfg.exit
+        if isinstance(backbone, MoonlightConfig):
+            self._init_moonlight(backbone, exit_cfg)
+            self.to(device)
+            return
         self.backbone = LayoutLMv3Model(backbone, device="cpu", with_text=with_text,
                                         with_vision=with_vision)
         emb = {
@@ -83,6 +97,23 @@ class EEModel(nn.Module):
         )
         self.lte = Linear(backbone.hidden_size, 1) if exit_cfg.use_lte else None
         self.to(device)
+
+    def _init_moonlight(self, backbone: MoonlightConfig, exit_cfg: ExitConfig) -> None:
+        if exit_cfg.embedding_exits:
+            raise ValueError(f"a Moonlight backbone reads text alone: it has no embedding "
+                             f"exits, got {exit_cfg.embedding_exits}")
+        if exit_cfg.apply_gating or exit_cfg.use_lte:
+            raise NotImplementedError("a Moonlight backbone takes ramp exit heads; gate and "
+                                      "LTE heads are LayoutLMv3's")
+        self.backbone = moonlight.MoonlightModel(backbone)
+        self.embedding_exits = None
+        self.encoder_exits = (
+            nn.ModuleList(ExitHead(backbone, exit_cfg,
+                                   moonlight.RMSNorm(backbone.hidden_size, backbone.rms_norm_eps))
+                          for _ in exit_cfg.encoder_exits)
+            if exit_cfg.encoder_exits else None
+        )
+        self.lte = None
 
     def forward(self, cfg: EEModelConfig, *args, **kwargs) -> "EEOutputs":
         """``ee_forward(self, cfg, ...)``, so that ``torch.func.functional_call``
@@ -101,11 +132,23 @@ def init_ee_params(
 ) -> EEModel:
     """Random EE parameters from a (CPU) ``generator`` (seed 0 if none),
     with the JAX package's shapes and std, on ``device`` in ``dtype``;
-    ``with_text``/``with_vision`` as in ``EEModel``."""
+    ``with_text``/``with_vision`` as in ``EEModel``. A Moonlight model is
+    allocated on ``device`` in ``dtype`` and drawn there, from a generator
+    on that device seeded by ``generator`` (on the CPU, ``generator``
+    itself)."""
     device = resolve_device(device)
+    generator = generator or torch.Generator().manual_seed(0)
+    if isinstance(cfg.backbone, MoonlightConfig):
+        with torch.device("meta"):
+            model = EEModel(cfg, device="meta")
+        model = model.to(dtype).to_empty(device=device)
+        if device.type != "cpu":
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+            generator = torch.Generator(device=device).manual_seed(seed)
+        reset_parameters(model, generator, cfg.backbone.initializer_range)
+        return model
     model = EEModel(cfg, device="cpu", with_text=with_text, with_vision=with_vision)
-    reset_parameters(model, generator or torch.Generator().manual_seed(0),
-                     cfg.backbone.initializer_range)
+    reset_parameters(model, generator, cfg.backbone.initializer_range)
     return model.to(device=device, dtype=dtype)
 
 
@@ -178,37 +221,48 @@ def ee_forward(
     included)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
     rngs = RngStream(None if deterministic else rng, getattr(model, "mesh", None))
-    bb = backbone_apply(
-        model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
-        attention_mask, deterministic=deterministic, rng=rng,
-        collect_cls=bool(exit_cfg.encoder_exits), collect_hidden=collect_hidden,
-        seq_pad_multiple=seq_pad_multiple,
-    )
     b = input_ids.shape[0]
-
     order = canonical_exit_order(exit_cfg)
-    sources = {
-        "vision_avg": bb.visual_embeddings,
-        "text_avg": bb.text_embeddings,
-        "text_visual_concat": bb.combined_embeddings,
-    }
-    exit_inputs = [sources[name].mean(dim=1) for name in order if isinstance(name, str)]
-    n_emb = len(exit_inputs)
-    exit_logit_list = [
-        exit_head_apply(model.embedding_exits[name], backbone_cfg, x, deterministic, rngs)
-        for name, x in zip(order[:n_emb], exit_inputs)
-    ]
-    for head, layer in zip(model.encoder_exits or (), exit_cfg.encoder_exits):
-        cls_state = bb.cls_per_layer[layer - 1]
-        exit_inputs.append(cls_state)
-        exit_logit_list.append(
-            exit_head_apply(head, backbone_cfg, cls_state, deterministic, rngs)
+    if isinstance(backbone_cfg, MoonlightConfig):
+        # text alone, last-token taps; no embedding exits (EEModel refuses them)
+        taps = moonlight.last_token_states(model.backbone, backbone_cfg, input_ids,
+                                           attention_mask)
+        exit_inputs = [taps[layer - 1] for layer in exit_cfg.encoder_exits]
+        n_emb = 0
+        exit_logit_list = [exit_head_apply(head, backbone_cfg, x)
+                           for head, x in zip(model.encoder_exits or (), exit_inputs)]
+        final_logits = moonlight.classify(model.backbone, backbone_cfg, taps[-1])
+        last_hidden = None
+    else:
+        bb = backbone_apply(
+            model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
+            attention_mask, deterministic=deterministic, rng=rng,
+            collect_cls=bool(exit_cfg.encoder_exits), collect_hidden=collect_hidden,
+            seq_pad_multiple=seq_pad_multiple,
         )
+        sources = {
+            "vision_avg": bb.visual_embeddings,
+            "text_avg": bb.text_embeddings,
+            "text_visual_concat": bb.combined_embeddings,
+        }
+        exit_inputs = [sources[name].mean(dim=1) for name in order if isinstance(name, str)]
+        n_emb = len(exit_inputs)
+        exit_logit_list = [
+            exit_head_apply(model.embedding_exits[name], backbone_cfg, x, deterministic, rngs)
+            for name, x in zip(order[:n_emb], exit_inputs)
+        ]
+        for head, layer in zip(model.encoder_exits or (), exit_cfg.encoder_exits):
+            cls_state = bb.cls_per_layer[layer - 1]
+            exit_inputs.append(cls_state)
+            exit_logit_list.append(
+                exit_head_apply(head, backbone_cfg, cls_state, deterministic, rngs)
+            )
 
-    final_logits = classifier_apply(
-        model.backbone.classifier, backbone_cfg, bb.last_hidden_state[:, 0, :],
-        deterministic, rngs,
-    )
+        final_logits = classifier_apply(
+            model.backbone.classifier, backbone_cfg, bb.last_hidden_state[:, 0, :],
+            deterministic, rngs,
+        )
+        last_hidden = bb.last_hidden_state
     exit_logits = (
         torch.stack(exit_logit_list)
         if exit_logit_list
@@ -257,7 +311,7 @@ def ee_forward(
         gate_inputs=gate_inputs,
         gated_logits=gated_logits,
         lte_scores=lte_scores,
-        last_hidden_state=bb.last_hidden_state if collect_hidden else None,
+        last_hidden_state=last_hidden if collect_hidden else None,
     )
 
 

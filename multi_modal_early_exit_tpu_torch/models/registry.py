@@ -16,6 +16,11 @@ names and what the port builds for them:
 - ``layoutlmv2``     the genuine LayoutLMv2 (``models/layoutlmv2``): a
                      ``(LayoutLMv2Config, LayoutLMv2Model)`` pair, a dense
                      baseline trained with ``sequence_classification_loss``
+- ``EEmoonlight``    early-exit Moonlight-16B-A3B (``models/moonlight``): an
+                     ``EEModel`` over OCR text alone, encoder exits only
+                     (``exits`` must name layers, 1-27), served by the
+                     cascade; ``model_size`` base is the published model,
+                     tiny the CPU tests' (no pretrained load, no trainer)
 - ``pix2struct``     ``NotImplementedError`` (parity: EE/configs.py:508)
 
 When a HuggingFace LayoutLMv3 (for v2: LayoutLMv2) checkpoint is in the
@@ -26,6 +31,7 @@ otherwise the parameters are random, drawn from the caller's generator.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -40,7 +46,7 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
 
 MODEL_NAMES = (
     "EElayoutlmv3", "LTElayoutlmv3", "layoutlmv3", "dit", "dit_rvl",
-    "bert", "layoutlmv2", "pix2struct",
+    "bert", "layoutlmv2", "pix2struct", "EEmoonlight",
 )
 
 
@@ -54,7 +60,7 @@ def splits_over_model_axis(name: str) -> bool:
     """Whether the model ``name`` builds can split over a model axis above
     1: an ``EEModel`` with both towers, which is what
     ``parallel.sharding.tensor_parallel_model`` asks of a built model."""
-    return name in MODEL_NAMES and name not in ("layoutlmv2", "pix2struct") \
+    return name in MODEL_NAMES and name not in ("layoutlmv2", "pix2struct", "EEmoonlight") \
         and all(model_towers(name))
 
 
@@ -64,9 +70,10 @@ def trains_through_ee_trainer(name: str) -> bool:
     so the single-tower variants (``dit``, ``dit_rvl``: no text tower;
     ``bert``: no visual tower) do not; in the JAX package they fail inside
     the first step (ROADMAP.md C12). They train through their own forwards.
-    LayoutLMv2 trains with its own loss. Unknown names and ``pix2struct``
-    are ``build_model``'s to refuse."""
-    return name == "layoutlmv2" or all(model_towers(name))
+    LayoutLMv2 trains with its own loss. ``EEmoonlight`` is served, not
+    trained, by the port. Unknown names and ``pix2struct`` are
+    ``build_model``'s to refuse."""
+    return name == "layoutlmv2" or (name != "EEmoonlight" and all(model_towers(name)))
 
 
 def refuse_ee_trainer(name: str) -> None:
@@ -75,8 +82,8 @@ def refuse_ee_trainer(name: str) -> None:
     if not trains_through_ee_trainer(name):
         raise NotImplementedError(
             f"model {name!r} does not train through EETrainer or cli.train: their loss runs "
-            "ee_forward, whose backbone needs both towers, and this model has one (as in "
-            "the JAX package, ROADMAP.md C12); train it through its own forward")
+            "LayoutLMv3's ee_forward, whose backbone needs both towers, and this model has "
+            "one (as in the JAX package, ROADMAP.md C12), or is served only (EEmoonlight)")
 
 
 def _backbone_config(
@@ -222,6 +229,33 @@ def _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len, g
     return v2, model.to(resolve_device(getattr(cfg, "device", None) or "cuda"))
 
 
+def _build_moonlight(cfg, num_labels, num_hidden_layers, generator):
+    """``(EEModelConfig, EEModel)`` of early-exit Moonlight: the published
+    backbone (``model_size`` base) or the tests' tiny one, random from
+    ``generator``, allocated and drawn on ``cfg.device`` in f32. Its exits
+    are the config's; embedding exits raise (the model reads text alone)."""
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.moonlight.config import (
+        MoonlightConfig,
+        MoonlightExitConfig,
+    )
+
+    size = getattr(cfg, "model_size", "base")
+    if size not in ("base", "tiny"):
+        raise ValueError(f"unknown model_size {size!r} (want 'base'/'tiny')")
+    bb = (MoonlightConfig.tiny if size == "tiny" else MoonlightConfig.base)(num_labels=num_labels)
+    if num_hidden_layers:
+        bb = bb.replace(num_hidden_layers=num_hidden_layers)
+    # the experiment's exit fields, parsed against Moonlight's depth
+    fields = [f.name for f in dataclasses.fields(ExitConfig)]
+    exit_cfg = MoonlightExitConfig(**{k: getattr(cfg, k) for k in fields if hasattr(cfg, k)})
+    model_cfg = EEModelConfig(backbone=bb, exit=exit_cfg)
+    device = resolve_device(getattr(cfg, "device", None) or "cuda")
+    model = init_ee_params(model_cfg, generator, device=device)
+    model.model_name = "EEmoonlight"
+    return model_cfg, model
+
+
 def pad_embedding_tables(pre: Dict, init: Dict) -> Dict:
     """Pad pretrained embedding tables up to the (wider) initialized ones.
 
@@ -328,6 +362,8 @@ def build_model(
         )
 
     generator = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
+    if name == "EEmoonlight":
+        return _build_moonlight(cfg, num_labels, num_hidden_layers, generator)
     if name == "layoutlmv2":
         v2, model = _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len,
                                       generator)

@@ -151,7 +151,9 @@ class Pipeline:
     @torch.no_grad()
     def predict_features(self, batch: Dict[str, object]) -> List[Dict]:
         """Run preprocessed features (numpy arrays or tensors) through the
-        cascade; pads to the static batch size and chunks larger inputs."""
+        cascade; pads to the static batch size and chunks larger inputs. A
+        text-only model (Moonlight) takes ``input_ids`` and
+        ``attention_mask`` alone."""
         with span("pipeline.copy_in"):
             tensors = {
                 k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(self.device)
@@ -169,8 +171,8 @@ class Pipeline:
                 rows = torch.as_tensor(idx, device=self.device)
                 chunk = {k: v[rows] for k, v in tensors.items()}
             res = self._cascade(
-                self.model, chunk["input_ids"], chunk["bbox"],
-                chunk["pixel_values"], chunk["attention_mask"],
+                self.model, chunk["input_ids"], chunk.get("bbox"),
+                chunk.get("pixel_values"), chunk["attention_mask"],
             )
             with span("pipeline.answers"):
                 logits = res.logits[:real].cpu()

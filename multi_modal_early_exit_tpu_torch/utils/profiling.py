@@ -15,7 +15,8 @@ multi-process run's counts can be summed.
 ``record_function`` range, which the trace holds on the same clock as the
 device's kernels; otherwise it costs one flag read. ``count`` and
 ``counters`` are the process's named work counters (rows served, rows a
-cascade stage ran and wanted), beside the launch counters.
+cascade stage ran and wanted, tokens and token-expert pairs an expert layer
+ran), beside the launch counters.
 """
 
 from __future__ import annotations
@@ -39,7 +40,9 @@ def span(name: str):
     """A context manager around one layer's work: ``record_function(name)``
     while a profiler records (its range appears in the Chrome trace as a
     ``user_annotation`` event), else a shared no-op. Spans sit at layer
-    boundaries, never inside an encoder layer."""
+    boundaries, never inside a LayoutLMv3 encoder layer; Moonlight's sit at
+    its sub-layer edges (``mla.attention``, ``moe.router``, ``moe.experts``,
+    ``moe.shared``), a few a layer against its milliseconds of work."""
     return record_function(name) if _profiler_enabled() else _OFF
 
 
