@@ -71,7 +71,9 @@ Phases, each reported on its own line:
    at batch 16 with capacities (16, 8), from word features and uint8 page
    images normalised on the card. Checks: well-formed results and finite
    logits; launch counts of one bias build, 12 attention calls and 27
-   ``add_layer_norm`` calls (``V3_NORMS``) per batch; at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
+   ``add_layer_norm`` calls (``V3_NORMS``) per batch, as the wrappers
+   tally them and as the traced call below counts the kernels the card
+   ran (the cascade's replayed CUDA graphs); at full capacity the cascade's exits equal ``decide_exits(ee_forward())``
    away from the thresholds; the bf16 kernel path agrees with the f32 plain
    path (on the CPU) on a small input; the device ms of one more, traced,
    call (4 batches: all kernels, the attention, the bias build);
@@ -92,7 +94,7 @@ Phases, each reported on its own line:
 4b. serving with ``MMEE_FUSED_BIAS=1`` (the bias built in the attention
    kernel): the same model, thresholds and batches as phase 4. Checks: 12
    ``fused_bias_attention`` and 27 ``add_layer_norm`` launches and no bias
-   build or attention launch per batch; exits equal phase 4's for the documents away from the
+   build or attention launch per batch, tallied and counted in the trace; exits equal phase 4's for the documents away from the
    thresholds, logits within the bf16 tolerance. docs/sec, peak memory and
    the device ms of one more, traced, call beside phase 4's;
 5b. training with ``MMEE_TABLE_GRADS=1`` (the table gradients in the
@@ -427,10 +429,19 @@ def peaks_for(name: str):
     return PEAKS["H100"]
 
 
-def device_ms(fn, groups):
+# the serving path's hand-written kernels by the names the card's trace
+# gives them: one forward template serves flash_attention_packed and
+# fused_bias_attention
+SERVE_KERNELS = {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",),
+                 "split": ("split_bf16x3_kernel",), "norm": ("add_layer_norm_kernel",)}
+
+
+def device_ms(fn, groups, counted=None):
     """Device ms of one ``fn()`` call under torch.profiler: by group (the
     kernels whose names hold one of the group's fragments), and of all
-    kernels (``"all"``). Fails if a group ran no kernel on the card."""
+    kernels (``"all"``); ``"kernels"``: how many kernels of each of
+    ``counted``'s groups the card ran, a CUDA graph's replayed kernels
+    among them. Fails if a group of ``groups`` ran no kernel on the card."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -439,12 +450,18 @@ def device_ms(fn, groups):
         torch.cuda.synchronize()
     ms = dict.fromkeys(groups, 0.0)
     ms["all"] = 0.0
+    counts = dict.fromkeys(counted or {}, 0)
     for e in prof.key_averages():
         us = getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0)
         ms["all"] += us / 1e3
         for group, frags in groups.items():
             if any(frag in e.key for frag in frags):
                 ms[group] += us / 1e3
+        for group, frags in (counted or {}).items():
+            if any(frag in e.key for frag in frags):
+                counts[group] += e.count
+    if counted:
+        ms["kernels"] = counts
     for group, frags in groups.items():
         check(ms[group] > 0, f"the traced call ran none of {frags} on the card")
     return ms
@@ -1840,15 +1857,25 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     if dtype == torch.float32:  # the f32 attention's device time in one more call
         ms = device_ms(lambda: pipe.predict_features(batch),
                        {"attention": ("fwd_kernel<", "split_bf16x3_kernel"),
-                        "split": ("split_bf16x3_kernel",)})
+                        "split": ("split_bf16x3_kernel",)}, SERVE_KERNELS)
         traced = (f"; one more call traced: the f32 attention (split pre-pass and forward "
                   f"kernel) {ms['attention']:.3f} device ms (the pre-pass {ms['split']:.3f}) "
                   f"of {ms['all']:.3f}")
     else:  # phase 4b prints its own beside these
         ms = device_ms(lambda: pipe.predict_features(batch),
-                       {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",)})
+                       {"attention": ("fwd_kernel<",), "bias": ("materialize_bias_kernel",)},
+                       SERVE_KERNELS)
         traced = (f"; one more call traced: {ms['all']:.3f} device ms, the attention "
                   f"{ms['attention']:.3f}, the bias build {ms['bias']:.3f}")
+    # the traced call's batches replay the cascade's CUDA graphs, whose
+    # kernels no wrapper counts as they run: the trace's count of each
+    # kernel the card ran holds the same per-batch counts as the tallies
+    want = {"attention": 12, "bias": 1, "norm": V3_NORMS,
+            "split": 12 if dtype == torch.float32 else 0}
+    ran = ms["kernels"]
+    check(ran == {k: n * N_BATCHES for k, n in want.items()},
+          f"the traced call of {N_BATCHES} batches ran the kernels {ran}")
+    traced += f", its kernels {ran}"
     print(f"served {n_docs} documents in {N_BATCHES} batches of {B} ({tag}): "
           f"{n_docs / dt:.1f} docs/sec (predict_features, host clock), "
           f"exits {hist}, capacity-exited {forced}, launches {launches}, "
@@ -1912,7 +1939,12 @@ def phase_serve_fused(served):
     check(len(results) == n_docs and all(x for x, f in zip(same, far.tolist()) if f),
           "the fused-bias Pipeline's exits differ from phase 4's away from the thresholds")
     ms, base = device_ms(lambda: pipe.predict_features(s["batch"]),
-                         {"attention": ("fwd_kernel<",)}), s["device_ms"]
+                         {"attention": ("fwd_kernel<",)}, SERVE_KERNELS), s["device_ms"]
+    # what the card ran in the traced call's replayed batches, by kernel name
+    ran = ms["kernels"]
+    want = {"attention": 12, "bias": 0, "norm": V3_NORMS, "split": 0}
+    check(ran == {k: n * N_BATCHES for k, n in want.items()},
+          f"the traced fused-bias call of {N_BATCHES} batches ran the kernels {ran}")
     print(f"served with MMEE_FUSED_BIAS=1: full-capacity exits equal phase 4's for "
           f"{int(far.sum())}/{n_docs} documents farther than 1e-2 from every threshold "
           f"({int(agree.sum())}/{n_docs} in all), logit max diff {logit_err:.3e}; Pipeline: "
@@ -1921,7 +1953,7 @@ def phase_serve_fused(served):
           f"{peak_mb:.1f} MiB (phase 4: {s['peak_mb']:.1f} MiB); one more call traced: "
           f"{ms['all']:.3f} device ms per {N_BATCHES} batches, the fused attention "
           f"{ms['attention']:.3f} (phase 4: {base['all']:.3f}, the attention "
-          f"{base['attention']:.3f} + the bias build {base['bias']:.3f})")
+          f"{base['attention']:.3f} + the bias build {base['bias']:.3f}), its kernels {ran}")
     return launches
 
 
@@ -2312,10 +2344,12 @@ TRACE_5B = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel", "table_par
 def train_counters():
     """The launch counters of the kernels a training step can run, by the
     name of the kernel (the head-form pair under their wrappers' names):
-    every counted wrapper but the serving-only fused attention."""
+    every counted wrapper but the serving-only fused attention and the
+    no-grad path's LayerNorm (phases 4, 4b, 4f and 8a count that)."""
     from multi_modal_early_exit_tpu_torch.utils.profiling import kernel_wrappers
 
-    return {k: f for k, f in kernel_wrappers().items() if k != "fused_bias_attention"}
+    return {k: f for k, f in kernel_wrappers().items()
+            if k not in ("fused_bias_attention", "add_layer_norm")}
 
 
 def train_steps(cfg, model32, batches, args, want, trace=None):

@@ -58,6 +58,7 @@ in the JAX package, not a convolution.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 import os
 from typing import NamedTuple, Optional, Tuple
@@ -494,8 +495,15 @@ def embed_vision(
 
 def visual_bbox(cfg: LayoutLMv3Config, device=None, max_len: int = 1000) -> torch.Tensor:
     """(N+1, 4) int32 boxes of the visual patch tokens on the 0-1000 grid,
-    with the [CLS] box [1, 1, 999, 999] first; edges use integer division."""
-    size = cfg.num_patches_side
+    with the [CLS] box [1, 1, 999, 999] first; edges use integer division.
+    Made once per grid and device and shared, so callers only read it: its
+    [CLS] box is copied from the host, a wait that no CUDA graph of the
+    cascade can hold."""
+    return _visual_bbox(cfg.num_patches_side, torch.device(device or "cpu"), max_len)
+
+
+@functools.lru_cache(maxsize=None)
+def _visual_bbox(size: int, device: torch.device, max_len: int) -> torch.Tensor:
     edges = torch.arange(0, max_len * (size + 1), max_len, device=device) // size
     x0 = edges[:-1].repeat(size, 1)
     x1 = edges[1:].repeat(size, 1)

@@ -359,7 +359,10 @@ class CascadeStages:
     the state a stage gathers its rows from is (hidden, mask, last real
     position); there are no embedding exits; a stage finds its real
     tokens once (one host sync) for all its layers; exits read the last
-    real token."""
+    real token. That sync sizes the stage's work by the data, so the
+    cascade runs these stages op by op, never from a CUDA graph."""
+
+    static_shapes = False
 
     def __init__(self, cfg: MoonlightConfig):
         self.cfg = cfg

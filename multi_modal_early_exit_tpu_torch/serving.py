@@ -39,7 +39,11 @@ from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
 
 
 class Pipeline:
-    """Anytime document classification with a fixed serving batch size."""
+    """Anytime document classification with a fixed serving batch size.
+
+    On the card a LayoutLMv3 model's cascade replays CUDA graphs that read
+    ``model``'s parameters where they lay at its first batch: replace none
+    of them after it (``models.ee.cascade``)."""
 
     def __init__(
         self,

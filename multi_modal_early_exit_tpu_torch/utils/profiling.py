@@ -16,7 +16,10 @@ multi-process run's counts can be summed.
 device's kernels; otherwise it costs one flag read. ``count`` and
 ``counters`` are the process's named work counters (rows served, rows a
 cascade stage ran and wanted, tokens and token-expert pairs an expert layer
-ran), beside the launch counters.
+ran, cascade calls replayed from CUDA graphs and run op by op), beside the
+launch counters. A CUDA graph runs none of the host code it was captured
+from, so ``recorded_tallies`` takes out what a capture tallied and
+``add_tallies`` adds it again at each replay.
 """
 
 from __future__ import annotations
@@ -62,9 +65,11 @@ def counters(reset: bool = False) -> Dict[str, int]:
 
 def kernel_wrappers() -> Dict[str, Callable]:
     """The wrappers that count their kernels' launches (``fn.launches``),
-    by kernel name (the head-form pair under their wrappers' names)."""
+    by kernel name (the head-form pair under their wrappers' names; the
+    no-grad path's LayerNorm kernel)."""
     from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
     from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
 
     return {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
             "fused_bias_attention": fba.fused_bias_attention,
@@ -75,7 +80,7 @@ def kernel_wrappers() -> Dict[str, Callable]:
             "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
             "flash_attention_packed_train_tables_bwd":
                 fa.flash_attention_packed_train_tables_bwd,
-            "split_bf16x3": fa.split_bf16x3}
+            "split_bf16x3": fa.split_bf16x3, "add_layer_norm": add_layer_norm}
 
 
 def launch_counts(reset: bool = False) -> Dict[str, int]:
@@ -99,16 +104,54 @@ def write_launch_counts(directory: str, rank: Optional[int] = None) -> str:
     return path
 
 
+def _tallies() -> Dict[tuple, int]:
+    """The named counters and each kernel's launches, by (kind, name)."""
+    out = {("count", k): v for k, v in _COUNTS.items()}
+    out.update((("launches", k), f.launches) for k, f in kernel_wrappers().items())
+    return out
+
+
+@contextlib.contextmanager
+def recorded_tallies():
+    """Yields a dict that, on exit, holds what the block added to the named
+    counters and to each kernel's ``launches``; the block's additions are
+    taken out again. For a block captured into a CUDA graph: its host code
+    ran once, at capture, and the card ran none of it; ``add_tallies``
+    adds the amounts at each replay."""
+    before = _tallies()
+    delta: Dict[tuple, int] = {}
+    try:
+        yield delta
+    finally:
+        after = _tallies()
+        delta.update((k, v - before.get(k, 0)) for k, v in after.items()
+                     if v != before.get(k, 0))
+        wrappers = kernel_wrappers()
+        for (kind, name), n in delta.items():
+            if kind == "launches":
+                wrappers[name].launches -= n
+            elif (kind, name) in before:
+                _COUNTS[name] -= n
+            else:
+                del _COUNTS[name]
+
+
+def add_tallies(delta: Dict[tuple, int]) -> None:
+    """Add a ``recorded_tallies`` dict to the counters and launches."""
+    wrappers = kernel_wrappers()
+    for (kind, name), n in delta.items():
+        if kind == "count":
+            count(name, n)
+        else:
+            wrappers[name].launches += n
+
+
 @contextlib.contextmanager
 def uncounted():
-    """Launches inside do not count: the counters are set back to their
-    values on entry (for calls that only check a kernel against another)."""
-    saved = launch_counts()
-    try:
+    """Launches and named counts inside do not count (for calls that only
+    check a kernel against another)."""
+    with recorded_tallies():
         yield
-    finally:
-        for name, fn in kernel_wrappers().items():
-            fn.launches = saved[name]
 
 
 def runtime_wrapper(fn: Callable) -> Callable:
