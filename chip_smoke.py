@@ -1725,13 +1725,8 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
         EEModelConfig,
         LayoutLMv3Config,
     )
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
-        flash_attention_packed,
-        split_bf16x3,
-    )
-    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
-    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     cfg = EEModelConfig(
         backbone=LayoutLMv3Config.base(num_labels=16),
@@ -1823,11 +1818,7 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
                     exit_distribution={0: 0.05, 1: 0.05, 2: 0.8, 3: 0.1})
     check(pipe.capacities == (16, 8), f"capacities {pipe.capacities}")
     pipe.predict_features({k: v[:B] for k, v in batch.items()})  # warm-up
-    counters = {"materialize_bias": materialize_bias,
-                "flash_attention_packed": flash_attention_packed, "split_bf16x3": split_bf16x3,
-                "add_layer_norm": add_layer_norm}
-    for f in counters.values():
-        f.launches = 0
+    before = launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1835,7 +1826,8 @@ def phase_main_path(dtype=torch.bfloat16, base=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = {name: f.launches for name, f in counters.items()}
+    launches = launched(before, ("materialize_bias", "flash_attention_packed", "split_bf16x3",
+                                 "add_layer_norm"))
     check(len(results) == n_docs, f"{len(results)} results for {n_docs} documents")
     order = [str(e) for e in pipe.order] + ["final"]
     for r in results:
@@ -1892,19 +1884,10 @@ def phase_serve_fused(served):
     model, thresholds and batches, through the full-capacity cascade and the
     Pipeline."""
     from multi_modal_early_exit_tpu_torch.models.ee.cascade import make_cascade_forward
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
-    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
-        fused_bias_attention,
-        materialize_bias,
-    )
-    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     s = served
     model, cfg, far = s["model"], s["cfg"], s["far"]
-    counters = {"fused_bias_attention": fused_bias_attention,
-                "materialize_bias": materialize_bias,
-                "flash_attention_packed": flash_attention_packed,
-                "add_layer_norm": add_layer_norm}
     full_cascade = make_cascade_forward(cfg, (B, B), s["thr"])
     res = [full_cascade(model, *c) for c in s["chunks"]]
     ids = torch.cat([r.exit_ids.cpu() for r in res])
@@ -1919,8 +1902,7 @@ def phase_serve_fused(served):
 
     pipe = s["pipe"]
     pipe.predict_features({k: v[:B] for k, v in s["batch"].items()})  # warm-up
-    for f in counters.values():
-        f.launches = 0
+    before = launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -1928,9 +1910,9 @@ def phase_serve_fused(served):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = {name: f.launches for name, f in counters.items()}
     want = {"fused_bias_attention": 12, "materialize_bias": 0, "flash_attention_packed": 0,
             "add_layer_norm": V3_NORMS}
+    launches = launched(before, want)
     for name, per_batch in want.items():
         check(launches[name] == per_batch * N_BATCHES,
               f"{name}: {launches[name]} launches in {N_BATCHES} batches")
@@ -1989,6 +1971,7 @@ def phase_tiny(card: str, head_dim: int = 16):
         subgraph_param_counts,
     )
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     backbone = LayoutLMv3Config.tiny(num_labels=16)
     if head_dim != 16:
@@ -2011,7 +1994,6 @@ def phase_tiny(card: str, head_dim: int = 16):
     data["pixel_values"] = preprocess_images(torch.from_numpy(pages).cuda(),
                                              size=bb.input_size).cpu()
     keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
-    counters = train_counters()
     readings = []
     with torch.no_grad():
         cpu_logits = ee_forward(model32, cfg, *[data[k][:B] for k in keys]).policy_logits()
@@ -2030,7 +2012,7 @@ def phase_tiny(card: str, head_dim: int = 16):
         pipe = Pipeline(model, cfg, batch_size=B, tokenizer=tok, device="cuda")
         before = launch_counts()
         results = pipe.predict_features(data)
-        ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+        ran = launched(before)
         want = {"materialize_bias": n_batches, "flash_attention_packed": layers * n_batches}
         if dtype == torch.float32:
             want["split_bf16x3"] = layers * n_batches
@@ -2048,7 +2030,7 @@ def phase_tiny(card: str, head_dim: int = 16):
     before = launch_counts()
     loss = trainer.train_step(batch, torch.Generator().manual_seed(1))[0]
     torch.cuda.synchronize()
-    ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+    ran = launched(before)
     want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed_train": layers,
             "flash_attention_packed_train_bwd": 2 * layers}
     check(ran == want, f"tiny config training step launched {ran}, not {want}")
@@ -2094,8 +2076,7 @@ def phase_anytime(card: str, served):
     from multi_modal_early_exit_tpu_torch.evaluation.policy import Policy
     from multi_modal_early_exit_tpu_torch.evaluation.thresholds import mixture_pareto_sweep
     from multi_modal_early_exit_tpu_torch.models.ee.model import ee_forward
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
-    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     model, cfg = served["model"], served["cfg"]
     n_exits = len(cfg.exit.exits) + 1
@@ -2113,15 +2094,12 @@ def phase_anytime(card: str, served):
     with tempfile.TemporaryDirectory() as root:
         config = {"checkpoint": "chip-smoke-base", "test_dataset": "synthetic_rvl_cdip",
                   "labelset": "test", "exit_policy": "max_confidence_global_thresholding_policy"}
-        counters = {"materialize_bias": materialize_bias,
-                    "flash_attention_packed": flash_attention_packed}
-        for f in counters.values():
-            f.launches = 0
+        before = launch_counts()
         store, refs, stats = get_logits(model, cfg, test, config, batch_size=B, root=root)
-        launches = {name: f.launches for name, f in counters.items()}
         n_batches = -(-ANYTIME_DOCS // B)
         want = {"materialize_bias": n_batches,
                 "flash_attention_packed": cfg.backbone.num_hidden_layers * n_batches}
+        launches = launched(before, want)
         check(launches == want, f"the harvest launched {launches}, not {want}")
         check(store.shape == (n_exits, ANYTIME_DOCS, 16) and store.dtype == np.float64
               and bool(np.isfinite(store).all()), f"the harvested store {store.shape}")
@@ -2341,15 +2319,23 @@ TRACE_5 = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel"),
 TRACE_5B = {"attention backward": ("bwd_dq_kernel", "bwd_dkv_kernel", "table_partials_sum_kernel")}
 
 
-def train_counters():
-    """The launch counters of the kernels a training step can run, by the
-    name of the kernel (the head-form pair under their wrappers' names):
-    every counted wrapper but the serving-only fused attention and the
-    no-grad path's LayerNorm (phases 4, 4b, 4f and 8a count that)."""
-    from multi_modal_early_exit_tpu_torch.utils.profiling import kernel_wrappers
+# the kernels no training step runs: the serving-only fused attention and
+# the no-grad path's LayerNorm (phases 4, 4b, 4f and 8a count that)
+SERVING_ONLY = ("fused_bias_attention", "add_layer_norm")
 
-    return {k: f for k, f in kernel_wrappers().items()
-            if k not in ("fused_bias_attention", "add_layer_norm")}
+
+def launched(before, kernels=None):
+    """Each kernel's launches since ``before`` (a ``utils.profiling.
+    launch_counts()``): of each of ``kernels`` (0 for one that did not
+    launch), or without ``kernels`` of each that launched, but
+    ``SERVING_ONLY``."""
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
+
+    now = launch_counts()
+    if kernels is not None:
+        return {k: now.get(k, 0) - before.get(k, 0) for k in kernels}
+    return {k: n - before.get(k, 0) for k, n in now.items()
+            if n > before.get(k, 0) and k not in SERVING_ONLY}
 
 
 def train_steps(cfg, model32, batches, args, want, trace=None):
@@ -2361,8 +2347,8 @@ def train_steps(cfg, model32, batches, args, want, trace=None):
     the readings."""
     n_steps = len(batches) - 1
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
-    counters = train_counters()
     trainer = EETrainer(cfg, copy.deepcopy(model32), args, total_steps=1000, device="cuda")
     gen = torch.Generator().manual_seed(1)
     t0 = time.perf_counter()
@@ -2372,8 +2358,7 @@ def train_steps(cfg, model32, batches, args, want, trace=None):
     probe = {n: p.detach().clone() for n, p in trainer.model.named_parameters()
              if n.endswith(("layers.0.attention.query.weight", "rel_pos_bias",
                             "classifier.out_proj.weight", "visual.patch_embed.weight"))}
-    for f in counters.values():
-        f.launches = 0
+    before = launch_counts()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2381,14 +2366,14 @@ def train_steps(cfg, model32, batches, args, want, trace=None):
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
-    launches = {name: f.launches for name, f in counters.items()}
+    launches = launched(before)
     check(all(math.isfinite(x) for x in [warm] + losses), f"non-finite losses {losses}")
     moved = [n for n, before in probe.items()
              if not torch.equal(before, dict(trainer.model.named_parameters())[n].detach())]
     check(len(moved) == len(probe), f"parameters that did not move: {set(probe) - set(moved)}")
-    for name in counters:
-        check(launches[name] == want.get(name, 0) * n_steps,
-              f"{name}: {launches[name]} launches in {n_steps} steps")
+    for name in set(launches) | set(want):
+        check(launches.get(name, 0) == want.get(name, 0) * n_steps,
+              f"{name}: {launches.get(name, 0)} launches in {n_steps} steps")
     traced = device_ms(lambda: trainer.train_step(batches[-1], gen), trace) if trace else {}
     return dict(warm=warm, losses=losses, t_warm=t_warm, dt=dt, peak_mb=peak_mb,
                 launches=launches, docs_per_sec=n_steps * B / dt, traced=traced)
@@ -2462,10 +2447,6 @@ def beside_phase_5(run, base, phase="5") -> str:
             f"{base['peak_mb']:.1f} MiB)")
 
 
-def launch_counts():
-    return {name: f.launches for name, f in train_counters().items()}
-
-
 def phase_train_default(card: str, trained):
     """Phase 5c: the JAX package's default schedule, ``scan_fold=1``, at
     attention dropout 0: the gradient check, whose launches show that it
@@ -2473,6 +2454,8 @@ def phase_train_default(card: str, trained):
     against phase 5's CPU reference and its chained gradients on the card,
     then 1 + 3 steps. Returns (launches, the check's (loss, gradients), the steps'
     readings)."""
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
+
     t = trained
     cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(
         scan_fold=1, attention_probs_dropout_prob=0.0))
@@ -2480,7 +2463,7 @@ def phase_train_default(card: str, trained):
     before = launch_counts()
     _, (loss, grads) = train_gradient_check(cfg, model32, t["batches"][0], t["weights"],
                                             t["reference"])
-    ran = {name: n - before[name] for name, n in launch_counts().items() if n > before[name]}
+    ran = launched(before)
     want = {"materialize_bias": 1, "table_grads": 2, "flash_attention_packed": 12,
             "flash_attention_fwd": 12, "flash_attention_bwd": 24}
     check(ran == want, f"the scan_fold=1 gradient check launched {ran}, not {want}")
@@ -2547,10 +2530,11 @@ def phase_train_f32(card: str, trained, base):
     training forward and the plain backward), printed beside phase 5c's
     readings ``base``. Returns the launches of the whole phase by kernel."""
     from multi_modal_early_exit_tpu_torch.training.trainer import TrainingArguments
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     t = trained
     model32, batch, weights = t["model32"], t["batches"][0], t["weights"]
-    total = dict.fromkeys(train_counters(), 0)
+    total = {}
     # every f32 forward splits k and v first, every f32 backward q, k, v and
     # do: one split_bf16x3 each
     checks = (
@@ -2564,10 +2548,10 @@ def phase_train_f32(card: str, trained, base):
         before = launch_counts()
         train_gradient_check(cfg, model32, batch, weights, t["reference"], dtype=None,
                              limits=F32_GRAD_LIMITS)
-        ran = {name: n - before[name] for name, n in launch_counts().items() if n > before[name]}
+        ran = launched(before)
         check(ran == want, f"the f32 scan_fold={fold} gradient check launched {ran}, not {want}")
         for name, n in ran.items():
-            total[name] += n
+            total[name] = total.get(name, 0) + n
     cfg = t["cfg"].replace(backbone=t["cfg"].backbone.replace(scan_fold=1))
     args = TrainingArguments(bf16=False, learning_rate=t["args"].learning_rate)
     # 12 training forwards and 12 plain backwards of 2 kernels (each with a
@@ -2579,7 +2563,7 @@ def phase_train_f32(card: str, trained, base):
                              "backward": ("bwd_dq_kernel<", "bwd_dkv_kernel<"),
                              "split": ("split_bf16x3_kernel",)})
     for name, n in run["launches"].items():
-        total[name] += n
+        total[name] = total.get(name, 0) + n
     ms = run["traced"]
     print(f"trained in f32 (TrainingArguments(bf16=False), scan_fold=1, dropout "
           f"{cfg.backbone.attention_probs_dropout_prob}): {beside_phase_5(run, base, '5c')}; "
@@ -2628,14 +2612,13 @@ def phase_cli(card: str):
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
     from multi_modal_early_exit_tpu_torch.training import checkpoint as ckpt
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer, TrainingArguments
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     tmp = tempfile.mkdtemp(prefix="chip_smoke_cli_")
     cwd = os.getcwd()
     os.chdir(tmp)
-    counters = train_counters()
+    start = launch_counts()
     try:
-        for f in counters.values():
-            f.launches = 0
         # 1. train: each step timed, its launches counted, by wrapping the
         # trainer's step; each checkpoint's validation accuracy recorded
         steps, saves = [], []
@@ -2647,8 +2630,7 @@ def phase_cli(card: str):
             t0 = time.perf_counter()
             out = step_fn(self, batch, rng)
             torch.cuda.synchronize()
-            steps.append((time.perf_counter() - t0, out[0],
-                          {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}))
+            steps.append((time.perf_counter() - t0, out[0], launched(before)))
             return out
 
         def recorded_save(self, epoch, state_dict, config=None, opt_state=None, metric=None,
@@ -2758,7 +2740,7 @@ def phase_cli(card: str):
             t0 = time.perf_counter()
             out = cli_evaluate.main(ev_args[:4] + extra + ev_args[4:])
             dt = time.perf_counter() - t0
-            ran = {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}
+            ran = launched(before)
             # the dump harvests the 32 test documents, the sweep the 32
             # validation ones (the test store comes from the dump): 2 batches
             want = {n: 2 * c for n, c in CLI_BATCH_LAUNCHES.items()}
@@ -2812,7 +2794,7 @@ def phase_cli(card: str):
               f"{seconds['torch']} s, native {seconds['native']} s, Pareto fronts bit-equal "
               f"({len(fronts['torch'])} points); Pipeline.from_checkpoint bit-equal to the "
               f"in-memory Pipeline on 2 batches; on {card}")
-        return {name: f.launches for name, f in counters.items()}
+        return launched(start)
     finally:
         os.chdir(cwd)
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2949,10 +2931,9 @@ def phase_v2(card: str):
         bias_vectors,
     )
     from multi_modal_early_exit_tpu_torch.models.registry import build_model
-    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
     from multi_modal_early_exit_tpu_torch.training.trainer import EETrainer
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
-    counters = train_counters()
     exp = parse_cli(V2_TRAIN)
     t0 = time.perf_counter()
     cfg, model32 = build_model(exp.replace(device="cpu"), num_labels=16, image_size=224,
@@ -2985,14 +2966,12 @@ def phase_v2(card: str):
     with torch.inference_mode():  # warm-up batch
         forward_sequence_classification(model, cfg, *cols, seq_pad_multiple=SEQ_PAD_MULTIPLE)
     torch.cuda.synchronize()
-    for f in counters.values():
-        f.launches = 0
-    add_layer_norm.launches = 0
+    before = launch_counts()
     torch.cuda.reset_peak_memory_stats()
     store, refs, stats = get_logits(model, cfg, docs, {}, batch_size=B, use_cache=False)
     serve_peak = torch.cuda.max_memory_allocated() / 2 ** 20
-    harvest = {n: f.launches for n, f in counters.items() if f.launches}
-    harvest["add_layer_norm"] = add_layer_norm.launches
+    harvest = launched(before)
+    harvest["add_layer_norm"] = launched(before, ("add_layer_norm",))["add_layer_norm"]
     n_batches = -(-V2_DOCS // B)
     want = {n: c * n_batches for n, c in V2_BATCH_LAUNCHES.items()}
     check(harvest == want, f"the v2 harvest launched {harvest}, not {want}")
@@ -3060,15 +3039,12 @@ def phase_v2(card: str):
         t0 = time.perf_counter()
         out = step_fn(self, batch, rng)
         torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0, out[0],
-                      {n: c - before[n] for n, c in launch_counts().items() if c > before[n]}))
+        steps.append((time.perf_counter() - t0, out[0], launched(before)))
         if len(steps) == 4:
             params = dict(self.model.named_parameters())
             probe.update({n: torch.equal(t, params[n].detach()) for n, t in probe.items()})
         return out
 
-    for f in counters.values():
-        f.launches = 0
     EETrainer.train_step = timed_step
     torch.cuda.reset_peak_memory_stats()
     try:
@@ -3177,9 +3153,8 @@ def phase_engine(card: str, kept):
         bias_vectors,
         sequence_layout,
     )
-    from multi_modal_early_exit_tpu_torch.ops.flash_attention import flash_attention_packed
-    from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import materialize_bias
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     model, cfg = kept["model"].to("cuda"), kept["cfg"]
     keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
@@ -3203,18 +3178,17 @@ def phase_engine(card: str, kept):
                                                                  "cuda")],
         torch.Generator().manual_seed(9), training=False)
     print(f"engine kernels against their plain versions at the path's shapes: {read}")
-    counters = {"materialize_bias": materialize_bias,
-                "flash_attention_packed": flash_attention_packed}
+    counted_kernels = ("materialize_bias", "flash_attention_packed")
 
     # per stage: 1 bias build and one attention call per layer, on the
     # bucket of the stage's survivors
     stage_fn, stages = engine._stage, []
 
     def counted(idx, hidden, *rest):
-        before = {n: f.launches for n, f in counters.items()}
+        before = launch_counts()
         out = stage_fn(idx, hidden, *rest)
         a, b_layer = engine.stage_bounds[idx]
-        ran = {n: f.launches - before[n] for n, f in counters.items()}
+        ran = launched(before, counted_kernels)
         check(ran == {"materialize_bias": 1, "flash_attention_packed": b_layer - a},
               f"engine stage {idx} launched {ran}")
         stages.append((idx, hidden.shape[0]))
@@ -3223,14 +3197,13 @@ def phase_engine(card: str, kept):
     engine._stage = counted
     engine.infer(*chunks[0])  # warm-up
     stages.clear()
-    for f in counters.values():
-        f.launches = 0
+    before = launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     outs = [engine.infer(*c) for c in chunks]
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = {n: f.launches for n, f in counters.items()}
+    launches = launched(before, counted_kernels)
     got_logits = torch.from_numpy(np.concatenate([o[0] for o in outs]))
     got_ids = torch.from_numpy(np.concatenate([o[1] for o in outs]))
     want_ids = torch.cat([decide_exits(r, cfg.exit, thr).cpu() for r in refs])
@@ -3624,9 +3597,10 @@ def phase_mesh(card: str, trained):
             check(sorted(per_rank) == [0, 1, 2, 3], f"launch counts of ranks {sorted(per_rank)}")
             for rank, counts in per_rank.items():
                 for k, n in CLI_MESH_STEP.items():
-                    check(counts[k] == 4 * n, f"cli.train {part} rank {rank}: {k} {counts[k]} "
-                          f"launches in 4 steps, not {4 * n}")
-                check(counts["materialize_bias"] > 4 and counts["flash_attention_packed"] > 0,
+                    check(counts.get(k, 0) == 4 * n, f"cli.train {part} rank {rank}: {k} "
+                          f"{counts.get(k, 0)} launches in 4 steps, not {4 * n}")
+                check(counts.get("materialize_bias", 0) > 4
+                      and counts.get("flash_attention_packed", 0) > 0,
                       f"cli.train {part} rank {rank} launched {counts}")
         state, saved, _, step = load_checkpoint(os.path.join(run_dir, "checkpoint-1"))
         check(step == 1, f"the resumed run's checkpoint is of step {step}")
@@ -3784,6 +3758,7 @@ def phase_surface(card: str, trained):
     )
     from multi_modal_early_exit_tpu_torch.native import sweep
     from multi_modal_early_exit_tpu_torch.training import EETrainer, TrainingArguments
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     t_phase = time.perf_counter()
     seconds, read = {}, {}
@@ -3792,13 +3767,11 @@ def phase_surface(card: str, trained):
           "the package root's exports")
     keys = ("input_ids", "bbox", "pixel_values", "attention_mask")
     first = [trained["batches"][0][k][0] for k in keys]  # 16 documents on the card
-    counters = train_counters()
 
     def counted(fn):
-        for f in counters.values():
-            f.launches = 0
+        before = launch_counts()
         out = fn()
-        return out, {n: f.launches for n, f in counters.items() if f.launches}
+        return out, launched(before)
 
     # 10a: collect_hidden, bf16 at batch 16, then f32 against the CPU
     t0 = time.perf_counter()
@@ -3995,10 +3968,10 @@ def main() -> int:
     default_path = f"{TRAIN_STEPS} training steps, scan_fold=1, attention dropout 0"
     # the split pre-pass runs before every f32 forward and backward
     f32_split = {"split_bf16x3": serve32_launches["split_bf16x3"]
-                 + train32_launches["split_bf16x3"]}
+                 + train32_launches.get("split_bf16x3", 0)}
     f32_split_in = (f"phase 4f, {N_BATCHES} batches ({serve32_launches['split_bf16x3']}), and "
                     f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps "
-                    f"({train32_launches['split_bf16x3']})")
+                    f"({train32_launches.get('split_bf16x3', 0)})")
     # each kernel's launches on the path that runs it
     paths = {
         "flash_attention_fwd": (default_launches, default_path),
@@ -4027,7 +4000,7 @@ def main() -> int:
     f32_train = (train32_launches, f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps")
     for k in kernels:
         launches, where = paths[k["name"]]
-        k["launches"], k["launches_in"] = launches[k["name"]], where
+        k["launches"], k["launches_in"] = launches.get(k["name"], 0), where
         check(k["launches"] > 0, f"{k['name']} was never launched on its path")
         launches32, where32 = f32_paths.get(k["name"], f32_train)
         k["f32_launches"], k["f32_launches_in"] = launches32.get(k["name"], 0), where32
@@ -4041,7 +4014,7 @@ def main() -> int:
     cli_in = "phase 7, the command-line path"
     for k in kernels:
         if k["name"] in CLI_STEP_LAUNCHES or k["name"] in CLI_BATCH_LAUNCHES:
-            k["cli_launches"], k["cli_launches_in"] = cli_launches[k["name"]], cli_in
+            k["cli_launches"], k["cli_launches_in"] = cli_launches.get(k["name"], 0), cli_in
             check(k["cli_launches"] > 0, f"{k['name']} was never launched in phase 7")
     # the anytime harvest (phase 6) runs the serving forward's two kernels
     anytime_in = f"phase 6, get_logits over {ANYTIME_DOCS} documents"

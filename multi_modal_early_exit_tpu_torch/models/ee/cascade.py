@@ -11,34 +11,32 @@ The counterpart of the JAX package's ``models/ee/cascade.py``, run eagerly:
 - samples that want to continue but exceed capacity exit at once with their
   best logits so far ("capacity-constrained exiting"); with capacities >=
   the true survivor counts the decisions equal the exact threshold policy;
-- the sequence is padded once to a multiple of 128, and stage 0 builds the
-  (c_0, H, P, P) bias; later stages gather their rows out of the previous
-  stage's bias (their rows are a subset of it) instead of rebuilding it.
-  With ``MMEE_FUSED_BIAS=1`` (read per call) no bias tensor exists: each
-  stage hands its layers a ``FusedBiasContext`` of its gathered rows.
+- what a stage carries besides its rows (LayoutLMv3's bias, built once and
+  gathered after; Moonlight's rotary tables) is the stages' own.
 
 FLOP cost is fixed per batch: stage i always costs c_i rows.
 
 On the card, where the stages' shapes follow from the inputs' alone
 (``uses_cuda_graphs``), the first call of each key (the model and where its
-first parameter lies, the inputs' shapes, dtypes and device, the fused-bias
-switch) runs op by op and then captures the embedding part and each stage
-as one CUDA graph each, sharing a memory pool; later calls copy their
-inputs into the graphs' own, replay the graphs, each inside its part's
-span, and return copies of the outputs. A graph reads the parameters where
-they lay at capture: they must not be replaced after a key's first call
-(a ``.to()`` that moves them all takes a new key). A capture that fails
-raises. The counters
+first parameter lies, the inputs' shapes, dtypes and device, the stages'
+``graph_key``: LayoutLMv3's fused-bias switch) runs op by op and then
+captures the embedding part and each stage as one CUDA graph each, sharing
+a memory pool; later calls copy their inputs into the graphs' own, replay
+the graphs, each inside its part's span, and return copies of the outputs.
+A graph reads the parameters where they lay at capture: they must not be
+replaced after a key's first call (a ``.to()`` that moves them all takes a
+new key). A capture that fails raises. The counters
 ``cascade.graph_replays`` and ``cascade.eager_calls`` count the two kinds
-of call; the counters and launch tallies a part's host code makes are
-added again at each replay.
+of call; what a part's host code adds to the counters (kernel launches
+among them) is added again at each replay.
 
 What differs between backbones (the embedding, a stage's layers, an exit's
-input, the classifier) comes from a stages object chosen once, when the
-cascade is built: ``LayoutLMv3Stages`` below, or Moonlight's
-(``models.moonlight.modeling.CascadeStages``: no embedding exits, causal
-layers, the last real token read). Selection, capacity-forced exits and
-the criteria are shared.
+input, the classifier) comes from the backbone's stages object
+(``models.ee.model.backbone_stages``), chosen once, when the cascade is
+built: LayoutLMv3's (``models.layoutlmv3.modeling.LayoutLMv3Stages``) or
+Moonlight's (``models.moonlight.modeling.CascadeStages``: no embedding
+exits, causal layers, the last real token read). Selection, capacity-forced
+exits and the criteria are shared.
 """
 
 from __future__ import annotations
@@ -51,23 +49,12 @@ import torch
 
 from multi_modal_early_exit_tpu_torch.config.exit_config import EarlyExitInference
 from multi_modal_early_exit_tpu_torch.models.ee.heads import exit_head_apply, lte_head_apply
-from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel, canonical_exit_order
-from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
-from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
-    classifier_apply,
-    embed_text,
-    embed_vision,
-    encoder_layer_apply,
-    fused_bias_context,
-    has_both_biases,
-    make_attention_bias,
-    pad_sequence,
-    sequence_layout,
-    use_fused_bias_attention,
+from multi_modal_early_exit_tpu_torch.models.ee.model import (
+    EEModel,
+    backbone_stages,
+    canonical_exit_order,
 )
-from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
-from multi_modal_early_exit_tpu_torch.models.moonlight.modeling import CascadeStages
-from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import LANE
+from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
 from multi_modal_early_exit_tpu_torch.utils.profiling import (
     add_tallies,
     count,
@@ -76,86 +63,11 @@ from multi_modal_early_exit_tpu_torch.utils.profiling import (
 )
 
 
-class _BiasCarry:
-    """One call's bias state: the fused switch, and the previous stage's
-    bias and rows (a later stage gathers its rows out of them)."""
-
-    __slots__ = ("fused", "bias", "sel", "batch")
-
-    def __init__(self, fused: bool, batch: int):
-        self.fused, self.bias, self.sel, self.batch = fused, None, None, batch
-
-
-class LayoutLMv3Stages:
-    """LayoutLMv3's pieces of the cascade: the text and vision embeddings
-    (the embedding exits' sources), the sequence padded once to the bias
-    width, the relative-position bias built at stage 0 and gathered after,
-    the [CLS] state at each exit. Every shape follows from the inputs'
-    shapes and the capacities, and nothing waits on the card
-    (``static_shapes``), so each part can be captured in a CUDA graph."""
-
-    static_shapes = True
-
-    def __init__(self, cfg):
-        self.cfg = cfg
-
-    def embed(self, model, input_ids, bbox, pixel_values, attention_mask):
-        """(state: per-row tensors a stage gathers, the embedding exits'
-        sources, the call's carry)."""
-        bb, cfg = model.backbone, self.cfg
-        text_emb = embed_text(bb.embeddings, cfg, input_ids, bbox)
-        vis_emb = embed_vision(bb.visual, cfg, pixel_values)
-        combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
-        full_bbox, pos_ids, full_mask = sequence_layout(
-            cfg, bbox, attention_mask, vis_emb.shape[1]
-        )
-        sources = {"vision_avg": vis_emb, "text_avg": text_emb,
-                   "text_visual_concat": combined}
-        carry = _BiasCarry(has_both_biases(cfg) and use_fused_bias_attention(),
-                           input_ids.shape[0])
-        # pad once to the bias width: every stage runs at P = S_pad
-        state = list(pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask))
-        return state, sources, carry
-
-    def layers(self, model, state, sel, a: int, b: int, carry: _BiasCarry):
-        """Layers a..b-1 over the rows ``sel`` of ``state``: (hidden, the
-        other state tensors of those rows, the exit input). The gathered
-        input is referenced here alone, so it is freed after the first
-        layer."""
-        bb, cfg = model.backbone, self.cfg
-        hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
-        if carry.fused:
-            # the attention kernel builds each stage's bias from its
-            # rows' vectors; no bias tensor exists to gather from
-            bias_c = fused_bias_context(bb, cfg, pos_c, bbox_c, mask_c)
-        elif carry.bias is None:
-            bias_c = make_attention_bias(bb, cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype)
-            carry.bias, carry.sel = bias_c, sel
-        else:
-            # this stage's rows are a subset of the previous stage's:
-            # gather their bias rows instead of rebuilding them
-            pos_in_prev = torch.zeros((carry.batch,), dtype=torch.int64, device=sel.device)
-            pos_in_prev[carry.sel] = torch.arange(carry.sel.shape[0], device=sel.device)
-            bias_c = carry.bias[pos_in_prev[sel]]
-            carry.bias, carry.sel = bias_c, sel
-        for layer in bb.encoder.layers[a:b]:
-            hidden_c = encoder_layer_apply(layer, cfg, hidden_c, bias_c)
-        return hidden_c, (bbox_c, pos_c, mask_c), hidden_c[:, 0, :]
-
-    def classify(self, model, x):
-        return classifier_apply(model.backbone.classifier, self.cfg, x)
-
-
 def uses_cuda_graphs(stages, x: torch.Tensor) -> bool:
     """Whether the cascade replays CUDA graphs for inputs like ``x``: on
     CUDA inputs, where the stages declare shapes that no data moves
     (Moonlight's do not: a stage reads its real-token list on the host)."""
     return x.is_cuda and stages.static_shapes
-
-
-def cascade_stages(cfg):
-    """The stages object of a backbone config."""
-    return CascadeStages(cfg) if isinstance(cfg, MoonlightConfig) else LayoutLMv3Stages(cfg)
 
 
 def capacities_from_distribution(
@@ -324,7 +236,7 @@ def make_cascade_forward(
     # exit' criteria low values continue, for 'lower is exit' high values
     higher_exits = bool(sign(1.0, 0.0))
     stage_spans = [f"cascade.stage{i}" for i in range(len(bounds))]
-    stages = cascade_stages(bb_cfg)
+    stages = backbone_stages(bb_cfg)
 
     def embed_part(model: EEModel, input_ids, bbox, pixel_values, attention_mask) -> _Call:
         """Stage 0: embeddings and the embedding exits over the full batch."""
@@ -474,9 +386,10 @@ def make_cascade_forward(
     def key(model: EEModel, specs, device) -> tuple:
         """What a capture holds fixed: the model and its first parameter's
         address (moved by a ``.to()``), the inputs' (shape, dtype) (None for
-        an input not given), their device, the fused-bias switch."""
+        an input not given), their device, and the stages' own
+        (``graph_key``: LayoutLMv3's fused-bias switch)."""
         first = next(model.parameters()).data_ptr()
-        return id(model), first, tuple(specs), device, use_fused_bias_attention()
+        return id(model), first, tuple(specs), device, stages.graph_key()
 
     @torch.no_grad()
     def cascade(model: EEModel, input_ids, bbox, pixel_values, attention_mask):

@@ -1,4 +1,4 @@
-"""The early-exit LayoutLMv3 model: parameters, batched forward, decisions.
+"""The early-exit model: parameters, batched forward, decisions.
 
 The counterpart of the JAX package's ``models/ee/model.py``:
 
@@ -12,10 +12,13 @@ The counterpart of the JAX package's ``models/ee/model.py``:
   ``decide_exits`` takes the first exit whose criterion clears the
   threshold.
 
-With a Moonlight backbone (``EEmoonlight``, ``models/moonlight``) the model
-reads text alone: encoder exits only, each head on the last real token
-through a norm of its own, and the classifier on that token after the final
-norm (the last-token pooling of a causal LM's sequence classifier).
+What differs between backbone families comes from the family's stages
+object, which ``backbone_stages`` picks from the backbone config:
+LayoutLMv3's (``models.layoutlmv3.modeling.LayoutLMv3Stages``) or
+Moonlight's (``models.moonlight.modeling.CascadeStages``: text alone,
+encoder exits only, each head on the last real token through a norm of its
+own, the classifier on that token after the final norm). The exit heads,
+gating, LTE and the criteria are shared.
 
 ``ee_forward`` is differentiable; inference callers run it under
 ``torch.no_grad()``. With ``deterministic=False`` the dropout seeds come from
@@ -43,15 +46,10 @@ from multi_modal_early_exit_tpu_torch.models.ee.heads import (
 )
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
-    LayoutLMv3Model,
+    LayoutLMv3Stages,
     Linear,
     RngStream,
-    backbone_apply,
-    classifier_apply,
-    reset_parameters,
 )
-from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moonlight
-from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
 
 # Forward order of the embedding exits: vision first, then text, then
 # concat, whatever order the user listed them in.
@@ -64,56 +62,46 @@ def canonical_exit_order(exit_cfg: ExitConfig) -> Tuple:
     return emb + exit_cfg.encoder_exits
 
 
+def backbone_stages(cfg):
+    """The stages object of a backbone config: Moonlight's for a
+    ``MoonlightConfig``, else LayoutLMv3's. The one place that tells the
+    backbone families apart."""
+    from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
+    from multi_modal_early_exit_tpu_torch.models.moonlight.modeling import CascadeStages
+
+    return CascadeStages(cfg) if isinstance(cfg, MoonlightConfig) else LayoutLMv3Stages(cfg)
+
+
 class EEModel(nn.Module):
     """Backbone + exit heads, uninitialised, on ``device`` (``cuda`` by
     default). ``encoder_exits[i]`` is the head of the i-th encoder exit;
     ``embedding_exits`` is keyed by exit name; ``lte`` exists with
-    ``use_lte``. ``with_text``/``with_vision`` prune the backbone's towers
-    (the dense ``dit`` and ``bert`` variants, which have no exits). A
-    ``MoonlightConfig`` backbone builds ``MoonlightModel``, encoder exits
-    only, each head with its own RMSNorm; its parameters are allocated on
-    the default device (under ``torch.device("meta")``, none)."""
+    ``use_lte``. ``with_text``/``with_vision`` prune a LayoutLMv3
+    backbone's towers (the dense ``dit`` and ``bert`` variants, which have
+    no exits). The backbone module, the norm each head applies first and
+    the exits a backbone refuses come from its stages object
+    (``backbone_stages``)."""
 
     def __init__(self, cfg: EEModelConfig, device=None, with_text: bool = True,
                  with_vision: bool = True):
         super().__init__()
         device = resolve_device(device)
         backbone, exit_cfg = cfg.backbone, cfg.exit
-        if isinstance(backbone, MoonlightConfig):
-            self._init_moonlight(backbone, exit_cfg)
-            self.to(device)
-            return
-        self.backbone = LayoutLMv3Model(backbone, device="cpu", with_text=with_text,
-                                        with_vision=with_vision)
+        stages = backbone_stages(backbone)
+        self.backbone = stages.backbone(exit_cfg, with_text=with_text, with_vision=with_vision)
         emb = {
-            name: ExitHead(backbone, exit_cfg)
+            name: ExitHead(backbone, exit_cfg, stages.head_norm())
             for name in EMBEDDING_FORWARD_ORDER
             if name in exit_cfg.embedding_exits
         }
         self.embedding_exits = nn.ModuleDict(emb) if emb else None
         self.encoder_exits = (
-            nn.ModuleList(ExitHead(backbone, exit_cfg) for _ in exit_cfg.encoder_exits)
+            nn.ModuleList(ExitHead(backbone, exit_cfg, stages.head_norm())
+                          for _ in exit_cfg.encoder_exits)
             if exit_cfg.encoder_exits else None
         )
         self.lte = Linear(backbone.hidden_size, 1) if exit_cfg.use_lte else None
         self.to(device)
-
-    def _init_moonlight(self, backbone: MoonlightConfig, exit_cfg: ExitConfig) -> None:
-        if exit_cfg.embedding_exits:
-            raise ValueError(f"a Moonlight backbone reads text alone: it has no embedding "
-                             f"exits, got {exit_cfg.embedding_exits}")
-        if exit_cfg.apply_gating or exit_cfg.use_lte:
-            raise NotImplementedError("a Moonlight backbone takes ramp exit heads; gate and "
-                                      "LTE heads are LayoutLMv3's")
-        self.backbone = moonlight.MoonlightModel(backbone)
-        self.embedding_exits = None
-        self.encoder_exits = (
-            nn.ModuleList(ExitHead(backbone, exit_cfg,
-                                   moonlight.RMSNorm(backbone.hidden_size, backbone.rms_norm_eps))
-                          for _ in exit_cfg.encoder_exits)
-            if exit_cfg.encoder_exits else None
-        )
-        self.lte = None
 
     def forward(self, cfg: EEModelConfig, *args, **kwargs) -> "EEOutputs":
         """``ee_forward(self, cfg, ...)``, so that ``torch.func.functional_call``
@@ -132,24 +120,14 @@ def init_ee_params(
 ) -> EEModel:
     """Random EE parameters from a (CPU) ``generator`` (seed 0 if none),
     with the JAX package's shapes and std, on ``device`` in ``dtype``;
-    ``with_text``/``with_vision`` as in ``EEModel``. A Moonlight model is
-    allocated on ``device`` in ``dtype`` and drawn there, from a generator
-    on that device seeded by ``generator`` (on the CPU, ``generator``
-    itself)."""
-    device = resolve_device(device)
+    ``with_text``/``with_vision`` as in ``EEModel``. Where they are
+    allocated and drawn is the backbone's stages' choice (``init_model``):
+    a LayoutLMv3 model is drawn on the CPU and moved, a Moonlight model
+    allocated on ``device`` and drawn there."""
     generator = generator or torch.Generator().manual_seed(0)
-    if isinstance(cfg.backbone, MoonlightConfig):
-        with torch.device("meta"):
-            model = EEModel(cfg, device="meta")
-        model = model.to(dtype).to_empty(device=device)
-        if device.type != "cpu":
-            seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
-            generator = torch.Generator(device=device).manual_seed(seed)
-        reset_parameters(model, generator, cfg.backbone.initializer_range)
-        return model
-    model = EEModel(cfg, device="cpu", with_text=with_text, with_vision=with_vision)
-    reset_parameters(model, generator, cfg.backbone.initializer_range)
-    return model.to(device=device, dtype=dtype)
+    return backbone_stages(cfg.backbone).init_model(
+        lambda dev: EEModel(cfg, device=dev, with_text=with_text, with_vision=with_vision),
+        generator, resolve_device(device), dtype)
 
 
 def prune_ee_params(model: EEModel, old_cfg, new_cfg) -> EEModel:
@@ -220,49 +198,22 @@ def ee_forward(
     (at the padded width S' when ``seq_pad_multiple`` pads, pad rows
     included)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
-    rngs = RngStream(None if deterministic else rng, getattr(model, "mesh", None))
+    stages = backbone_stages(backbone_cfg)
     b = input_ids.shape[0]
     order = canonical_exit_order(exit_cfg)
-    if isinstance(backbone_cfg, MoonlightConfig):
-        # text alone, last-token taps; no embedding exits (EEModel refuses them)
-        taps = moonlight.last_token_states(model.backbone, backbone_cfg, input_ids,
-                                           attention_mask)
-        exit_inputs = [taps[layer - 1] for layer in exit_cfg.encoder_exits]
-        n_emb = 0
-        exit_logit_list = [exit_head_apply(head, backbone_cfg, x)
-                           for head, x in zip(model.encoder_exits or (), exit_inputs)]
-        final_logits = moonlight.classify(model.backbone, backbone_cfg, taps[-1])
-        last_hidden = None
-    else:
-        bb = backbone_apply(
-            model.backbone, backbone_cfg, input_ids, bbox, pixel_values,
-            attention_mask, deterministic=deterministic, rng=rng,
-            collect_cls=bool(exit_cfg.encoder_exits), collect_hidden=collect_hidden,
-            seq_pad_multiple=seq_pad_multiple,
-        )
-        sources = {
-            "vision_avg": bb.visual_embeddings,
-            "text_avg": bb.text_embeddings,
-            "text_visual_concat": bb.combined_embeddings,
-        }
-        exit_inputs = [sources[name].mean(dim=1) for name in order if isinstance(name, str)]
-        n_emb = len(exit_inputs)
-        exit_logit_list = [
-            exit_head_apply(model.embedding_exits[name], backbone_cfg, x, deterministic, rngs)
-            for name, x in zip(order[:n_emb], exit_inputs)
-        ]
-        for head, layer in zip(model.encoder_exits or (), exit_cfg.encoder_exits):
-            cls_state = bb.cls_per_layer[layer - 1]
-            exit_inputs.append(cls_state)
-            exit_logit_list.append(
-                exit_head_apply(head, backbone_cfg, cls_state, deterministic, rngs)
-            )
-
-        final_logits = classifier_apply(
-            model.backbone.classifier, backbone_cfg, bb.last_hidden_state[:, 0, :],
-            deterministic, rngs,
-        )
-        last_hidden = bb.last_hidden_state
+    exit_inputs, final_input, last_hidden = stages.forward(
+        model, order, input_ids, bbox, pixel_values, attention_mask, deterministic, rng,
+        collect_hidden, seq_pad_multiple,
+    )
+    # dropout seeds after the backbone's: the heads' in exit order, then
+    # the classifier's
+    rngs = RngStream(None if deterministic else rng, getattr(model, "mesh", None))
+    n_emb = sum(isinstance(e, str) for e in order)
+    heads = [model.embedding_exits[name] for name in order[:n_emb]]
+    heads += list(model.encoder_exits or ())
+    exit_logit_list = [exit_head_apply(head, backbone_cfg, x, deterministic, rngs)
+                       for head, x in zip(heads, exit_inputs)]
+    final_logits = stages.classify(model, final_input, deterministic, rngs)
     exit_logits = (
         torch.stack(exit_logit_list)
         if exit_logit_list
@@ -272,9 +223,7 @@ def ee_forward(
     gate_inputs = gated_logits = None
     if exit_cfg.apply_gating and exit_inputs:
         gate_inputs = torch.stack(exit_inputs)  # (E, B, H)
-        gated_logits = classifier_apply(
-            model.backbone.classifier, backbone_cfg, gate_inputs
-        )
+        gated_logits = stages.classify(model, gate_inputs)
 
     lte_scores = None
     if exit_cfg.use_lte and model.lte is not None:

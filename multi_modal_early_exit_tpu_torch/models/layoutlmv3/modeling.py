@@ -30,7 +30,9 @@ carry -1e30. With no bias at all (the image-only ``dit``,
 ``forward_image_classification``) the attention is composed of torch ops,
 as the JAX package composes it in XLA: no kernel.
 ``LayoutLMv3Model`` allocates only the towers a variant uses (``bert``:
-text, ``dit``: vision).
+text, ``dit``: vision). ``LayoutLMv3Stages`` holds the backbone's pieces of
+the early-exit model (``models.ee``): its modules, their initialisation,
+the exits' inputs of the batched forward, and the cascade's stages.
 
 Two opt-in bias modes, off by default as in the JAX package and switched by
 the same environment variables, read at call time:
@@ -79,6 +81,7 @@ from multi_modal_early_exit_tpu_torch.ops.flash_attention import (
     flash_attention_packed_train_tables,
 )
 from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
+    LANE,
     fused_bias_attention,
     materialize_bias,
 )
@@ -1108,3 +1111,123 @@ def forward_sequence_classification(
     rngs = RngStream(None if deterministic else rng, getattr(p, "mesh", None))
     return classifier_apply(p.classifier, cfg, out.last_hidden_state[:, 0, :],
                             deterministic, rngs)
+
+
+# ---------------------------------------------------------------------------
+# the early-exit model's pieces (models.ee)
+# ---------------------------------------------------------------------------
+
+
+class _BiasCarry:
+    """One cascade call's bias state: the fused switch, and the previous
+    stage's bias and rows (a later stage gathers its rows out of them)."""
+
+    __slots__ = ("fused", "bias", "sel", "batch")
+
+    def __init__(self, fused: bool, batch: int):
+        self.fused, self.bias, self.sel, self.batch = fused, None, None, batch
+
+
+class LayoutLMv3Stages:
+    """LayoutLMv3's pieces of the early-exit model (``models.ee``).
+
+    For ``EEModel`` and ``init_ee_params``: the backbone module, no norm
+    before an exit head, parameters drawn on the CPU and then moved. For
+    ``ee_forward``: the exits' inputs (modality means, the [CLS] state
+    after a layer) and the classifier's. For the cascade: the text and
+    vision embeddings (the embedding exits' sources), the sequence padded
+    once to the bias width, the relative-position bias built at stage 0 and
+    gathered after (or, with ``MMEE_FUSED_BIAS=1``, read per call, built in
+    each stage's attention kernel), the [CLS] state at each exit. Every
+    shape follows from the inputs' shapes and the capacities, and nothing
+    waits on the card (``static_shapes``), so each part can be captured in
+    a CUDA graph; ``graph_key`` is what else a capture holds fixed."""
+
+    static_shapes = True
+
+    def __init__(self, cfg: LayoutLMv3Config):
+        self.cfg = cfg
+
+    def backbone(self, exit_cfg, with_text: bool = True, with_vision: bool = True):
+        """The backbone module, on the CPU (any exit config)."""
+        return LayoutLMv3Model(self.cfg, device="cpu", with_text=with_text,
+                               with_vision=with_vision)
+
+    def head_norm(self):
+        """The norm an exit head applies first: none."""
+        return None
+
+    def init_model(self, build, generator: torch.Generator, device, dtype):
+        """``build("cpu")``'s parameters drawn from the CPU ``generator``,
+        then moved to ``device`` in ``dtype``."""
+        model = build("cpu")
+        reset_parameters(model, generator, self.cfg.initializer_range)
+        return model.to(device=device, dtype=dtype)
+
+    def forward(self, model, order, input_ids, bbox, pixel_values, attention_mask,
+                deterministic, rng, collect_hidden, seq_pad_multiple):
+        """The batched forward: (each exit's input in ``order``, the
+        classifier's input, the encoder's output)."""
+        bb = backbone_apply(
+            model.backbone, self.cfg, input_ids, bbox, pixel_values, attention_mask,
+            deterministic=deterministic, rng=rng,
+            collect_cls=any(isinstance(e, int) for e in order),
+            collect_hidden=collect_hidden, seq_pad_multiple=seq_pad_multiple,
+        )
+        sources = {"vision_avg": bb.visual_embeddings, "text_avg": bb.text_embeddings,
+                   "text_visual_concat": bb.combined_embeddings}
+        inputs = [sources[e].mean(dim=1) if isinstance(e, str) else bb.cls_per_layer[e - 1]
+                  for e in order]
+        return inputs, bb.last_hidden_state[:, 0, :], bb.last_hidden_state
+
+    def graph_key(self):
+        """What a captured cascade holds fixed besides the model and the
+        inputs: the fused-bias switch."""
+        return use_fused_bias_attention()
+
+    def embed(self, model, input_ids, bbox, pixel_values, attention_mask):
+        """(state: per-row tensors a stage gathers, the embedding exits'
+        sources, the call's carry)."""
+        bb, cfg = model.backbone, self.cfg
+        text_emb = embed_text(bb.embeddings, cfg, input_ids, bbox)
+        vis_emb = embed_vision(bb.visual, cfg, pixel_values)
+        combined = bb.LayerNorm(torch.cat([text_emb, vis_emb], dim=1))
+        full_bbox, pos_ids, full_mask = sequence_layout(
+            cfg, bbox, attention_mask, vis_emb.shape[1]
+        )
+        sources = {"vision_avg": vis_emb, "text_avg": text_emb,
+                   "text_visual_concat": combined}
+        carry = _BiasCarry(has_both_biases(cfg) and use_fused_bias_attention(),
+                           input_ids.shape[0])
+        # pad once to the bias width: every stage runs at P = S_pad
+        state = list(pad_sequence(LANE, combined, full_bbox, pos_ids, full_mask))
+        return state, sources, carry
+
+    def layers(self, model, state, sel, a: int, b: int, carry: _BiasCarry):
+        """Layers a..b-1 over the rows ``sel`` of ``state``: (hidden, the
+        other state tensors of those rows, the exit input). The gathered
+        input is referenced here alone, so it is freed after the first
+        layer."""
+        bb, cfg = model.backbone, self.cfg
+        hidden_c, bbox_c, pos_c, mask_c = (t[sel] for t in state)
+        if carry.fused:
+            # the attention kernel builds each stage's bias from its
+            # rows' vectors; no bias tensor exists to gather from
+            bias_c = fused_bias_context(bb, cfg, pos_c, bbox_c, mask_c)
+        elif carry.bias is None:
+            bias_c = make_attention_bias(bb, cfg, pos_c, bbox_c, mask_c, dtype=hidden_c.dtype)
+            carry.bias, carry.sel = bias_c, sel
+        else:
+            # this stage's rows are a subset of the previous stage's:
+            # gather their bias rows instead of rebuilding them
+            pos_in_prev = torch.zeros((carry.batch,), dtype=torch.int64, device=sel.device)
+            pos_in_prev[carry.sel] = torch.arange(carry.sel.shape[0], device=sel.device)
+            bias_c = carry.bias[pos_in_prev[sel]]
+            carry.bias, carry.sel = bias_c, sel
+        for layer in bb.encoder.layers[a:b]:
+            hidden_c = encoder_layer_apply(layer, cfg, hidden_c, bias_c)
+        return hidden_c, (bbox_c, pos_c, mask_c), hidden_c[:, 0, :]
+
+    def classify(self, model, x, deterministic: bool = True,
+                 rngs: Optional[RngStream] = None):
+        return classifier_apply(model.backbone.classifier, self.cfg, x, deterministic, rngs)

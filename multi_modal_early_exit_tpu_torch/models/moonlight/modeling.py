@@ -36,7 +36,7 @@ read sizes the host already holds.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -44,7 +44,9 @@ from torch import nn
 
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     ClassificationHead,
+    RngStream,
     classifier_apply,
+    reset_parameters,
 )
 from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
 from multi_modal_early_exit_tpu_torch.ops.causal_attention import causal_attention
@@ -326,10 +328,11 @@ def last_token(hidden: torch.Tensor, last: torch.Tensor) -> torch.Tensor:
     return hidden[torch.arange(hidden.shape[0], device=hidden.device), last]
 
 
-def classify(bb: MoonlightModel, cfg: MoonlightConfig, x: torch.Tensor) -> torch.Tensor:
+def classify(bb: MoonlightModel, cfg: MoonlightConfig, x: torch.Tensor,
+             deterministic: bool = True, rngs: Optional[RngStream] = None) -> torch.Tensor:
     """The final classifier on last-token states x (B, H): the final norm,
     then dense, tanh, out_proj."""
-    return classifier_apply(bb.classifier, cfg, bb.norm(x))
+    return classifier_apply(bb.classifier, cfg, bb.norm(x), deterministic, rngs)
 
 
 def embed(bb: MoonlightModel, cfg: MoonlightConfig, input_ids: torch.Tensor,
@@ -355,17 +358,57 @@ def last_token_states(bb: MoonlightModel, cfg: MoonlightConfig, input_ids: torch
 
 
 class CascadeStages:
-    """Moonlight's pieces of the capacity cascade (``models.ee.cascade``):
-    the state a stage gathers its rows from is (hidden, mask, last real
-    position); there are no embedding exits; a stage finds its real
-    tokens once (one host sync) for all its layers; exits read the last
-    real token. That sync sizes the stage's work by the data, so the
-    cascade runs these stages op by op, never from a CUDA graph."""
+    """Moonlight's pieces of the early-exit model (``models.ee``).
+
+    For ``EEModel`` and ``init_ee_params``: the decoder, which reads text
+    alone (no embedding exits) and takes ramp heads only, each with an
+    RMSNorm of its own; parameters allocated on the device and drawn there.
+    For ``ee_forward``: every exit and the classifier read the last real
+    token. For the capacity cascade: the state a stage gathers its rows
+    from is (hidden, mask, last real position); a stage finds its real
+    tokens once (one host sync) for all its layers. That sync sizes the
+    stage's work by the data, so the cascade runs these stages op by op,
+    never from a CUDA graph."""
 
     static_shapes = False
 
     def __init__(self, cfg: MoonlightConfig):
         self.cfg = cfg
+
+    def backbone(self, exit_cfg, with_text: bool = True, with_vision: bool = True):
+        """The decoder on the default device; refuses the exits it cannot
+        serve."""
+        if exit_cfg.embedding_exits:
+            raise ValueError(f"a Moonlight backbone reads text alone: it has no embedding "
+                             f"exits, got {exit_cfg.embedding_exits}")
+        if exit_cfg.apply_gating or exit_cfg.use_lte:
+            raise NotImplementedError("a Moonlight backbone takes ramp exit heads; gate and "
+                                      "LTE heads are LayoutLMv3's")
+        return MoonlightModel(self.cfg)
+
+    def head_norm(self) -> RMSNorm:
+        """The norm an exit head applies first: its own RMSNorm."""
+        return RMSNorm(self.cfg.hidden_size, self.cfg.rms_norm_eps)
+
+    def init_model(self, build, generator: torch.Generator, device, dtype):
+        """``build("meta")`` allocated on ``device`` in ``dtype`` and drawn
+        there, from a generator on that device seeded by the CPU
+        ``generator`` (on the CPU, ``generator`` itself)."""
+        with torch.device("meta"):
+            model = build("meta")
+        model = model.to(dtype).to_empty(device=device)
+        if device.type != "cpu":
+            seed = int(torch.randint(0, 2 ** 62, (), generator=generator))
+            generator = torch.Generator(device=device).manual_seed(seed)
+        reset_parameters(model, generator, self.cfg.initializer_range)
+        return model
+
+    def forward(self, model, order, input_ids, bbox, pixel_values, attention_mask,
+                deterministic, rng, collect_hidden, seq_pad_multiple):
+        """The batched forward: (each exit's last-token state in ``order``,
+        the last layer's, None: no hidden state is kept)."""
+        taps = last_token_states(model.backbone, self.cfg, input_ids, attention_mask)
+        return [taps[layer - 1] for layer in order], taps[-1], None
 
     def embed(self, model, input_ids, bbox, pixel_values, attention_mask):
         hidden, rope, last = embed(model.backbone, self.cfg, input_ids, attention_mask)
@@ -378,5 +421,6 @@ class CascadeStages:
             hidden = layer_apply(layer, self.cfg, hidden, tokens, rope)
         return hidden, (mask, last), last_token(hidden, last)
 
-    def classify(self, model, x):
-        return classify(model.backbone, self.cfg, x)
+    def classify(self, model, x, deterministic: bool = True,
+                 rngs: Optional[RngStream] = None):
+        return classify(model.backbone, self.cfg, x, deterministic, rngs)

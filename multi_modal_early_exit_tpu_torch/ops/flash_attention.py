@@ -90,6 +90,7 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
     table_grads_plain,
 )
 from multi_modal_early_exit_tpu_torch.ops.hashing import dropout_uniform
+from multi_modal_early_exit_tpu_torch.utils.profiling import count
 
 KERNEL_HEAD_DIMS = (64, 128)  # the kernels' widths in the head dim up to 128
 KERNEL_TILE = 64  # the training kernels tile the bias width P by 64, and the
@@ -287,7 +288,7 @@ def _flash_attention_packed_fwd(q, k, v, bias, num_heads: int, scale: float) -> 
             b, s, num_heads, d, kbias.shape[-1], scale, stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed")
-    flash_attention_packed.launches += 1
+    count("launches.flash_attention_packed")
     return out
 
 
@@ -323,7 +324,7 @@ def flash_attention_packed(
 ) -> torch.Tensor:
     """Returns (B, S, H*D) in q's dtype. CPU tensors run the plain version;
     CUDA tensors launch the kernel (counted in
-    ``flash_attention_packed.launches``) at the kernels' head dim
+    ``launches.flash_attention_packed``) at the kernels' head dim
     (``at_kernel_head_dim``), f32 ones after splitting k and v by
     ``split_bf16x3`` (one launch, counted there). Differentiable in q, k,
     v and the bias (``_PackedAttention``); without autograd nothing is
@@ -336,9 +337,6 @@ def flash_attention_packed(
         return _flash_attention_packed_fwd(q, k, v, bias, num_heads, scale)
 
     return at_kernel_head_dim("flash_attention_packed", run, q, k, v, num_heads)
-
-
-flash_attention_packed.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -544,7 +542,7 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
     tensors (rows 16-byte aligned: a unit last stride, the other strides
     multiples of 4, the data 16-byte aligned) launch the split pre-pass of
     the f32 backwards, one launch for all (counted in
-    ``split_bf16x3.launches``)."""
+    ``launches.split_bf16x3``)."""
     x0 = xs[0]
     if not 1 <= len(xs) <= 4 or any(x.shape != x0.shape or x.device != x0.device for x in xs):
         raise ValueError("split_bf16x3 takes one to four tensors of one shape on one device")
@@ -568,11 +566,8 @@ def split_bf16x3(*xs: torch.Tensor, out=None) -> torch.Tensor:
         stream = torch.cuda.current_stream(x0.device).cuda_stream
         code = fn(*ptrs, len(xs), _strides(*xs), out.data_ptr(), b, h, s, d, stream)
     cuda_build.check(lib, code, "split_bf16x3")
-    split_bf16x3.launches += 1
+    count("launches.split_bf16x3")
     return out
-
-
-split_bf16x3.launches = 0
 
 
 def _fwd_parts(q, k, v, num_heads=None):
@@ -641,7 +636,7 @@ def flash_attention_packed_train_fwd(
     """Training forward: (out (B, S, H*D) in q's dtype, lse (B, H, P) f32,
     +inf past S), the scores scaled by ``scale`` (1/sqrt(D) when None). CPU
     tensors run the plain version; CUDA tensors launch the kernel (counted in
-    ``flash_attention_packed_train_fwd.launches``), f32 ones after splitting k
+    ``launches.flash_attention_packed_train``), f32 ones after splitting k
     and v by ``split_bf16x3`` (one launch, counted there)."""
     _check_packed("flash_attention_packed_train", q, k, v, bias, num_heads)
     scale = _scale_of(q.shape[-1] // num_heads, scale)
@@ -666,11 +661,8 @@ def flash_attention_packed_train_fwd(
             lse.data_ptr(), b, s, num_heads, d, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_packed_train")
-    flash_attention_packed_train_fwd.launches += 1
+    count("launches.flash_attention_packed_train")
     return out, lse
-
-
-flash_attention_packed_train_fwd.launches = 0
 
 
 def flash_attention_packed_train_bwd(
@@ -682,7 +674,7 @@ def flash_attention_packed_train_bwd(
     bias dtype, gbias + ds when ``gbias`` is given), for the forward's
     ``scale`` (1/sqrt(D) when None). CPU tensors run the plain version; CUDA
     tensors launch the kernel pair, one kernel for dq and dbias and one for
-    dk and dv (``flash_attention_packed_train_bwd.launches`` counts both: 2
+    dk and dv (``launches.flash_attention_packed_train_bwd`` counts both: 2
     per call), f32 ones after splitting q, k, v and do by ``split_bf16x3``
     (one launch, counted there)."""
     _check_packed("flash_attention_packed_train_bwd", q, k, v, bias, num_heads)
@@ -720,11 +712,8 @@ def flash_attention_packed_train_bwd(
             delta.data_ptr(), b, s, num_heads, d, p, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
-    flash_attention_packed_train_bwd.launches += 2
+    count("launches.flash_attention_packed_train_bwd", 2)
     return dq, dk, dv, dbias.to(bias_dtype)
-
-
-flash_attention_packed_train_bwd.launches = 0
 
 
 def _grad_like(g, like: torch.Tensor) -> torch.Tensor:
@@ -873,7 +862,7 @@ def flash_attention_fwd(
     with ``with_lse`` also the lse (B, H, P) f32, +inf past S; the scores
     scaled by ``scale`` (1/sqrt(D) when None). CPU tensors run the plain
     version; CUDA tensors launch the kernel (counted in
-    ``flash_attention_fwd.launches``), f32 ones after splitting k and v by
+    ``launches.flash_attention_fwd``), f32 ones after splitting k and v by
     ``split_bf16x3`` (one launch, counted there)."""
     _check_headform("flash_attention_fwd", q, k, v, bias)
     scale = _scale_of(q.shape[-1], scale)
@@ -898,11 +887,8 @@ def flash_attention_fwd(
             *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, "flash_attention_fwd")
-    flash_attention_fwd.launches += 1
+    count("launches.flash_attention_fwd")
     return (out, lse[:, :, :p]) if with_lse else out
-
-
-flash_attention_fwd.launches = 0
 
 
 def flash_attention_bwd(
@@ -916,7 +902,7 @@ def flash_attention_bwd(
     None). delta = rowsum(do o) is computed in the
     kernel. CPU tensors run the plain version; CUDA tensors launch the
     kernel pair, one kernel for dq and dbias and one for dk and dv
-    (``flash_attention_bwd.launches`` counts both: 2 per call), f32 ones
+    (``launches.flash_attention_bwd`` counts both: 2 per call), f32 ones
     after ``split_bf16x3`` of q, k, v and do (one launch, counted there); o
     and do must meet q's layout rules too (the kernels load do by TMA)."""
     what = "flash_attention_bwd"
@@ -949,11 +935,8 @@ def flash_attention_bwd(
             b, s, h, d, pk, scale, *_dropout_args(seed, rate), stream,
         )
     cuda_build.check(lib, code, what)
-    flash_attention_bwd.launches += 2
+    count("launches.flash_attention_bwd", 2)
     return dq, dk, dv, dbias[:, :, :p, :p].to(bias.dtype)
-
-
-flash_attention_bwd.launches = 0
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -1072,7 +1055,7 @@ def flash_attention_packed_train_tables_bwd(
     None). No dbias exists. CPU tensors run the plain
     version; CUDA tensors launch three kernels: dq and the per-block table
     sums, dk and dv, and the fixed-order sum of the blocks
-    (``flash_attention_packed_train_tables_bwd.launches`` counts all three: 3
+    (``launches.flash_attention_packed_train_tables_bwd`` counts all three: 3
     per call), f32 ones after ``split_bf16x3`` of q, k, v and do for the dk/dv
     kernel (one launch, counted there)."""
     what = "flash_attention_packed_train_tables_bwd"
@@ -1119,12 +1102,9 @@ def flash_attention_packed_train_tables_bwd(
             max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, what)
-    flash_attention_packed_train_tables_bwd.launches += 3
+    count("launches.flash_attention_packed_train_tables_bwd", 3)
     return (dq, dk, dv, tables[:rel_bins], tables[rel_bins:rel_bins + rel2d_bins],
             tables[rel_bins + rel2d_bins:])
-
-
-flash_attention_packed_train_tables_bwd.launches = 0
 
 
 class _PackedTrainTables(torch.autograd.Function):

@@ -52,6 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
+from multi_modal_early_exit_tpu_torch.utils.profiling import count
 
 NEG_INF = -1e30
 LANE = 128  # the bias width P is S rounded up to a multiple of LANE
@@ -163,7 +164,7 @@ def _materialize_bias_forward(
     rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype,
 ) -> torch.Tensor:
     """The bias on the device of its inputs: the plain version on the CPU,
-    the kernel on CUDA (counted in ``materialize_bias.launches``)."""
+    the kernel on CUDA (counted in ``launches.materialize_bias``)."""
     args = (position_ids, cx, cy, attention_mask, t1, tx, ty)
     b, s = position_ids.shape
     h = t1.shape[1]
@@ -192,7 +193,7 @@ def _materialize_bias_forward(
             rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, "materialize_bias")
-    materialize_bias.launches += 1
+    count("launches.materialize_bias")
     return out
 
 
@@ -236,7 +237,7 @@ def materialize_bias(
 
     The vectors are (B, S) int32, the tables f32 with the attention scale
     folded in. CPU tensors run ``materialize_bias_plain``; CUDA tensors
-    launch the kernel (counted in ``materialize_bias.launches``).
+    launch the kernel (counted in ``launches.materialize_bias``).
     """
     h = t1.shape[1]
     _check_vectors("materialize_bias", (position_ids, cx, cy, attention_mask))
@@ -249,9 +250,6 @@ def materialize_bias(
         position_ids, cx, cy, attention_mask, t1, tx, ty,
         rel_bins, max_rel, rel2d_bins, max_rel2d, out_dtype,
     )
-
-
-materialize_bias.launches = 0
 
 
 def table_grads_plain(
@@ -332,7 +330,7 @@ def table_grads(
     """(dT1 (rel_bins, H), dTx, dTy (rel2d_bins, H)) f32 from the bias
     cotangent ``g`` (B, H, P, P), P >= S; rows and columns >= S are left
     out. CPU tensors run ``table_grads_plain``; CUDA tensors launch the
-    kernels (``table_grads.launches`` counts both: 2 per call), which take
+    kernels (``launches.table_grads`` counts both: 2 per call), which take
     g contiguous and 16-byte aligned, H <= 16, P % 16 == 0 and at most 64
     bins a table: per-CTA sums, then their sum in a fixed order, so the
     result is the same bits on every run."""
@@ -372,13 +370,10 @@ def table_grads(
             out.data_ptr(), b, s, p, h, rel_bins, rel2d_bins, max_rel, max_rel2d, stream,
         )
     cuda_build.check(lib, code, "table_grads")
-    table_grads.launches += 2
+    count("launches.table_grads", 2)
     n1, n2 = rel_bins * h, rel2d_bins * h
     return (out[:n1].view(rel_bins, h), out[n1:n1 + n2].view(rel2d_bins, h),
             out[n1 + n2:].view(rel2d_bins, h))
-
-
-table_grads.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -501,7 +496,7 @@ def fused_bias_attention(
     The bias of each score is rounded once to q's dtype, as
     ``materialize_bias`` rounds it. CPU tensors run
     ``fused_bias_attention_plain``; CUDA tensors launch the kernel (counted
-    in ``fused_bias_attention.launches``) at the kernels' head dim
+    in ``launches.fused_bias_attention``) at the kernels' head dim
     (``at_kernel_head_dim``), f32 ones after splitting k and v by
     ``split_bf16x3`` (one launch, counted there). No backward.
     """
@@ -547,10 +542,8 @@ def fused_bias_attention(
                 max_rel, max_rel2d, scale, stream,
             )
         cuda_build.check(lib, code, "fused_bias_attention")
-        fused_bias_attention.launches += 1
+        count("launches.fused_bias_attention")
         return out
 
     return at_kernel_head_dim("fused_bias_attention", run, q, k, v)
 
-
-fused_bias_attention.launches = 0

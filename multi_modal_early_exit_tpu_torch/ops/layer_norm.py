@@ -28,6 +28,7 @@ from typing import Optional
 import torch
 
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
+from multi_modal_early_exit_tpu_torch.utils.profiling import count
 
 WIDTHS = frozenset((64, 128, 256, 384, 512, 768, 1024))
 _TYPES = (torch.bfloat16, torch.float32)
@@ -101,7 +102,7 @@ def add_layer_norm(
     residual: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """LayerNorm(x + residual) by the kernel (counted in
-    ``add_layer_norm.launches``); raises on inputs it does not take."""
+    ``launches.add_layer_norm``); raises on inputs it does not take."""
     why = _refusal(x, weight, bias, residual)
     if why is not None:
         raise ValueError(f"add_layer_norm: {why}")
@@ -114,8 +115,6 @@ def add_layer_norm(
                   weight.data_ptr(), bias.data_ptr(), out.data_ptr(),
                   int(x.dtype == torch.bfloat16), x.numel() // width, width, eps, stream)
     cuda_build.check(lib, code, "add_layer_norm")
-    add_layer_norm.launches += 1
+    count("launches.add_layer_norm")
     return out
 
-
-add_layer_norm.launches = 0

@@ -6,18 +6,18 @@ reference's three mechanisms (SURVEY.md §5): fvcore FLOP analysis ->
 FlopCounterMode`` over one call; on the card also its bytes and peak from
 ``torch.cuda``'s memory statistics); the wall-clock ``runtime_wrapper`` and
 ``DeviceTimer`` (each call synchronised with the card); per-layer hooks ->
-``profile_trace`` (``torch.profiler``, a Chrome trace). ``launch_counts``
-reads the kernel wrappers' launch counters, and ``write_launch_counts``
-writes a process's counts to ``<dir>/launches-rank<R>.json``, so that a
-multi-process run's counts can be summed.
+``profile_trace`` (``torch.profiler``, a Chrome trace).
 
 ``span(name)`` marks a layer boundary: while a profiler records, it is a
 ``record_function`` range, which the trace holds on the same clock as the
 device's kernels; otherwise it costs one flag read. ``count`` and
-``counters`` are the process's named work counters (rows served, rows a
+``counters`` are the process's named counters: work (rows served, rows a
 cascade stage ran and wanted, tokens and token-expert pairs an expert layer
-ran, cascade calls replayed from CUDA graphs and run op by op), beside the
-launch counters. A CUDA graph runs none of the host code it was captured
+ran, cascade calls replayed from CUDA graphs and run op by op) and each
+kernel wrapper's launches, ``launches.<kernel>``. ``launch_counts`` reads
+the latter by kernel, and ``write_launch_counts`` writes a process's to
+``<dir>/launches-rank<R>.json``, so that a multi-process run's counts can
+be summed. A CUDA graph runs none of the host code it was captured
 from, so ``recorded_tallies`` takes out what a capture tallied and
 ``add_tallies`` adds it again at each replay.
 """
@@ -37,6 +37,8 @@ from torch.profiler import record_function
 _profiler_enabled = torch._C._autograd._profiler_enabled
 _OFF = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = {}
+# the prefix of the counters that count a kernel's launches
+LAUNCHES = "launches."
 
 
 def span(name: str):
@@ -63,34 +65,15 @@ def counters(reset: bool = False) -> Dict[str, int]:
     return out
 
 
-def kernel_wrappers() -> Dict[str, Callable]:
-    """The wrappers that count their kernels' launches (``fn.launches``),
-    by kernel name (the head-form pair under their wrappers' names; the
-    no-grad path's LayerNorm kernel)."""
-    from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
-    from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
-    from multi_modal_early_exit_tpu_torch.ops.layer_norm import add_layer_norm
-
-    return {"materialize_bias": fba.materialize_bias, "table_grads": fba.table_grads,
-            "fused_bias_attention": fba.fused_bias_attention,
-            "flash_attention_packed": fa.flash_attention_packed,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd": fa.flash_attention_bwd,
-            "flash_attention_packed_train": fa.flash_attention_packed_train_fwd,
-            "flash_attention_packed_train_bwd": fa.flash_attention_packed_train_bwd,
-            "flash_attention_packed_train_tables_bwd":
-                fa.flash_attention_packed_train_tables_bwd,
-            "split_bf16x3": fa.split_bf16x3, "add_layer_norm": add_layer_norm}
-
-
 def launch_counts(reset: bool = False) -> Dict[str, int]:
-    """Each kernel's launches in this process so far; ``reset`` sets the
-    counters to 0 after reading them."""
-    out = {}
-    for name, fn in kernel_wrappers().items():
-        out[name] = fn.launches
-        if reset:
-            fn.launches = 0
+    """Each kernel's launches in this process so far, by kernel name: the
+    counters ``launches.<kernel>`` that the kernel wrappers add to. A
+    kernel that never launched is absent. ``reset`` clears them after
+    reading them."""
+    out = {k[len(LAUNCHES):]: v for k, v in _COUNTS.items() if k.startswith(LAUNCHES)}
+    if reset:
+        for k in out:
+            del _COUNTS[LAUNCHES + k]
     return out
 
 
@@ -104,46 +87,28 @@ def write_launch_counts(directory: str, rank: Optional[int] = None) -> str:
     return path
 
 
-def _tallies() -> Dict[tuple, int]:
-    """The named counters and each kernel's launches, by (kind, name)."""
-    out = {("count", k): v for k, v in _COUNTS.items()}
-    out.update((("launches", k), f.launches) for k, f in kernel_wrappers().items())
-    return out
-
-
 @contextlib.contextmanager
 def recorded_tallies():
-    """Yields a dict that, on exit, holds what the block added to the named
-    counters and to each kernel's ``launches``; the block's additions are
+    """Yields a dict that, on exit, holds what the block added to each
+    named counter (kernel launches among them); the block's additions are
     taken out again. For a block captured into a CUDA graph: its host code
     ran once, at capture, and the card ran none of it; ``add_tallies``
     adds the amounts at each replay."""
-    before = _tallies()
-    delta: Dict[tuple, int] = {}
+    before = dict(_COUNTS)
+    delta: Dict[str, int] = {}
     try:
         yield delta
     finally:
-        after = _tallies()
-        delta.update((k, v - before.get(k, 0)) for k, v in after.items()
+        delta.update((k, v - before.get(k, 0)) for k, v in _COUNTS.items()
                      if v != before.get(k, 0))
-        wrappers = kernel_wrappers()
-        for (kind, name), n in delta.items():
-            if kind == "launches":
-                wrappers[name].launches -= n
-            elif (kind, name) in before:
-                _COUNTS[name] -= n
-            else:
-                del _COUNTS[name]
+        _COUNTS.clear()
+        _COUNTS.update(before)
 
 
-def add_tallies(delta: Dict[tuple, int]) -> None:
-    """Add a ``recorded_tallies`` dict to the counters and launches."""
-    wrappers = kernel_wrappers()
-    for (kind, name), n in delta.items():
-        if kind == "count":
-            count(name, n)
-        else:
-            wrappers[name].launches += n
+def add_tallies(delta: Dict[str, int]) -> None:
+    """Add a ``recorded_tallies`` dict to the counters."""
+    for name, n in delta.items():
+        count(name, n)
 
 
 @contextlib.contextmanager

@@ -12,12 +12,11 @@ import torch
 
 from multi_modal_early_exit_tpu_torch.config.exit_config import ExitConfig
 from multi_modal_early_exit_tpu_torch.models.ee.cascade import (
-    LayoutLMv3Stages,
-    cascade_stages,
     make_cascade_forward,
     uses_cuda_graphs,
 )
 from multi_modal_early_exit_tpu_torch.models.ee.model import (
+    backbone_stages,
     decide_exits,
     ee_forward,
     init_ee_params,
@@ -26,12 +25,11 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
     EEModelConfig,
     LayoutLMv3Config,
 )
+from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import LayoutLMv3Stages
 from multi_modal_early_exit_tpu_torch.models.moonlight.config import (
     MoonlightConfig,
     MoonlightExitConfig,
 )
-from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
-from multi_modal_early_exit_tpu_torch.ops import layer_norm as aln
 from multi_modal_early_exit_tpu_torch.serving import Pipeline
 from multi_modal_early_exit_tpu_torch.utils import profiling
 
@@ -82,8 +80,8 @@ def same(a, b) -> bool:
 
 @pytest.mark.parametrize("stages, device, graphed", [
     (LayoutLMv3Stages(CFG.backbone), "cpu", False),
-    (cascade_stages(MOON.backbone), "cpu", False),
-    (cascade_stages(CFG.backbone), "meta", False),
+    (backbone_stages(MOON.backbone), "cpu", False),
+    (backbone_stages(CFG.backbone), "meta", False),
 ])
 def test_graphs_only_for_static_stages_on_cuda(stages, device, graphed):
     """LayoutLMv3's stages declare static shapes and Moonlight's do not;
@@ -94,24 +92,26 @@ def test_graphs_only_for_static_stages_on_cuda(stages, device, graphed):
 
 
 def test_recorded_tallies_are_taken_out_and_added_per_replay():
-    """What a captured block tallied (named counters, kernel launches and
-    ``add_layer_norm.launches`` alike) is taken out at the block's end and
-    added again once per ``add_tallies``."""
+    """What a captured block tallied (named counters and kernel launches,
+    ``add_layer_norm``'s among them, alike) is taken out at the block's
+    end and added again once per ``add_tallies``."""
     profiling.count("kept", 2)
     before = profiling.counters()
-    launches = (aln.add_layer_norm.launches, fa.flash_attention_packed.launches)
+    launches = profiling.launch_counts()
     with profiling.recorded_tallies() as tallies:
         profiling.count("kept", 3)
         profiling.count("new.rows", 16)
-        aln.add_layer_norm.launches += 5
-        fa.flash_attention_packed.launches += 2
+        profiling.count("launches.add_layer_norm", 5)
+        profiling.count("launches.flash_attention_packed", 2)
     assert profiling.counters() == before  # "new.rows" did not exist before
-    assert (aln.add_layer_norm.launches, fa.flash_attention_packed.launches) == launches
+    assert profiling.launch_counts() == launches
     for n in range(1, 4):
         profiling.add_tallies(tallies)
         assert delta(before, "kept", "new.rows") == [3 * n, 16 * n]
-        assert aln.add_layer_norm.launches == launches[0] + 5 * n
-        assert fa.flash_attention_packed.launches == launches[1] + 2 * n
+        now = profiling.launch_counts()
+        assert now["add_layer_norm"] == launches.get("add_layer_norm", 0) + 5 * n
+        assert (now["flash_attention_packed"]
+                == launches.get("flash_attention_packed", 0) + 2 * n)
 
 
 def test_recorded_tallies_of_a_block_that_tallied_nothing():
@@ -152,15 +152,16 @@ def test_cpu_cascade_runs_op_by_op_and_keeps_its_results(caps):
 
 def test_uncounted_takes_out_launches_and_counts():
     """``uncounted`` is ``recorded_tallies`` with the record dropped:
-    every wrapper's launches (``add_layer_norm``'s among them) and the
+    every kernel's launches (``add_layer_norm``'s among them) and the
     named counters read after the block as before it."""
+    profiling.count("launches.add_layer_norm")
     launches = profiling.launch_counts()
-    assert launches["add_layer_norm"] == aln.add_layer_norm.launches
+    assert launches["add_layer_norm"] == profiling.counters()["launches.add_layer_norm"]
     before = profiling.counters()
     with profiling.uncounted():
         profiling.count("layer_norm.fused_rows", 32)
-        aln.add_layer_norm.launches += 4
-        fa.split_bf16x3.launches += 1
+        profiling.count("launches.add_layer_norm", 4)
+        profiling.count("launches.split_bf16x3")
     assert profiling.counters() == before
     assert profiling.launch_counts() == launches
 
@@ -312,12 +313,12 @@ def test_pipeline_replays_with_the_same_answers_and_tallies(cuda, monkeypatch):
     rows = ("layer_norm.fused_rows", REPLAYS)
 
     def served(run):
-        before, launches = profiling.counters(), aln.add_layer_norm.launches
+        before = profiling.counters()
         answers = run()
-        return answers, delta(before, *rows), aln.add_layer_norm.launches - launches
+        return answers, *delta(before, *rows, "launches.add_layer_norm")
 
-    got, got_rows, got_launches = served(lambda: pipe.predict_features(feats))
-    want, want_rows, want_launches = served(
+    got, *got_rows, got_launches = served(lambda: pipe.predict_features(feats))
+    want, *want_rows, want_launches = served(
         lambda: op_by_op(monkeypatch, pipe.predict_features, feats))
     assert got == want
     assert got_rows == [want_rows[0], 3] and want_rows[1] == 0

@@ -39,8 +39,14 @@ from multi_modal_early_exit_tpu_torch.ops.fused_bias_attention import (
     table_grads,
     table_grads_plain,
 )
+from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
 pytestmark = pytest.mark.cuda
+
+
+def launches(kernel: str) -> int:
+    """The kernel's launches in this process so far (0 if it never ran)."""
+    return launch_counts().get(kernel, 0)
 
 
 @pytest.fixture
@@ -68,9 +74,9 @@ def _bias_args(device, b, s, h, bins=(32, 64), seed=0):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_materialize_bias_kernel_is_bit_equal_to_plain(cuda, b, s, h, dtype):
     args = _bias_args(cuda, b, s, h)
-    before = materialize_bias.launches
+    before = launches("materialize_bias")
     got = materialize_bias(*args, out_dtype=dtype)
-    assert materialize_bias.launches == before + 1
+    assert launches("materialize_bias") == before + 1
     want = materialize_bias_plain(*args, out_dtype=dtype)
     torch.cuda.synchronize()
     assert got.shape == want.shape and got.dtype == dtype
@@ -94,9 +100,9 @@ def test_flash_kernel_matches_plain(cuda, b, s, p, h, bias_dtype):
     bias[0, :, :, s // 3:] = -1e30  # masked keys
     bias[-1, 0, 1, :] = -1e30       # one query row with every key masked
     bias = bias.to(cuda, bias_dtype)
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     got = flash_attention_packed(q, k, v, bias, h)
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     want = flash_attention_packed_plain(q, k, v, bias, h)
     torch.cuda.synchronize()
     assert torch.isfinite(got.float()).all()
@@ -116,11 +122,11 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         flash_attention_packed(q.float(), k, v, bias, 2)
     wide = torch.zeros((1, 64, 192), dtype=torch.bfloat16, device=cuda)
     wide_bias = torch.zeros((1, 1, 64, 64), device=cuda)
-    before = flash_attention_packed.launches  # one head of 192 runs (the wide mode)
+    before = launches("flash_attention_packed")  # one head of 192 runs (the wide mode)
     assert torch.isfinite(flash_attention_packed(wide, wide, wide, wide_bias, 1).float()).all()
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     _failing_binding_raises(lambda: flash_attention_packed(wide, wide, wide, wide_bias, 1),
-                            "_flash_attention_packed_fn", flash_attention_packed)
+                            "_flash_attention_packed_fn", "flash_attention_packed")
     with pytest.raises(ValueError, match="contiguous"):
         flash_attention_packed(q, k, v, bias.transpose(2, 3), 2)
     args = _bias_args(cuda, 1, 16, 2)
@@ -130,17 +136,17 @@ def test_wrappers_never_fall_back_on_cuda(cuda):
         materialize_bias(*args, out_dtype=torch.float16)
 
 
-def _failing_binding_raises(call, fns_name, counter, module=flash_module):
+def _failing_binding_raises(call, fns_name, kernel, module=flash_module):
     """With the binding that ``module.<fns_name>()`` returns patched to fail
-    (a CUDA error code), ``call`` raises and launches nothing: no plain
-    version runs in the kernel's place."""
+    (a CUDA error code), ``call`` raises and launches nothing (no launch of
+    ``kernel`` counted): no plain version runs in the kernel's place."""
     fns = getattr(module, fns_name)()
 
     def failing(*args):
         return 1  # cudaErrorInvalidValue
 
     patched = (fns[0],) + tuple(failing for _ in fns[1:])
-    before = counter.launches
+    before = launches(kernel)
     mp = pytest.MonkeyPatch()
     mp.setattr(module, fns_name, lambda: patched)
     try:
@@ -148,7 +154,7 @@ def _failing_binding_raises(call, fns_name, counter, module=flash_module):
             call()
     finally:
         mp.undo()
-    assert counter.launches == before
+    assert launches(kernel) == before
 
 
 def _train_bias(device, b, s, p, h, dtype, seed=1):
@@ -178,9 +184,9 @@ TRAIN_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (1, 200, 320,
 def test_train_forward_kernel_matches_plain(cuda, b, s, p, h, rate, bias_dtype):
     q, k, v = _qkv(cuda, b, s, h)
     bias = _train_bias(cuda, b, s, p, h, bias_dtype)
-    before = flash_attention_packed_train_fwd.launches
+    before = launches("flash_attention_packed_train")
     out, lse = flash_attention_packed_train_fwd(q, k, v, bias, 1234, h, rate)
-    assert flash_attention_packed_train_fwd.launches == before + 1
+    assert launches("flash_attention_packed_train") == before + 1
     want_out, want_lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 1234, h, rate)
     torch.cuda.synchronize()
     assert lse.shape == (b, h, p) and torch.isinf(lse[:, :, s:]).all()
@@ -200,9 +206,9 @@ def test_train_backward_kernel_matches_plain(cuda, b, s, p, h, rate, chained):
     do = torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16)
     gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda, torch.bfloat16) if chained else None
     o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
-    before = flash_attention_packed_train_bwd.launches
+    before = launches("flash_attention_packed_train_bwd")
     got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
-    assert flash_attention_packed_train_bwd.launches == before + 2  # dq/dbias, dk/dv
+    assert launches("flash_attention_packed_train_bwd") == before + 2  # dq/dbias, dk/dv
     want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
     torch.cuda.synchronize()
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -220,11 +226,11 @@ def test_train_autograd_runs_the_kernels(cuda):
     b, s, p, h = 2, 100, 128, 2
     q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
     bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
-    fwd0, bwd0 = flash_attention_packed_train_fwd.launches, flash_attention_packed_train_bwd.launches
+    fwd0, bwd0 = launches("flash_attention_packed_train"), launches("flash_attention_packed_train_bwd")
     out = flash_attention_packed_train(q, k, v, bias, 3, h, 0.1)
     out.float().square().sum().backward()
-    assert flash_attention_packed_train_fwd.launches == fwd0 + 1
-    assert flash_attention_packed_train_bwd.launches == bwd0 + 2
+    assert launches("flash_attention_packed_train") == fwd0 + 1
+    assert launches("flash_attention_packed_train_bwd") == bwd0 + 2
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
 
 
@@ -246,9 +252,9 @@ def test_table_grads_kernel_matches_plain(cuda, b, s, p, h, g_dtype, order):
         cx, cy = _reading_order(cx, cy)
     gen = torch.Generator().manual_seed(2)
     g = torch.randn((b, h, p, p), generator=gen).to(cuda, g_dtype)  # finite pad rows
-    before = table_grads.launches
+    before = launches("table_grads")
     got = table_grads(pos, cx, cy, g)
-    assert table_grads.launches == before + 2  # the per-CTA sums, then their sum
+    assert launches("table_grads") == before + 2  # the per-CTA sums, then their sum
     again = table_grads(pos, cx, cy, g)
     want = table_grads_plain(pos, cx, cy, g)
     onehot = table_grads_plain(pos, cx, cy, g, onehot=True)
@@ -268,9 +274,9 @@ def test_bias_backward_runs_table_grads(cuda):
     bias = materialize_bias(pos, cx, cy, mask, *tables)
     gen = torch.Generator().manual_seed(4)
     g = torch.randn(bias.shape, generator=gen).to(cuda, bias.dtype)
-    before = table_grads.launches
+    before = launches("table_grads")
     bias.backward(g)
-    assert table_grads.launches == before + 2
+    assert launches("table_grads") == before + 2
     for t, w in zip(tables, table_grads_plain(pos, cx, cy, g)):
         torch.testing.assert_close(t.grad, w, atol=1e-4 * w.abs().max().item(), rtol=1e-4)
 
@@ -323,10 +329,10 @@ def test_trainer_steps_on_cuda(cuda, bf16):
 
     cfg, model, batch = _tiny_trainer_setup()
     trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=bf16), 1, device=cuda)
-    before = flash_attention_packed_train_bwd.launches
+    before = launches("flash_attention_packed_train_bwd")
     loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
     assert math.isfinite(loss)
-    assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers
+    assert launches("flash_attention_packed_train_bwd") == before + 2 * cfg.backbone.num_hidden_layers
     assert not torch.equal(trainer.model.backbone.encoder.layers[0].attention.query.weight.cpu(),
                            model.backbone.encoder.layers[0].attention.query.weight)
 
@@ -351,9 +357,9 @@ def test_f32_trainer_gradients_match_the_cpu_path(cuda):
         loss, _ = ee_loss_fn(m, cfg, small, device=device)
         return loss.item(), torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
 
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     gpu_loss, gpu = grads(copy.deepcopy(model).to(cuda), cuda)
-    assert flash_attention_packed.launches > before  # the kernel path ran
+    assert launches("flash_attention_packed") > before  # the kernel path ran
     cpu_loss, cpu = grads(model, "cpu")
     assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
     big = max(w.abs().max().item() for w in cpu if w is not None)
@@ -386,9 +392,9 @@ def test_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
     args = _bias_args(cuda, b, s, h)  # one sample with its second half of keys masked
     qkv = _qkv(cuda, b, s, h)
     q4, k4, v4 = (_heads_view(x, h, layout) for x in qkv)
-    before = fused_bias_attention.launches
+    before = launches("fused_bias_attention")
     got = fused_bias_attention(q4, k4, v4, *args)
-    assert fused_bias_attention.launches == before + 1
+    assert launches("fused_bias_attention") == before + 1
     want = fused_bias_attention_plain(q4, k4, v4, *args)
     pair = flash_attention_packed(*qkv, materialize_bias(*args), h)
     torch.cuda.synchronize()
@@ -423,10 +429,10 @@ def test_train_tables_backward_kernel_matches_plain(cuda, b, s, p, h, rate, bias
     g = torch.Generator().manual_seed(5)
     do = torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16)
     o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
-    before = flash_attention_packed_train_tables_bwd.launches
+    before = launches("flash_attention_packed_train_tables_bwd")
     got = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
                                                   h, rate)
-    assert flash_attention_packed_train_tables_bwd.launches == before + 3
+    assert launches("flash_attention_packed_train_tables_bwd") == before + 3
     again = flash_attention_packed_train_tables_bwd(q, k, v, bias, pos, cx, cy, 99, o, lse, do,
                                                     h, rate)
     want = flash_attention_packed_train_tables_bwd_plain(q, k, v, bias, pos, cx, cy, 99, o,
@@ -451,12 +457,12 @@ def test_train_tables_autograd_runs_the_tables_kernel(cuda):
     with torch.no_grad():
         bias = materialize_bias(*args[:4], *tables)
     q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
-    counters = (flash_attention_packed_train_fwd, flash_attention_packed_train_tables_bwd,
-                flash_attention_packed_train_bwd, table_grads)
-    before = [f.launches for f in counters]
+    counters = ("flash_attention_packed_train", "flash_attention_packed_train_tables_bwd",
+                "flash_attention_packed_train_bwd", "table_grads")
+    before = [launches(f) for f in counters]
     out = flash_attention_packed_train_tables(q, k, v, bias, *tables, pos, cx, cy, 3, h, 0.1)
     out.float().square().sum().backward()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 3, 0, 0]
+    assert [launches(f) - n for f, n in zip(counters, before)] == [1, 3, 0, 0]
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, *tables))
     assert all(t.grad.dtype == torch.float32 for t in tables)
 
@@ -472,11 +478,11 @@ def test_bias_mode_wrappers_never_fall_back_on_cuda(cuda):
         fused_bias_attention(q4.float(), k4, v4, *args)
     wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
     wide_args = (*args[:4], *(torch.zeros((n, 1), device=cuda) for n in (32, 64, 64)))
-    before = fused_bias_attention.launches  # one head of 192 runs (the wide mode)
+    before = launches("fused_bias_attention")  # one head of 192 runs (the wide mode)
     assert torch.isfinite(fused_bias_attention(wide, wide, wide, *wide_args).float()).all()
-    assert fused_bias_attention.launches == before + 1
+    assert launches("fused_bias_attention") == before + 1
     _failing_binding_raises(lambda: fused_bias_attention(wide, wide, wide, *wide_args),
-                            "_fused_bias_attention_fn", fused_bias_attention, fused_module)
+                            "_fused_bias_attention_fn", "fused_bias_attention", fused_module)
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         fused_bias_attention(unaligned, k4, v4, *args)
@@ -518,9 +524,9 @@ HEADFORM_SHAPES = [(2, 64, 64, 2), (2, 20, 128, 4), (1, 130, 192, 3), (1, 200, 3
 def test_headform_forward_kernel_matches_plain(cuda, b, s, p, h, rate, layout, bias_dtype):
     q, k, v = (_heads_view(x, h, layout) for x in _qkv(cuda, b, s, h))
     bias = _train_bias(cuda, b, s, p, h, bias_dtype)
-    before = flash_attention_fwd.launches
+    before = launches("flash_attention_fwd")
     out, lse = flash_attention_fwd(q, k, v, bias, 1234, rate, with_lse=True)
-    assert flash_attention_fwd.launches == before + 1
+    assert launches("flash_attention_fwd") == before + 1
     want_out, want_lse = flash_attention_fwd_plain(q, k, v, bias, 1234, rate)
     torch.cuda.synchronize()
     assert out.stride() == q.stride() and lse.shape == (b, h, p)
@@ -589,9 +595,9 @@ def test_headform_backward_kernel_matches_plain(cuda, b, s, p, h, rate, layout):
     g = torch.Generator().manual_seed(5)
     do = _heads_view(torch.randn((b, s, h * 64), generator=g).to(cuda, torch.bfloat16), h, layout)
     o, lse = flash_attention_fwd_plain(q, k, v, bias, 99, rate)
-    before = flash_attention_bwd.launches
+    before = launches("flash_attention_bwd")
     got = flash_attention_bwd(q, k, v, bias, 99, o, lse, do, rate)
-    assert flash_attention_bwd.launches == before + 2  # dq/dbias, dk/dv
+    assert launches("flash_attention_bwd") == before + 2  # dq/dbias, dk/dv
     again = flash_attention_bwd(q, k, v, bias, 99, o, lse, do, rate)
     want = flash_attention_bwd_plain(q, k, v, bias, 99, o, lse, do, rate)
     torch.cuda.synchronize()
@@ -732,14 +738,14 @@ def test_bf16_backward_raises_on_a_misaligned_do(cuda):
     flat = torch.empty(do.numel() + 1, dtype=do.dtype, device=cuda)
     shifted = flat[1:].view(do.shape)  # contiguous, 2 bytes past a 16-byte boundary
     shifted.copy_(do)
-    counters = (flash_attention_packed_train_bwd, flash_attention_bwd)
-    before = [f.launches for f in counters]
+    counters = ("flash_attention_packed_train_bwd", "flash_attention_bwd")
+    before = [launches(f) for f in counters]
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_packed_train_bwd(q, k, v, bias, 0, o, lse, shifted, h, 0.0)
     views = [_heads_view(x, h, "packed") for x in (q, k, v, o, shifted)]
     with pytest.raises(ValueError, match="16-byte aligned"):
         flash_attention_bwd(*views[:3], bias, 0, views[3], lse, views[4], 0.0)
-    assert [f.launches for f in counters] == before
+    assert [launches(f) for f in counters] == before
 
 
 def test_packed_attention_autograd_runs_the_headform_kernels(cuda):
@@ -749,13 +755,13 @@ def test_packed_attention_autograd_runs_the_headform_kernels(cuda):
     b, s, p, h = 2, 100, 128, 2
     q, k, v = (x.requires_grad_() for x in _qkv(cuda, b, s, h))
     bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
-    counters = (flash_attention_packed, flash_attention_fwd, flash_attention_bwd,
-                flash_attention_packed_train_fwd, flash_attention_packed_train_bwd)
-    before = [f.launches for f in counters]
+    counters = ("flash_attention_packed", "flash_attention_fwd", "flash_attention_bwd",
+                "flash_attention_packed_train", "flash_attention_packed_train_bwd")
+    before = [launches(f) for f in counters]
     out = flash_attention_packed(q, k, v, bias, h)
     g = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)).to(cuda, out.dtype)
     (out.float() * g.float()).sum().backward()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 2, 0, 0]
+    assert [launches(f) - n for f, n in zip(counters, before)] == [1, 1, 2, 0, 0]
     views = [_heads_view(x.detach(), h, "packed") for x in (q, k, v)]
     o, lse = flash_attention_fwd(*views, bias.detach(), 0, 0.0, with_lse=True)
     want = flash_attention_bwd(*views, bias.detach(), 0, o, lse, _heads_view(g, h, "packed"))
@@ -763,19 +769,19 @@ def test_packed_attention_autograd_runs_the_headform_kernels(cuda):
         assert torch.equal(_heads_view(t.grad, h, "packed"), w)
     assert torch.equal(bias.grad, want[3])
     with torch.no_grad():
-        before = flash_attention_fwd.launches
+        before = launches("flash_attention_fwd")
         flash_attention_packed(q, k, v, bias, h)
-    assert flash_attention_fwd.launches == before
+    assert launches("flash_attention_fwd") == before
 
 
 def test_headform_autograd_and_dropout_seed(cuda):
     b, s, p, h = 1, 64, 64, 2
     q, k, v = (_heads_view(x, h, "contiguous").requires_grad_() for x in _qkv(cuda, b, s, h))
     bias = _train_bias(cuda, b, s, p, h, torch.bfloat16).requires_grad_()
-    before = flash_attention_fwd.launches, flash_attention_bwd.launches
+    before = launches("flash_attention_fwd"), launches("flash_attention_bwd")
     out = flash_attention(q, k, v, bias, dropout_rate=0.1, dropout_seed=torch.tensor([3]))
     out.float().square().sum().backward()
-    assert (flash_attention_fwd.launches, flash_attention_bwd.launches) == (
+    assert (launches("flash_attention_fwd"), launches("flash_attention_bwd")) == (
         before[0] + 1, before[1] + 2)
     assert all(torch.isfinite(t.grad.float()).all() for t in (q, k, v, bias))
     with pytest.raises(ValueError, match="dropout_seed"):
@@ -789,11 +795,11 @@ def test_headform_wrappers_never_fall_back_on_cuda(cuda):
         flash_attention_fwd(q.half(), k.half(), v.half(), bias)
     wide = torch.zeros((1, 1, 64, 192), dtype=torch.bfloat16, device=cuda)
     wide_bias = torch.zeros((1, 1, 64, 64), device=cuda)
-    before = flash_attention_fwd.launches  # one head of 192 runs (the wide mode)
+    before = launches("flash_attention_fwd")  # one head of 192 runs (the wide mode)
     assert torch.isfinite(flash_attention_fwd(wide, wide, wide, wide_bias).float()).all()
-    assert flash_attention_fwd.launches == before + 1
+    assert launches("flash_attention_fwd") == before + 1
     _failing_binding_raises(lambda: flash_attention_fwd(wide, wide, wide, wide_bias),
-                            "_headform_fns", flash_attention_fwd)
+                            "_headform_fns", "flash_attention_fwd")
     unaligned = torch.zeros((1, 2, 64, 72), dtype=torch.bfloat16, device=cuda)[..., 4:68]
     with pytest.raises(ValueError, match="strides"):
         flash_attention_fwd(unaligned, k, v, bias)
@@ -835,9 +841,9 @@ def _assert_f32_close(name, got, want):
 def test_f32_packed_kernel_matches_plain(cuda, b, s, p, h, bias_dtype):
     q, k, v = _f32(cuda, b, s, h)
     bias = _train_bias(cuda, b, s, p, h, bias_dtype)
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     got = flash_attention_packed(q, k, v, bias, h)
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     want = flash_attention_packed_plain(q, k, v, bias, h)
     torch.cuda.synchronize()
     _assert_f32_close("out", got, want)
@@ -868,9 +874,9 @@ def test_f32_train_backward_kernel_matches_plain(cuda, b, s, p, h, rate, chained
     do = torch.randn((b, s, h * 64), generator=g).to(cuda)
     gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda) if chained else None
     o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
-    before = flash_attention_packed_train_bwd.launches
+    before = launches("flash_attention_packed_train_bwd")
     got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
-    assert flash_attention_packed_train_bwd.launches == before + 2
+    assert launches("flash_attention_packed_train_bwd") == before + 2
     want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
     torch.cuda.synchronize()
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -931,10 +937,10 @@ def test_f32_fused_bias_attention_kernel_matches_plain(cuda, b, s, h, layout):
     args = _bias_args(cuda, b, s, h)
     qkv = _f32(cuda, b, s, h)
     q4, k4, v4 = (_heads_view(x, h, layout) for x in qkv)
-    before, split_before = fused_bias_attention.launches, split_bf16x3.launches
+    before, split_before = launches("fused_bias_attention"), launches("split_bf16x3")
     got = fused_bias_attention(q4, k4, v4, *args)
-    assert fused_bias_attention.launches == before + 1
-    assert split_bf16x3.launches == split_before + 1  # k and v
+    assert launches("fused_bias_attention") == before + 1
+    assert launches("split_bf16x3") == split_before + 1  # k and v
     want = fused_bias_attention_plain(q4, k4, v4, *args)
     pair = flash_attention_packed(*qkv, materialize_bias(*args, out_dtype=torch.float32), h)
     torch.cuda.synchronize()
@@ -947,11 +953,11 @@ def test_f32_packed_autograd_runs_the_headform_kernels(cuda):
     b, s, p, h = 2, 100, 128, 2
     q, k, v = (x.requires_grad_() for x in _f32(cuda, b, s, h))
     bias = _train_bias(cuda, b, s, p, h, torch.float32).requires_grad_()
-    counters = (flash_attention_packed, flash_attention_fwd, flash_attention_bwd)
-    before = [f.launches for f in counters]
+    counters = ("flash_attention_packed", "flash_attention_fwd", "flash_attention_bwd")
+    before = [launches(f) for f in counters]
     out = flash_attention_packed(q, k, v, bias, h)
     out.square().sum().backward()
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 1, 2]
+    assert [launches(f) - n for f, n in zip(counters, before)] == [1, 1, 2]
     assert all(t.grad.dtype == torch.float32 and torch.isfinite(t.grad).all()
                for t in (q, k, v, bias))
 
@@ -970,10 +976,10 @@ def test_split_pre_pass_is_bit_equal_to_plain(cuda, b, s, h, layout):
     launch, gives the plain split's bits (both round to nearest even), and
     hi + (mid + lo) restores every value of these inputs."""
     xs = [_heads_view(x, h, layout) for x in _f32(cuda, b, s, h)]
-    before = split_bf16x3.launches
+    before = launches("split_bf16x3")
     one = split_bf16x3(xs[0])
     three = split_bf16x3(*xs)
-    assert split_bf16x3.launches == before + 2
+    assert launches("split_bf16x3") == before + 2
     torch.cuda.synchronize()
     assert one.shape == (1, 3, b, h, s, 64) and three.shape == (3, 3, b, h, s, 64)
     for got, x in zip(three, xs):
@@ -995,7 +1001,7 @@ def test_f32_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
     do = torch.randn((b, s, h * 64), generator=g).to(cuda)
     gbias = (torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda)
     o, lse = flash_attention_packed_train_fwd(q, k, v, bias, 99, h, rate)
-    before = split_bf16x3.launches
+    before = launches("split_bf16x3")
     runs = []
     for extra in (None, gbias):
         args = (q, k, v, bias, 99, o, lse, do, h, rate, extra)
@@ -1007,7 +1013,7 @@ def test_f32_backwards_give_the_same_bits_twice(cuda, b, s, p, h, rate):
         args = (*views[:3], bias, 99, o_h, lse_h, views[3], rate)
         runs.append((flash_attention_bwd(*args), flash_attention_bwd(*args)))
     # one split per backward (8), and one per f32 forward (the 2 head-form ones)
-    assert split_bf16x3.launches == before + 10
+    assert launches("split_bf16x3") == before + 10
     torch.cuda.synchronize()
     for first, again in runs:
         for name, a, w in zip(("dq", "dk", "dv", "dbias"), first, again):
@@ -1132,17 +1138,16 @@ def test_forward_splits_f32_operands_only(cuda):
         q, k, v = _qkv(cuda, b, s, h, 0, dtype)
         bias = _train_bias(cuda, b, s, p, h, dtype)
         views = [_heads_view(x, h, "packed") for x in (q, k, v)]
-        for name, fn, call in (
-                ("flash_attention_packed", flash_attention_packed,
-                 lambda: flash_attention_packed(q, k, v, bias, h)),
-                ("flash_attention_packed_train_fwd", flash_attention_packed_train_fwd,
+        for name, call in (
+                ("flash_attention_packed", lambda: flash_attention_packed(q, k, v, bias, h)),
+                ("flash_attention_packed_train",
                  lambda: flash_attention_packed_train_fwd(q, k, v, bias, 3, h, 0.1)),
-                ("flash_attention_fwd", flash_attention_fwd,
+                ("flash_attention_fwd",
                  lambda: flash_attention_fwd(*views, bias, 3, 0.1, with_lse=True))):
-            before, split_before = fn.launches, split_bf16x3.launches
+            before, split_before = launches(name), launches("split_bf16x3")
             call()
-            assert fn.launches == before + 1, name
-            assert split_bf16x3.launches == split_before + splits, (name, dtype)
+            assert launches(name) == before + 1, name
+            assert launches("split_bf16x3") == split_before + splits, (name, dtype)
     torch.cuda.synchronize()
 
 
@@ -1185,22 +1190,22 @@ def _entries_at_head_dim(cuda, d, dtype, h):
         assert torch.isfinite(got.float()).all(), name
         assert _scaled_err(got, want) <= bar, (name, _scaled_err(got, want))
 
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     close("packed", flash_attention_packed(q, k, v, bias, h),
           flash_attention_packed_plain(q, k, v, bias, h))
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     views = [x.view(b, s, h, d).transpose(1, 2) for x in (q, k, v)]
-    before = flash_attention_fwd.launches
+    before = launches("flash_attention_fwd")
     close("head form", flash_attention(*views, bias),
           flash_attention_fwd_plain(*views, bias)[0])
-    assert flash_attention_fwd.launches == before + 1
+    assert launches("flash_attention_fwd") == before + 1
 
     ts = [x.detach().clone().requires_grad_() for x in (q, k, v)]
-    counters = (flash_attention_packed_train_fwd, flash_attention_packed_train_bwd)
-    before = [f.launches for f in counters]
+    counters = ("flash_attention_packed_train", "flash_attention_packed_train_bwd")
+    before = [launches(f) for f in counters]
     out, _ = flash_attention_packed_train_chained(*ts, bias, 7, h, 0.1)
     out.backward(do)
-    assert [f.launches - n for f, n in zip(counters, before)] == [1, 2]
+    assert [launches(f) - n for f, n in zip(counters, before)] == [1, 2]
     want_o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 7, h, 0.1)
     wants = flash_attention_packed_train_bwd_plain(q, k, v, bias, 7, want_o, lse, do, h, 0.1)
     close("train out", out.detach(), want_o)
@@ -1208,9 +1213,9 @@ def _entries_at_head_dim(cuda, d, dtype, h):
         close(name, t.grad, w)
 
     args = _bias_args(cuda, b, s, h)
-    before = fused_bias_attention.launches
+    before = launches("fused_bias_attention")
     got = fused_bias_attention(*views, *args)
-    assert fused_bias_attention.launches == before + 1
+    assert launches("fused_bias_attention") == before + 1
     close("fused", got, fused_bias_attention_plain(*views, *args))
     # the padded kernels share their arithmetic: bit-equal to the padded pair
     pair = flash_attention_packed(q, k, v, materialize_bias(*args, out_dtype=dtype), h)
@@ -1288,9 +1293,9 @@ def _forwards_match_plain(cuda, b, s, p, h, dtype, bias_dtype, d=128):
     bias = _train_bias(cuda, b, s, p, h, bias_dtype)
     f32 = dtype == torch.float32
     bar = F32_BAR if f32 else 2e-2
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     got = flash_attention_packed(q, k, v, bias, h)
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     assert torch.equal(flash_attention_packed(q, k, v, bias, h), got)
     want = flash_attention_packed_plain(q, k, v, bias, h)
     assert _scaled_err(got, want) <= bar, _scaled_err(got, want)
@@ -1331,9 +1336,9 @@ def _backwards_match_plain(cuda, b, s, p, h, dtype, rate, chained, d=128):
         gbias = ((torch.randn((b, h, p, p), generator=g) * 1e-3).to(cuda, bias_dtype)
                  if chained else None)
         o, lse = flash_attention_packed_train_fwd_plain(q, k, v, bias, 99, h, rate)
-        before = flash_attention_packed_train_bwd.launches
+        before = launches("flash_attention_packed_train_bwd")
         got = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
-        assert flash_attention_packed_train_bwd.launches == before + 2
+        assert launches("flash_attention_packed_train_bwd") == before + 2
         again = flash_attention_packed_train_bwd(q, k, v, bias, 99, o, lse, do, h, rate, gbias)
         want = flash_attention_packed_train_bwd_plain(q, k, v, _widen(bias) if f32 else bias,
                                                       99, o, lse, do, h, rate,
@@ -1456,10 +1461,10 @@ def _serves_on_the_card(cuda, head_dim):
     small = [feats[k][:4] for k in ("input_ids", "bbox", "pixel_values", "attention_mask")]
     with torch.no_grad():
         want = ee_forward(model, cfg, *small).policy_logits()
-        before = (materialize_bias.launches, flash_attention_packed.launches)
+        before = (launches("materialize_bias"), launches("flash_attention_packed"))
         got = ee_forward(copy.deepcopy(model).to(cuda), cfg, *[a.to(cuda) for a in small])
         got = got.policy_logits().cpu()
-    assert (materialize_bias.launches - before[0], flash_attention_packed.launches - before[1]) \
+    assert (launches("materialize_bias") - before[0], launches("flash_attention_packed") - before[1]) \
         == (1, cfg.backbone.num_hidden_layers)
     assert ((got - want).abs() <= 2e-4 + 1e-3 * want.abs()).all(), (got - want).abs().max()
     # full capacities and a threshold no confidence reaches: every document
@@ -1469,9 +1474,9 @@ def _serves_on_the_card(cuda, head_dim):
     cpu = Pipeline(copy.deepcopy(model), cfg, device="cpu", **kwargs).predict_features(feats)
     for dtype in (torch.float32, torch.bfloat16):
         pipe = Pipeline(copy.deepcopy(model).to(dtype=dtype), cfg, device=cuda, **kwargs)
-        before = flash_attention_packed.launches
+        before = launches("flash_attention_packed")
         results = pipe.predict_features(feats)
-        assert flash_attention_packed.launches > before
+        assert launches("flash_attention_packed") > before
         assert len(results) == len(cpu) == 20
         for r, c in zip(results, cpu):
             assert 0.0 <= r["confidence"] <= 1.0 and r["label_id"] in range(4), r
@@ -1500,10 +1505,10 @@ def _trains_on_the_card(cuda, bf16, head_dim):
     batch = {k: v[None, :4] for k, v in feats.items()}
     batch["labels"] = torch.tensor([[0, 3, 1, 2]])
     trainer = EETrainer(cfg, copy.deepcopy(model), TrainingArguments(bf16=bf16), 1, device=cuda)
-    before = flash_attention_packed_train_bwd.launches
+    before = launches("flash_attention_packed_train_bwd")
     loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(1))
     assert math.isfinite(loss)
-    assert flash_attention_packed_train_bwd.launches == before + 2 * cfg.backbone.num_hidden_layers
+    assert launches("flash_attention_packed_train_bwd") == before + 2 * cfg.backbone.num_hidden_layers
     assert not torch.equal(trainer.model.backbone.encoder.layers[0].attention.query.weight.cpu(),
                            model.backbone.encoder.layers[0].attention.query.weight)
 
@@ -1516,9 +1521,9 @@ def _trains_on_the_card(cuda, bf16, head_dim):
         loss, _ = ee_loss_fn(m, cfg0, small, device=device)
         return loss.item(), torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
 
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     gpu_loss, gpu = grads(copy.deepcopy(model).to(cuda), cuda)
-    assert flash_attention_packed.launches > before
+    assert launches("flash_attention_packed") > before
     cpu_loss, cpu = grads(model, "cpu")
     assert abs(gpu_loss - cpu_loss) <= 1e-5 * abs(cpu_loss)
     big = max(w.abs().max().item() for w in cpu if w is not None)
@@ -1571,9 +1576,9 @@ def test_v2_bias_and_serving_attention_match_plain(cuda, dtype):
     assert bias.shape == (4, 12, V2_P, V2_P)
     assert torch.equal(bias, materialize_bias_plain(*args, out_dtype=dtype))
     q, k, v = _qkv(cuda, 4, V2_S, 12, dtype=dtype)
-    before = flash_attention_packed.launches
+    before = launches("flash_attention_packed")
     got = flash_attention_packed(q, k, v, bias, 12)
-    assert flash_attention_packed.launches == before + 1
+    assert launches("flash_attention_packed") == before + 1
     want = flash_attention_packed_plain(q, k, v, bias, 12)
     torch.cuda.synchronize()
     if dtype == torch.bfloat16:
@@ -1597,9 +1602,9 @@ def test_v2_training_kernels_match_plain(cuda, dtype):
     assert _scaled_err(out, want_out) <= bar
     torch.testing.assert_close(lse[:, :, :V2_S], want_lse[:, :, :V2_S], atol=1e-4, rtol=1e-5)
     do = torch.randn(out.shape, generator=torch.Generator().manual_seed(9)).to(cuda, dtype)
-    before = flash_attention_packed_train_bwd.launches
+    before = launches("flash_attention_packed_train_bwd")
     got = flash_attention_packed_train_bwd(q, k, v, bias, 77, want_out, want_lse, do, 12, 0.1)
-    assert flash_attention_packed_train_bwd.launches == before + 2
+    assert launches("flash_attention_packed_train_bwd") == before + 2
     want = flash_attention_packed_train_bwd_plain(q, k, v, bias, 77, want_out, want_lse, do, 12,
                                                   0.1)
     for name, a, w in zip(("dq", "dk", "dv", "dbias"), got, want):
@@ -1632,10 +1637,10 @@ def test_tiny_v2_runs_on_the_card(cuda):
              torch.randn((3, 3, 32, 32), generator=g), torch.ones((3, 20), dtype=torch.int32))
     with torch.no_grad():
         want = v2.forward_sequence_classification(model, cfg, *feats).logits
-        before = (materialize_bias.launches, flash_attention_packed.launches)
+        before = (launches("materialize_bias"), launches("flash_attention_packed"))
         got = v2.forward_sequence_classification(copy.deepcopy(model).to(cuda), cfg,
                                                  *(f.to(cuda) for f in feats)).logits
-    assert (materialize_bias.launches - before[0], flash_attention_packed.launches - before[1]) \
+    assert (launches("materialize_bias") - before[0], launches("flash_attention_packed") - before[1]) \
         == (1, cfg.num_hidden_layers)
     torch.testing.assert_close(got.cpu(), want, atol=2e-4, rtol=1e-3)
 
@@ -1643,10 +1648,10 @@ def test_tiny_v2_runs_on_the_card(cuda):
     batch = {k: v[None] for k, v in zip(("input_ids", "bbox", "pixel_values", "attention_mask"),
                                         feats)}
     batch["labels"] = torch.tensor([[0, 3, 1]])
-    counts = (flash_attention_packed_train_fwd.launches, flash_attention_packed_train_bwd.launches,
-              table_grads.launches)
+    counts = (launches("flash_attention_packed_train"), launches("flash_attention_packed_train_bwd"),
+              launches("table_grads"))
     loss, _ = trainer.train_step(batch, torch.Generator().manual_seed(2))
     assert math.isfinite(loss)
-    assert (flash_attention_packed_train_fwd.launches - counts[0],
-            flash_attention_packed_train_bwd.launches - counts[1],
-            table_grads.launches - counts[2]) == (2, 4, 2)
+    assert (launches("flash_attention_packed_train") - counts[0],
+            launches("flash_attention_packed_train_bwd") - counts[1],
+            launches("table_grads") - counts[2]) == (2, 4, 2)
