@@ -57,10 +57,17 @@ Phases, each reported on its own line:
    pair. Then ``add_layer_norm`` (the residual add and LayerNorm of the
    no-grad path) at a served b64 batch's 49,152 rows of 768, bf16 and f32,
    against the composed chain it replaces, both timed, beside its bytes
-   bound. Then the kernels whose bodies depend on the head dim (the
-   forwards #2, #3, #5, #7, the backwards #6, #8, #9 and the split
-   pre-pass) at head dim 128 (the same bias inputs in 6 heads of 128,
-   hidden 768, S = P = 768), bf16 and f32, against their plain versions at
+   bound. Then ``swiglu_weigh`` and ``combine_pairs`` (Moonlight's expert
+   layer either side of its down product) at one full pass of its routed
+   experts, 98,304 pairs of F = 1,408 and H = 2,048, bf16: within 1 ulp of
+   the f32 function and of the composed sum, both timed beside the composed
+   chains they replace and their bytes bounds; ``swiglu_weigh`` also
+   unweighted at 16,384 tokens of F = 2,816 and 11,264 (the shared experts
+   and layer 0), within 1 ulp of the f32 function. Then the kernels whose
+   bodies depend on the head dim (the forwards #2, #3, #5, #7, the
+   backwards #6, #8, #9 and the split pre-pass) at head dim 128 (the same
+   bias inputs in 6 heads of 128, hidden 768, S = P = 768), bf16 and f32,
+   against their plain versions at
    the same tolerances, the same bits on a second run, the fused kernel
    bit-equal to its pair, each timed beside SDPA at D = 128 and its bound;
    then the same in the kernels' wide mode at D = 192 (4 heads), 256 (3) and
@@ -165,6 +172,20 @@ Phases, each reported on its own line:
    a million-mixture ``mixture_pareto_sweep`` bit-equal between the torch
    backend on the card and the native one. Prints the harvest's docs/sec,
    one traced batch's device ms and both sweeps' seconds.
+4m. early-exit Moonlight (after 6) at its published widths (hidden 2,048;
+   64 routed experts of 1,408, 6 a token; the shared experts' 2,816;
+   layer 0's dense 11,264), 3 layers deep, exits after layers 1 and 2,
+   random weights from a seed, bf16, served as ``moonlight-serve-b32``
+   serves it: ``Pipeline.predict_features`` over the cascade's
+   ``CascadeStages.layers``, 2 batches of 8 documents of 512-2,048 tokens,
+   a threshold no document meets (every stage runs every row). The launch
+   counts are read from those batches alone: 5 ``swiglu_weigh`` and 2
+   ``combine_pairs`` a batch, every MLP row fused. Each MLP call on the way
+   (layer 0's, and each expert layer's routed and shared experts) is
+   recomputed by the plain versions of ``ops.moe_pairs`` on its own
+   inputs: relative L2 within ``MOON_TOL``, which a zeroed MLP (1.0) and
+   the routed experts without their weights (printed, checked above it)
+   fail.
 7. the command-line path at full width (after every earlier phase), in a
    temporary directory that it removes: ``cli.train.main`` on
    ``CLI_TRAIN`` (EE LayoutLMv3-base, random weights, bf16, batch 16, 2
@@ -1303,6 +1324,7 @@ def phase_kernels(name):
               f"pre-pass included)")
 
     kernel_add_layer_norm(bw, results)
+    kernel_moe_pairs(bw, results)
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -1372,6 +1394,107 @@ def kernel_add_layer_norm(bw, results):
               f"bound {bound_ms * 1e3:.1f} us (bytes), {100 * bound_ms / ms:.1f} % of it")
         del x, r
     results.append(e)
+
+
+# Moonlight's routed expert layer at its largest pass: 16,384 tokens, 6
+# pairs each, experts of width 1,408, hidden 2,048
+MOE_TOKENS, MOE_K, MOE_WIDTH, MOE_HIDDEN = 16384, 6, 1408, 2048
+# the shared experts' width and layer 0's, which run swiglu_weigh unweighted
+MOE_DENSE_WIDTHS = (2816, 11264)
+
+
+def kernel_moe_pairs(bw, results):
+    """Phase 3's ``swiglu_weigh`` and ``combine_pairs`` (no TPU kernel: the
+    JAX package runs no expert layer) at one full pass of Moonlight's routed
+    experts, 98,304 pairs: ``swiglu_weigh`` on a (pairs, 2 x 1,408) gate-up
+    product with f32 routing weights and a random sort, within 1 bf16 ulp
+    of the f32 function, its ``inv`` the sort's inverse, and unweighted at
+    the widths that run it so (``MOE_DENSE_WIDTHS``: the shared experts',
+    layer 0's) over 16,384 tokens, to the same ulp; ``combine_pairs``
+    on the (pairs, 2,048) down product, within 1 ulp of the composed
+    ``index_copy_`` + f32 sum + cast, the same bits on a second run. Each
+    timed beside the composed chain it replaces (``*_plain``) and its bytes
+    bound (each row read once and written once). Appends both rows to
+    ``results``."""
+    from multi_modal_early_exit_tpu_torch.ops.moe_pairs import (
+        combine_pairs,
+        combine_pairs_plain,
+        swiglu_weigh,
+        swiglu_weigh_plain,
+    )
+
+    pairs = MOE_TOKENS * MOE_K
+    g = torch.Generator(device="cuda").manual_seed(0)
+    gate_up = (2 * torch.randn((pairs, 2 * MOE_WIDTH), generator=g, device="cuda")).bfloat16()
+    weights = torch.rand((pairs,), generator=g, device="cuda") * 0.8
+    order = torch.randperm(pairs, generator=g, device="cuda")
+    act, inv = swiglu_weigh(gate_up, weights, order)
+    gate, up = gate_up.float().chunk(2, dim=-1)
+    want = torch.nn.functional.silu(gate) * up * weights[order, None]
+    del gate, up
+    ulps = bf16_ulps(act, want).max().item()
+    check(ulps <= 1, f"swiglu_weigh: {ulps:.3g} bf16 ulps from the f32 function (at most 1)")
+    check(torch.equal(inv[order], torch.arange(pairs, dtype=torch.int32, device="cuda")),
+          "swiglu_weigh: inv is not the inverse of the sort")
+    max_abs = (act.float() - want).abs().max().item()
+    del act, want
+    # the unweighted instance, at the served widths that run it: the shared
+    # experts' 2,816 and layer 0's 11,264, one full pass of tokens each
+    unweighted = []
+    for width in MOE_DENSE_WIDTHS:
+        dense = (2 * torch.randn((MOE_TOKENS, 2 * width), generator=g, device="cuda")).bfloat16()
+        act, none = swiglu_weigh(dense)
+        gate, up = dense.float().chunk(2, dim=-1)
+        want = torch.nn.functional.silu(gate) * up
+        del gate, up, dense
+        dense_ulps = bf16_ulps(act, want).max().item()
+        check(none is None and dense_ulps <= 1,
+              f"swiglu_weigh unweighted, F {width}: {dense_ulps:.3g} bf16 ulps from the f32 "
+              f"function (at most 1)")
+        unweighted.append(f"F {width} {dense_ulps:.3g}")
+        del act, want
+    rows = []
+    ms = time_ms(lambda: swiglu_weigh(gate_up, weights, order), iters=50)
+    plain_ms = time_ms(lambda: swiglu_weigh_plain(gate_up, weights, order), iters=20)
+    # gate_up read (2 bytes an element), act written (half as many); the
+    # weights, the sort and inv, 4 + 8 + 4 bytes a pair
+    n_bytes = 3 * gate_up.numel() + 16 * pairs
+    rows.append(("swiglu_weigh", ms, plain_ms, n_bytes, max_abs,
+                 f"{ulps:.3g} bf16 ulps from the f32 function at most (unweighted, "
+                 f"{MOE_TOKENS} tokens: {', '.join(unweighted)})", "SiLU, the products with "
+                 "up and the weight, the weights' gather and cast: 5 launches"))
+    del gate_up
+
+    out_sorted = torch.randn((pairs, MOE_HIDDEN), generator=g, device="cuda").bfloat16()
+    got = combine_pairs(out_sorted, inv, MOE_K)
+    plain = combine_pairs_plain(out_sorted, order, MOE_K)
+    ulps = bf16_ulps(got, plain).max().item()
+    check(ulps <= 1, f"combine_pairs: {ulps:.3g} bf16 ulps from the composed chain (at most 1)")
+    check(torch.equal(got, combine_pairs(out_sorted, inv, MOE_K)),
+          "combine_pairs: another result on a second run")
+    equal = (got == plain).float().mean().item()
+    max_abs = (got.float() - plain.float()).abs().max().item()
+    del got, plain
+    ms = time_ms(lambda: combine_pairs(out_sorted, inv, MOE_K), iters=50)
+    plain_ms = time_ms(lambda: combine_pairs_plain(out_sorted, order, MOE_K), iters=20)
+    n_bytes = out_sorted.numel() * 2 + pairs * 4 + MOE_TOKENS * MOE_HIDDEN * 2
+    rows.append(("combine_pairs", ms, plain_ms, n_bytes, max_abs,
+                 f"{ulps:.3g} bf16 ulps from the composed chain at most, {100 * equal:.4f} % "
+                 f"bit-equal", "index_copy_, the f32 sum and the cast: 3 launches"))
+    del out_sorted
+
+    for name, ms, plain_ms, n_bytes, max_abs, err, chain in rows:
+        bound_ms, bound_by = bound(n_bytes, 0, bw, 1.0)
+        results.append(dict(
+            name=name, route="cuda", source="multi_modal_early_exit_tpu_torch/csrc/moe_pairs.cu",
+            replaces="none: the JAX package runs no expert layer (multi_modal_early_exit_tpu_torch/"
+                     "models/moonlight/modeling.py::experts_apply)",
+            ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by, library_ms=None,
+            max_abs_err=max_abs, ok=True))
+        print(f"kernel {name} ({pairs} pairs, F {MOE_WIDTH}, H {MOE_HIDDEN}, bf16): {err}, "
+              f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f} ({chain}), bound "
+              f"{bound_ms * 1e3:.1f} us ({bound_by}, {n_bytes / 1e6:.1f} MB), "
+              f"{100 * bound_ms / ms:.1f} % of it")
 
 
 H128, D128 = 6, 128  # hidden 768 in heads of 128
@@ -1950,6 +2073,127 @@ WIDE_HEADS = {96: dict(hidden_size=384, coordinate_size=64, shape_size=64),
                         num_attention_heads=2),
               256: dict(hidden_size=512, coordinate_size=96, shape_size=64,
                         num_attention_heads=2)}
+
+
+MOON_LAYERS, MOON_BATCHES, MOON_B, MOON_S = 3, 2, 8, 2048
+MOON_LENGTHS = (512, 2048)  # moonlight-serve-b32's documents: 1-3 OCR'd pages
+# a batch's kernels: one swiglu_weigh a SwiGLU (layer 0's, and the shared
+# and routed experts' of layers 1-2), one combine_pairs an expert layer (8
+# documents' tokens fit one MLP pass)
+MOON_BATCH_LAUNCHES = {"swiglu_weigh": 5, "combine_pairs": 2}
+# the relative L2 distance of a served MLP call's output from the plain
+# versions' on the same inputs: rounding moves it by tenths of a percent, a
+# zeroed MLP by 1, the routed experts without their weights by more
+MOON_TOL = 0.02
+
+
+def rel_l2(got: torch.Tensor, want: torch.Tensor) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).norm() / want.norm()).item()
+
+
+def phase_moonlight():
+    """Phase 4m: early-exit Moonlight at its published widths, depth cut to
+    ``MOON_LAYERS`` (layer 0 dense, then expert layers), exits after layers
+    1 and 2, random weights from a seed, bf16 on the card, served as
+    ``moonlight-serve-b32`` serves it: ``Pipeline.predict_features``, whose
+    cascade runs ``CascadeStages.layers``, over ``MOON_BATCHES`` batches of
+    ``MOON_B`` documents of ``MOON_LENGTHS`` tokens (log-uniform, right-
+    padded to ``MOON_S``), at a threshold no document meets, so every stage
+    runs every row. Checks, on those batches alone: ``MOON_BATCH_LAUNCHES``
+    a batch, every MLP row fused (15 a token: layer 0's, then 6 pairs and
+    the shared experts' in each expert layer), every answer from the final
+    classifier; and each MLP call on the way (``experts_apply`` and
+    ``mlp_apply``, recorded with their inputs and outputs) recomputed by the
+    plain versions of ``ops.moe_pairs`` on the same inputs, within
+    ``MOON_TOL`` (relative L2), which the routed experts recomputed without
+    their weights must miss. Returns the launches."""
+    from unittest import mock
+
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+    from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moon
+    from multi_modal_early_exit_tpu_torch.models.moonlight.config import (
+        MoonlightConfig,
+        MoonlightExitConfig,
+    )
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.utils.profiling import counters, launch_counts
+
+    bb = MoonlightConfig.base().replace(num_hidden_layers=MOON_LAYERS)
+    cfg = EEModelConfig(backbone=bb, exit=MoonlightExitConfig(exits=(1, 2)))
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cuda",
+                           dtype=torch.bfloat16)
+    pipe = Pipeline(model, cfg, threshold=2.0, batch_size=MOON_B, tokenizer=object(),
+                    device="cuda")
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(MOON_BATCHES):
+        lengths = np.exp(rng.uniform(*np.log(MOON_LENGTHS), MOON_B)).round().astype(np.int64)
+        mask = (np.arange(MOON_S)[None, :] < lengths[:, None]).astype(np.int32)
+        ids = rng.integers(0, bb.vocab_size, (MOON_B, MOON_S)).astype(np.int32) * mask
+        batches.append({"input_ids": ids, "attention_mask": mask})
+    tokens = sum(int(b["attention_mask"].sum()) for b in batches)
+
+    calls = []  # (name, function, inputs, output) of each MLP call
+
+    def recorded(fn, routed):
+        def call(p, *args):
+            out = fn(p, *args)
+            if routed:
+                name = "routed"
+            else:
+                width = p.down_proj.weight.numel() // bb.hidden_size
+                name = "layer 0" if width == bb.intermediate_size else "shared"
+            calls.append((name, fn, (p,) + args, out))
+            return out
+        return call
+
+    keys = (moon.FUSED_ROWS, moon.COMPOSED_ROWS)
+    with mock.patch.object(moon, "experts_apply", recorded(moon.experts_apply, True)), \
+            mock.patch.object(moon, "mlp_apply", recorded(moon.mlp_apply, False)):
+        before, counted = launch_counts(), counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = [a for b in batches for a in pipe.predict_features(b)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launched(before, tuple(MOON_BATCH_LAUNCHES))
+        rows = {k: counters().get(k, 0) - counted.get(k, 0) for k in keys}
+    check(launches == {k: n * MOON_BATCHES for k, n in MOON_BATCH_LAUNCHES.items()},
+          f"Moonlight launched {launches}")
+    per_token = 1 + (MOON_LAYERS - 1) * (bb.num_experts_per_tok + 1)
+    check(rows == {moon.FUSED_ROWS: per_token * tokens, moon.COMPOSED_ROWS: 0},
+          f"Moonlight's MLP rows {rows}, {tokens} tokens")
+    check(len(answers) == MOON_BATCHES * MOON_B
+          and all(a["exit_name"] == "final" for a in answers),
+          f"Moonlight's exits {[a['exit_name'] for a in answers]}")
+    check(len(calls) == MOON_BATCHES * (1 + 2 * (MOON_LAYERS - 1)),
+          f"{len(calls)} MLP calls recorded")
+
+    errs, unweighted = {}, []
+    with torch.inference_mode(), mock.patch.object(moon, "_fused", lambda *a: False):
+        for name, fn, args, out in calls:
+            err = rel_l2(out, fn(*args))
+            check(torch.isfinite(out).all().item() and err <= MOON_TOL,
+                  f"Moonlight's {name} MLP: {err:.3g} from the plain versions (at most "
+                  f"{MOON_TOL})")
+            errs[name] = max(errs.get(name, 0.0), err)
+            if name == "routed":
+                p, x, chosen, weights = args
+                unweighted.append(rel_l2(out, fn(p, x, chosen, torch.ones_like(weights))))
+    check(min(unweighted) > MOON_TOL,
+          f"the routed experts without their weights read {min(unweighted):.3g}, within "
+          f"{MOON_TOL}: the check would not see them")
+    del calls
+    worst = {k: float(f"{v:.3g}") for k, v in errs.items()}
+    print(f"moonlight (published widths, {MOON_LAYERS} layers, bf16): "
+          f"{MOON_BATCHES} batches of {MOON_B} ({tokens} tokens) through Pipeline in "
+          f"{seconds:.3f} s, all to the final classifier; launches {launches}, MLP rows {rows}; "
+          f"relative L2 from the plain versions on each call's inputs, worst "
+          f"{worst} (tol {MOON_TOL}; the routed "
+          f"experts without their weights {min(unweighted):.3g} at least)")
+    return launches
 
 
 def phase_tiny(card: str, head_dim: int = 16):
@@ -3934,6 +4178,7 @@ def main() -> int:
         fused_launches = phase_serve_fused(served)
     with bias_modes():
         anytime_launches = phase_anytime(card, served)
+    moon_launches = phase_moonlight()
     base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
     # phase 8b's engine runs on phase 4's model and documents: kept on the host
     kept = dict(model=served["model"].to("cpu"), cfg=served["cfg"], tok=served["pipe"].tokenizer,
@@ -3972,6 +4217,8 @@ def main() -> int:
     f32_split_in = (f"phase 4f, {N_BATCHES} batches ({serve32_launches['split_bf16x3']}), and "
                     f"phase 5f, 2 gradient checks and {F32_TRAIN_STEPS} steps "
                     f"({train32_launches.get('split_bf16x3', 0)})")
+    moon_in = (f"phase 4m, {MOON_BATCHES} Moonlight batches of {MOON_B} through Pipeline, "
+               f"published widths, {MOON_LAYERS} layers")
     # each kernel's launches on the path that runs it
     paths = {
         "flash_attention_fwd": (default_launches, default_path),
@@ -3988,6 +4235,8 @@ def main() -> int:
             tables_launches, f"{TRAIN_STEPS} training steps, MMEE_TABLE_GRADS=1"),
         # f32 only: the paths that run it are phases 4f's and 5f's
         "split_bf16x3": (f32_split, f32_split_in),
+        "swiglu_weigh": (moon_launches, moon_in),
+        "combine_pairs": (moon_launches, moon_in),
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     # each kernel's f32 launches: on phase 4f's served batches or in phase
@@ -4004,9 +4253,11 @@ def main() -> int:
         check(k["launches"] > 0, f"{k['name']} was never launched on its path")
         launches32, where32 = f32_paths.get(k["name"], f32_train)
         k["f32_launches"], k["f32_launches_in"] = launches32.get(k["name"], 0), where32
-        only_phase_3 = k["name"] in ("fused_bias_attention",
-                                     "flash_attention_packed_train_tables_bwd")
-        check((k["f32_launches"] == 0) == only_phase_3,
+        # #3 and #9 run in f32 only in phase 3; Moonlight serves in bf16
+        no_f32_path = k["name"] in ("fused_bias_attention",
+                                    "flash_attention_packed_train_tables_bwd", "swiglu_weigh",
+                                    "combine_pairs")
+        check((k["f32_launches"] == 0) == no_f32_path,
               f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
     # the command-line path (phase 7): cli.train's steps, evaluations and
     # checkpoints, the resume and bf16-moment steps, cli.evaluate's harvests

@@ -31,7 +31,11 @@ Spans (``utils.profiling.span``) sit at sub-layer edges: ``mla.attention``
 token sort, both grouped products, the weighted sum) and ``moe.shared``.
 Counters: ``moe.tokens`` (real tokens entering an expert layer, each layer
 counted) and ``moe.routed_pairs`` (token-expert pairs, 6 a token); both
-read sizes the host already holds.
+read sizes the host already holds. Each SwiGLU (layer 0's, the shared and
+the routed experts') runs its activation, and the routed experts their
+weights and their pairs' sum, through ``ops.moe_pairs``: hand-written
+kernels on the card outside autograd, counted by rows in
+``mlp.fused_rows``, the composed ops elsewhere, in ``mlp.composed_rows``.
 """
 
 from __future__ import annotations
@@ -45,13 +49,20 @@ from torch import nn
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
     ClassificationHead,
     RngStream,
+    _needs_grad,
     classifier_apply,
     reset_parameters,
 )
 from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
+from multi_modal_early_exit_tpu_torch.ops import moe_pairs
 from multi_modal_early_exit_tpu_torch.ops.causal_attention import causal_attention
 from multi_modal_early_exit_tpu_torch.ops.grouped_mm import grouped_mm
 from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
+
+# the MLP sub-layer's rows (tokens of a dense or shared call, token-expert
+# pairs of a routed one) that ran ``ops.moe_pairs``' kernels, and their
+# plain versions
+FUSED_ROWS, COMPOSED_ROWS = "mlp.fused_rows", "mlp.composed_rows"
 
 
 def _empty(*shape) -> nn.Parameter:
@@ -198,9 +209,20 @@ class MoonlightModel(nn.Module):
 # ---------------------------------------------------------------------------
 
 
+def _fused(x: torch.Tensor, *params: torch.Tensor) -> bool:
+    """Whether an MLP call runs ``ops.moe_pairs``' kernels: on a CUDA x
+    outside autograd (else their plain versions)."""
+    return moe_pairs.on_card(x) and not _needs_grad(x, *params)
+
+
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    gate, up = p.gate_up_proj(x).chunk(2, dim=-1)
-    return p.down_proj(F.silu(gate) * up)
+    """SwiGLU over x (T, H); its T rows count in ``mlp.fused_rows`` or
+    ``mlp.composed_rows``."""
+    fused = _fused(x, p.gate_up_proj.weight, p.down_proj.weight)
+    count(FUSED_ROWS if fused else COMPOSED_ROWS, x.numel() // x.shape[-1])
+    gate_up = p.gate_up_proj(x)
+    act = moe_pairs.swiglu_weigh(gate_up)[0] if fused else moe_pairs.swiglu_weigh_plain(gate_up)
+    return p.down_proj(act)
 
 
 def route(p: Router, cfg: MoonlightConfig, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -219,26 +241,34 @@ def route(p: Router, cfg: MoonlightConfig, x: torch.Tensor) -> Tuple[torch.Tenso
 
 def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
                   weights: torch.Tensor) -> torch.Tensor:
-    """sum_j weights[t, j] expert_{chosen[t, j]}(x[t]), (T, H) in f32: the
-    token-expert pairs sorted by expert (stably; each expert's end found by
-    a search of the sorted ids, so no count reaches the host), both SwiGLU
-    products as one grouped product each over all experts, each pair's
-    weight applied to its down projection's input (the product is linear),
-    the results put back in pair order and summed per token in f32."""
+    """sum_j weights[t, j] expert_{chosen[t, j]}(x[t]), (T, H) summed in f32
+    and returned in x's dtype: the token-expert pairs sorted by expert
+    (stably; each expert's end found by a search of the sorted ids, so no
+    count reaches the host), both SwiGLU products as one grouped product
+    each over all experts, each pair's weight applied to its down
+    projection's input (the product is linear), the results put back in
+    pair order and summed per token. Between and after the products
+    ``ops.moe_pairs``: its kernels on the card outside autograd (each pair
+    row read and written once a side), else its plain versions; the T k
+    pairs count in ``mlp.fused_rows`` or ``mlp.composed_rows``."""
     t, k = chosen.shape
     flat = chosen.reshape(-1)
     order = torch.argsort(flat, stable=True)
     experts = torch.arange(p.gate_up_proj.shape[0], device=flat.device)
     offs = torch.searchsorted(flat[order], experts, right=True).to(torch.int32)
+    fused = _fused(x, p.gate_up_proj, p.down_proj, weights)
+    count(FUSED_ROWS if fused else COMPOSED_ROWS, t * k)
     gate_up = grouped_mm(x[order // k], p.gate_up_proj, offs)
-    gate, up = gate_up.chunk(2, dim=-1)
-    act = F.silu(gate).mul_(up).mul_(weights.reshape(-1)[order, None].to(x.dtype))
-    del gate_up, gate, up  # each (pairs, F)-sized buffer lives only as long as it must
+    if fused:
+        act, inv = moe_pairs.swiglu_weigh(gate_up, weights, order)
+    else:
+        act = moe_pairs.swiglu_weigh_plain(gate_up, weights, order)
+    del gate_up  # each (pairs, F)-sized buffer lives only as long as it must
     out_sorted = grouped_mm(act, p.down_proj, offs)
     del act
-    out = torch.empty_like(out_sorted).index_copy_(0, order, out_sorted)
-    del out_sorted
-    return out.view(t, k, -1).sum(dim=1, dtype=torch.float32)
+    if fused:
+        return moe_pairs.combine_pairs(out_sorted, inv, k)
+    return moe_pairs.combine_pairs_plain(out_sorted, order, k)
 
 
 def moe_apply(p: MoE, cfg: MoonlightConfig, x: torch.Tensor) -> torch.Tensor:
@@ -250,7 +280,7 @@ def moe_apply(p: MoE, cfg: MoonlightConfig, x: torch.Tensor) -> torch.Tensor:
     with span("moe.router"):
         chosen, weights = route(p.gate, cfg, x)
     with span("moe.experts"):
-        y = experts_apply(p.experts, x, chosen, weights).to(x.dtype)
+        y = experts_apply(p.experts, x, chosen, weights)
     with span("moe.shared"):
         return y + mlp_apply(p.shared_experts, x)
 

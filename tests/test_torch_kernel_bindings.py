@@ -13,6 +13,7 @@ from multi_modal_early_exit_tpu_torch.ops import cuda_build
 from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
 from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
 from multi_modal_early_exit_tpu_torch.ops import layer_norm as aln
+from multi_modal_early_exit_tpu_torch.ops import moe_pairs as mp
 
 # (module, loader, C entry): every binding of the port
 BINDINGS = [
@@ -27,6 +28,8 @@ BINDINGS = [
     (fba, "_table_grads_fn", "mmee_table_grads"),
     (fba, "_fused_bias_attention_fn", "mmee_fused_bias_attention"),
     (aln, "_add_layer_norm_fn", "mmee_add_layer_norm"),
+    (mp, "_swiglu_weigh_fn", "mmee_swiglu_weigh"),
+    (mp, "_combine_pairs_fn", "mmee_combine_pairs"),
 ]
 LOADERS = sorted({(m, name) for m, name, _ in BINDINGS}, key=lambda x: (x[0].__name__, x[1]))
 
