@@ -33,9 +33,10 @@ among them) is added again at each replay.
 What differs between backbones (the embedding, a stage's layers, an exit's
 input, the classifier) comes from the backbone's stages object
 (``models.ee.model.backbone_stages``), chosen once, when the cascade is
-built: LayoutLMv3's (``models.layoutlmv3.modeling.LayoutLMv3Stages``) or
+built: LayoutLMv3's (``models.layoutlmv3.modeling.LayoutLMv3Stages``),
 Moonlight's (``models.moonlight.modeling.CascadeStages``: no embedding
-exits, causal layers, the last real token read). Selection, capacity-forced
+exits, causal layers, the last real token read) or Kimi-VL's (Moonlight's
+with a vision tower in its embedding part). Selection, capacity-forced
 exits and the criteria are shared.
 """
 
@@ -53,6 +54,7 @@ from multi_modal_early_exit_tpu_torch.models.ee.model import (
     EEModel,
     backbone_stages,
     canonical_exit_order,
+    page_inputs,
 )
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
 from multi_modal_early_exit_tpu_torch.utils.profiling import (
@@ -177,7 +179,9 @@ def make_cascade_forward(
     temperatures: Optional[Sequence[float]] = None,
 ):
     """Build the cascade ``fn(model, input_ids, bbox, pixel_values,
-    attention_mask) -> CascadeResult``.
+    attention_mask, image_grid_hws=None) -> CascadeResult``
+    (``image_grid_hws``: each row's patch grid, for a backbone that reads
+    pages).
 
     ``capacities[i]`` is the row count of encoder stage i (stages split at
     the encoder exits; the last runs to the final classifier).
@@ -238,13 +242,14 @@ def make_cascade_forward(
     stage_spans = [f"cascade.stage{i}" for i in range(len(bounds))]
     stages = backbone_stages(bb_cfg)
 
-    def embed_part(model: EEModel, input_ids, bbox, pixel_values, attention_mask) -> _Call:
+    def embed_part(model: EEModel, input_ids, bbox, pixel_values, attention_mask,
+                   image_grid_hws=None) -> _Call:
         """Stage 0: embeddings and the embedding exits over the full batch."""
         B = input_ids.shape[0]
         K = bb_cfg.num_labels
         dev = input_ids.device
         state, sources, carry = stages.embed(
-            model, input_ids, bbox, pixel_values, attention_mask
+            model, input_ids, bbox, pixel_values, attention_mask, **page_inputs(image_grid_hws)
         )
         run = _Call(state, carry)
         out_logits = torch.zeros((B, K), dtype=torch.float32, device=dev)
@@ -392,13 +397,14 @@ def make_cascade_forward(
         return id(model), first, tuple(specs), device, stages.graph_key()
 
     @torch.no_grad()
-    def cascade(model: EEModel, input_ids, bbox, pixel_values, attention_mask):
+    def cascade(model: EEModel, input_ids, bbox, pixel_values, attention_mask,
+                image_grid_hws=None):
         if n_emb == 0 and capacities[0] < input_ids.shape[0]:
             raise ValueError(
                 "capacities[0] must cover the full batch when the config "
                 "has no embedding exits"
             )
-        inputs = (input_ids, bbox, pixel_values, attention_mask)
+        inputs = (input_ids, bbox, pixel_values, attention_mask, image_grid_hws)
         if not uses_cuda_graphs(stages, input_ids):
             return eager(model, *inputs)
         k = key(model, (None if x is None else (tuple(x.shape), x.dtype) for x in inputs),

@@ -17,8 +17,11 @@ object, which ``backbone_stages`` picks from the backbone config:
 LayoutLMv3's (``models.layoutlmv3.modeling.LayoutLMv3Stages``) or
 Moonlight's (``models.moonlight.modeling.CascadeStages``: text alone,
 encoder exits only, each head on the last real token through a norm of its
-own, the classifier on that token after the final norm). The exit heads,
-gating, LTE and the criteria are shared.
+own, the classifier on that token after the final norm) or Kimi-VL's
+(``models.kimi_vl.modeling.KimiVLStages``: Moonlight's, each row's page
+read by a vision tower into its placeholder positions; the page's patch
+rows come as ``pixel_values`` and its patch grid as ``image_grid_hws``).
+The exit heads, gating, LTE and the criteria are shared.
 
 ``ee_forward`` is differentiable; inference callers run it under
 ``torch.no_grad()``. With ``deterministic=False`` the dropout seeds come from
@@ -63,13 +66,23 @@ def canonical_exit_order(exit_cfg: ExitConfig) -> Tuple:
 
 
 def backbone_stages(cfg):
-    """The stages object of a backbone config: Moonlight's for a
-    ``MoonlightConfig``, else LayoutLMv3's. The one place that tells the
-    backbone families apart."""
+    """The stages object of a backbone config: Kimi-VL's for a
+    ``KimiVLConfig``, Moonlight's for a ``MoonlightConfig``, else
+    LayoutLMv3's. The one place that tells the backbone families apart."""
+    from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import KimiVLConfig
+    from multi_modal_early_exit_tpu_torch.models.kimi_vl.modeling import KimiVLStages
     from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
     from multi_modal_early_exit_tpu_torch.models.moonlight.modeling import CascadeStages
 
+    if isinstance(cfg, KimiVLConfig):
+        return KimiVLStages(cfg)
     return CascadeStages(cfg) if isinstance(cfg, MoonlightConfig) else LayoutLMv3Stages(cfg)
+
+
+def page_inputs(image_grid_hws: Optional[torch.Tensor]) -> dict:
+    """The keyword a stages object takes for each row's patch grid: none
+    unless given (a backbone that reads no pages takes none)."""
+    return {} if image_grid_hws is None else {"image_grid_hws": image_grid_hws}
 
 
 class EEModel(nn.Module):
@@ -190,20 +203,22 @@ def ee_forward(
     rng: Optional[torch.Generator] = None,
     collect_hidden: bool = False,
     seq_pad_multiple: Optional[int] = None,
+    image_grid_hws: Optional[torch.Tensor] = None,
 ) -> EEOutputs:
     """Every exit's logits and criterion from one batched forward, on the
     device of the model and inputs. With ``deterministic=False`` every
     dropout draws its seed from ``rng`` (a CPU generator).
     ``collect_hidden`` fills ``last_hidden_state`` with the encoder's output
     (at the padded width S' when ``seq_pad_multiple`` pads, pad rows
-    included)."""
+    included). ``image_grid_hws`` (B, 2), each row's patch grid, is for a
+    backbone that reads pages (Kimi-VL)."""
     backbone_cfg, exit_cfg = cfg.backbone, cfg.exit
     stages = backbone_stages(backbone_cfg)
     b = input_ids.shape[0]
     order = canonical_exit_order(exit_cfg)
     exit_inputs, final_input, last_hidden = stages.forward(
         model, order, input_ids, bbox, pixel_values, attention_mask, deterministic, rng,
-        collect_hidden, seq_pad_multiple,
+        collect_hidden, seq_pad_multiple, **page_inputs(image_grid_hws),
     )
     # dropout seeds after the backbone's: the heads' in exit order, then
     # the classifier's

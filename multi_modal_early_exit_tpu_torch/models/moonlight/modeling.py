@@ -379,6 +379,12 @@ def last_token_states(bb: MoonlightModel, cfg: MoonlightConfig, input_ids: torch
     """Every layer's last-real-token state, (B, H) each, the whole batch
     through every layer (the batched forward; the cascade runs stages)."""
     hidden, rope, last = embed(bb, cfg, input_ids, attention_mask)
+    return decoder_taps(bb, cfg, hidden, rope, last, attention_mask)
+
+
+def decoder_taps(bb: MoonlightModel, cfg: MoonlightConfig, hidden: torch.Tensor, rope: Rope,
+                 last: torch.Tensor, attention_mask: torch.Tensor) -> List[torch.Tensor]:
+    """Every layer's state at ``last`` from input embeddings ``hidden``."""
     tokens = real_tokens(attention_mask)
     taps = []
     for layer in bb.layers:
@@ -406,14 +412,17 @@ class CascadeStages:
         self.cfg = cfg
 
     def backbone(self, exit_cfg, with_text: bool = True, with_vision: bool = True):
-        """The decoder on the default device; refuses the exits it cannot
-        serve."""
+        """The backbone (``module``) on the default device; refuses the
+        exits it cannot serve."""
         if exit_cfg.embedding_exits:
-            raise ValueError(f"a Moonlight backbone reads text alone: it has no embedding "
-                             f"exits, got {exit_cfg.embedding_exits}")
+            raise ValueError(f"a Moonlight decoder has no embedding exits, got "
+                             f"{exit_cfg.embedding_exits}")
         if exit_cfg.apply_gating or exit_cfg.use_lte:
             raise NotImplementedError("a Moonlight backbone takes ramp exit heads; gate and "
                                       "LTE heads are LayoutLMv3's")
+        return self.module()
+
+    def module(self) -> MoonlightModel:
         return MoonlightModel(self.cfg)
 
     def head_norm(self) -> RMSNorm:

@@ -21,6 +21,15 @@ names and what the port builds for them:
                      (``exits`` must name layers, 1-27), served by the
                      cascade; ``model_size`` base is the published model,
                      tiny the CPU tests' (no pretrained load, no trainer)
+- ``EEkimivl``       early-exit Kimi-VL-A3B-Instruct (``models/kimi_vl``): an
+                     ``EEModel`` whose MoonViT reads each row's scanned page
+                     at its own resolution into Moonlight's decoder; served
+                     by the cascade and ``Pipeline.predict_features`` from
+                     ``input_ids`` (the page's placeholder ids, then the
+                     prompt), ``attention_mask``, ``pixel_values`` (each
+                     page's 588-value patch rows, padded) and
+                     ``image_grid_hws`` (each page's patch grid); exits and
+                     sizes as ``EEmoonlight``'s
 - ``pix2struct``     ``NotImplementedError`` (parity: EE/configs.py:508)
 
 When a HuggingFace LayoutLMv3 (for v2: LayoutLMv2) checkpoint is in the
@@ -46,8 +55,11 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
 
 MODEL_NAMES = (
     "EElayoutlmv3", "LTElayoutlmv3", "layoutlmv3", "dit", "dit_rvl",
-    "bert", "layoutlmv2", "pix2struct", "EEmoonlight",
+    "bert", "layoutlmv2", "pix2struct", "EEmoonlight", "EEkimivl",
 )
+
+# served by the port, never trained by it
+SERVED_ONLY = ("EEmoonlight", "EEkimivl")
 
 
 def model_towers(name: str) -> Tuple[bool, bool]:
@@ -60,7 +72,7 @@ def splits_over_model_axis(name: str) -> bool:
     """Whether the model ``name`` builds can split over a model axis above
     1: an ``EEModel`` with both towers, which is what
     ``parallel.sharding.tensor_parallel_model`` asks of a built model."""
-    return name in MODEL_NAMES and name not in ("layoutlmv2", "pix2struct", "EEmoonlight") \
+    return name in MODEL_NAMES and name not in ("layoutlmv2", "pix2struct") + SERVED_ONLY \
         and all(model_towers(name))
 
 
@@ -70,10 +82,10 @@ def trains_through_ee_trainer(name: str) -> bool:
     so the single-tower variants (``dit``, ``dit_rvl``: no text tower;
     ``bert``: no visual tower) do not; in the JAX package they fail inside
     the first step (ROADMAP.md C12). They train through their own forwards.
-    LayoutLMv2 trains with its own loss. ``EEmoonlight`` is served, not
-    trained, by the port. Unknown names and ``pix2struct`` are
-    ``build_model``'s to refuse."""
-    return name == "layoutlmv2" or (name != "EEmoonlight" and all(model_towers(name)))
+    LayoutLMv2 trains with its own loss. ``EEmoonlight`` and ``EEkimivl``
+    are served, not trained, by the port. Unknown names and ``pix2struct``
+    are ``build_model``'s to refuse."""
+    return name == "layoutlmv2" or (name not in SERVED_ONLY and all(model_towers(name)))
 
 
 def refuse_ee_trainer(name: str) -> None:
@@ -83,7 +95,8 @@ def refuse_ee_trainer(name: str) -> None:
         raise NotImplementedError(
             f"model {name!r} does not train through EETrainer or cli.train: their loss runs "
             "LayoutLMv3's ee_forward, whose backbone needs both towers, and this model has "
-            "one (as in the JAX package, ROADMAP.md C12), or is served only (EEmoonlight)")
+            "one (as in the JAX package, ROADMAP.md C12), or is served only "
+            f"({', '.join(SERVED_ONLY)})")
 
 
 def _backbone_config(
@@ -229,12 +242,15 @@ def _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len, g
     return v2, model.to(resolve_device(getattr(cfg, "device", None) or "cuda"))
 
 
-def _build_moonlight(cfg, num_labels, num_hidden_layers, generator):
-    """``(EEModelConfig, EEModel)`` of early-exit Moonlight: the published
-    backbone (``model_size`` base) or the tests' tiny one, random from
-    ``generator``, allocated and drawn on ``cfg.device`` in f32. Its exits
-    are the config's; embedding exits raise (the model reads text alone)."""
+def _build_moonlight(cfg, num_labels, num_hidden_layers, generator, name="EEmoonlight"):
+    """``(EEModelConfig, EEModel)`` of early-exit Moonlight, or with
+    ``name`` ``EEkimivl`` of early-exit Kimi-VL (Moonlight's decoder behind
+    MoonViT): the published backbone (``model_size`` base) or the tests'
+    tiny one, random from ``generator``, allocated and drawn on
+    ``cfg.device`` in f32. ``num_hidden_layers`` cuts the decoder. Its
+    exits are the config's; embedding exits raise (the decoder has none)."""
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import KimiVLConfig
     from multi_modal_early_exit_tpu_torch.models.moonlight.config import (
         MoonlightConfig,
         MoonlightExitConfig,
@@ -243,8 +259,11 @@ def _build_moonlight(cfg, num_labels, num_hidden_layers, generator):
     size = getattr(cfg, "model_size", "base")
     if size not in ("base", "tiny"):
         raise ValueError(f"unknown model_size {size!r} (want 'base'/'tiny')")
-    bb = (MoonlightConfig.tiny if size == "tiny" else MoonlightConfig.base)(num_labels=num_labels)
-    if num_hidden_layers:
+    family = KimiVLConfig if name == "EEkimivl" else MoonlightConfig
+    bb = (family.tiny if size == "tiny" else family.base)(num_labels=num_labels)
+    if num_hidden_layers and name == "EEkimivl":
+        bb = bb.replace(text=bb.text.replace(num_hidden_layers=num_hidden_layers))
+    elif num_hidden_layers:
         bb = bb.replace(num_hidden_layers=num_hidden_layers)
     # the experiment's exit fields, parsed against Moonlight's depth
     fields = [f.name for f in dataclasses.fields(ExitConfig)]
@@ -252,7 +271,7 @@ def _build_moonlight(cfg, num_labels, num_hidden_layers, generator):
     model_cfg = EEModelConfig(backbone=bb, exit=exit_cfg)
     device = resolve_device(getattr(cfg, "device", None) or "cuda")
     model = init_ee_params(model_cfg, generator, device=device)
-    model.model_name = "EEmoonlight"
+    model.model_name = name
     return model_cfg, model
 
 
@@ -362,8 +381,8 @@ def build_model(
         )
 
     generator = generator if generator is not None else torch.Generator().manual_seed(cfg.seed)
-    if name == "EEmoonlight":
-        return _build_moonlight(cfg, num_labels, num_hidden_layers, generator)
+    if name in SERVED_ONLY:
+        return _build_moonlight(cfg, num_labels, num_hidden_layers, generator, name)
     if name == "layoutlmv2":
         v2, model = _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len,
                                       generator)

@@ -157,7 +157,11 @@ class Pipeline:
         """Run preprocessed features (numpy arrays or tensors) through the
         cascade; pads to the static batch size and chunks larger inputs. A
         text-only model (Moonlight) takes ``input_ids`` and
-        ``attention_mask`` alone."""
+        ``attention_mask`` alone. A vision-language model (Kimi-VL, ``EEkimivl``) takes
+        them, with each row's page's placeholder ids where its image tokens
+        go, beside each row's page: ``pixel_values`` (B, P, 588), the page's
+        14 x 14 x 3 patch rows in row-major order, padded to P rows, and
+        ``image_grid_hws`` (B, 2), its patch grid (h, w)."""
         with span("pipeline.copy_in"):
             tensors = {
                 k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(self.device)
@@ -177,6 +181,7 @@ class Pipeline:
             res = self._cascade(
                 self.model, chunk["input_ids"], chunk.get("bbox"),
                 chunk.get("pixel_values"), chunk["attention_mask"],
+                chunk.get("image_grid_hws"),
             )
             with span("pipeline.answers"):
                 logits = res.logits[:real].cpu()
