@@ -63,7 +63,14 @@ Phases, each reported on its own line:
    the f32 function and of the composed sum, both timed beside the composed
    chains they replace and their bytes bounds; ``swiglu_weigh`` also
    unweighted at 16,384 tokens of F = 2,816 and 11,264 (the shared experts
-   and layer 0), within 1 ulp of the f32 function. Then the kernels whose
+   and layer 0), within 1 ulp of the f32 function. Then ``page_attention``
+   (MoonViT's attention within each page of a packed batch, 16 heads of 72,
+   bf16) on q/k/v at the tower's strides: 16 pages drawn as
+   ``kimivl-serve-b16`` draws them, one page of 4,096 patches and ragged
+   pages (``VL_RAGGED``), within ``PAGE_ATTN_TOL`` of its plain version,
+   the same bits on a second run, PyTorch's ``varlen_attn`` (which the port
+   no longer calls) read against the same plain version; timed at the first
+   two beside the plain version, ``varlen_attn`` and the bound. Then the kernels whose
    bodies depend on the head dim (the forwards #2, #3, #5, #7, the
    backwards #6, #8, #9 and the split pre-pass) at head dim 128 (the same
    bias inputs in 6 heads of 128, hidden 768, S = P = 768), bf16 and f32,
@@ -186,6 +193,19 @@ Phases, each reported on its own line:
    inputs: relative L2 within ``MOON_TOL``, which a zeroed MLP (1.0) and
    the routed experts without their weights (printed, checked above it)
    fail.
+4v. early-exit Kimi-VL (after 4m): the vision tower and projector at their
+   published widths (hidden 1152, 16 heads of 72, MLP 4,304, the projector
+   to 2,048) in front of Moonlight's decoder at its own, both 3 layers
+   deep, exits 1 and 2, random weights from a seed, bf16, served as
+   ``kimivl-serve-b16`` serves it: ``Pipeline.predict_features`` with
+   ``pixel_values`` and ``image_grid_hws`` (the cascade runs the tower in
+   ``KimiVLStages.embed``), 2 batches of 16 pages drawn as the cell draws
+   them, a threshold no page meets. The launch counts are read from those
+   batches alone: 3 ``page_attention`` a batch, and the MLP kernels as in
+   phase 4m. Each ``page_attention`` call on the way is recomputed by
+   ``page_attention_plain`` on its own inputs: error over scale within
+   ``PAGE_ATTN_TOL``, which the plain attention over each two neighbouring
+   pages merged (printed, checked above it) fails.
 7. the command-line path at full width (after every earlier phase), in a
    temporary directory that it removes: ``cli.train.main`` on
    ``CLI_TRAIN`` (EE LayoutLMv3-base, random weights, bf16, batch 16, 2
@@ -326,6 +346,7 @@ import copy
 import json
 import math
 import os
+import pathlib
 import subprocess
 import sys
 import time
@@ -1325,6 +1346,7 @@ def phase_kernels(name):
 
     kernel_add_layer_norm(bw, results)
     kernel_moe_pairs(bw, results)
+    kernel_page_attention(bw, bf16_peak, results)
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -1495,6 +1517,112 @@ def kernel_moe_pairs(bw, results):
               f"kernel_ms {ms:.4f}, plain_ms {plain_ms:.4f} ({chain}), bound "
               f"{bound_ms * 1e3:.1f} us ({bound_by}, {n_bytes / 1e6:.1f} MB), "
               f"{100 * bound_ms / ms:.1f} % of it")
+
+
+# MoonViT's attention (kimivl-serve-b16's tower): 16 heads of 72 over pages
+# drawn as the cell's traffic draws them, one page of the most patches, and
+# ragged pages: no multiple of a 128-row tile or a 64-key block, one
+# shorter than both, one of a single patch
+VL_HEADS, VL_HEAD_DIM, VL_PAGES = 16, 72, 16
+VL_TRAFFIC = "h100bench/traffic/serve-vlm-b16.json"
+VL_RAGGED = [37, 129, 1000, 64, 65, 127, 1, 200, 4095, 130, 3]
+# the kernel's bf16 output against page_attention_plain's on the same
+# inputs, the largest error over the output's largest value: on an H100 the
+# kernel and PyTorch's varlen_attn each read 4.6e-3 to 1.05e-2 against the
+# same plain version (the plain version rounds the normalised p to bf16,
+# the kernels the unnormalised one)
+PAGE_ATTN_TOL = 2e-2
+
+
+def vl_grids(seed: int, n: int = VL_PAGES):
+    """``n`` pages' patch grids (h, w) as ``kimivl-serve-b16`` draws them
+    (``h100bench/entries/serve_vlm.py::page_grids`` on its traffic file)."""
+    from h100bench.entries.serve_vlm import page_grids
+
+    mix = json.loads(pathlib.Path(VL_TRAFFIC).read_text())
+    return [(int(h), int(w)) for h, w in page_grids(np.random.default_rng(seed), n, mix)]
+
+
+def vl_operands(lens, seed: int):
+    """q and k as views of one (T, 2, 16, 72) bf16 tensor and v of a (T,
+    3, 16, 72) one, as the tower's rotary embedding and qkv product give
+    them, unit normal; the pages' starts, and as int32 on the card."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = int(sum(lens))
+    qk = torch.randn((t, 2, VL_HEADS, VL_HEAD_DIM), generator=g, device="cuda").bfloat16()
+    qkv = torch.randn((t, 3, VL_HEADS, VL_HEAD_DIM), generator=g, device="cuda").bfloat16()
+    starts = [0] + np.cumsum(lens).astype(int).tolist()
+    cu = torch.tensor(starts, dtype=torch.int32, device="cuda")
+    return qk[:, 0], qk[:, 1], qkv[:, 2], starts, cu
+
+
+def kernel_page_attention(bw, peak, results):
+    """Phase 3's ``page_attention`` (no TPU kernel: the JAX package runs no
+    MoonViT; on the port's path it replaced PyTorch's ``varlen_attn``) on
+    q, k and v laid out as the tower's views (``vl_operands``): 16 pages
+    drawn as ``kimivl-serve-b16`` draws them, one page of 4,096 patches,
+    and ``VL_RAGGED``. At each, the kernel's and ``varlen_attn``'s error
+    over scale against ``page_attention_plain``, the kernel's within
+    ``PAGE_ATTN_TOL``, and the same bits on a second run. At the first two
+    the kernel timed beside the plain version, ``varlen_attn`` (the
+    library yardstick, which the port does not call) and the bound of one
+    layer (``h100bench/kimi_vl.py::vit_attn_cost``: q, k and v read and o
+    written once, 4 x 1152 operations a query-key pair). Appends the row:
+    the served 16 pages' times, the 4,096-patch page's as ``*_long``."""
+    from torch.nn.attention.varlen import varlen_attn
+
+    from multi_modal_early_exit_tpu_torch.ops.page_attention import (
+        page_attention,
+        page_attention_plain,
+    )
+
+    scale = VL_HEAD_DIM ** -0.5
+    shapes = {"served": [h * w for h, w in vl_grids(0)], "long": [4096], "ragged": VL_RAGGED}
+    e = dict(name="page_attention", route="cuda",
+             source="multi_modal_early_exit_tpu_torch/csrc/page_attention.cu",
+             replaces="none: the JAX package runs no MoonViT (multi_modal_early_exit_tpu_torch/"
+                      "models/kimi_vl/modeling.py::block_apply); it replaced varlen_attn there",
+             ok=True)
+    worst, worst_lib = 0.0, 0.0
+    for label, lens in shapes.items():
+        q, k, v, starts, cu = vl_operands(lens, len(lens))
+        longest = max(lens)
+        got = page_attention(q, k, v, starts, cu, scale)
+        torch.cuda.synchronize()
+        want = page_attention_plain(q, k, v, starts, scale)
+        lib = varlen_attn(q, k, v, cu, cu, longest, longest, scale=scale)
+        err, lib_err = scaled_err(got, want), scaled_err(lib, want)
+        check(err <= PAGE_ATTN_TOL, f"page_attention, {label} pages {lens}: error over scale "
+                                    f"{err:.3g} (tol {PAGE_ATTN_TOL}; varlen_attn {lib_err:.3g})")
+        check(torch.equal(got, page_attention(q, k, v, starts, cu, scale)),
+              f"page_attention, {label}: another result on a second run")
+        worst, worst_lib = max(worst, err), max(worst_lib, lib_err)
+        if label == "served":
+            e["max_abs_err"] = (got.float() - want.float()).abs().max().item()
+        del got, want, lib
+        line = f"kernel page_attention ({label}: {len(lens)} pages, {sum(lens)} patches"
+        if label != "ragged":
+            pairs = sum(n * n for n in lens)
+            width = VL_HEADS * VL_HEAD_DIM
+            bound_ms, bound_by = bound(4 * sum(lens) * width * 2, 4.0 * pairs * width, bw, peak)
+            ms = time_ms(lambda: page_attention(q, k, v, starts, cu, scale), iters=30)
+            lib_ms = time_ms(lambda: varlen_attn(q, k, v, cu, cu, longest, longest, scale=scale),
+                             iters=30)
+            plain_ms = time_ms(lambda: page_attention_plain(q, k, v, starts, scale), iters=3,
+                               warmup=1)
+            pre = "" if label == "served" else "_long"
+            e.update({f"ms{pre}": ms, f"bound{pre}_ms" if pre else "bound_ms": bound_ms,
+                      f"bound{pre}_by" if pre else "bound_by": bound_by,
+                      f"library_ms{pre}": lib_ms, f"plain_ms{pre}": plain_ms})
+            line += (f"): kernel_ms {ms:.4f}, varlen_attn {lib_ms:.4f}, plain_ms {plain_ms:.4f}, "
+                     f"bound {bound_ms:.4f} ms ({bound_by}), kernel {100 * bound_ms / ms:.1f} % "
+                     f"of it, varlen_attn {100 * bound_ms / lib_ms:.1f} %")
+        else:
+            line += ")"
+        print(f"{line}; error over scale {err:.3g}, varlen_attn's {lib_err:.3g}")
+        del q, k, v
+    e["err_over_scale"], e["library_err_over_scale"] = worst, worst_lib
+    results.append(e)
 
 
 H128, D128 = 6, 128  # hidden 768 in heads of 128
@@ -2193,6 +2321,122 @@ def phase_moonlight():
           f"relative L2 from the plain versions on each call's inputs, worst "
           f"{worst} (tol {MOON_TOL}; the routed "
           f"experts without their weights {min(unweighted):.3g} at least)")
+    return launches
+
+
+VL_LAYERS, VL_BATCHES = 3, 2  # phase 4v's depth (the tower's and the decoder's), its batches
+
+
+def phase_vision():
+    """Phase 4v: early-exit Kimi-VL, its vision tower and projector at their
+    published widths (hidden 1152, 16 heads of 72, MLP 4,304, the projector
+    to 2,048) and Moonlight's decoder at its own, both cut to ``VL_LAYERS``
+    layers, exits after layers 1 and 2, random weights from a seed, bf16 on
+    the card, served as ``kimivl-serve-b16`` serves it:
+    ``Pipeline.predict_features`` with each row's ``pixel_values`` and
+    ``image_grid_hws``, whose cascade runs the tower in
+    ``KimiVLStages.embed``, over ``VL_BATCHES`` batches of ``VL_PAGES``
+    pages (grids drawn as the cell's traffic draws them, random patch
+    rows, the placeholder ids, prompt and padding of its traffic file), at
+    a threshold no page meets, so every stage runs every row. Checks, on
+    those batches alone: ``VL_LAYERS`` ``page_attention`` launches a batch,
+    and Moonlight's MLP kernels as in phase 4m for the batch's tokens;
+    every answer from the final classifier; and each ``page_attention`` call
+    on the way, recorded with its inputs and output, against
+    ``page_attention_plain`` on the same inputs within ``PAGE_ATTN_TOL``
+    (error over scale), which the plain attention with each two
+    neighbouring pages merged into one must miss. Returns the launches."""
+    from unittest import mock
+
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.kimi_vl import modeling as kv
+    from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import (
+        KimiVLConfig,
+        MoonViTConfig,
+    )
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+    from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moon
+    from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightExitConfig
+    from multi_modal_early_exit_tpu_torch.ops.page_attention import page_attention_plain
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
+
+    vl = KimiVLConfig.base()
+    vl = vl.replace(text=vl.text.replace(num_hidden_layers=VL_LAYERS),
+                    vision=MoonViTConfig(num_hidden_layers=VL_LAYERS))
+    cfg = EEModelConfig(backbone=vl, exit=MoonlightExitConfig(exits=(1, 2)))
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cuda",
+                           dtype=torch.bfloat16)
+    pipe = Pipeline(model, cfg, threshold=2.0, batch_size=VL_PAGES, tokenizer=object(),
+                    device="cuda")
+    mix = json.loads(pathlib.Path(VL_TRAFFIC).read_text())
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    placeholder, seq = vl.media_placeholder_token_id, mix["seq_len"]
+    batches, want = [], {}
+    for b in range(VL_BATCHES):
+        grid = np.array(vl_grids(b + 1), np.int64)
+        tokens = grid.prod(axis=1) // vl.vision.merged
+        pos = np.arange(seq)[None, :]
+        mask = (pos < (tokens + mix["prompt_tokens"])[:, None]).astype(np.int32)
+        prompt = rng.integers(0, placeholder, (VL_PAGES, seq))
+        ids = np.where(pos < tokens[:, None], placeholder, prompt).astype(np.int32) * mask
+        pixels = torch.rand((VL_PAGES, mix["max_patches"], vl.vision.patch_dim), generator=gen,
+                            device="cuda").mul_(2).sub_(1).bfloat16()
+        batches.append({"input_ids": ids, "attention_mask": mask, "pixel_values": pixels,
+                        "image_grid_hws": grid})
+        # phase 4m's MLP kernels: a SwiGLU in layer 0, two and a combine in
+        # each expert layer, each MLP pass of the batch's tokens
+        passes = -(-int(mask.sum()) // moon.MLP_TOKENS)
+        for k, n in (("page_attention", VL_LAYERS),
+                     ("swiglu_weigh", passes * (1 + 2 * (VL_LAYERS - 1))),
+                     ("combine_pairs", passes * (VL_LAYERS - 1))):
+            want[k] = want.get(k, 0) + n
+    patches = sum(int(b["image_grid_hws"].prod(axis=1).sum()) for b in batches)
+    tokens = sum(int(b["attention_mask"].sum()) for b in batches)
+
+    calls = []  # the inputs and output of each page_attention call
+    served = kv.page_attention
+
+    def recorded(q, k, v, starts, cu_seqlens, scale):
+        out = served(q, k, v, starts, cu_seqlens, scale)
+        calls.append(((q, k, v, list(starts), scale), out))
+        return out
+
+    with mock.patch.object(kv, "page_attention", recorded):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = [a for b in batches for a in pipe.predict_features(b)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launched(before, tuple(want))
+    check(launches == want, f"phase 4v: Kimi-VL launched {launches}, not {want}")
+    check(len(answers) == VL_BATCHES * VL_PAGES
+          and all(a["exit_name"] == "final" for a in answers),
+          f"phase 4v: Kimi-VL's exits {[a['exit_name'] for a in answers]}")
+    check(len(calls) == VL_BATCHES * VL_LAYERS, f"phase 4v: {len(calls)} page_attention calls")
+
+    errs, across = [], []
+    with torch.inference_mode():
+        for (q, k, v, starts, scale), out in calls:
+            check(bool(torch.isfinite(out).all()), "phase 4v: non-finite page_attention output")
+            errs.append(scaled_err(out, page_attention_plain(q, k, v, starts, scale)))
+            # each two neighbouring pages as one: attention across pages
+            merged = starts[::2] + starts[-1:] * ((len(starts) - 1) % 2)
+            across.append(scaled_err(out, page_attention_plain(q, k, v, merged, scale)))
+    del calls
+    check(max(errs) <= PAGE_ATTN_TOL, f"phase 4v: page_attention {max(errs):.3g} from the plain "
+                                      f"version on its own inputs (tol {PAGE_ATTN_TOL})")
+    check(min(across) > PAGE_ATTN_TOL, f"phase 4v: attention across neighbouring pages reads "
+                                       f"{min(across):.3g}, within {PAGE_ATTN_TOL}: the check "
+                                       f"would not see it")
+    print(f"phase 4v: Kimi-VL (published widths, {VL_LAYERS} layers, bf16): {VL_BATCHES} "
+          f"batches of {VL_PAGES} pages ({patches} patches, {tokens} tokens) through Pipeline in "
+          f"{seconds:.3f} s, all to the final classifier; launches {launches}; each "
+          f"page_attention call against the plain version on its inputs, error over scale at "
+          f"most {max(errs):.3g} (tol {PAGE_ATTN_TOL}; neighbouring pages merged "
+          f"{min(across):.3g} at least)")
     return launches
 
 
@@ -4179,6 +4423,7 @@ def main() -> int:
     with bias_modes():
         anytime_launches = phase_anytime(card, served)
     moon_launches = phase_moonlight()
+    vl_launches = phase_vision()
     base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
     # phase 8b's engine runs on phase 4's model and documents: kept on the host
     kept = dict(model=served["model"].to("cpu"), cfg=served["cfg"], tok=served["pipe"].tokenizer,
@@ -4237,6 +4482,9 @@ def main() -> int:
         "split_bf16x3": (f32_split, f32_split_in),
         "swiglu_weigh": (moon_launches, moon_in),
         "combine_pairs": (moon_launches, moon_in),
+        "page_attention": (vl_launches, f"phase 4v, {VL_BATCHES} Kimi-VL batches of {VL_PAGES} "
+                                        f"pages through Pipeline, published widths, "
+                                        f"{VL_LAYERS} layers"),
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     # each kernel's f32 launches: on phase 4f's served batches or in phase
@@ -4256,7 +4504,7 @@ def main() -> int:
         # #3 and #9 run in f32 only in phase 3; Moonlight serves in bf16
         no_f32_path = k["name"] in ("fused_bias_attention",
                                     "flash_attention_packed_train_tables_bwd", "swiglu_weigh",
-                                    "combine_pairs")
+                                    "combine_pairs", "page_attention")
         check((k["f32_launches"] == 0) == no_f32_path,
               f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
     # the command-line path (phase 7): cli.train's steps, evaluations and
@@ -4309,7 +4557,8 @@ def main() -> int:
              "bound_wide_by", "library_ms_wide", "f32_ms_wide", "f32_bound_wide",
              "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in",
              "v2_launches", "v2_launches_in", "engine_launches", "engine_launches_in",
-             "mesh_launches", "mesh_launches_in")
+             "mesh_launches", "mesh_launches_in", "ms_long", "bound_long_ms", "bound_long_by",
+             "library_ms_long", "plain_ms_long", "err_over_scale", "library_err_over_scale")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

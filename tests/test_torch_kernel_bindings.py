@@ -14,6 +14,7 @@ from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
 from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
 from multi_modal_early_exit_tpu_torch.ops import layer_norm as aln
 from multi_modal_early_exit_tpu_torch.ops import moe_pairs as mp
+from multi_modal_early_exit_tpu_torch.ops import page_attention as pa
 
 # (module, loader, C entry): every binding of the port
 BINDINGS = [
@@ -30,6 +31,7 @@ BINDINGS = [
     (aln, "_add_layer_norm_fn", "mmee_add_layer_norm"),
     (mp, "_swiglu_weigh_fn", "mmee_swiglu_weigh"),
     (mp, "_combine_pairs_fn", "mmee_combine_pairs"),
+    (pa, "_page_attention_fn", "mmee_page_attention"),
 ]
 LOADERS = sorted({(m, name) for m, name, _ in BINDINGS}, key=lambda x: (x[0].__name__, x[1]))
 
