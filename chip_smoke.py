@@ -70,7 +70,13 @@ Phases, each reported on its own line:
    pages (``VL_RAGGED``), within ``PAGE_ATTN_TOL`` of its plain version,
    the same bits on a second run, PyTorch's ``varlen_attn`` (which the port
    no longer calls) read against the same plain version; timed at the first
-   two beside the plain version, ``varlen_attn`` and the bound. Then the kernels whose
+   two beside the plain version, ``varlen_attn`` and the bound. Then the
+   KDA kernels at one served Kimi-Linear layer (4 documents right-padded to
+   16,384, 32 heads of 128): the core ``kda`` within ``KDA_TOL`` of
+   ``kda_chunked_plain``; ``short_conv`` (as q, k and v), ``kda_gate`` and
+   ``gated_rms_norm`` within ``ELEMENTWISE_TOL`` of their plain versions;
+   each the same bits on a second run, timed beside its plain version and
+   its bound. Then the kernels whose
    bodies depend on the head dim (the forwards #2, #3, #5, #7, the
    backwards #6, #8, #9 and the split pre-pass) at head dim 128 (the same
    bias inputs in 6 heads of 128, hidden 768, S = P = 768), bf16 and f32,
@@ -206,6 +212,25 @@ Phases, each reported on its own line:
    ``page_attention_plain`` on its own inputs: error over scale within
    ``PAGE_ATTN_TOL``, which the plain attention over each two neighbouring
    pages merged (printed, checked above it) fails.
+4k. early-exit Kimi-Linear (after 4v) at its published widths (hidden
+   2,304; KDA in 32 heads of 128 behind width-4 convolutions; MLA in 32
+   heads without rotary; 128 of the 256 routed experts of 1,024 held, 8 a
+   token; layer 1's dense 9,216), one whole period of 4 layers (KDA, KDA,
+   KDA, MLA), exits 1 and 2, random weights from a seed, bf16, served as
+   ``kimilinear-serve-b4`` serves it: ``Pipeline.predict_features`` over
+   ``KimiLinearStages.layers``, 2 batches of 4 documents of 4,096-16,384
+   tokens right-padded to 16,384, a threshold no document meets. The
+   launch counts are read from those batches alone: a KDA layer's 2
+   ``kda``, 3 ``short_conv``, 1 ``kda_gate`` and 1 ``gated_rms_norm``, and
+   the MLP kernels as in phase 4m. Each ``kda`` call on the way is
+   recomputed by ``kda_chunked_plain`` on its own inputs (error over scale
+   within ``KDA_TOL``), each elementwise kernel's call by its plain version
+   (within ``ELEMENTWISE_TOL``), and each expert layer's held share
+   (``swiglu_weigh`` and ``combine_pairs`` given ``held``) by the plain
+   versions (relative L2 within ``MOON_TOL``, which the share without its
+   weights misses). Phase 3's rows ``kda``, ``short_conv``, ``kda_gate``
+   and ``gated_rms_norm`` time the kernels at one served layer's 4
+   documents beside their plain versions and bounds.
 7. the command-line path at full width (after every earlier phase), in a
    temporary directory that it removes: ``cli.train.main`` on
    ``CLI_TRAIN`` (EE LayoutLMv3-base, random weights, bf16, batch 16, 2
@@ -1347,6 +1372,8 @@ def phase_kernels(name):
     kernel_add_layer_norm(bw, results)
     kernel_moe_pairs(bw, results)
     kernel_page_attention(bw, bf16_peak, results)
+    kernel_kda(bw, bf16_peak, results)
+    kernel_kda_elementwise(bw, results)
     print("kernels: " + ", ".join(f"{e['name']} ok={e['ok']}" for e in results))
     return results
 
@@ -1623,6 +1650,204 @@ def kernel_page_attention(bw, peak, results):
         del q, k, v
     e["err_over_scale"], e["library_err_over_scale"] = worst, worst_lib
     results.append(e)
+
+
+KLIN_TRAFFIC = "h100bench/traffic/serve-long-b4.json"
+KLIN_ROWS, KLIN_HEADS = 4, 32  # a served batch of Kimi-Linear, its KDA heads of 128
+# the KDA kernels' bf16 output against kda_chunked_plain on the same inputs,
+# error over scale: both round once to bf16; the kernel's state products
+# run on tf32 operands (2^-11 of a value). On an H100 it read 3.8e-3 to
+# 5.8e-3; a float8 core reads 0.10 (the cell's control)
+KDA_TOL = 1.2e-2
+
+
+def klin_lengths(seed: int, n: int = KLIN_ROWS):
+    """Document lengths as ``kimilinear-serve-b4``'s traffic draws them."""
+    mix = json.loads(pathlib.Path(KLIN_TRAFFIC).read_text())
+    lo, hi = mix["lengths"]
+    rng = np.random.default_rng([seed, 1])
+    return [int(x) for x in np.exp(rng.uniform(np.log(lo), np.log(hi), n)).round()]
+
+
+def klin_operands(lengths, seed: int, seq: int = 16384, heads: int = KLIN_HEADS):
+    """A KDA core call's inputs as the mixer gives them: q and k unit per
+    head (q times 128^-1/2), v normal, bf16; g from a served layer's gate
+    (-exp(A_log) softplus(x + dt_bias), A_log log U(1, 16), dt log-uniform
+    on [1e-3, 1e-1]) in f32; beta in (0, 1); lengths int32 on the card."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    b, d = len(lengths), 128
+    shape = (b, seq, heads, d)
+    q = (F.normalize(torch.randn(shape, generator=gen, device="cuda"), dim=-1)
+         * d ** -0.5).bfloat16()
+    k = F.normalize(torch.randn(shape, generator=gen, device="cuda"), dim=-1).bfloat16()
+    v = torch.randn(shape, generator=gen, device="cuda").bfloat16()
+    a_log = torch.empty(heads, device="cuda").uniform_(1.0, 16.0, generator=gen).log_()
+    dt = torch.empty(heads * d, device="cuda").uniform_(np.log(1e-3), np.log(1e-1),
+                                                          generator=gen).exp_()
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    raw = torch.randn(shape, generator=gen, device="cuda") * 0.5 + dt_bias.view(heads, d)
+    g = -a_log.exp()[:, None] * F.softplus(raw)
+    beta = torch.rand((b, seq, heads), generator=gen, device="cuda")
+    dev = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    return q, k, v, g, beta, dev
+
+
+def kernel_kda(bw, peak, results):
+    """Phase 3's ``kda`` (no TPU kernel: the JAX package runs no linear
+    attention) at a served Kimi-Linear layer: 4 documents drawn as
+    ``kimilinear-serve-b4`` draws them, right-padded to 16,384, 32 heads of
+    128, against ``kda_chunked_plain`` within ``KDA_TOL`` and the same bits
+    on a second run; then timed beside the plain version and the bound
+    (``h100bench/kimi_linear.py::kda_cost``: q, k, v, o in bf16 and g in f32
+    once each, the chunked form's operations). No library call computes the
+    same function. Appends the row."""
+    from multi_modal_early_exit_tpu_torch.ops.kda import CHUNK, kda, kda_chunked_plain
+
+    from h100bench import kimi_linear
+
+    lengths = klin_lengths(0)
+    q, k, v, g, beta, dev = klin_operands(lengths, 0)
+    got = kda(q, k, v, g, beta, dev, lengths)
+    torch.cuda.synchronize()
+    want = kda_chunked_plain(q, k, v, g, beta, dev, CHUNK)
+    err = scaled_err(got, want)
+    check(err <= KDA_TOL, f"kda, lengths {lengths}: error over scale {err:.3g} (tol {KDA_TOL})")
+    check(torch.equal(got, kda(q, k, v, g, beta, dev, lengths)),
+          "kda: another result on a second run")
+    cfg = json.loads(pathlib.Path("h100bench/configs/kimi-linear-48b-a3b-instruct.json")
+                     .read_text())
+    n_bytes, n_ops = kimi_linear.kda_cost(cfg, sum(lengths))
+    bound_ms, bound_by = bound(n_bytes, n_ops, bw, peak)
+    ms = time_ms(lambda: kda(q, k, v, g, beta, dev, lengths), iters=20)
+    plain_ms = time_ms(lambda: kda_chunked_plain(q, k, v, g, beta, dev, CHUNK), iters=2, warmup=1)
+    results.append(dict(
+        name="kda", route="cuda", source="multi_modal_early_exit_tpu_torch/csrc/kda.cu",
+        replaces="none: the JAX package runs no linear attention (multi_modal_early_exit_tpu_torch/"
+                 "models/kimi_linear/modeling.py::kda_apply)",
+        ok=True, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+        max_abs_err=(got.float() - want.float()).abs().max().item(), err_over_scale=err))
+    print(f"kernel kda ({KLIN_ROWS} documents of {lengths} tokens, {sum(lengths)} real, "
+          f"{KLIN_HEADS} heads of 128): kernel_ms {ms:.4f}, plain_ms {plain_ms:.1f}, bound "
+          f"{bound_ms:.4f} ms ({bound_by}), kernel {100 * bound_ms / ms:.1f} % of it; error "
+          f"over scale {err:.3g}")
+
+
+# the KDA sub-layer's elementwise kernels against their plain versions on
+# the same inputs (``elementwise_err``): short_conv and gated_rms_norm
+# compute in f32 as their plain versions do, in another order, and each
+# rounds once to bf16, so an output may land one bf16 ulp from the plain
+# one's: at most 2^-7 of the output's scale. On an H100 at a served batch
+# short_conv read 1.9e-3 to 4.9e-3 (above half an ulp, 2^-8) and
+# gated_rms_norm 2.3e-3 to 2.9e-3. kda_gate writes f32, so only the order
+# of its exp and softplus steps parts the two (error over 1 + |value|, per
+# element): it read 2.4e-7 to 2.6e-7
+ELEMENTWISE_TOL = {"short_conv": 2 ** -7, "kda_gate": 1e-5, "gated_rms_norm": 2 ** -7}
+
+
+def elementwise_err(name: str, got, want) -> float:
+    """The reading of ``name``'s output against its plain version's that
+    ``ELEMENTWISE_TOL`` bounds."""
+    if name == "kda_gate":
+        check(got.dtype == torch.float32, f"kda_gate wrote {got.dtype}")
+        return ((got - want).abs() / (1 + want.abs())).max().item()
+    return scaled_err(got, want)
+
+
+def klin_elementwise_operands(seed: int, seq: int = 16384):
+    """The KDA sub-layer's elementwise inputs at a served batch of 4
+    documents, (4, seq, 4,096) each, at the served magnitudes of the cell's
+    weights (initializer_range 0.02 over the normed hidden state of 2,304):
+    a q/k/v projection, N(0, 0.96^2); the convolution's weights uniform on
+    +-1/2; the gate's low-rank product, N(0, 0.22^2), with A_log = log U(1,
+    16) and dt_bias from a dt log-uniform on [1e-3, 1e-1]; the core's
+    output, N(0, 1) in heads of 128, and the output gate's product, N(0,
+    0.22^2); all bf16, as the served model holds them."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape, width = (KLIN_ROWS, seq, KLIN_HEADS * 128), KLIN_HEADS * 128
+
+    def normal(std, size=shape):
+        return (torch.randn(size, generator=gen, device="cuda") * std).bfloat16()
+
+    x = normal(0.96)
+    conv_w = torch.empty(width, 1, 4, device="cuda").uniform_(-0.5, 0.5, generator=gen)
+    a_log = torch.empty(KLIN_HEADS, device="cuda").uniform_(1.0, 16.0, generator=gen).log_()
+    dt = torch.empty(width, device="cuda").uniform_(np.log(1e-3), np.log(1e-1),
+                                                    generator=gen).exp_()
+    dt_bias = dt + torch.log(-torch.expm1(-dt))
+    o = normal(1.0, (KLIN_ROWS, seq, KLIN_HEADS, 128))
+    norm_w = 1.0 + 0.1 * torch.randn(128, generator=gen, device="cuda")
+    return (x, conv_w.bfloat16(), normal(0.22), a_log.bfloat16(), dt_bias.bfloat16(), o,
+            normal(0.22), norm_w.bfloat16())
+
+
+def kernel_kda_elementwise(bw, results):
+    """Phase 3's ``short_conv``, ``kda_gate`` and ``gated_rms_norm`` (no TPU
+    kernel: the JAX package runs no linear attention) at a served
+    Kimi-Linear batch, 4 x 16,384 x 4,096 (``klin_elementwise_operands``):
+    ``short_conv`` as q (L2 norm, scale 128^-1/2), k (norm, scale 1) and v
+    (no norm), ``kda_gate``, and ``gated_rms_norm`` (eps 1e-5), each within
+    ``ELEMENTWISE_TOL`` of its plain version and the same bits on a second
+    run, timed beside its plain version and its bytes bound (each tensor
+    read once and written once; the weights left out). Appends the three
+    rows."""
+    from multi_modal_early_exit_tpu_torch.ops import kda as kd
+
+    x, conv_w, raw, a_log, dt_bias, o, gate, norm_w = klin_elementwise_operands(1)
+    n = x.numel()
+
+    def gated(name, what, fn, plain):
+        got = fn()
+        torch.cuda.synchronize()
+        want = plain()
+        err = elementwise_err(name, got, want)
+        check(torch.equal(got, fn()), f"{name} ({what}): another result on a second run")
+        max_abs = (got.float() - want.float()).abs().max().item()
+        del got, want
+        return dict(name=name, what=what, err=err, max_abs=max_abs, ms=time_ms(fn, iters=20),
+                    plain_ms=time_ms(plain, iters=3, warmup=1))
+
+    convs = {what: gated("short_conv", what, lambda: kd.short_conv(x, conv_w, scale),
+                         lambda: kd.short_conv_plain(x, conv_w, scale))
+             for what, scale in (("q", 128 ** -0.5), ("k", 1.0), ("v", None))}
+    gates = gated("kda_gate", "f32 out", lambda: kd.kda_gate(raw, a_log, dt_bias, 128),
+                  lambda: kd.kda_gate_plain(raw, a_log, dt_bias, 128))
+    norms = gated("gated_rms_norm", "eps 1e-5", lambda: kd.gated_rms_norm(o, gate, norm_w, 1e-5),
+                  lambda: kd.gated_rms_norm_plain(o, gate, norm_w, 1e-5))
+    del x, raw, o, gate
+    read = list(convs.values()) + [gates, norms]
+    print("kda elementwise kernels, error from the plain versions: "
+          + ", ".join(f"{r['name']} ({r['what']}) {r['err']:.3g}" for r in read))
+    for r in read:
+        tol = ELEMENTWISE_TOL[r["name"]]
+        check(r["err"] <= tol, f"{r['name']} ({r['what']}): {r['err']:.3g} from its plain "
+                               f"version (tol {tol:g})")
+    q, v = convs["q"], convs["v"]
+    rows = [
+        (dict(name="short_conv", ms=q["ms"], plain_ms=q["plain_ms"], max_abs_err=q["max_abs"],
+              err_over_scale=max(c["err"] for c in convs.values()), ms_no_norm=v["ms"],
+              plain_ms_no_norm=v["plain_ms"]), 4 * n,
+         ", ".join(f"{w} {c['err']:.3g} of scale, {c['ms']:.4f} ms (plain {c['plain_ms']:.3f})"
+                   for w, c in convs.items())),
+        (dict(name="kda_gate", ms=gates["ms"], plain_ms=gates["plain_ms"],
+              max_abs_err=gates["max_abs"]), 6 * n,
+         f"{gates['err']:.3g} over 1 + |value|"),
+        (dict(name="gated_rms_norm", ms=norms["ms"], plain_ms=norms["plain_ms"],
+              max_abs_err=norms["max_abs"], err_over_scale=norms["err"]), 6 * n,
+         f"{norms['err']:.3g} of scale"),
+    ]
+    for row, n_bytes, note in rows:
+        bound_ms, bound_by = bound(n_bytes, 0, bw, 1.0)
+        results.append(dict(
+            row, route="cuda", source="multi_modal_early_exit_tpu_torch/csrc/kda.cu",
+            replaces="none: the JAX package runs no linear attention (multi_modal_early_exit_"
+                     "tpu_torch/models/kimi_linear/modeling.py::kda_apply)",
+            ok=True, bound_ms=bound_ms, bound_by=bound_by, library_ms=None))
+        print(f"kernel {row['name']} ({KLIN_ROWS} x 16384 x {KLIN_HEADS * 128}, bf16): {note} "
+              f"(tol {ELEMENTWISE_TOL[row['name']]:g}); kernel_ms {row['ms']:.4f}, plain_ms "
+              f"{row['plain_ms']:.3f}, bound {bound_ms:.4f} ms ({bound_by}, "
+              f"{n_bytes / 1e6:.0f} MB), kernel {100 * bound_ms / row['ms']:.1f} % of it")
 
 
 H128, D128 = 6, 128  # hidden 768 in heads of 128
@@ -2308,8 +2533,9 @@ def phase_moonlight():
                   f"{MOON_TOL})")
             errs[name] = max(errs.get(name, 0.0), err)
             if name == "routed":
-                p, x, chosen, weights = args
-                unweighted.append(rel_l2(out, fn(p, x, chosen, torch.ones_like(weights))))
+                p, x, chosen, weights, offset = args
+                unweighted.append(rel_l2(out, fn(p, x, chosen, torch.ones_like(weights),
+                                                 offset)))
     check(min(unweighted) > MOON_TOL,
           f"the routed experts without their weights read {min(unweighted):.3g}, within "
           f"{MOON_TOL}: the check would not see them")
@@ -2437,6 +2663,154 @@ def phase_vision():
           f"page_attention call against the plain version on its inputs, error over scale at "
           f"most {max(errs):.3g} (tol {PAGE_ATTN_TOL}; neighbouring pages merged "
           f"{min(across):.3g} at least)")
+    return launches
+
+
+KLIN_LAYERS, KLIN_BATCHES = 4, 2  # one whole 3 : 1 period
+
+
+def phase_kimi_linear():
+    """Phase 4k: early-exit Kimi-Linear at its published widths (hidden
+    2304, KDA in 32 heads of 128, MLA 32 heads without rotary, 128 of the
+    256 routed experts of 1024 held, top 8), cut to one whole period of
+    ``KLIN_LAYERS`` layers (KDA, KDA, KDA, MLA; layer 1's MLP dense),
+    exits after layers 1 and 2, random weights from a seed, bf16 on the
+    card, served as ``kimilinear-serve-b4`` serves it:
+    ``Pipeline.predict_features`` over ``KLIN_BATCHES`` batches of 4
+    documents drawn as its traffic draws them, right-padded to 16,384, at
+    a threshold no document meets, so every stage runs every row. Checks,
+    on those batches alone: a KDA layer's 2 ``kda``, 3 ``short_conv``, 1
+    ``kda_gate`` and 1 ``gated_rms_norm`` launches, Moonlight's MLP kernels
+    as in phase 4m for the batch's tokens; every answer from the final
+    classifier; each ``kda`` call on the way, recorded with its inputs and
+    output, against ``kda_chunked_plain`` on the same inputs within
+    ``KDA_TOL`` (error over scale); each elementwise kernel's call against
+    its plain version on the same inputs within ``ELEMENTWISE_TOL``; and
+    each expert layer's held share (``experts_apply`` at the configuration's
+    offset, ``swiglu_weigh`` and ``combine_pairs`` given ``held``) against
+    the plain versions on its own inputs within ``MOON_TOL`` (relative L2),
+    which the share without its weights must miss. Returns the launches."""
+    from unittest import mock
+
+    from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.kimi_linear import modeling as klm
+    from multi_modal_early_exit_tpu_torch.models.kimi_linear.config import KimiLinearConfig
+    from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+    from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moon
+    from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightExitConfig
+    from multi_modal_early_exit_tpu_torch.ops import kda as kd
+    from multi_modal_early_exit_tpu_torch.ops.kda import kda_chunked_plain
+    from multi_modal_early_exit_tpu_torch.serving import Pipeline
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
+
+    bb = KimiLinearConfig.base().replace(num_hidden_layers=KLIN_LAYERS, kda_layers=(1, 2, 3),
+                                         full_attn_layers=(4,))
+    cfg = EEModelConfig(backbone=bb, exit=MoonlightExitConfig(exits=(1, 2)))
+    model = init_ee_params(cfg, torch.Generator().manual_seed(0), device="cuda",
+                           dtype=torch.bfloat16)
+    pipe = Pipeline(model, cfg, threshold=2.0, batch_size=KLIN_ROWS, tokenizer=object(),
+                    device="cuda")
+    seq = json.loads(pathlib.Path(KLIN_TRAFFIC).read_text())["seq_len"]
+    rng = np.random.default_rng(0)
+    batches, want = [], {}
+    kda_layers = len(bb.kda_layers)
+    for i in range(KLIN_BATCHES):
+        lengths = np.array(klin_lengths(i + 1))
+        mask = (np.arange(seq)[None, :] < lengths[:, None]).astype(np.int32)
+        ids = rng.integers(0, bb.vocab_size, (KLIN_ROWS, seq)).astype(np.int32) * mask
+        batches.append({"input_ids": ids, "attention_mask": mask})
+        passes = -(-int(mask.sum()) // moon.MLP_TOKENS)
+        for k, n in (("kda", 2 * kda_layers), ("short_conv", 3 * kda_layers),
+                     ("kda_gate", kda_layers), ("gated_rms_norm", kda_layers),
+                     ("swiglu_weigh", passes * (1 + 2 * (KLIN_LAYERS - 1))),
+                     ("combine_pairs", passes * (KLIN_LAYERS - 1))):
+            want[k] = want.get(k, 0) + n
+    tokens = sum(int(b["attention_mask"].sum()) for b in batches)
+
+    calls = []  # the inputs and output of each kda call
+    served = klm.kda
+
+    def recorded(q, k, v, g, beta, lengths, lengths_host, chunk):
+        out = served(q, k, v, g, beta, lengths, lengths_host, chunk)
+        calls.append(((q, k, v, g, beta, lengths, chunk), out))
+        return out
+
+    # the elementwise kernels' and the held expert share's calls, each
+    # compared with its plain version on its own inputs as it returns
+    errs = {name: [] for name in ELEMENTWISE_TOL}
+    routed, unweighted, offsets = [], [], []
+
+    def compared(name):
+        kernel, plain = getattr(klm, name), getattr(kd, f"{name}_plain")
+
+        def call(*args):
+            out = kernel(*args)
+            errs[name].append(elementwise_err(name, out, plain(*args)))
+            return out
+        return call
+
+    held_apply = moon.experts_apply
+
+    def held_share(p, x, chosen, weights, offset=None):
+        out = held_apply(p, x, chosen, weights, offset)
+        offsets.append(offset)
+        with mock.patch.object(moon, "_fused", lambda *a: False):
+            routed.append(rel_l2(out, held_apply(p, x, chosen, weights, offset)))
+            unweighted.append(rel_l2(out, held_apply(p, x, chosen, torch.ones_like(weights),
+                                                     offset)))
+        return out
+
+    with mock.patch.object(klm, "kda", recorded), \
+            mock.patch.object(klm, "short_conv", compared("short_conv")), \
+            mock.patch.object(klm, "kda_gate", compared("kda_gate")), \
+            mock.patch.object(klm, "gated_rms_norm", compared("gated_rms_norm")), \
+            mock.patch.object(moon, "experts_apply", held_share):
+        before = launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        answers = [a for b in batches for a in pipe.predict_features(b)]
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = launched(before, tuple(want))
+    check(launches == want, f"phase 4k: Kimi-Linear launched {launches}, not {want}")
+    check(len(answers) == KLIN_BATCHES * KLIN_ROWS
+          and all(a["exit_name"] == "final" for a in answers),
+          f"phase 4k: Kimi-Linear's exits {[a['exit_name'] for a in answers]}")
+    check(len(calls) == KLIN_BATCHES * kda_layers, f"phase 4k: {len(calls)} kda calls")
+    check({k: len(v) for k, v in errs.items()}
+          == {"short_conv": 3 * len(calls), "kda_gate": len(calls), "gated_rms_norm": len(calls)},
+          f"phase 4k: {({k: len(v) for k, v in errs.items()})} elementwise calls")
+    for name, found in errs.items():
+        check(max(found) <= ELEMENTWISE_TOL[name],
+              f"phase 4k: {name} {max(found):.3g} from its plain version on its own inputs (tol "
+              f"{ELEMENTWISE_TOL[name]:g})")
+    check(len(offsets) == want["combine_pairs"] and set(offsets) == {bb.expert_offset},
+          f"phase 4k: the expert layers ran the held share at offsets {offsets}")
+    check(max(routed) <= MOON_TOL,
+          f"phase 4k: the held share's routed experts {max(routed):.3g} from the plain versions "
+          f"on their own inputs (tol {MOON_TOL})")
+    check(min(unweighted) > MOON_TOL,
+          f"phase 4k: the held share without its weights read {min(unweighted):.3g}, within "
+          f"{MOON_TOL}: the check would not see them")
+    core = []
+    with torch.inference_mode():
+        for (q, k, v, g, beta, lengths, chunk), out in calls:
+            check(bool(torch.isfinite(out).all()), "phase 4k: non-finite kda output")
+            core.append(scaled_err(out, kda_chunked_plain(q, k, v, g, beta, lengths, chunk)))
+    del calls
+    check(max(core) <= KDA_TOL, f"phase 4k: kda {max(core):.3g} from the plain version on its "
+                                f"own inputs (tol {KDA_TOL})")
+    worst = {k: float(f"{max(v):.3g}") for k, v in errs.items()}
+    print(f"phase 4k: Kimi-Linear (published widths, {KLIN_LAYERS} layers, 128 of 256 experts "
+          f"held, bf16): {KLIN_BATCHES} batches of {KLIN_ROWS} documents ({tokens} tokens, padded "
+          f"to {seq}) through Pipeline in {seconds:.3f} s (the comparisons included), all to the "
+          f"final classifier; launches {launches}; each call against its plain version on its "
+          f"own inputs: kda at most {max(core):.3g} of scale (tol {KDA_TOL}), the elementwise "
+          f"kernels {worst} (tol {ELEMENTWISE_TOL}), the held share's routed experts "
+          f"{max(routed):.3g} relative L2 (tol {MOON_TOL}; without their weights "
+          f"{min(unweighted):.3g} at least)")
+    del model, pipe
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -4424,6 +4798,7 @@ def main() -> int:
         anytime_launches = phase_anytime(card, served)
     moon_launches = phase_moonlight()
     vl_launches = phase_vision()
+    klin_launches = phase_kimi_linear()
     base4 = {k: served[k] for k in ("docs_per_sec", "peak_mb")}
     # phase 8b's engine runs on phase 4's model and documents: kept on the host
     kept = dict(model=served["model"].to("cpu"), cfg=served["cfg"], tok=served["pipe"].tokenizer,
@@ -4485,6 +4860,10 @@ def main() -> int:
         "page_attention": (vl_launches, f"phase 4v, {VL_BATCHES} Kimi-VL batches of {VL_PAGES} "
                                         f"pages through Pipeline, published widths, "
                                         f"{VL_LAYERS} layers"),
+        **{name: (klin_launches, f"phase 4k, {KLIN_BATCHES} Kimi-Linear batches of {KLIN_ROWS} "
+                                 f"documents through Pipeline, published widths, {KLIN_LAYERS} "
+                                 f"layers")
+           for name in ("kda", "short_conv", "kda_gate", "gated_rms_norm")},
     }
     check(len(kernels) == len(paths), f"{len(kernels)} kernels timed, {len(paths)} paths")
     # each kernel's f32 launches: on phase 4f's served batches or in phase
@@ -4504,7 +4883,8 @@ def main() -> int:
         # #3 and #9 run in f32 only in phase 3; Moonlight serves in bf16
         no_f32_path = k["name"] in ("fused_bias_attention",
                                     "flash_attention_packed_train_tables_bwd", "swiglu_weigh",
-                                    "combine_pairs", "page_attention")
+                                    "combine_pairs", "page_attention", "kda", "short_conv",
+                                    "kda_gate", "gated_rms_norm")
         check((k["f32_launches"] == 0) == no_f32_path,
               f"{k['name']}: {k['f32_launches']} f32 launches in {where32}")
     # the command-line path (phase 7): cli.train's steps, evaluations and
@@ -4558,7 +4938,8 @@ def main() -> int:
              "f32_bound_wide_by", "f32_library_ms_wide", "cli_launches", "cli_launches_in",
              "v2_launches", "v2_launches_in", "engine_launches", "engine_launches_in",
              "mesh_launches", "mesh_launches_in", "ms_long", "bound_long_ms", "bound_long_by",
-             "library_ms_long", "plain_ms_long", "err_over_scale", "library_err_over_scale")
+             "library_ms_long", "plain_ms_long", "err_over_scale", "library_err_over_scale",
+             "ms_no_norm", "plain_ms_no_norm")
     print(json.dumps({"kernels": [{key: k[key] for key in keys + extra if key in k}
                                   for k in kernels]}))
     print(json.dumps({"ok": True, "device": {

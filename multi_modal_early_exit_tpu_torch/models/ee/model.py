@@ -20,7 +20,9 @@ encoder exits only, each head on the last real token through a norm of its
 own, the classifier on that token after the final norm) or Kimi-VL's
 (``models.kimi_vl.modeling.KimiVLStages``: Moonlight's, each row's page
 read by a vision tower into its placeholder positions; the page's patch
-rows come as ``pixel_values`` and its patch grid as ``image_grid_hws``).
+rows come as ``pixel_values`` and its patch grid as ``image_grid_hws``) or
+Kimi-Linear's (``models.kimi_linear.modeling.KimiLinearStages``:
+Moonlight's, each layer's token mixer KDA or MLA by its kind).
 The exit heads, gating, LTE and the criteria are shared.
 
 ``ee_forward`` is differentiable; inference callers run it under
@@ -67,8 +69,11 @@ def canonical_exit_order(exit_cfg: ExitConfig) -> Tuple:
 
 def backbone_stages(cfg):
     """The stages object of a backbone config: Kimi-VL's for a
-    ``KimiVLConfig``, Moonlight's for a ``MoonlightConfig``, else
-    LayoutLMv3's. The one place that tells the backbone families apart."""
+    ``KimiVLConfig``, Kimi-Linear's for a ``KimiLinearConfig``, Moonlight's
+    for a ``MoonlightConfig``, else LayoutLMv3's. The one place that tells
+    the backbone families apart."""
+    from multi_modal_early_exit_tpu_torch.models.kimi_linear.config import KimiLinearConfig
+    from multi_modal_early_exit_tpu_torch.models.kimi_linear.modeling import KimiLinearStages
     from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import KimiVLConfig
     from multi_modal_early_exit_tpu_torch.models.kimi_vl.modeling import KimiVLStages
     from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightConfig
@@ -76,6 +81,8 @@ def backbone_stages(cfg):
 
     if isinstance(cfg, KimiVLConfig):
         return KimiVLStages(cfg)
+    if isinstance(cfg, KimiLinearConfig):
+        return KimiLinearStages(cfg)
     return CascadeStages(cfg) if isinstance(cfg, MoonlightConfig) else LayoutLMv3Stages(cfg)
 
 

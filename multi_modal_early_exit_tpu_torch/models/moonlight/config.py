@@ -74,6 +74,16 @@ class MoonlightConfig:
         return self.qk_nope_head_dim + self.qk_rope_head_dim
 
     @property
+    def experts_held(self) -> int:
+        """Routed experts each expert layer holds: every one."""
+        return self.n_routed_experts
+
+    @property
+    def expert_offset(self) -> int:
+        """The router's index of the first expert held."""
+        return 0
+
+    @property
     def classifier_dropout_prob(self) -> float:
         return self.classifier_dropout
 

@@ -26,6 +26,13 @@ scattered back, so padding costs attention and its projections, never
 experts. Right padding and
 causal attention keep a padded position out of every real token's result.
 
+An expert layer may hold a share of the router's experts (expert
+parallelism: ``experts_held`` of them from ``expert_offset`` on, as
+Kimi-Linear's configuration is cut): it routes over all of them and
+computes its own experts' pairs alone (``experts_apply`` given the share's
+``offset``). ``attention_apply`` without rotary tables skips the rotary step
+(Kimi-Linear's MLA, ``mla_use_nope``).
+
 Spans (``utils.profiling.span``) sit at sub-layer edges: ``mla.attention``
 (the attention core), ``moe.router``, ``moe.experts`` (routed experts:
 token sort, both grouped products, the weighted sum) and ``moe.shared``.
@@ -161,11 +168,15 @@ class Experts(nn.Module):
 
 
 class MoE(nn.Module):
+    """The router over every routed expert, the experts held here
+    (``experts_held``: all of them unless the configuration holds a share)
+    and the shared experts."""
+
     def __init__(self, cfg: MoonlightConfig):
         super().__init__()
         h, f = cfg.hidden_size, cfg.moe_intermediate_size
         self.gate = Router(cfg.n_routed_experts, h)
-        self.experts = Experts(cfg.n_routed_experts, h, f)
+        self.experts = Experts(cfg.experts_held, h, f)
         self.shared_experts = MLP(h, f * cfg.n_shared_experts)
 
 
@@ -240,7 +251,7 @@ def route(p: Router, cfg: MoonlightConfig, x: torch.Tensor) -> Tuple[torch.Tenso
 
 
 def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
-                  weights: torch.Tensor) -> torch.Tensor:
+                  weights: torch.Tensor, offset: Optional[int] = None) -> torch.Tensor:
     """sum_j weights[t, j] expert_{chosen[t, j]}(x[t]), (T, H) summed in f32
     and returned in x's dtype: the token-expert pairs sorted by expert
     (stably; each expert's end found by a search of the sorted ids, so no
@@ -250,37 +261,52 @@ def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
     pair order and summed per token. Between and after the products
     ``ops.moe_pairs``: its kernels on the card outside autograd (each pair
     row read and written once a side), else its plain versions; the T k
-    pairs count in ``mlp.fused_rows`` or ``mlp.composed_rows``."""
+    pairs count in ``mlp.fused_rows`` or ``mlp.composed_rows``.
+
+    With ``offset`` p holds a share of the router's experts, ``offset`` to
+    ``offset + E - 1`` (E stacked in p): every pair of an absent expert is
+    sorted after the held ones (one key past the last held), so the grouped
+    products run the held pairs alone, and ``held``, their count, stays on
+    the card; the SwiGLU computes those rows, and each token's sum counts an
+    absent pair as zero. The result is this share's part of the layer: the
+    shares' parts sum to the whole layer's routed output."""
     t, k = chosen.shape
+    n_held = p.gate_up_proj.shape[0]
     flat = chosen.reshape(-1)
+    if offset is not None:
+        flat = flat - offset
+        flat = torch.where((flat >= 0) & (flat < n_held), flat, n_held)
     order = torch.argsort(flat, stable=True)
-    experts = torch.arange(p.gate_up_proj.shape[0], device=flat.device)
+    experts = torch.arange(n_held, device=flat.device)
     offs = torch.searchsorted(flat[order], experts, right=True).to(torch.int32)
+    held = None if offset is None else offs[-1:]
     fused = _fused(x, p.gate_up_proj, p.down_proj, weights)
     count(FUSED_ROWS if fused else COMPOSED_ROWS, t * k)
     gate_up = grouped_mm(x[order // k], p.gate_up_proj, offs)
     if fused:
-        act, inv = moe_pairs.swiglu_weigh(gate_up, weights, order)
+        act, inv = moe_pairs.swiglu_weigh(gate_up, weights, order, held)
     else:
-        act = moe_pairs.swiglu_weigh_plain(gate_up, weights, order)
+        act = moe_pairs.swiglu_weigh_plain(gate_up, weights, order, held)
     del gate_up  # each (pairs, F)-sized buffer lives only as long as it must
     out_sorted = grouped_mm(act, p.down_proj, offs)
     del act
     if fused:
-        return moe_pairs.combine_pairs(out_sorted, inv, k)
-    return moe_pairs.combine_pairs_plain(out_sorted, order, k)
+        return moe_pairs.combine_pairs(out_sorted, inv, k, held)
+    return moe_pairs.combine_pairs_plain(out_sorted, order, k, held)
 
 
 def moe_apply(p: MoE, cfg: MoonlightConfig, x: torch.Tensor) -> torch.Tensor:
     """The expert layer over real tokens x (T, H), in x's dtype: the routed
-    experts' weighted sum, then the shared experts added."""
+    experts' weighted sum (of the experts held here), then the shared
+    experts added."""
     t = x.shape[0]
     count("moe.tokens", t)
     count("moe.routed_pairs", t * cfg.num_experts_per_tok)
     with span("moe.router"):
         chosen, weights = route(p.gate, cfg, x)
     with span("moe.experts"):
-        y = experts_apply(p.experts, x, chosen, weights)
+        held_all = cfg.experts_held == cfg.n_routed_experts
+        y = experts_apply(p.experts, x, chosen, weights, None if held_all else cfg.expert_offset)
     with span("moe.shared"):
         return y + mlp_apply(p.shared_experts, x)
 
@@ -309,7 +335,9 @@ def apply_rope(x: torch.Tensor, rope: Rope) -> torch.Tensor:
 
 
 def attention_apply(p: Attention, cfg: MoonlightConfig, x: torch.Tensor,
-                    rope: Rope) -> torch.Tensor:
+                    rope: Optional[Rope]) -> torch.Tensor:
+    """Causal MLA over x (B, S, H); without ``rope`` the rotary dims of q
+    and of the shared key go in unturned."""
     b, s, _ = x.shape
     heads, nope, rd, vd = (cfg.num_attention_heads, cfg.qk_nope_head_dim, cfg.qk_rope_head_dim,
                            cfg.v_head_dim)
@@ -317,8 +345,12 @@ def attention_apply(p: Attention, cfg: MoonlightConfig, x: torch.Tensor,
     latent, k_pe = p.kv_a_proj_with_mqa(x).split([cfg.kv_lora_rank, rd], dim=-1)
     kv = p.kv_b_proj(p.kv_a_layernorm(latent)).view(b, s, heads, nope + vd)
     k_nope, v = kv.split([nope, vd], dim=-1)
-    q = torch.cat([q_nope, apply_rope(q_pe, rope)], dim=-1).transpose(1, 2)
-    k_pe = apply_rope(k_pe.view(b, s, 1, rd), rope).expand(b, s, heads, rd)
+    if rope is None:
+        q = torch.cat([q_nope, q_pe], dim=-1).transpose(1, 2)
+        k_pe = k_pe.view(b, s, 1, rd).expand(b, s, heads, rd)
+    else:  # each turned copy freed before the next is made
+        q = torch.cat([q_nope, apply_rope(q_pe, rope)], dim=-1).transpose(1, 2)
+        k_pe = apply_rope(k_pe.view(b, s, 1, rd), rope).expand(b, s, heads, rd)
     k = torch.cat([k_nope, k_pe], dim=-1).transpose(1, 2)
     with span("mla.attention"):
         out = causal_attention(q, k, v.transpose(1, 2), cfg.q_head_dim ** -0.5)
@@ -339,6 +371,14 @@ def layer_apply(p: DecoderLayer, cfg: MoonlightConfig, hidden: torch.Tensor,
     passes of ``MLP_TOKENS``. The padded positions keep their attention
     output."""
     hidden = hidden + attention_apply(p.self_attn, cfg, p.input_layernorm(hidden), rope)
+    return mlp_sublayer_apply(p, cfg, hidden, tokens)
+
+
+def mlp_sublayer_apply(p: DecoderLayer, cfg: MoonlightConfig, hidden: torch.Tensor,
+                       tokens: torch.Tensor) -> torch.Tensor:
+    """A layer's MLP sub-layer, in place on hidden (B, S, H): its norm and
+    its MLP or expert layer over the real positions ``tokens`` alone, in
+    passes of ``MLP_TOKENS``, each added to its residual."""
     flat = hidden.view(-1, hidden.shape[-1])
     for part in tokens.split(MLP_TOKENS):
         x = flat[part]

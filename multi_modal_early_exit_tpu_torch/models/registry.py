@@ -30,6 +30,12 @@ names and what the port builds for them:
                      page's 588-value patch rows, padded) and
                      ``image_grid_hws`` (each page's patch grid); exits and
                      sizes as ``EEmoonlight``'s
+- ``EEkimilinear``   early-exit Kimi-Linear-48B-A3B-Instruct
+                     (``models/kimi_linear``): an ``EEModel`` over text
+                     alone whose layers mix tokens by KDA or MLA, served by
+                     the cascade; ``model_size`` base is the published
+                     widths holding 128 of the 256 routed experts a layer
+                     (the card's share over two cards), tiny the CPU tests'
 - ``pix2struct``     ``NotImplementedError`` (parity: EE/configs.py:508)
 
 When a HuggingFace LayoutLMv3 (for v2: LayoutLMv2) checkpoint is in the
@@ -55,11 +61,11 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import (
 
 MODEL_NAMES = (
     "EElayoutlmv3", "LTElayoutlmv3", "layoutlmv3", "dit", "dit_rvl",
-    "bert", "layoutlmv2", "pix2struct", "EEmoonlight", "EEkimivl",
+    "bert", "layoutlmv2", "pix2struct", "EEmoonlight", "EEkimivl", "EEkimilinear",
 )
 
 # served by the port, never trained by it
-SERVED_ONLY = ("EEmoonlight", "EEkimivl")
+SERVED_ONLY = ("EEmoonlight", "EEkimivl", "EEkimilinear")
 
 
 def model_towers(name: str) -> Tuple[bool, bool]:
@@ -82,8 +88,8 @@ def trains_through_ee_trainer(name: str) -> bool:
     so the single-tower variants (``dit``, ``dit_rvl``: no text tower;
     ``bert``: no visual tower) do not; in the JAX package they fail inside
     the first step (ROADMAP.md C12). They train through their own forwards.
-    LayoutLMv2 trains with its own loss. ``EEmoonlight`` and ``EEkimivl``
-    are served, not trained, by the port. Unknown names and ``pix2struct``
+    LayoutLMv2 trains with its own loss. ``EEmoonlight``, ``EEkimivl`` and
+    ``EEkimilinear`` are served, not trained, by the port. Unknown names and ``pix2struct``
     are ``build_model``'s to refuse."""
     return name == "layoutlmv2" or (name not in SERVED_ONLY and all(model_towers(name)))
 
@@ -245,11 +251,13 @@ def _build_layoutlmv2(cfg, num_labels, num_hidden_layers, image_size, seq_len, g
 def _build_moonlight(cfg, num_labels, num_hidden_layers, generator, name="EEmoonlight"):
     """``(EEModelConfig, EEModel)`` of early-exit Moonlight, or with
     ``name`` ``EEkimivl`` of early-exit Kimi-VL (Moonlight's decoder behind
-    MoonViT): the published backbone (``model_size`` base) or the tests'
+    MoonViT), or with ``EEkimilinear`` of early-exit Kimi-Linear (holding
+    its card's share of the experts): the published backbone (``model_size`` base) or the tests'
     tiny one, random from ``generator``, allocated and drawn on
     ``cfg.device`` in f32. ``num_hidden_layers`` cuts the decoder. Its
     exits are the config's; embedding exits raise (the decoder has none)."""
     from multi_modal_early_exit_tpu_torch.models.ee.model import init_ee_params
+    from multi_modal_early_exit_tpu_torch.models.kimi_linear.config import KimiLinearConfig
     from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import KimiVLConfig
     from multi_modal_early_exit_tpu_torch.models.moonlight.config import (
         MoonlightConfig,
@@ -259,7 +267,8 @@ def _build_moonlight(cfg, num_labels, num_hidden_layers, generator, name="EEmoon
     size = getattr(cfg, "model_size", "base")
     if size not in ("base", "tiny"):
         raise ValueError(f"unknown model_size {size!r} (want 'base'/'tiny')")
-    family = KimiVLConfig if name == "EEkimivl" else MoonlightConfig
+    family = {"EEkimivl": KimiVLConfig, "EEkimilinear": KimiLinearConfig}.get(name,
+                                                                             MoonlightConfig)
     bb = (family.tiny if size == "tiny" else family.base)(num_labels=num_labels)
     if num_hidden_layers and name == "EEkimivl":
         bb = bb.replace(text=bb.text.replace(num_hidden_layers=num_hidden_layers))

@@ -12,6 +12,7 @@ import pytest
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
 from multi_modal_early_exit_tpu_torch.ops import flash_attention as fa
 from multi_modal_early_exit_tpu_torch.ops import fused_bias_attention as fba
+from multi_modal_early_exit_tpu_torch.ops import kda as kd
 from multi_modal_early_exit_tpu_torch.ops import layer_norm as aln
 from multi_modal_early_exit_tpu_torch.ops import moe_pairs as mp
 from multi_modal_early_exit_tpu_torch.ops import page_attention as pa
@@ -32,6 +33,10 @@ BINDINGS = [
     (mp, "_swiglu_weigh_fn", "mmee_swiglu_weigh"),
     (mp, "_combine_pairs_fn", "mmee_combine_pairs"),
     (pa, "_page_attention_fn", "mmee_page_attention"),
+    (kd, "_kda_fn", "mmee_kda"),
+    (kd, "_elementwise_fns", "mmee_short_conv"),
+    (kd, "_elementwise_fns", "mmee_kda_gate"),
+    (kd, "_elementwise_fns", "mmee_gated_rms_norm"),
 ]
 LOADERS = sorted({(m, name) for m, name, _ in BINDINGS}, key=lambda x: (x[0].__name__, x[1]))
 

@@ -116,6 +116,25 @@ def test_plain_versions_are_the_composed_chains(dtype, weighted):
     assert torch.equal(mp.combine_pairs_plain(pairs, order, 3), want)
 
 
+def test_plain_versions_count_rows_past_held_as_zero():
+    """With ``held`` the routed activation's rows from it on are zero
+    (whatever the product left there), and the pairs' sum counts them as
+    zero."""
+    g = torch.Generator().manual_seed(4)
+    gate_up = torch.randn(21, 2 * 24, generator=g)
+    gate_up[13:] = float("nan")  # rows no product wrote
+    weights, order = torch.rand(7, 3, generator=g), torch.randperm(21, generator=g)
+    held = torch.tensor([13], dtype=torch.int32)
+    act = mp.swiglu_weigh_plain(gate_up, weights, order, held)
+    assert torch.equal(act[:13], mp.swiglu_weigh_plain(gate_up[:13], weights, order[:13]))
+    assert not act[13:].any()
+    pairs, porder = _pairs(7, 3, 24, torch.float32)
+    pairs[13:] = float("nan")
+    got = mp.combine_pairs_plain(pairs, porder, 3, torch.tensor([13], dtype=torch.int32))
+    zeroed = torch.where(torch.arange(21)[:, None] < 13, pairs, 0.0)
+    assert torch.equal(got, mp.combine_pairs_plain(zeroed, porder, 3))
+
+
 @pytest.mark.parametrize("dtype", TYPES)
 def test_the_cpu_expert_layer_is_the_parents_bit_for_bit(dtype):
     cfg, moe, x = moe_layer(dtype)
@@ -150,14 +169,17 @@ def test_autograd_keeps_the_composed_chain_and_its_gradients():
 
 def _fake_kernels(monkeypatch, seen):
     """The kernels' contract on the CPU: swiglu_weigh returns the plain
-    activation and the inverse permutation, combine_pairs gathers by it."""
+    activation and the inverse permutation, combine_pairs gathers by it. A
+    layer that holds every expert hands them no ``held`` count."""
 
-    def swiglu_weigh(gate_up, weights=None, order=None):
+    def swiglu_weigh(gate_up, weights=None, order=None, held=None):
+        assert held is None
         seen.append(("swiglu_weigh", weights is not None))
         act = mp.swiglu_weigh_plain(gate_up, weights, order)
         return act, None if order is None else inverse(order)
 
-    def combine_pairs(pairs, inv, k):
+    def combine_pairs(pairs, inv, k, held=None):
+        assert held is None
         seen.append(("combine_pairs", k))
         rows = pairs[inv.long()]
         return rows.view(-1, k, pairs.shape[-1]).sum(dim=1, dtype=torch.float32).to(pairs.dtype)
@@ -221,13 +243,17 @@ def _bad(case):
         "int64 inv": (lambda: mp.combine_pairs(pairs, porder, 3), "inv must be torch.int32"),
         "k": (lambda: mp.combine_pairs(pairs, inv, 12), "k is 12"),
         "partial token": (lambda: mp.combine_pairs(pairs, inv, 5), "whole tokens"),
+        "held alone": (lambda: mp.swiglu_weigh(gate_up, held=torch.tensor([3], dtype=torch.int32)),
+                       "held is given with"),
+        "int64 held": (lambda: mp.combine_pairs(pairs, inv, 3, torch.tensor([3])),
+                       "held must be torch.int32"),
     }
     return calls[case]
 
 
 BAD = ["cpu", "cpu pairs", "strided", "strided pairs", "misaligned", "fp16", "f32",
        "f32 pairs", "width", "pair width", "weights alone", "bf16 weights", "int32 order",
-       "short order", "int64 inv", "k", "partial token"]
+       "short order", "int64 inv", "k", "partial token", "held alone", "int64 held"]
 
 
 @pytest.mark.parametrize("case", BAD)
@@ -356,3 +382,50 @@ def test_the_expert_layer_runs_the_kernels_on_the_card(cuda):
     assert (got.float() - plain.float()).abs().max().item() <= 2e-2 * scale
     err, plain_err = ((t.float() - f32).abs().max().item() for t in (got, plain))
     assert err <= plain_err + 4e-3 * scale, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("held", [0, 1, 299, 600])
+def test_the_kernels_stop_at_held(cuda, held):
+    """``held`` on the card: swiglu_weigh computes the rows before it (the
+    rows past it are never read) and still writes the whole inverse;
+    combine_pairs counts a pair sorted at or past it as zero, as the plain
+    version does."""
+    gate_up, weights, order = _gate_up(600, 1024, cuda, seed=held)
+    gate_up = gate_up.bfloat16()
+    count = torch.tensor([held], dtype=torch.int32, device=cuda)
+    act, inv = mp.swiglu_weigh(gate_up, weights, order, count)
+    full, full_inv = mp.swiglu_weigh(gate_up, weights, order)
+    torch.cuda.synchronize()
+    assert torch.equal(inv, full_inv) and torch.equal(act[:held], full[:held])
+    pairs = torch.randn(600, 2304, device=cuda).bfloat16()
+    got = mp.combine_pairs(pairs, inv, 8, count)
+    want = mp.combine_pairs_plain(pairs, order, 8, count)
+    if held == 0:
+        assert not got.any() and not want.any()
+    else:
+        assert bf16_ulps(got, want).max().item() <= 1
+
+
+@pytest.mark.cuda
+def test_two_held_shares_sum_to_the_whole_layer_on_the_card(cuda):
+    """The tiny layer's 8 experts as two shares of 4 in bf16 on the card:
+    each share's routed output by the kernels within bf16 noise of its plain
+    version, and the two sum to the whole layer's routed output."""
+    cfg, moe, x = moe_layer(torch.bfloat16, seed=13, device=cuda)
+    with torch.no_grad():
+        chosen, weights = modeling.route(moe.gate, cfg, x)
+        whole = modeling.experts_apply(moe.experts, x, chosen, weights).float()
+        parts = []
+        for off in (0, 4):
+            share = modeling.Experts(4, cfg.hidden_size, cfg.moe_intermediate_size).to(cuda)
+            share.gate_up_proj.data = moe.experts.gate_up_proj[off:off + 4].clone()
+            share.down_proj.data = moe.experts.down_proj[off:off + 4].clone()
+            got = modeling.experts_apply(share, x, chosen, weights, off)
+            plain = modeling.experts_apply(share.cpu(), x.cpu(), chosen.cpu(), weights.cpu(),
+                                           off)
+            scale = plain.float().abs().max().item()
+            assert (got.float().cpu() - plain.float()).abs().max().item() <= 2e-2 * scale
+            parts.append(got.float())
+    scale = whole.abs().max().item()
+    assert (parts[0] + parts[1] - whole).abs().max().item() <= 2e-2 * scale

@@ -429,7 +429,7 @@ def test_trainer_rule_by_name():
     )
 
     assert {n for n in MODEL_NAMES if not trains_through_ee_trainer(n)} == {
-        "dit", "dit_rvl", "bert", "EEmoonlight", "EEkimivl"}
+        "dit", "dit_rvl", "bert", "EEmoonlight", "EEkimivl", "EEkimilinear"}
 
 
 @pytest.mark.parametrize("model", ["dit", "dit_rvl", "bert"])
