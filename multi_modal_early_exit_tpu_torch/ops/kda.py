@@ -14,9 +14,11 @@ No TPU kernel has this job: the JAX package runs no linear attention.
 
 On CUDA tensors ``kda`` launches the hand-written kernels of
 ``csrc/kda.cu`` (two launches a call, whatever the length, counted in
-``launches.kda``): the chunked form at 64 positions a chunk, bf16 q, k, v
-and o, f32 g, beta, state and sums (the state's products on tf32
-operands), head dim 128; anything else raises, and there is no fallback.
+``launches.kda``): the chunked form at 64 positions a chunk (arranged for
+the card as ``csrc/kda.cu``'s note says: sub-chunks of 16, and O through
+P = Qt T), bf16 q, k, v and o, f32 g, beta, state and sums (the state's
+products on tf32 operands), head dim 128; anything else raises, and there
+is no fallback.
 On CPU tensors it is ``kda_chunked_plain``: the same
 chunked form in torch ops, a loop over the chunks, at any chunk size and
 head dim, in f32. Within a chunk, with Gamma the running sum of g:

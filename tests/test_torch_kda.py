@@ -67,6 +67,127 @@ def test_plain_is_the_token_recurrence(gate, chunk):
     assert (got.double() - want).abs().max() <= 1e-5 * want.abs().max()
 
 
+# ---------------------------------------------------------------------------
+# the kernel's algebra, mirrored in f64 (csrc/kda.cu's note)
+# ---------------------------------------------------------------------------
+
+SUB = 16  # the intra kernel's sub-chunk
+
+
+def chunk_pieces(q, k, v, g, beta, length, chunk=64):
+    """Row 0, head 0 of the inputs cut into chunks of ``chunk`` as the kernels
+    see them: f64, zeros at and past ``length``."""
+    out = []
+    for t0 in range(0, length, chunk):
+        n = min(chunk, length - t0)
+        pieces = []
+        for x in (q, k, v, g):
+            y = torch.zeros(chunk, x.shape[-1], dtype=torch.float64)
+            y[:n] = x[0, t0:t0 + n, 0].double()
+            pieces.append(y)
+        b = torch.zeros(chunk, dtype=torch.float64)
+        b[:n] = beta[0, t0:t0 + n, 0].double()
+        out.append((*pieces, b))
+    return out
+
+
+def pairwise_form(q, k, g, beta):
+    """A, Qt and T of one chunk from differences of running sums, pair by
+    pair (as ``kda_chunked_plain`` forms them), T by a triangular solve."""
+    c = k.shape[0]
+    gam = g.cumsum(0)
+    diff = gam[:, None, :] - gam[None, :, :]
+    lower = torch.ones(c, c, dtype=torch.bool).tril()
+    decay = torch.where(lower[:, :, None], diff, float("-inf")).exp()
+    a = torch.einsum("rc,ic,ric->ri", k, k, decay).tril(-1)
+    qt = torch.einsum("rc,ic,ric->ri", q, k, decay)
+    eye = torch.eye(c, dtype=torch.float64)
+    t = torch.linalg.solve_triangular(eye + beta[:, None] * a, torch.diag(beta), upper=False)
+    return a, qt, t
+
+
+def blocked_form(q, k, g, beta, sub=SUB):
+    """The intra kernel's form: sub-chunks of ``sub`` rows, the diagonal blocks
+    pairwise from differences of running sums, each block below through its
+    column block's last row b, (K_I e^{Gamma_I - Gamma_b}) (K_J e^{Gamma_b -
+    Gamma_J})^T, T by blocked forward substitution, and P = Qt T. Also every
+    exponent it forms."""
+    c = k.shape[0]
+    gam = g.cumsum(0)
+    a = torch.zeros(c, c, dtype=torch.float64)
+    qt = torch.zeros(c, c, dtype=torch.float64)
+    exps = []
+    blocks = c // sub
+    for bi in range(blocks):
+        rows = slice(bi * sub, (bi + 1) * sub)
+        diff = gam[rows, None, :] - gam[None, rows, :]
+        lower = torch.ones(sub, sub, dtype=torch.bool).tril()
+        exps.append(diff[lower])
+        decay = torch.where(lower[:, :, None], diff, float("-inf")).exp()
+        a[rows, rows] = torch.einsum("rc,ic,ric->ri", k[rows], k[rows], decay).tril(-1)
+        qt[rows, rows] = torch.einsum("rc,ic,ric->ri", q[rows], k[rows], decay)
+        for bj in range(bi):
+            cols, b = slice(bj * sub, (bj + 1) * sub), (bj + 1) * sub - 1
+            e_row, e_col = gam[rows] - gam[b], gam[b] - gam[cols]
+            exps += [e_row, e_col]
+            kj = k[cols] * e_col.exp()
+            a[rows, cols] = (k[rows] * e_row.exp()) @ kj.T
+            qt[rows, cols] = (q[rows] * e_row.exp()) @ kj.T
+    t = torch.zeros(c, c, dtype=torch.float64)
+    for bi in range(blocks):  # the diagonal blocks, row by row
+        o = bi * sub
+        for r in range(sub):
+            e = torch.zeros(sub, dtype=torch.float64)
+            e[r] = 1.0
+            t[o + r, o:o + sub] = beta[o + r] * (e - a[o + r, o:o + r] @ t[o:o + r, o:o + sub])
+    for lv in range(1, blocks):  # one diagonal of blocks at a time
+        for bi in range(lv, blocks):
+            bj = bi - lv
+            rows, cols = slice(bi * sub, (bi + 1) * sub), slice(bj * sub, (bj + 1) * sub)
+            x = a[rows, bj * sub:bi * sub] @ t[bj * sub:bi * sub, cols]
+            t[rows, cols] = -t[rows, rows] @ x
+    return a, qt, t, qt @ t, torch.cat([e.reshape(-1) for e in exps])
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_the_blocked_intra_form_is_the_pairwise_form(gate):
+    """The intra kernel's sub-chunk form in f64 against the pairwise form, at
+    chunk 64 over a row whose last chunk is short: A, Qt and T within 1e-10
+    of their scale, every value finite, no exponent above 0."""
+    q, k, v, g, beta = inputs(1, 100, 1, 16, GATES[gate], seed=11)
+    for qc, kc, _, gc, bc in chunk_pieces(q, k, v, g, beta, 100):
+        want = pairwise_form(qc, kc, gc, bc)
+        *got, p, exps = blocked_form(qc, kc, gc, bc)
+        assert (exps <= 0).all()
+        for x, y in zip(got, want):
+            assert torch.isfinite(x).all()
+            assert (x - y).abs().max() <= 1e-10 * max(y.abs().max().item(), 1e-300)
+        assert torch.equal(p, got[1] @ got[2])
+
+
+@pytest.mark.parametrize("gate", list(GATES))
+def test_the_state_pass_on_p_is_the_token_recurrence(gate):
+    """The state kernel's pass in f64 on the intra kernel's T and P = Qt T:
+    X = V - (K e^Gamma) S, Delta = T X, O = (Q e^Gamma) S + P X, S <-
+    Diag(e^{Gamma_C}) S + (K e^{Gamma_C - Gamma})^T Delta, against the token
+    recurrence, each output within 1e-10 of the scale."""
+    length = 150
+    q, k, v, g, beta = inputs(1, length, 1, 16, GATES[gate], seed=12)
+    want = recurrence(q, k, v, g, beta, torch.tensor([length]))[0, :, 0]
+    state = torch.zeros(16, 16, dtype=torch.float64)
+    out = []
+    for qc, kc, vc, gc, bc in chunk_pieces(q, k, v, g, beta, length):
+        _, _, t, p, _ = blocked_form(qc, kc, gc, bc)
+        gam = gc.cumsum(0)
+        x = vc - (kc * gam.exp()) @ state
+        out.append((qc * gam.exp()) @ state + p @ x)
+        last = gam[-1:]
+        state = last.exp().T * state + (kc * (last - gam).exp()).T @ (t @ x)
+    got = torch.cat(out)[:length]
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max() <= 1e-10 * want.abs().max()
+
+
 def test_padding_never_reaches_a_real_position():
     q, k, v, g, beta = inputs(2, 23, 2, 8, GATES["served"], seed=3)
     lengths = torch.tensor([23, 9])
