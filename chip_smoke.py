@@ -195,7 +195,8 @@ Phases, each reported on its own line:
    ``CascadeStages.layers``, 2 batches of 8 documents of 512-2,048 tokens,
    a threshold no document meets (every stage runs every row). The launch
    counts are read from those batches alone: 5 ``swiglu_weigh`` and 2
-   ``combine_pairs`` a batch, every MLP row fused. Each MLP call on the way
+   ``combine_pairs`` a batch, every MLP row through the kernels (the
+   composed chains never called). Each MLP call on the way
    (layer 0's, and each expert layer's routed and shared experts) is
    recomputed by the plain versions of ``ops.moe_pairs`` on its own
    inputs: relative L2 within ``MOON_TOL``, which a zeroed MLP (1.0) and
@@ -2479,8 +2480,9 @@ def phase_moonlight():
     ``MOON_B`` documents of ``MOON_LENGTHS`` tokens (log-uniform, right-
     padded to ``MOON_S``), at a threshold no document meets, so every stage
     runs every row. Checks, on those batches alone: ``MOON_BATCH_LAUNCHES``
-    a batch, every MLP row fused (15 a token: layer 0's, then 6 pairs and
-    the shared experts' in each expert layer), every answer from the final
+    a batch, every MLP row through the kernels (15 a token: layer 0's, then
+    6 pairs and the shared experts' in each expert layer; no call of the
+    composed chains), every answer from the final
     classifier; and each MLP call on the way (``experts_apply`` and
     ``mlp_apply``, recorded with their inputs and outputs) recomputed by the
     plain versions of ``ops.moe_pairs`` on the same inputs, within
@@ -2495,8 +2497,9 @@ def phase_moonlight():
         MoonlightConfig,
         MoonlightExitConfig,
     )
+    from multi_modal_early_exit_tpu_torch.ops import moe_pairs
     from multi_modal_early_exit_tpu_torch.serving import Pipeline
-    from multi_modal_early_exit_tpu_torch.utils.profiling import counters, launch_counts
+    from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
     bb = MoonlightConfig.base().replace(num_hidden_layers=MOON_LAYERS)
     cfg = EEModelConfig(backbone=bb, exit=MoonlightExitConfig(exits=(1, 2)))
@@ -2527,22 +2530,35 @@ def phase_moonlight():
             return out
         return call
 
-    keys = (moon.FUSED_ROWS, moon.COMPOSED_ROWS)
+    composed = []  # the composed chains' calls, which the card must not make
+
+    def refused(fn):
+        def call(*args, **kwargs):
+            composed.append(fn.__name__)
+            return fn(*args, **kwargs)
+        return call
+
     with mock.patch.object(moon, "experts_apply", recorded(moon.experts_apply, True)), \
-            mock.patch.object(moon, "mlp_apply", recorded(moon.mlp_apply, False)):
-        before, counted = launch_counts(), counters()
+            mock.patch.object(moon, "mlp_apply", recorded(moon.mlp_apply, False)), \
+            mock.patch.object(moe_pairs, "swiglu_weigh_plain",
+                              refused(moe_pairs.swiglu_weigh_plain)), \
+            mock.patch.object(moe_pairs, "combine_pairs_plain",
+                              refused(moe_pairs.combine_pairs_plain)):
+        before = launch_counts()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         answers = [a for b in batches for a in pipe.predict_features(b)]
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = launched(before, tuple(MOON_BATCH_LAUNCHES))
-        rows = {k: counters().get(k, 0) - counted.get(k, 0) for k in keys}
     check(launches == {k: n * MOON_BATCHES for k, n in MOON_BATCH_LAUNCHES.items()},
           f"Moonlight launched {launches}")
     per_token = 1 + (MOON_LAYERS - 1) * (bb.num_experts_per_tok + 1)
-    check(rows == {moon.FUSED_ROWS: per_token * tokens, moon.COMPOSED_ROWS: 0},
-          f"Moonlight's MLP rows {rows}, {tokens} tokens")
+    # a routed call's rows are its token-expert pairs, any other's its tokens
+    rows = sum(args[2].numel() if name == "routed" else args[1].shape[0]
+               for name, _, args, _ in calls)
+    check(rows == per_token * tokens and not composed,
+          f"Moonlight's MLP rows {rows}, {tokens} tokens; composed calls {composed}")
     check(len(answers) == MOON_BATCHES * MOON_B
           and all(a["exit_name"] == "final" for a in answers),
           f"Moonlight's exits {[a['exit_name'] for a in answers]}")

@@ -49,6 +49,7 @@ from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import (
 )
 from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moon
 from multi_modal_early_exit_tpu_torch.ops.kda import gated_rms_norm, kda, kda_gate, short_conv
+from multi_modal_early_exit_tpu_torch.utils import profiling
 from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
 
 # ---------------------------------------------------------------------------
@@ -172,9 +173,10 @@ def layer_apply(p: DecoderLayer, cfg: KimiLinearConfig, hidden: torch.Tensor,
 
 def row_lengths(mask: torch.Tensor):
     """(each row's real positions as int32 on the mask's device, the same
-    on the host: one host sync)."""
+    on the host: one host sync, the span ``sync.row_lengths``)."""
     lengths = mask.sum(dim=1, dtype=torch.int32)
-    return lengths, lengths.tolist()
+    with profiling.sync("row_lengths"):
+        return lengths, lengths.tolist()
 
 
 def embed(bb: KimiLinearModel, input_ids: torch.Tensor, attention_mask: torch.Tensor):

@@ -56,6 +56,7 @@ from multi_modal_early_exit_tpu_torch.models.kimi_vl.config import KimiVLConfig,
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.modeling import LayerNorm, Linear
 from multi_modal_early_exit_tpu_torch.models.moonlight import modeling as moon
 from multi_modal_early_exit_tpu_torch.ops.page_attention import page_attention
+from multi_modal_early_exit_tpu_torch.utils import profiling
 from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
 
 # ---------------------------------------------------------------------------
@@ -223,8 +224,12 @@ def pages_of(grid: Sequence[Tuple[int, int]], max_patches: int, cfg: MoonViTConf
         if (h, w) != table:
             mats += [bicubic_matrix(table[0], h).ravel(), bicubic_matrix(table[1], w).ravel()]
     host = np.concatenate([np.concatenate(x) for x in (gather, rows, cols, merge)] + [starts])
-    dev = torch.from_numpy(host.astype(np.int64)).to(device)
-    flat = torch.from_numpy(np.concatenate(mats or [np.zeros(0)]).astype(np.float32)).to(device)
+    mats = np.concatenate(mats or [np.zeros(0)]).astype(np.float32)
+    # a copy from pageable host memory waits for the card's queue
+    with profiling.sync("pages"):
+        dev = torch.from_numpy(host.astype(np.int64)).to(device)
+    with profiling.sync("pages"):
+        flat = torch.from_numpy(mats).to(device)
     resample, at = [], 0
     for h, w in grid:
         if (h, w) == table:
@@ -303,7 +308,8 @@ def vision_apply(bb: KimiVLModel, cfg: KimiVLConfig, pixel_values: torch.Tensor,
     tower and the projector over patch rows ``pixel_values`` (B, P,
     patch_dim), page b's first h_b w_b rows real."""
     v = cfg.vision
-    pages = pages_of(grid, pixel_values.shape[1], v, pixel_values.device)
+    with span("vit.pack"):
+        pages = pages_of(grid, pixel_values.shape[1], v, pixel_values.device)
     sizes = np.array([h * w for h, w in pages.grid], dtype=np.int64)
     count("vit.pages", len(sizes))
     count("vit.patches", int(sizes.sum()))
@@ -336,8 +342,11 @@ def embed(bb: KimiVLModel, cfg: KimiVLConfig, input_ids: torch.Tensor,
           image_grid_hws: torch.Tensor) -> Tuple[torch.Tensor, moon.Rope, torch.Tensor]:
     """Moonlight's ``embed`` with each row's page spliced in: (the input
     embeddings (B, S, H), the rotary tables, each row's last real
-    position). Reading the grids is the call's one host sync."""
-    grid = [tuple(g) for g in image_grid_hws.tolist()]
+    position). Reading the grids is the call's one host sync that reads
+    the card (``sync.grids``); the packing's two copies to the card wait
+    for its queue too (``sync.pages``, inside ``vit.pack``)."""
+    with profiling.sync("grids"):
+        grid = [tuple(g) for g in image_grid_hws.tolist()]
     features = vision_apply(bb, cfg, pixel_values, grid)
     hidden, rope, last = moon.embed(bb, cfg.text, input_ids, attention_mask)
     return splice(hidden, input_ids, features, cfg.media_placeholder_token_id), rope, last

@@ -41,8 +41,10 @@ counted) and ``moe.routed_pairs`` (token-expert pairs, 6 a token); both
 read sizes the host already holds. Each SwiGLU (layer 0's, the shared and
 the routed experts') runs its activation, and the routed experts their
 weights and their pairs' sum, through ``ops.moe_pairs``: hand-written
-kernels on the card outside autograd, counted by rows in
-``mlp.fused_rows``, the composed ops elsewhere, in ``mlp.composed_rows``.
+kernels on the card outside autograd (counted in ``launches.swiglu_weigh``
+and ``launches.combine_pairs``), the composed ops elsewhere. A cascade
+stage's one wait on the card, finding its real tokens, is the span
+``sync.real_tokens``.
 """
 
 from __future__ import annotations
@@ -64,12 +66,8 @@ from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightCo
 from multi_modal_early_exit_tpu_torch.ops import moe_pairs
 from multi_modal_early_exit_tpu_torch.ops.causal_attention import causal_attention
 from multi_modal_early_exit_tpu_torch.ops.grouped_mm import grouped_mm
+from multi_modal_early_exit_tpu_torch.utils import profiling
 from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
-
-# the MLP sub-layer's rows (tokens of a dense or shared call, token-expert
-# pairs of a routed one) that ran ``ops.moe_pairs``' kernels, and their
-# plain versions
-FUSED_ROWS, COMPOSED_ROWS = "mlp.fused_rows", "mlp.composed_rows"
 
 
 def _empty(*shape) -> nn.Parameter:
@@ -227,10 +225,8 @@ def _fused(x: torch.Tensor, *params: torch.Tensor) -> bool:
 
 
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU over x (T, H); its T rows count in ``mlp.fused_rows`` or
-    ``mlp.composed_rows``."""
+    """SwiGLU over x (T, H)."""
     fused = _fused(x, p.gate_up_proj.weight, p.down_proj.weight)
-    count(FUSED_ROWS if fused else COMPOSED_ROWS, x.numel() // x.shape[-1])
     gate_up = p.gate_up_proj(x)
     act = moe_pairs.swiglu_weigh(gate_up)[0] if fused else moe_pairs.swiglu_weigh_plain(gate_up)
     return p.down_proj(act)
@@ -260,8 +256,7 @@ def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
     projection's input (the product is linear), the results put back in
     pair order and summed per token. Between and after the products
     ``ops.moe_pairs``: its kernels on the card outside autograd (each pair
-    row read and written once a side), else its plain versions; the T k
-    pairs count in ``mlp.fused_rows`` or ``mlp.composed_rows``.
+    row read and written once a side), else its plain versions.
 
     With ``offset`` p holds a share of the router's experts, ``offset`` to
     ``offset + E - 1`` (E stacked in p): every pair of an absent expert is
@@ -270,7 +265,7 @@ def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
     the card; the SwiGLU computes those rows, and each token's sum counts an
     absent pair as zero. The result is this share's part of the layer: the
     shares' parts sum to the whole layer's routed output."""
-    t, k = chosen.shape
+    k = chosen.shape[1]
     n_held = p.gate_up_proj.shape[0]
     flat = chosen.reshape(-1)
     if offset is not None:
@@ -281,7 +276,6 @@ def experts_apply(p: Experts, x: torch.Tensor, chosen: torch.Tensor,
     offs = torch.searchsorted(flat[order], experts, right=True).to(torch.int32)
     held = None if offset is None else offs[-1:]
     fused = _fused(x, p.gate_up_proj, p.down_proj, weights)
-    count(FUSED_ROWS if fused else COMPOSED_ROWS, t * k)
     gate_up = grouped_mm(x[order // k], p.gate_up_proj, offs)
     if fused:
         act, inv = moe_pairs.swiglu_weigh(gate_up, weights, order, held)
@@ -389,8 +383,10 @@ def mlp_sublayer_apply(p: DecoderLayer, cfg: MoonlightConfig, hidden: torch.Tens
 
 
 def real_tokens(mask: torch.Tensor) -> torch.Tensor:
-    """Flat indices of the positions whose mask is set (one host sync)."""
-    return mask.reshape(-1).nonzero().squeeze(1)
+    """Flat indices of the positions whose mask is set (one host sync, the
+    span ``sync.real_tokens``)."""
+    with profiling.sync("real_tokens"):
+        return mask.reshape(-1).nonzero().squeeze(1)
 
 
 def last_token(hidden: torch.Tensor, last: torch.Tensor) -> torch.Tensor:

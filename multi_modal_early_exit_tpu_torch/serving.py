@@ -35,6 +35,7 @@ from multi_modal_early_exit_tpu_torch.models.ee.cascade import (
 )
 from multi_modal_early_exit_tpu_torch.models.ee.model import EEModel, canonical_exit_order
 from multi_modal_early_exit_tpu_torch.models.layoutlmv3.config import EEModelConfig
+from multi_modal_early_exit_tpu_torch.utils import profiling
 from multi_modal_early_exit_tpu_torch.utils.profiling import count, span
 
 
@@ -152,6 +153,16 @@ class Pipeline:
     ) -> List[Dict]:
         return self.predict_features(self.preprocess(images, words, boxes))
 
+    def _copy_in(self, v) -> torch.Tensor:
+        """A request's array (numpy or a tensor) on the pipeline's device.
+        A copy from the host's pageable memory waits for the card's queue:
+        the span ``sync.copy_in``, one an array."""
+        t = v if torch.is_tensor(v) else torch.from_numpy(np.array(v))
+        if not t.is_cpu:
+            return t.to(self.device)
+        with profiling.sync("copy_in"):
+            return t.to(self.device)
+
     @torch.no_grad()
     def predict_features(self, batch: Dict[str, object]) -> List[Dict]:
         """Run preprocessed features (numpy arrays or tensors) through the
@@ -163,10 +174,7 @@ class Pipeline:
         14 x 14 x 3 patch rows in row-major order, padded to P rows, and
         ``image_grid_hws`` (B, 2), its patch grid (h, w)."""
         with span("pipeline.copy_in"):
-            tensors = {
-                k: (v if torch.is_tensor(v) else torch.from_numpy(np.array(v))).to(self.device)
-                for k, v in batch.items()
-            }
+            tensors = {k: self._copy_in(v) for k, v in batch.items()}
         n = len(tensors["input_ids"])
         results: List[Dict] = []
         for start in range(0, n, self.batch_size):
@@ -176,7 +184,8 @@ class Pipeline:
                 if real < self.batch_size:
                     # pad a short batch by repeating its rows
                     idx = np.concatenate([idx, np.resize(idx, self.batch_size - real)])
-                rows = torch.as_tensor(idx, device=self.device)
+                with profiling.sync("rows"):
+                    rows = torch.as_tensor(idx, device=self.device)
                 chunk = {k: v[rows] for k, v in tensors.items()}
             res = self._cascade(
                 self.model, chunk["input_ids"], chunk.get("bbox"),
@@ -184,9 +193,12 @@ class Pipeline:
                 chunk.get("image_grid_hws"),
             )
             with span("pipeline.answers"):
-                logits = res.logits[:real].cpu()
-                exits = res.exit_ids[:real].cpu()
-                forced = res.capacity_exited[:real].cpu()
+                with profiling.sync("answers"):
+                    logits = res.logits[:real].cpu()
+                with profiling.sync("answers"):
+                    exits = res.exit_ids[:real].cpu()
+                with profiling.sync("answers"):
+                    forced = res.capacity_exited[:real].cpu()
                 self._count_chunk(exits.numpy(), forced.numpy())
                 probs = torch.softmax(logits.double(), dim=-1)
                 for i in range(real):

@@ -10,7 +10,9 @@ FlopCounterMode`` over one call; on the card also its bytes and peak from
 
 ``span(name)`` marks a layer boundary: while a profiler records, it is a
 ``record_function`` range, which the trace holds on the same clock as the
-device's kernels; otherwise it costs one flag read. ``count`` and
+device's kernels; otherwise it costs one flag read. ``sync(site)`` is the
+span ``sync.<site>`` around one call that makes the host wait for the card.
+``count`` and
 ``counters`` are the process's named counters: work (rows served, rows a
 cascade stage ran and wanted, tokens and token-expert pairs an expert layer
 ran, cascade calls replayed from CUDA graphs and run op by op) and each
@@ -39,6 +41,8 @@ _OFF = contextlib.nullcontext()
 _COUNTS: Dict[str, int] = {}
 # the prefix of the counters that count a kernel's launches
 LAUNCHES = "launches."
+# the prefix of the spans that ``sync`` opens
+SYNC = "sync."
 
 
 def span(name: str):
@@ -49,6 +53,17 @@ def span(name: str):
     its sub-layer edges (``mla.attention``, ``moe.router``, ``moe.experts``,
     ``moe.shared``), a few a layer against its milliseconds of work."""
     return record_function(name) if _profiler_enabled() else _OFF
+
+
+def sync(site: str):
+    """A context manager around one call that makes the host wait for the
+    card (a copy to the host, a ``nonzero``, a pageable copy to the card):
+    ``span("sync." + site)`` while a profiler records, else the shared
+    no-op after one flag read; the name is joined only under the profiler.
+    Every blocking read on the serving path goes through here, so the trace
+    names each wait and a test can lift PyTorch's sync check at the sites
+    alone."""
+    return span(SYNC + site) if _profiler_enabled() else _OFF
 
 
 def count(name: str, n: int = 1) -> None:

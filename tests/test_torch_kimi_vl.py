@@ -234,7 +234,8 @@ def test_spans_and_counters():
     after = profiling.counters()
     names = [e.name for e in prof.events() if e.name.startswith(("vit.", "cascade.", "mla."))]
     layers = cfg.backbone.vision.num_hidden_layers
-    assert names[:2] == ["cascade.embed", "vit.tower"]
+    # the host's packing of the pages, then the tower
+    assert names[:3] == ["cascade.embed", "vit.pack", "vit.tower"]
     assert names.count("vit.attention") == layers and names.count("vit.merge") == 1
     assert names.count("mla.attention") == cfg.backbone.num_hidden_layers
     sizes = np.array([h * w for h, w in GRIDS])

@@ -4,12 +4,14 @@ routing weight, one rounding; the inverse permutation of the pairs' sort)
 and ``combine_pairs`` (the pairs back in token order, summed in f32).
 
 On the CPU and under autograd ``models/moonlight/modeling.py`` keeps the
-composed chains, bit for bit as they were before the kernels, and counts
-every row in ``mlp.composed_rows``; on every CUDA tensor outside autograd
-it runs the kernels (``mlp.fused_rows``), and what they do not take
-raises. The tests marked ``cuda`` need an sm_90 card and skip elsewhere: on
-the card, ``python -m pytest tests/test_torch_moe_pairs.py -q
---noconftest``. This file imports no JAX.
+composed chains, bit for bit as they were before the kernels
+(``swiglu_weigh_plain``, ``combine_pairs_plain``); on every CUDA tensor
+outside autograd it runs the kernels, and what they do not take raises.
+The tests read which path each call took, and over how many rows, from
+the calls the layer makes into ``ops.moe_pairs``. The tests marked
+``cuda`` need an sm_90 card and skip elsewhere: on the card, ``python -m
+pytest tests/test_torch_moe_pairs.py -q --noconftest``. This file imports
+no JAX.
 """
 
 import copy
@@ -24,15 +26,29 @@ from multi_modal_early_exit_tpu_torch.models.moonlight.config import MoonlightCo
 from multi_modal_early_exit_tpu_torch.ops import cuda_build
 from multi_modal_early_exit_tpu_torch.ops import moe_pairs as mp
 from multi_modal_early_exit_tpu_torch.ops.grouped_mm import grouped_mm
-from multi_modal_early_exit_tpu_torch.utils.profiling import counters, launch_counts
+from multi_modal_early_exit_tpu_torch.utils.profiling import launch_counts
 
-FUSED, COMPOSED = modeling.FUSED_ROWS, modeling.COMPOSED_ROWS
+FUSED, COMPOSED = "swiglu_weigh", "swiglu_weigh_plain"
 TYPES = [torch.bfloat16, torch.float32]
 
 
-def _delta(before):
-    now = counters()
-    return {k: now.get(k, 0) - before.get(k, 0) for k in (FUSED, COMPOSED)}
+def _record(monkeypatch):
+    """A list of (function, rows) for every call the expert layer makes
+    into ``ops.moe_pairs``, in order: the path each MLP call took (kernels
+    or composed chains) and its rows (tokens, or token-expert pairs)."""
+    calls = []
+    for name in (FUSED, COMPOSED, "combine_pairs", "combine_pairs_plain"):
+        def recorded(rows, *args, _name=name, _fn=getattr(mp, name), **kwargs):
+            calls.append((_name, rows.shape[0]))
+            return _fn(rows, *args, **kwargs)
+
+        monkeypatch.setattr(mp, name, recorded)
+    return calls
+
+
+def _rows(calls):
+    """The SwiGLU rows each path ran: {kernel: rows, composed chain: rows}."""
+    return {path: sum(n for name, n in calls if name == path) for path in (FUSED, COMPOSED)}
 
 
 # ---------------------------------------------------------------------------
@@ -136,9 +152,9 @@ def test_plain_versions_count_rows_past_held_as_zero():
 
 
 @pytest.mark.parametrize("dtype", TYPES)
-def test_the_cpu_expert_layer_is_the_parents_bit_for_bit(dtype):
+def test_the_cpu_expert_layer_is_the_parents_bit_for_bit(dtype, monkeypatch):
     cfg, moe, x = moe_layer(dtype)
-    before = counters()
+    calls = _record(monkeypatch)
     with torch.no_grad():
         got = modeling.moe_apply(moe, cfg, x)
         want = parent_moe_apply(moe, cfg, x)
@@ -147,18 +163,18 @@ def test_the_cpu_expert_layer_is_the_parents_bit_for_bit(dtype):
     assert got.dtype == dtype and torch.equal(got, want)
     assert torch.equal(routed, parent_experts_apply(moe.experts, x, chosen, weights).to(dtype))
     pairs = 2 * 50 * cfg.num_experts_per_tok  # the routed calls'
-    assert _delta(before) == {FUSED: 0, COMPOSED: pairs + 50}
+    assert _rows(calls) == {FUSED: 0, COMPOSED: pairs + 50}
 
 
-def test_autograd_keeps_the_composed_chain_and_its_gradients():
+def test_autograd_keeps_the_composed_chain_and_its_gradients(monkeypatch):
     """Under autograd the values and every gradient are the parent's, bit
-    for bit, and every row counts as composed."""
+    for bit, and every row runs the composed chains."""
     cfg, moe, x = moe_layer(torch.float32, seed=5)
     x = x.requires_grad_()
     g = torch.randn(x.shape, generator=torch.Generator().manual_seed(2))
-    before = counters()
+    calls = _record(monkeypatch)
     got = modeling.moe_apply(moe, cfg, x)
-    assert _delta(before) == {FUSED: 0, COMPOSED: 50 * cfg.num_experts_per_tok + 50}
+    assert _rows(calls) == {FUSED: 0, COMPOSED: 50 * cfg.num_experts_per_tok + 50}
     want = parent_moe_apply(moe, cfg, x)
     assert torch.equal(got, want)
     params = [x] + list(moe.parameters())
@@ -171,11 +187,12 @@ def _fake_kernels(monkeypatch, seen):
     """The kernels' contract on the CPU: swiglu_weigh returns the plain
     activation and the inverse permutation, combine_pairs gathers by it. A
     layer that holds every expert hands them no ``held`` count."""
+    plain = mp.swiglu_weigh_plain
 
     def swiglu_weigh(gate_up, weights=None, order=None, held=None):
         assert held is None
         seen.append(("swiglu_weigh", weights is not None))
-        act = mp.swiglu_weigh_plain(gate_up, weights, order)
+        act = plain(gate_up, weights, order)
         return act, None if order is None else inverse(order)
 
     def combine_pairs(pairs, inv, k, held=None):
@@ -193,13 +210,13 @@ def _fake_kernels(monkeypatch, seen):
 def test_the_kernel_path_hands_the_kernels_the_pairs_and_counts_them(monkeypatch, dtype):
     """Where the kernels run, the expert layer gives swiglu_weigh the f32
     weights and the sort, combine_pairs the inverse permutation, and the
-    result is the plain path's; every row counts as fused."""
+    result is the plain path's; every row runs the kernels."""
     cfg, moe, x = moe_layer(dtype, seed=7)
     with torch.no_grad():
         want = parent_moe_apply(moe, cfg, x)
     seen = []
     _fake_kernels(monkeypatch, seen)
-    before = counters()
+    calls = _record(monkeypatch)
     with torch.no_grad():
         got = modeling.moe_apply(moe, cfg, x)
         dense = modeling.mlp_apply(moe.shared_experts, x[:9])
@@ -207,11 +224,11 @@ def test_the_kernel_path_hands_the_kernels_the_pairs_and_counts_them(monkeypatch
     assert torch.equal(dense, parent_mlp_apply(moe.shared_experts, x[:9]))
     assert seen == [("swiglu_weigh", True), ("combine_pairs", cfg.num_experts_per_tok),
                     ("swiglu_weigh", False), ("swiglu_weigh", False)]
-    assert _delta(before) == {FUSED: 50 * cfg.num_experts_per_tok + 50 + 9, COMPOSED: 0}
+    assert _rows(calls) == {FUSED: 50 * cfg.num_experts_per_tok + 50 + 9, COMPOSED: 0}
     # under autograd the same call stays composed
-    before = counters()
+    calls.clear()
     modeling.mlp_apply(moe.shared_experts, x[:9].clone().requires_grad_())
-    assert _delta(before) == {FUSED: 0, COMPOSED: 9}
+    assert _rows(calls) == {FUSED: 0, COMPOSED: 9}
 
 
 def _bad(case):
@@ -359,21 +376,21 @@ def test_the_inverse_from_swiglu_weigh_feeds_combine_pairs(cuda):
 
 
 @pytest.mark.cuda
-def test_the_expert_layer_runs_the_kernels_on_the_card(cuda):
+def test_the_expert_layer_runs_the_kernels_on_the_card(cuda, monkeypatch):
     """At the tiny configuration in bf16 on the card: outside autograd the
     kernels run (one swiglu_weigh a SwiGLU, one combine_pairs a routed
-    call), every row counts as fused, and the result is within bf16 noise
+    call), every row runs the kernels, and the result is within bf16 noise
     of the plain path's and no further than it from the f32 layer (on the
     CPU, from the same bf16 weights)."""
     cfg, moe, x = moe_layer(torch.bfloat16, seed=11, device=cuda)
     launched = launch_counts()
-    before = counters()
+    calls = _record(monkeypatch)
     with torch.no_grad():
         got = modeling.moe_apply(moe, cfg, x)
     counts = launch_counts()
     assert counts["swiglu_weigh"] - launched.get("swiglu_weigh", 0) == 2
     assert counts["combine_pairs"] - launched.get("combine_pairs", 0) == 1
-    assert _delta(before) == {FUSED: 50 * cfg.num_experts_per_tok + 50, COMPOSED: 0}
+    assert _rows(calls) == {FUSED: 50 * cfg.num_experts_per_tok + 50, COMPOSED: 0}
     with torch.no_grad():
         plain = parent_moe_apply(moe, cfg, x)
         f32 = parent_moe_apply(copy.deepcopy(moe).cpu().float(), cfg, x.cpu().float())

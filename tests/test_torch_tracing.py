@@ -76,8 +76,11 @@ def test_span_enters_no_record_function_without_a_profiler(model, monkeypatch):
     monkeypatch.setattr(profiling, "record_function", refuse)
     with profiling.span("x") as inside:
         assert inside is None
-    assert profiling.span("a") is profiling.span("b")  # one shared no-op
-    # the whole serving path runs with every span off
+    with profiling.sync("x") as inside:
+        assert inside is None
+    # one shared no-op, spans and waits alike
+    assert profiling.span("a") is profiling.span("b") is profiling.sync("c")
+    # the whole serving path runs with every span off, its waits' among them
     assert len(pipeline(model, batch_size=8).predict_features(features(8))) == 8
 
 
